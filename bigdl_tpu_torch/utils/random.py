@@ -1,0 +1,40 @@
+"""Global seed plumbing as a factory of seeded ``torch.Generator`` s
+(counterpart of ``bigdl_tpu/utils/random.py``'s ``RandomGenerator``).
+
+``RandomGenerator.set_seed(s)`` fixes the stream; each ``generator()`` call
+returns a fresh CPU generator seeded from ``(seed, counter)`` and advances
+the counter, so weight initialisation is reproducible for a given seed and
+independent of the device the weights end up on. The draws differ from
+``jax.random``'s: tests hand both packages the same numpy-made inputs and
+copy weights across, never comparing initialisations.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+
+class RandomGenerator:
+    _lock = threading.Lock()
+    _seed: int = 1
+    _counter: int = 0
+
+    @classmethod
+    def set_seed(cls, seed: int) -> None:
+        with cls._lock:
+            cls._seed = int(seed)
+            cls._counter = 0
+
+    @classmethod
+    def generator(cls) -> torch.Generator:
+        """A fresh CPU generator; each call advances the global stream."""
+        with cls._lock:
+            cls._counter += 1
+            seed = cls._seed * 1_000_003 + cls._counter
+        return torch.Generator().manual_seed(seed)
+
+
+def set_seed(seed: int) -> None:
+    RandomGenerator.set_seed(seed)
