@@ -27,16 +27,13 @@
 // float32 inputs take a separate CUDA-core (FMA) kernel: 4 threads per query
 // row, each owning a quarter of the head dim, 32-key tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegBig = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -91,43 +88,6 @@ __device__ inline bool tile_full(const Params& p, const Tile& t, int k0, int bq,
 }
 
 // ------------------------------------------------------------------ bf16 path
-using bf16 = __nv_bfloat16;
-
-__device__ inline uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline uint32_t pack_bf16_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// d[0..3] += A(16x16, row) * B(16x8, col); bf16 operands, fp32 accumulator.
-__device__ inline void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copy rows [r0, r0 + 64) of a (rows, D) strided bf16 matrix into shared
-// memory (row pitch LD), zero-filling rows past `rows`. 16-byte accesses.
-template <int D, int LD, int NT>
-__device__ inline void load_tile_bf16(bf16* s, const bf16* g, int r0, int rows,
-                                      long long st) {
-  constexpr int kVec = 8, kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < 64 * kPerRow; i += NT) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(g + (long long)(r0 + r) * st + c);
-    *reinterpret_cast<uint4*>(s + r * LD + c) = val;
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   constexpr int BQ = 64, BK = 64, LD = D + 8, NT = 128;
@@ -144,7 +104,7 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   // Q fragments (A operand, 16 rows per warp) stay in registers for the
   // whole loop; the tile is staged through sK first.
   uint32_t qf[D / 16][4];
-  load_tile_bf16<D, LD, NT>(sK, Q, t.q0, p.tq, p.q_st);
+  load_rows_bf16<64, D, LD, NT>(sK, Q, t.q0, p.tq, p.q_st);
   __syncthreads();
   {
     const int r = warp * 16 + quad;
@@ -168,8 +128,8 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
 
   for (int k0 = 0; k0 < t.k_end; k0 += BK) {
-    load_tile_bf16<D, LD, NT>(sK, K, k0, p.tk, p.k_st);
-    load_tile_bf16<D, LD, NT>(sV, V, k0, p.tk, p.v_st);
+    load_rows_bf16<64, D, LD, NT>(sK, K, k0, p.tk, p.k_st);
+    load_rows_bf16<64, D, LD, NT>(sV, V, k0, p.tk, p.v_st);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)

@@ -136,11 +136,15 @@ def scaled_dot_product_attention(
 
 
 def _dropout(rng: Optional[torch.Generator], p: float, x: torch.Tensor) -> torch.Tensor:
-    """Inverted dropout drawn from ``rng``; identity when rng is None or p == 0."""
+    """Inverted dropout; identity when rng is None or p == 0. The mask is
+    drawn on ``x``'s device, from a generator there seeded from ``rng`` (one
+    host draw of a seed, no host-sized mask or copy)."""
     if p <= 0.0 or rng is None:
         return x
     keep = 1.0 - p
-    mask = (torch.rand(x.shape, generator=rng) < keep).to(x.device)
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
     return x * mask / keep
 
 
@@ -214,7 +218,7 @@ class FeedForwardNetwork(AbstractModule):
             params["gate_w"] = w(generator, (f, h), h, f)
         return params, {}
 
-    def _apply(self, params, state, x, training, rng):
+    def _apply_params(self, params, state, x, training, rng):
         hdn = _ffn_hidden(params, x, self.activation)
         if training:
             hdn = _dropout(rng, self.relu_dropout, hdn)
@@ -328,7 +332,7 @@ class Transformer(AbstractModule):
             hdn = _dropout(rng, self.relu_dropout, hdn)
         return x + self._post_dropout(_dense(bp, "out", hdn), training, rng)
 
-    def _apply(self, params, state, x, training, rng):
+    def _apply_params(self, params, state, x, training, rng):
         out = self._post_dropout(self._embed(params, x), training, rng)
         for i in range(self.num_hidden_layers):
             out = self._run_block(params[f"block{i}"], out, training, rng)

@@ -1,7 +1,8 @@
-"""Serving flush triggers (counterpart of ``bigdl_tpu/optim/trigger.py``,
-the part the continuous batcher composes): predicates over a state table
-``{"pending": <queued requests in a bucket group>, "waited_ms": <oldest
-request's wait>}``."""
+"""Triggers (counterpart of ``bigdl_tpu/optim/trigger.py``): predicates over
+a state table. The training triggers read the optimizer's table (``epoch``,
+``neval``, both 1-based); the serving flush triggers read the continuous
+batcher's ``{"pending": <queued requests in a bucket group>, "waited_ms":
+<oldest request's wait>}``."""
 
 from __future__ import annotations
 
@@ -9,6 +10,22 @@ from __future__ import annotations
 class Trigger:
     def __call__(self, state: dict) -> bool:
         raise NotImplementedError
+
+    @staticmethod
+    def every_epoch() -> "Trigger":
+        return _EveryEpoch()
+
+    @staticmethod
+    def max_epoch(n: int) -> "Trigger":
+        return _Lambda(lambda s: s.get("epoch", 1) > n)
+
+    @staticmethod
+    def max_iteration(n: int) -> "Trigger":
+        return _Lambda(lambda s: s.get("neval", 1) > n)
+
+    @staticmethod
+    def several_iteration(n: int) -> "Trigger":
+        return _Lambda(lambda s: (s.get("neval", 1) - 1) % n == 0 and s.get("neval", 1) > 1)
 
     @staticmethod
     def or_(*ts: "Trigger") -> "Trigger":
@@ -31,3 +48,18 @@ class _Lambda(Trigger):
 
     def __call__(self, state) -> bool:
         return bool(self.fn(state))
+
+
+class _EveryEpoch(Trigger):
+    """Fires once whenever the epoch counter advances past the last fire."""
+
+    def __init__(self):
+        self._last_epoch = 0
+
+    def __call__(self, state) -> bool:
+        e = state.get("epoch", 1)
+        # the epoch advances after its last iteration; fire on the change
+        if state.get("_epoch_done", False) and e != self._last_epoch:
+            self._last_epoch = e
+            return True
+        return False

@@ -4,7 +4,9 @@
 ``RandomGenerator.set_seed(s)`` fixes the stream; each ``generator()`` call
 returns a fresh CPU generator seeded from ``(seed, counter)`` and advances
 the counter, so weight initialisation is reproducible for a given seed and
-independent of the device the weights end up on. The draws differ from
+independent of the device the weights end up on. ``get_seed()`` and
+``numpy_rng()`` serve the data path as in the JAX package (the epoch order
+is ``np.random.default_rng((seed, epoch))``, identical in both packages). The draws differ from
 ``jax.random``'s: tests hand both packages the same numpy-made inputs and
 copy weights across, never comparing initialisations.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 import threading
 
+import numpy as np
 import torch
 
 
@@ -20,12 +23,23 @@ class RandomGenerator:
     _lock = threading.Lock()
     _seed: int = 1
     _counter: int = 0
+    _np_rng: np.random.Generator = np.random.default_rng(1)
 
     @classmethod
     def set_seed(cls, seed: int) -> None:
         with cls._lock:
             cls._seed = int(seed)
             cls._counter = 0
+            cls._np_rng = np.random.default_rng(int(seed))
+
+    @classmethod
+    def get_seed(cls) -> int:
+        return cls._seed
+
+    @classmethod
+    def numpy_rng(cls) -> np.random.Generator:
+        """The process-wide host numpy generator (seeded by ``set_seed``)."""
+        return cls._np_rng
 
     @classmethod
     def generator(cls) -> torch.Generator:

@@ -185,7 +185,9 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "import bigdl_tpu_torch, bigdl_tpu_torch.nn, bigdl_tpu_torch.serving\n"
         "import bigdl_tpu_torch.optim, bigdl_tpu_torch.ops.flash_attention\n"
         "import bigdl_tpu_torch.ops._build, bigdl_tpu_torch.utils.convert\n"
-        "import bigdl_tpu_torch.utils.precision\n"
+        "import bigdl_tpu_torch.utils.precision, bigdl_tpu_torch.dataset\n"
+        "import bigdl_tpu_torch.nn.criterion, bigdl_tpu_torch.optim.local_optimizer\n"
+        "import bigdl_tpu_torch.optim.optim_method\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"
