@@ -1,9 +1,22 @@
-"""Layers and criterions of the port."""
+"""Layers, containers and criterions of the port."""
 
+from .activations import LogSoftMax, ReLU
 from .attention import FeedForwardNetwork, Transformer, scaled_dot_product_attention
+from .conv import SpatialConvolution
 from .criterion import AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion
-from .module import AbstractModule
+from .graph import Graph, Input, ModuleNode
+from .initialization import MsraFiller, RandomUniform, Xavier, Zeros
+from .linear import Linear
+from .module import AbstractModule, Container, Identity, Sequential
+from .normalization import BatchNormalization, SpatialBatchNormalization
+from .pooling import SpatialAveragePooling, SpatialMaxPooling
+from .structural import Reshape, SpaceToDepth
+from .table_ops import CAddTable
 
-__all__ = ["AbstractCriterion", "AbstractModule", "ClassNLLCriterion",
-           "CrossEntropyCriterion", "FeedForwardNetwork", "Transformer",
+__all__ = ["AbstractCriterion", "AbstractModule", "BatchNormalization", "CAddTable",
+           "ClassNLLCriterion", "Container", "CrossEntropyCriterion", "FeedForwardNetwork",
+           "Graph", "Identity", "Input", "Linear", "LogSoftMax", "ModuleNode", "MsraFiller",
+           "RandomUniform", "ReLU", "Reshape", "Sequential", "SpaceToDepth",
+           "SpatialAveragePooling", "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialMaxPooling", "Transformer", "Xavier", "Zeros",
            "scaled_dot_product_attention"]

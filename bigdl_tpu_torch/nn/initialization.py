@@ -30,3 +30,31 @@ class Xavier(InitializationMethod):
         bound = math.sqrt(6.0 / max(1, fan_in + fan_out))
         return torch.empty(shape, dtype=dtype).uniform_(-bound, bound,
                                                         generator=generator)
+
+
+class RandomUniform(InitializationMethod):
+    """U(lower, upper); by default U(±1/sqrt(fanIn)) (``Linear``'s default)."""
+
+    def __init__(self, lower=None, upper=None):
+        self.lower, self.upper = lower, upper
+
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        if self.lower is None:
+            bound = 1.0 / math.sqrt(max(1, fan_in))
+            lo, hi = -bound, bound
+        else:
+            lo, hi = self.lower, self.upper
+        return torch.empty(shape, dtype=dtype).uniform_(lo, hi, generator=generator)
+
+
+class MsraFiller(InitializationMethod):
+    """He normal: N(0, 2/n) with n = fanIn, or (fanIn + fanOut)/2 when
+    ``variance_norm_average``."""
+
+    def __init__(self, variance_norm_average: bool = True):
+        self.variance_norm_average = variance_norm_average
+
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        n = (fan_in + fan_out) / 2.0 if self.variance_norm_average else float(fan_in)
+        std = math.sqrt(2.0 / max(1.0, n))
+        return std * torch.randn(shape, generator=generator, dtype=dtype)

@@ -15,6 +15,11 @@ A ``torch.nn.Module`` with the JAX package's serving and gradient surface:
 * ``get_grad_parameters`` / ``zero_grad_parameters`` / ``backward(x,
   grad_output)``: BigDL's stateful gradient surface over torch autograd;
   ``backward`` accumulates parameter gradients into ``.grad``.
+* ``Container`` / ``Sequential`` hold child modules as registered
+  submodules under their names and own no parameters: their trees are
+  ``{child.name(): child_tree}``, as in the JAX package. ``name()`` /
+  ``set_name`` and ``inputs(...)`` (graph wiring, :mod:`.graph`) are the JAX
+  package's.
 
 ``rng`` is a ``torch.Generator`` (or ``None``); train/eval mode is torch's
 own ``train()``/``eval()``. Parameters live on the module's ``device``,
@@ -29,13 +34,14 @@ JAX package's API and shadows ``torch.nn.Module.apply(fn)``.
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils.engine import Engine
 from ..utils.random import RandomGenerator
+from ..utils.table import T, Table
 
 _uid = itertools.count(1)
 
@@ -62,6 +68,7 @@ class AbstractModule(torch.nn.Module):
     def __init__(self, device=None):
         super().__init__()
         self._uid = next(_uid)
+        self._name: Optional[str] = None
         self._built = False
         self._param_tree: Dict[str, Any] = {}
         self._state: Dict[str, Any] = {}
@@ -91,7 +98,14 @@ class AbstractModule(torch.nn.Module):
 
     # ------------------------------------------------------------------ names
     def name(self) -> str:
-        return f"{type(self).__name__}{self._uid}"
+        return self._name or f"{type(self).__name__}{self._uid}"
+
+    def set_name(self, name: str) -> "AbstractModule":
+        self._name = name
+        return self
+
+    def n_parameters(self) -> int:
+        return sum(p.numel() for p in self.parameters())
 
     # --------------------------------------------------------------- building
     def _build(self, generator: torch.Generator, sample) -> Tuple[Dict, Dict]:
@@ -126,7 +140,14 @@ class AbstractModule(torch.nn.Module):
         if not self._built:
             self.build(RandomGenerator.generator(), self._as_input(x))
 
-    def _as_input(self, x) -> torch.Tensor:
+    def _as_input(self, x):
+        """``x`` as tensors on the module's device (a ``Table``, or a list of
+        arrays or tensors, element by element)."""
+        if isinstance(x, Table):
+            return T(*[self._as_input(v) for v in x])
+        if isinstance(x, (list, tuple)) and x and all(
+                isinstance(v, (np.ndarray, torch.Tensor)) for v in x):
+            return [self._as_input(v) for v in x]
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         return torch.as_tensor(x, device=self.device)
@@ -162,11 +183,11 @@ class AbstractModule(torch.nn.Module):
         self._ensure_built(x)
         rng = RandomGenerator.generator() if self.training else None
         self._last_rng_state = None if rng is None else rng.get_state()
-        self._last_state = self._state
-        y, new_state = self._apply_params(self.get_parameters(), self._state, x,
+        self._last_state = self.get_state()
+        y, new_state = self._apply_params(self.get_parameters(), self._last_state, x,
                                           self.training, rng)
         if self.training:
-            self._state = new_state
+            self.set_state(new_state)
         return y
 
     def backward(self, x, grad_output):
@@ -180,7 +201,7 @@ class AbstractModule(torch.nn.Module):
         if self._last_rng_state is not None:
             rng = torch.Generator()
             rng.set_state(self._last_rng_state)
-        state = self._last_state if self._last_state is not None else self._state
+        state = self._last_state if self._last_state is not None else self.get_state()
         xin = x.detach().requires_grad_(x.is_floating_point())
         params = list(self.parameters())
         with torch.enable_grad():
@@ -194,6 +215,103 @@ class AbstractModule(torch.nn.Module):
                 if gp is not None:
                     p.grad = gp if p.grad is None else p.grad + gp
         return grads[-1] if xin.requires_grad else None
+
+    # ----------------------------------------------------------------- graphs
+    def inputs(self, *parents) -> "ModuleNode":
+        """``layer.inputs(n1, n2)``: a graph node of this module fed by
+        ``parents`` (see :mod:`bigdl_tpu_torch.nn.graph`)."""
+        from .graph import ModuleNode
+
+        return ModuleNode(self, parents)
+
+
+class Container(AbstractModule):
+    """A module of child modules (counterpart of the JAX package's
+    ``Container``). It owns no parameters: its parameter, state and gradient
+    trees are ``{child.name(): child_tree}``. Each child is a registered
+    submodule under its name, so ``.to()`` moves it and ``named_parameters()``
+    reads ``child.grandchild.weight`` where the JAX tree has
+    ``params["child"]["grandchild"]["weight"]``. An unnamed child is named
+    ``<Type>_<index>`` when it is added."""
+
+    def __init__(self, *modules: AbstractModule, device=None):
+        super().__init__(device)
+        self._layers: List[AbstractModule] = []
+        for m in modules:
+            self.add(m)
+
+    def add(self, module: AbstractModule) -> "Container":
+        if not isinstance(module, AbstractModule):
+            raise TypeError(f"expected AbstractModule, got {type(module)}")
+        if module._name is None:
+            module.set_name(f"{type(module).__name__}_{len(self._layers)}")
+        name = module.name()
+        if any(m.name() == name for m in self._layers):
+            raise ValueError(f"duplicate child name {name!r}")
+        if not name or "." in name:
+            raise ValueError(f"{self.name()}: child name {name!r} cannot be a submodule name")
+        # registered as torch.nn.Module.add_module does, minus its refusal of a
+        # name that is also an attribute (a child may be named "add"; it is then
+        # reached by index or named_modules(), not as an attribute)
+        self._modules[name] = module
+        self._layers.append(module)
+        return self
+
+    def __getitem__(self, i: int) -> AbstractModule:
+        return self._layers[i]
+
+    def __len__(self) -> int:
+        return len(self._layers)
+
+    def get_parameters(self) -> Dict[str, Any]:
+        return {m.name(): m.get_parameters() for m in self._layers}
+
+    def get_state(self) -> Dict[str, Any]:
+        return {m.name(): m.get_state() for m in self._layers}
+
+    def set_state(self, state: Dict[str, Any]) -> None:
+        for m in self._layers:
+            m.set_state(state[m.name()])
+
+    def get_grad_parameters(self) -> Dict[str, Any]:
+        return {m.name(): m.get_grad_parameters() for m in self._layers}
+
+    @staticmethod
+    def _build_child(m: AbstractModule, generator, x):
+        """Build ``m`` from ``x`` unless it is built, and return its eval-mode
+        output on ``x`` (no gradient, running statistics untouched)."""
+        if not m.is_built():
+            m.build(generator, x)
+        return m._apply_params(m.get_parameters(), m.get_state(), x, False, None)[0]
+
+
+class Sequential(Container):
+    """A chain of modules."""
+
+    def build(self, generator: torch.Generator, sample) -> None:
+        """Build the children in order, each from its predecessor's eval-mode
+        output on ``sample`` under ``torch.no_grad()``."""
+        if self._built:
+            raise RuntimeError(f"{self.name()} is already built")
+        x = sample
+        with torch.no_grad():
+            for m in self._layers:
+                x = self._build_child(m, generator, x)
+        self._built = True
+
+    def _apply_params(self, params, state, x, training, rng):
+        new_state: Dict[str, Any] = {}
+        for m in self._layers:
+            x, new_state[m.name()] = m._apply_params(params[m.name()], state[m.name()], x,
+                                                     training, rng)
+        return x, new_state
+
+
+class Identity(AbstractModule):
+    """Pass-through."""
+
+    def _apply_params(self, params, state, x, training, rng):
+        return x, state
 
 
 def _map_tree(fn, tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -106,6 +106,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                       (lib.bigdl_flash_attention_bwd_dkv, 2)):
         fn.argtypes = ([vp] * (7 + n_out) + [i] * 6 + [ll] * 12 + [f, i, i, vp])
         fn.restype = ctypes.c_int
+    # x, dy, dx, dtype, planes, h, w, ho, wo, kh, kw, sh, sw, ph, pw, stream
+    fn = lib.bigdl_maxpool2d_bwd
+    fn.argtypes = [vp] * 3 + [i, ll] + [i] * 10 + [vp]
+    fn.restype = ctypes.c_int
     return lib
 
 

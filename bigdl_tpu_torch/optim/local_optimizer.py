@@ -10,7 +10,9 @@ module's device, one eager step per batch:
 3. each iteration: ``lr = method.get_learning_rate()``, a train-mode
    forward through ``model.apply``, the criterion, ``loss.backward()``
    (torch autograd; the flash attention's gradient is the dQ and dK/dV
-   kernels), ``method.update`` in place, the gradients dropped;
+   kernels, the max pool's the max-pool backward kernel), ``method.update``
+   in place, the gradients dropped, and the forward's new state (BN running
+   statistics, which carry no autograd history) kept on the model;
 4. the loss is read on the host one step late, after the next step has
    been dispatched, so the host never waits on the step it just queued;
 5. ``neval`` and ``epoch`` advance in the method's state table and

@@ -7,6 +7,8 @@
   matmul OUTPUTS keep; ``None`` upcasts them back to float32.
 
 With ``compute_dtype == float32`` every helper is a pass-through.
+The bias/activation epilogues (``bias_act``, ``channel_bias_act``) are the
+JAX package's plain path; its fused-kernel switch is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,3 +64,60 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
         return torch.einsum(subscripts, *operands)
     return torch.einsum(subscripts, *(_cast(o, dt) for o in operands)).to(out_dtype())
 
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1) -> torch.Tensor:
+    """NCHW × OIHW convolution under the policy (counterpart of the JAX
+    package's ``conv_general_dilated``): compute-dtype operands, the product
+    rounded to the compute dtype and returned in ``out_dtype()``; a
+    pass-through in float32. ``padding`` is ((h_lo, h_hi), (w_lo, w_hi))
+    zeros. The convolution is cuDNN's on the card (XLA's work in JAX, not a
+    Pallas kernel)."""
+    (h_lo, h_hi), (w_lo, w_hi) = padding
+    mixed = is_mixed()
+    dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
+    x, w = _cast(x, dt), _cast(w, dt)
+    if h_lo == h_hi and w_lo == w_hi:
+        y = torch.nn.functional.conv2d(x, w, None, stride, (h_lo, w_lo), 1, groups)
+    else:
+        y = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, None, stride, 0, 1, groups)
+    return y.to(out_dtype()) if mixed else y
+
+
+def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``y + b`` with the fp32 master bias cast to ``y``'s dtype, so a
+    reduced-precision activation is not promoted."""
+    return y + _cast(b, y.dtype)
+
+
+_ACTIVATIONS = {
+    None: lambda z: z,
+    "relu": lambda z: torch.maximum(z, z.new_zeros(())),
+    "gelu": lambda z: torch.nn.functional.gelu(z, approximate="tanh"),
+    "tanh": torch.tanh,
+}
+
+
+def _act_fn(act):
+    try:
+        return _ACTIVATIONS[act]
+    except KeyError:
+        raise ValueError(f"unsupported epilogue activation {act!r} "
+                         "(expected relu|gelu|tanh|None)") from None
+
+
+def bias_act(y: torch.Tensor, b, act=None) -> torch.Tensor:
+    """Bias + activation over the trailing feature dim (``Linear``): ``b=None``
+    means no bias. The JAX package's fused-kernel switch is not ported: this
+    is its plain path, ``act(y + b)`` in torch ops."""
+    fn = _act_fn(act)
+    return fn(y if b is None else bias_add(y, b))
+
+
+def channel_bias_act(y: torch.Tensor, b, act=None) -> torch.Tensor:
+    """Bias + activation over the channel dim of an NCHW tensor
+    (``SpatialConvolution``); ``b`` is the (C,) master bias or ``None``."""
+    fn = _act_fn(act)
+    if b is None:
+        return fn(y)
+    return fn(bias_add(y, b.reshape((1, -1) + (1,) * (y.dim() - 2))))

@@ -22,10 +22,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``CrossEntropyCriterion``, batch 8 of 40 records, 10 iterations across
    an epoch boundary) with finite losses and 6 launches per iteration of
    each flash kernel, then 3 steps on the flash route held against 3 steps
-   on the dense route from the same weights.
+   on the dense route from the same weights;
+7. flagship training: ResNet-50 (``stem="s2d"``, 1000 classes, random
+   weights from a seed) trained through ``LocalOptimizer`` at the repo's
+   flagship configuration (batch 128 of 224x224 images drawn as
+   ``flagship_model`` draws them, bf16 compute and bf16 activations,
+   ``ClassNLLCriterion`` on the raw logits, SGD lr 0.1 momentum 0.9) for 10
+   iterations: finite losses, one max-pool backward kernel launch per
+   iteration, every BN running statistic moved, device memory flat from
+   iteration 3 to 10; then 3 SGD steps of an f32 ResNet-50 on the card
+   (kernel route) held against the same 3 steps on the CPU (plain route).
 
-Each of the two main paths (serving, training) runs with the kernels'
-launch counts set to 0 just before it and read just after.
+The max-pool backward kernel is held against its plain version in [3c] and
+timed in [4]. Each main path (serving, LM training, flagship training) runs
+with the kernels' launch counts set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -152,14 +162,17 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    ptxas: " + line.strip())
+    from bigdl_tpu_torch.ops.maxpool import maxpool_grad
+
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for dt in (torch.bfloat16, torch.float32):
         q = torch.randn((1, 1, 64, 64), generator=g, device="cuda").to(dt)
         out, lse = flash_attention_fwd(q, q, q, causal=True)
         flash_attention_bwd(q, q, q, out, lse, q, causal=True)
+        maxpool_grad(q, q[:, :, :32, :32].contiguous(), (3, 3), (2, 2), ((1, 1), (1, 1)))
     torch.cuda.synchronize()
-    log("    flash_attention_fwd and flash_attention_bwd (dQ, dK/dV) launched once "
-        "in bf16 and f32")
+    log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV) and maxpool_grad launched "
+        "once in bf16 and f32")
 
 
 def _rand(shape, dtype, g):
@@ -600,6 +613,341 @@ def phase_training(card):
     return counts
 
 
+# Tolerances of the max-pool backward kernel against its plain version, per
+# element (fixed before the first run). Both recompute the same first argmax
+# and route each window's dy once; a position sums at most
+# ceil(kh/sh)*ceil(kw/sw) of them in fp32 (4 at the stem), in another order:
+# f32: 1e-6 of that sum's magnitude (n·dy_max), the fp32 rounding of a few
+#   additions in another order;
+# bf16: both round the fp32 sum to bf16 once, so one bf16 step of |ref|
+#   (2^-7 relative at most) plus the same fp32 allowance.
+TOL_MAXPOOL = {"f32_rel_sum": 1e-6, "bf16_steps": 2.0 ** -7}
+
+
+def _maxpool_case(shape, kernel, stride, padding, dtype, kind, g):
+    import torch
+    from bigdl_tpu_torch.ops.maxpool import pooled_size
+
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=g, device="cuda")
+    if kind == "zeros":
+        x.zero_()
+    elif kind == "ints":
+        x = torch.randint(0, 3, shape, generator=g, device="cuda").float()
+    elif kind == "relu":
+        x = torch.relu(x)
+    ho, wo = pooled_size((h, w), kernel, stride, padding)
+    dy = torch.randn((n, c, ho, wo), generator=g, device="cuda")
+    return x.to(dtype), dy.to(dtype)
+
+
+def phase_maxpool_parity():
+    """Max-pool backward kernel vs its plain version on the card; returns the
+    flagship-shape record."""
+    import torch
+    from bigdl_tpu_torch.ops.maxpool import maxpool_grad, maxpool_grad_reference
+
+    bf, f32 = torch.bfloat16, torch.float32
+    stem = ((3, 3), (2, 2), ((1, 1), (1, 1)))
+    # (label, x shape, (kernel, stride, padding), dtype, input kind)
+    cases = [
+        ("flagship stem pool", (128, 64, 112, 112), stem, bf, "normal"),
+        ("flagship stem pool f32", (128, 64, 112, 112), stem, f32, "normal"),
+        ("flagship, relu(normal) (zero windows)", (128, 64, 112, 112), stem, bf, "relu"),
+        ("2x2/s2 ceil overhang, odd size", (8, 16, 57, 57), ((2, 2), (2, 2), ((0, 1), (0, 1))),
+         f32, "normal"),
+        ("3x3/s1/p1", (8, 32, 56, 56), ((3, 3), (1, 1), ((1, 1), (1, 1))), bf, "normal"),
+        ("(3,2)/(2,1) asymmetric padding", (4, 16, 31, 29), ((3, 2), (2, 1), ((1, 0), (0, 1))),
+         f32, "normal"),
+        ("2x2/s3 (rows no window touches)", (4, 8, 50, 50), ((2, 2), (3, 3), ((0, 0), (0, 0))),
+         f32, "normal"),
+        ("constant input (all tie)", (16, 64, 112, 112), stem, bf, "zeros"),
+        ("integer duplicates", (16, 64, 112, 112), stem, f32, "ints"),
+        ("N*C=21, W=520 (column tiles)", (3, 7, 300, 520), stem, bf, "normal"),
+        ("5x4/s(1,3) asymmetric, f32", (2, 5, 30, 17), ((5, 4), (1, 3), ((2, 1), (0, 2))), f32,
+         "normal"),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    log(f"[3c] max-pool backward kernel vs plain version on the card "
+        f"(|err| <= bf16_steps*|ref| [bf16] + f32_rel_sum*n*max|dy|; {TOL_MAXPOOL})")
+    record = None
+    for label, shape, (kernel, stride, padding), dt, kind in cases:
+        x, dy = _maxpool_case(shape, kernel, stride, padding, dt, kind, g)
+        got = maxpool_grad(x, dy, kernel, stride, padding)
+        torch.cuda.synchronize()
+        ref = maxpool_grad_reference(x, dy, kernel, stride, padding)
+        n_terms = -(-kernel[0] // stride[0]) * -(-kernel[1] // stride[1])
+        allow = TOL_MAXPOOL["f32_rel_sum"] * n_terms * dy.float().abs().max().item()
+        err = (got.float() - ref.float()).abs()
+        if dt == bf:
+            bound = allow + TOL_MAXPOOL["bf16_steps"] * ref.float().abs()
+        else:
+            bound = torch.full_like(err, allow)
+        ok = bool((err <= bound).all()) and bool(torch.isfinite(got).all())
+        mass = abs(got.float().sum().item() - dy.float().sum().item()) / max(
+            dy.float().abs().sum().item(), 1e-30)  # every window routes its dy once
+        log(f"    {label:40s} {str(dt)[6:]:8s} max err {err.max().item():.3e}  "
+            f"gradient mass drift {mass:.1e}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"maxpool_grad disagrees with its plain version: {label}")
+        if record is None:
+            again = maxpool_grad(x, dy, kernel, stride, padding)
+            same = torch.equal(got, again)
+            log(f"    repeated flagship-shape backward bit-identical: {same}")
+            if not same:
+                raise AssertionError("two runs of the max-pool kernel gave different bits")
+            record = dict(x=x, dy=dy, dx=got, geometry=(kernel, stride, padding),
+                          max_abs_err=err.max().item())
+            del again
+        del x, dy, got, ref, err, bound
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_maxpool_times(rec, card):
+    """Time of the max-pool backward kernel at the flagship shape (launched
+    through its C entry point, so the wrapper's count stays the main path's),
+    its plain version, and ATen's max-pool backward from saved indices."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops.maxpool import maxpool_grad_reference
+
+    x, dy, dx = rec["x"], rec["dy"], rec["dx"]
+    kernel, stride, padding = rec["geometry"]
+    lib = _build.load()
+    n, c, h, w = x.shape
+    ho, wo = dy.shape[2:]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        rc = lib.bigdl_maxpool2d_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), 1, n * c, h, w,
+                                     ho, wo, *kernel, *stride, padding[0][0], padding[1][0],
+                                     stream)
+        if rc != 0:
+            raise RuntimeError(f"maxpool kernel launch failed with CUDA error {rc}")
+
+    ms = cuda_ms(launch)
+    plain_ms = cuda_ms(lambda: maxpool_grad_reference(x, dy, kernel, stride, padding), iters=5)
+    _, idx = F.max_pool2d(x, kernel, stride, padding[0][0], return_indices=True)
+    library_ms = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        dy, x, list(kernel), list(stride), [padding[0][0], padding[1][0]], [1, 1], False, idx))
+    b, by = bound_ms(0.0, (x, dy, dx), card)
+    idx_mb = idx.numel() * idx.element_size() / 1e6
+    del idx
+    log(f"[4] kernels: maxpool2d_bwd {tuple(x.shape)} bf16 3x3/s2/p1: verdict ok, kernel_ms "
+        f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b:.4f} ({by}; x, dy read and dx written "
+        f"once), library_ms {library_ms:.4f} (ATen max_pool2d_with_indices_backward, which "
+        f"also reads {idx_mb:.1f} MB of saved int64 indices; yardstick only); card {card}")
+    return {
+        "name": "maxpool2d_bwd",
+        "route": "cuda",
+        "source": "bigdl_tpu_torch/csrc/maxpool_bwd.cu",
+        "replaces": "bigdl_tpu/ops/maxpool.py:51",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": rec["max_abs_err"],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b,
+        "bound_by": by,
+        "library_ms": library_ms,
+    }
+
+
+# Kernel route (card, f32, TF32 off) vs plain route (CPU, f32) over 3 SGD
+# steps of ResNet-50 from the same weights, fixed before the first run. The
+# gradient of a ReLU network is piecewise: a gate whose input lies within the
+# two routes' summation-order difference of zero opens on one side only, and
+# a few such flips move the whole gradient by a few percent, which SGD then
+# carries into the weights. So the check is at lr 0.01 (the flagship's 0.1
+# turns those flips into a different trajectory within 3 steps). The losses
+# of steps 2-3 are the most sensitive reading: on an H100 the two routes'
+# step-3 losses were 6.6e-2 apart (relative) while their parameters were
+# 1.3e-3 apart, so that tolerance is 1.5e-1:
+ROUTE_TOL = {
+    "loss_first": 1e-3,  # step 1, same weights: |loss_card - loss_cpu|
+    "loss": 1.5e-1,      # steps 2-3: |loss_card - loss_cpu| / max(1, |loss_cpu|)
+    "params": 1e-2,      # ||p_card - p_cpu|| / ||p_cpu||
+    "state": 2e-1,       # ||s_card - s_cpu|| / ||s_cpu - s0|| (BN running statistics)
+}
+
+
+def _tree_to_numpy(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_to_numpy(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v.detach().float().cpu().numpy()
+    return out
+
+
+def _nest(flat):
+    out = {}
+    for path, a in flat.items():
+        node = out
+        *heads, last = path.split(".")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = a
+    return out
+
+
+def phase_flagship(card):
+    """Train the flagship ResNet-50 through LocalOptimizer; returns the
+    max-pool kernel's launches of that run."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import flagship_model
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import flash_attention as fa
+    from bigdl_tpu_torch.ops import maxpool as mp
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    batch, n_records, iters = 128, 384, 10
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(1)
+    t0 = time.perf_counter()
+    model, images, labels, name = flagship_model(batch=n_records, seed=SEED, stem="s2d",
+                                                 device="cuda")
+    model.init(sample_input=images[:batch])  # what optimize() would build from
+    s0 = _tree_to_numpy(model.get_state())
+    log(f"[7] {name}: {model.n_parameters() / 1e6:.3f} M params, {n_records} records of "
+        f"{tuple(images.shape[1:])} f32, built in {time.perf_counter() - t0:.1f} s")
+    opt = LocalOptimizer(model, DataSet.array(images, labels, batch_size=batch),
+                         ClassNLLCriterion())
+    opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(iters))
+    mem = []  # device memory after each iteration (LocalOptimizer sets the state once per step)
+    set_state = model.set_state
+    model.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+    fa.launches = fa.launches_dq = fa.launches_dkv = 0
+    mp.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    opt.optimize()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mp.launches  # the main path ends here
+    del model.set_state
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["wall_s"] for h in hist[2:]) * 1e3  # iterations 3-10
+    log(f"    trained {len(hist)} iterations over epochs {sorted({h['epoch'] for h in hist})} "
+        f"in {wall:.2f} s: step {step_ms:.2f} ms (median of iterations 3-{iters}), "
+        f"{batch / step_ms * 1e3:.1f} images/s (batch {batch}, bf16 compute and activations); "
+        f"card {card}")
+    log("    losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"    maxpool2d_bwd launches: {launches} (expected 1 per iteration = {iters}); flash "
+        f"kernels: {fa.launches + fa.launches_dq + fa.launches_dkv}")
+    if len(hist) != iters or not all(np.isfinite(losses)):
+        raise AssertionError(f"flagship training: {len(hist)} iterations, losses {losses}")
+    if launches != iters or fa.launches + fa.launches_dq + fa.launches_dkv:
+        raise AssertionError(f"maxpool kernel launched {launches} times, expected {iters}")
+    state = model.get_state()
+    s1 = _tree_to_numpy(state)
+    on_card = all(t.is_cuda for t in _flat_tensors(state))
+    moved = [k for k in s0 if not np.array_equal(s0[k], s1[k])]
+    finite = all(np.isfinite(v).all() for v in s1.values())
+    log(f"    BN running statistics: {len(moved)} of {len(s0)} moved, all finite: {finite}, "
+        f"all on the card: {on_card}")
+    if len(moved) != len(s0) or not finite or not on_card:
+        raise AssertionError("flagship training: BN running statistics did not all advance")
+    # memory_allocated counts live tensors only; a state that held its step's
+    # graph would grow by that step's saved activations (GBs) per iteration.
+    # Allowed: 100 MB, about one f32 image batch (77 MB) in flight.
+    drift = mem[iters - 1] - mem[2]
+    log(f"    device memory allocated after iteration 3: {mem[2] / 2**20:.1f} MiB, after "
+        f"iteration {iters}: {mem[iters - 1] / 2**20:.1f} MiB (drift {drift / 2**20:+.1f} MiB, "
+        f"allowed +-100 MiB); peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if abs(drift) > 100 * 2 ** 20:
+        raise AssertionError("device memory grew over the flagship iterations")
+    del opt, model, images, state
+    torch.cuda.empty_cache()
+    _flagship_routes()
+    return launches
+
+
+def _flat_tensors(tree):
+    for v in tree.values():
+        yield from (_flat_tensors(v) if isinstance(v, dict) else (v,))
+
+
+def _flagship_routes():
+    """3 SGD steps of an f32 ResNet-50 on the card (the max-pool kernel) vs
+    on the CPU (its plain version), from one numpy-made set of weights."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import maxpool as mp
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 on the card is full f32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        x = rng.standard_normal((8, 3, 112, 112)).astype(np.float32)
+        y = rng.integers(0, 1000, 8)
+        RandomGenerator.set_seed(SEED + 3)
+        init = ResNet(50, stem="s2d", device="cpu")
+        init.init(sample_input=x)
+        w0 = {k: v.detach().numpy().copy() for k, v in init.named_parameters()}
+        s0 = _tree_to_numpy(init.get_state())
+        runs = {}
+        for device in ("cuda", "cpu"):
+            RandomGenerator.set_seed(SEED + 3)
+            m = ResNet(50, stem="s2d", device=device)
+            m.init(sample_input=x)
+            load_jax_params(m, _nest(w0))
+            load_jax_state(m, _nest(s0))
+            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=8), ClassNLLCriterion())
+            o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+            before = mp.launches
+            t0 = time.perf_counter()
+            o.set_end_when(Trigger.max_iteration(3)).optimize()
+            runs[device] = ([h["loss"] for h in o.history], _tree_to_numpy(m.get_parameters()),
+                            _tree_to_numpy(m.get_state()), mp.launches - before,
+                            time.perf_counter() - t0)
+            del m, o
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[2:]
+    (lc, pc, sc, kc, tc), (lp, pp, sp, kp, tp) = runs["cuda"], runs["cpu"]
+
+    def dist(a, b):
+        return float(np.sqrt(sum(np.sum((a[k] - b[k]) ** 2) for k in b)))
+
+    d_first = abs(lc[0] - lp[0])
+    d_loss = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lc[1:], lp[1:]))
+    d_params = dist(pc, pp) / dist(pp, {k: np.zeros_like(v) for k, v in pp.items()})
+    d_state = dist(sc, sp) / dist(sp, s0)
+    log(f"    kernel route (card, f32, TF32 off) vs plain route (CPU, f32), ResNet-50 s2d, "
+        f"(8, 3, 112, 112), 3 steps of SGD lr 0.01 momentum 0.9: losses "
+        f"{[round(v, 5) for v in lc]} vs {[round(v, 5) for v in lp]}; step 1 diff "
+        f"{d_first:.2e} (tol {ROUTE_TOL['loss_first']}), steps 2-3 rel diff {d_loss:.2e} "
+        f"(tol {ROUTE_TOL['loss']}); params rel diff {d_params:.2e} (tol "
+        f"{ROUTE_TOL['params']}); BN state diff / its change {d_state:.2e} (tol "
+        f"{ROUTE_TOL['state']}); maxpool2d_bwd launches card {kc}, CPU {kp}; "
+        f"{tc:.1f} s card, {tp:.1f} s CPU")
+    if (len(lc) != 3 or kc != 3 or kp != 0 or d_first > ROUTE_TOL["loss_first"]
+            or d_loss > ROUTE_TOL["loss"] or d_params > ROUTE_TOL["params"]
+            or d_state > ROUTE_TOL["state"]):
+        raise AssertionError("the kernel route's training disagrees with the plain route")
+
+
 def main() -> int:
     import torch
 
@@ -617,19 +965,24 @@ def main() -> int:
     phase_build()
     rec = phase_parity()
     bwd_rec = phase_bwd_parity()
+    mp_rec = phase_maxpool_parity()
     fwd = phase_times(rec, card)
     dq, dkv = phase_bwd_times(bwd_rec, card)
-    del rec, bwd_rec
+    pool = phase_maxpool_times(mp_rec, card)
+    del rec, bwd_rec, mp_rec
     torch.cuda.empty_cache()
     served = phase_slice(card)
     trained = phase_training(card)
+    flagship = phase_flagship(card)
     fwd["launches"] = served + trained[0]
-    fwd["launches_by_path"] = {"serving": served, "training": trained[0]}
+    fwd["launches_by_path"] = {"serving": served, "training": trained[0], "flagship": 0}
     dq["launches"], dkv["launches"] = trained[1], trained[2]
     for k in (dq, dkv):
-        k["launches_by_path"] = {"serving": 0, "training": k["launches"]}
+        k["launches_by_path"] = {"serving": 0, "training": k["launches"], "flagship": 0}
+    pool["launches"] = flagship
+    pool["launches_by_path"] = {"serving": 0, "training": 0, "flagship": flagship}
     log(f"done in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [fwd, dq, dkv]}))
+    print(json.dumps({"kernels": [fwd, dq, dkv, pool]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

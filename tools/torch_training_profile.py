@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time goes in one training step of the port's Transformer-LM.
+"""Where the time goes in one training step of the port, on one CUDA card.
 
     python3 tools/torch_training_profile.py      # needs one CUDA card
 
-Builds the full-width LM of ``chip_smoke.py`` (vocab 8192, hidden 512, 8
-heads, filter 2048, 6 layers, T=2048, dropout 0, bf16 compute, random
-weights from a seed), trains it through ``LocalOptimizer`` (SGD, lr 0.1,
-``CrossEntropyCriterion``, batch 8): 3 warm-up iterations, 5 timed ones
-(the step time is the median gap between the optimizer's one-step-late
-loss pulls, the first of a run left out), then 5 under ``torch.profiler``.
-Prints the step time and tokens/s, the device time per step by kernel family
-(the three flash kernels, matmuls, reductions, the rest) and the device's
-busy share of the step.
+Two training steps, each through ``LocalOptimizer``: the full-width
+Transformer-LM of ``chip_smoke.py`` (vocab 8192, hidden 512, 8 heads, filter
+2048, 6 layers, T=2048, dropout 0, bf16 compute, random weights from a seed;
+SGD lr 0.1, ``CrossEntropyCriterion``, batch 8), and the flagship ResNet-50
+(``stem="s2d"``, 1000 classes, batch 128 of 224x224 images drawn as
+``flagship_model`` draws them, bf16 compute and bf16 activations,
+``ClassNLLCriterion`` on the raw logits, SGD lr 0.1 momentum 0.9).
+
+Each: 3 warm-up iterations, 5 timed ones (the step time is the median gap
+between the optimizer's one-step-late loss pulls, the first of a run left
+out), then 5 under ``torch.profiler``. Prints the step time and its rate,
+the device time per step by kernel family (and the SGD update's, from a
+``record_function`` range around it) and the device's busy share of the
+profiled steps, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -25,7 +31,7 @@ sys.modules["bigdl_tpu"] = None
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def family(name: str) -> str:
+def lm_family(name: str) -> str:
     n = name.lower()
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_fwd"):
         if kernel in n:
@@ -37,21 +43,102 @@ def family(name: str) -> str:
     return "elementwise / copies / other"
 
 
-def main() -> int:
-    import numpy as np
+def flagship_family(name: str) -> str:
+    n = name.lower()
+    if "maxpool2d_bwd" in n:
+        return "maxpool2d_bwd (this repo's kernel)"
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "layout transforms (cuDNN, NCHW <-> NHWC)"
+    if "dgrad" in n or "wgrad" in n or ("conv" in n and "backward" in n):
+        return "convolution backward (cuDNN)"
+    if any(k in n for k in ("fprop", "conv", "xmma", "implicit", "gemm", "nvjet", "cutlass")):
+        return "convolution forward, fc matmuls (cuDNN, cuBLAS)"
+    if "max_pool" in n or "maxpool" in n or "avg_pool" in n or "avgpool" in n:
+        return "pooling forward and average-pool backward (ATen)"
+    if "reduce" in n or "welford" in n or "var_mean" in n or "norm" in n:
+        return "reductions (BN statistics and their backward)"
+    if "copy" in n or "memcpy" in n or "cat" in n:
+        return "copies and casts"
+    return "elementwise (BN apply, ReLU, add, SGD update, ...)"
+
+
+def _profile(opt, reps: int, family):
+    """Device ms per step by family over ``reps`` iterations, and the SGD
+    update's own device ms per step (a ``record_function`` range)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    method = opt.optim_method
+    update = method.update
+
+    def traced_update(*a, **k):
+        with record_function("sgd_update"):
+            return update(*a, **k)
+
+    method.update = traced_update
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            opt.optimize()
+            torch.cuda.synchronize()
+    finally:
+        del method.update
+    # the profiler slows the host: the busy share is taken against the
+    # profiled steps' own wall time (the first of the run left out)
+    prof_step_ms = statistics.median(h["wall_s"] for h in opt.history[-reps + 1:]) * 1e3
+    by_family: dict = {}
+    sgd_ms = 0.0
+    for ev in prof.key_averages():
+        if ev.key == "sgd_update":
+            # the range appears twice: as a host op (its device_time_total sums
+            # the kernels it launched) and as a device-side annotation spanning
+            # them, which is no kernel and must not be counted in a family
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                sgd_ms = ev.device_time_total / 1e3 / reps
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            f = family(ev.key)
+            by_family[f] = by_family.get(f, 0.0) + dev_us / 1e3 / reps
+    return by_family, sgd_ms, prof_step_ms
+
+
+def _report(label, step_ms, rate, profiled, card):
+    by_family, sgd_ms, prof_step_ms = profiled
+    busy = sum(by_family.values())
+    print(f"card: {card}")
+    print(f"{label}: step {step_ms:.3f} ms, {rate}; under the profiler a step takes "
+          f"{prof_step_ms:.3f} ms, the device busy {busy:.3f} ms of it "
+          f"({100 * busy / prof_step_ms:.1f}%)")
+    for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {f:55s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
+    print(f"  of which the SGD update (device time under its range)   {sgd_ms:8.3f} ms")
+
+
+def _timed(opt, warmup: int, reps: int) -> float:
+    import torch
+
+    from bigdl_tpu_torch.optim import Trigger
+
+    opt.set_end_when(Trigger.max_iteration(warmup)).optimize()
+    torch.cuda.synchronize()
+    opt.set_end_when(Trigger.max_iteration(warmup + reps)).optimize()
+    # the first pull of a run also waits for its first dispatch: steady steps only
+    step_ms = statistics.median(h["wall_s"] for h in opt.history[warmup + 1:]) * 1e3
+    opt.set_end_when(Trigger.max_iteration(warmup + 2 * reps))
+    return step_ms
+
+
+def profile_lm(card: str, warmup: int = 3, reps: int = 5) -> None:
+    import numpy as np
 
     from bigdl_tpu_torch import Engine, RandomGenerator
     from bigdl_tpu_torch.dataset import DataSet
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
-    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
 
-    if not torch.cuda.is_available():
-        print("torch_training_profile.py: needs a CUDA card", file=sys.stderr)
-        return 2
-    vocab, batch, seq, warmup, reps = 8192, 8, 2048, 3, 5
+    vocab, batch, seq = 8192, 8, 2048
     Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
     RandomGenerator.set_seed(0)
     gen = np.random.default_rng(0)
     ids = gen.integers(0, vocab, (40, seq))
@@ -59,32 +146,43 @@ def main() -> int:
     model = Transformer(vocab, 512, 8, 2048, 6, 0.0, 0.0, 0.0, device="cuda")
     opt = LocalOptimizer(model, DataSet.array(ids, targets, batch_size=batch),
                          CrossEntropyCriterion()).set_optim_method(SGD(learningrate=0.1))
-    opt.set_end_when(Trigger.max_iteration(warmup)).optimize()
-    torch.cuda.synchronize()
+    step_ms = _timed(opt, warmup, reps)
+    _report("LM training step (8 x 2048 tokens)", step_ms,
+            f"{batch * seq / step_ms * 1e3:.0f} tokens/s", _profile(opt, reps, lm_family), card)
 
-    opt.set_end_when(Trigger.max_iteration(warmup + reps)).optimize()
-    # the first pull of a run also waits for its first dispatch: steady steps only
-    step_ms = statistics.median(h["wall_s"] for h in opt.history[warmup + 1:]) * 1e3
-    opt.set_end_when(Trigger.max_iteration(warmup + 2 * reps))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        opt.optimize()
-        torch.cuda.synchronize()
-    by_family: dict = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            f = family(ev.key)
-            by_family[f] = by_family.get(f, 0.0) + dev_us / 1e3 / reps
-    busy = sum(by_family.values())
 
-    print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"training step (8 x 2048 tokens): {step_ms:.3f} ms, "
-          f"{batch * seq / step_ms * 1e3:.0f} tokens/s; device busy {busy:.3f} ms per step "
-          f"({100 * busy / step_ms:.1f}% of the step)")
-    for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"  {f:45s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
+def profile_flagship(card: str, warmup: int = 3, reps: int = 5) -> None:
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import flagship_model
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+
+    batch = 128
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(1)
+    model, images, labels, _ = flagship_model(batch=3 * batch, seed=0, stem="s2d",
+                                              device="cuda")
+    opt = LocalOptimizer(model, DataSet.array(images, labels, batch_size=batch),
+                         ClassNLLCriterion()).set_optim_method(
+        SGD(learningrate=0.1, momentum=0.9))
+    step_ms = _timed(opt, warmup, reps)
+    _report(f"flagship ResNet-50 training step (batch {batch}, bf16)", step_ms,
+            f"{batch / step_ms * 1e3:.1f} images/s", _profile(opt, reps, flagship_family), card)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_training_profile.py: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    profile_lm(card)
+    profile_flagship(card)
     return 0
 
 
