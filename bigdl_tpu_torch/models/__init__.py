@@ -1,6 +1,7 @@
-"""Models of the port: the flagship ResNet so far."""
+"""Models of the port: the flagship ResNet and VGG."""
 
 from .resnet import ResNet
+from .vgg import Vgg_16, Vgg_19, VggForCifar10
 
 
 def flagship_model(batch: int = 8, seed: int = 0, stem: str = "conv7", device=None):
@@ -17,4 +18,4 @@ def flagship_model(batch: int = 8, seed: int = 0, stem: str = "conv7", device=No
     return model, x, labels, "ResNet-50 synthetic-ImageNet"
 
 
-__all__ = ["ResNet", "flagship_model"]
+__all__ = ["ResNet", "Vgg_16", "Vgg_19", "VggForCifar10", "flagship_model"]

@@ -4,6 +4,7 @@ from .activations import LogSoftMax, ReLU
 from .attention import FeedForwardNetwork, Transformer, scaled_dot_product_attention
 from .conv import SpatialConvolution
 from .criterion import AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion
+from .dropout import Dropout
 from .graph import Graph, Input, ModuleNode
 from .initialization import MsraFiller, RandomUniform, Xavier, Zeros
 from .linear import Linear
@@ -14,7 +15,8 @@ from .structural import Reshape, SpaceToDepth
 from .table_ops import CAddTable
 
 __all__ = ["AbstractCriterion", "AbstractModule", "BatchNormalization", "CAddTable",
-           "ClassNLLCriterion", "Container", "CrossEntropyCriterion", "FeedForwardNetwork",
+           "ClassNLLCriterion", "Container", "CrossEntropyCriterion", "Dropout",
+           "FeedForwardNetwork",
            "Graph", "Identity", "Input", "Linear", "LogSoftMax", "ModuleNode", "MsraFiller",
            "RandomUniform", "ReLU", "Reshape", "Sequential", "SpaceToDepth",
            "SpatialAveragePooling", "SpatialBatchNormalization", "SpatialConvolution",

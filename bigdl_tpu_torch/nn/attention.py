@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from ..utils import precision
+from .dropout import dropout as _dropout
 from .initialization import Xavier, Zeros
 from .module import AbstractModule
 
@@ -133,19 +134,6 @@ def scaled_dot_product_attention(
             (lengths.shape[0],) + (1,) * (q.dim() - 3) + (tq, 1))
         out = out.masked_fill(~row_valid, 0.0)
     return out
-
-
-def _dropout(rng: Optional[torch.Generator], p: float, x: torch.Tensor) -> torch.Tensor:
-    """Inverted dropout; identity when rng is None or p == 0. The mask is
-    drawn on ``x``'s device, from a generator there seeded from ``rng`` (one
-    host draw of a seed, no host-sized mask or copy)."""
-    if p <= 0.0 or rng is None:
-        return x
-    keep = 1.0 - p
-    seed = int(torch.randint(0, 2 ** 62, (1,), generator=rng))
-    gen = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
-    return x * mask / keep
 
 
 def _dense(params: Dict[str, Any], name: str, x: torch.Tensor) -> torch.Tensor:

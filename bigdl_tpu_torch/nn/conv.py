@@ -1,7 +1,9 @@
 """``SpatialConvolution`` (counterpart of ``bigdl_tpu/nn/conv.py``): NCHW
 input, OIHW weights, Torch padding with ``-1`` meaning TensorFlow's SAME,
-groups, an optional bias and an optional ``activation`` epilogue (its
-plain path: ``act(conv + b)`` in torch ops). The convolution itself is
+groups, an optional bias and an optional ``activation`` epilogue
+(``precision.channel_bias_act``): ``act(conv + b)`` in torch ops, or, with a
+bias under ``Engine.set_fused_kernels(True)``, the row-mode
+``fused_bias_act`` (the CUDA kernels on the card). The convolution itself is
 :func:`bigdl_tpu_torch.utils.precision.conv2d` (cuDNN on the card)."""
 
 from __future__ import annotations

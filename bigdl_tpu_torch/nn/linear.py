@@ -1,6 +1,8 @@
 """``Linear`` (counterpart of ``bigdl_tpu/nn/linear.py``): y = x Wᵀ + b over
 the last dim, weight stored (out, in), ``RandomUniform`` initialisation, and
-an optional ``activation`` epilogue on its plain path."""
+an optional ``activation`` epilogue (``precision.bias_act``): ``act(y + b)``
+in torch ops, or, with a bias under ``Engine.set_fused_kernels(True)``, the
+feature-mode ``fused_bias_act`` (the CUDA kernels on the card)."""
 
 from __future__ import annotations
 

@@ -110,6 +110,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.bigdl_maxpool2d_bwd
     fn.argtypes = [vp] * 3 + [i, ll] + [i] * 10 + [vp]
     fn.restype = ctypes.c_int
+    # x, b, y, dtype, act, row_mode, rows, cols, channels, stream
+    fn = lib.bigdl_bias_act_fwd
+    fn.argtypes = [vp] * 3 + [i] * 3 + [ll] * 3 + [vp]
+    fn.restype = ctypes.c_int
+    # x, b, dy, dx, partial, db, dtype, act, rows, cols, row_tile, stream
+    fn = lib.bigdl_bias_act_bwd_feature
+    fn.argtypes = [vp] * 6 + [i] * 2 + [ll] * 2 + [i, vp]
+    fn.restype = ctypes.c_int
+    # x, b, dy, dx, db_rows, dtype, act, rows, cols, channels, stream
+    fn = lib.bigdl_bias_act_bwd_row
+    fn.argtypes = [vp] * 5 + [i] * 2 + [ll] * 3 + [vp]
+    fn.restype = ctypes.c_int
     return lib
 
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``bigdl_tpu/utils/engine.py`` reduced to what the port uses:
 the compute/activation dtype policy (``compute_dtype`` / ``set_compute_dtype``
-/ ``activation_dtype`` / ``set_activation_dtype``) and device resolution.
-There is no mesh and no topology here.
+/ ``activation_dtype`` / ``set_activation_dtype``), the fused-kernel switch
+(``fused_kernels`` / ``set_fused_kernels``) and device resolution. There is
+no mesh and no topology here.
 
 Entry points run on the card: ``Engine.device(None)`` is ``cuda`` and raises
 when no CUDA device is present; the CPU is used only when asked for
@@ -12,6 +13,7 @@ when no CUDA device is present; the CPU is used only when asked for
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Optional, Union
 
@@ -35,6 +37,7 @@ class Engine:
     _lock = threading.Lock()
     _compute_dtype: Optional[str] = None
     _activation_dtype: Optional[str] = None
+    _fused_kernels: Optional[bool] = None
 
     @classmethod
     def device(cls, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -71,6 +74,32 @@ class Engine:
         with cls._lock:
             cls._activation_dtype = None if dtype is None else _dtype_name(dtype)
 
+    @classmethod
+    def set_fused_kernels(cls, enabled: Optional[bool]) -> None:
+        """Opt into (``True``) or out of (``False``) the fused-kernel paths:
+        the ``Linear``/``SpatialConvolution`` bias+activation epilogues run
+        :func:`bigdl_tpu_torch.ops.fused_epilogue.fused_bias_act` (a CUDA
+        kernel on the card, its plain version on the CPU). ``None`` goes back
+        to the ``BIGDL_FUSED_KERNELS`` default. The JAX package reads its
+        switch at trace time; the port reads it at every call, so a flip
+        takes effect at the next forward."""
+        with cls._lock:
+            cls._fused_kernels = None if enabled is None else bool(enabled)
+
+    @classmethod
+    def fused_kernels(cls) -> bool:
+        """The fused-kernel switch (default: the ``BIGDL_FUSED_KERNELS`` env
+        flag, i.e. off)."""
+        if cls._fused_kernels is not None:
+            return cls._fused_kernels
+        return env_flag("BIGDL_FUSED_KERNELS")
+
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def env_flag(name: str) -> bool:
+    """An on/off environment flag: "1", "true", "yes" or "on" (any case) is
+    on; anything else, or unset, is off."""
+    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")

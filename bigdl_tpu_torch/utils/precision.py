@@ -7,14 +7,20 @@
   matmul OUTPUTS keep; ``None`` upcasts them back to float32.
 
 With ``compute_dtype == float32`` every helper is a pass-through.
-The bias/activation epilogues (``bias_act``, ``channel_bias_act``) are the
-JAX package's plain path; its fused-kernel switch is not ported yet.
+The bias/activation epilogues (``bias_act``, ``channel_bias_act``) run
+``act(y + b)`` in torch ops; under the fused-kernel switch
+(``Engine.set_fused_kernels(True)`` or ``BIGDL_FUSED_KERNELS=1``), an
+epilogue with a bias and an activation runs
+:func:`bigdl_tpu_torch.ops.fused_epilogue.fused_bias_act` instead (the CUDA
+kernels on the card, their plain versions on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.fused_common import fused_kernels_active
+from ..ops.fused_epilogue import act_reference, fused_bias_act
 from .engine import Engine, torch_dtype
 
 
@@ -90,17 +96,11 @@ def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y + _cast(b, y.dtype)
 
 
-_ACTIVATIONS = {
-    None: lambda z: z,
-    "relu": lambda z: torch.maximum(z, z.new_zeros(())),
-    "gelu": lambda z: torch.nn.functional.gelu(z, approximate="tanh"),
-    "tanh": torch.tanh,
-}
-
-
 def _act_fn(act):
+    """The torch spelling of an epilogue activation name: one mapping, owned
+    by ``ops.fused_epilogue`` (the kernels' parity oracle)."""
     try:
-        return _ACTIVATIONS[act]
+        return act_reference(act)
     except KeyError:
         raise ValueError(f"unsupported epilogue activation {act!r} "
                          "(expected relu|gelu|tanh|None)") from None
@@ -108,16 +108,31 @@ def _act_fn(act):
 
 def bias_act(y: torch.Tensor, b, act=None) -> torch.Tensor:
     """Bias + activation over the trailing feature dim (``Linear``): ``b=None``
-    means no bias. The JAX package's fused-kernel switch is not ported: this
-    is its plain path, ``act(y + b)`` in torch ops."""
-    fn = _act_fn(act)
-    return fn(y if b is None else bias_add(y, b))
+    means no bias. With ``act=None``, no bias or the fused-kernel switch off
+    this is ``act(bias_add(y, b))`` in torch ops; under the switch the whole
+    epilogue is one ``fused_bias_act`` (fp32 master bias, fp32 activation,
+    one rounding to ``y``'s dtype)."""
+    fn = _act_fn(act)  # validates the name even on the bias-less paths
+    if b is None:
+        return fn(y)
+    if act is None:
+        return bias_add(y, b)
+    if fused_kernels_active():
+        return fused_bias_act(y, b, act, -1)
+    return fn(bias_add(y, b))
 
 
 def channel_bias_act(y: torch.Tensor, b, act=None) -> torch.Tensor:
     """Bias + activation over the channel dim of an NCHW tensor
-    (``SpatialConvolution``); ``b`` is the (C,) master bias or ``None``."""
+    (``SpatialConvolution``); ``b`` is the (C,) master bias or ``None``.
+    Same contract as :func:`bias_act` (the switch route is ``fused_bias_act``
+    with ``axis=1``)."""
     fn = _act_fn(act)
     if b is None:
         return fn(y)
-    return fn(bias_add(y, b.reshape((1, -1) + (1,) * (y.dim() - 2))))
+    plain_b = b.reshape((1, -1) + (1,) * (y.dim() - 2))
+    if act is None:
+        return bias_add(y, plain_b)
+    if fused_kernels_active():
+        return fused_bias_act(y, b, act, 1)
+    return fn(bias_add(y, plain_b))

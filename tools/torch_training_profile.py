@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the port, on one CUDA card.
 
-    python3 tools/torch_training_profile.py      # needs one CUDA card
+    python3 tools/torch_training_profile.py [lm] [flagship] [vgg]   # needs one CUDA card
 
-Two training steps, each through ``LocalOptimizer``: the full-width
-Transformer-LM of ``chip_smoke.py`` (vocab 8192, hidden 512, 8 heads, filter
-2048, 6 layers, T=2048, dropout 0, bf16 compute, random weights from a seed;
-SGD lr 0.1, ``CrossEntropyCriterion``, batch 8), and the flagship ResNet-50
-(``stem="s2d"``, 1000 classes, batch 128 of 224x224 images drawn as
-``flagship_model`` draws them, bf16 compute and bf16 activations,
-``ClassNLLCriterion`` on the raw logits, SGD lr 0.1 momentum 0.9).
+Training steps through ``LocalOptimizer`` (all three when no mode is
+named): ``lm``, the full-width Transformer-LM of ``chip_smoke.py`` (vocab
+8192, hidden 512, 8 heads, filter 2048, 6 layers, T=2048, dropout 0, bf16
+compute, random weights from a seed; SGD lr 0.1, ``CrossEntropyCriterion``,
+batch 8); ``flagship``, ResNet-50 (``stem="s2d"``, 1000 classes, batch 128
+of 224x224 images drawn as ``flagship_model`` draws them, bf16 compute and
+bf16 activations, ``ClassNLLCriterion`` on the raw logits, SGD lr 0.1
+momentum 0.9); ``vgg``, the VGG-16 of ``chip_smoke.py`` [8] (conv/fc ReLUs
+declared as epilogues, the fused-kernel switch on, dropout on, batch 64,
+bf16 compute and activations, ``ClassNLLCriterion`` on the ``LogSoftMax``
+output, SGD lr 0.01 momentum 0.9).
 
-Each: 3 warm-up iterations, 5 timed ones (the step time is the median gap
-between the optimizer's one-step-late loss pulls, the first of a run left
-out), then 5 under ``torch.profiler``. Prints the step time and its rate,
-the device time per step by kernel family (and the SGD update's, from a
+Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
+Prints two step times and the rate of the first: the median gap between
+the optimizer's one-step-late loss pulls (the first of a run left out; an
+epoch's set-up lands in one gap, which the median leaves out) and the
+timed run's wall over its iterations (set-up included). Then the device
+time per step by kernel family (and the SGD update's, from a
 ``record_function`` range around it) and the device's busy share of the
-profiled steps, with the card's name and power limit.
+profiled run's wall, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 sys.modules["jax"] = None
@@ -62,6 +69,17 @@ def flagship_family(name: str) -> str:
     return "elementwise (BN apply, ReLU, add, SGD update, ...)"
 
 
+def vgg_family(name: str) -> str:
+    if "bias_act" in name.lower():
+        return "bias_act fwd/bwd (this repo's kernels)"
+    f = flagship_family(name)
+    if f.startswith("elementwise"):
+        return "elementwise (dropout, SGD update, weight casts, ...)"
+    if f.startswith("reductions"):
+        return "reductions (log-softmax, loss, bias sums)"
+    return f
+
+
 def _profile(opt, reps: int, family):
     """Device ms per step by family over ``reps`` iterations, and the SGD
     update's own device ms per step (a ``record_function`` range)."""
@@ -78,13 +96,15 @@ def _profile(opt, reps: int, family):
     method.update = traced_update
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             opt.optimize()
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         del method.update
     # the profiler slows the host: the busy share is taken against the
-    # profiled steps' own wall time (the first of the run left out)
-    prof_step_ms = statistics.median(h["wall_s"] for h in opt.history[-reps + 1:]) * 1e3
+    # profiled run's own wall per iteration
+    prof_step_ms = wall * 1e3 / reps
     by_family: dict = {}
     sgd_ms = 0.0
     for ev in prof.key_averages():
@@ -102,30 +122,34 @@ def _profile(opt, reps: int, family):
     return by_family, sgd_ms, prof_step_ms
 
 
-def _report(label, step_ms, rate, profiled, card):
+def _report(label, steps, rate, profiled, card):
     by_family, sgd_ms, prof_step_ms = profiled
     busy = sum(by_family.values())
     print(f"card: {card}")
-    print(f"{label}: step {step_ms:.3f} ms, {rate}; under the profiler a step takes "
-          f"{prof_step_ms:.3f} ms, the device busy {busy:.3f} ms of it "
-          f"({100 * busy / prof_step_ms:.1f}%)")
+    print(f"{label}: step {steps[0]:.3f} ms (median gap), {rate}; {steps[1]:.3f} ms per "
+          f"iteration over the timed run; under the profiler {prof_step_ms:.3f} ms per "
+          f"iteration, the device busy {busy:.3f} ms of it ({100 * busy / prof_step_ms:.1f}%)")
     for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {f:55s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
     print(f"  of which the SGD update (device time under its range)   {sgd_ms:8.3f} ms")
 
 
-def _timed(opt, warmup: int, reps: int) -> float:
+def _timed(opt, warmup: int, reps: int):
+    """(median gap between loss pulls, wall per iteration of the run) in ms."""
     import torch
 
     from bigdl_tpu_torch.optim import Trigger
 
     opt.set_end_when(Trigger.max_iteration(warmup)).optimize()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     opt.set_end_when(Trigger.max_iteration(warmup + reps)).optimize()
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) * 1e3 / reps
     # the first pull of a run also waits for its first dispatch: steady steps only
     step_ms = statistics.median(h["wall_s"] for h in opt.history[warmup + 1:]) * 1e3
     opt.set_end_when(Trigger.max_iteration(warmup + 2 * reps))
-    return step_ms
+    return step_ms, per_iter
 
 
 def profile_lm(card: str, warmup: int = 3, reps: int = 5) -> None:
@@ -146,9 +170,9 @@ def profile_lm(card: str, warmup: int = 3, reps: int = 5) -> None:
     model = Transformer(vocab, 512, 8, 2048, 6, 0.0, 0.0, 0.0, device="cuda")
     opt = LocalOptimizer(model, DataSet.array(ids, targets, batch_size=batch),
                          CrossEntropyCriterion()).set_optim_method(SGD(learningrate=0.1))
-    step_ms = _timed(opt, warmup, reps)
-    _report("LM training step (8 x 2048 tokens)", step_ms,
-            f"{batch * seq / step_ms * 1e3:.0f} tokens/s", _profile(opt, reps, lm_family), card)
+    steps = _timed(opt, warmup, reps)
+    _report("LM training step (8 x 2048 tokens)", steps,
+            f"{batch * seq / steps[0] * 1e3:.0f} tokens/s", _profile(opt, reps, lm_family), card)
 
 
 def profile_flagship(card: str, warmup: int = 3, reps: int = 5) -> None:
@@ -167,22 +191,55 @@ def profile_flagship(card: str, warmup: int = 3, reps: int = 5) -> None:
     opt = LocalOptimizer(model, DataSet.array(images, labels, batch_size=batch),
                          ClassNLLCriterion()).set_optim_method(
         SGD(learningrate=0.1, momentum=0.9))
-    step_ms = _timed(opt, warmup, reps)
-    _report(f"flagship ResNet-50 training step (batch {batch}, bf16)", step_ms,
-            f"{batch / step_ms * 1e3:.1f} images/s", _profile(opt, reps, flagship_family), card)
+    steps = _timed(opt, warmup, reps)
+    _report(f"flagship ResNet-50 training step (batch {batch}, bf16)", steps,
+            f"{batch / steps[0] * 1e3:.1f} images/s", _profile(opt, reps, flagship_family), card)
+
+
+def profile_vgg(card: str, warmup: int = 3, reps: int = 5) -> None:
+    import numpy as np
+
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    from chip_smoke import vgg16_declared
+
+    batch = 64
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(True)
+    RandomGenerator.set_seed(0)
+    images = np.random.default_rng(0).standard_normal((3 * batch, 3, 224, 224)).astype(
+        np.float32)
+    labels = np.random.default_rng(1).integers(0, 1000, 3 * batch)
+    model = vgg16_declared(has_dropout=True, device="cuda")
+    opt = LocalOptimizer(model, DataSet.array(images, labels, batch_size=batch),
+                         ClassNLLCriterion()).set_optim_method(
+        SGD(learningrate=0.01, momentum=0.9))
+    steps = _timed(opt, warmup, reps)
+    _report(f"VGG-16 training step (batch {batch}, bf16, fused epilogues)", steps,
+            f"{batch / steps[0] * 1e3:.1f} images/s", _profile(opt, reps, vgg_family), card)
+
+
+MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg": profile_vgg}
 
 
 def main() -> int:
     import torch
 
+    modes = sys.argv[1:] or list(MODES)
+    if any(m not in MODES for m in modes):
+        print(f"torch_training_profile.py: modes are {sorted(MODES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("torch_training_profile.py: needs a CUDA card", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True, capture_output=True,
                           text=True, timeout=60).stdout.strip().splitlines()[0]
-    profile_lm(card)
-    profile_flagship(card)
+    for mode in modes:
+        MODES[mode](card)
     return 0
 
 
