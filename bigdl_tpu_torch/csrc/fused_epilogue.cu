@@ -40,56 +40,24 @@
 //   tile of (row_tile rows) x (32*VEC columns); each thread walks every 8th
 //   row of the tile for its VEC columns, the 8 thread rows are summed in
 //   order through shared memory, and the tile's fp32 partial db row is
-//   written to a (row tiles, cols) scratch; stage 2 sums each column's
-//   partials in row-tile order. row_tile is chosen by the caller from the
+//   written to a (row tiles, cols) scratch; stage 2 (column_fold, in
+//   vec_common.cuh) sums each column's partials in row-tile order. row_tile is chosen by the caller from the
 //   shape alone (about 1000 blocks), so 64-row fc layers still spread over
 //   the SMs and the bits depend only on the shape.
 // Activation math uses round-to-nearest intrinsics in the order the plain
 // PyTorch version writes it (no contraction into FMAs) and tanhf, not a fast
 // intrinsic. Later work: 32-bit index math, TMA or cp.async staging.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "vec_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kWideRow = 4096;  // rows this long get a whole block in the row backward
 constexpr float kGeluC = static_cast<float>(0.7978845608028654);  // sqrt(2/pi)
 constexpr float kGeluA = static_cast<float>(0.044715);
 constexpr float kGeluA3 = static_cast<float>(3.0 * 0.044715);
 
 enum Act { kNone = 0, kRelu = 1, kGelu = 2, kTanh = 3 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
-}
-
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-  T v[VEC];
-};
-
-template <typename T, int VEC>
-__device__ __forceinline__ Pack<T, VEC> load(const T* p) {
-  return *reinterpret_cast<const Pack<T, VEC>*>(p);
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& v) {
-  *reinterpret_cast<Pack<T, VEC>*>(p) = v;
-}
 
 // gelu's inner argument sqrt(2/pi) * (z + 0.044715 z^3)
 __device__ __forceinline__ float gelu_u(float z) {
@@ -251,62 +219,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    bias_act_db_sum(const float* __restrict__ partial, float* __restrict__ db,
-                    long long n_tiles, long long cols) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; c < cols;
-       c += stride) {
-    float s = 0.f;
-    for (long long t = 0; t < n_tiles; ++t) s = __fadd_rn(s, partial[t * cols + c]);
-    db[c] = s;
-  }
-}
-
-// The widest vector (elements) that divides cols and every pointer's alignment.
-template <typename T>
-int pick_vec(long long cols, const void* const* ptrs, int n_ptrs) {
-  for (int vec = 16 / static_cast<int>(sizeof(T)); vec > 1; vec /= 2) {
-    bool ok = cols % vec == 0;
-    for (int k = 0; k < n_ptrs; ++k)
-      ok = ok && reinterpret_cast<uintptr_t>(ptrs[k]) % (vec * sizeof(T)) == 0;
-    if (ok) return vec;
-  }
-  return 1;
-}
-
-// Calls f(std::integral_constant<int, vec>) for a vec of pick_vec.
-template <typename T, typename F>
-int with_vec(int vec, F&& f) {
-  switch (vec) {
-    case 1:
-      return f(std::integral_constant<int, 1>{});
-    case 2:
-      return f(std::integral_constant<int, 2>{});
-    case 4:
-      return f(std::integral_constant<int, 4>{});
-    case 8:
-      if constexpr (sizeof(T) == 2) return f(std::integral_constant<int, 8>{});
-      break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int grid_blocks(long long work) {  // grid-stride launches: at most 32 blocks per SM
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (work + kThreads - 1) / kThreads;
-  return static_cast<int>(want < 32LL * sms ? (want > 0 ? want : 1) : 32LL * sms);
-}
-
 bool bad_act(int act) { return act < kNone || act > kTanh; }
 
 template <typename T>
 int fwd(const void* x, const float* b, void* y, int act, int row_mode, long long rows,
         long long cols, long long channels, cudaStream_t s) {
-  const void* ptrs[] = {x, y};
-  const int vec = pick_vec<T>(cols, ptrs, 2);
+  const int vec = pick_vec(16 / sizeof(T), cols, {{x, sizeof(T)}, {y, sizeof(T)}});
   return with_vec<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
     const long long n_vec = rows * cols / V;
@@ -324,8 +242,8 @@ int fwd(const void* x, const float* b, void* y, int act, int row_mode, long long
 template <typename T>
 int bwd_row(const void* x, const float* b, const void* dy, void* dx, float* db_rows, int act,
             long long rows, long long cols, long long channels, cudaStream_t s) {
-  const void* ptrs[] = {x, dy, dx};
-  const int vec = pick_vec<T>(cols, ptrs, 3);
+  const int vec =
+      pick_vec(16 / sizeof(T), cols, {{x, sizeof(T)}, {dy, sizeof(T)}, {dx, sizeof(T)}});
   return with_vec<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
     const T* xt = static_cast<const T*>(x);
@@ -347,8 +265,8 @@ template <typename T>
 int bwd_feature(const void* x, const float* b, const void* dy, void* dx, float* partial,
                 float* db, int act, long long rows, long long cols, int row_tile,
                 cudaStream_t s) {
-  const void* ptrs[] = {x, dy, dx};
-  const int vec = pick_vec<T>(cols, ptrs, 3);
+  const int vec =
+      pick_vec(16 / sizeof(T), cols, {{x, sizeof(T)}, {dy, sizeof(T)}, {dx, sizeof(T)}});
   const long long n_tiles = (rows + row_tile - 1) / row_tile;
   return with_vec<T>(vec, [&](auto v) {
     constexpr int V = decltype(v)::value;
@@ -360,8 +278,7 @@ int bwd_feature(const void* x, const float* b, const void* dy, void* dx, float* 
         act, rows, cols, row_tile);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    bias_act_db_sum<<<grid_blocks(cols), kThreads, 0, s>>>(partial, db, n_tiles, cols);
-    return static_cast<int>(cudaGetLastError());
+    return launch_column_fold(partial, db, n_tiles, cols, s);
   });
 }
 

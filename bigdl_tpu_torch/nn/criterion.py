@@ -1,5 +1,6 @@
 """Criterions (losses) of the port: counterpart of the LM-training part of
-``bigdl_tpu/nn/criterion.py``.
+``bigdl_tpu/nn/criterion.py`` (``ClassNLLCriterion``,
+``CrossEntropyCriterion``, ``TimeDistributedCriterion``).
 
 ``forward(input, target) -> loss`` (a 0-d tensor that autograd can
 differentiate), ``backward(input, target) -> grad_input``; ``size_average``
@@ -144,3 +145,48 @@ class CrossEntropyCriterion(AbstractCriterion):
         uniform = -torch.mean(logp, dim=-1)
         uniform = torch.mean(uniform) if self._nll.size_average else torch.sum(uniform)
         return (1.0 - eps) * nll + eps * uniform
+
+
+class TimeDistributedCriterion(AbstractCriterion):
+    """The inner criterion applied at each time step of (N, T, ...) scores
+    against (N, T, ...) targets; the steps' losses summed, and divided by T
+    with ``size_average`` (reference: TimeDistributedCriterion.scala).
+    ``dimension`` is accepted and, as in the JAX package, the time dim is 1.
+
+    The JAX package loops over T in Python, which its jit compiles away. An
+    eager loop would launch a few kernels per step, so an inner criterion
+    with a row-wise form (``unreduced``) is reduced in one call instead:
+    each step over N as the inner criterion reduces it (the weighted sum
+    over the weight sum with its ``size_average``, else the sum), then the
+    steps summed in order. Other inner criteria run the loop."""
+
+    def __init__(self, criterion: AbstractCriterion, size_average: bool = False,
+                 dimension: int = 2):
+        super().__init__()
+        self.criterion = criterion
+        self.size_average = size_average
+        self.dimension = dimension
+
+    def _steps(self, input, target) -> Optional[torch.Tensor]:
+        """The (T,) per-step losses in one call, or None without a row-wise form."""
+        inner = self.criterion
+        dec = inner.unreduced(input, target)
+        if dec is None:
+            return None
+        n, t = input.shape[:2]
+        per, w = (a.reshape(n, t) for a in dec)
+        if inner.size_average:
+            return per.sum(0) / torch.clamp(w.sum(0), min=1e-8)
+        return per.sum(0)
+
+    def _apply(self, input, target) -> torch.Tensor:
+        t_steps = input.shape[1]
+        steps = self._steps(input, target)
+        if steps is not None:
+            total = torch.cumsum(steps, 0)[-1]  # the steps added in order, as the loop adds them
+        else:
+            target = _as_target(target, input.device)
+            total = 0.0
+            for t in range(t_steps):
+                total = total + self.criterion._apply(input[:, t], target[:, t])
+        return total / t_steps if self.size_average else total

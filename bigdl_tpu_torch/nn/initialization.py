@@ -47,6 +47,16 @@ class RandomUniform(InitializationMethod):
         return torch.empty(shape, dtype=dtype).uniform_(lo, hi, generator=generator)
 
 
+class RandomNormal(InitializationMethod):
+    """N(mean, stdv²) (``LookupTable``'s default, N(0, 1))."""
+
+    def __init__(self, mean: float = 0.0, stdv: float = 1.0):
+        self.mean, self.stdv = mean, stdv
+
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        return self.mean + self.stdv * torch.randn(shape, generator=generator, dtype=dtype)
+
+
 class MsraFiller(InitializationMethod):
     """He normal: N(0, 2/n) with n = fanIn, or (fanIn + fanOut)/2 when
     ``variance_norm_average``."""

@@ -1,6 +1,9 @@
-"""Batch normalization (counterpart of ``BatchNormalization`` /
-``SpatialBatchNormalization`` in ``bigdl_tpu/nn/normalization.py``), in
-torch ops with the JAX package's semantics, which are not cuDNN's:
+"""Normalization layers (counterpart of ``bigdl_tpu/nn/normalization.py``):
+``BatchNormalization`` / ``SpatialBatchNormalization``, ``LayerNormalization``
+and ``RMSNorm``.
+
+Batch normalization is in torch ops with the JAX package's semantics, which
+are not cuDNN's:
 
 * statistics are float32 even for a bf16 input;
 * training updates ``running_mean`` and ``running_var`` with momentum 0.1
@@ -14,6 +17,17 @@ autograd history (detached batch statistics, under ``torch.no_grad()``):
 state is never differentiated, and a state that held the step's graph would
 keep every saved activation of that step alive for as long as the state
 lives.
+
+``LayerNormalization`` (eps 1e-5) and ``RMSNorm`` (eps 1e-6) normalize over
+the last dim. With the fused-kernel switch off they run the JAX package's
+chains op for op: LayerNorm's mean and population variance in ``x``'s
+dtype, then ``· weight + bias`` (fp32 masters, so the output is fp32);
+RMSNorm in fp32 with the gain applied before one cast back to ``x``'s dtype.
+Under ``Engine.set_fused_kernels(True)`` they run
+:func:`bigdl_tpu_torch.ops.fused_norm.fused_layer_norm` /
+``fused_rms_norm`` (the CUDA kernels on the card, their plain versions on
+the CPU), whose statistics are fp32 for every input dtype: for a bf16
+``x`` LayerNorm's two routes differ, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from ..ops.fused_common import fused_kernels_active
+from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
 from .module import AbstractModule
 
 
@@ -80,3 +96,60 @@ class BatchNormalization(AbstractModule):
 
 class SpatialBatchNormalization(BatchNormalization):
     """BN over NCHW, per-channel statistics."""
+
+
+class _LastDimNorm(AbstractModule):
+    """A norm over the last dim with a declared (or inferred) hidden size."""
+
+    def __init__(self, hidden_size: Optional[int], eps: float, device=None):
+        super().__init__(device)
+        self.hidden_size = hidden_size
+        self.eps = eps
+
+    def _hidden(self, x) -> int:
+        h = x.shape[-1]
+        if self.hidden_size is not None and h != self.hidden_size:
+            raise ValueError(f"{self.name()}: declared hidden size {self.hidden_size}, got "
+                             f"last dim {h} (input shape {tuple(x.shape)})")
+        return h
+
+
+class LayerNormalization(_LastDimNorm):
+    """LayerNorm over the last dim (reference: LayerNormalization.scala)."""
+
+    def __init__(self, hidden_size: Optional[int] = None, eps: float = 1e-5, device=None):
+        super().__init__(hidden_size, eps, device)
+
+    def _build(self, generator, sample):
+        self.hidden_size = h = self._hidden(sample)
+        return {"weight": torch.ones(h), "bias": torch.zeros(h)}, {}
+
+    def _apply_params(self, params, state, x, training, rng):
+        self._hidden(x)
+        if fused_kernels_active():
+            return fused_layer_norm(x, params["weight"], params["bias"], self.eps), state
+        mean = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.var(x, dim=-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * params["weight"] + params["bias"], state
+
+
+class RMSNorm(_LastDimNorm):
+    """Root-mean-square norm over the last dim (Zhang & Sennrich 2019):
+    ``x · rsqrt(mean(x²) + eps) · g``, LayerNorm without centring or bias;
+    fp32 statistics, the output in ``x``'s dtype."""
+
+    def __init__(self, hidden_size: Optional[int] = None, eps: float = 1e-6, device=None):
+        super().__init__(hidden_size, eps, device)
+
+    def _build(self, generator, sample):
+        self.hidden_size = h = self._hidden(sample)
+        return {"weight": torch.ones(h)}, {}
+
+    def _apply_params(self, params, state, x, training, rng):
+        self._hidden(x)
+        if fused_kernels_active():
+            return fused_rms_norm(x, params["weight"], self.eps), state
+        xf = x.float()
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + self.eps) * params["weight"]).to(x.dtype), state

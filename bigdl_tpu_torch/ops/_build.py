@@ -122,6 +122,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.bigdl_bias_act_bwd_row
     fn.argtypes = [vp] * 5 + [i] * 2 + [ll] * 3 + [vp]
     fn.restype = ctypes.c_int
+    # x, w, b, y, dtype, rows, h, eps, stream
+    fn = lib.bigdl_layer_norm_fwd
+    fn.argtypes = [vp] * 4 + [i, ll, i, f, vp]
+    fn.restype = ctypes.c_int
+    # x, w, dy, dx, partial, dwdb, dtype, rows, h, row_tile, eps, stream
+    fn = lib.bigdl_layer_norm_bwd
+    fn.argtypes = [vp] * 6 + [i, ll, i, i, f, vp]
+    fn.restype = ctypes.c_int
+    # x, w, y, dtype, rows, h, eps, stream
+    fn = lib.bigdl_rms_norm_fwd
+    fn.argtypes = [vp] * 3 + [i, ll, i, f, vp]
+    fn.restype = ctypes.c_int
+    # x, w, dy, dx, partial, dw, dtype, rows, h, row_tile, eps, stream
+    fn = lib.bigdl_rms_norm_bwd
+    fn.argtypes = [vp] * 6 + [i, ll, i, i, f, vp]
+    fn.restype = ctypes.c_int
     return lib
 
 

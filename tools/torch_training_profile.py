@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the port, on one CUDA card.
 
-    python3 tools/torch_training_profile.py [lm] [flagship] [vgg]   # needs one CUDA card
+    python3 tools/torch_training_profile.py [lm] [flagship] [vgg] [normlm]   # one CUDA card
 
 Training steps through ``LocalOptimizer`` (all three when no mode is
 named): ``lm``, the full-width Transformer-LM of ``chip_smoke.py`` (vocab
@@ -13,14 +13,18 @@ bf16 activations, ``ClassNLLCriterion`` on the raw logits, SGD lr 0.1
 momentum 0.9); ``vgg``, the VGG-16 of ``chip_smoke.py`` [8] (conv/fc ReLUs
 declared as epilogues, the fused-kernel switch on, dropout on, batch 64,
 bf16 compute and activations, ``ClassNLLCriterion`` on the ``LogSoftMax``
-output, SGD lr 0.01 momentum 0.9).
+output, SGD lr 0.01 momentum 0.9); ``normlm``, the norm-LM of
+``chip_smoke.py`` [9] in both variants (LayerNormalization, then RMSNorm;
+V 8192, H 512, 6 stages, batch 8 of 2048 planted-bigram tokens, the
+fused-kernel switch on, bf16 compute and activations, ``Adam(3e-3)``,
+``TimeDistributedCriterion(CrossEntropyCriterion(), size_average=True)``).
 
 Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
 Prints two step times and the rate of the first: the median gap between
 the optimizer's one-step-late loss pulls (the first of a run left out; an
 epoch's set-up lands in one gap, which the median leaves out) and the
 timed run's wall over its iterations (set-up included). Then the device
-time per step by kernel family (and the SGD update's, from a
+time per step by kernel family (and the optimizer update's, from a
 ``record_function`` range around it) and the device's busy share of the
 profiled run's wall, with the card's name and power limit.
 """
@@ -80,9 +84,24 @@ def vgg_family(name: str) -> str:
     return f
 
 
+def normlm_family(name: str) -> str:
+    n = name.lower()
+    if "layer_norm_" in n or "rms_norm_" in n or "column_fold" in n:
+        return "norm fwd/bwd + dw/db fold (this repo's kernels)"
+    if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "nvjet" in n:
+        return "matmul (cuBLAS)"
+    if "softmax" in n or "reduce" in n or "nll" in n:
+        return "reductions (log-softmax, loss, bias sums)"
+    if "embedding" in n or "index" in n or "scatter" in n or "gather" in n:
+        return "embedding gather and its backward"
+    if "copy" in n or "memcpy" in n or "cat" in n:
+        return "copies and casts"
+    return "elementwise (Adam update, ReLU, adds, ...)"
+
+
 def _profile(opt, reps: int, family):
-    """Device ms per step by family over ``reps`` iterations, and the SGD
-    update's own device ms per step (a ``record_function`` range)."""
+    """Device ms per step by family over ``reps`` iterations, and the
+    optimizer update's own device ms per step (a ``record_function`` range)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -90,7 +109,7 @@ def _profile(opt, reps: int, family):
     update = method.update
 
     def traced_update(*a, **k):
-        with record_function("sgd_update"):
+        with record_function("optimizer_update"):
             return update(*a, **k)
 
     method.update = traced_update
@@ -106,24 +125,24 @@ def _profile(opt, reps: int, family):
     # profiled run's own wall per iteration
     prof_step_ms = wall * 1e3 / reps
     by_family: dict = {}
-    sgd_ms = 0.0
+    update_ms = 0.0
     for ev in prof.key_averages():
-        if ev.key == "sgd_update":
+        if ev.key == "optimizer_update":
             # the range appears twice: as a host op (its device_time_total sums
             # the kernels it launched) and as a device-side annotation spanning
             # them, which is no kernel and must not be counted in a family
             if ev.device_type == torch.autograd.DeviceType.CPU:
-                sgd_ms = ev.device_time_total / 1e3 / reps
+                update_ms = ev.device_time_total / 1e3 / reps
             continue
         dev_us = ev.self_device_time_total
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             f = family(ev.key)
             by_family[f] = by_family.get(f, 0.0) + dev_us / 1e3 / reps
-    return by_family, sgd_ms, prof_step_ms
+    return by_family, update_ms, prof_step_ms
 
 
 def _report(label, steps, rate, profiled, card):
-    by_family, sgd_ms, prof_step_ms = profiled
+    by_family, update_ms, prof_step_ms = profiled
     busy = sum(by_family.values())
     print(f"card: {card}")
     print(f"{label}: step {steps[0]:.3f} ms (median gap), {rate}; {steps[1]:.3f} ms per "
@@ -131,7 +150,7 @@ def _report(label, steps, rate, profiled, card):
           f"iteration, the device busy {busy:.3f} ms of it ({100 * busy / prof_step_ms:.1f}%)")
     for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {f:55s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
-    print(f"  of which the SGD update (device time under its range)   {sgd_ms:8.3f} ms")
+    print(f"  of which the optimizer update (device time under its range) {update_ms:8.3f} ms")
 
 
 def _timed(opt, warmup: int, reps: int):
@@ -222,7 +241,36 @@ def profile_vgg(card: str, warmup: int = 3, reps: int = 5) -> None:
             f"{batch / steps[0] * 1e3:.1f} images/s", _profile(opt, reps, vgg_family), card)
 
 
-MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg": profile_vgg}
+def profile_normlm(card: str, warmup: int = 3, reps: int = 5) -> None:
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, TimeDistributedCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer
+    from chip_smoke import NORM_LM, norm_lm, planted_bigram_ids
+
+    c = NORM_LM
+    seq, batch = c["seq"], c["batch"]
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(True)
+    ids = planted_bigram_ids(c["n_seq"] * seq + 1, c["vocab"])
+    x, y = ids[:-1].reshape(c["n_seq"], seq), ids[1:].reshape(c["n_seq"], seq)
+    for variant in ("ln", "rms"):
+        RandomGenerator.set_seed(0)
+        model = norm_lm(variant, c["vocab"], c["hidden"], c["stages"], device="cuda")
+        opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch),
+                             TimeDistributedCriterion(CrossEntropyCriterion(),
+                                                      size_average=True)).set_optim_method(
+            Adam(learningrate=3e-3))
+        steps = _timed(opt, warmup, reps)
+        _report(f"norm-LM/{variant.upper()} training step ({batch} x {seq} tokens, bf16, "
+                f"fused norms)", steps, f"{batch * seq / steps[0] * 1e3:.0f} tokens/s",
+                _profile(opt, reps, normlm_family), card)
+        del opt, model
+
+
+MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg": profile_vgg,
+         "normlm": profile_normlm}
 
 
 def main() -> int:
