@@ -1,6 +1,6 @@
-// Helpers shared by the flash-attention forward (flash_attention.cu) and
-// backward (flash_attention_bwd.cu) kernels: the mma.sync m16n8k16 bf16
-// product, bf16 packing, and the strided row-tile loader.
+// Helpers of the flash-attention kernels: the constants and bf16 packing
+// (forward, flash_attention.cu, and backward, flash_attention_bwd.cu), and
+// the backward's mma.sync m16n8k16 bf16 product and strided row-tile loader.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * quad + c2 / 2):
 //   A (16x16, row-major): a0 = (quad, c2..c2+1), a1 = (quad+8, c2..c2+1),

@@ -3,10 +3,11 @@
 At first use, every ``bigdl_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` per source started together, and linked into
 one shared library with a plain C interface, ``build/kernels/libbigdl_tpu_torch.so``
-under the checkout root, which is then loaded with ``ctypes``. The build is
-keyed on a hash of the sources (and the flags): a library whose stamp differs
-is rebuilt. Nothing here falls back: a missing ``nvcc`` or a failed build
-raises.
+under the checkout root, which is then loaded with ``ctypes`` and probed
+once (``ops/probe.py``: one launch of the probe kernel, checked). The build
+is keyed on a hash of the sources (and the flags): a library whose stamp
+differs is rebuilt. Nothing here falls back: a missing ``nvcc``, a failed
+build or a failed probe raises.
 """
 
 from __future__ import annotations
@@ -138,13 +139,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.bigdl_rms_norm_bwd
     fn.argtypes = [vp] * 6 + [i, ll, i, i, f, vp]
     fn.restype = ctypes.c_int
+    # x, y, n, stream
+    fn = lib.bigdl_probe_add_one
+    fn.argtypes = [vp, vp, ll, vp]
+    fn.restype = ctypes.c_int
     return lib
 
 
 def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), probed once on the
+    current CUDA device before it is first returned."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            lib = _bind(ctypes.CDLL(str(build())))
+            from . import probe
+
+            # Where the JAX package's gate (pallas_probe.pallas_available)
+            # answers False and its callers degrade to XLA, this raises: the
+            # port has no plain route on the card.
+            probe.run(lib, "cuda")
+            _lib = lib
         return _lib

@@ -6,13 +6,18 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. build the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` (timed) and
-   launch each once;
+2. build the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` (timed), load
+   the library (which runs the probe kernel once and raises if it fails or
+   is wrong; its verdict is logged) and launch each kernel once;
 3. each kernel against its plain PyTorch version on the card, over the
    serving/training shape and the masking/shape edge cases, with stated
-   tolerances: the forward [3] and the backward kernels dQ and dK/dV [3b]
+   tolerances: the forward [3] (on contiguous tensors and on the
+   ``split_heads`` views the LM hands it; a repeat of the serving shape
+   must give the same bits) and the backward kernels dQ and dK/dV [3b]
    (whose repeated run must give the same bits);
-4. kernel, plain-version and library times beside the card's bound;
+4. kernel, plain-version and library times beside the card's bound (the
+   probe kernel's too; SDPA's backward timed under each backend that takes
+   the shape, and the one it picks by default named);
 5. serving: the full-width Transformer-LM (vocab 8192, hidden 512, 8
    heads, filter 2048, 6 layers, T=2048, random weights from a seed) served
    through ``ModelServer`` — 16 single-record requests from 4 threads, each
@@ -173,8 +178,10 @@ def _counters():
     from bigdl_tpu_torch.ops import fused_epilogue as fe
     from bigdl_tpu_torch.ops import fused_norm as fn
     from bigdl_tpu_torch.ops import maxpool as mp
+    from bigdl_tpu_torch.ops import probe
 
-    return {"flash_attention_fwd": (fa, "launches"), "flash_attention_bwd_dq": (fa, "launches_dq"),
+    return {"probe_add_one": (probe, "launches"), "flash_attention_fwd": (fa, "launches"),
+            "flash_attention_bwd_dq": (fa, "launches_dq"),
             "flash_attention_bwd_dkv": (fa, "launches_dkv"), "maxpool2d_bwd": (mp, "launches"),
             "bias_act_fwd": (fe, "launches_fwd"),
             "bias_act_bwd_feature": (fe, "launches_bwd_feature"),
@@ -211,8 +218,13 @@ def phase_build():
 
     t0 = time.perf_counter()
     lib = _build.build(force=True)
-    _build.load()
+    _build.load()  # loads and probes: raises if the probe kernel fails or is wrong
     log(f"[2] built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    from bigdl_tpu_torch.ops import probe
+
+    log(f"    probe (y = x + 1 on an {probe.SHAPE} f32 block, at the library's first load): "
+        f"kernels_available('cuda') = {probe.kernels_available('cuda')}, reason "
+        f"{probe.unavailable_reason()!r}, {probe.launches} launch")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("    ptxas: " + line.strip())
@@ -247,6 +259,12 @@ def _rand(shape, dtype, g):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
+def _split_heads(shape, dtype, g):
+    """An (N, H, T, d) view of an (N, T, H*d) tensor, as ``split_heads`` makes."""
+    n, h, t, d = shape
+    return _rand((n, t, h * d), dtype, g).view(n, t, h, d).permute(0, 2, 1, 3)
+
+
 def _visible_pairs(n, h, tq, tk, causal, lengths, mask_q):
     from bigdl_tpu_torch.ops.flash_attention import visible_mask
 
@@ -263,27 +281,39 @@ def phase_parity():
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 reference stays fp32
     torch.backends.cudnn.allow_tf32 = False
     bf, f32 = torch.bfloat16, torch.float32
-    # (label, N, H, Tq, Tk, d, dtype, causal, lengths, mask_q)
+    # (label, N, H, Tq, Tk, d, dtype, causal, lengths, mask_q, views): with
+    # views, q, k and v are split_heads views of (N, T, H*d) tensors, the
+    # layout the LM hands the kernel (T stride H*d, not d)
     cases = [
-        ("serving shape", 8, 8, 2048, 2048, 64, bf, True, None, None),
-        ("serving shape f32", 8, 8, 2048, 2048, 64, f32, True, None, None),
-        ("ragged lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True),
-        ("ragged lengths, no causal", 4, 2, 777, 777, 128, f32, False, [700, 33, 0, 777], True),
-        ("rectangular Tq<Tk causal", 2, 4, 300, 1100, 64, bf, True, None, None),
-        ("rectangular Tq<Tk, key lengths", 2, 4, 300, 1100, 64, f32, False, [1100, 90], False),
-        ("Tq>Tk causal (rows with no key)", 2, 2, 200, 130, 64, bf, True, None, None),
-        ("odd T=1000 causal", 2, 4, 1000, 1000, 64, bf, True, None, None),
-        ("odd T=2047 causal", 1, 8, 2047, 2047, 64, bf, True, None, None),
-        ("odd T=2047 non-causal", 1, 4, 2047, 2047, 64, bf, False, None, None),
-        ("d=128 causal", 2, 4, 1024, 1024, 128, bf, True, None, None),
-        ("d=128 f32 causal", 2, 4, 1024, 1024, 128, f32, True, [1024, 300], True),
+        ("serving shape", 8, 8, 2048, 2048, 64, bf, True, None, None, False),
+        ("serving shape f32", 8, 8, 2048, 2048, 64, f32, True, None, None, False),
+        ("ragged lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True,
+         False),
+        ("ragged lengths, no causal", 4, 2, 777, 777, 128, f32, False, [700, 33, 0, 777], True,
+         False),
+        ("rectangular Tq<Tk causal", 2, 4, 300, 1100, 64, bf, True, None, None, False),
+        ("rectangular Tq<Tk, key lengths", 2, 4, 300, 1100, 64, f32, False, [1100, 90], False,
+         False),
+        ("Tq>Tk causal (rows with no key)", 2, 2, 200, 130, 64, bf, True, None, None, False),
+        ("odd T=1000 causal", 2, 4, 1000, 1000, 64, bf, True, None, None, False),
+        ("odd T=2047 causal", 1, 8, 2047, 2047, 64, bf, True, None, None, False),
+        ("odd T=2047 non-causal", 1, 4, 2047, 2047, 64, bf, False, None, None, False),
+        ("d=128 causal", 2, 4, 1024, 1024, 128, bf, True, None, None, False),
+        ("d=128 f32 causal", 2, 4, 1024, 1024, 128, f32, True, [1024, 300], True, False),
+        ("views: serving shape", 8, 8, 2048, 2048, 64, bf, True, None, None, True),
+        ("views: T=1000 causal", 2, 8, 1000, 1000, 64, bf, True, None, None, True),
+        ("views: T=2047 causal", 1, 8, 2047, 2047, 64, bf, True, None, None, True),
+        ("views: d=128 T=1000 causal", 2, 4, 1000, 1000, 128, bf, True, None, None, True),
+        ("views: lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True,
+         True),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     log("[3] kernel vs plain version on the card "
         f"(|err| <= atol + rtol*|ref|; {TOL})")
     record = None
-    for label, n, h, tq, tk, d, dt, causal, lens, mask_q in cases:
-        q, k, v = _rand((n, h, tq, d), dt, g), _rand((n, h, tk, d), dt, g), _rand((n, h, tk, d), dt, g)
+    for label, n, h, tq, tk, d, dt, causal, lens, mask_q, views in cases:
+        make = _split_heads if views else _rand
+        q, k, v = make((n, h, tq, d), dt, g), make((n, h, tk, d), dt, g), make((n, h, tk, d), dt, g)
         lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
         out, lse = flash_attention_fwd(q, k, v, causal, lengths=lengths, mask_q=mask_q)
         torch.cuda.synchronize()
@@ -302,9 +332,15 @@ def phase_parity():
         if not (ok_out and ok_lse and finite):
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {label}")
         if record is None:
+            again = flash_attention_fwd(q, k, v, causal, lengths=lengths, mask_q=mask_q)
+            same = torch.equal(again[0], out) and torch.equal(again[1], lse)
+            log(f"    repeated serving-shape forward bit-identical: {same}")
+            if not same:
+                raise AssertionError("two runs of the forward kernel gave different bits")
             record = dict(q=q, k=k, v=v, out=out, lse=lse,
                           max_abs_err=err_out.max().item(),
                           pairs=_visible_pairs(n, h, tq, tk, causal, lengths, mask_q))
+            del again
         del q, k, v, out, lse, ref_out, ref_lse, err_out, err_lse
     torch.cuda.empty_cache()
     return record
@@ -375,6 +411,30 @@ def phase_bwd_parity():
     return record
 
 
+def phase_probe_times(card):
+    """The probe kernel against its plain version at its one shape, and its time
+    (a launch's own cost: the bound is 8 KiB of traffic)."""
+    import torch
+    from bigdl_tpu_torch.ops import probe
+
+    x = torch.randn(probe.SHAPE, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda")
+    y = probe.add_one(x)
+    torch.cuda.synchronize()
+    err = (y - probe.probe_reference(x)).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"probe kernel disagrees with x + 1 by {err}")
+    ms = cuda_ms(lambda: probe.add_one(x), iters=200, warmup=10)
+    plain_ms = cuda_ms(lambda: probe.probe_reference(x), iters=200, warmup=10)
+    b_ms, by = bound_ms(x.numel(), (x, y), card)  # one add an element; read x, write y
+    log(f"[4] kernels: probe_add_one {tuple(x.shape)} f32: max err {err} (exact), kernel_ms "
+        f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b_ms:.7f} ({by}); card {card}")
+    return {"name": "probe_add_one", "route": "cuda", "source": "bigdl_tpu_torch/csrc/probe.cu",
+            "replaces": "bigdl_tpu/ops/pallas_probe.py:40", "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
+
+
 def phase_times(rec, card):
     import torch
     import torch.nn.functional as F
@@ -433,6 +493,26 @@ def phase_bwd_times(rec, card):
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
     library_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, d_out, retain_graph=True))
+    default = type(lib_out.grad_fn).__name__
+    # SDPA's backward under each backend that takes the shape, by name (the
+    # backend is fixed when the forward records its node)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    by_backend = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out_b = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            by_backend[name] = cuda_ms(
+                lambda: torch.autograd.grad(out_b, leaves, d_out, retain_graph=True))
+            del out_b
+        except (RuntimeError, AttributeError) as e:  # the backend refuses the shape or is absent
+            by_backend[name] = None
+            log(f"    SDPA backend {name}: not available here ({str(e).splitlines()[0][:120]})")
+    log(f"    SDPA backward (dq+dk+dv) by backend: "
+        + ", ".join(f"{k} {v:.4f} ms" if v is not None else f"{k} n/a"
+                    for k, v in by_backend.items())
+        + f"; by default SDPA records {default} ({library_ms:.4f} ms); card {card}")
     del keep, lib_out, leaves
 
     d, pairs = q.shape[-1], rec["pairs"]
@@ -456,6 +536,7 @@ def phase_bwd_times(rec, card):
             "bound_ms": b,
             "bound_by": by,
             "library_ms": library_ms,  # backward of scaled_dot_product_attention: the pair
+            "library_ms_by_backend": by_backend, "library_default": default,
         })
         log(f"[4] kernels: {name} (8,8,2048,64) bf16 causal: verdict ok, kernel_ms {ms:.4f}, "
             f"plain_ms {plain_ms:.4f} (dq+dk+dv), bound_ms {b:.4f} ({by}), library_ms "
@@ -1944,6 +2025,7 @@ def main() -> int:
     mp_rec = phase_maxpool_parity()
     ep_rec = phase_epilogue_parity()
     norm_rec = phase_norm_parity()
+    probe_k = phase_probe_times(card)
     fwd = phase_times(rec, card)
     dq, dkv = phase_bwd_times(bwd_rec, card)
     pool = phase_maxpool_times(mp_rec, card)
@@ -1954,7 +2036,7 @@ def main() -> int:
     by_path = {"serving": phase_slice(card), "training": phase_training(card),
                "flagship": phase_flagship(card), "vgg": phase_vgg(card),
                "normlm": phase_norm_lm(card)}
-    kernels = [fwd, dq, dkv, pool, *epilogue, *norms]
+    kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -192,7 +192,7 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "import bigdl_tpu_torch.nn.normalization, bigdl_tpu_torch.nn.pooling\n"
         "import bigdl_tpu_torch.ops.maxpool, bigdl_tpu_torch.ops.fused_epilogue\n"
         "import bigdl_tpu_torch.ops.fused_common, bigdl_tpu_torch.nn.dropout\n"
-        "import bigdl_tpu_torch.models.vgg\n"
+        "import bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.ops.probe\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"
