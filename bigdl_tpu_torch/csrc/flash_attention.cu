@@ -27,11 +27,11 @@
 //   gives its registers back (setmaxnreg 40), the consumers take 232.
 // - TMA: 4-D tensor maps over (d, T, H, N) built from the caller's strides,
 //   so the LM's split_heads views go in without a copy; 128-byte swizzle.
-//   The producer loads an item's q tile (as soon as the previous item's last
-//   S product has read its own) and its k/v tiles of 128 keys into a ring of
-//   3 stages with full/empty mbarriers that runs on across items; rows past
-//   T come back as zeros; key tiles no row of the item can see are never
-//   loaded.
+//   The producer (flash_tma.cuh, shared with the backward kernels) loads an
+//   item's q tile (as soon as the previous item's last S product has read
+//   its own) and its k/v tiles of 128 keys into a ring of 3 stages with
+//   full/empty mbarriers that runs on across items; rows past T come back
+//   as zeros; key tiles no row of the item can see are never loaded.
 // - wgmma: S = Q K^T as m64n128k16 with both operands in shared memory
 //   (K-major); O += P V with P from registers (the S accumulators rounded to
 //   bf16) and V read in place as an MN-major operand. 128 keys a tile at both
@@ -59,6 +59,7 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_tma.cuh"
 #include "hopper_common.cuh"
 
 namespace {
@@ -117,20 +118,14 @@ __device__ inline bool tile_full(const Params& p, const Tile& t, int q0, int k0,
 }
 
 // ------------------------------------------------------------------ bf16 path
-// 2^x on the special-function unit, results below 2^-126 flushed to 0 (P
-// values that small vanish in the bf16 rounding of P anyway).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using flash_tma::fast_exp2;
+using flash_tma::kConsumerWarps;
+using flash_tma::kThreads;
 
-constexpr int kBQ = 128;         // query rows a work item (two warpgroups of 64)
-constexpr int kBK = 128;         // keys a tile
-constexpr int kStages = 3;       // k/v ring depth
-constexpr int kThreads = 384;    // producer warpgroup + two consumer warpgroups
-constexpr int kHalfBytes = 128 * 128;  // 128 rows x 64 bf16 columns, swizzled
-constexpr int kConsumerWarps = 8;
+constexpr int kBQ = flash_tma::kRows;  // query rows a work item (two warpgroups of 64)
+constexpr int kBK = flash_tma::kRows;  // keys a tile
+constexpr int kStages = 3;             // k/v ring depth
+constexpr int kHalfBytes = flash_tma::kHalf;  // 128 rows x 64 bf16 columns, swizzled
 
 // Shared memory of one block, in bytes from a 1024-aligned base: the q
 // tile, then stage s's K at kv(s) and V at kv(s) + tile, then the mbarriers
@@ -172,19 +167,7 @@ __device__ inline Tile item_tile(const Params& p, int item, int nh, int q_tiles)
   return make_tile(p, kBQ, item % nh, q_tiles - 1 - item / nh);
 }
 
-// The item this block takes in its round r: rows of gridDim.x items in
-// order, dealt left to right on even rounds and right to left on odd ones,
-// which evens out the blocks' sums of decreasing causal work.
-__device__ inline int item_of(int r) {
-  const int b = (r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  return r * gridDim.x + b;
-}
-
-// Of four values, the one at (runtime) index i, without local memory.
-__device__ inline uint32_t pick4(uint32_t a, uint32_t b, uint32_t c, uint32_t d, int i) {
-  const uint32_t lo = (i & 1) ? b : a, hi = (i & 1) ? d : c;
-  return (i & 2) ? hi : lo;
-}
+using flash_tma::item_of;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -215,37 +198,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == 0) {
     // ---------------------------------------------------------- producer
     hopper::setmaxnreg_dec<40>();
-    if (threadIdx.x != 0) return;
-    int kv = 0, nq = 0;  // k/v tiles and q tiles loaded so far
-    for (int r = 0; r * gridDim.x < n_items; ++r) {
-      const int item = item_of(r);
-      if (item >= n_items) continue;
-      const Tile t = item_tile(p, item, nh, q_tiles);
-      const int n_tiles = (t.k_end + kBK - 1) / kBK;
-      if (n_tiles == 0) continue;
-      // the q buffer is free once both warpgroups' last S of the previous
-      // item has completed
-      if (nq > 0) hopper::mbar_wait(bar_q_empty, (nq - 1) & 1);
-      hopper::mbar_arrive_expect_tx(bar_q_full, L::kTile);
-#pragma unroll
-      for (int hf = 0; hf < D / 64; ++hf)
-        hopper::tma_load_4d(base + L::kQ + hf * kHalfBytes, &tm_q, bar_q_full, hf * 64, t.q0,
-                            t.hh, t.n);
-      ++nq;
-      for (int j = 0; j < n_tiles; ++j, ++kv) {
-        const int s = kv % kStages;
-        if (kv >= kStages) hopper::mbar_wait(bar_empty + 8 * s, ((kv / kStages) - 1) & 1);
-        hopper::mbar_arrive_expect_tx(bar_full + 8 * s, 2 * L::kTile);
-        const uint32_t kt = base + L::kv(s), vt = kt + L::kTile;
-#pragma unroll
-        for (int hf = 0; hf < D / 64; ++hf) {
-          hopper::tma_load_4d(kt + hf * kHalfBytes, &tm_k, bar_full + 8 * s, hf * 64, j * kBK,
-                              t.hh, t.n);
-          hopper::tma_load_4d(vt + hf * kHalfBytes, &tm_v, bar_full + 8 * s, hf * 64, j * kBK,
-                              t.hh, t.n);
-        }
-      }
-    }
+    if (threadIdx.x >= 32) return;
+    // the q tile is resident; k/v tiles of 128 keys are streamed up to k_end
+    flash_tma::produce<D, 1, kStages, false>(
+        &tm_q, nullptr, &tm_k, &tm_v, base + L::kQ, base + L::kv(0), 2 * L::kTile, bar_full,
+        bar_empty, bar_q_full, bar_q_empty, n_items,
+        [&](int item) {
+          const Tile t = item_tile(p, item, nh, q_tiles);
+          return flash_tma::Load{t.n, t.hh, t.q0, 0, (t.k_end + kBK - 1) / kBK};
+        },
+        [](int, int, const flash_tma::Load&) {});
     return;
   }
 
@@ -420,40 +382,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       ++nq;
     }
 
-    // Epilogue: O / l rounded to bf16; the 4 threads of a quad hold the 8
-    // columns of each 8-column block of a row, 2 each, and swap pieces by
-    // shuffles so that each stores whole 16-byte chunks: thread c of the
-    // quad stores blocks 4u + c.
-    const int c = lane & 3;
+    // Epilogue: O / l rounded to bf16, written as 16-byte chunks.
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
-      const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      uint32_t w[D / 8];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        w[i] = pack_bf16(o[i * 4 + 2 * r] * inv, o[i * 4 + 2 * r + 1] * inv);
-      bf16* O = static_cast<bf16*>(p.o) + ((long long)t.bh * p.tq + row) * D;
-#pragma unroll
-      for (int u = 0; u < D / 32; ++u) {
-        uint32_t got[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          // round k: read from quad lane (c + k) & 3, which sends its
-          // piece of block 4u + ((its c - k) & 3), i.e. of this thread's block
-          const uint32_t send = pick4(w[4 * u], w[4 * u + 1], w[4 * u + 2], w[4 * u + 3],
-                                      (c - k) & 3);
-          got[k] = __shfl_sync(0xffffffffu, send, (lane & ~3) | ((c + k) & 3));
-        }
-        // got[k] is the piece of quad lane (c + k) & 3; piece q is got[(q - c) & 3]
-        uint4 chunk;
-        chunk.x = pick4(got[0], got[1], got[2], got[3], (0 - c) & 3);
-        chunk.y = pick4(got[0], got[1], got[2], got[3], (1 - c) & 3);
-        chunk.z = pick4(got[0], got[1], got[2], got[3], (2 - c) & 3);
-        chunk.w = pick4(got[0], got[1], got[2], got[3], (3 - c) & 3);
-        if (row < p.tq) *reinterpret_cast<uint4*>(O + (4 * u + c) * 8) = chunk;
-      }
-      if (c == 0 && row < p.tq)
+      flash_tma::store_row_bf16<D>(o, r, 1.f / fmaxf(l[r], 1e-30f),
+                                   static_cast<bf16*>(p.o) + ((long long)t.bh * p.tq + row) * D,
+                                   row < p.tq);
+      if ((lane & 3) == 0 && row < p.tq)
         p.lse[(long long)t.bh * p.tq + row] = l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : kNegBig;
     }
   }
@@ -462,23 +398,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D>
 int launch_bf16(const Params& p, int n, int h, int tq, int tk, cudaStream_t stream) {
-  using hopper_host::encode_bf16_4d;
+  using flash_tma::encode_rows;
   CUtensorMap mq, mk, mv;
-  const long long dq[4] = {D, tq, h, n}, dk[4] = {D, tk, h, n};
-  const long long sq[3] = {p.q_st, p.q_sh, p.q_sn}, sk[3] = {p.k_st, p.k_sh, p.k_sn},
-                  sv[3] = {p.v_st, p.v_sh, p.v_sn};
-  int rc = encode_bf16_4d(&mq, p.q, dq, sq, 64, kBQ);
-  if (rc == 0) rc = encode_bf16_4d(&mk, p.k, dk, sk, 64, kBK);
-  if (rc == 0) rc = encode_bf16_4d(&mv, p.v, dk, sv, 64, kBK);
+  int rc = encode_rows<D>(&mq, p.q, n, h, tq, p.q_sn, p.q_sh, p.q_st);
+  if (rc == 0) rc = encode_rows<D>(&mk, p.k, n, h, tk, p.k_sn, p.k_sh, p.k_st);
+  if (rc == 0) rc = encode_rows<D>(&mv, p.v, n, h, tk, p.v_sn, p.v_sh, p.v_st);
   if (rc != 0) return rc;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int q_tiles = (tq + kBQ - 1) / kBQ, items = n * h * q_tiles;
-  const int grid = items < sms ? items : sms;  // persistent: one block an SM
+  const int grid = flash_tma::persistent_grid(items);
   flash_fwd_bf16<D><<<grid, kThreads, FwdSmem<D>::kBytes, stream>>>(mq, mk, mv, p, n * h,
                                                                     q_tiles);
   return static_cast<int>(cudaGetLastError());

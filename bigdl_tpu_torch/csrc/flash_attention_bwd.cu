@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a): dQ and dK/dV, bound to
-// Python through two plain C entry points (ctypes; see
+// Python through plain C entry points (ctypes; see
 // bigdl_tpu_torch/ops/_build.py).
 //
 // Replaces: bigdl_tpu/ops/flash_attention.py::_dq_kernel and ::_dkv_kernel
@@ -15,33 +15,63 @@
 // visible key get none. The exponent is clamped to <= 0 (the TPU kernel's
 // clip in _bwd_masked_p). As on the TPU, P is rounded to dO's dtype before
 // P^T dO, and dS to the operands' dtype before dS K and dS^T Q; everything
-// else (accumulators, softmax bookkeeping) is fp32.
+// else (accumulators, softmax bookkeeping) is fp32. No atomics: two runs give
+// the same bits. The split into two kernels recomputes S and dP (7 products
+// where the least work is 5); adding dQ from the dK/dV kernel would need
+// atomics, whose order changes from run to run.
 //
 // Bound on this card, at the training shape (8, 8, 2048, 64) bf16 causal,
 // ~1.34e8 visible (query, key) pairs: dQ runs 3 products (S, dP, dS K), ~5.2e10
 // FLOP against ~85 MB of traffic; dK/dV 4 products (S^T, dP^T, P^T dO,
 // dS^T Q), ~6.9e10 FLOP against ~102 MB. Both sit far above the H100's ~295
 // FLOP/byte ridge, so both are bound by the tensor cores (~0.052 ms and
-// ~0.070 ms at 989 TFLOP/s; the split recomputes S and dP, the backward's
-// least work of five products is ~0.087 ms for the pair). What the design
-// does about it: every product runs on the tensor cores (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate); P and dS never leave registers (dK/dV computes
-// S^T = K Q^T, rows = keys, so P^T and dS^T come out in the accumulator
-// layout that is the A operand of the next product); tiles past the causal
-// or `lengths` horizon are never loaded. Not done yet (later work): wgmma,
-// TMA/cp.async pipelining, ldmatrix, register-resident A operands.
+// ~0.070 ms at 989 TFLOP/s); beside them one exp2 a visible pair on the
+// special-function units (~0.035 ms a kernel).
 //
-// The TPU kernels' sequential-grid accumulators in VMEM are not carried
-// over: here one thread block owns one (n*h, 64-row q tile) for dQ, or one
-// (n*h, 64-key k tile) for dK/dV, and loops over the other axis itself with
-// its accumulators in registers. No atomics: two runs give the same bits.
+// The bf16 design (d = 64 or 128), the forward's (flash_attention.cu) turned
+// around, its producer reused (flash_tma.cuh):
+// - A persistent grid, one block an SM, walks work items longest first in a
+//   snake order: dQ's items are (n*h, 128-row q tile), the late q tiles
+//   first; dK/dV's are (n*h, 128-key tile), the early key tiles first. A
+//   block is a producer warp and two consumer warpgroups of 64 rows (dQ:
+//   query rows; dK/dV: keys); setmaxnreg 40 for the producer, 232 for them.
+// - TMA: 4-D tensor maps over (d, T, H, N) from the caller's strides (the
+//   LM's split_heads views go in without a copy), boxes of 128 rows, 128-byte
+//   swizzle, zeros past T; one set of four maps (Q, K, V, dO) serves both
+//   kernels of a call. The item's resident tiles (dQ: Q and dO; dK/dV: K and
+//   V) are loaded once, as soon as the previous item's last product that
+//   reads them has completed; the other pair is streamed in stages of 128
+//   rows through a ring with full/empty mbarriers, from the first stage that
+//   can see the item to its horizon (nothing else is loaded). dK/dV's
+//   producer warp copies each stage's lse * log2(e) and delta beside it.
+// - wgmma: the consumers take a stage in sub-tiles of 64 rows (dK/dV at
+//   d = 128: 32, for registers). S and dP (dK/dV: S^T = K Q^T and dP^T =
+//   V dO^T, rows = keys) with both operands in shared memory, K-major; the
+//   second products with the A operand from registers (the accumulators
+//   rounded to bf16, see hopper_common.cuh) and the B operand read in place,
+//   MN-major: dQ += dS K reads the K tile that S read K-major, dV += P^T dO
+//   and dK += dS^T Q read the dO and Q tiles that dP^T and S^T read.
+// - Overlap: each round a warpgroup issues S, dP of sub-tile j and the
+//   second products of sub-tile j-1 together, then computes sub-tile j's P
+//   and dS while those run; the two warpgroups take turns to issue (named
+//   barriers 1 and 2). The rounds are peeled so that no branch and no read
+//   of an accumulator sits between a wgmma and its wait.
+// - P and dS in registers: exp2 on the special-function unit; masks only on
+//   sub-tiles that are not fully visible (a uniform branch), as compares
+//   against each row's last visible key (dQ) or each key's first visible
+//   row and the rows' end (dK/dV).
+// - Epilogue: dQ, dK, dV rounded to bf16 and written from registers as
+//   16-byte chunks after shuffles within each quad.
 //
 // float32 inputs (exact paths, not the training path) take CUDA-core (FMA)
-// kernels: 4 threads per row, each owning a quarter of the head dim.
+// kernels: 4 threads per row, each owning a quarter of the head dim, one
+// block per (64-row tile, n*h).
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_tma.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -89,14 +119,6 @@ __device__ inline bool allowed(const BwdParams& p, const Head& g, int row, int c
          (!p.causal || row + g.co >= col);
 }
 
-// Every (row, col) of the (bq x bk) tile at (q0, k0) is visible.
-__device__ inline bool tile_full(const BwdParams& p, const Head& g, int q0, int bq,
-                                 int k0, int bk) {
-  return q0 + bq <= p.tq && k0 + bk <= g.kl &&
-         (!p.causal || q0 + g.co >= k0 + bk - 1) &&
-         (!g.qmask || q0 + bq - 1 + g.co < g.kl);
-}
-
 // Keys [0, k_end) are visible to at least one row of the q tile at q0.
 __device__ inline int dq_k_end(const BwdParams& p, const Head& g, int q0, int bq) {
   int k_end = g.kl;
@@ -118,238 +140,602 @@ __device__ inline void dkv_q_range(const BwdParams& p, const Head& g, int k0, in
 }
 
 // ------------------------------------------------------------------ bf16 path
-// dQ: one block (4 warps, 16 query rows each) per (n*h, 64-row q tile).
+using flash_tma::fast_exp2;
+using flash_tma::kConsumerWarps;
+using flash_tma::kHalf;
+using flash_tma::kRows;
+using flash_tma::kThreads;
+
+// Tile sizes: a work item is 128 rows of the resident operand (64 a consumer
+// warpgroup); the streamed operand comes in stages of 128 rows, taken by the
+// consumers in sub-tiles of kSub rows. Registers of a consumer thread (fp32
+// accumulators, the bf16 A operands of the previous sub-tile):
+//   dQ:    S, dP kSub/2 each + dQ D/2 + dS kSub/4    (d 64, kSub 128: 192;
+//          d 128, kSub 64: 144)
+//   dK/dV: S^T, dP^T kSub/2 each + dK, dV D/2 each + P^T, dS^T kSub/4 each
+//          (d 64, kSub 64: 160; d 128, kSub 32: 176)
+// and the ring fills what shared memory is left (d 64: 4 stages of 32 KB;
+// d 128: 2 of 64 KB, beside the 64 KB resident tiles).
 template <int D>
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(BwdParams p) {
-  constexpr int BQ = 64, BK = 64, LD = D + 8, NT = 128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sO = sQ + BQ * LD;  // dO
-  bf16* sK = sO + BQ * LD;
-  bf16* sV = sK + BK * LD;
+struct DqCfg {
+  static constexpr int kSub = D == 64 ? 128 : 64, kStages = D == 64 ? 4 : 2;
+};
 
-  const Head g = make_head(p);
-  // causal tiles late in the sequence carry the most work: start them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int k_end = dq_k_end(p, g, q0, BQ);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, c2 = (lane % 4) * 2;
-  const bf16* Q = static_cast<const bf16*>(p.q) + g.n * p.q_sn + g.hh * p.q_sh;
-  const bf16* K = static_cast<const bf16*>(p.k) + g.n * p.k_sn + g.hh * p.k_sh;
-  const bf16* V = static_cast<const bf16*>(p.v) + g.n * p.v_sn + g.hh * p.v_sh;
-  const bf16* O = static_cast<const bf16*>(p.dout) + g.n * p.o_sn + g.hh * p.o_sh;
-  load_rows_bf16<BQ, D, LD, NT>(sQ, Q, q0, p.tq, p.q_st);
-  load_rows_bf16<BQ, D, LD, NT>(sO, O, q0, p.tq, p.o_st);
+template <int D>
+struct DkvCfg {
+  static constexpr int kSub = D == 64 ? 64 : 32, kStages = D == 64 ? 4 : 2;
+};
 
-  // this thread's two query rows: row0 and row0 + 8
-  const int row0 = q0 + warp * 16 + quad;
-  float lse2[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    const long long i = (long long)g.bh * p.tq + row;
-    lse2[r] = row < p.tq ? p.lse[i] * kLog2e : 0.f;
-    dlt[r] = row < p.tq ? p.delta[i] : 0.f;
-  }
-  const float sl2 = p.scale * kLog2e;  // exponents kept in base-2 units
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+// Shared memory of one block, in bytes from a 1024-aligned base: the two
+// resident tiles, kStages stages of two tiles each, kAux bytes a stage (dK/dV:
+// lse * log2(e) and delta of the stage's 128 rows), then the mbarriers (full
+// and empty a stage, the resident tiles' full and empty).
+template <int D, int kStages, int kAux>
+struct BwdSmem {
+  static constexpr int kTile = flash_tma::tile_bytes<D>();
+  static constexpr int kRes = 0;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kAuxAt = kRing + kStages * kStage;
+  static constexpr int kBar = kAuxAt + kStages * kAux;
+  static constexpr int kBytes = kBar + 8 * (2 * kStages + 2) + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "more shared memory than a block may use");
+};
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile is no longer read
-    load_rows_bf16<BK, D, LD, NT>(sK, K, k0, p.tk, p.k_st);
-    load_rows_bf16<BK, D, LD, NT>(sV, V, k0, p.tk, p.v_st);
-    __syncthreads();
+// A work item's geometry: its head, the first row of its resident tiles
+// (r0), its sub-tiles [j0, j1) of kSub streamed rows, the key horizon kl, the
+// causal offset co = Tk - Tq, and (dK/dV) the end of the query rows that may
+// see a key, q_end.
+struct BwdItem {
+  int n, hh, bh, r0, j0, j1, co, kl, q_end;
+  bool qmask;
+};
 
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = dp[j][0] = dp[j][1] = dp[j][2] =
-          dp[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], oa[4];
-      a_frag<LD>(qa, sQ, warp * 16 + quad, kk * 16 + c2);
-      a_frag<LD>(oa, sO, warp * 16 + quad, kk * 16 + c2);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const bf16* kr = &sK[(j * 8 + quad) * LD + kk * 16 + c2];
-        mma_bf16(s[j], qa, *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-        const bf16* vr = &sV[(j * 8 + quad) * LD + kk * 16 + c2];
-        mma_bf16(dp[j], oa, *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
-    }
-
-    // dS = P (dP - delta) scale, into s
-    const bool full = tile_full(p, g, q0, BQ, k0, BK);
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float pe = 0.f;
-        if (full || allowed(p, g, row0 + 8 * r, k0 + j * 8 + c2 + (e & 1)))
-          pe = exp2f(fminf(s[j][e] * sl2 - lse2[r], 0.f));
-        s[j][e] = pe * (dp[j][e] - dlt[r]) * p.scale;
-      }
-    }
-
-    // dQ += dS K: the dS accumulators are the A fragments (rounded to bf16)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* k0p = &sK[(kk * 16 + c2) * LD + quad];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* kp = k0p + i * 8;
-        mma_bf16(acc[i], a, pack_bf16_raw(kp[0], kp[LD]),
-                 pack_bf16_raw(kp[8 * LD], kp[9 * LD]));
-      }
-    }
-  }
-
-  bf16* dQ = static_cast<bf16*>(p.dq) + (long long)g.bh * p.tq * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= p.tq) continue;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(&dQ[(long long)row * D + i * 8 + c2]) =
-          pack_bf16(acc[i][2 * r], acc[i][2 * r + 1]);
-  }
+__device__ inline BwdItem item_head(const BwdParams& p, int bh) {
+  BwdItem it{};
+  it.bh = bh;
+  it.n = bh / p.h;
+  it.hh = bh % p.h;
+  it.co = p.tk - p.tq;
+  it.kl = p.has_lengths ? min(p.lengths[it.n], p.tk) : p.tk;
+  it.qmask = p.has_lengths && p.mask_q;
+  return it;
 }
 
-// dK/dV: one block (4 warps, 16 keys each) per (n*h, 64-key k tile), looping
-// over BQ-row q tiles. S^T = K Q^T keeps keys on the accumulator rows.
-template <int D, int BQ>
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(BwdParams p) {
-  constexpr int BK = 64, LD = D + 8, NT = 128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + BK * LD;
-  bf16* sQ = sV + BK * LD;
-  bf16* sO = sQ + BQ * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + BQ * LD);  // lse * log2(e)
-  float* sD = sL + BQ;                                 // delta
+// dQ item i: q tile (q_tiles - 1 - i / nh) of head i % nh, so items run
+// longest first under causal; its keys [0, k_end) are those at least one of
+// its rows sees.
+template <int kSub>
+__device__ inline BwdItem dq_item(const BwdParams& p, int item, int nh, int q_tiles) {
+  BwdItem it = item_head(p, item % nh);
+  it.r0 = (q_tiles - 1 - item / nh) * kRows;
+  int k_end = it.kl;
+  if (p.causal) k_end = min(k_end, min(it.r0 + kRows, p.tq) - 1 + it.co + 1);
+  if (it.qmask && it.r0 + it.co >= it.kl) k_end = 0;
+  it.j0 = 0;
+  it.j1 = (max(k_end, 0) + kSub - 1) / kSub;
+  it.q_end = p.tq;
+  return it;
+}
 
-  const Head g = make_head(p);
-  const int k0 = blockIdx.x * BK;  // causal: early k tiles carry the most work
-  int q_begin, q_end;
-  dkv_q_range(p, g, k0, BQ, &q_begin, &q_end);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int quad = lane / 4, c2 = (lane % 4) * 2;
-  const bf16* Q = static_cast<const bf16*>(p.q) + g.n * p.q_sn + g.hh * p.q_sh;
-  const bf16* K = static_cast<const bf16*>(p.k) + g.n * p.k_sn + g.hh * p.k_sh;
-  const bf16* V = static_cast<const bf16*>(p.v) + g.n * p.v_sn + g.hh * p.v_sh;
-  const bf16* O = static_cast<const bf16*>(p.dout) + g.n * p.o_sn + g.hh * p.o_sh;
-  const float* LSE = p.lse + (long long)g.bh * p.tq;
-  const float* DLT = p.delta + (long long)g.bh * p.tq;
-  load_rows_bf16<BK, D, LD, NT>(sK, K, k0, p.tk, p.k_st);
-  load_rows_bf16<BK, D, LD, NT>(sV, V, k0, p.tk, p.v_st);
+// dK/dV item i: key tile i / nh of head i % nh (under causal the early key
+// tiles see the most rows); its query rows [q_beg, q_end) are those that may
+// see one of its keys. Keys at or past the horizon get zero gradient.
+template <int kSub>
+__device__ inline BwdItem dkv_item(const BwdParams& p, int item, int nh) {
+  BwdItem it = item_head(p, item % nh);
+  it.r0 = (item / nh) * kRows;
+  int q_end = it.qmask ? min(p.tq, it.kl - it.co) : p.tq;
+  if (it.r0 >= it.kl) q_end = 0;
+  const int q_beg = p.causal ? max(0, it.r0 - it.co) : 0;
+  it.q_end = q_end;
+  it.j0 = q_beg / kSub;
+  it.j1 = q_end > q_beg ? (q_end + kSub - 1) / kSub : it.j0;
+  return it;
+}
 
-  // this thread's two keys: key0 and key0 + 8
-  const int key0 = k0 + warp * 16 + quad;
-  const float sl2 = p.scale * kLog2e;
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = dv[i][0] = dv[i][1] = dv[i][2] =
-        dv[i][3] = 0.f;
+// The producer's view of an item: the stages that hold its sub-tiles.
+template <int kSub>
+__device__ inline flash_tma::Load load_of(const BwdItem& it) {
+  const int s0 = it.j0 * kSub / kRows;
+  return flash_tma::Load{it.n, it.hh, it.r0, s0, it.j1 > it.j0 ? (it.j1 - 1) * kSub / kRows + 1 : s0};
+}
 
-  for (int q0 = q_begin; q0 < q_end; q0 += BQ) {
-    __syncthreads();  // the previous tile is no longer read
-    load_rows_bf16<BQ, D, LD, NT>(sQ, Q, q0, p.tq, p.q_st);
-    load_rows_bf16<BQ, D, LD, NT>(sO, O, q0, p.tq, p.o_st);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
-      const bool in = q0 + i < p.tq;
-      sL[i] = in ? LSE[q0 + i] * kLog2e : 0.f;
-      sD[i] = in ? DLT[q0 + i] : 0.f;
+// dQ for one (n*h, 128-row q tile) work item per round of a persistent grid:
+//   S = Q K^T, dP = dO V^T (wgmma, both operands in shared memory, K-major),
+//   dS = P (dP - delta) scale in registers, dQ += dS K (wgmma, dS from
+//   registers, K read in place as an MN-major operand).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_o, BwdParams p, int nh,
+                      int q_tiles) {
+  constexpr int kSub = DqCfg<D>::kSub, kStages = DqCfg<D>::kStages, kSps = kRows / kSub;
+  using L = BwdSmem<D, kStages, 0>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_full = base + L::kBar;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_res_full = bar_empty + 8 * kStages;
+  const uint32_t bar_res_empty = bar_res_full + 8;
+  const int n_items = nh * q_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1);
+      hopper::mbar_init(bar_empty + 8 * s, kConsumerWarps);
     }
-    __syncthreads();
+    hopper::mbar_init(bar_res_full, 1);
+    hopper::mbar_init(bar_res_empty, kConsumerWarps);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ rows
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-      st[j][0] = st[j][1] = st[j][2] = st[j][3] = dpt[j][0] = dpt[j][1] =
-          dpt[j][2] = dpt[j][3] = 0.f;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    // Q and dO are resident; k/v stages of 128 keys are streamed up to k_end
+    flash_tma::produce<D, 2, kStages, false>(
+        &tm_q, &tm_o, &tm_k, &tm_v, base + L::kRes, base + L::kRing, L::kStage, bar_full,
+        bar_empty, bar_res_full, bar_res_empty, n_items,
+        [&](int item) { return load_of<kSub>(dq_item<kSub>(p, item, nh, q_tiles)); },
+        [](int, int, const flash_tma::Load&) {});
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // this warpgroup's 64 rows of an item start at 64 cw
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, c2 = (lane % 4) * 2;
+  const uint32_t q_w = base + L::kRes + cw * 64 * 128, o_w = q_w + L::kTile;
+  const float sl2 = p.scale * kLog2e;  // exponents kept in base-2 units
+  const int my_bar = 1 + cw, other_bar = 2 - cw;  // named barriers 1 and 2: turns to issue
+
+  float s[kSub / 2], dp[kSub / 2], dq[D / 2];
+  uint32_t pb[kSub / 16][4];  // dS of the previous sub-tile: A fragments of dS K
+  float lse2[2], dl[2];  // this thread's rows' lse * log2(e) and delta * scale
+  int kv = 0, nres = 0;  // stages and resident tiles consumed so far
+  BwdItem it{};
+  int s0 = 0, q0w = 0, row0 = 0;
+
+  // ring position, stage address and row offset of sub-tile j
+  auto pos = [&](int j) { return kv + j * kSub / kRows - s0; };
+  auto tile_at = [&](int j) {
+    return base + L::kRing + (pos(j) % kStages) * L::kStage + (j % kSps) * kSub * 128;
+  };
+  auto wait_full = [&](int j) {
+    hopper::mbar_wait(bar_full + 8 * (pos(j) % kStages), (pos(j) / kStages) & 1);
+  };
+  auto turn_begin = [&]() {
+    hopper::named_sync(my_bar, 256);
+    hopper::fence_regs<kSub / 2>(s);
+    hopper::fence_regs<kSub / 2>(dp);
+    hopper::fence_regs<D / 2>(dq);
+    hopper::fence_regs<kSub / 4>(&pb[0][0]);
+    hopper::wgmma_fence();
+  };
+  auto issue_sdp = [&](int j) {
+    const uint32_t kt = tile_at(j), vt = kt + L::kTile;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      a_frag<LD>(ka, sK, warp * 16 + quad, kk * 16 + c2);
-      a_frag<LD>(va, sV, warp * 16 + quad, kk * 16 + c2);
+      const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+      hopper::wgmma_ss<kSub>(s, hopper::desc_kmajor(q_w + off), hopper::desc_kmajor(kt + off),
+                             kk > 0);
+      hopper::wgmma_ss<kSub>(dp, hopper::desc_kmajor(o_w + off), hopper::desc_kmajor(vt + off),
+                             kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  auto issue_dq = [&](int j) {
+    const uint32_t kt = tile_at(j);
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        const bf16* qr = &sQ[(j * 8 + quad) * LD + kk * 16 + c2];
-        mma_bf16(st[j], ka, *reinterpret_cast<const uint32_t*>(qr),
-                 *reinterpret_cast<const uint32_t*>(qr + 8));
-        const bf16* orow = &sO[(j * 8 + quad) * LD + kk * 16 + c2];
-        mma_bf16(dpt[j], va, *reinterpret_cast<const uint32_t*>(orow),
-                 *reinterpret_cast<const uint32_t*>(orow + 8));
+    for (int kk = 0; kk < kSub / 16; ++kk)
+      hopper::wgmma_rs<D>(dq, pb[kk], hopper::desc_mnmajor(kt + kk * 2048, kHalf));
+    hopper::wgmma_commit();
+  };
+  // dS of sub-tile j into s (P rebuilt from lse, the exponent clamped to <= 0);
+  // only sub-tiles that are not fully visible run the masked loop (a uniform
+  // branch), with one compare an element against each row's last visible key.
+  auto compute = [&](int j) {
+    hopper::fence_regs<kSub / 2>(s);
+    hopper::fence_regs<kSub / 2>(dp);
+    const int k0 = j * kSub;
+    if (k0 + kSub <= it.kl && (!p.causal || q0w + it.co >= k0 + kSub - 1) &&
+        (!it.qmask || q0w + 63 + it.co < it.kl)) {
+#pragma unroll
+      for (int i = 0; i < kSub / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        const float pe = fast_exp2(fminf(fmaf(s[i], sl2, -lse2[r]), 0.f));
+        s[i] = pe * fmaf(dp[i], p.scale, -dl[r]);
+      }
+    } else {
+      int last[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        int lim = it.kl - 1;
+        if (p.causal) lim = min(lim, row + it.co);
+        if (it.qmask && row + it.co >= it.kl) lim = -1;
+        last[r] = lim - k0 - c2;
+      }
+#pragma unroll
+      for (int i = 0; i < kSub / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float pe = fast_exp2(fminf(fmaf(s[i], sl2, -lse2[r]), 0.f));
+        if ((i >> 2) * 8 + (i & 1) > last[r]) pe = 0.f;
+        s[i] = pe * fmaf(dp[i], p.scale, -dl[r]);
       }
     }
-
-    // P^T into st, dS^T into dpt; lse and delta index the columns (rows of Q)
-    const bool full = tile_full(p, g, q0, BQ, k0, BK);
+  };
+  // dS rounded to bf16: the accumulators of 8-key blocks 2kk, 2kk+1 are the A
+  // fragment of k-step kk of dS K.
+  auto pack = [&]() {
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      pb[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pb[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pb[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pb[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+  // After dS_j K_j completed: free the stage if j is its last sub-tile.
+  auto release = [&](int j) {
+    hopper::fence_regs<D / 2>(dq);
+    hopper::fence_regs<kSub / 4>(&pb[0][0]);
+    if (lane == 0 && (j == it.j1 - 1 || (j + 1) % kSps == 0))
+      hopper::mbar_arrive(bar_empty + 8 * (pos(j) % kStages));
+  };
+  auto release_res = [&]() {
+    if (lane == 0) hopper::mbar_arrive(bar_res_empty);
+  };
+
+  if (cw == 1) hopper::named_arrive(1, 256);  // the first warpgroup issues first
+  for (int r = 0; r * gridDim.x < n_items; ++r) {
+    const int item = flash_tma::item_of(r);
+    if (item >= n_items) continue;
+    it = dq_item<kSub>(p, item, nh, q_tiles);
+    s0 = load_of<kSub>(it).s0;
+    q0w = it.r0 + 64 * cw;
+    row0 = q0w + warp * 16 + quad;  // this thread's rows: row0 and row0 + 8
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr;
+      const long long at = (long long)it.bh * p.tq + row;
+      lse2[rr] = row < p.tq ? p.lse[at] * kLog2e : 0.f;
+      dl[rr] = row < p.tq ? p.delta[at] * p.scale : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    const int j0 = it.j0, j1 = it.j1;
+    if (j1 > j0) {
+      hopper::mbar_wait(bar_res_full, nres & 1);
+      // round 0: S_0 and dP_0 only
+      wait_full(j0);
+      turn_begin();
+      issue_sdp(j0);
+      hopper::named_arrive(other_bar, 256);
+      hopper::wgmma_wait<0>();
+      if (j1 - j0 == 1) release_res();
+      compute(j0);
+      pack();
+      // rounds j0+1 .. j1-1: S_j, dP_j with dQ += dS_{j-1} K_{j-1}; sub-tile
+      // j's dS runs under dS_{j-1} K_{j-1}
+      for (int j = j0 + 1; j < j1; ++j) {
+        wait_full(j);
+        turn_begin();
+        issue_sdp(j);
+        issue_dq(j - 1);
+        hopper::named_arrive(other_bar, 256);
+        hopper::wgmma_wait<1>();
+        if (j == j1 - 1) release_res();
+        compute(j);
+        hopper::wgmma_wait<0>();
+        release(j - 1);
+        pack();
+      }
+      // last round: the last dS K
+      turn_begin();
+      issue_dq(j1 - 1);
+      hopper::named_arrive(other_bar, 256);
+      hopper::wgmma_wait<0>();
+      release(j1 - 1);
+      kv += load_of<kSub>(it).s1 - s0;
+      ++nres;
+    }
+
+    bf16* dQ = static_cast<bf16*>(p.dq);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = row0 + 8 * rr;
+      flash_tma::store_row_bf16<D>(dq, rr, 1.f, dQ + ((long long)it.bh * p.tq + row) * D,
+                                   row < p.tq);
+    }
+  }
+  if (cw == 0) hopper::named_sync(1, 256);  // the second warpgroup's last turn
+}
+
+// dK/dV for one (n*h, 128-key tile) work item per round of a persistent grid:
+//   S^T = K Q^T, dP^T = V dO^T (wgmma SS, K-major; rows = keys),
+//   P^T = exp2(min(S^T scale log2e - lse log2e, 0)), dS^T = P^T (dP^T - delta)
+//   scale in registers, dV += P^T dO and dK += dS^T Q (wgmma RS: the A
+//   operands from registers, dO and Q read in place as MN-major operands, the
+//   same swizzled bits that S^T and dP^T read K-major).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o, BwdParams p, int nh,
+                       int k_tiles) {
+  constexpr int kSub = DkvCfg<D>::kSub, kStages = DkvCfg<D>::kStages, kSps = kRows / kSub;
+  constexpr int kAux = 2 * kRows * 4;  // lse * log2(e), then delta * scale, of a stage's rows
+  using L = BwdSmem<D, kStages, kAux>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023) & ~1023u;
+  float* const aux = reinterpret_cast<float*>(smem_raw + (base - hopper::smem_u32(smem_raw)) +
+                                              L::kAuxAt);
+  const uint32_t bar_full = base + L::kBar;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_res_full = bar_empty + 8 * kStages;
+  const uint32_t bar_res_empty = bar_res_full + 8;
+  const int n_items = nh * k_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 32);  // the producer warp's lanes
+      hopper::mbar_init(bar_empty + 8 * s, kConsumerWarps);
+    }
+    hopper::mbar_init(bar_res_full, 1);
+    hopper::mbar_init(bar_res_empty, kConsumerWarps);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    hopper::setmaxnreg_dec<40>();
+    if (threadIdx.x >= 32) return;
+    // K and V are resident; q/dO stages of 128 rows are streamed, each with
+    // its rows' lse * log2(e) and delta * scale (zero past Tq), copied by the
+    // warp
+    flash_tma::produce<D, 2, kStages, true>(
+        &tm_k, &tm_v, &tm_q, &tm_o, base + L::kRes, base + L::kRing, L::kStage, bar_full,
+        bar_empty, bar_res_full, bar_res_empty, n_items,
+        [&](int item) { return load_of<kSub>(dkv_item<kSub>(p, item, nh)); },
+        [&](int slot, int s, const flash_tma::Load& ld) {
+          float* a = aux + slot * (kAux / 4);
+          const long long at = ((long long)ld.n * p.h + ld.hh) * p.tq;
+          for (int i = threadIdx.x % 32; i < kRows; i += 32) {
+            const int row = s * kRows + i;
+            a[i] = row < p.tq ? p.lse[at + row] * kLog2e : 0.f;
+            a[kRows + i] = row < p.tq ? p.delta[at + row] * p.scale : 0.f;
+          }
+        });
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  hopper::setmaxnreg_inc<232>();
+  const int cw = wg - 1;  // this warpgroup's 64 keys of an item start at 64 cw
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int quad = lane / 4, c2 = (lane % 4) * 2;
+  const uint32_t k_w = base + L::kRes + cw * 64 * 128, v_w = k_w + L::kTile;
+  const float sl2 = p.scale * kLog2e;
+  const int my_bar = 1 + cw, other_bar = 2 - cw;
+
+  float st[kSub / 2], dpt[kSub / 2], dk[D / 2], dv[D / 2];
+  uint32_t pa[kSub / 16][4], da[kSub / 16][4];  // P^T and dS^T of the previous sub-tile
+  int kv = 0, nres = 0;
+  BwdItem it{};
+  int s0 = 0, kw0 = 0, key0 = 0;
+
+  auto pos = [&](int j) { return kv + j * kSub / kRows - s0; };
+  auto tile_at = [&](int j) {
+    return base + L::kRing + (pos(j) % kStages) * L::kStage + (j % kSps) * kSub * 128;
+  };
+  auto wait_full = [&](int j) {
+    hopper::mbar_wait(bar_full + 8 * (pos(j) % kStages), (pos(j) / kStages) & 1);
+  };
+  auto turn_begin = [&]() {
+    hopper::named_sync(my_bar, 256);
+    hopper::fence_regs<kSub / 2>(st);
+    hopper::fence_regs<kSub / 2>(dpt);
+    hopper::fence_regs<D / 2>(dk);
+    hopper::fence_regs<D / 2>(dv);
+    hopper::fence_regs<kSub / 4>(&pa[0][0]);
+    hopper::fence_regs<kSub / 4>(&da[0][0]);
+    hopper::wgmma_fence();
+  };
+  auto issue_sdp = [&](int j) {
+    const uint32_t qt = tile_at(j), ot = qt + L::kTile;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kHalf + (kk % 4) * 32;
+      hopper::wgmma_ss<kSub>(st, hopper::desc_kmajor(k_w + off), hopper::desc_kmajor(qt + off),
+                             kk > 0);
+      hopper::wgmma_ss<kSub>(dpt, hopper::desc_kmajor(v_w + off), hopper::desc_kmajor(ot + off),
+                             kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  auto issue_dkv = [&](int j) {
+    const uint32_t qt = tile_at(j), ot = qt + L::kTile;
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      hopper::wgmma_rs<D>(dv, pa[kk], hopper::desc_mnmajor(ot + kk * 2048, kHalf));
+      hopper::wgmma_rs<D>(dk, da[kk], hopper::desc_mnmajor(qt + kk * 2048, kHalf));
+    }
+    hopper::wgmma_commit();
+  };
+  // P^T into st and dS^T into dpt for sub-tile j; lse and delta index the
+  // columns (query rows). Only sub-tiles that are not fully visible run the
+  // masked loop, where a key sees the rows from its first visible one
+  // (causal) up to q_end.
+  auto compute = [&](int j) {
+    hopper::fence_regs<kSub / 2>(st);
+    hopper::fence_regs<kSub / 2>(dpt);
+    const int qs = j * kSub;
+    const float* la = aux + (pos(j) % kStages) * (kAux / 4) + (j % kSps) * kSub + c2;
+    if (kw0 + 64 <= it.kl && qs + kSub <= it.q_end && (!p.causal || qs + it.co >= kw0 + 63)) {
+#pragma unroll
+      for (int jj = 0; jj < kSub / 8; ++jj) {
+        const float2 l = *reinterpret_cast<const float2*>(la + 8 * jj);
+        const float2 d = *reinterpret_cast<const float2*>(la + kRows + 8 * jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jj + e;
+          const float pe = fast_exp2(fminf(fmaf(st[i], sl2, -((e & 1) ? l.y : l.x)), 0.f));
+          st[i] = pe;
+          dpt[i] = pe * fmaf(dpt[i], p.scale, -((e & 1) ? d.y : d.x));
+        }
+      }
+    } else {
+      // this thread's columns are qs + c2 + 8 jj + (e & 1): offsets o = 8 jj +
+      // (e & 1) in [lo[r], hi] are visible to key key0 + 8 r
+      int lo[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        const int first = key >= it.kl ? (1 << 30) : (p.causal ? key - it.co : -(1 << 30));
+        lo[r] = max(first, -(1 << 29)) - qs - c2;
+      }
+      const int hi = it.q_end - 1 - qs - c2;
+#pragma unroll
+      for (int jj = 0; jj < kSub / 8; ++jj) {
+        const float2 l = *reinterpret_cast<const float2*>(la + 8 * jj);
+        const float2 d = *reinterpret_cast<const float2*>(la + kRows + 8 * jj);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jj + e, o = 8 * jj + (e & 1);
+          float pe = fast_exp2(fminf(fmaf(st[i], sl2, -((e & 1) ? l.y : l.x)), 0.f));
+          if (o < lo[e >> 1] || o > hi) pe = 0.f;
+          st[i] = pe;
+          dpt[i] = pe * fmaf(dpt[i], p.scale, -((e & 1) ? d.y : d.x));
+        }
+      }
+    }
+  };
+  // P^T and dS^T rounded to bf16 A fragments (P to dO's dtype, dS to Q's).
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + c2 + (e & 1);
-        float pe = 0.f;
-        if (full || allowed(p, g, q0 + col, key0 + (e >= 2 ? 8 : 0)))
-          pe = exp2f(fminf(st[j][e] * sl2 - sL[col], 0.f));
-        st[j][e] = pe;
-        dpt[j][e] = pe * (dpt[j][e] - sD[col]) * p.scale;
+        pa[kk][e] = pack_bf16(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+        da[kk][e] = pack_bf16(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
       }
     }
+  };
+  auto release = [&](int j) {
+    hopper::fence_regs<D / 2>(dk);
+    hopper::fence_regs<D / 2>(dv);
+    hopper::fence_regs<kSub / 4>(&pa[0][0]);
+    hopper::fence_regs<kSub / 4>(&da[0][0]);
+    if (lane == 0 && (j == it.j1 - 1 || (j + 1) % kSps == 0))
+      hopper::mbar_arrive(bar_empty + 8 * (pos(j) % kStages));
+  };
+  auto release_res = [&]() {
+    if (lane == 0) hopper::mbar_arrive(bar_res_empty);
+  };
 
-    // dV += P^T dO and dK += dS^T Q (A operands rounded to bf16)
+  if (cw == 1) hopper::named_arrive(1, 256);
+  for (int r = 0; r * gridDim.x < n_items; ++r) {
+    const int item = flash_tma::item_of(r);
+    if (item >= n_items) continue;
+    it = dkv_item<kSub>(p, item, nh);
+    s0 = load_of<kSub>(it).s0;
+    kw0 = it.r0 + 64 * cw;
+    key0 = kw0 + warp * 16 + quad;  // this thread's keys: key0 and key0 + 8
 #pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-      const bf16* o0 = &sO[(kk * 16 + c2) * LD + quad];
-      const bf16* q0p = &sQ[(kk * 16 + c2) * LD + quad];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const bf16* op = o0 + i * 8;
-        mma_bf16(dv[i], pa, pack_bf16_raw(op[0], op[LD]),
-                 pack_bf16_raw(op[8 * LD], op[9 * LD]));
-        const bf16* qp = q0p + i * 8;
-        mma_bf16(dk[i], da, pack_bf16_raw(qp[0], qp[LD]),
-                 pack_bf16_raw(qp[8 * LD], qp[9 * LD]));
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    const int j0 = it.j0, j1 = it.j1;
+    if (j1 > j0) {
+      hopper::mbar_wait(bar_res_full, nres & 1);
+      wait_full(j0);
+      turn_begin();
+      issue_sdp(j0);
+      hopper::named_arrive(other_bar, 256);
+      hopper::wgmma_wait<0>();
+      if (j1 - j0 == 1) release_res();
+      compute(j0);
+      pack();
+      for (int j = j0 + 1; j < j1; ++j) {
+        wait_full(j);
+        turn_begin();
+        issue_sdp(j);
+        issue_dkv(j - 1);
+        hopper::named_arrive(other_bar, 256);
+        hopper::wgmma_wait<1>();
+        if (j == j1 - 1) release_res();
+        compute(j);
+        hopper::wgmma_wait<0>();
+        release(j - 1);
+        pack();
       }
+      turn_begin();
+      issue_dkv(j1 - 1);
+      hopper::named_arrive(other_bar, 256);
+      hopper::wgmma_wait<0>();
+      release(j1 - 1);
+      kv += load_of<kSub>(it).s1 - s0;
+      ++nres;
     }
-  }
 
-  bf16* dK = static_cast<bf16*>(p.dk) + (long long)g.bh * p.tk * D;
-  bf16* dV = static_cast<bf16*>(p.dv) + (long long)g.bh * p.tk * D;
+    bf16* dK = static_cast<bf16*>(p.dk);
+    bf16* dV = static_cast<bf16*>(p.dv);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= p.tk) continue;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      const long long at = (long long)key * D + i * 8 + c2;
-      *reinterpret_cast<uint32_t*>(&dK[at]) = pack_bf16(dk[i][2 * r], dk[i][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(&dV[at]) = pack_bf16(dv[i][2 * r], dv[i][2 * r + 1]);
+    for (int rr = 0; rr < 2; ++rr) {
+      const int key = key0 + 8 * rr;
+      const long long at = ((long long)it.bh * p.tk + key) * D;
+      flash_tma::store_row_bf16<D>(dk, rr, 1.f, dK + at, key < p.tk);
+      flash_tma::store_row_bf16<D>(dv, rr, 1.f, dV + at, key < p.tk);
     }
   }
+  if (cw == 0) hopper::named_sync(1, 256);
+}
+
+// Encodes the four tensor maps (Q, K, V, dO: one set for both kernels) and
+// launches dQ and/or dK/dV on the persistent grid.
+template <int D>
+int launch_bwd_bf16(const BwdParams& p, int n, bool dq, bool dkv, cudaStream_t stream) {
+  using flash_tma::encode_rows;
+  CUtensorMap mq, mk, mv, mo;
+  int rc = encode_rows<D>(&mq, p.q, n, p.h, p.tq, p.q_sn, p.q_sh, p.q_st);
+  if (rc == 0) rc = encode_rows<D>(&mk, p.k, n, p.h, p.tk, p.k_sn, p.k_sh, p.k_st);
+  if (rc == 0) rc = encode_rows<D>(&mv, p.v, n, p.h, p.tk, p.v_sn, p.v_sh, p.v_st);
+  if (rc == 0) rc = encode_rows<D>(&mo, p.dout, n, p.h, p.tq, p.o_sn, p.o_sh, p.o_st);
+  if (rc != 0) return rc;
+  const int nh = n * p.h;
+  if (dq) {
+    using L = BwdSmem<D, DqCfg<D>::kStages, 0>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int q_tiles = (p.tq + kRows - 1) / kRows;
+    flash_bwd_dq_bf16<D><<<flash_tma::persistent_grid(nh * q_tiles), kThreads, L::kBytes,
+                           stream>>>(mq, mk, mv, mo, p, nh, q_tiles);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (dkv) {
+    using L = BwdSmem<D, DkvCfg<D>::kStages, 2 * kRows * 4>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const int k_tiles = (p.tk + kRows - 1) / kRows;
+    flash_bwd_dkv_bf16<D><<<flash_tma::persistent_grid(nh * k_tiles), kThreads, L::kBytes,
+                            stream>>>(mq, mk, mv, mo, p, nh, k_tiles);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  return rc;
 }
 
 // ------------------------------------------------------------------- f32 path
@@ -564,8 +950,6 @@ BwdParams make_params(const void* q, const void* k, const void* v, const void* d
   return p;
 }
 
-constexpr int bf16_smem(int d, int rows) { return rows * (d + 8) * 2; }
-
 }  // namespace
 
 #define BWD_ARGS                                                               \
@@ -584,39 +968,51 @@ constexpr int bf16_smem(int d, int rows) { return rows * (d + 8) * 2; }
               k_sn, k_sh, k_st, v_sn, v_sh, v_st, o_sn, o_sh, o_st, scale,     \
               causal, mask_q)
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch
-// (cudaErrorInvalidValue for a head dim other than 64 or 128).
+// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after its
+// launches (cudaErrorInvalidValue for a head dim other than 64 or 128, or
+// strides a bf16 tensor map does not take). bigdl_flash_attention_bwd
+// launches both kernels (dQ first) with one set of tensor maps;
+// bigdl_flash_attention_bwd_dq and _dkv launch one each.
+namespace {
+
+int launch_bwd(BwdParams p, int dtype, int n, int d, bool dq, bool dkv, cudaStream_t s) {
+  if (dtype == 1 && d == 64) return launch_bwd_bf16<64>(p, n, dq, dkv, s);
+  if (dtype == 1 && d == 128) return launch_bwd_bf16<128>(p, n, dq, dkv, s);
+  if (dtype != 0 || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = 0;
+  if (dq) {
+    const dim3 grid((p.tq + 63) / 64, n * p.h);
+    rc = d == 64 ? launch(flash_bwd_dq_f32<64>, grid, 256, 0, s, p)
+                 : launch(flash_bwd_dq_f32<128>, grid, 256, 0, s, p);
+    if (rc != 0) return rc;
+  }
+  if (dkv) {
+    const dim3 grid((p.tk + 63) / 64, n * p.h);
+    rc = d == 64 ? launch(flash_bwd_dkv_f32<64>, grid, 256, 0, s, p)
+                 : launch(flash_bwd_dkv_f32<128>, grid, 256, 0, s, p);
+  }
+  return rc;
+}
+
+}  // namespace
+
+extern "C" int bigdl_flash_attention_bwd(BWD_ARGS, void* dq, void* dk, void* dv, BWD_TAIL) {
+  BwdParams p = BWD_PARAMS;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  return launch_bwd(p, dtype, n, d, true, true, static_cast<cudaStream_t>(stream));
+}
+
 extern "C" int bigdl_flash_attention_bwd_dq(BWD_ARGS, void* dq, BWD_TAIL) {
   BwdParams p = BWD_PARAMS;
   p.dq = dq;
-  const dim3 grid((tq + 63) / 64, n * h);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dQ (bf16) stages Q and dO (64 rows) and one K and V tile (64 keys)
-  if (dtype == 1 && d == 64)
-    return launch(flash_bwd_dq_bf16<64>, grid, 128, 4 * bf16_smem(64, 64), s, p);
-  if (dtype == 1 && d == 128)
-    return launch(flash_bwd_dq_bf16<128>, grid, 128, 4 * bf16_smem(128, 64), s, p);
-  if (dtype == 0 && d == 64) return launch(flash_bwd_dq_f32<64>, grid, 256, 0, s, p);
-  if (dtype == 0 && d == 128) return launch(flash_bwd_dq_f32<128>, grid, 256, 0, s, p);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(p, dtype, n, d, true, false, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int bigdl_flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
   BwdParams p = BWD_PARAMS;
   p.dk = dk;
   p.dv = dv;
-  const dim3 grid((tk + 63) / 64, n * h);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // dK/dV (bf16) stages one K and V tile (64 keys), a Q and dO tile (BQ rows:
-  // 64 at d=64, 32 at d=128 to keep the two fp32 accumulators in registers)
-  // and BQ lse/delta values
-  if (dtype == 1 && d == 64)
-    return launch(flash_bwd_dkv_bf16<64, 64>, grid, 128,
-                  2 * bf16_smem(64, 64) + 2 * bf16_smem(64, 64) + 2 * 64 * 4, s, p);
-  if (dtype == 1 && d == 128)
-    return launch(flash_bwd_dkv_bf16<128, 32>, grid, 128,
-                  2 * bf16_smem(128, 64) + 2 * bf16_smem(128, 32) + 2 * 32 * 4, s, p);
-  if (dtype == 0 && d == 64) return launch(flash_bwd_dkv_f32<64>, grid, 256, 0, s, p);
-  if (dtype == 0 && d == 128) return launch(flash_bwd_dkv_f32<128>, grid, 256, 0, s, p);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(p, dtype, n, d, false, true, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA/wgmma kernels:
 // shared-memory addresses, mbarriers, TMA tile loads, named barriers, the
 // wgmma fence/commit/wait, shared-memory matrix descriptors for the
-// 128-byte swizzle, the wgmma products the flash kernels issue, and the
+// 128-byte swizzle, the wgmma products the flash kernels issue (SS at
+// widths 32, 64 and 128, RS at 64 and 128), and the
 // host-side encoding of a 4-D tiled tensor map.
 //
 // Layout conventions (bf16, CU_TENSOR_MAP_SWIZZLE_128B):
@@ -52,6 +53,12 @@ __device__ inline void mbar_arrive(uint32_t bar) {
 __device__ inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
+               : "memory");
+}
+
+// Adds `bytes` to the transaction count of the current phase without arriving.
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
 
@@ -142,6 +149,32 @@ __device__ inline uint64_t desc_mnmajor(uint32_t addr, uint32_t tile_bytes) {
   return desc_sw128(addr, tile_bytes, 1024);
 }
 
+// d[0..15] (+)= A(64x16, K-major in smem) * B(16x32, K-major in smem); scale_d = 0
+// overwrites d.
+__device__ inline void wgmma_ss_n32(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[0..31] (+)= A(64x16, K-major in smem) * B(16x64, K-major in smem); scale_d = 0
+// overwrites d.
+__device__ inline void wgmma_ss_n64(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[0..63] (+)= A(64x16, K-major in smem) * B(16x128, K-major in smem); scale_d = 0
 // overwrites d.
 __device__ inline void wgmma_ss_n128(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -188,6 +221,28 @@ __device__ inline void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t desc_
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The SS product of width N (32, 64 or 128) and the RS product of width N (64 or
+// 128), chosen at compile time.
+template <int N>
+__device__ inline void wgmma_ss(float* d, uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  if constexpr (N == 32)
+    wgmma_ss_n32(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64)
+    wgmma_ss_n64(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+}
+
+template <int N>
+__device__ inline void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_rs_n64(d, a, desc_b);
+  else
+    wgmma_rs_n128(d, a, desc_b);
 }
 
 }  // namespace hopper

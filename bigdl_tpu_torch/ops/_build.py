@@ -102,8 +102,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.bigdl_flash_attention_fwd
     fn.argtypes = ([vp] * 6 + [i] * 6 + [ll] * 9 + [f, i, i, vp])
     fn.restype = ctypes.c_int
-    # q, k, v, dO, lse, delta, outputs (dq | dk, dv), lengths; then as the forward
-    for fn, n_out in ((lib.bigdl_flash_attention_bwd_dq, 1),
+    # q, k, v, dO, lse, delta, outputs (dq, dk, dv | dq | dk, dv), lengths; then as
+    # the forward
+    for fn, n_out in ((lib.bigdl_flash_attention_bwd, 3),
+                      (lib.bigdl_flash_attention_bwd_dq, 1),
                       (lib.bigdl_flash_attention_bwd_dkv, 2)):
         fn.argtypes = ([vp] * (7 + n_out) + [i] * 6 + [ll] * 12 + [f, i, i, vp])
         fn.restype = ctypes.c_int

@@ -198,7 +198,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, d_out, causal: bool = False
 
 
 def _bwd_kernel_args(q, k, v, out, lse, d_out, causal, scale, lengths, mask_q):
-    """Arguments of the two backward entry points around their outputs:
+    """Arguments of the backward entry points around their outputs:
     ``(head, tail, keep)``; the caller holds ``keep`` (delta and the int32
     lengths the pointers refer to) until the kernels have run."""
     d = q.shape[3]
@@ -258,16 +258,14 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, causal: bool = False,
     from . import _build
 
     lib = _build.load()
-    global launches_dq, launches_dkv
-    rc = lib.bigdl_flash_attention_bwd_dq(*head, dq.data_ptr(), *tail)
+    # one call launches dQ, then dK/dV, from one set of tensor maps
+    rc = lib.bigdl_flash_attention_bwd(*head, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                       *tail)
     if rc != 0:
-        raise RuntimeError(f"{fn}: dQ kernel launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{fn}: dQ/dK/dV kernel launch failed with CUDA error {rc}")
+    global launches_dq, launches_dkv
     with _count_lock:
         launches_dq += 1
-    rc = lib.bigdl_flash_attention_bwd_dkv(*head, dk.data_ptr(), dv.data_ptr(), *tail)
-    if rc != 0:
-        raise RuntimeError(f"{fn}: dK/dV kernel launch failed with CUDA error {rc}")
-    with _count_lock:
         launches_dkv += 1
     return dq, dk, dv
 

@@ -8,16 +8,20 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the port's CUDA kernels from ``bigdl_tpu_torch/csrc`` (timed), load
    the library (which runs the probe kernel once and raises if it fails or
-   is wrong; its verdict is logged) and launch each kernel once;
+   is wrong; its verdict is logged; a ``ptxas`` line saying that it
+   serialized a kernel's wgmma (C7514) fails the run) and launch each
+   kernel once (the backward's dQ and dK/dV entry points also alone);
 3. each kernel against its plain PyTorch version on the card, over the
    serving/training shape and the masking/shape edge cases, with stated
    tolerances: the forward [3] (on contiguous tensors and on the
    ``split_heads`` views the LM hands it; a repeat of the serving shape
    must give the same bits) and the backward kernels dQ and dK/dV [3b]
-   (whose repeated run must give the same bits);
+   (also on ``split_heads`` views, at both head dims and on ragged 128-row
+   work items; a repeat of the training shape must give the same bits);
 4. kernel, plain-version and library times beside the card's bound (the
    probe kernel's too; SDPA's backward timed under each backend that takes
-   the shape, and the one it picks by default named);
+   the shape, and the one it picks by default named; the host's time of one
+   backward call);
 5. serving: the full-width Transformer-LM (vocab 8192, hidden 512, 8
    heads, filter 2048, 6 layers, T=2048, random weights from a seed) served
    through ``ModelServer`` — 16 single-record requests from 4 threads, each
@@ -214,20 +218,27 @@ def phase_card():
 def phase_build():
     import torch
     from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
     t0 = time.perf_counter()
-    lib = _build.build(force=True)
-    _build.load()  # loads and probes: raises if the probe kernel fails or is wrong
-    log(f"[2] built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    path = _build.build(force=True)
+    lib = _build.load()  # loads and probes: raises if the probe kernel fails or is wrong
+    log(f"[2] built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
     from bigdl_tpu_torch.ops import probe
 
     log(f"    probe (y = x + 1 on an {probe.SHAPE} f32 block, at the library's first load): "
         f"kernels_available('cuda') = {probe.kernels_available('cuda')}, reason "
         f"{probe.unavailable_reason()!r}, {probe.launches} launch")
+    serialized = []
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "warning" in line):
             log("    ptxas: " + line.strip())
+        if "C7514" in line:
+            serialized.append(line.strip())
+    if serialized:  # a branch or register read between a wgmma and its wait (~2x slower)
+        raise AssertionError(f"ptxas serialized wgmma (C7514): {serialized}")
     from bigdl_tpu_torch.ops.fused_epilogue import fused_bias_act_bwd, fused_bias_act_fwd
     from bigdl_tpu_torch.ops.fused_norm import (layer_norm_bwd, layer_norm_fwd, rms_norm_bwd,
                                                 rms_norm_fwd)
@@ -238,6 +249,16 @@ def phase_build():
         q = torch.randn((1, 1, 64, 64), generator=g, device="cuda").to(dt)
         out, lse = flash_attention_fwd(q, q, q, causal=True)
         flash_attention_bwd(q, q, q, out, lse, q, causal=True)
+        # the dQ and dK/dV entry points alone, as [4] times them
+        head, tail, keep = fa._bwd_kernel_args(q, q, q, out, lse, q, True, None, None, True)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        for rc in (lib.bigdl_flash_attention_bwd_dq(*head, grads[0].data_ptr(), *tail),
+                   lib.bigdl_flash_attention_bwd_dkv(*head, grads[1].data_ptr(),
+                                                     grads[2].data_ptr(), *tail)):
+            if rc != 0:
+                raise RuntimeError(f"backward entry point failed with CUDA error {rc}")
+        torch.cuda.synchronize()
+        del keep, grads
         maxpool_grad(q, q[:, :, :32, :32].contiguous(), (3, 3), (2, 2), ((1, 1), (1, 1)))
         b = q[0, 0, 0].float()
         for axis, bias in ((-1, b), (1, b[:1])):
@@ -248,7 +269,7 @@ def phase_build():
         rms_norm_fwd(q, b)
         rms_norm_bwd(q, b, q)
     torch.cuda.synchronize()
-    log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV), maxpool_grad, "
+    log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV, and each alone), maxpool_grad, "
         "fused_bias_act (forward, feature and row backward) and the LayerNorm and RMSNorm "
         "forward and backward launched once in bf16 and f32")
 
@@ -354,30 +375,47 @@ def phase_bwd_parity():
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
 
     bf, f32 = torch.bfloat16, torch.float32
-    # (label, N, H, Tq, Tk, d, dtype, causal, lengths, mask_q)
+    # (label, N, H, Tq, Tk, d, dtype, causal, lengths, mask_q, views): with
+    # views, q, k, v and d_out are split_heads views of (N, T, H*d) tensors
     cases = [
-        ("training shape", 8, 8, 2048, 2048, 64, bf, True, None, None),
-        ("training shape f32", 8, 8, 2048, 2048, 64, f32, True, None, None),
-        ("ragged lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True),
-        ("ragged lengths, no causal", 4, 2, 777, 777, 128, f32, False, [700, 33, 0, 777], True),
-        ("rectangular Tq<Tk causal", 2, 4, 300, 1100, 64, bf, True, None, None),
-        ("rectangular Tq<Tk, key lengths", 2, 4, 300, 1100, 64, f32, False, [1100, 90], False),
-        ("Tq>Tk causal (rows with no key)", 2, 2, 200, 130, 64, bf, True, None, None),
-        ("Tq>Tk causal f32", 2, 2, 200, 130, 128, f32, True, None, None),
-        ("odd T=1000 causal", 2, 4, 1000, 1000, 64, bf, True, None, None),
-        ("odd T=2047 causal", 1, 8, 2047, 2047, 64, bf, True, None, None),
-        ("odd T=2047 non-causal", 1, 4, 2047, 2047, 64, bf, False, None, None),
-        ("d=128 causal", 2, 4, 1024, 1024, 128, bf, True, None, None),
-        ("d=128 ragged + mask_q", 2, 4, 1024, 1024, 128, bf, True, [1024, 300], True),
-        ("d=128 f32 causal", 2, 4, 1024, 1024, 128, f32, True, [1024, 300], True),
+        ("training shape", 8, 8, 2048, 2048, 64, bf, True, None, None, False),
+        ("training shape f32", 8, 8, 2048, 2048, 64, f32, True, None, None, False),
+        ("ragged lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True,
+         False),
+        ("ragged lengths, no causal", 4, 2, 777, 777, 128, f32, False, [700, 33, 0, 777], True,
+         False),
+        ("rectangular Tq<Tk causal", 2, 4, 300, 1100, 64, bf, True, None, None, False),
+        ("rectangular Tq<Tk, key lengths", 2, 4, 300, 1100, 64, f32, False, [1100, 90], False,
+         False),
+        ("Tq>Tk causal (rows with no key)", 2, 2, 200, 130, 64, bf, True, None, None, False),
+        ("Tq>Tk causal f32", 2, 2, 200, 130, 128, f32, True, None, None, False),
+        ("odd T=1000 causal", 2, 4, 1000, 1000, 64, bf, True, None, None, False),
+        ("odd T=2047 causal", 1, 8, 2047, 2047, 64, bf, True, None, None, False),
+        ("odd T=2047 non-causal", 1, 4, 2047, 2047, 64, bf, False, None, None, False),
+        ("d=128 causal", 2, 4, 1024, 1024, 128, bf, True, None, None, False),
+        ("d=128 ragged + mask_q", 2, 4, 1024, 1024, 128, bf, True, [1024, 300], True, False),
+        ("d=128 f32 causal", 2, 4, 1024, 1024, 128, f32, True, [1024, 300], True, False),
+        # the layout the LM hands the kernels (T stride H*d) and ragged 128-row items
+        ("views: training shape", 8, 8, 2048, 2048, 64, bf, True, None, None, True),
+        ("views: d=128 T=1000 causal", 2, 4, 1000, 1000, 128, bf, True, None, None, True),
+        ("d=128 T=2048 causal", 2, 8, 2048, 2048, 128, bf, True, None, None, False),
+        ("d=128 T=2047 non-causal", 1, 4, 2047, 2047, 128, bf, False, None, None, False),
+        ("odd T=129 causal", 4, 4, 129, 129, 64, bf, True, None, None, False),
+        ("odd T=129 d=128 causal", 4, 4, 129, 129, 128, bf, True, None, None, False),
+        # key tiles past the horizon see no row (zero dK/dV), rows past it no key
+        ("Tq<Tk causal, lengths + mask_q", 2, 4, 300, 1100, 64, bf, True, [1100, 1000], True,
+         False),
+        ("Tq<Tk, lengths + mask_q, d=128", 2, 4, 300, 1100, 128, bf, False, [1100, 1000], True,
+         False),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     log("[3b] backward kernels (dQ, dK/dV) vs plain version on the card "
         f"(|err| <= atol + rtol*|ref|; {TOL_BWD})")
     record = None
-    for label, n, h, tq, tk, d, dt, causal, lens, mask_q in cases:
-        q, k, v = _rand((n, h, tq, d), dt, g), _rand((n, h, tk, d), dt, g), _rand((n, h, tk, d), dt, g)
-        d_out = _rand((n, h, tq, d), dt, g)
+    for label, n, h, tq, tk, d, dt, causal, lens, mask_q, views in cases:
+        make = _split_heads if views else _rand
+        q, k, v = make((n, h, tq, d), dt, g), make((n, h, tk, d), dt, g), make((n, h, tk, d), dt, g)
+        d_out = make((n, h, tq, d), dt, g)
         lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
         out, lse = flash_attention_fwd(q, k, v, causal, lengths=lengths, mask_q=mask_q)
         grads = flash_attention_bwd(q, k, v, out, lse, d_out, causal, lengths=lengths,
@@ -514,6 +552,23 @@ def phase_bwd_times(rec, card):
                     for k, v in by_backend.items())
         + f"; by default SDPA records {default} ({library_ms:.4f} ms); card {card}")
     del keep, lib_out, leaves
+    # host time of one flash_attention_bwd call (delta, outputs, the four tensor
+    # maps, both launches), at a shape small enough that the card never holds
+    # the host back: the least of 5 blocks of 100 calls enqueued back to back
+    # (the host's clock is shared with other work; the least is the call's own)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    small = [_rand((1, 1, 128, 64), torch.bfloat16, gen) for _ in range(4)]
+    s_out, s_lse = fa.flash_attention_fwd(*small[:3], True)
+    blocks = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fa.flash_attention_bwd(*small[:3], s_out, s_lse, small[3], True)
+        blocks.append((time.perf_counter() - t0) / 100 * 1e6)
+    host_us = min(blocks[1:])  # the first block warms up
+    torch.cuda.synchronize()
+    del small, s_out, s_lse
 
     d, pairs = q.shape[-1], rec["pairs"]
     io = (q, k, v, d_out, lse, lse)  # lse and delta: (N, H, T) f32 each
@@ -537,6 +592,7 @@ def phase_bwd_times(rec, card):
             "bound_by": by,
             "library_ms": library_ms,  # backward of scaled_dot_product_attention: the pair
             "library_ms_by_backend": by_backend, "library_default": default,
+            "host_us_per_backward_call": host_us,
         })
         log(f"[4] kernels: {name} (8,8,2048,64) bf16 causal: verdict ok, kernel_ms {ms:.4f}, "
             f"plain_ms {plain_ms:.4f} (dq+dk+dv), bound_ms {b:.4f} ({by}), library_ms "
@@ -544,7 +600,7 @@ def phase_bwd_times(rec, card):
             f"yardstick only); card {card}")
     log(f"    backward pair: kernels {ms_dq + ms_dkv:.4f} ms, wrapper with delta "
         f"{ms_wrapper:.4f} ms, least work (five products) bound {b_least[0]:.4f} ms "
-        f"({b_least[1]}); card {card}")
+        f"({b_least[1]}); host {host_us:.1f} us a flash_attention_bwd call; card {card}")
     return kernels
 
 

@@ -106,6 +106,42 @@ def test_bwd_reference_matches_jax_bwd_impl(tq, tk, causal, lengths, mask_q):
                                    err_msg=name)
 
 
+def _split_heads(a):
+    """An (N, H, T, d) view of a fresh (N, T, H*d) tensor holding ``a``: the
+    layout the LM's ``split_heads`` hands the kernels (T stride H*d)."""
+    n, h, t, d = a.shape
+    flat = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)).reshape(n, t, h * d))
+    return flat.view(n, t, h, d).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("tq,tk,causal,lengths,mask_q", CASES[1::2])
+def test_bwd_reference_on_split_heads_views_matches_jax_kernels(tq, tk, causal, lengths, mask_q):
+    """The plain backward on strided ``split_heads`` views of q, k, v and the
+    cotangent (what the kernels read through tensor maps) against ``jax.grad``
+    of the Pallas kernels on the same values."""
+    q, k, v, g = _inputs(tq, tk, d=32, seed=4)
+    jl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    mq = _mask_q(tq, tk, mask_q)
+
+    def loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal, block_q=BLOCK_Q, block_k=BLOCK_K,
+                                  interpret=True, lengths=jl, mask_q=mq)
+        return jnp.sum(out * g)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    qt, kt, vt, gt = (_split_heads(a) for a in (q, k, v, g))
+    assert not any(t.is_contiguous() for t in (qt, kt, vt, gt))
+    assert qt.stride() == (tq * 2 * 32, 32, 2 * 32, 1)
+    tl = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    out, lse = port.flash_attention_fwd(qt, kt, vt, causal, lengths=tl, mask_q=mask_q)
+    got = port.flash_attention_bwd(qt, kt, vt, out, lse, gt, causal, lengths=tl, mask_q=mask_q)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+
+
 def test_rows_without_keys_get_no_gradient():
     q, k, v, g = _inputs(24, 24, seed=2)
     lengths = torch.tensor([24, 13, 0], dtype=torch.int32)

@@ -57,3 +57,42 @@ def test_autograd_through_kernels_on_card(cuda_card):
     want = port.flash_attention_bwd_reference(q, k, v, out, lse, torch.ones_like(out), True)
     for t, b in zip(leaves, want):
         torch.testing.assert_close(t.grad.float(), b.float(), atol=2e-2, rtol=2e-2)
+
+
+def _split_heads_card(shape, g):
+    """An (N, H, T, d) bf16 view of an (N, T, H*d) tensor, as ``split_heads`` makes."""
+    n, h, t, d = shape
+    flat = torch.randn((n, t, h * d), generator=g, device="cuda").to(torch.bfloat16)
+    return flat.view(n, t, h, d).permute(0, 2, 1, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,t,d,causal,views", [
+    (2, 8, 2048, 64, True, True),     # split_heads views at the LM's widths
+    (1, 4, 1000, 128, True, True),    # views, d = 128, a ragged last item
+    (2, 8, 2048, 128, True, False),   # d = 128 at T = 2048
+    (4, 4, 129, 64, True, False),     # 128-row items with one row in the second
+    (4, 4, 129, 128, False, False),
+    (1, 8, 2047, 64, True, False),    # one row short of full items
+], ids=["views-d64", "views-d128-T1000", "d128-T2048", "T129-d64", "T129-d128-noncausal",
+        "T2047"])
+def test_tma_layouts_and_ragged_items_on_card(cuda_card, n, h, t, d, causal, views):
+    """The kernels read q, k, v and the cotangent through TMA tensor maps over
+    the callers' strides, in items of 128 rows: strided views, both head dims
+    and ragged items against the plain version (bf16 tolerance as above)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    if views:
+        q, k, v, d_out = (_split_heads_card((n, h, t, d), g) for _ in range(4))
+        assert not q.is_contiguous()
+    else:
+        q, k, v, d_out = (torch.randn((n, h, t, d), generator=g, device="cuda")
+                          .to(torch.bfloat16) for _ in range(4))
+    out, lse = port.flash_attention_fwd(q, k, v, causal)
+    got = port.flash_attention_bwd(q, k, v, out, lse, d_out, causal)
+    again = port.flash_attention_bwd(q, k, v, out, lse, d_out, causal)
+    torch.cuda.synchronize()
+    want = port.flash_attention_bwd_reference(q, k, v, out, lse, d_out, causal)
+    for a, b, c in zip(got, want, again):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2)
+        assert torch.equal(a, c)  # no atomics: a repeat gives the same bits
