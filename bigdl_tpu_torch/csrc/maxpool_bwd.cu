@@ -10,10 +10,14 @@
 // whose maximum falls on a padded cell routes its gradient nowhere. The
 // argmax is recomputed from x: no indices are saved by the forward.
 //
-// Bound on this card: the work is a handful of compares per element, so the
-// bound is bytes: read x and dy once, write dx once. At the ResNet stem
-// (x 128x64x112x112 bf16, dy 128x64x56x56, 3x3/s2/p1) that is 462 MB, about
-// 0.14 ms at 3.35 TB/s.
+// Bound on this card: a handful of compares per element, so the bound is
+// bytes: read x and dy once, write dx once, at 3.35 TB/s. bf16, at the
+// shapes the main paths run: the flagship's stem pool (128, 64, 112, 112)
+// 3x3/s2/p1 462 MB, 0.1380 ms; VGG-16's 2x2/s2 pools at batch 64, (64, 64,
+// 224, 224) 0.2761 ms, (64, 128, 112, 112) 0.1380, (64, 256, 56, 56)
+// 0.0690, (64, 512, 28, 28) 0.0345, (64, 512, 14, 14) 0.0086. A copy of the
+// same bytes with 16-byte accesses takes 0.166 ms at the stem on an H100
+// (2.8 TB/s; tools/torch_maxpool_bwd_ablation.py `copy16`).
 //
 // Why a gather where the TPU kernel scatters: the TPU kernel walks channel
 // slabs in order on one core and scatters dy into a VMEM accumulator of x's
@@ -25,15 +29,56 @@
 // accumulates more exactly than the TPU kernel (which sums in bf16 for bf16
 // inputs), and two runs give the same bits.
 //
-// Design: one block per (n*c plane, tile of input rows x columns; at the stem
-// a tile is 18 whole rows, so 8192 planes x 7 tiles fill the 132 SMs many
-// times over). The block stages in shared memory, as fp32, the x rows and
-// columns that its tile's covering windows read (the tile plus its halo,
-// -inf outside the input), computes each covering window's argmax offset once
-// into shared memory as a 16-bit int, then each thread owns input positions
-// and gathers. In device memory it reads x once (plus the halo rows, mostly
-// from L2) and dy once, and writes dx once. Later work: 16-byte vector loads
-// and stores, cp.async staging of the next tile.
+// What held the first design (one block per plane tile) at 10-12x the
+// bound (1.598 ms at the stem, 5.25 ms over VGG-16's five pools): it was
+// bound by instruction issue, not memory. Its geometry was all runtime
+// values, so every staging, argmax and gather step paid runtime integer
+// divides (~20 instructions each, four calls of floor/ceil division per
+// position); x, dy and dx moved 2 bytes an instruction; x was widened to
+// fp32 in shared memory; a block loaded, computed and wrote with nothing in
+// flight between the phases. Taking out any one part saved only 5-15%
+// (at the stem: no argmax search 1.43 ms, no dy reads 1.36, no x reads
+// 1.45; the ablation tool on an H100).
+//
+// This design:
+// - Work items, one a block. An item is a group of whole planes (planes
+//   smaller than the item size: the stem's 112x112, VGG-16's 56x56 to
+//   14x14) or a band of dx rows of one plane (VGG-16's 224x224 and
+//   112x112). The item size is the largest of 16384, 8192 or 4096 dx
+//   elements that leaves at least kItemsPerSm items an SM (items of at
+//   most 8192 or 4096 took 4-29% longer at the stem and VGG-16's pool2, of
+//   32768 2-8% longer: items8k / items4k / items32k in the ablation tool
+//   on an H100). Its x
+//   rows, dy rows and dx rows are each ONE contiguous range of device
+//   memory, whatever the row width: staged by 16-byte cp.async copies and
+//   written in 16-byte chunks aligned in device memory, element by element
+//   only where a chunk would leave the range (dx) or the tensor (x, dy). So
+//   rows of 56 or 28 bytes, 392-byte planes and a data_ptr at any element
+//   offset need no other path.
+// - A band owns its dx rows and computes the argmax of every window that
+//   covers one of them; overlapping windows on a band's edge (3x3/s2) are
+//   computed by both bands, re-reading one dy row and three x rows (from
+//   L2). Whole planes and 2x2/s2 re-read nothing. Each argmax goes into
+//   shared memory once, as a 16-bit offset.
+// - x and dy are staged in their own dtype (bf16 compares are exact) and
+//   dx is written in 16-byte chunks (8 bf16 or 4 f32). The argmax of a
+//   window is its first offset with a strictly larger value, starting from
+//   offset 0 (so a NaN at offset 0 keeps it, as the plain version does);
+//   windows with no padded cell skip the bounds tests.
+// - Compile-time geometry: instances for 3x3/s2 and 2x2/s2 (the padding
+//   stays a runtime value) and one general instance of the same code for
+//   every other window and stride. No integer divide is left: the fixed
+//   instances divide by constants, and every runtime divisor (W, H*W, Wo,
+//   Ho, the strides of the general instance, bands a plane) is a
+//   FastDivmod, a multiply-high and a shift. In the fixed instances a dx
+//   chunk in one row (or across two) reads the argmaxes and dy of the
+//   window columns it touches once into registers, and each element's
+//   windows are then compile-time register indices.
+// - Measured and not kept: a persistent grid whose blocks walk the items
+//   through a ring of 2 or 3 staging buffers, the next item's cp.async
+//   copies in flight while one is computed, was 8-16% slower at the stem
+//   and 14-50% slower at VGG-16's pool2 than one item a block, whose
+//   neighbours on the SM overlap its loads instead (ring2 / ring3).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,168 +87,509 @@
 
 #include <algorithm>
 
+#include "vec_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTilePositions = 2048;  // input positions a block aims to own
-constexpr int kMaxTileW = 256;
+// dx elements an item aims to own: the most, unless that leaves fewer than
+// kItemsPerSm items an SM, then halved down to the least
+constexpr int kItemElemsMax = 16384;
+constexpr int kItemElemsMin = 4096;
+constexpr int kItemsPerSm = 16;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
+constexpr int kSmemTarget = 48 * 1024;  // shrink bands above this (four blocks an SM)
 
-struct Geom {
-  long long planes;
-  int h, w, ho, wo;
-  int kh, kw, sh, sw, ph, pw;
-  int th, tw, tiles_h, tiles_w;
+// n / d and n % d for 0 <= n < 2^31 and a divisor d >= 1 fixed at launch:
+// q = umulhi(n, mul) >> shr with mul = ceil(2^(31 + l) / d), l = ceil(log2 d)
+// (CUTLASS's FastDivmod).
+struct FastDivmod {
+  int d;
+  uint32_t mul, shr;
+  FastDivmod() = default;
+  explicit FastDivmod(int divisor) : d(divisor), mul(0), shr(0) {
+    if (divisor > 1) {
+      const uint32_t l = 32 - __builtin_clz(static_cast<uint32_t>(divisor) - 1);
+      mul = static_cast<uint32_t>(((1ull << (31 + l)) + divisor - 1) / divisor);
+      shr = l - 1;
+    }
+  }
+  __device__ __forceinline__ int div(int n) const {
+    return mul ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), mul) >> shr) : n;
+  }
+  __device__ __forceinline__ void divmod(int n, int& q, int& r) const {
+    q = div(n);
+    r = n - q * d;
+  }
 };
 
-__host__ __device__ inline int floor_div(int a, int b) {  // b > 0
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
+struct Params {
+  long long planes, x_total, dy_total;  // planes; elements of x (and dx) and of dy
+  int h, w, ho, wo, kh, kw, sh, sw, ph, pw;
+  int nj, ni;       // ceil(kh/sh), ceil(kw/sw): windows that cover one row, one column
+  int hw, howo;     // h*w, ho*wo
+  int group;        // planes an item holds; 0: items are row bands of one plane
+  int band_rows;    // dx rows a band owns
+  long long items;
+  int x_stage, dy_stage;  // elements of the x and dy staging buffers (multiples of 16 bytes)
+  int windows;            // windows an item computes at most
+  FastDivmod fd_w, fd_hw, fd_wo, fd_ho, fd_sh, fd_sw, fd_bands;
+};
+
+// One item: planes [p0, p0 + np); dx rows [hr0, hr1) of each; windows of
+// rows [oh_lo, oh_lo + n_oh); x rows [xr_lo, xr_lo + n_xr) staged.
+struct Item {
+  long long p0;
+  int np, hr0, hr1, oh_lo, n_oh, xr_lo, n_xr;
+};
+
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+// n / sh and n / sw for n >= 0: by a constant in the fixed instances, by a
+// FastDivmod in the general one (on the host, a plain divide).
+template <int SH>
+__host__ __device__ __forceinline__ int div_sh(const Params& p, int n) {
+  if constexpr (SH > 0) return static_cast<int>(static_cast<unsigned>(n) / SH);
+#ifdef __CUDA_ARCH__
+  return p.fd_sh.div(n);
+#else
+  return n / p.sh;
+#endif
 }
 
-__host__ __device__ inline int ceil_div(int a, int b) { return -floor_div(-a, b); }
+template <int SW>
+__device__ __forceinline__ int div_sw(const Params& p, int n) {
+  if constexpr (SW > 0) return static_cast<int>(static_cast<unsigned>(n) / SW);
+  return p.fd_sw.div(n);
+}
 
-__device__ inline float to_float(float v) { return v; }
-__device__ inline float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+// The window rows that cover dx rows [hr0, hr1) and the x rows they read.
+template <int SH>
+__host__ __device__ inline void cover_rows(const Params& p, int hr0, int hr1, Item& t) {
+  const int num = hr0 + p.ph - p.kh + 1;  // oh*sh - ph + kh - 1 >= hr0
+  const int lo = num <= 0 ? 0 : div_sh<SH>(p, num + p.sh - 1);
+  const int hi = imin(p.ho - 1, div_sh<SH>(p, hr1 - 1 + p.ph));
+  t.oh_lo = lo;
+  t.n_oh = imax(0, hi - lo + 1);
+  t.xr_lo = imax(0, lo * p.sh - p.ph);
+  t.n_xr = t.n_oh > 0 ? imax(0, imin(p.h, hi * p.sh - p.ph + p.kh) - t.xr_lo) : 0;
+}
 
+template <int SH>
+__device__ __forceinline__ Item item_at(const Params& p, long long it) {
+  Item t;
+  if (p.group) {
+    t.p0 = it * p.group;
+    t.np = static_cast<int>(min(static_cast<long long>(p.group), p.planes - t.p0));
+    t.hr0 = 0;
+    t.hr1 = p.h;
+    t.oh_lo = 0;
+    t.n_oh = p.ho;
+    t.xr_lo = 0;
+    t.n_xr = p.h;
+  } else {
+    int plane, band;
+    p.fd_bands.divmod(static_cast<int>(it), plane, band);
+    t.p0 = plane;
+    t.np = 1;
+    t.hr0 = band * p.band_rows;
+    t.hr1 = imin(t.hr0 + p.band_rows, p.h);
+    cover_rows<SH>(p, t.hr0, t.hr1, t);
+  }
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Elements of src before src + start back to the last 16-byte boundary.
 template <typename T>
-__device__ inline T from_float(float v);
-template <>
-__device__ inline float from_float<float>(float v) { return v; }
-template <>
-__device__ inline __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
+__device__ __forceinline__ int head_of(const T* src, long long start) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(src + start) % 16 / sizeof(T));
 }
 
-// Shared memory a tile of th x tw input positions can need: the x region its
-// covering windows read (fp32) and one 16-bit argmax per covering window.
-size_t smem_bytes(const Geom& g, int th, int tw) {
-  const int n_oh = std::min(g.ho, (th + g.kh - 2) / g.sh + 1);
-  const int n_ow = std::min(g.wo, (tw + g.kw - 2) / g.sw + 1);
-  const size_t n_xr = static_cast<size_t>(n_oh - 1) * g.sh + g.kh;
-  const size_t n_xc = static_cast<size_t>(n_ow - 1) * g.sw + g.kw;
-  return 4 * n_xr * n_xc + 2 * static_cast<size_t>(n_oh) * n_ow;
-}
-
+// Copies src[start, start + len) to dst[head, head + len), dst 16-byte
+// aligned: the 16-byte chunks that lie inside the tensor (total elements) by
+// cp.async, the elements of the others one at a time.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    maxpool2d_bwd(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                  Geom g) {
-  extern __shared__ float smem[];
-  const int tiles = g.tiles_h * g.tiles_w;
-  const long long plane = blockIdx.x / tiles;
-  const int tile = static_cast<int>(blockIdx.x % tiles);
-  const int r0 = (tile / g.tiles_w) * g.th, c0 = (tile % g.tiles_w) * g.tw;
-  const int r1 = min(r0 + g.th, g.h), c1 = min(c0 + g.tw, g.w);
-  const int tile_w = c1 - c0, tile_n = (r1 - r0) * tile_w;
-  const T* xp = x + plane * g.h * g.w;
-  const T* dyp = dy + plane * g.ho * g.wo;
-  T* dxp = dx + plane * g.h * g.w;
-
-  // the windows that cover some position of the tile
-  const int oh0 = max(0, ceil_div(r0 + g.ph - g.kh + 1, g.sh));
-  const int oh1 = min(g.ho - 1, floor_div(r1 - 1 + g.ph, g.sh));
-  const int ow0 = max(0, ceil_div(c0 + g.pw - g.kw + 1, g.sw));
-  const int ow1 = min(g.wo - 1, floor_div(c1 - 1 + g.pw, g.sw));
-  const int n_oh = oh1 - oh0 + 1, n_ow = ow1 - ow0 + 1;
-  if (n_oh <= 0 || n_ow <= 0) {  // e.g. trailing rows when the stride exceeds the window
-    for (int i = threadIdx.x; i < tile_n; i += blockDim.x)
-      dxp[static_cast<long long>(r0 + i / tile_w) * g.w + c0 + i % tile_w] = from_float<T>(0.f);
-    return;
+__device__ __forceinline__ void stage(T* dst, const T* src, long long total, long long start,
+                                      int len) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int head = head_of(src, start);
+  const long long a0 = start - head;
+  const int chunks = (head + len + VEC - 1) / VEC;
+  for (int k = threadIdx.x; k < chunks; k += kThreads) {
+    const long long g0 = a0 + static_cast<long long>(k) * VEC;
+    if (g0 >= 0 && g0 + VEC <= total) {
+      cp_async16(dst + k * VEC, src + g0);
+    } else {
+      const long long e1 = min(g0 + VEC, start + len);
+      for (long long e = max(g0, start); e < e1; ++e) dst[e - a0] = src[e];
+    }
   }
+}
 
-  // 1. stage the x region those windows read, -inf outside the input
-  const int xr0 = oh0 * g.sh - g.ph, xc0 = ow0 * g.sw - g.pw;
-  const int n_xr = (n_oh - 1) * g.sh + g.kh, n_xc = (n_ow - 1) * g.sw + g.kw;
-  float* xs = smem;
-  uint16_t* arg = reinterpret_cast<uint16_t*>(smem + n_xr * n_xc);
-  for (int i = threadIdx.x; i < n_xr * n_xc; i += blockDim.x) {
-    const int r = xr0 + i / n_xc, c = xc0 + i % n_xc;
-    xs[i] = (r >= 0 && r < g.h && c >= 0 && c < g.w)
-                ? to_float(xp[static_cast<long long>(r) * g.w + c])
-                : -INFINITY;
+// Starts the copies that stage item it's x rows and dy rows in buf.
+template <typename T, int SH>
+__device__ __forceinline__ void issue(const T* x, const T* dy, T* buf, const Params& p,
+                                      long long it) {
+  const Item t = item_at<SH>(p, it);
+  const long long x0 = t.p0 * p.hw + static_cast<long long>(t.xr_lo) * p.w;
+  const long long y0 = t.p0 * p.howo + static_cast<long long>(t.oh_lo) * p.wo;
+  if (t.n_oh > 0) {
+    stage(buf, x, p.x_total, x0, (t.np - 1) * p.hw + t.n_xr * p.w);
+    stage(buf + p.x_stage, dy, p.dy_total, y0, (t.np - 1) * p.howo + t.n_oh * p.wo);
   }
-  __syncthreads();
+}
 
-  // 2. each covering window's first argmax offset, once
-  for (int i = threadIdx.x; i < n_oh * n_ow; i += blockDim.x) {
-    const float* win = xs + (i / n_ow) * g.sh * n_xc + (i % n_ow) * g.sw;
-    float best = win[0];
-    int best_k = 0;
-    for (int a = 0; a < g.kh; ++a)
-      for (int b = 0; b < g.kw; ++b) {
-        const float v = win[a * n_xc + b];
-        if (v > best) {  // strict: the earliest offset keeps a tie
-          best = v;
-          best_k = a * g.kw + b;
-        }
-      }
-    arg[i] = static_cast<uint16_t>(best_k);
+// The gradient at plane-local pl, row r, column c of an item: the dy of each
+// window that covers (r, c) and chose it, oh then ow ascending, in fp32.
+template <typename T, int KH, int KW, int SH, int SW>
+__device__ __forceinline__ float grad_at(const Params& p, const Item& t, const uint16_t* am,
+                                         const T* ys, int pl, int r, int c) {
+  const int kh = KH ? KH : p.kh, kw = KW ? KW : p.kw;
+  const int sh = SH ? SH : p.sh, sw = SW ? SW : p.sw;
+  const int nj = KH ? (KH + SH - 1) / SH : p.nj, ni = KW ? (KW + SW - 1) / SW : p.ni;
+  const int oht = div_sh<SH>(p, r + p.ph), ra = r + p.ph - oht * sh;
+  const int owt = div_sw<SW>(p, c + p.pw), cb = c + p.pw - owt * sw;
+  float acc = 0.f;
+#pragma unroll
+  for (int j = nj - 1; j >= 0; --j) {
+    const int oh = oht - j, a = ra + j * sh;
+    if (a >= kh || oh < 0 || oh >= p.ho) continue;
+    const int row = (pl * t.n_oh + oh - t.oh_lo) * p.wo;
+#pragma unroll
+    for (int i = ni - 1; i >= 0; --i) {
+      const int ow = owt - i, b = cb + i * sw;
+      if (b >= kw || ow < 0 || ow >= p.wo) continue;
+      if (am[row + ow] == a * kw + b) acc += to_float(ys[row + ow]);
+    }
   }
-  __syncthreads();
+  return acc;
+}
 
-  // 3. each input position gathers the dy of the windows that chose it
-  for (int i = threadIdx.x; i < tile_n; i += blockDim.x) {
-    const int hh = r0 + i / tile_w, ww = c0 + i % tile_w;
-    const int lo_oh = max(oh0, ceil_div(hh + g.ph - g.kh + 1, g.sh));
-    const int hi_oh = min(oh1, floor_div(hh + g.ph, g.sh));
-    const int lo_ow = max(ow0, ceil_div(ww + g.pw - g.kw + 1, g.sw));
-    const int hi_ow = min(ow1, floor_div(ww + g.pw, g.sw));
+// The gradient of VEC dx elements in row r of plane pl at columns c, c+1,
+// ..., for a fixed geometry (SW a power of 2), P = (c + pw) mod SW: the
+// argmax codes and dy of the window columns these touch are read once into
+// registers (a code relative to the row offset a, so that a compare with
+// the compile-time b decides; -1 where no window is), then each element adds
+// the dy of the windows that chose it, oh then ow ascending, with every
+// index fixed at compile time. c may be negative and c + VEC may pass the
+// row's end: columns outside [0, w) get whatever their windows give, and
+// the caller drops them.
+template <typename T, int KH, int KW, int SH, int SW, int P>
+__device__ __forceinline__ void grad_row_chunk(const Params& p, const Item& t,
+                                               const uint16_t* am, const T* ys, int pl, int r,
+                                               int c, Pack<T, 16 / sizeof(T)>& v) {
+  static_assert((SW & (SW - 1)) == 0, "the column phase takes SW a power of 2");
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int NJ = (KH + SH - 1) / SH, NI = (KW + SW - 1) / SW;
+  constexpr int OWN = (P + VEC - 1) / SW + NI;  // window columns from owt(c) - (NI - 1) on
+  constexpr int LOG_SW = SW == 1 ? 0 : SW == 2 ? 1 : SW == 4 ? 2 : 3;
+  const int oht = static_cast<int>(static_cast<unsigned>(r + p.ph) / SH);
+  const int ra = r + p.ph - oht * SH;
+  const int ow_min = ((c + p.pw) >> LOG_SW) - (NI - 1);  // floor, also for c + pw < 0
+  int code[NJ][OWN];
+  float val[NJ][OWN];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int oh = oht - j, a = ra + j * SH;
+    const bool row_ok = a < KH && oh >= 0 && oh < p.ho;
+    const int row = (pl * t.n_oh + oh - t.oh_lo) * p.wo;
+#pragma unroll
+    for (int q = 0; q < OWN; ++q) {
+      const int ow = ow_min + q;
+      const bool ok = row_ok && ow >= 0 && ow < p.wo;
+      code[j][q] = ok ? static_cast<int>(am[row + ow]) - a * KW : -1;
+      val[j][q] = ok ? to_float(ys[row + ow]) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
     float acc = 0.f;
-    for (int oh = lo_oh; oh <= hi_oh; ++oh) {
-      const int a = hh + g.ph - oh * g.sh;
-      for (int ow = lo_ow; ow <= hi_ow; ++ow) {
-        const int b = ww + g.pw - ow * g.sw;
-        if (arg[(oh - oh0) * n_ow + (ow - ow0)] == a * g.kw + b)
-          acc += to_float(dyp[static_cast<long long>(oh) * g.wo + ow]);
+#pragma unroll
+    for (int j = NJ - 1; j >= 0; --j) {
+#pragma unroll
+      for (int i = NI - 1; i >= 0; --i) {
+        const int b = (P + e) % SW + i * SW;
+        const int q = (P + e) / SW + (NI - 1) - i;
+        if (b < KW && code[j][q] == b) acc += val[j][q];
       }
     }
-    dxp[static_cast<long long>(hh) * g.w + ww] = from_float<T>(acc);
+    v.v[e] = from_float<T>(acc);
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* dy, void* dx, const Geom& g, size_t smem,
-           cudaStream_t stream) {
+// grad_row_chunk for the column phase of c (SW <= 2).
+template <typename T, int KH, int KW, int SH, int SW>
+__device__ __forceinline__ void row_chunk(const Params& p, const Item& t, const uint16_t* am,
+                                          const T* ys, int pl, int r, int c,
+                                          Pack<T, 16 / sizeof(T)>& v) {
+  static_assert(SW <= 2, "row_chunk: add a phase for SW > 2");
+  if (((c + p.pw) & (SW - 1)) == 0)
+    grad_row_chunk<T, KH, KW, SH, SW, 0>(p, t, am, ys, pl, r, c, v);
+  else
+    grad_row_chunk<T, KH, KW, SH, SW, SW - 1>(p, t, am, ys, pl, r, c, v);
+}
+
+template <typename T, int KH, int KW, int SH, int SW>
+__device__ __forceinline__ void compute(T* __restrict__ dx, const T* buf, uint16_t* am,
+                                        const T* x, const T* dy, const Params& p, long long it) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int kh = KH ? KH : p.kh, kw = KW ? KW : p.kw;
+  const int sh = SH ? SH : p.sh, sw = SW ? SW : p.sw;
+  const Item t = item_at<SH>(p, it);
+  const T* xs =
+      buf + head_of(x, t.p0 * p.hw + static_cast<long long>(t.xr_lo) * p.w);
+  const T* ys = buf + p.x_stage +
+                head_of(dy, t.p0 * p.howo + static_cast<long long>(t.oh_lo) * p.wo);
+
+  // 1. each window's first argmax offset, once
+  const int n_win = t.np * t.n_oh * p.wo;
+  for (int i = threadIdx.x; i < n_win; i += kThreads) {
+    int q, ow, pl, ohl;
+    p.fd_wo.divmod(i, q, ow);
+    if (t.np == 1) {
+      pl = 0;
+      ohl = q;
+    } else {
+      p.fd_ho.divmod(q, pl, ohl);
+    }
+    const int r0 = (t.oh_lo + ohl) * sh - p.ph, c0 = ow * sw - p.pw;
+    const T* win = xs + pl * p.hw + (r0 - t.xr_lo) * p.w + c0;
+    float best = -INFINITY;
+    int best_k = 0;
+    if (r0 >= 0 && r0 + kh <= p.h && c0 >= 0 && c0 + kw <= p.w) {  // no padded cell
+#pragma unroll
+      for (int a = 0; a < kh; ++a)
+#pragma unroll
+        for (int b = 0; b < kw; ++b) {
+          const float v = to_float(win[a * p.w + b]);
+          if ((a == 0 && b == 0) || v > best) {
+            best = v;
+            best_k = a * kw + b;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int a = 0; a < kh; ++a) {
+        const bool row_in = r0 + a >= 0 && r0 + a < p.h;
+#pragma unroll
+        for (int b = 0; b < kw; ++b) {
+          const float v = row_in && c0 + b >= 0 && c0 + b < p.w ? to_float(win[a * p.w + b])
+                                                               : -INFINITY;
+          if ((a == 0 && b == 0) || v > best) {  // strict: the earliest offset keeps a tie
+            best = v;
+            best_k = a * kw + b;
+          }
+        }
+      }
+    }
+    am[i] = static_cast<uint16_t>(best_k);
+  }
+  __syncthreads();
+
+  // 2. dx over the item's rows: 16-byte chunks aligned in device memory,
+  // element by element at the ends of the range
+  const long long d0 = t.p0 * p.hw + static_cast<long long>(t.hr0) * p.w;
+  const int len = (t.np - 1) * p.hw + (t.hr1 - t.hr0) * p.w;
+  const int head = min(len, (VEC - head_of(dx, d0)) % VEC);
+  const int body = (len - head) / VEC;
+  const int ends = len - body * VEC;  // head + tail elements
+  const int base = t.hr0 * p.w;       // offset of d0 from plane p0's start
+  for (int u = threadIdx.x; u < body + ends; u += kThreads) {
+    const bool chunk = u < body;
+    const int off = chunk ? head + u * VEC : (u - body < head ? u - body : u - body + body * VEC);
+    int pl, rem, r, c;
+    if (t.np == 1) {
+      pl = 0;
+      rem = base + off;
+    } else {
+      p.fd_hw.divmod(base + off, pl, rem);
+    }
+    p.fd_w.divmod(rem, r, c);
+    if (chunk) {
+      Pack<T, VEC> v;
+      if constexpr (KH > 0) {
+        if (c + VEC <= p.w) {  // the chunk lies in one row
+          row_chunk<T, KH, KW, SH, SW>(p, t, am, ys, pl, r, c, v);
+          store<T, VEC>(dx + d0 + off, v);
+          continue;
+        }
+        if (VEC <= p.w) {  // in two rows: the first's columns, then the next row's
+          Pack<T, VEC> next;
+          row_chunk<T, KH, KW, SH, SW>(p, t, am, ys, pl, r, c, v);
+          const bool wrap = r + 1 == p.h;  // the next row opens the next plane
+          row_chunk<T, KH, KW, SH, SW>(p, t, am, ys, pl + wrap, wrap ? 0 : r + 1, c - p.w, next);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (c + e >= p.w) v.v[e] = next.v[e];
+          store<T, VEC>(dx + d0 + off, v);
+          continue;
+        }
+      }
+      // element by element: the general instance (whose loops over the
+      // covering windows keep this loop rolled: its elements are stored one
+      // at a time rather than packed through local memory), rows shorter
+      // than a chunk
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const T g = from_float<T>(grad_at<T, KH, KW, SH, SW>(p, t, am, ys, pl, r, c));
+        if constexpr (KH > 0)
+          v.v[e] = g;
+        else
+          dx[d0 + off + e] = g;
+        if (++c == p.w) {
+          c = 0;
+          if (++r == p.h) {
+            r = 0;
+            ++pl;
+          }
+        }
+      }
+      if constexpr (KH > 0) store<T, VEC>(dx + d0 + off, v);
+    } else {
+      dx[d0 + off] = from_float<T>(grad_at<T, KH, KW, SH, SW>(p, t, am, ys, pl, r, c));
+    }
+  }
+}
+
+// KH, KW, SH, SW > 0: a fixed geometry; all 0: the general instance.
+// (With the one-block minimum, ptxas gives the general bf16 instance the
+// registers it needs; without it, it spilled 32 bytes.)
+template <typename T, int KH, int KW, int SH, int SW>
+__global__ void __launch_bounds__(kThreads, 1)
+    maxpool2d_bwd(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                  Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  uint16_t* am = reinterpret_cast<uint16_t*>(smem + sizeof(T) * (p.x_stage + p.dy_stage));
+  issue<T, SH>(x, dy, buf, p, blockIdx.x);
+  cp_async_wait_all();
+  __syncthreads();
+  compute<T, KH, KW, SH, SW>(dx, buf, am, x, dy, p, blockIdx.x);
+}
+
+int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Sizes the items for geometry p (plane groups or row bands) and their
+// staging buffers; returns the shared memory a block needs.
+int item_elems(long long total) {
+  static int sms = 0;  // of the first card asked
+  if (sms == 0) {
+    int dev = 0, n = 0;
+    sms = cudaGetDevice(&dev) == cudaSuccess &&
+                  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess
+              ? n
+              : 132;
+  }
+  int e = kItemElemsMax;
+  while (e > kItemElemsMin && total / e < static_cast<long long>(kItemsPerSm) * sms) e /= 2;
+  return e;
+}
+
+size_t plan(Params& p, int vec, int elem) {
+  auto smem = [&] {
+    return static_cast<size_t>(p.x_stage + p.dy_stage) * elem +
+           static_cast<size_t>(round_up(p.windows, 8)) * 2;
+  };
+  const int target = item_elems(p.x_total);
+  if (p.hw < target) {
+    p.group = std::max(1, target / p.hw);
+    p.band_rows = p.h;
+    p.items = (p.planes + p.group - 1) / p.group;
+    p.x_stage = round_up(p.group * p.hw + vec - 1, vec);
+    p.dy_stage = round_up(p.group * p.howo + vec - 1, vec);
+    p.windows = p.group * p.howo;
+    return smem();
+  }
+  p.group = 0;
+  const int bands = std::min(p.h, (p.hw + target - 1) / target);
+  p.band_rows = round_up((p.h + bands - 1) / bands, p.sh);
+  for (;;) {
+    int x_max = 0, win_max = 0;
+    for (int r0 = 0; r0 < p.h; r0 += p.band_rows) {
+      Item t;
+      cover_rows<0>(p, r0, std::min(r0 + p.band_rows, p.h), t);
+      x_max = std::max(x_max, t.n_xr * p.w);
+      win_max = std::max(win_max, t.n_oh * p.wo);
+    }
+    p.x_stage = round_up(x_max + vec - 1, vec);
+    p.dy_stage = round_up(win_max + vec - 1, vec);
+    p.windows = win_max;
+    if (smem() <= kSmemTarget || p.band_rows == 1) break;
+    p.band_rows = std::max(1, p.band_rows / 2);
+  }
+  p.items = p.planes * ((p.h + p.band_rows - 1) / p.band_rows);
+  return smem();
+}
+
+template <typename T, int KH, int KW, int SH, int SW>
+int launch(const void* x, const void* dy, void* dx, Params p, cudaStream_t stream) {
+  const size_t smem = plan(p, 16 / sizeof(T), sizeof(T));
+  if (smem > kMaxSmem || p.items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.fd_bands = FastDivmod(p.group ? 1 : (p.h + p.band_rows - 1) / p.band_rows);
+  auto kernel = maxpool2d_bwd<T, KH, KW, SH, SW>;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        maxpool2d_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const long long blocks = g.planes * g.tiles_h * g.tiles_w;
-  maxpool2d_bwd<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), g);
+  kernel<<<static_cast<unsigned>(p.items), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* x, const void* dy, void* dx, const Params& p, cudaStream_t s) {
+  if (p.kh == 3 && p.kw == 3 && p.sh == 2 && p.sw == 2)
+    return launch<T, 3, 3, 2, 2>(x, dy, dx, p, s);  // the ResNet stem pool
+  if (p.kh == 2 && p.kw == 2 && p.sh == 2 && p.sw == 2)
+    return launch<T, 2, 2, 2, 2>(x, dy, dx, p, s);  // VGG's pools
+  return launch<T, 0, 0, 0, 0>(x, dy, dx, p, s);
 }
 
 }  // namespace
 
 // x, dy, dx: contiguous (planes, h, w) / (planes, ho, wo) / (planes, h, w) in
-// one dtype (1 = bf16, 0 = f32); (ph, pw) are the low-side paddings.
+// one dtype (1 = bf16, 0 = f32); (ph, pw) are the low-side paddings. Returns
+// cudaErrorInvalidValue for a geometry outside the kernel's range (a plane of
+// 2^30 elements or more, or one row band's staging beyond 227 KB of shared
+// memory).
 extern "C" int bigdl_maxpool2d_bwd(const void* x, const void* dy, void* dx, int dtype,
                                    long long planes, int h, int w, int ho, int wo, int kh,
                                    int kw, int sh, int sw, int ph, int pw, void* stream) {
   if (planes <= 0 || h <= 0 || w <= 0 || ho <= 0 || wo <= 0 || kh <= 0 || kw <= 0 ||
-      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || kh * kw > 65535)
+      sh <= 0 || sw <= 0 || ph < 0 || pw < 0 || kh * kw > 65535 ||
+      static_cast<long long>(h) * w >= (1LL << 30) || ph >= (1 << 20) || pw >= (1 << 20))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geom g{planes, h, w, ho, wo, kh, kw, sh, sw, ph, pw, 1, 1, 1, 1};
-  g.tw = std::min(w, kMaxTileW);
-  g.th = std::max(1, std::min(h, kTilePositions / g.tw));
-  // shrink the tile until its shared memory fits the default 48 KB, and past
-  // that the card's 227 KB (only very large windows get there)
-  while (smem_bytes(g, g.th, g.tw) > kDefaultSmem && (g.th > 1 || g.tw > 1)) {
-    if (g.th >= g.tw)
-      g.th = (g.th + 1) / 2;
-    else
-      g.tw = (g.tw + 1) / 2;
-  }
-  const size_t smem = smem_bytes(g, g.th, g.tw);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  g.tiles_h = (h + g.th - 1) / g.th;
-  g.tiles_w = (w + g.tw - 1) / g.tw;
-  if (planes * g.tiles_h * g.tiles_w > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  Params p{};
+  p.planes = planes;
+  p.h = h, p.w = w, p.ho = ho, p.wo = wo, p.kh = kh, p.kw = kw, p.sh = sh, p.sw = sw;
+  p.ph = ph, p.pw = pw;
+  p.nj = (kh + sh - 1) / sh;
+  p.ni = (kw + sw - 1) / sw;
+  p.hw = h * w;
+  p.howo = ho * wo;
+  p.x_total = planes * p.hw;
+  p.dy_total = planes * p.howo;
+  p.fd_w = FastDivmod(w);
+  p.fd_hw = FastDivmod(p.hw);
+  p.fd_wo = FastDivmod(wo);
+  p.fd_ho = FastDivmod(ho);
+  p.fd_sh = FastDivmod(sh);
+  p.fd_sw = FastDivmod(sw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, dy, dx, g, smem, s);
-  if (dtype == 0) return launch<float>(x, dy, dx, g, smem, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(x, dy, dx, p, s);
+  if (dtype == 0) return dispatch<float>(x, dy, dx, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

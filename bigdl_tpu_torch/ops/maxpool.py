@@ -20,8 +20,9 @@ dropped.
   tensors go through the plain version, CUDA tensors launch the kernel, and
   anything the kernel does not take raises. There is no fallback.
 * :func:`maxpool2d` is differentiable: a ``torch.autograd.Function`` whose
-  forward is torch ops (a -inf ``F.pad`` and ``F.max_pool2d`` without
-  indices, as XLA's ``reduce_window`` is in JAX) and whose backward is
+  forward is torch ops (``F.max_pool2d`` without indices, after a -inf
+  ``F.pad`` only where its own padding cannot express the geometry, as
+  XLA's ``reduce_window`` is in JAX) and whose backward is
   :func:`maxpool_grad`. It saves ``x`` only, never indices: the backward
   recomputes each window's argmax from ``x``, as the TPU kernel does.
 """
@@ -69,7 +70,15 @@ def _pad(x: torch.Tensor, padding: Padding) -> torch.Tensor:
 
 
 def maxpool_forward(x: torch.Tensor, kernel: Pair, stride: Pair, padding: Padding) -> torch.Tensor:
-    """The max pool itself (torch ops on any device)."""
+    """The max pool itself (torch ops on any device). A padding equal on both
+    sides of each dimension and at most half the window goes to
+    ``F.max_pool2d``, which pads with -inf without copying ``x`` (no padding
+    at all is the case of VGG's pools); any other (asymmetric, a ceil-mode
+    overhang, more than half the window: ``F.max_pool2d`` refuses those) is
+    an explicit -inf pad first."""
+    (h_lo, h_hi), (w_lo, w_hi) = padding
+    if h_lo == h_hi <= kernel[0] // 2 and w_lo == w_hi <= kernel[1] // 2:
+        return F.max_pool2d(x, kernel, stride, (h_lo, w_lo))
     return F.max_pool2d(_pad(x, padding), kernel, stride)
 
 
@@ -113,8 +122,11 @@ def maxpool_grad(x: torch.Tensor, dy: torch.Tensor, kernel: Pair, stride: Pair,
     """Gradient of :func:`maxpool_forward` with respect to ``x`` for the
     cotangent ``dy``, in ``x``'s dtype.
 
-    CUDA tensors (bf16 or f32, contiguous NCHW, both on one card) launch the
-    kernel on the current stream; CPU tensors take the plain version."""
+    CUDA tensors (bf16 or f32, contiguous NCHW at any storage offset, both on
+    one card) launch the kernel on the current stream; CPU tensors take the
+    plain version. The kernel refuses (and this raises) a plane of 2^30
+    elements or more, or a row so wide that a few rows of it do not fit in
+    shared memory."""
     kernel, stride = tuple(kernel), tuple(stride)
     padding = tuple(tuple(p) for p in padding)
     if x.device.type == "cpu" and dy.device.type == "cpu":

@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    (also on ``split_heads`` views, at both head dims and on ragged 128-row
    work items; a repeat of the training shape must give the same bits);
 4. kernel, plain-version and library times beside the card's bound (the
-   probe kernel's too; SDPA's backward timed under each backend that takes
+   probe kernel's too, through its C entry point: the launch floor;
+   ``rms_norm_fwd`` and ``F.rms_norm`` also in turns; SDPA's backward timed under each backend that takes
    the shape, and the one it picks by default named; the host's time of one
    backward call);
 5. serving: the full-width Transformer-LM (vocab 8192, hidden 512, 8
@@ -66,9 +67,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    Adam steps on the card (kernel route) held against the same 3 steps on
    the CPU (plain route) at V 8192, H 512, S 2, batch 2, T 128.
 
-The max-pool backward kernel is held against its plain version in [3c] and
-timed in [4]; the bias+activation epilogue kernels likewise in [3d] and [4];
-the LayerNorm and RMSNorm kernels in [3e] and [4]. Each main path (serving,
+The max-pool backward kernel is held against its plain version in [3c]
+(the flagship's stem pool, VGG-16's five pools, edge geometries, and its
+alignment traps: rows of 56 and 28 bytes, part-full plane groups, x and dy
+at a storage offset of one element, the stem at an odd size; repeats
+bit-identical) and timed in [4] at the stem and VGG-16's five pools beside
+ATen's backward and the bound; its three instances (3x3/s2, 2x2/s2,
+general) launch in [2], where a spill in any of them fails the run; the
+bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
+and RMSNorm kernels in [3e] and [4]. Each main path (serving,
 LM training, flagship training, VGG-16 training, norm-LM training) runs
 with every kernel's launch count set to 0 just before it and read just
 after.
@@ -230,15 +237,22 @@ def phase_build():
     log(f"    probe (y = x + 1 on an {probe.SHAPE} f32 block, at the library's first load): "
         f"kernels_available('cuda') = {probe.kernels_available('cuda')}, reason "
         f"{probe.unavailable_reason()!r}, {probe.launches} launch")
-    serialized = []
+    serialized, pool_spills, entry = [], [], ""
     for line in _build.build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling entry" in line
                 or "warning" in line):
             log("    ptxas: " + line.strip())
         if "C7514" in line:
             serialized.append(line.strip())
+        if "Compiling entry" in line:
+            entry = line
+        elif ("spill stores" in line and "maxpool2d_bwd" in entry
+              and "0 bytes spill stores, 0 bytes spill loads" not in line):
+            pool_spills.append(line.strip())
     if serialized:  # a branch or register read between a wgmma and its wait (~2x slower)
         raise AssertionError(f"ptxas serialized wgmma (C7514): {serialized}")
+    if pool_spills:
+        raise AssertionError(f"ptxas spilled registers of a max-pool instance: {pool_spills}")
     from bigdl_tpu_torch.ops.fused_epilogue import fused_bias_act_bwd, fused_bias_act_fwd
     from bigdl_tpu_torch.ops.fused_norm import (layer_norm_bwd, layer_norm_fwd, rms_norm_bwd,
                                                 rms_norm_fwd)
@@ -259,7 +273,10 @@ def phase_build():
                 raise RuntimeError(f"backward entry point failed with CUDA error {rc}")
         torch.cuda.synchronize()
         del keep, grads
+        # the max-pool kernel's three instances: 3x3/s2, 2x2/s2 and the general one
         maxpool_grad(q, q[:, :, :32, :32].contiguous(), (3, 3), (2, 2), ((1, 1), (1, 1)))
+        maxpool_grad(q, q[:, :, :32, :32].contiguous(), (2, 2), (2, 2), ((0, 0), (0, 0)))
+        maxpool_grad(q, q[:, :, :31, :63].contiguous(), (3, 2), (2, 1), ((0, 0), (0, 0)))
         b = q[0, 0, 0].float()
         for axis, bias in ((-1, b), (1, b[:1])):
             fused_bias_act_fwd(q, bias, "gelu", axis)
@@ -269,7 +286,8 @@ def phase_build():
         rms_norm_fwd(q, b)
         rms_norm_bwd(q, b, q)
     torch.cuda.synchronize()
-    log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV, and each alone), maxpool_grad, "
+    log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV, and each alone), maxpool_grad "
+        "(3x3/s2, 2x2/s2 and the general instance), "
         "fused_bias_act (forward, feature and row backward) and the LayerNorm and RMSNorm "
         "forward and backward launched once in bf16 and f32")
 
@@ -451,9 +469,10 @@ def phase_bwd_parity():
 
 def phase_probe_times(card):
     """The probe kernel against its plain version at its one shape, and its time
-    (a launch's own cost: the bound is 8 KiB of traffic)."""
+    through its C entry point into a buffer made once (no Python wrapper, no
+    allocation): the card's launch floor, since the bound is 8 KiB of traffic."""
     import torch
-    from bigdl_tpu_torch.ops import probe
+    from bigdl_tpu_torch.ops import _build, probe
 
     x = torch.randn(probe.SHAPE, generator=torch.Generator(device="cuda").manual_seed(SEED),
                     device="cuda")
@@ -462,15 +481,24 @@ def phase_probe_times(card):
     err = (y - probe.probe_reference(x)).abs().max().item()
     if err != 0.0:
         raise AssertionError(f"probe kernel disagrees with x + 1 by {err}")
-    ms = cuda_ms(lambda: probe.add_one(x), iters=200, warmup=10)
+    lib = _build.load()
+
+    def launch():
+        rc = probe._launch(lib, x, y)
+        if rc != 0:
+            raise RuntimeError(f"probe kernel launch failed with CUDA error {rc}")
+
+    ms = cuda_ms(launch, iters=200, warmup=10)
+    wrapper_ms = cuda_ms(lambda: probe.add_one(x), iters=200, warmup=10)
     plain_ms = cuda_ms(lambda: probe.probe_reference(x), iters=200, warmup=10)
     b_ms, by = bound_ms(x.numel(), (x, y), card)  # one add an element; read x, write y
     log(f"[4] kernels: probe_add_one {tuple(x.shape)} f32: max err {err} (exact), kernel_ms "
-        f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b_ms:.7f} ({by}); card {card}")
+        f"{ms:.4f} (C entry point: the card's launch floor), wrapper_ms {wrapper_ms:.4f} "
+        f"(probe.add_one), plain_ms {plain_ms:.4f}, bound_ms {b_ms:.7f} ({by}); card {card}")
     return {"name": "probe_add_one", "route": "cuda", "source": "bigdl_tpu_torch/csrc/probe.cu",
             "replaces": "bigdl_tpu/ops/pallas_probe.py:40", "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": None, "wrapper_ms": wrapper_ms}
 
 
 def phase_times(rec, card):
@@ -830,7 +858,9 @@ def phase_training(card):
 TOL_MAXPOOL = {"f32_rel_sum": 1e-6, "bf16_steps": 2.0 ** -7}
 
 
-def _maxpool_case(shape, kernel, stride, padding, dtype, kind, g):
+def _maxpool_case(shape, kernel, stride, padding, dtype, kind, g, offset=0):
+    """x and dy of one case; with an offset, both are contiguous tensors whose
+    storage starts that many elements earlier (data_ptr not 16-byte aligned)."""
     import torch
     from bigdl_tpu_torch.ops.maxpool import pooled_size
 
@@ -844,6 +874,11 @@ def _maxpool_case(shape, kernel, stride, padding, dtype, kind, g):
         x = torch.relu(x)
     ho, wo = pooled_size((h, w), kernel, stride, padding)
     dy = torch.randn((n, c, ho, wo), generator=g, device="cuda")
+    if offset:
+        x, dy = (torch.cat([t.new_zeros(offset), t.ravel()])[offset:].view(t.shape)
+                 for t in (x.to(dtype), dy.to(dtype)))
+        if x.data_ptr() % 16 == 0 or dy.data_ptr() % 16 == 0:
+            raise AssertionError("an offset case's tensors are 16-byte aligned")
     return x.to(dtype), dy.to(dtype)
 
 
@@ -882,6 +917,20 @@ def phase_maxpool_parity():
         ("5x4/s(1,3) asymmetric, f32", (2, 5, 30, 17), ((5, 4), (1, 3), ((2, 1), (0, 2))), f32,
          "normal"),
     ]
+    # the redesigned kernel's alignment traps, each in both dtypes: rows of 56
+    # and 28 bytes (VGG's pool13/pool17 at a small batch), a last plane group
+    # or row band left part-full, x and dy at a storage offset of 1 element
+    # (the label's "+1"), the stem at an odd size
+    for dt in (bf, f32):
+        name = str(dt)[6:]
+        cases += [
+            (f"pool13 rows W=28 batch 4, {name}", (4, 512, 28, 28), vgg, dt, "relu"),
+            (f"pool17 rows W=14 batch 4, {name}", (4, 512, 14, 14), vgg, dt, "relu"),
+            (f"W=14, 21 planes (part-full group), {name}", (3, 7, 14, 14), vgg, dt, "normal"),
+            (f"W=28 +1 offset, {name}", (2, 24, 28, 28), vgg, dt, "relu"),
+            (f"stem +1 offset, {name}", (4, 64, 112, 112), stem, dt, "normal"),
+            (f"stem H=W=113 (odd), {name}", (8, 64, 113, 113), stem, dt, "normal"),
+        ]
     repeated = {"flagship stem pool", "VGG-16 pool2 batch 64",
                 "VGG-16 pool2, relu(normal) (zero windows)"}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -889,7 +938,8 @@ def phase_maxpool_parity():
         f"(|err| <= bf16_steps*|ref| [bf16] + f32_rel_sum*n*max|dy|; {TOL_MAXPOOL})")
     record = None
     for label, shape, (kernel, stride, padding), dt, kind in cases:
-        x, dy = _maxpool_case(shape, kernel, stride, padding, dt, kind, g)
+        x, dy = _maxpool_case(shape, kernel, stride, padding, dt, kind, g,
+                              1 if "+1 offset" in label else 0)
         got = maxpool_grad(x, dy, kernel, stride, padding)
         torch.cuda.synchronize()
         ref = maxpool_grad_reference(x, dy, kernel, stride, padding)
@@ -922,41 +972,80 @@ def phase_maxpool_parity():
     return record
 
 
+# the shapes [4] times the max-pool backward at: the flagship's stem pool
+# (the record's headline) and VGG-16's five 2x2/s2 pools at batch 64 (their
+# inputs are ReLU outputs)
+MAXPOOL_SHAPES = [
+    ("stem", (128, 64, 112, 112), ((3, 3), (2, 2), ((1, 1), (1, 1)))),
+    ("VGG-16 pool2", (64, 64, 224, 224), ((2, 2), (2, 2), ((0, 0), (0, 0)))),
+    ("VGG-16 pool5", (64, 128, 112, 112), ((2, 2), (2, 2), ((0, 0), (0, 0)))),
+    ("VGG-16 pool9", (64, 256, 56, 56), ((2, 2), (2, 2), ((0, 0), (0, 0)))),
+    ("VGG-16 pool13", (64, 512, 28, 28), ((2, 2), (2, 2), ((0, 0), (0, 0)))),
+    ("VGG-16 pool17", (64, 512, 14, 14), ((2, 2), (2, 2), ((0, 0), (0, 0)))),
+]
+
+
 def phase_maxpool_times(rec, card):
-    """Time of the max-pool backward kernel at the flagship shape (launched
-    through its C entry point, so the wrapper's count stays the main path's),
-    its plain version, and ATen's max-pool backward from saved indices."""
+    """Times of the max-pool backward kernel (launched through its C entry
+    point, so the wrapper's count stays the main paths'), its plain version
+    and ATen's max-pool backward from saved indices, beside the bound, at
+    the stem (the parity phase's inputs) and VGG-16's five pools (bf16)."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops.maxpool import maxpool_grad_reference
 
-    x, dy, dx = rec["x"], rec["dy"], rec["dx"]
-    kernel, stride, padding = rec["geometry"]
     lib = _build.load()
-    n, c, h, w = x.shape
-    ho, wo = dy.shape[2:]
     stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    rows = []
+    for label, shape, (kernel, stride, padding) in MAXPOOL_SHAPES:
+        if label == "stem":
+            x, dy, dx = rec["x"], rec["dy"], torch.empty_like(rec["dx"])
+        else:
+            x, dy = _maxpool_case(shape, kernel, stride, padding, torch.bfloat16, "relu", g)
+            dx = torch.empty_like(x)
+        n, c, h, w = x.shape
+        ho, wo = dy.shape[2:]
 
-    def launch():
-        rc = lib.bigdl_maxpool2d_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), 1, n * c, h, w,
-                                     ho, wo, *kernel, *stride, padding[0][0], padding[1][0],
-                                     stream)
-        if rc != 0:
-            raise RuntimeError(f"maxpool kernel launch failed with CUDA error {rc}")
+        def launch():
+            rc = lib.bigdl_maxpool2d_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), 1, n * c, h,
+                                         w, ho, wo, *kernel, *stride, padding[0][0],
+                                         padding[1][0], stream)
+            if rc != 0:
+                raise RuntimeError(f"maxpool kernel launch failed with CUDA error {rc}")
 
-    ms = cuda_ms(launch)
-    plain_ms = cuda_ms(lambda: maxpool_grad_reference(x, dy, kernel, stride, padding), iters=5)
-    _, idx = F.max_pool2d(x, kernel, stride, padding[0][0], return_indices=True)
-    library_ms = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-        dy, x, list(kernel), list(stride), [padding[0][0], padding[1][0]], [1, 1], False, idx))
-    b, by = bound_ms(0.0, (x, dy, dx), card)
-    idx_mb = idx.numel() * idx.element_size() / 1e6
-    del idx
-    log(f"[4] kernels: maxpool2d_bwd {tuple(x.shape)} bf16 3x3/s2/p1: verdict ok, kernel_ms "
-        f"{ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b:.4f} ({by}; x, dy read and dx written "
-        f"once), library_ms {library_ms:.4f} (ATen max_pool2d_with_indices_backward, which "
-        f"also reads {idx_mb:.1f} MB of saved int64 indices; yardstick only); card {card}")
+        ms = cuda_ms(launch, iters=50)
+        plain_ms = cuda_ms(lambda: maxpool_grad_reference(x, dy, kernel, stride, padding),
+                           iters=3, warmup=1)
+        _, idx = F.max_pool2d(x, kernel, stride, padding[0][0], return_indices=True)
+        library_ms = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            dy, x, list(kernel), list(stride), [padding[0][0], padding[1][0]], [1, 1], False,
+            idx), iters=50)
+        b, by = bound_ms(0.0, (x, dy, dx), card)
+        idx_mb = idx.numel() * idx.element_size() / 1e6
+        del idx
+        geometry = f"{kernel[0]}x{kernel[1]}/s{stride[0]}/p{padding[0][0]}"
+        log(f"[4] kernels: maxpool2d_bwd {label} {tuple(x.shape)} bf16 {geometry}: verdict ok, "
+            f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b:.4f} ({by}; x, dy read "
+            f"and dx written once; kernel/bound {ms / b:.2f}), library_ms {library_ms:.4f} "
+            f"(ATen max_pool2d_with_indices_backward, which also reads {idx_mb:.1f} MB of saved "
+            f"int64 indices; yardstick only; ATen/kernel {library_ms / ms:.2f}); card {card}")
+        if ms >= library_ms:
+            log(f"    maxpool2d_bwd {label}: the kernel is not faster than ATen's backward")
+        rows.append({"shape": label, "x": list(x.shape), "geometry": geometry, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "library_ms": library_ms})
+        if label != "stem":
+            del x, dy
+        del dx
+    vgg = rows[1:]
+    log(f"    VGG-16's five pools a step: kernel {sum(r['ms'] for r in vgg):.4f} ms, ATen "
+        f"{sum(r['library_ms'] for r in vgg):.4f} ms, bound {sum(r['bound_ms'] for r in vgg):.4f}"
+        f" ms; stem half-bound target (<= 2x bound) "
+        f"{'met' if rows[0]['ms'] <= 2 * rows[0]['bound_ms'] else 'missed'}")
+    torch.cuda.empty_cache()
+    head = rows[0]
     return {
         "name": "maxpool2d_bwd",
         "route": "cuda",
@@ -964,11 +1053,12 @@ def phase_maxpool_times(rec, card):
         "replaces": "bigdl_tpu/ops/maxpool.py:51",
         "launches": None,  # filled from the main path's run
         "max_abs_err": rec["max_abs_err"],
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b,
-        "bound_by": by,
-        "library_ms": library_ms,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shapes": rows,
     }
 
 
@@ -1766,6 +1856,15 @@ def phase_norm_times(recs, card):
             del lo, leaves
         t["fwd"].append(lib_fwd)
         t["bwd"].append(lib_bwd)
+        if kind == "rms" and x.dtype == torch.float32:  # is the kernel slower than F.rms_norm?
+            turns = [(cuda_ms(k_fwd, iters=200), cuda_ms(lambda: lib_f(x, w, b), iters=200))
+                     for _ in range(3)]
+            k_min, l_min = min(k for k, _ in turns), min(v for _, v in turns)
+            log(f"    rms_norm_fwd {tuple(x.shape)} vs F.rms_norm in turns (ms): "
+                + ", ".join(f"{k:.4f} / {v:.4f}" for k, v in turns)
+                + f"; least {k_min:.4f} / {l_min:.4f}: the kernel is "
+                + (f"slower by {k_min / l_min:.3f}x" if k_min > l_min
+                   else f"not slower ({k_min / l_min:.3f}x)"))
         name = {"ln": "layer_norm", "rms": "rms_norm"}[kind]
         shape = f"{tuple(x.shape)} {str(x.dtype)[6:]}"
         for what in ("fwd", "bwd"):

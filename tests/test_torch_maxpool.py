@@ -9,7 +9,13 @@ Tolerances: f32 1e-6 absolute (each window's dy lands once; a position sums
 at most four of them in fp32, in another order); bf16 1e-2 relative + 2e-2
 absolute against the Pallas kernel, which sums overlapping windows in bf16
 where the port sums in fp32 and rounds once (the JAX test's own tolerance).
-The card-only case (kernel against plain version) is marked ``gpu``.
+The card-only case (kernel against plain version) is marked ``gpu``; its
+alignment cases (rows of 56 and 28 bytes, x and dy at a storage offset of
+one element, a last plane group or row band left part-full, the stem at an
+odd size) hold the kernel's 16-byte staging and stores. The forward's
+pad-free route (symmetric padding of at most half the window through
+``F.max_pool2d`` itself) is held against ``reduce_window`` too, on inputs
+with -inf and NaN.
 """
 
 import jax
@@ -19,7 +25,7 @@ import pytest
 import torch
 
 import bigdl_tpu.nn as jnn
-from bigdl_tpu.ops.maxpool import _maxpool_grad_nchw
+from bigdl_tpu.ops.maxpool import _maxpool_grad_nchw, _reduce_window_max
 from bigdl_tpu.ops.maxpool import maxpool_grad_reference as jax_reference
 from bigdl_tpu_torch.nn import SpatialMaxPooling
 from bigdl_tpu_torch.ops import maxpool as port
@@ -72,6 +78,28 @@ CASES = [
 ]
 
 
+STEM = ((3, 3), (2, 2), ((1, 1), (1, 1)))
+VGG = ((2, 2), (2, 2), NO_PAD)
+# The kernel's alignment traps, each in both dtypes: (label, (N, C, H, W),
+# (kernel, stride, padding), storage offset of x and dy in elements)
+ALIGNMENT_CASES = [
+    ("VGG pool13 rows W=28, 16 planes (last group of 5 part-full)", (2, 8, 28, 28), VGG, 0),
+    ("VGG pool17 rows W=14, 21 planes (last group of 20 part-full)", (3, 7, 14, 14), VGG, 0),
+    ("stem at H=W=113 (odd; last row band part-full)", (1, 3, 113, 113), STEM, 0),
+    ("W=28 at storage offset 1", (2, 3, 28, 28), VGG, 1),
+    ("stem at storage offset 1", (2, 3, 64, 64), STEM, 1),
+]
+ALIGNMENT_PARAMS = [(*c, dt) for c in ALIGNMENT_CASES for dt in ("bfloat16", "float32")]
+ALIGNMENT_IDS = [f"{c[0]}-{c[-1]}" for c in ALIGNMENT_PARAMS]
+
+
+def _at_offset(a: np.ndarray, offset: int, dtype) -> torch.Tensor:
+    """A contiguous tensor of a's values whose storage starts ``offset``
+    elements earlier (its data_ptr is then not 16-byte aligned)."""
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), a.ravel()]))
+    return flat.to(dtype)[offset:].view(a.shape)
+
+
 def _inputs(make, kernel, stride, padding, dtype):
     x, dy = make(kernel, stride, padding)
     if dtype == "bfloat16":  # both packages see the same bf16 values
@@ -99,6 +127,70 @@ def test_plain_backward_matches_jax(label, make, kernel, stride, padding, dtype)
     np.testing.assert_allclose(got, np.asarray(xla, np.float32), **tol)
     if label == "stride > kernel":  # rows and columns no window covers get 0
         assert not got[..., 8, :].any() and not got[..., :, 8].any()
+
+
+@pytest.mark.parametrize("label,shape,geometry,offset,dtype", ALIGNMENT_PARAMS,
+                         ids=ALIGNMENT_IDS)
+def test_plain_backward_matches_jax_alignment_cases(label, shape, geometry, offset, dtype):
+    """The card's alignment cases on the CPU: the plain version (on tensors at
+    the same storage offset) against the Pallas kernel in interpret mode and
+    XLA's SelectAndScatter, so the oracle covers every shape the card uses."""
+    kernel, stride, padding = geometry
+    x, dy = _inputs(lambda k, s, p: _case(*shape, k, s, p, 13), kernel, stride, padding, dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, jdy = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    (ph, _), (pw, _) = padding
+    pallas = _maxpool_grad_nchw(jx, jdy, kernel, stride, (ph, pw), dy.shape[2:],
+                                interpret=True)
+    xla = jax_reference(jx, jdy, kernel, stride, padding)
+    xt, dyt = _at_offset(x, offset, tdt), _at_offset(dy, offset, tdt)
+    assert xt.is_contiguous() and xt.storage_offset() == offset
+    got = port.maxpool_grad_reference(xt, dyt, kernel, stride, padding)
+    assert got.dtype == tdt and got.shape == x.shape
+    got = got.float().numpy()
+    tol = dict(atol=1e-6) if dtype == "float32" else dict(rtol=1e-2, atol=2e-2)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **tol)
+    np.testing.assert_allclose(got, np.asarray(xla, np.float32), **tol)
+
+
+# (kernel, stride, padding): pad-free route (2x2/s2/p0), F.max_pool2d's own
+# padding (3x3/s2/p1, 2x2/s2/p1), explicit pad (p > k//2; a ceil overhang)
+FORWARD_GEOMETRIES = [((2, 2), (2, 2), NO_PAD), ((3, 3), (2, 2), ((1, 1), (1, 1))),
+                      ((2, 2), (2, 2), ((1, 1), (1, 1))), ((3, 3), (1, 1), ((2, 2), (2, 2))),
+                      ((2, 2), (2, 2), ((0, 1), (0, 1)))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel,stride,padding", FORWARD_GEOMETRIES,
+                         ids=["2x2s2p0", "3x3s2p1", "2x2s2p1", "3x3s1p2", "2x2s2ceil"])
+def test_forward_matches_jax_reduce_window(kernel, stride, padding, dtype):
+    """maxpool_forward on each route against reduce_window(max), values only,
+    on inputs with -inf and NaN (a window holding NaN gives NaN on both)."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((2, 3, 11, 10)).astype(np.float32)
+    x[0, 0, :3, :3] = -np.inf  # a window of -inf only
+    x[0, 1, 4, 5] = np.nan
+    x[1, 2, 0, 0] = np.nan
+    x[1, 0, 6:, 2] = -np.inf
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(_reduce_window_max(jnp.asarray(x, jdt), kernel, stride, padding),
+                      np.float32)
+    got = port.maxpool_forward(torch.from_numpy(x).to(tdt), kernel, stride, padding)
+    assert got.dtype == tdt
+    assert tuple(got.shape[2:]) == port.pooled_size(x.shape[2:], kernel, stride, padding)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("padding,padded", [(NO_PAD, False), (((1, 1), (1, 1)), False),
+                                            (((0, 1), (0, 1)), True),
+                                            (((2, 2), (2, 2)), True)])
+def test_forward_pads_only_where_max_pool2d_cannot(monkeypatch, padding, padded):
+    """No -inf copy of x for a padding F.max_pool2d takes itself."""
+    calls = []
+    real = port._pad
+    monkeypatch.setattr(port, "_pad", lambda *a: calls.append(a[1]) or real(*a))
+    port.maxpool_forward(torch.zeros(1, 1, 9, 9), (3, 3), (2, 2), padding)
+    assert calls == ([padding] if padded else [])
 
 
 @pytest.mark.parametrize("args,ceil", [
@@ -174,6 +266,29 @@ def test_kernel_matches_plain_on_card(cuda_card, label, make, kernel, stride, pa
     want = port.maxpool_grad_reference(xc, dyc, kernel, stride, padding)
     # f32: fp32 sums of at most four terms in another order; bf16: both round
     # the fp32 sum once, so at most one bf16 step apart
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=1e-6, rtol=2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, port.maxpool_grad(xc, dyc, kernel, stride, padding))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,shape,geometry,offset,dtype", ALIGNMENT_PARAMS,
+                         ids=ALIGNMENT_IDS)
+def test_kernel_matches_plain_on_card_alignment_cases(cuda_card, label, shape, geometry, offset,
+                                                      dtype):
+    kernel, stride, padding = geometry
+    x, dy = _inputs(lambda k, s, p: _case(*shape, k, s, p, 13), kernel, stride, padding, dtype)
+    tdt = getattr(torch, dtype)
+    xc, dyc = _at_offset(x, offset, tdt).cuda(), _at_offset(dy, offset, tdt).cuda()
+    if offset:  # .cuda() keeps neither the offset nor the misalignment: rebuild on the card
+        xc = torch.cat([xc.new_zeros(offset), xc.ravel()])[offset:].view(x.shape)
+        dyc = torch.cat([dyc.new_zeros(offset), dyc.ravel()])[offset:].view(dy.shape)
+        assert xc.data_ptr() % 16 and dyc.data_ptr() % 16
+    before = port.launches
+    got = port.maxpool_grad(xc, dyc, kernel, stride, padding)
+    torch.cuda.synchronize()
+    assert port.launches == before + 1
+    want = port.maxpool_grad_reference(xc, dyc, kernel, stride, padding)
     tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=1e-6, rtol=2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, port.maxpool_grad(xc, dyc, kernel, stride, padding))
