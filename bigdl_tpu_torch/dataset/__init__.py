@@ -1,5 +1,7 @@
 """Training data of the port."""
 
-from .dataset import AbstractDataSet, DataSet, LocalArrayDataSet, MiniBatch
+from .dataset import (AbstractDataSet, DataSet, LocalArrayDataSet, MiniBatch, pad_minibatch,
+                      to_device)
 
-__all__ = ["AbstractDataSet", "DataSet", "LocalArrayDataSet", "MiniBatch"]
+__all__ = ["AbstractDataSet", "DataSet", "LocalArrayDataSet", "MiniBatch", "pad_minibatch",
+           "to_device"]

@@ -15,6 +15,10 @@ A ``torch.nn.Module`` with the JAX package's serving and gradient surface:
 * ``get_grad_parameters`` / ``zero_grad_parameters`` / ``backward(x,
   grad_output)``: BigDL's stateful gradient surface over torch autograd;
   ``backward`` accumulates parameter gradients into ``.grad``.
+* ``evaluate()`` switches to eval mode (torch's ``eval()``);
+  ``evaluate(dataset, methods)`` also runs an ``Evaluator`` sweep, and
+  ``predict`` / ``predict_class`` run a ``Predictor`` (both in
+  :mod:`bigdl_tpu_torch.optim.predictor`).
 * ``Container`` / ``Sequential`` hold child modules as registered
   submodules under their names and own no parameters: their trees are
   ``{child.name(): child_tree}``, as in the JAX package. ``name()`` /
@@ -215,6 +219,36 @@ class AbstractModule(torch.nn.Module):
                 if gp is not None:
                     p.grad = gp if p.grad is None else p.grad + gp
         return grads[-1] if xin.requires_grad else None
+
+    # -------------------------------------------------------------- inference
+    def evaluate(self, dataset=None, methods=None, batch_size: Optional[int] = None):
+        """No arguments: switch to eval mode and return the module. With a
+        dataset and validation methods: also run them over the dataset
+        (``Evaluator``) and return ``{method name: result}``. The sweep's
+        batches are the dataset's: ``batch_size``, which sizes the JAX
+        package's sharded predictor, is not ported and raises."""
+        self.eval()
+        if dataset is None:
+            return self
+        if batch_size is not None:
+            raise NotImplementedError(
+                "evaluate(batch_size=...) is not ported: the sweep runs the dataset's batches")
+        from ..optim.predictor import Evaluator
+
+        return Evaluator(self).evaluate(dataset, methods)
+
+    def predict(self, data, batch_size: Optional[int] = None) -> torch.Tensor:
+        """Batched eval-mode forward over a dataset, an array or a list of
+        records; the stacked outputs on the host."""
+        from ..optim.predictor import Predictor
+
+        return Predictor(self, batch_size).predict(data)
+
+    def predict_class(self, data, batch_size: Optional[int] = None) -> torch.Tensor:
+        """1-based argmax class per record (the reference's ``predictClass``)."""
+        from ..optim.predictor import Predictor
+
+        return Predictor(self, batch_size).predict_class(data)
 
     # ----------------------------------------------------------------- graphs
     def inputs(self, *parents) -> "ModuleNode":

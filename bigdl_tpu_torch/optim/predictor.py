@@ -1,5 +1,5 @@
 """Batched inference (counterpart of ``bigdl_tpu/optim/predictor.py``'s
-``Predictor``).
+``Predictor`` and ``Evaluator``).
 
 Every dispatch runs the model at ONE fixed batch size: a short batch is
 padded by repeating row 0 and the outputs are sliced back to the real rows.
@@ -8,6 +8,15 @@ framework's masking convention) up to the smallest bucket that fits, so a
 sweep over mixed lengths sees one geometry per bucket. Forwards run under
 ``torch.inference_mode()`` on the model's device; ``forward_batch`` leaves
 its outputs there, and the caller decides where to copy them to the host.
+
+``Evaluator(model).evaluate(dataset, methods)`` folds each validation
+method's ``(numerator, count)`` over an eval sweep with ``+``: the first
+batch fixes the batch size, a shorter last batch goes through the same
+padded forward (:func:`forward_padded`) and its output rows are sliced back
+to the real ones before the metrics, whose targets are never padded: the
+sweep of ``LocalOptimizer``'s validation (``local_optimizer.validate``).
+Each call runs its own methods, so same-named methods with other parameters
+(``HitRatio(k=5)`` and ``k=10``) never share a step.
 """
 
 from __future__ import annotations
@@ -17,12 +26,26 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..dataset.dataset import AbstractDataSet, to_device
+from .validation import ValidationMethod, ValidationResult
+
 
 def _pad_batch(x: torch.Tensor, n: int, total: int) -> torch.Tensor:
     """Pad the leading dim from n to total by repeating row 0."""
     if n == total:
         return x
     return torch.cat([x, x[:1].expand((total - n,) + tuple(x.shape[1:]))], dim=0)
+
+
+def forward_padded(model, params, state, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Eval-mode forward of ``x`` padded to ``rows`` rows by repeating row 0
+    (on ``x``'s device); the output's real rows."""
+    n = x.shape[0]
+    if n > rows:
+        raise ValueError(f"batch of {n} rows exceeds the fixed batch size {rows}")
+    with torch.inference_mode():
+        y, _ = model.apply(params, state, _pad_batch(x, n, rows), training=False, rng=None)
+        return y[:n]
 
 
 class Predictor:
@@ -42,29 +65,13 @@ class Predictor:
             shape_buckets = tuple(b)
         self.shape_buckets = shape_buckets
 
-    def _to_device(self, x) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
-        return torch.as_tensor(x).to(self.model.device)
-
-    def _forward_padded(self, x: torch.Tensor) -> torch.Tensor:
-        n = x.shape[0]
-        if n > self.batch_size:
-            raise ValueError(f"batch of {n} rows exceeds the predictor's fixed "
-                             f"batch_size {self.batch_size}")
-        xp = _pad_batch(x, n, self.batch_size)
-        with torch.inference_mode():
-            y, _ = self.model.apply(self.model.get_parameters(),
-                                    self.model.get_state(), xp,
-                                    training=False, rng=None)
-            return y[:n]
-
     def forward_batch(self, x) -> torch.Tensor:
         """Forward one batch of AT MOST ``batch_size`` rows (padded to the
         fixed size); returns the real rows, still on the device."""
-        x = self._to_device(x)
+        x = to_device(x, self.model.device)
         self.model._ensure_built(x)
-        return self._forward_padded(x)
+        return forward_padded(self.model, self.model.get_parameters(), self.model.get_state(),
+                              x, self.batch_size)
 
     # ----------------------------------------------------- shape bucketing
     def bucket_of(self, length: int) -> int:
@@ -104,14 +111,55 @@ class Predictor:
                 "shape_buckets needs a model whose per-record output shape "
                 "is length-independent") from e
 
+    def _chunks(self, data):
+        """Input chunks of at most ``batch_size`` rows over a dataset's eval
+        batches (re-chunked) or an array."""
+        bs = self.batch_size
+        if isinstance(data, AbstractDataSet):
+            for batch in data.data(train=False):
+                x = batch.get_input()
+                for i in range(0, batch.size(), bs):
+                    yield x[i:i + bs]
+            return
+        arr = np.asarray(data)
+        for i in range(0, arr.shape[0], bs):
+            yield arr[i:i + bs]
+
     def predict(self, data) -> torch.Tensor:
-        """Forward every record of an array (or a list of records); returns
-        the stacked outputs on the host."""
+        """Forward every record of a dataset, an array or a list of records;
+        returns the stacked outputs on the host."""
         if self.shape_buckets is not None and isinstance(data, (list, tuple)):
             feats = [np.asarray(r) for r in data]
             if len({f.shape[0] for f in feats}) > 1:
                 return self._predict_bucketed(feats)
-        arr = np.asarray(data)
-        outs = [self.forward_batch(arr[i:i + self.batch_size]).cpu()
-                for i in range(0, arr.shape[0], self.batch_size)]
-        return torch.cat(outs, dim=0)
+        return torch.cat([self.forward_batch(x).cpu() for x in self._chunks(data)], dim=0)
+
+    def predict_class(self, data) -> torch.Tensor:
+        """Argmax class per record, 1-based like the reference's Torch
+        convention (``predictClass``)."""
+        return torch.argmax(self.predict(data), dim=-1) + 1
+
+
+class Evaluator:
+    """``model.evaluate(dataset, methods)`` (counterpart of the JAX package's
+    ``Evaluator``): one eval-mode sweep folding each method's counters with
+    ``+`` (see the module docstring)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def evaluate(self, dataset, methods: Sequence[ValidationMethod]
+                 ) -> Dict[str, ValidationResult]:
+        from .local_optimizer import validate
+
+        if not methods:
+            raise ValueError("evaluate(dataset) needs validation methods, e.g. [Top1Accuracy()]")
+        if not isinstance(dataset, AbstractDataSet):
+            raise TypeError("Evaluator.evaluate expects an AbstractDataSet")
+        model = self.model
+        if not model.is_built():
+            first = next(iter(dataset.data(train=False)), None)
+            if first is None:
+                return {}
+            model._ensure_built(first.get_input())
+        return validate(model, model.get_parameters(), model.get_state(), dataset, list(methods))

@@ -1,6 +1,7 @@
 """Triggers (counterpart of ``bigdl_tpu/optim/trigger.py``): predicates over
 a state table. The training triggers read the optimizer's table (``epoch``,
-``neval``, both 1-based); the serving flush triggers read the continuous
+``neval``, both 1-based; ``loss``, the last loss pulled to the host, one
+step late; ``score``, the first validation method's last result); the serving flush triggers read the continuous
 batcher's ``{"pending": <queued requests in a bucket group>, "waited_ms":
 <oldest request's wait>}``."""
 
@@ -26,6 +27,18 @@ class Trigger:
     @staticmethod
     def several_iteration(n: int) -> "Trigger":
         return _Lambda(lambda s: (s.get("neval", 1) - 1) % n == 0 and s.get("neval", 1) > 1)
+
+    @staticmethod
+    def min_loss(v: float) -> "Trigger":
+        return _Lambda(lambda s: s.get("loss") is not None and s["loss"] < v)
+
+    @staticmethod
+    def max_score(v: float) -> "Trigger":
+        return _Lambda(lambda s: s.get("score") is not None and s["score"] > v)
+
+    @staticmethod
+    def and_(*ts: "Trigger") -> "Trigger":
+        return _Lambda(lambda s: all(t(s) for t in ts))
 
     @staticmethod
     def or_(*ts: "Trigger") -> "Trigger":

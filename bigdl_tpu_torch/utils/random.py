@@ -49,6 +49,14 @@ class RandomGenerator:
             seed = cls._seed * 1_000_003 + cls._counter
         return torch.Generator().manual_seed(seed)
 
+    @classmethod
+    def restore(cls, seed: int, counter: int) -> None:
+        """Checkpoint-resume hook: continue the stream where it left off."""
+        with cls._lock:
+            cls._seed = int(seed)
+            cls._counter = int(counter)
+            cls._np_rng = np.random.default_rng(int(seed))
+
 
 def set_seed(seed: int) -> None:
     RandomGenerator.set_seed(seed)

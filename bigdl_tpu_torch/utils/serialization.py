@@ -1,0 +1,386 @@
+"""Checkpoint persistence (counterpart of the classic-checkpoint part of
+``bigdl_tpu/utils/serialization.py``), byte-compatible with the JAX package:
+each package reads the other's checkpoints.
+
+A checkpoint is the step-tagged state of a run, written as ``.npz`` of
+flattened '/'-joined key paths plus JSON:
+
+    <dir>/model.<step>.npz        params/... and model_state/... (BN running statistics)
+    <dir>/optimMethod.<step>.npz  slots/... (e.g. slots/velocity/...)
+    <dir>/state.<step>.json       the host state table (epoch, neval, _iter_in_epoch,
+                                  loss, score, ...) and the RNG position
+                                  (_rng_seed, _rng_counter)
+    <dir>/manifest.<step>.json    sha256 + size per file and a params/model-state
+                                  finiteness flag, written LAST (atomic rename):
+                                  its presence marks the checkpoint complete
+
+Every ``.npz`` is written to a temporary name, hashed as it is written and
+renamed into place. ``load_checkpoint(step=None)`` verifies newest-first and
+falls back to the newest older checkpoint that verifies, so a truncated or
+corrupt latest checkpoint is logged and skipped; an explicit ``step`` that
+fails verification raises :class:`~bigdl_tpu_torch.resilience.errors.CheckpointCorrupt`.
+``keep_last=N`` prunes all but the N newest (always keeping the newest
+finite one).
+
+Leaves are torch tensors (copied to the host) or numpy arrays. A bf16 leaf
+is stored as the JAX package stores one (numpy has no bfloat16: its 2-byte
+raw values, dtype ``|V2``) and read back into a bf16 tensor; the port's
+parameters, slots and BN statistics are fp32, so training writes none.
+The per-host-sharded fleet checkpoints of the JAX package's elastic runs
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..resilience.errors import CheckpointCorrupt
+from .random import RandomGenerator
+
+log = logging.getLogger(__name__)
+
+MANIFEST_FORMAT = 1
+_BF16_RAW = np.dtype("V2")  # how numpy stores the JAX package's bfloat16 leaves
+
+
+def _host_array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_RAW)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def tree_items(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{'a/b/c': leaf}`` over nested dicts, lists and tuples in the tree's
+    order (None leaves are skipped), the leaves as they are; the paths are
+    the JAX package's checkpoint keys. :func:`unflatten_to_like` rebuilds."""
+    out: Dict[str, Any] = {}
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, f"{path}/{k}" if path else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                rec(v, f"{path}/{i}" if path else str(i))
+        elif node is not None:
+            out[path] = node
+
+    rec(tree, prefix)
+    return out
+
+
+def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{'a/b/c': host array}``, as the JAX package flattens a pytree."""
+    return {path: _host_array(leaf) for path, leaf in tree_items(tree, prefix).items()}
+
+
+def unflatten_to_like(flat: Dict[str, Any], like) -> Any:
+    """Rebuild ``flat``'s leaves into the structure of ``like`` (paths must match)."""
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            return {k: rec(v, f"{path}/{k}" if path else str(k)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)([rec(v, f"{path}/{i}" if path else str(i))
+                               for i, v in enumerate(node)])
+        if node is None:
+            return None
+        if path not in flat:
+            sample = ", ".join(sorted(flat)[:4])
+            raise KeyError(f"checkpoint missing array for {path!r} (stored keys look like: "
+                           f"{sample or '<empty>'})")
+        return flat[path]
+
+    return rec(like, "")
+
+
+def copy_into(tree, flat: Dict[str, np.ndarray], what: str) -> None:
+    """Copy ``flat``'s arrays into the tensors of ``tree`` in place (on
+    their device, in their dtype, without autograd history), so every
+    holder of those tensors sees the restored values; raises on a missing
+    or extra path or a shape mismatch before copying anything."""
+    dst = tree_items(tree)
+    missing, extra = sorted(set(dst) - set(flat)), sorted(set(flat) - set(dst))
+    if missing or extra:
+        raise KeyError(f"{what} paths differ: missing {missing}, extra {extra}")
+    bad = [(p, tuple(flat[p].shape), tuple(t.shape)) for p, t in dst.items()
+           if tuple(flat[p].shape) != tuple(t.shape)]
+    if bad:
+        raise ValueError(f"{what} shape mismatch (path, checkpoint, model): {bad}")
+    with torch.no_grad():
+        for path, t in dst.items():
+            a = np.ascontiguousarray(flat[path])
+            if not a.flags.writeable:  # torch.from_numpy takes writable arrays
+                a = a.copy()
+            src = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+                   if a.dtype == _BF16_RAW else torch.from_numpy(a))
+            t.copy_(src)
+
+
+class _HashingWriter:
+    """Write-only file wrapper that sha256-hashes bytes as they pass through.
+
+    Reports unseekable so zipfile streams with data descriptors instead of
+    seeking back to patch local headers: every byte reaching the file goes
+    through :meth:`write`, so the digest matches the file without a second
+    read."""
+
+    def __init__(self, f):
+        self._f = f
+        self._sha = hashlib.sha256()
+        self.size = 0
+
+    def write(self, data) -> int:
+        self._sha.update(data)
+        self.size += len(data)
+        return self._f.write(data)
+
+    def flush(self) -> None:
+        self._f.flush()
+
+    def seekable(self) -> bool:
+        return False
+
+    def writable(self) -> bool:
+        return True
+
+    def readable(self) -> bool:
+        return False
+
+    def read(self, *args):
+        # numpy's zipfile_factory takes an object with .read for a file;
+        # never called in mode 'w'
+        raise OSError("write-only stream")
+
+    def tell(self) -> int:
+        return self.size
+
+    def digest(self) -> Tuple[str, int]:
+        return self._sha.hexdigest(), self.size
+
+
+def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> Tuple[str, int]:
+    """Write ``flat`` as ``path`` through a temporary name; (sha256, size)."""
+    tmp = path + ".tmp.npz"
+    with open(tmp, "wb") as f:
+        w = _HashingWriter(f)
+        np.savez(w, **flat)
+    os.replace(tmp, path)
+    return w.digest()
+
+
+def save_pytree(path: str, tree) -> Tuple[str, int]:
+    return _atomic_savez(path, flatten_pytree(tree))
+
+
+def load_pytree(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _checkpoint_files(step: int) -> Tuple[str, str, str]:
+    return (f"model.{step}.npz", f"optimMethod.{step}.npz", f"state.{step}.json")
+
+
+def file_digest(path: str) -> Tuple[str, int]:
+    """(sha256 hexdigest, byte size) of a file."""
+    h = hashlib.sha256()
+    size = 0
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(1 << 20)
+            if not chunk:
+                break
+            size += len(chunk)
+            h.update(chunk)
+    return h.hexdigest(), size
+
+
+def _all_finite(flat: Dict[str, np.ndarray]) -> bool:
+    return all(np.all(np.isfinite(a)) for a in flat.values()
+               if np.issubdtype(a.dtype, np.floating))
+
+
+def save_checkpoint(directory: str, step: int, params, optim_slots,
+                    optim_state: Dict[str, Any], model_state=None,
+                    keep_last: Optional[int] = None) -> Dict[str, Any]:
+    """Write model.<step>.npz, optimMethod.<step>.npz and state.<step>.json,
+    then the manifest (LAST); returns the manifest dict. ``keep_last=N``
+    prunes all but the N newest checkpoints afterwards."""
+    os.makedirs(directory, exist_ok=True)
+    flat_model = flatten_pytree({"params": params, "model_state": model_state or {}})
+    model_name, optim_name, state_name = _checkpoint_files(step)
+    model_digest = _atomic_savez(os.path.join(directory, model_name), flat_model)
+    host = {k: v for k, v in optim_state.items()
+            if isinstance(v, (int, float, str, bool)) or v is None}
+    host["_rng_seed"] = RandomGenerator.get_seed()
+    host["_rng_counter"] = RandomGenerator._counter
+    optim_digest = save_pytree(os.path.join(directory, optim_name), {"slots": optim_slots})
+    state_path = os.path.join(directory, state_name)
+    state_bytes = json.dumps(host).encode("utf-8")
+    with open(state_path + ".tmp", "wb") as f:
+        f.write(state_bytes)
+    os.replace(state_path + ".tmp", state_path)
+    state_digest = (hashlib.sha256(state_bytes).hexdigest(), len(state_bytes))
+    manifest = {
+        "format": MANIFEST_FORMAT,
+        "step": int(step),
+        "finite": _all_finite(flat_model),
+        "slot_layout": "tree",  # slots as per-leaf arrays, as the JAX package writes them
+        "files": {name: {"sha256": sha, "bytes": size}
+                  for name, (sha, size) in ((model_name, model_digest),
+                                            (optim_name, optim_digest),
+                                            (state_name, state_digest))},
+    }
+    mpath = os.path.join(directory, f"manifest.{step}.json")
+    with open(mpath + ".tmp", "w") as f:
+        json.dump(manifest, f)
+    os.replace(mpath + ".tmp", mpath)
+    if keep_last is not None:
+        prune_checkpoints(directory, keep_last)
+    return manifest
+
+
+def checkpoint_manifest(directory: str, step: int) -> Optional[Dict[str, Any]]:
+    """The step's manifest dict, or None for a legacy/incomplete checkpoint."""
+    path = os.path.join(directory, f"manifest.{step}.json")
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def verify_checkpoint(directory: str, step: int) -> Optional[str]:
+    """Re-hash the step's files against its manifest: None when they verify
+    (or there is no manifest to check), else what does not match."""
+    manifest = checkpoint_manifest(directory, step)
+    if manifest is None:
+        return None
+    for name, want in manifest.get("files", {}).items():
+        path = os.path.join(directory, name)
+        if not os.path.exists(path):
+            return f"{name} is missing"
+        digest, size = file_digest(path)
+        if size != want.get("bytes"):
+            return f"{name} is {size} bytes, manifest says {want.get('bytes')} (truncated?)"
+        if digest != want.get("sha256"):
+            return f"{name} content checksum mismatch"
+    return None
+
+
+def _manifest_finite(directory: str, step: int) -> bool:
+    """Manifest finiteness; a checkpoint without a manifest counts finite."""
+    manifest = checkpoint_manifest(directory, step)
+    return manifest is None or manifest.get("finite") is not False
+
+
+def prune_checkpoints(directory: str, keep_last: int) -> List[int]:
+    """Delete all but the ``keep_last`` newest complete checkpoints, always
+    keeping the newest finite one; returns the pruned steps."""
+    if keep_last < 1:
+        raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+    steps = _checkpoint_steps(directory)
+    doomed = steps[keep_last:]
+    if doomed and not any(_manifest_finite(directory, s) for s in steps[:keep_last]):
+        for s in doomed:
+            if _manifest_finite(directory, s):
+                doomed = [d for d in doomed if d != s]
+                break
+    for step in doomed:
+        _remove_checkpoint(directory, step)
+    return doomed
+
+
+def quarantine_nonfinite(directory: str, newer_than: Optional[int] = None) -> List[int]:
+    """Delete checkpoints whose manifest records non-finite params (only
+    those with step > ``newer_than`` when given); returns the deleted steps."""
+    doomed = [s for s in _checkpoint_steps(directory)
+              if not _manifest_finite(directory, s) and (newer_than is None or s > newer_than)]
+    for step in doomed:
+        _remove_checkpoint(directory, step)
+    return doomed
+
+
+def _remove_checkpoint(directory: str, step: int) -> None:
+    for name in (*_checkpoint_files(step), f"manifest.{step}.json"):
+        try:
+            os.remove(os.path.join(directory, name))
+        except OSError:  # already gone
+            pass
+
+
+def _checkpoint_steps(directory: str) -> List[int]:
+    """Steps with a complete (model, optimMethod, state) triple, newest first."""
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("model.") and name.endswith(".npz"):
+            try:
+                step = int(name.split(".")[1])
+            except ValueError:
+                continue
+            if all(os.path.exists(os.path.join(directory, f))
+                   for f in _checkpoint_files(step)[1:]):
+                steps.append(step)
+    return sorted(steps, reverse=True)
+
+
+def latest_checkpoint_step(directory: str) -> Optional[int]:
+    steps = _checkpoint_steps(directory)
+    return steps[0] if steps else None
+
+
+def load_checkpoint(directory: str, step: Optional[int] = None
+                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], Dict[str, Any],
+                               Dict[str, np.ndarray]]:
+    """``(params, optim_slots, host_state, model_state)``, the arrays as flat
+    ``{path: array}`` dicts (:func:`unflatten_to_like` rebuilds a tree).
+
+    With ``step=None``, complete checkpoints are tried newest-first: one
+    that fails verification or fails to load is logged and skipped for the
+    next older one. An explicit ``step`` that fails verification raises
+    :class:`CheckpointCorrupt`."""
+    if step is None:
+        candidates = _checkpoint_steps(directory)
+        if not candidates:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+        last_err: Optional[Exception] = None
+        for cand in candidates:
+            try:
+                return load_checkpoint(directory, cand)
+            except (OSError, ValueError, KeyError, RuntimeError) as e:
+                log.warning("checkpoint step %d failed to load (%s); falling back to the "
+                            "newest verified older checkpoint", cand, e)
+                last_err = e
+        raise last_err
+    manifest = checkpoint_manifest(directory, step)
+    if manifest is not None and manifest.get("kind") == "fleet":
+        raise NotImplementedError(
+            f"checkpoint step {step} under {directory} is a per-host-sharded fleet "
+            "checkpoint; the port reads the classic model/optimMethod/state triple only")
+    detail = verify_checkpoint(directory, step)
+    if detail is not None:
+        raise CheckpointCorrupt(directory, step, detail)
+    model_blob = load_pytree(os.path.join(directory, f"model.{step}.npz"))
+    slots_blob = load_pytree(os.path.join(directory, f"optimMethod.{step}.npz"))
+    with open(os.path.join(directory, f"state.{step}.json")) as f:
+        host = json.load(f)
+    params = {k[len("params/"):]: v for k, v in model_blob.items() if k.startswith("params/")}
+    model_state = {k[len("model_state/"):]: v for k, v in model_blob.items()
+                   if k.startswith("model_state/")}
+    slots = {k[len("slots/"):]: v for k, v in slots_blob.items()}
+    return params, slots, host, model_state

@@ -51,7 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    0.9) for 10 iterations: finite losses, 15 forward, 13 row-backward and 2
    feature-backward epilogue launches and 5 max-pool backward launches per
    iteration, device memory flat; then 3 f32 SGD steps on the card (kernel
-   route) held against the same 3 steps on the CPU (plain route);
+   route) held against the same 3 steps on the CPU (plain route); then
+   ``model.evaluate([Top1Accuracy, Top5Accuracy])`` of the trained model
+   over one batch of 64 with the switch on (its own path: 15 epilogue
+   forward launches and no backward), held against ``model.forward`` on
+   the same batch (the same launches and counts);
 9. norm-LM training with the fused-kernel switch on: the pipeline example's
    pre-norm block-stack LM (``LookupTable(8192, 512)``, ``PipelinedBlocks``
    of 6 stages of norm -> ``FeedForwardNetwork(512, 2048)`` -> residual add,
@@ -65,7 +69,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    iteration and none of any other kernel, device memory flat; then one
    eval-mode probe forward (7 forward launches); then, per variant, 3 f32
    Adam steps on the card (kernel route) held against the same 3 steps on
-   the CPU (plain route) at V 8192, H 512, S 2, batch 2, T 128.
+   the CPU (plain route) at V 8192, H 512, S 2, batch 2, T 128;
+10. the flagship validated, checkpointed and resumed: ResNet-50 as in [7]
+   (640 records, 5 batches an epoch) trained 6 iterations through
+   ``LocalOptimizer`` with ``set_validation`` every 3 iterations on a
+   300-record set at batch 128 (a ragged tail of 44; ``Top1Accuracy``,
+   ``Top5Accuracy``, ``Loss(ClassNLLCriterion())``) and ``set_checkpoint``
+   every 3 iterations (``keep_last=1``), cuDNN deterministic; then a fresh
+   model ``resume()`` s from the step-4 checkpoint and trains iterations
+   4-6: losses, parameters and BN state equal to the uninterrupted run's to
+   the bit, one max-pool backward launch per training step and no other
+   kernel, device memory flat across iterations and validations, one
+   checkpoint left on disk after each save, an ``Evaluator`` sweep equal to
+   the optimizer's own last validation, and the padded tail's counters
+   equal to an unpadded forward of its 44 records (f32); it prints the
+   eval images/s at batch 128, each validation's and checkpoint's wall
+   time, the checkpoint's size and the resume's load time.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, edge geometries, and its
@@ -76,9 +95,9 @@ ATen's backward and the bound; its three instances (3x3/s2, 2x2/s2,
 general) launch in [2], where a spill in any of them fails the run; the
 bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
 and RMSNorm kernels in [3e] and [4]. Each main path (serving,
-LM training, flagship training, VGG-16 training, norm-LM training) runs
-with every kernel's launch count set to 0 just before it and read just
-after.
+LM training, flagship training, VGG-16 training, VGG-16 evaluation,
+norm-LM training, the flagship validated/checkpointed/resumed) runs with
+every kernel's launch count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -1256,6 +1275,314 @@ def _flagship_routes():
         raise AssertionError("the kernel route's training disagrees with the plain route")
 
 
+# [10] resumed flagship vs the uninterrupted run, fixed before the first run:
+# both runs take cuDNN's deterministic algorithms (benchmark off), the
+# max-pool backward kernel repeats to the bit ([3c]), every other op of the
+# step is a deterministic torch op (the loss's gather backward adds once to
+# each element), and the checkpoint holds every f32 parameter, slot and BN
+# statistic exactly; so iterations 4-6 of the resumed run recompute the
+# uninterrupted run's arithmetic on the same values, and their losses,
+# parameters and BN state must be equal to the bit.
+# The padded ragged tail (44 of a 300-record set at batch 128) against an
+# unpadded forward of its 44 records is held in f32 (TF32 off): there the
+# two batch sizes differ by fp32 summation order only (~1e-6 relative),
+# while in bf16 cuDNN may pick other algorithms at batch 44 than at 128 whose
+# sums round to other bf16 values, moving a logit near a rank boundary for a
+# reason that is not the pad. Counts exactly; Loss's numerator (the sum of
+# the rows' losses) 1e-5 relative.
+# The counters of a validation (and of Evaluator) against a plain numpy
+# computation over the same outputs (the trained model's eval forward of the
+# 300 records at the sweep's batches): Top-1 (first max) and Top-5 (the last
+# five of a stable ascending sort) exactly; Loss's numerator 1e-5 relative
+# (the card's fp32 means per batch against one float64 sum). A third of the
+# records take the model's own top-1 class as label and a third its
+# 3rd-ranked, so both counts are well above zero.
+TAIL_LOSS_RTOL = 1e-5
+
+
+def phase_flagship_val(card):
+    """Train the flagship ResNet-50 with validation and checkpoints, then a
+    fresh model resumed from the mid-run checkpoint; returns every kernel's
+    launches of that path (both runs and an ``Evaluator`` sweep)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet, to_device
+    from bigdl_tpu_torch.models import ResNet, flagship_model
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import (SGD, Evaluator, LocalOptimizer, Loss, Top1Accuracy,
+                                       Top5Accuracy, Trigger)
+    from bigdl_tpu_torch.utils.serialization import _checkpoint_steps, tree_items
+
+    batch, n_train, n_val, iters, every = 128, 640, 300, 6, 3
+    methods = [Top1Accuracy(), Top5Accuracy(), Loss(ClassNLLCriterion())]
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build"))
+    ckpt_dir, resume_dir = str(tmp / "run"), str(tmp / "resume")
+    try:
+        RandomGenerator.set_seed(1)
+        t0 = time.perf_counter()
+        model, images, labels, name = flagship_model(batch=n_train, seed=SEED, stem="s2d",
+                                                     device="cuda")
+        vx = np.random.default_rng(SEED + 10).standard_normal(
+            (n_val, 3, 224, 224)).astype(np.float32)
+        vy = np.random.default_rng(SEED + 11).integers(0, 1000, n_val)
+        model.init(sample_input=images[:batch])
+        log(f"[10] {name} validated and checkpointed: {n_train} training records (5 batches an "
+            f"epoch), {n_val} validation records (batches of {batch}, a ragged tail of "
+            f"{n_val % batch}), bf16 compute and activations, cuDNN deterministic; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        val = DataSet.array(vx, vy, batch_size=batch)
+
+        def optimizer(m, path, val):
+            o = LocalOptimizer(m, DataSet.array(images, labels, batch_size=batch),
+                               ClassNLLCriterion())
+            o.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+            o.set_validation(Trigger.several_iteration(every), val, methods)
+            o.set_checkpoint(path, Trigger.several_iteration(every), keep_last=1)
+            return o.set_end_when(Trigger.max_iteration(iters))
+
+        vals, ckpts, mem = [], [], []
+
+        def instrument(o, m):
+            """Time each validation event and checkpoint write; device memory
+            after each iteration, and what each validation leaves allocated;
+            a copy of the mid-run checkpoint (step every + 1) for the resume."""
+            run_validation, write_checkpoint, set_state = (o._run_validation,
+                                                           o._write_checkpoint, m.set_state)
+
+            def timed_validation():
+                t, before = time.perf_counter(), torch.cuda.memory_allocated()
+                res = run_validation()
+                if res is not None:
+                    vals.append((o.optim_method.state["neval"], res, time.perf_counter() - t,
+                                 torch.cuda.memory_allocated() - before))
+                return res
+
+            def timed_checkpoint(state, slots):
+                t = time.perf_counter()
+                manifest = write_checkpoint(state, slots)
+                ckpts.append((state["neval"], time.perf_counter() - t,
+                              sum(f["bytes"] for f in manifest["files"].values()),
+                              _checkpoint_steps(o.checkpoint_path)))
+                if o.checkpoint_path == ckpt_dir and state["neval"] == every + 1:
+                    shutil.copytree(ckpt_dir, resume_dir)
+                return manifest
+
+            o._run_validation, o._write_checkpoint = timed_validation, timed_checkpoint
+            m.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+
+        opt = optimizer(model, ckpt_dir, val)
+        instrument(opt, model)
+        reset_counts()  # the path starts here
+        t0 = time.perf_counter()
+        opt.optimize()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first_counts = read_counts()
+        first_vals, first_ckpts, first_mem = list(vals), list(ckpts), list(mem)
+        del model.set_state
+        # the trained model's outputs over the validation set, the labels
+        # planted from them for the resumed run's validation and Evaluator
+        out = _sweep_outputs(model, vx, batch)
+        vy2 = _planted_labels(out, np.random.default_rng(SEED + 12))
+        val2 = DataSet.array(vx, vy2, batch_size=batch)
+
+        model2 = ResNet(50, class_num=1000, dataset="imagenet", stem="s2d", device="cuda")
+        model2.init(sample_input=images[:batch])
+        opt2 = optimizer(model2, resume_dir, val2)
+        t0 = time.perf_counter()
+        opt2.resume()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        instrument(opt2, model2)
+        opt2.optimize()
+        del model2.set_state
+        t0 = time.perf_counter()
+        ev = Evaluator(model).evaluate(val2, methods)
+        sweep_s = time.perf_counter() - t0
+        counts = read_counts()  # the path ends here
+
+        xb = to_device(vx[:batch], torch.device("cuda"))
+        with torch.inference_mode():
+            eval_ms = cuda_ms(lambda: model.apply(model.get_parameters(), model.get_state(), xb,
+                                                  training=False), iters=10)
+        tail = _tail_check(model, methods, vx[2 * batch:], vy2[2 * batch:], batch)
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:]
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def nums(res):
+        return {k: (r.correct if hasattr(r, "correct") else r.loss_sum, r.count)
+                for k, r in res.items()}
+
+    def same(a, b):
+        return nums(a) == nums(b)
+
+    def like_host(res, want):
+        got = nums(res)
+        return got.keys() == want.keys() and all(
+            got[k][1] == want[k][1] and (abs(got[k][0] - want[k][0]) <= TAIL_LOSS_RTOL * abs(
+                want[k][0]) if k == "Loss" else got[k][0] == want[k][0]) for k in want)
+
+    host1, host2 = _host_counters(out, vy, batch), _host_counters(out, vy2, batch)
+    second_vals = vals[len(first_vals):]
+
+    losses, losses2 = [h["loss"] for h in opt.history], [h["loss"] for h in opt2.history]
+    n_params = sum(1 for _ in model.parameters())
+    p_diff = [k for (k, a), (_, b) in zip(model.named_parameters(), model2.named_parameters())
+              if not torch.equal(a, b)]
+    s1, s2 = tree_items(model.get_state()), tree_items(model2.get_state())
+    s_diff = [k for k in s1 if not torch.equal(s1[k], s2[k])]
+    log(f"    trained {len(losses)} iterations in {wall:.2f} s (validation and checkpoints "
+        f"included); losses " + ", ".join(f"{x:.6f}" for x in losses))
+    log(f"    resumed from step {every + 1} in {load_s:.3f} s (load, verify, copy to the card); "
+        f"iterations {every + 1}-{iters} losses " + ", ".join(f"{x:.6f}" for x in losses2)
+        + f"; equal to the bit: losses {losses2 == losses[every:]}, parameters "
+        f"{len(p_diff)} of {n_params} differ, BN state "
+        f"{len(s_diff)} of {len(s1)} differ (limit: 0)")
+    for neval, res, sec, _ in first_vals:
+        log(f"    validation at neval {neval}: {res} in {sec * 1e3:.1f} ms "
+            f"({n_val / sec:.1f} images/s)")
+    for neval, sec, size, steps in first_ckpts:
+        log(f"    checkpoint {neval}: {size / 1e6:.1f} MB written in {sec:.3f} s; checkpoints "
+            f"on disk after it: {steps}")
+    log(f"    counters against numpy over the same outputs: first run's validation at neval "
+        f"{2 * every + 1} {nums(first_vals[-1][1]) if first_vals else None} vs {host1} (random "
+        f"labels); resumed run's {nums(second_vals[-1][1]) if second_vals else None} and "
+        f"Evaluator's {nums(ev)} vs "
+        f"{host2} (planted labels; Loss rtol {TAIL_LOSS_RTOL}, counts exact)")
+    log(f"    Evaluator sweep: {ev} in {sweep_s * 1e3:.1f} ms ({n_val / sweep_s:.1f} images/s); "
+        f"eval forward at batch {batch} {eval_ms:.2f} ms ({batch / eval_ms * 1e3:.1f} images/s, "
+        f"bf16); card {card}")
+    log(f"    padded tail vs unpadded forward of its {n_val % batch} records (f32, TF32 off): "
+        f"{tail[0]} vs {tail[1]}")
+    n_steps = iters + (iters - every)
+    want = {k: (n_steps if k == "maxpool2d_bwd" else 0) for k in counts}
+    log(f"    launches: first run {_nonzero(first_counts)}, whole path {_nonzero(counts)} "
+        f"(expected {_nonzero(want)})")
+    # 100 MiB allowed, as for [7]: memory after each iteration (the step's
+    # batch still alive) flat from iteration 3 on, across the validation and
+    # checkpoint after it; and what each validation event leaves allocated
+    base = first_mem[every - 1]
+    drift = [m - base for m in first_mem[every:]] + [v[3] for v in first_vals]
+    log(f"    device memory after iteration {every}: {base / 2**20:.1f} MiB; after iterations "
+        f"{every + 1}-{iters}: {[round((m - base) / 2**20, 1) for m in first_mem[every:]]} MiB "
+        f"from it; left by each validation: {[round(v[3] / 2**20, 1) for v in first_vals]} MiB "
+        f"(allowed +-100 MiB)")
+    problems = []
+    if losses2 != losses[every:] or p_diff or s_diff or len(losses2) != iters - every:
+        problems.append("the resumed run differs from the uninterrupted run")
+    if [v[0] for v in first_vals] != [every + 1, 2 * every + 1] or [
+            v[0] for v in second_vals] != [2 * every + 1] or not same(second_vals[0][1], ev):
+        problems.append("validation events or Evaluator disagree")
+    if not (first_vals and like_host(first_vals[-1][1], host1) and second_vals
+            and like_host(second_vals[-1][1], host2) and like_host(ev, host2)):
+        problems.append("validation counters disagree with numpy over the same outputs")
+    if host2["Top1Accuracy"][0] < n_val // 3 or host2["Top5Accuracy"][0] < 2 * (n_val // 3):
+        problems.append(f"planted labels gave too few hits: {host2}")
+    if not tail[2]:
+        problems.append("the padded tail disagrees with the unpadded forward")
+    if not all(tail[0][k][0] > 0 for k in ("Top1Accuracy", "Top5Accuracy")):
+        problems.append(f"the padded tail's counts are zero: {tail[0]}")
+    if [c[3] for c in first_ckpts] != [[every + 1], [2 * every + 1]]:
+        problems.append(f"checkpoints on disk {[c[3] for c in first_ckpts]}, expected one each")
+    if first_counts != {k: (iters if k == "maxpool2d_bwd" else 0) for k in counts} or \
+            counts != want:
+        problems.append(f"launches {counts}, expected {want}")
+    if any(abs(d) > 100 * 2 ** 20 for d in drift):
+        problems.append("device memory grew across iterations or validations")
+    if not all(np.isfinite(losses + losses2)):
+        problems.append("non-finite losses")
+    if problems:
+        raise AssertionError("flagship validate/checkpoint/resume: " + "; ".join(problems))
+    return counts
+
+
+def _sweep_outputs(model, vx, batch):
+    """The eval forward's outputs over ``vx`` at the sweep's batches (the
+    tail padded to ``batch``), as f32 on the host."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import to_device
+    from bigdl_tpu_torch.optim.predictor import forward_padded
+
+    dev = torch.device("cuda")
+    return np.concatenate([
+        forward_padded(model, model.get_parameters(), model.get_state(),
+                       to_device(vx[s:s + batch], dev), batch).float().cpu().numpy()
+        for s in range(0, len(vx), batch)])
+
+
+def _planted_labels(out, rng):
+    """Record i's label: its top-1 class (i % 3 == 0), its 3rd-ranked class
+    (i % 3 == 1, in the top five but not first), else a random class."""
+    import numpy as np
+
+    rank = np.argsort(out, axis=-1, kind="stable")
+    labels = rng.integers(0, out.shape[1], out.shape[0])
+    labels[0::3] = np.argmax(out[0::3], axis=-1)
+    labels[1::3] = rank[1::3, -3]
+    return labels
+
+
+def _host_counters(out, labels, batch):
+    """Top1Accuracy, Top5Accuracy and Loss(ClassNLLCriterion) numerators and
+    counts over ``out`` (log-probabilities), in plain numpy."""
+    import numpy as np
+
+    n = len(labels)
+    top5 = np.argsort(out, axis=-1, kind="stable")[:, -5:]
+    return {"Top1Accuracy": (float(np.sum(np.argmax(out, axis=-1) == labels)), n),
+            "Top5Accuracy": (float(np.sum(np.any(top5 == labels[:, None], axis=-1))), n),
+            "Loss": (float(-np.sum(out[np.arange(n), labels].astype(np.float64))), n)}
+
+
+def _tail_check(model, methods, tx, ty, batch):
+    """The sweep's tail step (the 44 records padded to ``batch`` by row 0,
+    the output sliced back) against the same step on the unpadded records,
+    in f32 with TF32 off; returns (padded counters, unpadded counters, ok)."""
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset import to_device
+    from bigdl_tpu_torch.optim.predictor import forward_padded
+
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        dev = torch.device("cuda")
+        x, t, n = to_device(tx, dev), to_device(ty, dev), len(tx)
+        p, s = model.get_parameters(), model.get_state()
+        with torch.inference_mode():
+            got = [(float(a), c) for a, c in (m.metric(forward_padded(model, p, s, x, batch), t)
+                                              for m in methods)]
+            ref = [(float(a), c) for a, c in (m.metric(forward_padded(model, p, s, x, n), t)
+                                              for m in methods)]
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[2:]
+    ok = n < batch and all(
+        g[1] == r[1] == n and (abs(g[0] - r[0]) <= TAIL_LOSS_RTOL * abs(r[0])
+                               if m.name == "Loss" else g[0] == r[0])
+        for m, g, r in zip(methods, got, ref))
+    return ({m.name: g for m, g in zip(methods, got)},
+            {m.name: r for m, r in zip(methods, ref)}, ok)
+
+
 # Tolerances of the bias+activation kernels against their plain version,
 # per element (fixed before the first run): both compute z = x + b and the
 # activation in fp32 in the same order, so they differ only where ATen's
@@ -1521,6 +1848,7 @@ def phase_vgg(card):
         wall = time.perf_counter() - t0
         counts = read_counts()  # the main path ends here
         del model.set_state
+        eval_counts = _vgg_evaluate(model, images[:batch], labels[:batch])
     finally:
         Engine.set_compute_dtype(prev[0])
         Engine.set_activation_dtype(prev[1])
@@ -1550,6 +1878,38 @@ def phase_vgg(card):
     del opt, model, images
     torch.cuda.empty_cache()
     _vgg_routes()
+    return counts, eval_counts
+
+
+def _vgg_evaluate(model, x, y):
+    """``model.evaluate`` of the trained VGG-16 over one batch of 64 with the
+    switch on (the eval path: its launches are returned), held against
+    ``model.forward`` on the same batch: the same kernel launches (15 of the
+    epilogue forward, no backward) and the same Top-1/Top-5 counts."""
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Top1Accuracy, Top5Accuracy
+
+    methods = [Top1Accuracy(), Top5Accuracy()]
+    reset_counts()  # the eval path starts here
+    t0 = time.perf_counter()
+    res = model.evaluate(DataSet.array(x, y, batch_size=len(x)), methods)
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # the eval path ends here
+    reset_counts()
+    with torch.no_grad():
+        out = model.forward(x)  # eval mode: evaluate() switched it
+    fwd_counts = read_counts()
+    ref = {m.name: m(out, y) for m in methods}
+    want = {k: VGG_PER_ITER["bias_act_fwd"] if k == "bias_act_fwd" else 0 for k in counts}
+    log(f"    model.evaluate over one batch of {len(x)} (switch on): {res} in {wall * 1e3:.1f} ms; "
+        f"launches {_nonzero(counts)} (expected {_nonzero(want)}), model.forward on the same "
+        f"batch: {ref}, launches {_nonzero(fwd_counts)}")
+    if (counts != want or fwd_counts != counts or model.training
+            or {k: (r.correct, r.count) for k, r in res.items()}
+            != {k: (r.correct, r.count) for k, r in ref.items()}):
+        raise AssertionError("VGG-16 evaluate disagrees with its forward or launched other "
+                             "kernels than 15 epilogue forwards")
     return counts
 
 
@@ -2189,8 +2549,10 @@ def main() -> int:
     del rec, bwd_rec, mp_rec, ep_rec, norm_rec
     torch.cuda.empty_cache()
     by_path = {"serving": phase_slice(card), "training": phase_training(card),
-               "flagship": phase_flagship(card), "vgg": phase_vgg(card),
-               "normlm": phase_norm_lm(card)}
+               "flagship": phase_flagship(card)}
+    by_path["vgg"], by_path["vgg_eval"] = phase_vgg(card)
+    by_path["normlm"] = phase_norm_lm(card)
+    by_path["flagship_val"] = phase_flagship_val(card)
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
