@@ -1,6 +1,6 @@
 """Layers, containers and criterions of the port."""
 
-from .activations import LogSoftMax, ReLU
+from .activations import LogSoftMax, ReLU, Tanh
 from .attention import FeedForwardNetwork, Transformer, scaled_dot_product_attention
 from .conv import SpatialConvolution
 from .criterion import (AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
@@ -12,17 +12,20 @@ from .initialization import MsraFiller, RandomNormal, RandomUniform, Xavier, Zer
 from .linear import Linear
 from .module import AbstractModule, Container, Identity, Sequential
 from .normalization import (BatchNormalization, LayerNormalization, RMSNorm,
-                            SpatialBatchNormalization)
+                            SpatialBatchNormalization, SpatialCrossMapLRN)
 from .pipelined import PipelinedBlocks
 from .pooling import SpatialAveragePooling, SpatialMaxPooling
-from .structural import Reshape, SpaceToDepth
-from .table_ops import CAddTable
+from .recurrent import LSTM, BiRecurrent, Cell, Recurrent
+from .structural import Reshape, Select, SpaceToDepth
+from .table_ops import CAddTable, Concat
 
-__all__ = ["AbstractCriterion", "AbstractModule", "BatchNormalization", "CAddTable",
-           "ClassNLLCriterion", "Container", "CrossEntropyCriterion", "Dropout",
-           "FeedForwardNetwork", "Graph", "Identity", "Input", "LayerNormalization", "Linear",
-           "LogSoftMax", "LookupTable", "ModuleNode", "MsraFiller", "PipelinedBlocks",
-           "RMSNorm", "RandomNormal", "RandomUniform", "ReLU", "Reshape", "Sequential",
+__all__ = ["AbstractCriterion", "AbstractModule", "BatchNormalization", "BiRecurrent",
+           "CAddTable", "Cell", "ClassNLLCriterion", "Concat", "Container",
+           "CrossEntropyCriterion", "Dropout", "FeedForwardNetwork", "Graph", "Identity",
+           "Input", "LSTM", "LayerNormalization", "Linear", "LogSoftMax", "LookupTable",
+           "ModuleNode", "MsraFiller", "PipelinedBlocks", "RMSNorm", "RandomNormal",
+           "RandomUniform", "ReLU", "Recurrent", "Reshape", "Select", "Sequential",
            "SpaceToDepth", "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialMaxPooling", "TimeDistributedCriterion",
-           "Transformer", "Xavier", "Zeros", "scaled_dot_product_attention"]
+           "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
+           "TimeDistributedCriterion", "Transformer", "Xavier", "Zeros",
+           "scaled_dot_product_attention"]

@@ -1,5 +1,5 @@
-"""Activations (counterpart of the flagship's part of
-``bigdl_tpu/nn/activations.py``): ``ReLU`` and ``LogSoftMax``."""
+"""Activations (counterpart of part of ``bigdl_tpu/nn/activations.py``):
+``ReLU``, ``Tanh`` and ``LogSoftMax``."""
 
 from __future__ import annotations
 
@@ -21,6 +21,17 @@ class ReLU(AbstractModule):
 
     def _apply_params(self, params, state, x, training, rng):
         return torch.maximum(x, x.new_zeros(())), state
+
+
+class Tanh(AbstractModule):
+    """tanh(x) in ``x``'s dtype. ``inplace`` is accepted and ignored."""
+
+    def __init__(self, inplace: bool = False, device=None):
+        super().__init__(device)
+        self.inplace = inplace
+
+    def _apply_params(self, params, state, x, training, rng):
+        return torch.tanh(x), state
 
 
 class LogSoftMax(AbstractModule):

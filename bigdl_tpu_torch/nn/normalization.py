@@ -1,6 +1,6 @@
 """Normalization layers (counterpart of ``bigdl_tpu/nn/normalization.py``):
-``BatchNormalization`` / ``SpatialBatchNormalization``, ``LayerNormalization``
-and ``RMSNorm``.
+``BatchNormalization`` / ``SpatialBatchNormalization``, ``LayerNormalization``,
+``RMSNorm`` and ``SpatialCrossMapLRN``.
 
 Batch normalization is in torch ops with the JAX package's semantics, which
 are not cuDNN's:
@@ -35,6 +35,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.fused_common import fused_kernels_active
 from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
@@ -153,3 +154,30 @@ class RMSNorm(_LastDimNorm):
         xf = x.float()
         ms = torch.mean(xf * xf, dim=-1, keepdim=True)
         return (xf * torch.rsqrt(ms + self.eps) * params["weight"]).to(x.dtype), state
+
+
+class SpatialCrossMapLRN(AbstractModule):
+    """Local response norm across the channels of NCHW input (reference:
+    SpatialCrossMapLRN; AlexNet, Inception-v1):
+    ``y = x / (k + alpha/size · sum of x² over a window of size channels)^beta``,
+    the window padded (size//2, size-1-size//2) with zeros, as the JAX
+    package's ``reduce_window``. Torch's ``local_response_norm``, not a
+    kernel (the JAX package computes it with XLA, outside Pallas). Computed
+    in fp32 and rounded once
+    to ``x``'s dtype: for bf16 that is more exact than the JAX package, whose
+    square, window sum, power and divide each round to bf16."""
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75, k: float = 1.0,
+                 device=None):
+        super().__init__(device)
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def _apply_params(self, params, state, x, training, rng):
+        if x.dim() != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {tuple(x.shape)}")
+        # torch's pads the window (size//2, (size-1)//2), the same as the JAX one's
+        y = F.local_response_norm(x.float(), self.size, self.alpha, self.beta, self.k)
+        return y.to(x.dtype), state

@@ -1,5 +1,5 @@
-"""Structural layers of the flagship (counterpart of ``Reshape`` and
-``SpaceToDepth`` in ``bigdl_tpu/nn/structural.py``)."""
+"""Structural layers (counterpart of ``Reshape``, ``SpaceToDepth`` and
+``Select`` in ``bigdl_tpu/nn/structural.py``)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,22 @@ class Reshape(AbstractModule):
         if self.batch_mode:
             return x.reshape((x.shape[0],) + self.size), state
         return x.reshape(self.size), state
+
+
+class Select(AbstractModule):
+    """Select ``index`` along ``dimension``, dropping that dimension; both
+    1-based, a negative value counting from the end (-1 is the last).
+    Reference: $DL/nn/Select.scala."""
+
+    def __init__(self, dimension: int, index: int, device=None):
+        super().__init__(device)
+        self.dimension = dimension
+        self.index = index
+
+    def _apply_params(self, params, state, x, training, rng):
+        d = self.dimension - 1 if self.dimension > 0 else x.dim() + self.dimension
+        i = self.index - 1 if self.index > 0 else x.shape[d] + self.index
+        return x.select(d, i), state
 
 
 class SpaceToDepth(AbstractModule):

@@ -4,9 +4,12 @@ SelectAndScatter, and ``SpatialMaxPooling`` forward and input gradient
 (through the port's autograd Function on the CPU) against ``jax.vjp``.
 
 Inputs come from numpy with a seed; the geometries, ties, duplicates,
-stride > kernel and bf16 cases are those of ``tests/test_maxpool_grad.py``.
+stride > kernel and bf16 cases are those of ``tests/test_maxpool_grad.py``,
+plus Inception-v1's and LeNet-5's pool geometries at small batch and
+channels (3x3/s1/p1, ceil-mode 3x3/s2 with the overhang on the high side
+only, 2x2/s2 on 24x24 and 8x8 planes).
 Tolerances: f32 1e-6 absolute (each window's dy lands once; a position sums
-at most four of them in fp32, in another order); bf16 1e-2 relative + 2e-2
+at most nine of them (3x3/s1) in fp32, in another order); bf16 1e-2 relative + 2e-2
 absolute against the Pallas kernel, which sums overlapping windows in bf16
 where the port sums in fp32 and rounds once (the JAX test's own tolerance).
 The card-only case (kernel against plain version) is marked ``gpu``; its
@@ -75,6 +78,40 @@ CASES = [
      ((1, 1), (1, 1)), "bfloat16"),
     ("many planes", lambda k, s, p: _case(4, 64, 14, 14, k, s, p, 9), (3, 3), (2, 2),
      ((1, 1), (1, 1)), "float32"),
+    # Inception-v1's pools at small batch and channels: the branch pools
+    # (3x3/s1/p1, every position under up to 9 windows) at 28x28, 14x14 and 7x7, and
+    # the ceil-mode 3x3/s2 pools, whose overhang is on the high side only
+    ("inception branch pool 3x3/s1/p1 28x28", lambda k, s, p: _case(2, 6, 28, 28, k, s, p, 21),
+     (3, 3), (1, 1), ((1, 1), (1, 1)), "float32"),
+    ("inception branch pool 3x3/s1/p1 14x14 (21 planes)",
+     lambda k, s, p: _case(3, 7, 14, 14, k, s, p, 28), (3, 3), (1, 1), ((1, 1), (1, 1)),
+     "float32"),
+    ("inception branch pool 3x3/s1/p1 7x7 bf16", lambda k, s, p: _case(2, 9, 7, 7, k, s, p, 22),
+     (3, 3), (1, 1), ((1, 1), (1, 1)), "bfloat16"),
+    ("inception ceil pool 3x3/s2 high overhang 14x14",
+     lambda k, s, p: _case(2, 6, 14, 14, k, s, p, 23), (3, 3), (2, 2), ((0, 1), (0, 1)),
+     "float32"),
+    ("inception ceil pool 3x3/s2 high overhang 28x28 bf16",
+     lambda k, s, p: _case(2, 4, 28, 28, k, s, p, 24), (3, 3), (2, 2), ((0, 1), (0, 1)),
+     "bfloat16"),
+    # LeNet-5's 2x2/s2 pools: 24x24 and 8x8 planes (pooled rows of 12 and 4)
+    ("lenet pool1 2x2/s2 24x24", lambda k, s, p: _case(4, 6, 24, 24, k, s, p, 25), (2, 2),
+     (2, 2), NO_PAD, "float32"),
+    ("lenet pool2 2x2/s2 8x8", lambda k, s, p: _case(4, 12, 8, 8, k, s, p, 26), (2, 2), (2, 2),
+     NO_PAD, "float32"),
+    ("lenet pool2 2x2/s2 8x8 bf16", lambda k, s, p: _case(4, 12, 8, 8, k, s, p, 27), (2, 2),
+     (2, 2), NO_PAD, "bfloat16"),
+]
+
+# Held on the card only (kernel against plain version): a bf16 3x3/s1 case
+# with a part-full last plane group. Against the Pallas kernel, which sums
+# up to nine windows' dy in bf16, the bf16 tolerance above (set for at most
+# four) does not hold at this size; the f32 case of the same geometry is
+# the CPU comparison.
+CARD_CASES = [
+    ("inception branch pool 3x3/s1/p1 14x14 bf16 (22 planes)",
+     lambda k, s, p: _case(2, 11, 14, 14, k, s, p, 29), (3, 3), (1, 1), ((1, 1), (1, 1)),
+     "bfloat16"),
 ]
 
 
@@ -253,8 +290,8 @@ def cuda_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("label,make,kernel,stride,padding,dtype", CASES,
-                         ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("label,make,kernel,stride,padding,dtype", CASES + CARD_CASES,
+                         ids=[c[0] for c in CASES + CARD_CASES])
 def test_kernel_matches_plain_on_card(cuda_card, label, make, kernel, stride, padding, dtype):
     x, dy = _inputs(make, kernel, stride, padding, dtype)
     tdt = getattr(torch, dtype)
@@ -264,8 +301,8 @@ def test_kernel_matches_plain_on_card(cuda_card, label, make, kernel, stride, pa
     torch.cuda.synchronize()
     assert port.launches == before + 1
     want = port.maxpool_grad_reference(xc, dyc, kernel, stride, padding)
-    # f32: fp32 sums of at most four terms in another order; bf16: both round
-    # the fp32 sum once, so at most one bf16 step apart
+    # f32: fp32 sums of at most nine terms (3x3/s1) in another order; bf16:
+    # both round the fp32 sum once, so at most one bf16 step apart
     tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=1e-6, rtol=2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, port.maxpool_grad(xc, dyc, kernel, stride, padding))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the port, on one CUDA card.
 
-    python3 tools/torch_training_profile.py [lm] [flagship] [vgg] [normlm]   # one CUDA card
+    python3 tools/torch_training_profile.py [lm] [flagship] [vgg] [normlm] [lenet] [inception]
+        [bilstm]   # one CUDA card
 
-Training steps through ``LocalOptimizer`` (all three when no mode is
+Training steps through ``LocalOptimizer`` (every mode when none is
 named): ``lm``, the full-width Transformer-LM of ``chip_smoke.py`` (vocab
 8192, hidden 512, 8 heads, filter 2048, 6 layers, T=2048, dropout 0, bf16
 compute, random weights from a seed; SGD lr 0.1, ``CrossEntropyCriterion``,
@@ -17,7 +18,12 @@ output, SGD lr 0.01 momentum 0.9); ``normlm``, the norm-LM of
 ``chip_smoke.py`` [9] in both variants (LayerNormalization, then RMSNorm;
 V 8192, H 512, 6 stages, batch 8 of 2048 planted-bigram tokens, the
 fused-kernel switch on, bf16 compute and activations, ``Adam(3e-3)``,
-``TimeDistributedCriterion(CrossEntropyCriterion(), size_average=True)``).
+``TimeDistributedCriterion(CrossEntropyCriterion(), size_average=True)``);
+``lenet``, ``inception``, ``bilstm``, BASELINE's parity configs of
+``chip_smoke.py`` [11] (``models.parity_config`` at the bench's batch:
+512, 128 of 224x224 with dropout on, 128 of T 200; bf16 compute and
+activations, ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9, the one
+batch every iteration).
 
 Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
 Prints two step times and the rate of the first: the median gap between
@@ -97,6 +103,32 @@ def normlm_family(name: str) -> str:
     if "copy" in n or "memcpy" in n or "cat" in n:
         return "copies and casts"
     return "elementwise (Adam update, ReLU, adds, ...)"
+
+
+def image_family(name: str) -> str:
+    """LeNet-5's and Inception-v1's kernels (no BN: their reductions are the
+    head's; the LRN's window sums are ``avg_pool3d``)."""
+    f = flagship_family(name)
+    if f.startswith("pooling"):
+        return "pooling forward, LRN window sums (avg_pool3d) and their backward (ATen)"
+    if f.startswith("reductions"):
+        return "reductions (log-softmax, loss, bias sums)"
+    if f.startswith("elementwise"):
+        return "elementwise (ReLU/tanh, LRN arithmetic, dropout, SGD update, ...)"
+    return f
+
+
+def rnn_family(name: str) -> str:
+    n = name.lower()
+    if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "nvjet" in n:
+        return "matmul (cuBLAS)"
+    if "embedding" in n or "index" in n or "scatter" in n or "gather" in n:
+        return "embedding gather and its backward"
+    if "softmax" in n or "reduce" in n or "nll" in n:
+        return "reductions (log-softmax, loss, bias sums)"
+    if "copy" in n or "memcpy" in n or "cat" in n or "flip" in n or "stack" in n:
+        return "copies, casts, flips, stacks"
+    return "elementwise (gates: sigmoid, tanh, products, sums; SGD update)"
 
 
 def _profile(opt, reps: int, family):
@@ -269,8 +301,32 @@ def profile_normlm(card: str, warmup: int = 3, reps: int = 5) -> None:
         del opt, model
 
 
+def profile_parity(name: str, card: str, warmup: int = 3, reps: int = 5) -> None:
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import parity_config
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(False)
+    RandomGenerator.set_seed(1)
+    model, x, y, batch = parity_config(name, device="cuda")
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch),
+                         ClassNLLCriterion()).set_optim_method(
+        SGD(learningrate=0.01, momentum=0.9))
+    steps = _timed(opt, warmup, reps)
+    _report(f"{name} training step (batch {batch}, bf16)", steps,
+            f"{batch / steps[0] * 1e3:.1f} records/s",
+            _profile(opt, reps, rnn_family if name == "bilstm" else image_family), card)
+    del opt, model
+
+
 MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg": profile_vgg,
-         "normlm": profile_normlm}
+         "normlm": profile_normlm,
+         **{name: (lambda card, name=name: profile_parity(name, card))
+            for name in ("lenet", "inception", "bilstm")}}
 
 
 def main() -> int:
