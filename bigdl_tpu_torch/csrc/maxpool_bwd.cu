@@ -79,6 +79,43 @@
 //   copies in flight while one is computed, was 8-16% slower at the stem
 //   and 14-50% slower at VGG-16's pool2 than one item a block, whose
 //   neighbours on the SM overlap its loads instead (ring2 / ring3).
+//
+// 3x3 windows at stride 1 (Inception-v1's branch pools, 28-, 14- and
+// 7-wide planes) have an instance of their own, maxpool2d_bwd_s1: one
+// window per position, so the argmax search and the gather cost four times
+// what they cost at s2, and its rows are 56, 28 or 14 bytes. Same items and
+// staging; then three phases, with the padding a runtime value:
+// - Frame: window (oh, ow) sits at the shifted position (sr, s) = (oh + 2 -
+//   ph, ow + 2 - pw). Its cells are x rows sr - 2 .. sr, columns s - 2 ..
+//   s, and its offset (a, b) is dx (sr - 2 + a, s - 2 + b); dx (r, c)
+//   gathers the windows at shifted rows r .. r + 2, columns c .. c + 2.
+//   Each window's argmax, as a one-hot 16-bit mask (bit a * 3 + b), and its
+//   dy (fp32) live in shared memory in a frame of (rows + 2) x cs slots a
+//   plane, cs = 8 * ceil(w / 8) + 4; slots that hold no window keep mask 0,
+//   so the gather needs no bounds test and reads aligned vectors.
+// - 1. Argmax: a thread walks one run of window rows of 4 adjacent windows,
+//   reading each x cell of a row once into registers. The search is
+//   separable: the first maximum of each row's three cells (NaN counted as
+//   -inf), then strict > down the three rows, the first two rows' result
+//   carried to the next window row. A NaN at a window's offset 0 keeps it
+//   at offset 0 (the first row's maximum counts as +inf and its offset as
+//   0), as the plain version's strict > from offset 0 does. Only the column
+//   groups that hold windows get threads, and a column's window rows are
+//   split into as many runs of equal length (within one) as let all of a
+//   block's runs go at once: a run costs two rows of start-up, a second
+//   round of runs or a warp of idle lanes costs more.
+// - 2. Gather: a thread takes 8 dx columns of one row (a row's last 8 run
+//   past its end): 3 x 10 masks and dy into registers, 72 bit tests at
+//   compile-time positions, fp32 sums in a fixed order, rounded once,
+//   written into the x staging buffer (x is no longer read).
+// - 3. The item's dx range goes out in 16-byte chunks aligned in device
+//   memory, element by element at its ends: rows narrower than a chunk
+//   (7 wide) and chunks across rows or planes need no other path.
+// - Bound by the block's own work, not by memory: with nothing staged it
+//   still takes 95% of its time at Inception's 3a shape (`noload` in the
+//   ablation tool, on an H100); phase 1 takes about 43% of it, phase 2
+//   about 22% (`s1no1`, `s1no2`). A persistent grid that stages the next
+//   item while one is computed was 43% slower there (`s1ring2`).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,6 +171,12 @@ struct Params {
   int x_stage, dy_stage;  // elements of the x and dy staging buffers (multiples of 16 bytes)
   int windows;            // windows an item computes at most
   FastDivmod fd_w, fd_hw, fd_wo, fd_ho, fd_sh, fd_sw, fd_bands;
+  // the 3x3/s1 instance: slots a frame row, frame rows a plane (dx rows + 2),
+  // bytes of the masks' frame; phase-1 column groups and runs a column,
+  // phase-2 column groups, rows a plane
+  int cs, pad_rows, mask_bytes;
+  int g_lo;  // the first phase-1 column group, -1: none
+  FastDivmod fd_groups1, fd_runs, fd_groups2, fd_h;
 };
 
 // One item: planes [p0, p0 + np); dx rows [hr0, hr1) of each; windows of
@@ -479,6 +522,217 @@ __global__ void __launch_bounds__(kThreads, 1)
   compute<T, KH, KW, SH, SW>(dx, buf, am, x, dy, p, blockIdx.x);
 }
 
+// ---- the 3x3/s1 instance (see the note at the top)
+
+// The three-cell maxima of one x row at the window columns s0 .. s0 + 3 of
+// a phase-1 thread (cells s - 2 .. s, read from xr[0 .. 5], which lie in
+// shared memory whatever they hold; ok: bit k set where column s0 - 2 + k
+// is a cell of a staged row): m, the largest cell with NaN as -inf; t, the
+// first of the three offsets that holds it; nan, whether the cell at
+// offset 0 is a NaN.
+template <typename T>
+__device__ __forceinline__ void row_triples(const T* xr, unsigned ok, float (&m)[4],
+                                            int (&t)[4], bool (&nan)[4]) {
+  float v[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float raw = to_float(xr[k]);
+    const bool in = ok >> k & 1u;
+    if (k < 4) nan[k] = in && raw != raw;
+    v[k] = in ? fmaxf(raw, -INFINITY) : -INFINITY;  // NaN -> -inf
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    m[j] = fmaxf(fmaxf(v[j], v[j + 1]), v[j + 2]);
+    t[j] = v[j] == m[j] ? 0 : v[j + 1] == m[j] ? 1 : 2;
+  }
+}
+
+// Phase 1 for plane pl, run `run` of the item's window rows (its frame rows
+// that hold windows, split into p.fd_runs.d runs whose lengths differ by at
+// most one) and the frame columns [4 * group, + 4): each window's argmax
+// offset as a one-hot mask, 1 << (a * 3 + b), and its dy into the frame.
+// Slots that hold no window keep the mask 0 they were cleared to.
+template <typename T>
+__device__ __forceinline__ void s1_windows(const Params& p, const Item& t, const T* xs,
+                                           const T* ys, uint16_t* masks, float* dyw, int pl,
+                                           int run, int group) {
+  // frame rows [v0, v1) hold windows: oh = hr0 + sr + ph - 2 in [0, ho)
+  const int v0 = imax(0, 2 - p.ph - t.hr0);
+  const int nv = imin(t.hr1 - t.hr0 + 2, p.ho + 2 - p.ph - t.hr0) - v0;
+  const int sr_lo = v0 + p.fd_runs.div(run * nv), sr_hi = v0 + p.fd_runs.div((run + 1) * nv);
+  if (sr_lo >= sr_hi) return;
+  const int s0 = group * 4;
+  const int frame = pl * p.pad_rows * p.cs + s0;
+  uint2* mw = reinterpret_cast<uint2*>(masks + frame);
+  float4* dw = reinterpret_cast<float4*>(dyw + frame);
+  const int step = p.cs / 4;  // a frame row, in 4-slot vectors
+  const int ow0 = s0 + p.pw - 2;
+  bool win[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) win[j] = ow0 + j >= 0 && ow0 + j < p.wo;
+  // x row g at xp + g * w (a row outside the staged ones reads the nearest
+  // staged row, masked); the dy of frame row sr at yp + sr * wo
+  const T* xp = xs + pl * p.hw + s0 - 2 - t.xr_lo * p.w;
+  const int g_last = t.xr_lo + t.n_xr - 1;
+  unsigned cols = 0;  // bit k: column s0 - 2 + k lies in the row
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    cols |= static_cast<unsigned>(s0 - 2 + k >= 0 && s0 - 2 + k < p.w) << k;
+  auto row = [&](int g, float (&m)[4], int (&tt)[4], bool (&nan)[4]) {
+    row_triples(xp + imin(imax(g, t.xr_lo), g_last) * p.w,
+                g >= t.xr_lo && g <= g_last ? cols : 0u, m, tt, nan);
+  };
+  const T* yp = ys + (pl * t.n_oh - t.oh_lo + t.hr0 + p.ph - 2) * p.wo + ow0;
+  // carried from row to row: d (dm, dc), the first two rows of the next
+  // window row, combined; f (fm, ft), the last x row as a first row
+  float dm[4], fm[4], m[4];
+  int dc[4], ft[4], tt[4];
+  bool nan[4];
+  int g = t.hr0 + sr_lo - 2;  // the first x row of the run's first window row
+  row(g, m, tt, nan);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    fm[j] = nan[j] ? INFINITY : m[j];
+    ft[j] = nan[j] ? 0 : tt[j];
+  }
+  row(g + 1, m, tt, nan);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dm[j] = fmaxf(fm[j], m[j]);
+    dc[j] = fm[j] == dm[j] ? ft[j] : 3 + tt[j];
+    fm[j] = nan[j] ? INFINITY : m[j];
+    ft[j] = nan[j] ? 0 : tt[j];
+  }
+#pragma unroll 2
+  for (int sr = sr_lo; sr < sr_hi; ++sr) {
+    row(t.hr0 + sr, m, tt, nan);
+    // the dy of slots that hold no window is read within shared memory and
+    // never used (their mask is 0)
+    const T* yr = yp + sr * p.wo;
+    uint32_t mask[4];
+    float val[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float mx = fmaxf(dm[j], m[j]);
+      mask[j] = win[j] ? 1u << static_cast<uint32_t>(dm[j] == mx ? dc[j] : 6 + tt[j]) : 0u;
+      val[j] = to_float(yr[j]);
+      dm[j] = fmaxf(fm[j], m[j]);
+      dc[j] = fm[j] == dm[j] ? ft[j] : 3 + tt[j];
+      fm[j] = nan[j] ? INFINITY : m[j];
+      ft[j] = nan[j] ? 0 : tt[j];
+    }
+    mw[sr * step] = make_uint2(mask[0] | mask[1] << 16, mask[2] | mask[3] << 16);
+    dw[sr * step] = make_float4(val[0], val[1], val[2], val[3]);
+  }
+}
+
+// Phase 2 for dx row r of plane pl (item-relative), columns c .. c + 7:
+// the windows at frame rows r .. r + 2 and slots c .. c + 9, each one's
+// mask tested at the compile-time offset that lands on the element; the
+// sums go to out[0 .. 7] (columns at or past w are not written).
+template <typename T>
+__device__ __forceinline__ void s1_gather(const Params& p, const uint16_t* masks,
+                                          const float* dyw, T* out, int pl, int r, int c) {
+  float acc[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int a = 2 - i;  // the window offset row that lands on row r
+    const int slot = (pl * p.pad_rows + r + i) * p.cs + c;
+    const uint2 m0 = *reinterpret_cast<const uint2*>(masks + slot);
+    const uint2 m1 = *reinterpret_cast<const uint2*>(masks + slot + 4);
+    const uint32_t m2 = *reinterpret_cast<const uint32_t*>(masks + slot + 8);
+    const float4 d0 = *reinterpret_cast<const float4*>(dyw + slot);
+    const float4 d1 = *reinterpret_cast<const float4*>(dyw + slot + 4);
+    const float2 d2 = *reinterpret_cast<const float2*>(dyw + slot + 8);
+    const uint32_t mask[5] = {m0.x, m0.y, m1.x, m1.y, m2};  // two slots a word
+    const float val[10] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w, d2.x, d2.y};
+#pragma unroll
+    for (int q = 0; q < 10; ++q)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const int e = q - 2 + b;  // the window at slot c + q lands on column c + e at offset (a, b)
+        if (e >= 0 && e < 8 && (mask[q / 2] >> (16 * (q % 2) + 3 * a + b) & 1u)) acc[e] += val[q];
+      }
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < p.w) out[e] = from_float<T>(acc[e]);
+}
+
+template <typename T>
+__device__ __forceinline__ void compute_s1(T* __restrict__ dx, T* buf, unsigned char* smem,
+                                           const T* x, const T* dy, const Params& p,
+                                           long long it) {
+  constexpr int VEC = 16 / sizeof(T);
+  const Item t = item_at<1>(p, it);
+  const T* xs = buf + head_of(x, t.p0 * p.hw + static_cast<long long>(t.xr_lo) * p.w);
+  const T* ys = buf + p.x_stage +
+                head_of(dy, t.p0 * p.howo + static_cast<long long>(t.oh_lo) * p.wo);
+  uint16_t* masks = reinterpret_cast<uint16_t*>(smem);
+  float* dyw = reinterpret_cast<float*>(smem + p.mask_bytes +
+                                        sizeof(T) * (p.x_stage + p.dy_stage));
+
+  // 1. each window's argmax offset (a one-hot mask) and dy into the frame,
+  // for the column groups [g_lo, + fd_groups1.d) that hold windows
+  const int n1 = p.g_lo < 0 ? 0 : t.np * p.fd_runs.d * p.fd_groups1.d;
+  for (int u = threadIdx.x; u < n1; u += kThreads) {
+    int q, group, pl, run;
+    p.fd_groups1.divmod(u, q, group);
+    p.fd_runs.divmod(q, pl, run);
+    s1_windows<T>(p, t, xs, ys, masks, dyw, pl, run, p.g_lo + group);
+  }
+  __syncthreads();
+
+  // 2. dx rows into the x buffer, at the alignment dx has in device memory
+  const long long d0 = t.p0 * p.hw + static_cast<long long>(t.hr0) * p.w;
+  const int head = head_of(dx, d0);
+  const int rows = t.hr1 - t.hr0;
+  const int n2 = t.np * rows * p.fd_groups2.d;
+  for (int u = threadIdx.x; u < n2; u += kThreads) {
+    int q, group, pl, r;
+    p.fd_groups2.divmod(u, q, group);
+    if (t.np == 1) {
+      pl = 0;
+      r = q;
+    } else {
+      p.fd_h.divmod(q, pl, r);
+    }
+    s1_gather<T>(p, masks, dyw, buf + head + pl * p.hw + r * p.w + group * 8, pl, r, group * 8);
+  }
+  __syncthreads();
+
+  // 3. out in 16-byte chunks aligned in device memory, element by element at the ends
+  const int len = (t.np - 1) * p.hw + rows * p.w;
+  const long long a0 = d0 - head;
+  const int chunks = (head + len + VEC - 1) / VEC;
+  for (int k = threadIdx.x; k < chunks; k += kThreads) {
+    const long long g0 = a0 + static_cast<long long>(k) * VEC;
+    if (g0 >= d0 && g0 + VEC <= d0 + len) {
+      store<T, VEC>(dx + g0, load<T, VEC>(buf + k * VEC));
+    } else {
+      const long long e1 = min(g0 + VEC, d0 + len);
+      for (long long e = max(g0, d0); e < e1; ++e) dx[e] = buf[e - a0];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+    maxpool2d_bwd_s1(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                     Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem + p.mask_bytes);  // x, then dy
+  issue<T, 1>(x, dy, buf, p, blockIdx.x);
+  for (int k = threadIdx.x; k < p.mask_bytes / 16; k += kThreads)  // no window: mask 0
+    reinterpret_cast<uint4*>(smem)[k] = make_uint4(0, 0, 0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  compute_s1<T>(dx, buf, smem, x, dy, p, blockIdx.x);
+}
+
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // Sizes the items for geometry p (plane groups or row bands) and their
@@ -549,8 +803,83 @@ int launch(const void* x, const void* dy, void* dx, Params p, cudaStream_t strea
   return static_cast<int>(cudaGetLastError());
 }
 
+// plan() for the 3x3/s1 instance, whose block also holds the frame of window
+// argmax masks (16 bits) and dy (fp32): plane groups shrink, and row bands
+// halve, until a block's shared memory is at most kS1SmemTarget (four blocks
+// an SM; 24 or 96 KB were slower: s1smem24k / s1smem96k).
+constexpr int kS1SmemTarget = 56 * 1024;
+
+size_t plan_s1(Params& p, int vec, int elem) {
+  p.cs = 8 * ((p.w + 7) / 8) + 4;
+  auto bytes = [&](int planes) {
+    const int slots = planes * p.pad_rows * p.cs;
+    p.mask_bytes = round_up(2 * slots, 16);
+    return static_cast<size_t>(p.mask_bytes) + sizeof(float) * slots +
+           static_cast<size_t>(elem) * (p.x_stage + p.dy_stage);
+  };
+  const int target = item_elems(p.x_total);
+  size_t smem;
+  if (p.hw < target) {
+    p.band_rows = p.h;
+    p.pad_rows = p.h + 2;
+    for (p.group = std::max(1, target / p.hw);; --p.group) {
+      p.x_stage = round_up(p.group * p.hw + vec - 1, vec);
+      p.dy_stage = round_up(p.group * p.howo + vec - 1, vec);
+      smem = bytes(p.group);
+      if (smem <= kS1SmemTarget || p.group == 1) break;
+    }
+    p.items = (p.planes + p.group - 1) / p.group;
+  } else {
+    p.group = 0;
+    const int bands = std::min(p.h, (p.hw + target - 1) / target);
+    for (p.band_rows = (p.h + bands - 1) / bands;; p.band_rows = std::max(1, p.band_rows / 2)) {
+      int x_max = 0, y_max = 0;
+      for (int r0 = 0; r0 < p.h; r0 += p.band_rows) {
+        Item t;
+        cover_rows<1>(p, r0, std::min(r0 + p.band_rows, p.h), t);
+        x_max = std::max(x_max, t.n_xr * p.w);
+        y_max = std::max(y_max, t.n_oh * p.wo);
+      }
+      p.pad_rows = p.band_rows + 2;
+      p.x_stage = round_up(x_max + vec - 1, vec);
+      p.dy_stage = round_up(y_max + vec - 1, vec);
+      smem = bytes(1);
+      if (smem <= kS1SmemTarget || p.band_rows == 1) break;
+    }
+    p.items = p.planes * ((p.h + p.band_rows - 1) / p.band_rows);
+  }
+  // phase 1: the column groups that hold windows (ow = s + pw - 2 in [0, wo)),
+  // and as many runs a column as let all of a block's units run at once
+  const int s_lo = std::max(0, 2 - p.pw), s_hi = std::min(p.cs, p.wo + 2 - p.pw);
+  const int groups = s_hi > s_lo ? (s_hi + 3) / 4 - s_lo / 4 : 0;
+  p.g_lo = groups ? s_lo / 4 : -1;
+  p.fd_groups1 = FastDivmod(std::max(1, groups));
+  p.fd_runs = FastDivmod(
+      std::max(1, std::min(p.band_rows, kThreads / std::max(1, std::max(1, p.group) * groups))));
+  p.fd_groups2 = FastDivmod((p.w + 7) / 8);
+  p.fd_h = FastDivmod(p.h);
+  return smem;
+}
+
+template <typename T>
+int launch_s1(const void* x, const void* dy, void* dx, Params p, cudaStream_t stream) {
+  const size_t smem = plan_s1(p, 16 / sizeof(T), sizeof(T));
+  if (smem > kMaxSmem || p.items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  p.fd_bands = FastDivmod(p.group ? 1 : (p.h + p.band_rows - 1) / p.band_rows);
+  if (smem > kDefaultSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        maxpool2d_bwd_s1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  maxpool2d_bwd_s1<T><<<static_cast<unsigned>(p.items), kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dispatch(const void* x, const void* dy, void* dx, const Params& p, cudaStream_t s) {
+  if (p.kh == 3 && p.kw == 3 && p.sh == 1 && p.sw == 1)
+    return launch_s1<T>(x, dy, dx, p, s);  // Inception's branch pools
   if (p.kh == 3 && p.kw == 3 && p.sh == 2 && p.sw == 2)
     return launch<T, 3, 3, 2, 2>(x, dy, dx, p, s);  // the ResNet stem pool
   if (p.kh == 2 && p.kw == 2 && p.sh == 2 && p.sw == 2)

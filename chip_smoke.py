@@ -104,10 +104,13 @@ Inception-v1's ceil-mode 3x3/s2 pools with the overhang on the high side
 only and its 3x3/s1/p1 branch pools, LeNet-5's 2x2/s2 pools on 24- and
 8-wide planes; edge geometries, and its alignment traps: rows of 56 and 28
 bytes, part-full plane groups, x and dy at a storage offset of one element,
-the stem at an odd size; repeats bit-identical) and timed in [4] at the
-stem, VGG-16's five pools and the parity configs' pools beside ATen's
-backward and the bound; its three instances (3x3/s2, 2x2/s2,
-general) launch in [2], where a spill in any of them fails the run; the
+the stem at an odd size; the 3x3/s1 instance's at the branch pools' widths:
+7-wide rows, offsets, row bands, NaN and -inf inputs; repeats
+bit-identical) and timed in [4] at the stem, VGG-16's five pools and the
+parity configs' pools beside ATen's backward and the bound, with a line a
+branch-pool shape on ATen and the 4x-bound target; its four instances
+(3x3/s2, 2x2/s2, 3x3/s1, general) launch in [2], where a spill in any of
+them fails the run; the
 bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
 and RMSNorm kernels in [3e] and [4]. Each main path (serving,
 LM training, flagship training, VGG-16 training, VGG-16 evaluation,
@@ -308,9 +311,10 @@ def phase_build():
                 raise RuntimeError(f"backward entry point failed with CUDA error {rc}")
         torch.cuda.synchronize()
         del keep, grads
-        # the max-pool kernel's three instances: 3x3/s2, 2x2/s2 and the general one
+        # the max-pool kernel's four instances: 3x3/s2, 2x2/s2, 3x3/s1 and the general one
         maxpool_grad(q, q[:, :, :32, :32].contiguous(), (3, 3), (2, 2), ((1, 1), (1, 1)))
         maxpool_grad(q, q[:, :, :32, :32].contiguous(), (2, 2), (2, 2), ((0, 0), (0, 0)))
+        maxpool_grad(q, q, (3, 3), (1, 1), ((1, 1), (1, 1)))
         maxpool_grad(q, q[:, :, :31, :63].contiguous(), (3, 2), (2, 1), ((0, 0), (0, 0)))
         b = q[0, 0, 0].float()
         for axis, bias in ((-1, b), (1, b[:1])):
@@ -322,7 +326,7 @@ def phase_build():
         rms_norm_bwd(q, b, q)
     torch.cuda.synchronize()
     log("    flash_attention_fwd, flash_attention_bwd (dQ, dK/dV, and each alone), maxpool_grad "
-        "(3x3/s2, 2x2/s2 and the general instance), "
+        "(3x3/s2, 2x2/s2, 3x3/s1 and the general instance), "
         "fused_bias_act (forward, feature and row backward) and the LayerNorm and RMSNorm "
         "forward and backward launched once in bf16 and f32")
 
@@ -921,6 +925,10 @@ def _maxpool_case(shape, kernel, stride, padding, dtype, kind, g, offset=0):
         x = torch.randint(0, 3, shape, generator=g, device="cuda").float()
     elif kind == "relu":
         x = torch.relu(x)
+    elif kind == "nan":  # 5% NaN and 10% -inf cells
+        u = torch.rand(shape, generator=g, device="cuda")
+        x = x.masked_fill(u < 0.05, float("nan")).masked_fill((u >= 0.05) & (u < 0.15),
+                                                               float("-inf"))
     ho, wo = pooled_size((h, w), kernel, stride, padding)
     dy = torch.randn((n, c, ho, wo), generator=g, device="cuda")
     if offset:
@@ -1005,18 +1013,36 @@ def phase_maxpool_parity():
             (f"stem +1 offset, {name}", (4, 64, 112, 112), stem, dt, "normal"),
             (f"stem H=W=113 (odd), {name}", (8, 64, 113, 113), stem, dt, "normal"),
         ]
+    # the 3x3/s1 instance's traps at the branch pools' widths, each in both
+    # dtypes and repeated: 7-wide rows (5a/5b) and 28-wide rows (3a) at a
+    # storage offset of 1 element, NaN and -inf inputs (a NaN at a window's
+    # offset 0 keeps it there), planes larger than an item (row bands that
+    # share window rows at their edges)
+    s1_cases = []
+    for dt in (bf, f32):
+        name = str(dt)[6:]
+        s1_cases += [
+            (f"5a/5b branch pool +1 offset, {name}", (128, 832, 7, 7), INCEPTION_S1, dt, "relu"),
+            (f"3a branch pool +1 offset, {name}", (128, 192, 28, 28), INCEPTION_S1, dt, "relu"),
+            (f"5a/5b branch pool NaN and -inf, {name}", (128, 832, 7, 7), INCEPTION_S1, dt, "nan"),
+            (f"3a branch pool NaN and -inf, {name}", (128, 192, 28, 28), INCEPTION_S1, dt, "nan"),
+            (f"3x3/s1/p1 row bands 100x100, {name}", (4, 16, 100, 100), INCEPTION_S1, dt,
+             "normal"),
+        ]
+    cases += s1_cases
     # every pool shape of the BASELINE parity configs [11] trains, each in
     # both dtypes and each repeated, their inputs as in the models (ReLU or
     # pooled ReLU outputs in Inception-v1, tanh outputs in LeNet-5):
     # Inception's four ceil-mode 3x3/s2 pools, whose overhang is on the high
-    # side only, its branch pools 3x3/s1/p1 (the general instance) at all
+    # side only, its branch pools 3x3/s1/p1 (the 3x3/s1 instance) at all
     # six shapes, LeNet-5's 2x2/s2 pools on 24- and 8-wide planes (pooled
     # rows of 12 and 4)
     config_cases = [(f"{label}, {str(dt)[6:]}", shape, geometry, dt, kind)
                     for label, shape, geometry, kind in PARITY_CONFIG_POOLS for dt in (bf, f32)]
     cases += config_cases
     repeated = {"flagship stem pool", "VGG-16 pool2 batch 64",
-                "VGG-16 pool2, relu(normal) (zero windows)", *(c[0] for c in config_cases)}
+                "VGG-16 pool2, relu(normal) (zero windows)", *(c[0] for c in config_cases),
+                *(c[0] for c in s1_cases)}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     log(f"[3c] max-pool backward kernel vs plain version on the card "
         f"(|err| <= bf16_steps*|ref| [bf16] + f32_rel_sum*n*max|dy|; {TOL_MAXPOOL})")
@@ -1140,6 +1166,19 @@ def phase_maxpool_times(rec, card):
         log(f"    {net}'s {n_pools} pools a step: " + ", ".join(
             f"{name} {sum(r[key] * k for r, k in per_step):.4f} ms"
             for name, key in (("kernel", "ms"), ("ATen", "library_ms"), ("bound", "bound_ms"))))
+    branch = [(r, POOLS_SHARING_A_SHAPE.get(r["shape"], 1)) for r in rows
+              if "branch pool" in r["shape"]]
+    if sum(k for _, k in branch) != 9:
+        raise AssertionError(f"[4] times Inception's branch pools at {branch}, not its nine")
+    log("    Inception's nine branch pools (3x3/s1/p1) a step: " + ", ".join(
+        f"{name} {sum(r[key] * k for r, k in branch):.4f} ms"
+        for name, key in (("kernel", "ms"), ("ATen", "library_ms"), ("bound", "bound_ms"))))
+    for r, _ in branch:
+        log(f"    {r['shape']}: the kernel "
+            f"{'beats' if r['ms'] < r['library_ms'] else 'does NOT beat'} ATen's backward "
+            f"(ATen/kernel {r['library_ms'] / r['ms']:.2f}); 4x-bound target "
+            f"{'met' if r['ms'] <= 4 * r['bound_ms'] else 'missed'} "
+            f"(kernel/bound {r['ms'] / r['bound_ms']:.2f})")
     log(f"    stem half-bound target (<= 2x bound) "
         f"{'met' if rows[0]['ms'] <= 2 * rows[0]['bound_ms'] else 'missed'}")
     torch.cuda.empty_cache()

@@ -15,7 +15,9 @@ where the port sums in fp32 and rounds once (the JAX test's own tolerance).
 The card-only case (kernel against plain version) is marked ``gpu``; its
 alignment cases (rows of 56 and 28 bytes, x and dy at a storage offset of
 one element, a last plane group or row band left part-full, the stem at an
-odd size) hold the kernel's 16-byte staging and stores. The forward's
+odd size) hold the kernel's 16-byte staging and stores, and its 3x3/s1
+cases the traps of that instance (7-wide rows, offsets, row bands, NaN and
+-inf inputs), in f32 on the CPU and both dtypes on the card. The forward's
 pad-free route (symmetric padding of at most half the window through
 ``F.max_pool2d`` itself) is held against ``reduce_window`` too, on inputs
 with -inf and NaN.
@@ -129,6 +131,37 @@ ALIGNMENT_CASES = [
 ALIGNMENT_PARAMS = [(*c, dt) for c in ALIGNMENT_CASES for dt in ("bfloat16", "float32")]
 ALIGNMENT_IDS = [f"{c[0]}-{c[-1]}" for c in ALIGNMENT_PARAMS]
 
+# The 3x3/s1 instance's traps (Inception-v1's branch pools, 3x3/s1/p1): 7-wide
+# rows narrower than a 16-byte chunk, a last plane group left part-full, x
+# and dy at a storage offset of one element, planes larger than an item (row
+# bands that share window rows at their edges), NaN and -inf inputs (a NaN
+# at a window's offset 0 keeps the window there; elsewhere it loses to every
+# number). (label, (N, C, H, W), storage offset, input kind)
+S1 = ((3, 3), (1, 1), ((1, 1), (1, 1)))
+S1_CASES = [
+    ("W=7, 21 planes (last group part-full)", (3, 7, 7, 7), 0, "normal"),
+    ("W=28 at storage offset 1", (2, 3, 28, 28), 1, "normal"),
+    ("W=7 at storage offset 1", (3, 5, 7, 7), 1, "normal"),
+    ("100x100 planes (row bands)", (1, 2, 100, 100), 0, "normal"),
+    ("W=28, NaN and -inf", (2, 3, 28, 28), 0, "nan"),
+    ("W=7, NaN and -inf", (3, 7, 7, 7), 0, "nan"),
+    ("W=28, -inf", (2, 3, 28, 28), 0, "neginf"),
+    ("W=7, -inf", (3, 7, 7, 7), 0, "neginf"),
+]
+
+
+def _s1_case(shape, kind, seed=31):
+    """x and dy of an S1_CASES entry; "nan": 5% NaN and 10% -inf cells,
+    "neginf": 60% -inf cells (whole windows of -inf)."""
+    x, dy = _case(*shape, *S1, seed)
+    u = np.random.default_rng(seed + 1).random(x.shape)
+    if kind == "nan":
+        x[u < 0.05] = np.nan
+        x[(u >= 0.05) & (u < 0.15)] = -np.inf
+    elif kind == "neginf":
+        x[u < 0.6] = -np.inf
+    return x, dy
+
 
 def _at_offset(a: np.ndarray, offset: int, dtype) -> torch.Tensor:
     """A contiguous tensor of a's values whose storage starts ``offset``
@@ -188,6 +221,28 @@ def test_plain_backward_matches_jax_alignment_cases(label, shape, geometry, offs
     tol = dict(atol=1e-6) if dtype == "float32" else dict(rtol=1e-2, atol=2e-2)
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), **tol)
     np.testing.assert_allclose(got, np.asarray(xla, np.float32), **tol)
+
+
+@pytest.mark.parametrize("label,shape,offset,kind", S1_CASES, ids=[c[0] for c in S1_CASES])
+def test_plain_backward_matches_jax_s1_cases(label, shape, offset, kind):
+    """The card's 3x3/s1 cases on the CPU, f32 (in bf16 the Pallas kernel sums
+    up to nine windows' dy in bf16; the card holds bf16 against the plain
+    version): the plain version against the Pallas kernel in interpret mode,
+    and against XLA's SelectAndScatter where no NaN is (XLA routes a window
+    that holds a NaN elsewhere)."""
+    kernel, stride, padding = S1
+    x, dy = _s1_case(shape, kind)
+    jx, jdy = jnp.asarray(x), jnp.asarray(dy)
+    pallas = _maxpool_grad_nchw(jx, jdy, kernel, stride, (1, 1), dy.shape[2:], interpret=True)
+    got = port.maxpool_grad_reference(_at_offset(x, offset, torch.float32),
+                                      _at_offset(dy, offset, torch.float32), kernel, stride,
+                                      padding)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    got = got.numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-6)
+    if kind != "nan":
+        np.testing.assert_allclose(got, np.asarray(jax_reference(jx, jdy, *S1)), atol=1e-6)
 
 
 # (kernel, stride, padding): pad-free route (2x2/s2/p0), F.max_pool2d's own
@@ -326,6 +381,28 @@ def test_kernel_matches_plain_on_card_alignment_cases(cuda_card, label, shape, g
     torch.cuda.synchronize()
     assert port.launches == before + 1
     want = port.maxpool_grad_reference(xc, dyc, kernel, stride, padding)
+    tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=1e-6, rtol=2 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, port.maxpool_grad(xc, dyc, kernel, stride, padding))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("label,shape,offset,kind", S1_CASES, ids=[c[0] for c in S1_CASES])
+def test_kernel_matches_plain_on_card_s1_cases(cuda_card, label, shape, offset, kind, dtype):
+    kernel, stride, padding = S1
+    x, dy = _inputs(lambda *_: _s1_case(shape, kind), kernel, stride, padding, dtype)
+    tdt = getattr(torch, dtype)
+    xc, dyc = (torch.cat([t.new_zeros(offset), t.ravel()])[offset:].view(t.shape)
+               for t in (torch.from_numpy(x).to("cuda", tdt), torch.from_numpy(dy).to("cuda", tdt)))
+    if offset:
+        assert xc.data_ptr() % 16 and dyc.data_ptr() % 16
+    before = port.launches
+    got = port.maxpool_grad(xc, dyc, kernel, stride, padding)
+    torch.cuda.synchronize()
+    assert port.launches == before + 1
+    want = port.maxpool_grad_reference(xc, dyc, kernel, stride, padding)
+    assert torch.isfinite(got).all()
     tol = dict(atol=1e-6, rtol=1e-6) if dtype == "float32" else dict(atol=1e-6, rtol=2 ** -7)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert torch.equal(got, port.maxpool_grad(xc, dyc, kernel, stride, padding))

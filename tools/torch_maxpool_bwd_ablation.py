@@ -8,9 +8,9 @@ includes) with one part of the kernel's work taken out or one setting
 changed. A part taken out makes the results wrong; only the time means
 anything. Each variant is compiled alone with nvcc into a library of its
 own under ``build/ablation_pool/`` (all of them side by side), and its C
-entry point ``bigdl_maxpool2d_bwd`` is timed at the flagship's stem pool and
-VGG-16's five pools (the shapes and inputs of
-``tools/torch_maxpool_bwd_ab.py``), the variants in turns, two rounds.
+entry point ``bigdl_maxpool2d_bwd`` is timed at the shapes and inputs of
+``tools/torch_maxpool_bwd_ab.py`` (the flagship's stem pool, VGG-16's five
+pools, Inception-v1's ten pool shapes), the variants in turns, two rounds.
 Beside them, ``copy16`` moves the same bytes with 16-byte accesses and no
 other work (read x and dy once, write dx once): the rate this card reaches
 on this traffic. Where ncu and nsys do not run, the time a part takes away
@@ -31,7 +31,19 @@ The variants depend on the kernel's design, recognised from its source:
   instead of 16384), ``ring2`` and ``ring3`` (a persistent grid whose
   blocks walk the items through a ring of 2 or 3 staging buffers, the next
   items' copies in flight while one is computed, instead of one item a
-  block), ``general`` (every shape through the runtime-geometry instance).
+  block), ``general`` (every shape through the runtime-geometry instance);
+  and for its 3x3/s1 instance: ``s1noargmax`` (no window's argmax is
+  searched and no x is read: every window takes its centre),
+  ``s1nogather`` (phase 2 reads nothing and writes zeros), ``s1nocopy``
+  (no dx chunk goes out to device memory), ``s1runs1`` and ``s1runsx2``
+  (one run a column of windows, or twice as many as fit a block's threads
+  at once), ``s1smem24k`` and ``s1smem96k`` (plane groups sized to 24 or 96
+  KB of shared memory instead of 56), ``s1no1`` and ``s1no2`` (no phase 1, no phase 2),
+  ``s1nodyw`` (phase 1 reads no dy and writes none to the frame),
+  ``s1ring2`` (a persistent grid whose blocks walk the items with two
+  staging buffers, the next item's copies in flight while one is
+  computed), ``s1blocks1``, ``s1blocks2`` and ``s1blocks3`` (registers capped for
+  one, two or three blocks an SM instead of four).
 """
 
 from __future__ import annotations
@@ -89,6 +101,52 @@ ONE_ITEM_BODY = """  extern __shared__ __align__(16) unsigned char smem[];
 }
 """
 
+# The 3x3/s1 kernel with a persistent grid whose blocks walk the items with
+# two staging buffers: the next item's x and dy copies in flight while one
+# is computed (the second buffer after the window frame).
+S1_ONE_ITEM_BODY = """  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem + p.mask_bytes);  // x, then dy
+  issue<T, 1>(x, dy, buf, p, blockIdx.x);
+  for (int k = threadIdx.x; k < p.mask_bytes / 16; k += kThreads)  // no window: mask 0
+    reinterpret_cast<uint4*>(smem)[k] = make_uint4(0, 0, 0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  compute_s1<T>(dx, buf, smem, x, dy, p, blockIdx.x);
+}
+"""
+S1_RING_BODY = """  extern __shared__ __align__(16) unsigned char smem[];
+  const int st = p.x_stage + p.dy_stage;
+  T* bufs[2] = {reinterpret_cast<T*>(smem + p.mask_bytes),
+                reinterpret_cast<T*>(smem + p.mask_bytes + sizeof(T) * st +
+                                     sizeof(float) * (p.mask_bytes / 2))};
+  const long long step = gridDim.x;
+  issue<T, 1>(x, dy, bufs[0], p, blockIdx.x);
+  asm volatile("cp.async.commit_group;\\n" ::: "memory");
+  int k = 0;
+  for (long long it = blockIdx.x; it < p.items; it += step, ++k) {
+    if (it + step < p.items) issue<T, 1>(x, dy, bufs[(k + 1) % 2], p, it + step);
+    asm volatile("cp.async.commit_group;\\n" ::: "memory");
+    for (int c = threadIdx.x; c < p.mask_bytes / 16; c += kThreads)
+      reinterpret_cast<uint4*>(smem)[c] = make_uint4(0, 0, 0, 0);
+    asm volatile("cp.async.wait_group 1;\\n" ::: "memory");
+    __syncthreads();
+    compute_s1<T>(dx, bufs[k % 2], smem, x, dy, p, it);
+    __syncthreads();
+  }
+}
+"""
+S1_RING = [(S1_ONE_ITEM_BODY, S1_RING_BODY),
+           ("           static_cast<size_t>(elem) * (p.x_stage + p.dy_stage);",
+            "           static_cast<size_t>(elem) * 2 * (p.x_stage + p.dy_stage) + 64;"),
+           ("  maxpool2d_bwd_s1<T><<<static_cast<unsigned>(p.items), kThreads, smem, stream>>>(",
+            "  int per_sm = 1, dev = 0, sms = 132;\n"
+            "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, maxpool2d_bwd_s1<T>, kThreads,"
+            " smem);\n"
+            "  cudaGetDevice(&dev);\n"
+            "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+            "  maxpool2d_bwd_s1<T><<<static_cast<unsigned>(std::min(p.items, 1LL * std::max(1, "
+            "per_sm) * sms)), kThreads, smem, stream>>>(")]
+
 
 def ring(stages: int):
     return [(ONE_ITEM_BODY, RING_BODY.replace("STAGES", str(stages))),
@@ -126,7 +184,30 @@ DESIGNS = {
         "ring2": ring(2),
         "ring3": ring(3),
         "general": [("p.kh == 3 && p.kw == 3 && p.sh == 2 && p.sw == 2", "false"),
-                    ("p.kh == 2 && p.kw == 2 && p.sh == 2 && p.sw == 2", "false")],
+                    ("p.kh == 2 && p.kw == 2 && p.sh == 2 && p.sw == 2", "false"),
+                    ("p.kh == 3 && p.kw == 3 && p.sh == 1 && p.sw == 1", "false")],
+        "s1noargmax": [("static_cast<uint32_t>(dm[j] == mx ? dc[j] : 6 + tt[j])", "4u")],
+        "s1nogather": [("if (e >= 0 && e < 8 && (mask[q / 2] >> (16 * (q % 2) + 3 * a + b) & 1u)) "
+                        "acc[e] += val[q];", "")],
+        "s1nocopy": [("      store<T, VEC>(dx + g0, load<T, VEC>(buf + k * VEC));", "")],
+        "s1runs1": [("kThreads / std::max(1, std::max(1, p.group) * groups)", "1")],
+        "s1runsx2": [("kThreads / std::max(1, std::max(1, p.group) * groups)",
+                      "2 * kThreads / std::max(1, std::max(1, p.group) * groups)")],
+        "s1smem24k": [("constexpr int kS1SmemTarget = 56 * 1024;",
+                       "constexpr int kS1SmemTarget = 24 * 1024;")],
+        "s1smem96k": [("constexpr int kS1SmemTarget = 56 * 1024;",
+                       "constexpr int kS1SmemTarget = 96 * 1024;")],
+        "s1no1": [("    s1_windows<T>(p, t, xs, ys, masks, dyw, pl, run, p.g_lo + group);", "")],
+        "s1no2": [("    s1_gather<T>(p, masks, dyw, buf + head + pl * p.hw + r * p.w + group * 8, pl, r, "
+                   "group * 8);", "")],
+        "s1nodyw": [("    dw[sr * step] = make_float4(val[0], val[1], val[2], val[3]);", "")],
+        "s1ring2": S1_RING,
+        "s1blocks1": [("__launch_bounds__(kThreads, 4)\n    maxpool2d_bwd_s1(",
+                       "__launch_bounds__(kThreads, 1)\n    maxpool2d_bwd_s1(")],
+        "s1blocks2": [("__launch_bounds__(kThreads, 4)\n    maxpool2d_bwd_s1(",
+                       "__launch_bounds__(kThreads, 2)\n    maxpool2d_bwd_s1(")],
+        "s1blocks3": [("__launch_bounds__(kThreads, 4)\n    maxpool2d_bwd_s1(",
+                       "__launch_bounds__(kThreads, 3)\n    maxpool2d_bwd_s1(")],
     }),
 }
 
@@ -234,8 +315,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(0)
     args = []
-    for _, shape, geometry in SHAPES:
-        x, dy = pool_inputs(shape, geometry, g)
+    for _, shape, geometry, kind in SHAPES:
+        x, dy = pool_inputs(shape, geometry, kind, g)
         args.append((x, dy, torch.empty_like(x), geometry))
 
     def copy_ms(x, dy, dx):
