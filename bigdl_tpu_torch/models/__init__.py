@@ -1,11 +1,12 @@
 """Models of the port: the flagship ResNet, VGG, and BASELINE's LeNet-5,
-Inception-v1 and BiLSTM text classifier."""
+VGG-for-CIFAR-10, Inception-v1, BiLSTM text classifier and Wide&Deep."""
 
 from .inception import Inception_v1
 from .lenet import LeNet5
 from .resnet import ResNet
 from .textclassifier import BiLSTMClassifier
 from .vgg import Vgg_16, Vgg_19, VggForCifar10
+from .widedeep import WideAndDeep
 
 
 def flagship_model(batch: int = 8, seed: int = 0, stem: str = "conv7", device=None):
@@ -22,28 +23,39 @@ def flagship_model(batch: int = 8, seed: int = 0, stem: str = "conv7", device=No
     return model, x, labels, "ResNet-50 synthetic-ImageNet"
 
 
-_PARITY_BATCH = {"lenet": 512, "inception": 128, "bilstm": 128}
+_PARITY_BATCH = {"lenet": 512, "vgg": 128, "inception": 128, "bilstm": 128, "widedeep": 2048}
 
 
 def parity_config(name: str, batch=None, device=None):
-    """Model and synthetic batch of one of BASELINE's parity configs 1, 3 and
-    4: ``lenet`` (LeNet5(10)), ``inception`` (Inception_v1(1000), dropout
-    on) and ``bilstm``
-    (BiLSTMClassifier(vocab 20001, embedding and hidden 128, 20 classes),
-    T = 200). Returns ``(model, x, labels, batch)``; ``x`` and ``labels``
-    are numpy arrays drawn as the JAX bench draws them (one
-    ``default_rng(0)``: the inputs, f32 standard normal or int32 ids in
-    [1, 20000), then the labels); ``batch`` defaults to the bench's."""
+    """Model and synthetic batch of one of BASELINE's five parity configs:
+    ``lenet`` (config 1, LeNet5(10)), ``vgg`` (2, VggForCifar10(10), dropout
+    on, 3x32x32), ``inception`` (3, Inception_v1(1000), dropout on),
+    ``bilstm`` (4, BiLSTMClassifier(vocab 20001, embedding and hidden 128,
+    20 classes), T = 200) and ``widedeep`` (5, WideAndDeep(2) at its default
+    widths). Returns ``(model, x, labels, batch)``, drawn as the JAX bench
+    draws them: for ``widedeep`` ``load_criteo(None, n=batch)`` (``x`` a
+    ``Table(wide SparseTensor, deep matrix)``); for the others one
+    ``default_rng(0)``, the inputs (f32 standard normal or int32 ids in
+    [1, 20000)) then the labels, as numpy arrays. ``batch`` defaults to the
+    bench's."""
     import numpy as np
 
     if name not in _PARITY_BATCH:
         raise ValueError(f"unknown parity config {name!r} (the port has "
                          f"{sorted(_PARITY_BATCH)})")
     batch = _PARITY_BATCH[name] if batch is None else int(batch)
+    if name == "widedeep":
+        from ..dataset.criteo import load_criteo
+
+        table, labels = load_criteo(None, n=batch)
+        return WideAndDeep(class_num=2, device=device), table, labels, batch
     rng = np.random.default_rng(0)
     if name == "lenet":
         x = rng.standard_normal((batch, 784)).astype(np.float32)
         model, classes = LeNet5(10, device=device), 10
+    elif name == "vgg":
+        x = rng.standard_normal((batch, 3, 32, 32)).astype(np.float32)
+        model, classes = VggForCifar10(10, device=device), 10
     elif name == "inception":
         x = rng.standard_normal((batch, 3, 224, 224)).astype(np.float32)
         model, classes = Inception_v1(1000, device=device), 1000
@@ -54,4 +66,4 @@ def parity_config(name: str, batch=None, device=None):
 
 
 __all__ = ["BiLSTMClassifier", "Inception_v1", "LeNet5", "ResNet", "Vgg_16", "Vgg_19",
-           "VggForCifar10", "flagship_model", "parity_config"]
+           "VggForCifar10", "WideAndDeep", "flagship_model", "parity_config"]

@@ -1,8 +1,6 @@
-"""``LookupTable`` (counterpart of ``LookupTable`` in
-``bigdl_tpu/nn/embedding.py``; reference: ``LookupTable.scala``): maps
-indices to rows of an (n_index, n_output) table.
-
-The JAX package's semantics:
+"""Embedding layers (counterpart of ``bigdl_tpu/nn/embedding.py``).
+``LookupTable`` (reference: ``LookupTable.scala``) maps indices to rows of
+an (n_index, n_output) table, with the JAX package's semantics:
 
 * indices are 0-based unless ``one_based_input=True``; float indices are
   truncated; an index outside the table is clipped to its nearest row, not
@@ -15,8 +13,20 @@ The JAX package's semantics:
   row was looked up in the batch;
 * the output is the table's dtype, fp32, under every precision policy.
 
-``LookupTableSparse`` and the other layers of the JAX file wait for a later
-slice of the port.
+The sparse layers over a ``SparseTensor`` (reference:
+``LookupTableSparse.scala``, ``DenseToSparse.scala``,
+``SparseJoinTable.scala``), with the JAX package's semantics:
+
+* ``LookupTableSparse`` embeds the feature ids held in the VALUES of a
+  ``SparseTensor`` and combines each row's embeddings by ``sum``, ``mean``
+  or ``sqrtn``. Ids are 1-based; id 0 marks an absent entry, which adds
+  nothing and is left out of the mean and sqrtn counts (a row with none
+  divides by 1). ``max_norm`` renormalises each gathered row to an L2
+  norm of at most ``max_norm``;
+* ``DenseToSparse`` turns an (n, m) matrix into a ``SparseTensor`` of
+  fixed capacity n * m, zero values kept (they are absent ids);
+* ``SparseJoinTable`` concatenates a ``Table`` of ``SparseTensor`` s
+  along the feature dim (``sparse_join``).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..tensor.sparse import SparseTensor, sparse_join
 from .initialization import InitializationMethod, RandomNormal
 from .module import AbstractModule
 
@@ -76,3 +87,63 @@ class LookupTable(AbstractModule):
         if self.padding_value is not None:
             y = y * (idx != self._pad_row()).unsqueeze(-1).to(y.dtype)
         return y, state
+
+
+class LookupTableSparse(AbstractModule):
+    def __init__(self, n_index: int, n_output: int, combiner: str = "sum",
+                 max_norm: Optional[float] = None, device=None):
+        super().__init__(device)
+        if combiner not in ("sum", "mean", "sqrtn"):
+            raise ValueError(f"unknown combiner {combiner!r}")
+        self.n_index = n_index
+        self.n_output = n_output
+        self.combiner = combiner
+        self.max_norm = max_norm
+        self.weight_init: InitializationMethod = RandomNormal(0.0, 1.0)
+
+    def _build(self, generator, sample):
+        if not isinstance(sample, SparseTensor):
+            raise ValueError(f"{self.name()}: expects a SparseTensor of feature ids, got "
+                             f"{type(sample).__name__}")
+        return {"weight": self.weight_init(generator, (self.n_index, self.n_output),
+                                           self.n_index, self.n_output)}, {}
+
+    def _apply_params(self, params, state, x, training, rng):
+        if not isinstance(x, SparseTensor):
+            raise TypeError(f"{self.name()} expects a SparseTensor input")
+        w = params["weight"]
+        ids = x.values.to(torch.int32).long()  # 1-based; 0 = absent
+        present = (ids > 0).to(w.dtype)
+        rows = w[torch.clamp(ids - 1, 0, self.n_index - 1)]
+        if self.max_norm is not None:
+            norms = torch.linalg.vector_norm(rows, dim=-1, keepdim=True)
+            rows = rows * torch.clamp(self.max_norm / torch.clamp(norms, min=1e-7), max=1.0)
+        rows = rows * present[:, None]
+        seg = x.row_indices.long()
+        summed = rows.new_zeros((x.shape[0], self.n_output)).index_add_(0, seg, rows)
+        if self.combiner == "sum":
+            return summed, state
+        counts = present.new_zeros(x.shape[0]).index_add_(0, seg, present)[:, None]
+        counts = torch.clamp(counts, min=1.0)
+        if self.combiner == "mean":
+            return summed / counts, state
+        return summed / torch.sqrt(counts), state
+
+
+class DenseToSparse(AbstractModule):
+    def _apply_params(self, params, state, x, training, rng):
+        n, m = x.shape
+        rows = torch.arange(n, dtype=torch.int32, device=x.device).repeat_interleave(m)
+        cols = torch.arange(m, dtype=torch.int32, device=x.device).repeat(n)
+        return SparseTensor(rows, cols, x.reshape(-1), (n, m)), state
+
+
+class SparseJoinTable(AbstractModule):
+    def __init__(self, dimension: int = 2, device=None):
+        super().__init__(device)
+        if dimension != 2:
+            raise ValueError("SparseJoinTable supports dimension=2 (feature dim)")
+        self.dimension = dimension
+
+    def _apply_params(self, params, state, x, training, rng):
+        return sparse_join(list(x)), state

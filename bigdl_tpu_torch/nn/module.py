@@ -43,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tensor.sparse import SparseTensor
 from ..utils.engine import Engine
 from ..utils.random import RandomGenerator
 from ..utils.table import T, Table
@@ -146,9 +147,11 @@ class AbstractModule(torch.nn.Module):
 
     def _as_input(self, x):
         """``x`` as tensors on the module's device (a ``Table``, or a list of
-        arrays or tensors, element by element)."""
+        arrays or tensors, element by element; a ``SparseTensor`` whole)."""
         if isinstance(x, Table):
             return T(*[self._as_input(v) for v in x])
+        if isinstance(x, SparseTensor):
+            return x.to(self.device)
         if isinstance(x, (list, tuple)) and x and all(
                 isinstance(v, (np.ndarray, torch.Tensor)) for v in x):
             return [self._as_input(v) for v in x]

@@ -35,8 +35,9 @@ The ragged-batch seam: the dataset's first training batch fixes the step's
 rows. A shorter train batch (from a dataset that yields its epoch tail;
 ``LocalArrayDataSet`` drops it) is padded back to them by repeating row 0
 and its pad rows masked out of the loss exactly (``criterion.unreduced``),
-when the criterion has that row-wise form and no BatchNormalization couples
-the rows of the forward; otherwise it is dropped, as the reference does.
+when the criterion has that row-wise form, no BatchNormalization couples
+the rows of the forward and no ``SparseTensor`` is in the batch (its
+entries are not rows); otherwise it is dropped, as the reference does.
 Only a padded batch takes the masked form of the loss: on a full batch it
 equals the criterion's own (the JAX package masks every step so that one
 compiled step serves both; an eager step has no such reason).
@@ -83,7 +84,8 @@ def validate(model, params, model_state, dataset, methods) -> Dict[str, Validati
     """One eval-mode sweep of ``methods`` over ``dataset`` with ``params``
     and ``model_state``, their results merged with ``+``: the first batch
     fixes the rows, a shorter one is padded to them on the device
-    (``forward_padded``) and its output sliced back before the metrics,
+    (``forward_padded``; one holding a ``SparseTensor`` runs at its own
+    rows) and its output sliced back before the metrics,
     whose targets stay unpadded. One host transfer a batch: its numerators
     together."""
     totals: Dict[str, ValidationResult] = {}
@@ -304,6 +306,8 @@ class LocalOptimizer:
         and divided by their sum), the model state carried from slice to
         slice; returns ``(loss, new_state)``."""
         n = self._micro_batches
+        if not isinstance(x, torch.Tensor):
+            raise NotImplementedError("set_micro_batches on Table inputs is not ported")
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch size {b} not divisible by micro batch count {n}")

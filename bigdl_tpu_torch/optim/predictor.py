@@ -2,7 +2,9 @@
 ``Predictor`` and ``Evaluator``).
 
 Every dispatch runs the model at ONE fixed batch size: a short batch is
-padded by repeating row 0 and the outputs are sliced back to the real rows.
+padded by repeating row 0 and the outputs are sliced back to the real rows
+(a batch holding a ``SparseTensor``, which cannot be row-padded, runs at its
+own rows).
 ``shape_buckets`` zero-pads variable-length records (pad id 0, the
 framework's masking convention) up to the smallest bucket that fits, so a
 sweep over mixed lengths sees one geometry per bucket. Forwards run under
@@ -26,26 +28,36 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..dataset.dataset import AbstractDataSet, to_device
+from ..dataset.dataset import AbstractDataSet, pad_rows, rows_of, to_device
+from ..tensor.sparse import SparseTensor
+from ..utils.table import Table
 from .validation import ValidationMethod, ValidationResult
 
 
-def _pad_batch(x: torch.Tensor, n: int, total: int) -> torch.Tensor:
-    """Pad the leading dim from n to total by repeating row 0."""
-    if n == total:
-        return x
-    return torch.cat([x, x[:1].expand((total - n,) + tuple(x.shape[1:]))], dim=0)
-
-
-def forward_padded(model, params, state, x: torch.Tensor, rows: int) -> torch.Tensor:
+def forward_padded(model, params, state, x, rows: int) -> torch.Tensor:
     """Eval-mode forward of ``x`` padded to ``rows`` rows by repeating row 0
-    (on ``x``'s device); the output's real rows."""
-    n = x.shape[0]
+    (on ``x``'s device); the output's real rows. A batch holding a
+    ``SparseTensor`` is not row-padded: a short one runs at its own rows."""
+    n = rows_of(x)
     if n > rows:
         raise ValueError(f"batch of {n} rows exceeds the fixed batch size {rows}")
+    padded = x if n == rows else pad_rows(x, n, rows)
     with torch.inference_mode():
-        y, _ = model.apply(params, state, _pad_batch(x, n, rows), training=False, rng=None)
+        y, _ = model.apply(params, state, x if padded is None else padded, training=False,
+                           rng=None)
         return y[:n]
+
+
+def _slice_rows(x, lo: int, hi: int):
+    """Rows [lo, hi) of a batch: each dense leaf's leading dim, a
+    ``SparseTensor``'s entries in those rows (renumbered from 0)."""
+    if isinstance(x, Table):
+        return Table({k: _slice_rows(v, lo, hi) for k, v in x.items()})
+    if isinstance(x, SparseTensor):
+        keep = (x.row_indices >= lo) & (x.row_indices < hi)
+        return SparseTensor(x.row_indices[keep] - lo, x.col_indices[keep], x.values[keep],
+                            (min(hi, x.shape[0]) - lo, x.shape[1]))
+    return x[lo:hi]
 
 
 class Predictor:
@@ -113,17 +125,17 @@ class Predictor:
 
     def _chunks(self, data):
         """Input chunks of at most ``batch_size`` rows over a dataset's eval
-        batches (re-chunked) or an array."""
+        batches (re-chunked), a ``Table`` of columns or an array."""
         bs = self.batch_size
         if isinstance(data, AbstractDataSet):
             for batch in data.data(train=False):
                 x = batch.get_input()
                 for i in range(0, batch.size(), bs):
-                    yield x[i:i + bs]
+                    yield _slice_rows(x, i, i + bs)
             return
-        arr = np.asarray(data)
-        for i in range(0, arr.shape[0], bs):
-            yield arr[i:i + bs]
+        x = data if isinstance(data, Table) else np.asarray(data)
+        for i in range(0, rows_of(x), bs):
+            yield _slice_rows(x, i, i + bs)
 
     def predict(self, data) -> torch.Tensor:
         """Forward every record of a dataset, an array or a list of records;

@@ -30,6 +30,9 @@ class Table:
     def __iter__(self) -> Iterator:
         return iter(self._d.values())
 
+    def items(self):
+        return self._d.items()
+
     def insert(self, v) -> "Table":
         """Append with the next 1-based integer key."""
         self._d[len(self._d) + 1] = v

@@ -86,23 +86,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal to an unpadded forward of its 44 records (f32); it prints the
    eval images/s at batch 128, each validation's and checkpoint's wall
    time, the checkpoint's size and the resume's load time;
-11. BASELINE's parity configs 1, 3 and 4 (``models.parity_config``, the
-   recipe of ``bench.py::_measure_one_config``: bf16 compute and
-   activations, ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9, random
-   weights from a seed, the bench's one batch every iteration): LeNet-5 at
-   batch 512, Inception-v1 at batch 128 of 224x224 with dropout on, and the
-   BiLSTM classifier (vocab 20001, embedding and hidden 128, T 200) at
-   batch 128, each trained 10 iterations through ``LocalOptimizer``: step
-   ms and records/s, finite losses, 2 / 13 / 0 max-pool backward launches
-   per iteration and no other kernel, device memory flat from iteration 3
-   to 10; then each one's 3 f32 SGD steps on the card (kernel route) held
-   against the same 3 steps on the CPU (plain route).
+11. BASELINE's five parity configs (``models.parity_config``, the recipe
+   of ``bench.py::_measure_one_config``: bf16 compute and activations,
+   ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9, random weights from a
+   seed, the bench's one batch every iteration): LeNet-5 at batch 512,
+   VGG-for-CIFAR-10 at batch 128 of 32x32 with dropout on, Inception-v1 at
+   batch 128 of 224x224 with dropout on, the BiLSTM classifier (vocab
+   20001, embedding and hidden 128, T 200) at batch 128, and Wide&Deep
+   (wide 5000, embeddings (100, 100, 50) x 16, MLP 64-32) at batch 2048 of
+   ``load_criteo``'s synthetic log, a ``Table`` of a ``SparseTensor`` and
+   a dense matrix, each trained 10 iterations through ``LocalOptimizer``:
+   step ms and records/s, finite losses, 2 / 5 / 13 / 0 / 0 max-pool
+   backward launches per iteration and no other kernel, device memory flat
+   from iteration 3 to 10; then each one's 3 f32 SGD steps on the card
+   (kernel route) held against the same 3 steps on the CPU (plain
+   route).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
 Inception-v1's ceil-mode 3x3/s2 pools with the overhang on the high side
 only and its 3x3/s1/p1 branch pools, LeNet-5's 2x2/s2 pools on 24- and
-8-wide planes; edge geometries, and its alignment traps: rows of 56 and 28
+8-wide planes, VGG-for-CIFAR-10's five 2x2/s2 pools on 32- to 2-wide
+planes; edge geometries, and its alignment traps: rows of 56 and 28
 bytes, part-full plane groups, x and dy at a storage offset of one element,
 the stem at an odd size; the 3x3/s1 instance's at the branch pools' widths:
 7-wide rows, offsets, row bands, NaN and -inf inputs; repeats
@@ -113,10 +118,11 @@ branch-pool shape on ATen and the 4x-bound target; its four instances
 them fails the run; the
 bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
 and RMSNorm kernels in [3e] and [4]. Each main path (serving,
-LM training, flagship training, VGG-16 training, VGG-16 evaluation,
-norm-LM training, the flagship validated/checkpointed/resumed, LeNet-5,
-Inception-v1 and BiLSTM training) runs with
-every kernel's launch count set to 0 just before it and read just after.
+LM training, flagship training, VGG-16 training (``vgg16`` in the kernels
+record), VGG-16 evaluation, norm-LM training, the flagship
+validated/checkpointed/resumed, and the five parity configs' training,
+each under its ``parity_config`` name) runs with every kernel's launch
+count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -943,8 +949,8 @@ INCEPTION_S2 = ((3, 3), (2, 2), ((0, 1), (0, 1)))  # ceil mode: the overhang hig
 INCEPTION_S1 = ((3, 3), (1, 1), ((1, 1), (1, 1)))
 VGG_POOL = ((2, 2), (2, 2), ((0, 0), (0, 0)))
 # (label, x shape, geometry, input kind): every distinct pool shape of
-# [11]'s configs, at their batch (Inception 128, LeNet 512), in the order
-# the networks run them
+# [11]'s configs, at their batch (Inception 128, LeNet 512, VGG-for-CIFAR
+# 128), in the order the networks run them
 PARITY_CONFIG_POOLS = [
     ("Inception pool1 3x3/s2 ceil", (128, 64, 112, 112), INCEPTION_S2, "relu"),
     ("Inception pool2 3x3/s2 ceil", (128, 192, 56, 56), INCEPTION_S2, "relu"),
@@ -958,6 +964,13 @@ PARITY_CONFIG_POOLS = [
     ("Inception 5a/5b branch pools 3x3/s1/p1", (128, 832, 7, 7), INCEPTION_S1, "relu"),
     ("LeNet-5 pool1 2x2/s2", (512, 6, 24, 24), VGG_POOL, "normal"),
     ("LeNet-5 pool2 2x2/s2", (512, 12, 8, 8), VGG_POOL, "normal"),
+    # VGG-for-CIFAR-10 (batch 128): 32x32 down to 2x2 planes, pooled rows of
+    # 16, 8, 4, 2 and 1 elements (the last two narrower than a 16-byte chunk)
+    ("VGG-CIFAR pool2 2x2/s2", (128, 64, 32, 32), VGG_POOL, "relu"),
+    ("VGG-CIFAR pool5 2x2/s2", (128, 128, 16, 16), VGG_POOL, "relu"),
+    ("VGG-CIFAR pool9 2x2/s2", (128, 256, 8, 8), VGG_POOL, "relu"),
+    ("VGG-CIFAR pool13 2x2/s2", (128, 512, 4, 4), VGG_POOL, "relu"),
+    ("VGG-CIFAR pool17 2x2/s2", (128, 512, 2, 2), VGG_POOL, "relu"),
 ]
 # launches a step of each shape that more than one pool has
 POOLS_SHARING_A_SHAPE = {"Inception 4b-4d branch pools 3x3/s1/p1": 3,
@@ -1032,11 +1045,12 @@ def phase_maxpool_parity():
     cases += s1_cases
     # every pool shape of the BASELINE parity configs [11] trains, each in
     # both dtypes and each repeated, their inputs as in the models (ReLU or
-    # pooled ReLU outputs in Inception-v1, tanh outputs in LeNet-5):
-    # Inception's four ceil-mode 3x3/s2 pools, whose overhang is on the high
-    # side only, its branch pools 3x3/s1/p1 (the 3x3/s1 instance) at all
-    # six shapes, LeNet-5's 2x2/s2 pools on 24- and 8-wide planes (pooled
-    # rows of 12 and 4)
+    # pooled ReLU outputs in Inception-v1 and VGG-for-CIFAR-10, tanh outputs
+    # in LeNet-5): Inception's four ceil-mode 3x3/s2 pools, whose overhang is
+    # on the high side only, its branch pools 3x3/s1/p1 (the 3x3/s1
+    # instance) at all six shapes, LeNet-5's 2x2/s2 pools on 24- and 8-wide
+    # planes (pooled rows of 12 and 4), VGG-for-CIFAR-10's five on 32- to
+    # 2-wide planes (pooled rows of 16 down to 1)
     config_cases = [(f"{label}, {str(dt)[6:]}", shape, geometry, dt, kind)
                     for label, shape, geometry, kind in PARITY_CONFIG_POOLS for dt in (bf, f32)]
     cases += config_cases
@@ -1158,7 +1172,7 @@ def phase_maxpool_times(rec, card):
         if label != "stem":
             del x, dy
         del dx
-    for net, n_pools in (("VGG-16", 5), ("Inception", 13)):
+    for net, n_pools in (("VGG-16", 5), ("Inception", 13), ("VGG-CIFAR", 5)):
         per_step = [(r, POOLS_SHARING_A_SHAPE.get(r["shape"], 1)) for r in rows
                     if r["shape"].startswith(net)]
         if sum(k for _, k in per_step) != n_pools:
@@ -2074,7 +2088,7 @@ def _sgd_routes(build, x, y, seed, fused=False):
     import numpy as np
     import torch
     from bigdl_tpu_torch import Engine, RandomGenerator
-    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset import DataSet, rows_of
     from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
     from bigdl_tpu_torch.utils.convert import load_jax_params
@@ -2097,7 +2111,7 @@ def _sgd_routes(build, x, y, seed, fused=False):
             m = build(device)
             m.init(sample_input=x)
             load_jax_params(m, _nest(w0))
-            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=len(x)), ClassNLLCriterion())
+            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=rows_of(x)), ClassNLLCriterion())
             o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
             reset_counts()
             t0 = time.perf_counter()
@@ -2125,9 +2139,11 @@ def _sgd_routes(build, x, y, seed, fused=False):
 def _check_routes(label, x, r, tol, want_card):
     """Log ``_sgd_routes``' readings against ``tol``; fail beyond any limit,
     on launches other than ``want_card`` on the card, or any on the CPU."""
+    from bigdl_tpu_torch.dataset import rows_of
+
     (lc, lp), (kc, kp), (tc, tp) = r["losses"], r["launches"], r["seconds"]
     log(f"    kernel route (card, f32, TF32 off) vs plain route (CPU, f32), {label}, "
-        f"{tuple(x.shape)}, 3 steps of SGD lr 0.01 momentum 0.9: losses "
+        f"{rows_of(x)} x {_describe(x)}, 3 steps of SGD lr 0.01 momentum 0.9: losses "
         f"{[round(v, 6) for v in lc]} vs {[round(v, 6) for v in lp]}; step 1 diff "
         f"{r['loss_first']:.2e} (tol {tol['loss_first']}), steps 2-3 rel diff {r['loss']:.2e} "
         f"(tol {tol['loss']}); params rel diff {r['params']:.2e} (tol {tol['params']}); "
@@ -2661,13 +2677,15 @@ def _norm_lm_routes(variant):
                              "the plain route")
 
 
-# [11] BASELINE's parity configs 1, 3 and 4 (``models.parity_config``, the
-# recipe of bench.py::_measure_one_config): max-pool backward launches a
-# step. LeNet-5 has two 2x2/s2 pools; Inception-v1 four ceil-mode 3x3/s2
-# pools and nine 3x3/s1/p1 branch pools; the BiLSTM none. No other kernel
-# runs on these paths (the fused-kernel switch stays off).
-PARITY_CONFIGS = ("lenet", "inception", "bilstm")
-PARITY_POOLS_PER_ITER = {"lenet": 2, "inception": 13, "bilstm": 0}
+# [11] BASELINE's five parity configs (``models.parity_config``, the recipe
+# of bench.py::_measure_one_config): max-pool backward launches a step.
+# LeNet-5 has two 2x2/s2 pools; VGG-for-CIFAR-10 five; Inception-v1 four
+# ceil-mode 3x3/s2 pools and nine 3x3/s1/p1 branch pools; the BiLSTM and
+# Wide&Deep none (Wide&Deep's sparse product is torch's gather and
+# index_add_, as the JAX package's is segment_sum, no Pallas kernel). No
+# other kernel runs on these paths (the fused-kernel switch stays off).
+PARITY_CONFIGS = ("lenet", "vgg", "inception", "bilstm", "widedeep")
+PARITY_POOLS_PER_ITER = {"lenet": 2, "vgg": 5, "inception": 13, "bilstm": 0, "widedeep": 0}
 # Kernel route (card, f32, TF32 off) vs plain route (CPU, f32) over 3 SGD
 # steps (lr 0.01, momentum 0.9) from one numpy-made set of weights, at small
 # batches: LeNet-5 at 16, Inception-v1 at 2 of 224x224 with dropout off, the
@@ -2683,20 +2701,48 @@ PARITY_POOLS_PER_ITER = {"lenet": 2, "inception": 13, "bilstm": 0}
 # 2.4e-4 (Inception-v1, a ReLU network like VGG-16 whose gates may open on
 # one side only). Inception-v1's update limit, 5e-3, is about 20x its
 # readings (LeNet-5's is 100x); the others keep VGG-16's.
+# Wide&Deep (batch 256 of its synthetic log, at its widths): a gather, a
+# scatter-add and a small ReLU MLP; fixed before its first run at VGG-16's
+# limits (the same f32 sums in another order; its card route's index_add_
+# sums with atomics, so its bits may differ from run to run: no repeat is
+# held to the bit). VGG-for-CIFAR-10 (batch 16, dropout off): fixed before
+# its first run, from the port against the JAX package on the CPU (two f32
+# implementations, tests/test_torch_vgg.py): sixteen conv/BN layers leave
+# the activations ~3e-5 apart at the deep pools, where a 2x2 window whose
+# two largest values lie that close routes its dy to another cell in each
+# route, moving every gradient below it by ~5e-3 relative L2; over four
+# seeds at batch 16 those runs read step-1 losses within 3.4e-6, steps 2-3
+# within 1.5e-3 relative, parameters within 3.5e-4 relative and updates
+# 0.048-0.114 apart. So 1e-4 at step 1 (as all), 1e-2, 2e-3 and 0.3, each
+# about 2-7x those readings and still under the 0.5 or more that a wrong
+# gradient or update rule moves the update by.
 PARITY_ROUTE_TOL = {
     name: {"loss_first": 1e-4,  # step 1, same weights: |loss_card - loss_cpu|
-           "loss": 1e-3,        # steps 2-3: |loss_card - loss_cpu| / max(1, |loss_cpu|)
-           "params": 1e-5,      # ||p_card - p_cpu|| / ||p_cpu||
-           "update": 5e-3 if name == "inception" else 1e-2}  # / ||p_cpu - p0||
+           "loss": 1e-2 if name == "vgg" else 1e-3,  # steps 2-3, / max(1, |loss_cpu|)
+           "params": 2e-3 if name == "vgg" else 1e-5,  # ||p_card - p_cpu|| / ||p_cpu||
+           "update": {"inception": 5e-3, "vgg": 0.3}.get(name, 1e-2)}  # / ||p_cpu - p0||
     for name in PARITY_CONFIGS}
-PARITY_ROUTE_BATCH = {"lenet": 16, "inception": 2, "bilstm": 4}
+PARITY_ROUTE_BATCH = {"lenet": 16, "vgg": 16, "inception": 2, "bilstm": 4, "widedeep": 256}
+
+
+def _describe(x) -> str:
+    """A batch's shape and dtype after its rows; a Table's entries, each so."""
+    from bigdl_tpu_torch.tensor import SparseTensor
+    from bigdl_tpu_torch.utils.table import Table
+
+    if isinstance(x, Table):
+        return "Table(" + ", ".join(_describe(v) for v in x) + ")"
+    if isinstance(x, SparseTensor):
+        return f"SparseTensor({x.shape[1]} wide, {x.nnz} entries, {x.values.dtype})"
+    return f"{tuple(x.shape[1:])} {x.dtype}"
 
 
 def phase_parity_configs(card):
-    """[11] Train LeNet-5, Inception-v1 and the BiLSTM classifier through
-    LocalOptimizer, then hold each one's card route against its CPU route;
-    returns each config's kernel launches of its training run. The route
-    checks come after all three runs: the BiLSTM's host-bound step read
+    """[11] Train LeNet-5, VGG-for-CIFAR-10, Inception-v1, the BiLSTM
+    classifier and Wide&Deep through LocalOptimizer, then hold each one's
+    card route against its CPU route; returns each config's kernel launches
+    of its training run. The route checks come after all five runs: the
+    BiLSTM's host-bound step read
     12% slower right after a route check (medians of four interleaved runs,
     tools/torch_host_step_spread.py on an H100), inside its run-to-run
     spread but in every call that tried it."""
@@ -2731,7 +2777,7 @@ def _train_parity_config(name, card):
     model, x, y, batch = parity_config(name, device="cuda")
     model.init(sample_input=x)  # what optimize() would build from
     log(f"[11] {name}: {model.n_parameters() / 1e6:.3f} M params, batch {batch} of "
-        f"{tuple(x.shape[1:])} {x.dtype}, built in {time.perf_counter() - t0:.1f} s")
+        f"{_describe(x)}, built in {time.perf_counter() - t0:.1f} s")
     opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), ClassNLLCriterion())
     opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
     opt.set_end_when(Trigger.max_iteration(iters))
@@ -2768,7 +2814,8 @@ def _train_parity_config(name, card):
                              "maxpool2d_bwd and nothing else")
     # as in [7]: a state or graph kept alive from step to step would grow by
     # that step's saved activations; allowed 100 MB, about one f32 input
-    # batch (Inception's 77 MB) in flight
+    # batch (Inception's 77 MB; VGG-for-CIFAR-10's 1.6 MB, Wide&Deep's 0.2
+    # MB) in flight
     drift = mem[iters - 1] - mem[2]
     log(f"    device memory allocated after iteration 3: {mem[2] / 2**20:.1f} MiB, after "
         f"iteration {iters}: {mem[iters - 1] / 2**20:.1f} MiB (drift {drift / 2**20:+.1f} MiB, "
@@ -2783,8 +2830,9 @@ def _train_parity_config(name, card):
 def _parity_config_routes(name):
     """3 f32 SGD steps of one parity config on the card (the max-pool kernel
     where it has pools) vs on the CPU (its plain version), from one set of
-    weights; Inception-v1 with dropout off (the routes draw other masks)."""
-    from bigdl_tpu_torch.models import Inception_v1, parity_config
+    weights; Inception-v1 and VGG-for-CIFAR-10 with dropout off (the routes
+    draw other masks)."""
+    from bigdl_tpu_torch.models import Inception_v1, VggForCifar10, parity_config
 
     batch = PARITY_ROUTE_BATCH[name]
     _, x, y, _ = parity_config(name, batch, device="cpu")
@@ -2792,6 +2840,8 @@ def _parity_config_routes(name):
     def build(device):
         if name == "inception":
             return Inception_v1(1000, has_dropout=False, device=device)
+        if name == "vgg":
+            return VggForCifar10(10, has_dropout=False, device=device)
         return parity_config(name, batch, device=device)[0]
 
     r = _sgd_routes(build, x, y, SEED + 7)
@@ -2830,7 +2880,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path = {"serving": phase_slice(card), "training": phase_training(card),
                "flagship": phase_flagship(card)}
-    by_path["vgg"], by_path["vgg_eval"] = phase_vgg(card)
+    by_path["vgg16"], by_path["vgg16_eval"] = phase_vgg(card)
     by_path["normlm"] = phase_norm_lm(card)
     by_path["flagship_val"] = phase_flagship_val(card)
     by_path.update(phase_parity_configs(card))

@@ -2,7 +2,8 @@
 parameter paths, forward, and 3 ``LocalOptimizer`` SGD steps (lr 0.01,
 momentum 0.9, ``ClassNLLCriterion``, BASELINE config 1's recipe) from the
 JAX model's weights carried over; and ``models.parity_config``'s draws
-against ``bench.py::_parity_config``'s for configs 1, 3 and 4.
+against ``bench.py::_parity_config``'s for configs 1 to 4 (config 5's, a
+``Table``, in ``test_torch_widedeep.py``), and its error for other names.
 
 Inputs from numpy with a seed, f32 on the CPU. Tolerances, fixed before the
 first run: ``Tanh`` 1e-6 absolute in f32, and in its gradient 1e-6 plus
@@ -177,7 +178,7 @@ def _bench():
 
 
 @pytest.mark.parametrize("batch", [None, 3], ids=["bench_batch", "batch3"])
-@pytest.mark.parametrize("name", ["lenet", "inception", "bilstm"])
+@pytest.mark.parametrize("name", ["lenet", "vgg", "inception", "bilstm"])
 def test_parity_config_draws_match_bench(monkeypatch, name, batch):
     """The same model (module names), batch, inputs and labels as the JAX
     bench's ``_parity_config`` (whose batch comes from BENCH_CFG_BATCH)."""
@@ -197,5 +198,6 @@ def test_parity_config_draws_match_bench(monkeypatch, name, batch):
 
 @pytest.mark.parametrize("name", ["vgg", "widedeep"])
 def test_parity_config_refuses_other_configs(name):
-    with pytest.raises(ValueError, match=name):
-        parity_config(name, device="cpu")
+    """An unknown config raises, and its message lists the five, these among them."""
+    with pytest.raises(ValueError, match=f"unknown parity config 'resnet'.*'{name}'"):
+        parity_config("resnet", device="cpu")

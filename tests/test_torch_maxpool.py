@@ -5,9 +5,9 @@ SelectAndScatter, and ``SpatialMaxPooling`` forward and input gradient
 
 Inputs come from numpy with a seed; the geometries, ties, duplicates,
 stride > kernel and bf16 cases are those of ``tests/test_maxpool_grad.py``,
-plus Inception-v1's and LeNet-5's pool geometries at small batch and
-channels (3x3/s1/p1, ceil-mode 3x3/s2 with the overhang on the high side
-only, 2x2/s2 on 24x24 and 8x8 planes).
+plus Inception-v1's, LeNet-5's and VGG-for-CIFAR-10's pool geometries at
+small batch and channels (3x3/s1/p1, ceil-mode 3x3/s2 with the overhang on
+the high side only, 2x2/s2 on 24x24, 8x8, 4x4 and 2x2 planes).
 Tolerances: f32 1e-6 absolute (each window's dy lands once; a position sums
 at most nine of them (3x3/s1) in fp32, in another order); bf16 1e-2 relative + 2e-2
 absolute against the Pallas kernel, which sums overlapping windows in bf16
@@ -15,7 +15,7 @@ where the port sums in fp32 and rounds once (the JAX test's own tolerance).
 The card-only case (kernel against plain version) is marked ``gpu``; its
 alignment cases (rows of 56 and 28 bytes, x and dy at a storage offset of
 one element, a last plane group or row band left part-full, the stem at an
-odd size) hold the kernel's 16-byte staging and stores, and its 3x3/s1
+odd size, 2-wide planes at an offset) hold the kernel's 16-byte staging and stores, and its 3x3/s1
 cases the traps of that instance (7-wide rows, offsets, row bands, NaN and
 -inf inputs), in f32 on the CPU and both dtypes on the card. The forward's
 pad-free route (symmetric padding of at most half the window through
@@ -103,6 +103,14 @@ CASES = [
      NO_PAD, "float32"),
     ("lenet pool2 2x2/s2 8x8 bf16", lambda k, s, p: _case(4, 12, 8, 8, k, s, p, 27), (2, 2),
      (2, 2), NO_PAD, "bfloat16"),
+    # VGG-for-CIFAR-10's last two 2x2/s2 pools: 4x4 and 2x2 planes (pooled
+    # rows of 2 and 1 elements, narrower than any 16-byte chunk)
+    ("vgg-cifar pool13 2x2/s2 4x4", lambda k, s, p: _case(4, 16, 4, 4, k, s, p, 32), (2, 2),
+     (2, 2), NO_PAD, "float32"),
+    ("vgg-cifar pool17 2x2/s2 2x2 (one-wide pooled rows)",
+     lambda k, s, p: _case(4, 16, 2, 2, k, s, p, 33), (2, 2), (2, 2), NO_PAD, "float32"),
+    ("vgg-cifar pool17 2x2/s2 2x2 bf16", lambda k, s, p: _case(4, 16, 2, 2, k, s, p, 34),
+     (2, 2), (2, 2), NO_PAD, "bfloat16"),
 ]
 
 # Held on the card only (kernel against plain version): a bf16 3x3/s1 case
@@ -127,6 +135,7 @@ ALIGNMENT_CASES = [
     ("stem at H=W=113 (odd; last row band part-full)", (1, 3, 113, 113), STEM, 0),
     ("W=28 at storage offset 1", (2, 3, 28, 28), VGG, 1),
     ("stem at storage offset 1", (2, 3, 64, 64), STEM, 1),
+    ("W=2 (one-wide pooled rows) at storage offset 1, 35 planes", (5, 7, 2, 2), VGG, 1),
 ]
 ALIGNMENT_PARAMS = [(*c, dt) for c in ALIGNMENT_CASES for dt in ("bfloat16", "float32")]
 ALIGNMENT_IDS = [f"{c[0]}-{c[-1]}" for c in ALIGNMENT_PARAMS]

@@ -14,7 +14,11 @@ carried over (``load_jax_params`` / ``load_jax_state``):
     ``LocalOptimizer`` SGD steps (lr 0.01, momentum 0.9);
 (d) the same narrow model with the switch off in JAX, built as ``Vgg_16``
     is (separate ``ReLU`` modules), against the port's declared epilogues
-    with the switch on: the epilogue route computes VGG's function.
+    with the switch on: the epilogue route computes VGG's function;
+(e) BASELINE config 2, ``VggForCifar10(10, has_dropout=False)`` at full
+    width on ``parity_config("vgg")``'s draws: 3 ``LocalOptimizer`` SGD
+    steps at batch 16 (the fc head's train-mode BN sees 16 values a
+    channel; the last pool's rows are one element wide).
 
 Inputs from numpy with a seed, f32, dropout off (the two packages draw
 different masks). Tolerances, fixed before the first run (f32; the same
@@ -25,6 +29,22 @@ BN state 1e-4 absolute + 1e-4 relative; the gradient tree within 1e-4 of
 its norm by relative L2 (ReLU gates near zero may open in one package
 only, as in ``test_torch_resnet.py``); after 3 steps, losses 1e-4, every
 parameter 1e-4 absolute and the whole update within 1e-3 relative L2.
+
+(e) has limits of its own, set after its first run (at batch 8, with the
+limits above) showed the trajectories part for a reason the others do
+not meet: sixteen conv/BN layers leave the two packages' f32 activations
+up to ~3e-5 apart at the deep pools, and a 2x2 window whose two largest
+values lie that close routes its dy to another cell in each package (one
+such window at pool13 moves the step-1 gradient of every layer below it
+by 5e-3 relative L2, measured at batch 16; both the JAX package and the
+port route to the first maximum, so this is f32 noise, not a semantic
+difference). SGD at lr 0.01, momentum 0.9 carries those moves: over four
+seeds at batch 16 the readings were step-1 losses within 3.4e-6, steps
+2-3 within 1.5e-3 relative, parameters within 1.2e-3 and the update
+within 0.048-0.114 relative L2. So: step 1 1e-5 (the same weights, a
+forward only), steps 2-3 5e-3 relative, every parameter 5e-3 absolute,
+the update 0.25 relative L2 (a semantic fault, such as momentum without
+dampening or a wrong BN gradient, moves it by 0.5 or more).
 """
 
 import jax
@@ -45,13 +65,14 @@ from bigdl_tpu.utils.random import RandomGenerator as JRandom
 from bigdl_tpu_torch import Engine, RandomGenerator
 from bigdl_tpu_torch import nn as pnn
 from bigdl_tpu_torch.dataset import DataSet
-from bigdl_tpu_torch.models import Vgg_16, Vgg_19, VggForCifar10
+from bigdl_tpu_torch.models import Vgg_16, Vgg_19, VggForCifar10, parity_config
 from bigdl_tpu_torch.nn import ClassNLLCriterion
 from bigdl_tpu_torch.ops import fused_epilogue
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
 from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
 
 from test_torch_conv_bn import flat, np_tree
+from test_torch_lenet import sgd_steps, update_distance
 
 NARROW = [8, "M", 16, "M"]  # 16x16 -> 4x4 maps of 16 channels
 SEED = 5
@@ -245,3 +266,17 @@ def test_declared_epilogue_vgg_trains_like_jax(jax_switch):
             fused_epilogue.launches_bwd_row) == counts  # CPU tensors: plain versions only
     assert len(got["losses"]) == len(want["losses"]) == 3
     _compare(want, got)
+
+
+# --------------------------------------------------------------------- (e)
+def test_vgg_for_cifar10_parity_config_trains_like_jax():
+    _, x, y, _ = parity_config("vgg", 48, device="cpu")
+    run = sgd_steps(JVggForCifar10(10, has_dropout=False),
+                    VggForCifar10(10, has_dropout=False, device="cpu"), x, y, batch=16)
+    (first, *rest), (jfirst, *jrest) = run["losses"], run["jax_losses"]
+    assert len(rest) == len(jrest) == 2
+    assert abs(first - jfirst) <= 1e-5
+    np.testing.assert_allclose(rest, jrest, rtol=5e-3)
+    for k, v in run["jax_params"].items():
+        np.testing.assert_allclose(run["params"][k], v, atol=5e-3, err_msg=k)
+    assert update_distance(run) <= 0.25

@@ -20,7 +20,9 @@ CPU tensors and holds dx against ``maxpool_grad_reference`` (the plain
 version) with the card's tolerance (``chip_smoke.py`` ``TOL_MAXPOOL``): 3x3/s1
 at every padding the entry point takes on planes of 1x1 to 150x40 (row
 bands included), NaN, -inf, tied and integer inputs, storage offsets of one
-element, and the other instances' geometries, in f32 and bf16. It prints one
+element, the other instances' geometries and VGG-for-CIFAR-10's five
+2x2/s2 pools (planes down to 2x2, pooled rows one element wide), in f32 and
+bf16. It prints one
 line a case and the count; exit 1 if any case disagrees. What it cannot
 show: anything about speed, warps, bank conflicts or the card's compiler.
 """
@@ -171,6 +173,13 @@ def cases():
                 ((2, 8, 28, 28), (2, 2), (2, 2), ((0, 0), (0, 0)), dt, "relu", 0),
                 ((2, 5, 30, 17), (5, 4), (1, 3), ((2, 1), (0, 2)), dt, "normal", 0),
                 ((2, 4, 28, 28), (3, 3), (2, 2), ((0, 1), (0, 1)), dt, "nan", 0)]
+        # VGG-for-CIFAR-10's five 2x2/s2 pools (32x32 down to 2x2 planes: pooled
+        # rows of 16, 8, 4, 2 and 1 elements) at batch 2, the last two also at
+        # a storage offset of one element
+        vgg = ((2, 2), (2, 2), ((0, 0), (0, 0)))
+        out += [((2, c, hw, hw), *vgg, dt, "relu", 0)
+                for c, hw in ((64, 32), (128, 16), (256, 8), (512, 4), (512, 2))]
+        out += [((2, 512, hw, hw), *vgg, dt, kind, 1) for hw in (4, 2) for kind in ("relu", "nan")]
     return out
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in one training step of the port, on one CUDA card.
 
-    python3 tools/torch_training_profile.py [lm] [flagship] [vgg] [normlm] [lenet] [inception]
-        [bilstm]   # one CUDA card
+    python3 tools/torch_training_profile.py [lm] [flagship] [vgg16] [normlm] [lenet] [vgg]
+        [inception] [bilstm] [widedeep]   # one CUDA card
 
 Training steps through ``LocalOptimizer`` (every mode when none is
 named): ``lm``, the full-width Transformer-LM of ``chip_smoke.py`` (vocab
@@ -11,7 +11,7 @@ compute, random weights from a seed; SGD lr 0.1, ``CrossEntropyCriterion``,
 batch 8); ``flagship``, ResNet-50 (``stem="s2d"``, 1000 classes, batch 128
 of 224x224 images drawn as ``flagship_model`` draws them, bf16 compute and
 bf16 activations, ``ClassNLLCriterion`` on the raw logits, SGD lr 0.1
-momentum 0.9); ``vgg``, the VGG-16 of ``chip_smoke.py`` [8] (conv/fc ReLUs
+momentum 0.9); ``vgg16``, the VGG-16 of ``chip_smoke.py`` [8] (conv/fc ReLUs
 declared as epilogues, the fused-kernel switch on, dropout on, batch 64,
 bf16 compute and activations, ``ClassNLLCriterion`` on the ``LogSoftMax``
 output, SGD lr 0.01 momentum 0.9); ``normlm``, the norm-LM of
@@ -19,11 +19,12 @@ output, SGD lr 0.01 momentum 0.9); ``normlm``, the norm-LM of
 V 8192, H 512, 6 stages, batch 8 of 2048 planted-bigram tokens, the
 fused-kernel switch on, bf16 compute and activations, ``Adam(3e-3)``,
 ``TimeDistributedCriterion(CrossEntropyCriterion(), size_average=True)``);
-``lenet``, ``inception``, ``bilstm``, BASELINE's parity configs of
-``chip_smoke.py`` [11] (``models.parity_config`` at the bench's batch:
-512, 128 of 224x224 with dropout on, 128 of T 200; bf16 compute and
-activations, ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9, the one
-batch every iteration).
+``lenet``, ``vgg``, ``inception``, ``bilstm``, ``widedeep``, BASELINE's
+parity configs of ``chip_smoke.py`` [11] (``models.parity_config`` at the
+bench's batch: 512; 128 of 32x32 (VGG-for-CIFAR-10) and 128 of 224x224,
+dropout on; 128 of T 200; 2048 records of the synthetic click log; bf16
+compute and activations, ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9,
+the one batch every iteration).
 
 Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
 Prints two step times and the rate of the first: the median gap between
@@ -129,6 +130,24 @@ def rnn_family(name: str) -> str:
     if "copy" in n or "memcpy" in n or "cat" in n or "flip" in n or "stack" in n:
         return "copies, casts, flips, stacks"
     return "elementwise (gates: sigmoid, tanh, products, sums; SGD update)"
+
+
+def wide_family(name: str) -> str:
+    """Wide&Deep's kernels: the sparse product's and the embeddings' gathers
+    and scatter-adds, a small MLP."""
+    n = name.lower()
+    if "index" in n or "scatter" in n or "gather" in n or "embedding" in n:
+        return "gathers and scatter-adds (index_select, index_add_, embeddings)"
+    if "gemm" in n or "sm90_xmma" in n or "cutlass" in n or "nvjet" in n:
+        return "matmul (cuBLAS)"
+    if "softmax" in n or "reduce" in n or "nll" in n:
+        return "reductions (log-softmax, loss, bias sums)"
+    if "copy" in n or "memcpy" in n or "cat" in n:
+        return "copies, casts, concatenation (the batch's copy to the card included)"
+    return "elementwise (ReLU, products, SGD update, ...)"
+
+
+PARITY_FAMILY = {"bilstm": rnn_family, "vgg": flagship_family, "widedeep": wide_family}
 
 
 def _profile(opt, reps: int, family):
@@ -319,14 +338,14 @@ def profile_parity(name: str, card: str, warmup: int = 3, reps: int = 5) -> None
     steps = _timed(opt, warmup, reps)
     _report(f"{name} training step (batch {batch}, bf16)", steps,
             f"{batch / steps[0] * 1e3:.1f} records/s",
-            _profile(opt, reps, rnn_family if name == "bilstm" else image_family), card)
+            _profile(opt, reps, PARITY_FAMILY.get(name, image_family)), card)
     del opt, model
 
 
-MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg": profile_vgg,
+MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg16": profile_vgg,
          "normlm": profile_normlm,
          **{name: (lambda card, name=name: profile_parity(name, card))
-            for name in ("lenet", "inception", "bilstm")}}
+            for name in ("lenet", "vgg", "inception", "bilstm", "widedeep")}}
 
 
 def main() -> int:
