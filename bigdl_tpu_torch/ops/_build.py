@@ -32,6 +32,8 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_log = ""  # nvcc's output (ptxas register/spill report) of the last build
+builds = 0  # libraries this process compiled with nvcc
+loads = 0  # libraries this process loaded (and probed)
 
 
 def _nvcc() -> str:
@@ -73,7 +75,7 @@ def _run(cmd):
 def build(force: bool = False) -> Path:
     """Compile the sources into the shared library unless an up-to-date one
     (same source hash) is already there; returns its path."""
-    global build_log
+    global build_log, builds
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
@@ -92,6 +94,7 @@ def build(force: bool = False) -> Path:
                           *map(str, objs)]))
         os.replace(tmp_lib, lib)  # atomic: a concurrent loader sees old or new
     stamp.write_text(digest)
+    builds += 1
     build_log = "".join(logs)
     (BUILD_DIR / "build.log").write_text(build_log)
     return lib
@@ -151,7 +154,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), probed once on the
     current CUDA device before it is first returned."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is None:
             lib = _bind(ctypes.CDLL(str(build())))
@@ -162,4 +165,5 @@ def load() -> ctypes.CDLL:
             # port has no plain route on the card.
             probe.run(lib, "cuda")
             _lib = lib
+            loads += 1
         return _lib

@@ -1,5 +1,5 @@
-"""Typed faults of the port's training runtime (the checkpoint part so far)."""
+"""Typed faults of the port's runtime: the checkpoint part and serving's."""
 
-from .errors import CheckpointCorrupt
+from .errors import CheckpointCorrupt, CircuitOpen, DeadlineExceeded
 
-__all__ = ["CheckpointCorrupt"]
+__all__ = ["CheckpointCorrupt", "CircuitOpen", "DeadlineExceeded"]

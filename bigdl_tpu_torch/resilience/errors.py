@@ -1,7 +1,10 @@
 """Typed fault exceptions (counterpart of ``bigdl_tpu/resilience/errors.py``;
-``CheckpointCorrupt`` so far, the port's own copy)."""
+``CheckpointCorrupt`` and serving's ``DeadlineExceeded`` and ``CircuitOpen``
+so far, the port's own copies with the same fields and messages)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -15,3 +18,39 @@ class CheckpointCorrupt(RuntimeError):
         self.directory = directory
         self.step = step
         self.detail = detail
+
+
+class DeadlineExceeded(RuntimeError):
+    """A serving request outlived its deadline before it could be served.
+
+    Raised on the caller's thread: by ``ServeFuture.result()`` the moment the
+    deadline passes, or pre-resolved onto the future by the batcher when it
+    sweeps expired requests out of the queue or out of a popped batch.
+    ``stage`` names the seam that declared the miss (``"admission"`` /
+    ``"queue"`` / ``"flush"`` / ``"result"``)."""
+
+    def __init__(self, model: Optional[str], deadline_ms: float,
+                 waited_ms: float, stage: str = "queue"):
+        super().__init__(
+            f"request deadline {deadline_ms:.1f}ms exceeded after "
+            f"{waited_ms:.1f}ms at the {stage} seam"
+            + (f" (model {model!r})" if model else ""))
+        self.model = model
+        self.deadline_ms = deadline_ms
+        self.waited_ms = waited_ms
+        self.stage = stage
+
+
+class CircuitOpen(RuntimeError):
+    """The model's circuit breaker is open: the request was shed at submit
+    time on the caller's thread. ``retry_in_s`` is the time until the next
+    half-open probe slot."""
+
+    def __init__(self, model: Optional[str], reason: str,
+                 retry_in_s: Optional[float] = None):
+        super().__init__(
+            f"circuit open for model {model!r} ({reason})"
+            + (f"; next probe in {retry_in_s:.3f}s" if retry_in_s is not None else ""))
+        self.model = model
+        self.reason = reason
+        self.retry_in_s = retry_in_s

@@ -1,8 +1,14 @@
-"""Serving runtime: request queue, continuous batcher, multi-model server."""
+"""Serving runtime: request queue, continuous batcher, multi-model server,
+circuit breakers and the worker supervisor."""
 
-from .batcher import ContinuousBatcher
-from .queue import RequestQueue, ServeFuture, ServeRequest, ServerClosed, ServingStopped
+from ..resilience.errors import CircuitOpen, DeadlineExceeded
+from .batcher import ContinuousBatcher, ServeStats
+from .queue import (AdmissionRejected, RequestQueue, ServeFuture, ServeRequest, ServerClosed,
+                    ServingStopped, WorkerCrashed)
+from .resilience import BreakerConfig, CircuitBreaker, ServingSupervisor, spawn_worker
 from .server import ModelServer
 
-__all__ = ["ContinuousBatcher", "ModelServer", "RequestQueue", "ServeFuture",
-           "ServeRequest", "ServerClosed", "ServingStopped"]
+__all__ = ["AdmissionRejected", "BreakerConfig", "CircuitBreaker", "CircuitOpen",
+           "ContinuousBatcher", "DeadlineExceeded", "ModelServer", "RequestQueue", "ServeFuture",
+           "ServeRequest", "ServeStats", "ServerClosed", "ServingStopped", "ServingSupervisor",
+           "WorkerCrashed", "spawn_worker"]

@@ -100,7 +100,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward launches per iteration and no other kernel, device memory flat
    from iteration 3 to 10; then each one's 3 f32 SGD steps on the card
    (kernel route) held against the same 3 steps on the CPU (plain
-   route).
+   route);
+12. the flagship served at ``bench.py::_measure_serving``'s configuration:
+   ResNet-50 (``stem="conv7"``, 1000 classes, random weights from a seed,
+   bf16 compute) behind ``ModelServer(telemetry=Telemetry())`` with
+   ``batch_size=128, max_delay_ms=5``; mix A, the bench's (8 synchronous
+   clients, 1024 single-record requests drawn as the bench draws them), with
+   a hot-swap (``update``) to a second weight set half-way through, and mix
+   B, saturating (256 synchronous clients x 4): requests/s, p50/p99 of
+   ``spans()["total_s"]`` by the nearest rank, the mean queue, assembly,
+   dispatch and materialize spans, the serve records' flushes and mean
+   ``batch_fill``, ``warmup_s``; every request served, each row its
+   record's and its version's (nearer its own record's same-geometry row
+   than any other's, and within a bf16 limit of a direct batch-1 card
+   forward), one row against an f32 CPU forward, one ``serve`` record per
+   flush accounting for every request, no flush mixing versions, a 1 ms
+   deadline failing typed and counted, an over-``max_pending`` submit
+   rejected and counted, device memory flat, and no kernel of this repo
+   launched (``flagship_serving`` in the kernels record, all 0).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -120,8 +137,9 @@ bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
 and RMSNorm kernels in [3e] and [4]. Each main path (serving,
 LM training, flagship training, VGG-16 training (``vgg16`` in the kernels
 record), VGG-16 evaluation, norm-LM training, the flagship
-validated/checkpointed/resumed, and the five parity configs' training,
-each under its ``parity_config`` name) runs with every kernel's launch
+validated/checkpointed/resumed, the five parity configs' training,
+each under its ``parity_config`` name, and the flagship served,
+``flagship_serving``) runs with every kernel's launch
 count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
@@ -2850,6 +2868,305 @@ def _parity_config_routes(name):
                    for k in r["launches"][0]})
 
 
+# [12] the flagship served at bench.py::_measure_serving's configuration
+# (bench.py:714): flagship_model(batch=128, stem="conv7"), bf16 compute
+# (activations at the default policy, as the bench leaves them), registered
+# with batch_size=128 and max_delay_ms=5. Limits, fixed before the first run:
+# - each served row against its record's same-geometry forward (the 128
+#   records in one Predictor.forward_batch of the served version): the
+#   served row must lie nearer its own record's row than any other record's
+#   by a factor SERVE_NEAREST. With the initial BN statistics every record's
+#   logits share most of their direction (records' rows 2.1-2.3% apart,
+#   relative L2, in a CPU f32 forward of 4 of them), so a tolerance alone
+#   could not tell a crossed row from its own; at the same geometry cuDNN
+#   takes the same algorithms, so a row's own distance is ~0.
+# - each served row against a direct card forward of its record at batch 1
+#   (as [5]): relative L2 SERVE_DIRECT_REL. Both round the same operands to
+#   bf16; at batch 1 cuDNN may order a product's fp32 sums otherwise, which
+#   moves a bf16-rounded output by one step (2^-8) where the two sums
+#   straddle a rounding boundary; the whole bf16-vs-f32 difference is
+#   6.0e-3 to 6.5e-3 (the same CPU forward), so two bf16 routes differ by
+#   less than sqrt(2) x that.
+# - one served row against an f32 CPU forward of the same weights and
+#   record: relative L2 SERVE_CPU_REL, 3x the CPU's own bf16-vs-f32 reading
+#   (the card sums the fp32 products in other orders).
+SERVE_NEAREST = 4.0
+SERVE_DIRECT_REL = 1e-2
+SERVE_CPU_REL = 2e-2
+SERVE_BATCH, SERVE_DELAY_MS = 128, 5.0
+MIX_A = (8, 128)    # bench.py's: 8 synchronous clients, 1024 requests
+MIX_B = (256, 4)    # saturating: 256 synchronous clients x 4 requests
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _serve_mix(server, x, clients, per_client, seed0, on_half=None):
+    """``clients`` threads, each sending ``per_client`` single-record
+    requests and waiting on each before the next (records drawn as
+    ``_measure_serving`` draws them: ``default_rng(seed0 + k)``). Returns
+    (wall s, [(record index, future)]). ``on_half`` runs on its own thread
+    once half the requests are served."""
+    import numpy as np
+
+    done, lock, half = [], threading.Lock(), threading.Event()
+    n_total = clients * per_client
+    errors = []
+
+    def client(k):
+        gen = np.random.default_rng(seed0 + k)
+        try:
+            for _ in range(per_client):
+                i = int(gen.integers(len(x)))
+                fut = server.infer("flagship", x[i])
+                fut.result(timeout=300)
+                with lock:
+                    done.append((i, fut))
+                    if len(done) * 2 >= n_total:
+                        half.set()
+        except Exception as e:  # re-raised on the main thread below
+            errors.append(e)
+
+    side = None
+    if on_half is not None:
+        side = threading.Thread(target=lambda: (half.wait(600), on_half()))
+        side.start()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    if side is not None:
+        side.join(600)
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads) or len(done) != n_total:
+        raise AssertionError(f"{len(done)} of {n_total} requests served")
+    return wall, done
+
+
+def _settled(server, tel, n_served):
+    """The model's flush count once its serve records account for
+    ``n_served`` requests (a flush emits its record just after it resolves
+    its futures, so the last one may still be on its way)."""
+    end = time.perf_counter() + 30
+    while time.perf_counter() < end:
+        recs = [r for r in tel.ring.records
+                if r["type"] == "serve" and r["model"] == "flagship"]
+        if sum(r["records"] for r in recs) == n_served:
+            flushes = server.models()["flagship"]["flushes"]
+            if flushes == len(recs):
+                return flushes
+        time.sleep(0.01)
+    raise AssertionError(f"the serve records never accounted for {n_served} requests")
+
+
+def phase_flagship_serving(card):
+    """[12] Serve the flagship ResNet-50 through ModelServer at bench.py's
+    serving configuration (mix A), a saturating mix (mix B), a hot-swap
+    under mix A's traffic, a deadline and admission control; returns every
+    kernel's launches of that run (all must be 0)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.models import ResNet, flagship_model
+    from bigdl_tpu_torch.obs import Telemetry
+    from bigdl_tpu_torch.optim import Predictor
+    from bigdl_tpu_torch.serving import AdmissionRejected, DeadlineExceeded, ModelServer
+    from bigdl_tpu_torch.serving.batcher import _nearest_rank
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(1)
+    t0 = time.perf_counter()
+    v1, x, _, name = flagship_model(batch=SERVE_BATCH, seed=SEED, stem="conv7", device="cuda")
+    v1.init(sample_input=x)
+    RandomGenerator.set_seed(2)  # the hot-swap's second weight set
+    v2 = ResNet(50, class_num=1000, stem="conv7", device="cuda")
+    v2.init(sample_input=x[:1])
+    models = {1: v1.eval(), 2: v2.eval()}  # eval: the direct forwards below move no BN state
+    log(f"[12] {name}, stem conv7: {v1.n_parameters() / 1e6:.3f} M params, two weight sets "
+        f"from seeds 1 and 2, {len(x)} records of {tuple(x.shape[1:])} f32, bf16 compute; "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    tel = Telemetry()
+    swap = {}
+    torch.cuda.synchronize()
+    reset_counts()  # the main path starts here
+    with ModelServer(telemetry=tel) as server:
+        server.register("flagship", v1, sample_input=x[0], batch_size=SERVE_BATCH,
+                        max_delay_ms=SERVE_DELAY_MS)
+        warmup_s = server.models()["flagship"]["warmup_s"]
+        mem = {"registered": torch.cuda.memory_allocated()}
+        mixes = {}
+
+        def hot_swap():
+            swap["t0"] = time.perf_counter()
+            swap["version"] = server.update("flagship", v2)
+            swap["t1"] = time.perf_counter()
+
+        n_served, f0 = 0, 0
+        for label, (clients, per), seed0, side in (("A", MIX_A, 0, hot_swap),
+                                                    ("B", MIX_B, 1000, None)):
+            wall, done = _serve_mix(server, x, clients, per, seed0, side)
+            n_served += len(done)
+            f1 = _settled(server, tel, n_served)
+            mixes[label] = (clients, wall, done, f0, f1)
+            f0 = f1
+            mem[label] = torch.cuda.memory_allocated()
+        # a deadline shorter than one forward: it expires in the queue (5 ms
+        # delay bound) or in flight, typed, and the counters see it
+        late = server.infer("flagship", x[1], deadline_ms=1.0)
+        try:
+            late.result(timeout=60)
+            raise AssertionError("a 1 ms deadline was served")
+        except DeadlineExceeded as e:
+            late_stage = e.stage
+        after = server.infer("flagship", x[2])  # its flush's serve record carries the miss
+        after.result(timeout=60)
+        flushes = _settled(server, tel, n_served + 1)
+        health = server.health()["flagship"]
+        # admission: the same weights under a bounded second name whose delay
+        # bound never fires (close() drains it)
+        server.register("bounded", v1, sample_input=x[0], batch_size=SERVE_BATCH,
+                        max_delay_ms=60_000, max_pending=2)
+        held = [server.infer("bounded", x[i]) for i in (3, 4)]
+        try:
+            server.infer("bounded", x[5])
+            raise AssertionError("the over-limit submit was admitted")
+        except AdmissionRejected:
+            pass
+        info = server.models()
+    for f in held:
+        f.result(timeout=60)
+    torch.cuda.synchronize()
+    counts = read_counts()  # the main path ends here
+    serves = [r for r in tel.ring.records if r["type"] == "serve"]
+    warmups = [r for r in tel.ring.records if r["type"] == "warmup"]
+
+    # ---- what each mix measured
+    for label, (clients, wall, done, f0, f1) in mixes.items():
+        spans = [f.spans() for _, f in done]
+        lats = sorted(s["total_s"] for s in spans)
+        recs = [r for r in serves if r["model"] == "flagship" and f0 < r["iteration"] <= f1]
+        log(f"    mix {label} ({clients} synchronous clients, {len(done)} requests): "
+            f"{len(done) / wall:.2f} requests/s over {wall:.3f} s; total_s p50 "
+            f"{_nearest_rank(lats, 50) * 1e3:.3f} ms, p99 "
+            f"{_nearest_rank(lats, 99) * 1e3:.3f} ms; mean queue_s "
+            f"{np.mean([s['queue_s'] for s in spans]) * 1e3:.3f} ms, assembly_s "
+            f"{np.mean([s['assembly_s'] for s in spans]) * 1e3:.3f} ms, dispatch_s "
+            f"{np.mean([s['dispatch_s'] for s in spans]) * 1e3:.3f} ms, materialize_s "
+            f"{np.mean([s['materialize_s'] for s in spans]) * 1e3:.3f} ms; {len(recs)} flushes, "
+            f"mean batch_fill {np.mean([r['batch_fill'] for r in recs]):.4f}, triggers "
+            f"{sorted({r['trigger'] for r in recs})}; warmup_s {warmup_s:.3f}; card {card}")
+        if len(recs) != f1 - f0 or sum(r["records"] for r in recs) != len(done):
+            raise AssertionError(f"mix {label}: {len(recs)} serve records for {f1 - f0} "
+                                 f"flushes, {sum(r['records'] for r in recs)} records for "
+                                 f"{len(done)} requests")
+    log(f"    hot-swap to version {swap.get('version')} during mix A took "
+        f"{(swap['t1'] - swap['t0']) * 1e3:.1f} ms (the new version built and warmed off the "
+        f"serving path); warmup records (model, version, library loads): "
+        f"{[(r['model'], r['version'], r['compiles']) for r in warmups]}")
+    ours = [r for r in serves if r["model"] == "flagship"]
+    served = sum(len(m[2]) for m in mixes.values()) + 1
+    if len(ours) != flushes or sum(r["records"] for r in ours) != served:
+        raise AssertionError(f"{len(ours)} serve records for {flushes} flushes; "
+                             f"{sum(r['records'] for r in ours)} records for {served} served")
+    bounded = [r for r in serves if r["model"] == "bounded"]
+    log(f"    serve records: {len(ours)} for {flushes} flushes, {served} records for {served} "
+        f"served requests; the 1 ms deadline failed at the {late_stage!r} seam, "
+        f"deadline_missed {health['deadline_missed']} (health), "
+        f"{ours[-1].get('deadline_missed')} (the last serve record); admission: rejected "
+        f"{info['bounded']['rejected']}, on the bounded model's serve records "
+        f"{[r['rejected'] for r in bounded]}")
+    if (health["deadline_missed"] != 1 or ours[-1].get("deadline_missed") != 1
+            or info["bounded"]["rejected"] != 1 or [r["rejected"] for r in bounded] != [1]
+            or sum(r["records"] for r in bounded) != 2):
+        raise AssertionError("deadline or admission accounting is off")
+
+    # ---- the hot-swap: each future on one version, no flush mixes versions
+    done_a, done_b = mixes["A"][2], mixes["B"][2]
+    by_flush = {}
+    for _, f in done_a + done_b:
+        by_flush.setdefault(f.t_batch, set()).add(f.version)
+    versions = [f.version for _, f in done_a]
+    last_v1 = max(f.t_batch for _, f in done_a if f.version == 1)
+    first_v2 = min(f.t_batch for _, f in done_a if f.version == 2)
+    log(f"    hot-swap: mix A {versions.count(1)} requests on version 1, {versions.count(2)} on "
+        f"version 2, mix B all on {sorted({f.version for _, f in done_b})}; flushes "
+        f"holding two versions: {sum(len(v) > 1 for v in by_flush.values())}; retired versions "
+        f"left {info['flagship']['retired_versions']}")
+    if (swap.get("version") != 2 or not versions.count(1) or not versions.count(2)
+            or last_v1 > first_v2 or any(len(v) > 1 for v in by_flush.values())
+            or {f.version for _, f in done_b} != {2}
+            or info["flagship"]["retired_versions"]):
+        raise AssertionError("the hot-swap did not resolve each future on one version")
+
+    # ---- every served row: its record's, its version's
+    with torch.inference_mode():
+        same = {v: Predictor(m, SERVE_BATCH).forward_batch(x).float().cpu().numpy()
+                for v, m in models.items()}
+        direct = {v: np.stack([m.forward(x[i:i + 1])[0].float().cpu().numpy()
+                               for i in range(len(x))]) for v, m in models.items()}
+    worst_own, worst_ratio, worst_direct = 0.0, float("inf"), 0.0
+    for i, f in done_a + done_b:
+        got = f.result().float().numpy()
+        if got.shape != (1000,) or not np.isfinite(got).all():
+            raise AssertionError(f"a served row has shape {got.shape} or is not finite")
+        refs = np.concatenate([same[1], same[2]])
+        d = np.linalg.norm(refs - got, axis=1)
+        own = (f.version - 1) * len(x) + i
+        others = np.delete(d, own)
+        worst_own = max(worst_own, d[own] / np.linalg.norm(refs[own]))
+        worst_ratio = min(worst_ratio, others.min() / d[own] if d[own] else float("inf"))
+        worst_direct = max(worst_direct, _rel(got, direct[f.version][i]))
+    log(f"    served rows vs their record's same-geometry forward (2 x {len(x)} candidate rows): "
+        f"own distance at most {worst_own:.2e} relative, the nearest other row at least "
+        f"{worst_ratio:.3g}x farther (limit {SERVE_NEAREST}); vs a direct batch-1 card forward "
+        f"of the record: relative L2 at most {worst_direct:.2e} (limit {SERVE_DIRECT_REL})")
+    if worst_ratio < SERVE_NEAREST or worst_direct > SERVE_DIRECT_REL:
+        raise AssertionError("served rows disagree with their records' forwards")
+
+    # ---- one served row against an f32 CPU forward of the same weights
+    i, f = next((i, f) for i, f in done_a if f.version == 1)
+    Engine.set_compute_dtype("float32")
+    try:
+        cpu = ResNet(50, class_num=1000, stem="conv7", device="cpu")
+        cpu.init(sample_input=x[i:i + 1])
+        load_jax_params(cpu, {k: v.detach().float().cpu().numpy()
+                              for k, v in v1.named_parameters()})
+        load_jax_state(cpu, _nest(_tree_to_numpy(v1.get_state())))
+        with torch.inference_mode():
+            ref = cpu.eval().forward(x[i:i + 1])[0].numpy()
+    finally:
+        Engine.set_compute_dtype("bfloat16")
+    got = f.result().float().numpy()
+    err = _rel(got, ref)
+    log(f"    served row (record {i}, version 1) vs an f32 CPU forward: relative L2 {err:.2e} "
+        f"(limit {SERVE_CPU_REL}), argmax {int(got.argmax())} vs {int(ref.argmax())}")
+    if err > SERVE_CPU_REL:
+        raise AssertionError("the served row disagrees with the f32 CPU forward")
+
+    # ---- memory flat across the mixes; no kernel of this repo launched
+    drift = max(abs(mem["A"] - mem["registered"]), abs(mem["B"] - mem["registered"]))
+    log(f"    device memory allocated after registration {mem['registered'] / 2**20:.1f} MiB, "
+        f"after mix A {mem['A'] / 2**20:.1f}, after mix B {mem['B'] / 2**20:.1f} (drift "
+        f"{drift / 2**20:.1f} MiB, allowed 100 MiB: about one f32 input batch in flight)")
+    if drift > 100 * 2 ** 20:
+        raise AssertionError("device memory grew across the serving mixes")
+    log(f"    kernel launches on the path: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"flagship serving launched a kernel of this repo: {counts}")
+    del models, v1, v2, same, direct
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2884,6 +3201,7 @@ def main() -> int:
     by_path["normlm"] = phase_norm_lm(card)
     by_path["flagship_val"] = phase_flagship_val(card)
     by_path.update(phase_parity_configs(card))
+    by_path["flagship_serving"] = phase_flagship_serving(card)
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -191,3 +191,276 @@ def test_stress_many_threads_each_get_their_own_row():
         sys.setswitchinterval(old)
     for i, got in enumerate(results):
         torch.testing.assert_close(got, want[i], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The JAX runtime's serving contract, each case through both packages (the
+# helpers, the MLP pair and the tolerances are test_torch_serving_resilience's)
+# ---------------------------------------------------------------------------
+
+from test_torch_serving_resilience import (CROSS_TOL, JAX, PKGS, PORT, ROW_TOL,  # noqa: E402
+                                           _records, _rows, _server, both)
+
+
+class TestHotSwap:
+    def test_update_swaps_version_and_releases_old_version(self):
+        x = np.linspace(0, 1, 12).astype(np.float32)
+
+        def scenario(pkg):
+            v1, v2 = pkg.mlp(seed=1), pkg.mlp(seed=2)
+            with _server(pkg, telemetry=pkg.Telemetry(exporters=[])) as srv:
+                srv.register("m", v1, sample_input=x, max_delay_ms=3)
+                f1 = srv.infer("m", x)
+                out1 = _rows(f1.result(timeout=TIMEOUT))
+                version = srv.update("m", v2)
+                f2 = srv.infer("m", x)
+                out2 = _rows(f2.result(timeout=TIMEOUT))
+                for out, m in ((out1, v1), (out2, v2)):
+                    np.testing.assert_allclose(
+                        out, _rows(pkg.predictor(m, 32).predict(x[None]))[0], rtol=0,
+                        atol=ROW_TOL)
+                info = srv.models()["m"]
+                warmups = [r["version"] for r in _records(srv.telemetry, "warmup")]
+                return ((f1.version, version, f2.version, info["version"],
+                         info["retired_versions"], warmups), out1, out2)
+
+        outs = {p.name: scenario(p) for p in PKGS}
+        assert outs["port"][0] == outs["jax"][0] == (1, 2, 2, 2, [], [1, 2])
+        for i in (1, 2):
+            np.testing.assert_allclose(outs["port"][i], outs["jax"][i], rtol=0, atol=CROSS_TOL)
+
+    def test_old_version_retained_until_last_future_resolves(self):
+        def scenario(pkg):
+            with _server(pkg, telemetry=pkg.Telemetry(exporters=[])) as srv:
+                srv.register("m", pkg.mlp(seed=1), sample_input=np.zeros(12, np.float32),
+                             max_delay_ms=3)
+                fut = srv.infer("m", np.ones(12, np.float32))
+                assert fut._event.wait(TIMEOUT)  # dispatched, not materialized
+                srv.update("m", pkg.mlp(seed=2))
+                b = srv._entry("m").batcher
+                trace = [b.retired_versions(), b.outstanding()]
+                fut.result(timeout=TIMEOUT)
+                return trace + [b.retired_versions(), b.outstanding()]
+
+        assert both(scenario) == [[1], {1: 1}, [], {}]
+
+    def test_swap_under_load_serves_consistent_versions(self):
+        """A hot swap under 4 client threads: every request resolves, each
+        on one version, its row that version's forward (and the JAX model's
+        of the same version)."""
+        records = np.random.default_rng(0).standard_normal((40, 12)).astype(np.float32)
+        jref = {v: JAX.predictor(JAX.mlp(seed=v), 32) for v in (1, 2)}
+        models = {v: PORT.mlp(seed=v) for v in (1, 2)}
+        results, lock = [], threading.Lock()
+        with _server(PORT, telemetry=PORT.Telemetry(exporters=[])) as srv:
+            srv.register("m", models[1], sample_input=records[0], max_delay_ms=2)
+
+            def client(rows):
+                for r in rows:
+                    f = srv.infer("m", r)
+                    out = f.result(timeout=TIMEOUT)
+                    with lock:
+                        results.append((r, out, f.version))
+
+            threads = [threading.Thread(target=client, args=(records[i::4],)) for i in range(4)]
+            for t in threads:
+                t.start()
+            srv.update("m", models[2])
+            for t in threads:
+                t.join(TIMEOUT)
+            assert not any(t.is_alive() for t in threads)
+            serves = _records(srv.telemetry, "serve")
+        assert len(results) == 40 and {v for _, _, v in results} <= {1, 2}
+        for r, out, v in results:
+            own = PORT.predictor(models[v], 32).predict(r[None])[0]
+            torch.testing.assert_close(out, own, atol=ROW_TOL, rtol=0)
+            np.testing.assert_allclose(out.numpy(), np.asarray(jref[v].predict(r[None]))[0],
+                                       rtol=0, atol=CROSS_TOL)
+        assert sum(s["records"] for s in serves) == 40
+        assert all(s["version"] in (1, 2) for s in serves)
+
+
+class TestAdmissionControl:
+    def test_queue_rejects_past_max_pending(self):
+        def scenario(pkg):
+            q = pkg.s.RequestQueue(max_pending=2)
+            depths = [q.put(pkg.s.ServeRequest(np.zeros(3, np.int32))) for _ in range(2)]
+            with pytest.raises(pkg.s.AdmissionRejected, match="max_pending") as ei:
+                q.put(pkg.s.ServeRequest(np.zeros(3, np.int32)))
+            q.pop_all()
+            depths.append(q.put(pkg.s.ServeRequest(np.zeros(3, np.int32))))
+            return depths, str(ei.value)
+
+        assert both(scenario) == ([1, 2, 1], "request rejected: 2 pending >= max_pending 2")
+
+    def test_queue_validates_bound(self):
+        def scenario(pkg):
+            with pytest.raises(ValueError):
+                pkg.s.RequestQueue(max_pending=0)
+            return pkg.s.RequestQueue().max_pending
+
+        assert both(scenario) is None
+
+    def test_batcher_counts_rejects_on_serve_records(self):
+        x = np.random.default_rng(4).standard_normal((3, 12)).astype(np.float32)
+
+        def scenario(pkg):
+            tel = pkg.Telemetry(exporters=[])
+            b = pkg.s.ContinuousBatcher(pkg.predictor(pkg.mlp(), 8), name="m", telemetry=tel,
+                                        max_pending=2, max_delay_ms=5.0)  # not started
+            futs = [b.submit(pkg.s.ServeRequest(r)) for r in x[:2]]
+            with pytest.raises(pkg.s.AdmissionRejected):
+                b.submit(pkg.s.ServeRequest(x[2]))
+            rejected = b.rejected()
+            b.start()
+            try:
+                rows = np.stack([_rows(f.result(timeout=TIMEOUT)) for f in futs])
+            finally:
+                b.stop()
+            serves = _records(tel, "serve")
+            return (rejected, [s["rejected"] for s in serves],
+                    sum(s["records"] for s in serves), b.health_snapshot()["rejected"]), rows
+
+        outs = {p.name: scenario(p) for p in PKGS}
+        assert outs["port"][0] == outs["jax"][0] == (1, [1], 2, 1)
+        np.testing.assert_allclose(outs["port"][1], outs["jax"][1], rtol=0, atol=CROSS_TOL)
+
+    def test_server_per_model_policy(self):
+        z = np.zeros(12, np.float32)
+
+        def scenario(pkg):
+            with _server(pkg, telemetry=pkg.Telemetry(exporters=[])) as srv:
+                srv.register("bounded", pkg.mlp(), sample_input=z, batch_size=8,
+                             max_delay_ms=60000.0, max_pending=2, warmup=False)
+                srv.register("unbounded", pkg.mlp(seed=8), sample_input=z, batch_size=8,
+                             max_delay_ms=5.0, warmup=False)
+                srv.infer("bounded", z)
+                srv.infer("bounded", z)
+                with pytest.raises(pkg.s.AdmissionRejected):
+                    srv.infer("bounded", z)
+                info = srv.models()
+                out = _rows(srv.predict("unbounded", [z] * 6))
+                warns = [(w["reason"], w["model"]) for w in _records(srv.telemetry, "warn")]
+                return ((info["bounded"]["max_pending"], info["bounded"]["rejected"],
+                         info["unbounded"]["max_pending"], out.shape, warns), out)
+
+        outs = {p.name: scenario(p) for p in PKGS}
+        assert outs["port"][0] == outs["jax"][0] == (
+            2, 1, None, (6, 4), [("unwarmed_model", "bounded"), ("unwarmed_model", "unbounded")])
+        np.testing.assert_allclose(outs["port"][1], outs["jax"][1], rtol=0, atol=CROSS_TOL)
+
+
+class TestServerSurface:
+    def test_warmup_record_and_run_bounds(self):
+        """One ``warmup`` record per registration with the JAX record's
+        fields; ``meta`` run_start/run_end around the server's life. On the
+        CPU the port builds no kernel library, so its warmup reports 0
+        library loads and builds (JAX counts its traced programs)."""
+        def scenario(pkg):
+            tel = pkg.Telemetry(exporters=[])
+            with _server(pkg, telemetry=tel) as srv:
+                srv.register("m", pkg.mlp(), sample_input=np.zeros(12, np.float32),
+                             max_delay_ms=3)
+                info = srv.models()["m"]
+            w = _records(tel, "warmup")
+            metas = [r["event"] for r in _records(tel, "meta")]
+            return (sorted(w[0]), [(r["model"], r["warm_start"], r["version"]) for r in w],
+                    metas, info["warmup_s"] > 0), w[0]
+
+        outs = {p.name: scenario(p) for p in PKGS}
+        assert outs["port"][0] == outs["jax"][0]
+        assert outs["port"][0][2] == ["run_start", "run_end"]
+        assert (outs["port"][1]["compiles"], outs["port"][1]["fresh_compiles"]) == (0, 0)
+
+    def test_unregister_serves_queued_then_forgets(self):
+        def scenario(pkg):
+            with _server(pkg, telemetry=pkg.Telemetry(exporters=[])) as srv:
+                srv.register("m", pkg.mlp(), sample_input=np.zeros(12, np.float32),
+                             max_delay_ms=60000.0)
+                fut = srv.infer("m", np.ones(12, np.float32))
+                srv.unregister("m")
+                out = _rows(fut.result(timeout=TIMEOUT))
+                with pytest.raises(KeyError):
+                    srv.infer("m", np.ones(12, np.float32))
+                with pytest.raises(KeyError):
+                    srv.unregister("m")
+                return sorted(srv.health()), out
+
+        outs = {p.name: scenario(p) for p in PKGS}
+        assert outs["port"][0] == outs["jax"][0] == []
+        np.testing.assert_allclose(outs["port"][1], outs["jax"][1], rtol=0, atol=CROSS_TOL)
+
+    def test_unported_options_raise(self):
+        z = np.zeros(12, np.float32)
+        with pytest.raises(NotImplementedError, match="metrics_port"):
+            PORT.s.ModelServer(metrics_port=0)
+        with _server(PORT, telemetry=PORT.Telemetry(exporters=[])) as srv:
+            for kw in (dict(quantize=True), dict(quantize="fp8"), dict(artifacts="bundle"),
+                       dict(drift=True)):
+                with pytest.raises(NotImplementedError):
+                    srv.register("m", PORT.mlp(), sample_input=z, **kw)
+            for call in (srv.warm_start, srv.export_artifacts):
+                with pytest.raises(NotImplementedError, match="artifact"):
+                    call("bundle")
+            srv.register("m", PORT.mlp(), sample_input=z)
+            with pytest.raises(NotImplementedError, match="quantize"):
+                srv.update("m", PORT.mlp(seed=2), quantize=True)
+            assert srv.models()["m"]["version"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the served model: a small conv7 ResNet-50 through both packages' servers
+# ---------------------------------------------------------------------------
+
+def test_conv7_resnet_served_rows_match_the_jax_server():
+    """ResNet-50 with the conv7 stem (the stem ``bench.py``'s serving
+    measurement serves), class_num 10, 64x64 images, the JAX model's weights
+    and BN state carried into the port; 5 records through each package's
+    ``ModelServer`` (batch 8, eval mode: BN running statistics) from two
+    threads. Each served row is held against the JAX server's row in f32 at
+    1e-4 of the rows' largest value (test_torch_resnet's eval-logit limit:
+    the same products summed in another order through 50 layers)."""
+    from bigdl_tpu.models import ResNet as JResNet
+    from bigdl_tpu.utils.random import RandomGenerator as JRandomGenerator
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+
+    import jax
+
+    x = np.random.default_rng(0).standard_normal((5, 3, 64, 64)).astype(np.float32)
+    JRandomGenerator.set_seed(0)
+    jm = JResNet(50, class_num=10, stem="conv7")
+    jm.init(sample_input=x[:1])
+    pm = ResNet(50, class_num=10, stem="conv7", device="cpu")
+    pm.init(sample_input=x[:1])
+    load_jax_params(pm, jax.tree_util.tree_map(np.asarray, jm.get_parameters()))
+    load_jax_state(pm, jax.tree_util.tree_map(np.asarray, jm.get_state()))
+
+    def serve(pkg, model):
+        rows = [None] * len(x)
+        with _server(pkg, telemetry=pkg.Telemetry(exporters=[])) as srv:
+            srv.register("resnet", model, sample_input=x[0], batch_size=8, max_delay_ms=5)
+
+            def client(idx):
+                for i in idx:
+                    rows[i] = _rows(srv.infer("resnet", x[i]).result(timeout=120))
+
+            threads = [threading.Thread(target=client, args=(range(c, len(x), 2),))
+                       for c in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            assert not any(t.is_alive() for t in threads)
+            serves = _records(srv.telemetry, "serve")
+        assert sum(s["records"] for s in serves) == len(x)
+        return np.stack(rows)
+
+    want = serve(JAX, jm)
+    got = serve(PORT, pm)
+    assert got.shape == want.shape == (5, 10) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    # and the port's server row is the port's own eval forward of the record
+    with torch.inference_mode():
+        own = pm.eval().forward(x).numpy()
+    np.testing.assert_allclose(got, own, rtol=0, atol=1e-5 * np.abs(own).max())
