@@ -1,0 +1,181 @@
+"""The ResNet ImageNet training recipe on one card (counterpart of the
+``--dataset imagenet`` branch of ``examples/resnet/train.py``; reference:
+``$DL/models/resnet/TrainImageNet.scala``).
+
+    python3 -m bigdl_tpu_torch.examples.resnet_train --dataset imagenet --depth 50 \\
+        --warmup-epochs 5 --label-smoothing 0.1 --lr-schedule multistep
+
+The recipe: ResNet-``depth`` (conv7 or space-to-depth stem), linear warmup
+to the base rate over ``--warmup-epochs``, then MultiStep at epochs 30, 60
+and 80 (gamma 0.1) or Poly(2.0) to the last epoch; label-smoothed
+``CrossEntropyCriterion``; nesterov SGD (momentum 0.9, dampening 0) with
+weight decay, BN parameters and biases excluded (``("_bn", "bias")``)
+unless ``--no-wd-exclusions``; Top-1 and Top-5 validated every epoch and
+once more after training. It trains through ``LocalOptimizer`` on one
+card, or on the CPU with ``--platform cpu``.
+
+Data: synthetic, as the JAX recipe draws it (``default_rng(0)``: N standard
+normal images of 3 x size x size and labels in [0, class_num); the first
+``max(batch, N // 4)`` records are the validation set), N =
+``--synthetic-size`` (1024 by default). Record shards (``--data-dir``) wait
+for the port's sharded record reader and raise.
+
+Kept from the TPU era: bf16 activations (``--act-dtype bfloat16``, the
+default) are set when the recipe runs on an accelerator, which for the port
+is the card (the JAX recipe sets them when its engine is the TPU); on the
+CPU the activations stay f32. The CIFAR-10 branch (``--dataset cifar10``)
+needs ``DistriOptimizer``, which the port does not have yet, and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence
+
+
+def parser() -> argparse.ArgumentParser:
+    """The JAX recipe's flags (its ``base_parser`` and the ResNet main's)."""
+    p = argparse.ArgumentParser(
+        description="ResNet (CIFAR-10 DistriOptimizer / ImageNet north-star recipe)")
+    p.add_argument("-f", "--data-dir", default=None,
+                   help="dataset folder; synthetic data when absent (hermetic default)")
+    p.add_argument("-b", "--batch-size", type=int, default=128)
+    p.add_argument("--max-epoch", type=int, default=2)
+    p.add_argument("--learning-rate", type=float, default=0.01)
+    p.add_argument("--checkpoint", default=None, help="checkpoint directory")
+    p.add_argument("--model-save", default=None, help="save the trained model here")
+    p.add_argument("--summary-dir", default=None, help="TensorBoard event dir")
+    p.add_argument("--platform", choices=["auto", "cpu"], default="auto",
+                   help="'cpu' trains on the CPU; 'auto' on the card")
+    p.add_argument("--n-devices", type=int, default=None, help="cards to use (1)")
+    p.add_argument("--synthetic-size", type=int, default=None,
+                   help="synthetic dataset size when no --data-dir")
+    p.add_argument("--depth", type=int, default=20,
+                   help="cifar10: 6n+2; imagenet: 18/34/50/101/152")
+    p.add_argument("--dataset", choices=["cifar10", "imagenet"], default="cifar10")
+    p.add_argument("--parameter-sync", choices=["sharded", "replicated"], default="sharded",
+                   help="DistriOptimizer's; one card has nothing to synchronise")
+    p.add_argument("--warmup-epochs", type=int, default=5)
+    p.add_argument("--lr-schedule", choices=["multistep", "poly"], default="multistep")
+    p.add_argument("--label-smoothing", type=float, default=0.1)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--no-wd-exclusions", action="store_true",
+                   help="ALSO decay BN gamma/beta and biases (recipe default excludes)")
+    p.add_argument("--stem", choices=["conv7", "s2d"], default="conv7")
+    p.add_argument("--act-dtype", choices=["float32", "bfloat16"], default="bfloat16",
+                   help="activation dtype on the card")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--class-num", type=int, default=1000)
+    return p
+
+
+def build_imagenet_schedule(args, iters_per_epoch: int):
+    """Linear warmup to the base rate, then MultiStep [30, 60, 80] epochs or
+    Poly(2.0) to ``max_epoch``."""
+    from ..optim.schedules import LinearWarmup, MultiStep, Poly
+
+    warmup_iters = args.warmup_epochs * iters_per_epoch
+    if args.lr_schedule == "poly":
+        main = Poly(2.0, args.max_epoch * iters_per_epoch)
+    else:
+        main = MultiStep([e * iters_per_epoch for e in (30, 60, 80)], 0.1)
+    return LinearWarmup(warmup_iters, main) if warmup_iters else main
+
+
+def load_imagenet(args):
+    """``(train, val, iters_per_epoch)``: the JAX recipe's synthetic draw."""
+    import numpy as np
+
+    from ..dataset import DataSet
+
+    if args.data_dir:
+        raise NotImplementedError(
+            "record shards (--data-dir) need the sharded record reader, which the port "
+            "does not have yet (ROADMAP Queue 1 item 7); omit --data-dir for synthetic data")
+    size = args.image_size
+    n = args.synthetic_size or 1024
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((n, 3, size, size)).astype(np.float32)
+    y = rng.integers(0, args.class_num, n)
+    train = DataSet.array(x, y, batch_size=args.batch_size)
+    n_val = max(args.batch_size, n // 4)
+    val = DataSet.array(x[:n_val], y[:n_val], batch_size=args.batch_size)
+    return train, val, max(1, n // args.batch_size)
+
+
+@dataclass
+class Recipe:
+    """What :func:`main` trained: the optimizer (its ``history`` holds each
+    iteration's loss and learning rate), the model, the validation set and
+    methods, the iterations an epoch and the final validation's results."""
+
+    optimizer: Any
+    model: Any
+    val_dataset: Any
+    val_methods: List[Any]
+    iters_per_epoch: int
+    results: Optional[Dict[str, Any]] = None
+
+
+def build(args) -> Recipe:
+    """The recipe's model, data, criterion, method and triggers, ready to
+    ``optimizer.optimize()``."""
+    from .. import nn
+    from ..models import ResNet
+    from ..optim import SGD, LocalOptimizer, Top1Accuracy, Top5Accuracy, Trigger
+    from ..utils.engine import Engine
+    from ..utils.random import RandomGenerator
+
+    if args.dataset != "imagenet":
+        raise NotImplementedError(
+            "--dataset cifar10 trains through DistriOptimizer, which the port does not have "
+            "yet (ROADMAP Queue 1 item 8); --dataset imagenet trains on one card")
+    if args.n_devices not in (None, 1):
+        raise NotImplementedError(
+            f"--n-devices {args.n_devices}: the port trains on one card (DistriOptimizer "
+            "is ROADMAP Queue 1 item 8)")
+    for flag in ("model_save", "summary_dir"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
+    device = "cpu" if args.platform == "cpu" else None
+    RandomGenerator.set_seed(42)
+    if args.act_dtype == "bfloat16" and Engine.device(device).type == "cuda":
+        Engine.set_activation_dtype("bfloat16")
+    train_ds, val_ds, iters_per_epoch = load_imagenet(args)
+    model = ResNet(args.depth, class_num=args.class_num, dataset="imagenet", stem=args.stem,
+                   device=device)
+    criterion = nn.CrossEntropyCriterion(label_smoothing=args.label_smoothing)
+    exclude = () if args.no_wd_exclusions else ("_bn", "bias")
+    method = SGD(learningrate=args.learning_rate, momentum=0.9, dampening=0.0,
+                 weightdecay=args.weight_decay, nesterov=True,
+                 leaningrate_schedule=build_imagenet_schedule(args, iters_per_epoch),
+                 weightdecay_exclude=exclude)
+    val_methods = [Top1Accuracy(), Top5Accuracy()]
+    opt = LocalOptimizer(model, train_ds, criterion)
+    opt.set_optim_method(method)
+    opt.set_end_when(Trigger.max_epoch(args.max_epoch))
+    opt.set_validation(Trigger.every_epoch(), val_ds, val_methods)
+    if args.checkpoint:
+        opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+    return Recipe(opt, model, val_ds, val_methods, iters_per_epoch)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Recipe:
+    """Parse ``argv`` (the command line when None), train, validate once
+    more and print Top-1 and Top-5."""
+    args = parser().parse_args(argv)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    recipe = build(args)
+    model = recipe.optimizer.optimize()
+    recipe.results = model.evaluate(recipe.val_dataset, recipe.val_methods)
+    for name, r in recipe.results.items():
+        print(f"{name}: {r.result()[0]:.4f}")
+    return recipe
+
+
+if __name__ == "__main__":
+    main()

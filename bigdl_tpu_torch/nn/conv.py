@@ -45,8 +45,8 @@ class SpatialConvolution(AbstractModule):
     def __init__(self, n_input_plane: Optional[int], n_output_plane: int, kernel_w: int,
                  kernel_h: Optional[int] = None, stride_w: int = 1,
                  stride_h: Optional[int] = None, pad_w: int = 0, pad_h: Optional[int] = None,
-                 n_group: int = 1, with_bias: bool = True, activation: Optional[str] = None,
-                 device=None):
+                 n_group: int = 1, with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None, activation: Optional[str] = None, device=None):
         super().__init__(device)
         precision._act_fn(activation)  # validate the name
         self.n_input_plane = n_input_plane
@@ -56,6 +56,8 @@ class SpatialConvolution(AbstractModule):
         self.pad = (pad_h if pad_h is not None else pad_w, pad_w)
         self.n_group = n_group
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self.activation = activation
         self.weight_init: InitializationMethod = Xavier()
         self.bias_init: InitializationMethod = Zeros()
@@ -89,3 +91,11 @@ class SpatialConvolution(AbstractModule):
         y = precision.conv2d(x, params["weight"], self.stride, padding, self.n_group)
         return precision.channel_bias_act(y, params["bias"] if self.with_bias else None,
                                           self.activation), state
+
+    def regularization_loss(self, params):
+        loss = 0.0
+        if self.w_regularizer is not None:
+            loss = loss + self.w_regularizer(params["weight"])
+        if self.b_regularizer is not None and self.with_bias:
+            loss = loss + self.b_regularizer(params["bias"])
+        return loss

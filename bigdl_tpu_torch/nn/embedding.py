@@ -47,8 +47,7 @@ class LookupTable(AbstractModule):
                  should_scale_grad_by_freq: bool = False, one_based_input: bool = False,
                  w_regularizer=None, device=None):
         super().__init__(device)
-        if w_regularizer is not None:
-            raise NotImplementedError("LookupTable(w_regularizer=...) is not ported yet")
+        self.w_regularizer = w_regularizer
         self.n_index = n_index
         self.n_output = n_output
         self.padding_value = padding_value
@@ -87,6 +86,11 @@ class LookupTable(AbstractModule):
         if self.padding_value is not None:
             y = y * (idx != self._pad_row()).unsqueeze(-1).to(y.dtype)
         return y, state
+
+    def regularization_loss(self, params):
+        if self.w_regularizer is None:
+            return 0.0
+        return self.w_regularizer(params["weight"])
 
 
 class LookupTableSparse(AbstractModule):

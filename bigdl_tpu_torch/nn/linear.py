@@ -23,12 +23,15 @@ from .module import AbstractModule
 
 class Linear(AbstractModule):
     def __init__(self, input_size: Optional[int] = None, output_size: int = 0,
-                 with_bias: bool = True, activation: Optional[str] = None, device=None):
+                 with_bias: bool = True, w_regularizer=None, b_regularizer=None,
+                 activation: Optional[str] = None, device=None):
         super().__init__(device)
         precision._act_fn(activation)  # validate the name
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias
+        self.w_regularizer = w_regularizer
+        self.b_regularizer = b_regularizer
         self.activation = activation
         self.weight_init: InitializationMethod = RandomUniform()
         self.bias_init: InitializationMethod = RandomUniform()
@@ -56,6 +59,14 @@ class Linear(AbstractModule):
         y = precision.einsum("...i,oi->...o", x, params["weight"])
         return precision.bias_act(y, params["bias"] if self.with_bias else None,
                                   self.activation), state
+
+    def regularization_loss(self, params):
+        loss = 0.0
+        if self.w_regularizer is not None:
+            loss = loss + self.w_regularizer(params["weight"])
+        if self.b_regularizer is not None and self.with_bias:
+            loss = loss + self.b_regularizer(params["bias"])
+        return loss
 
 
 class SparseLinear(Linear):

@@ -183,6 +183,15 @@ class AbstractModule(torch.nn.Module):
         for p in self.parameters():
             p.grad = torch.zeros_like(p)
 
+    def regularization_loss_tree(self, params):
+        """The regularizer penalties of this subtree over ``params`` (its
+        parameter tree): the layer's ``regularization_loss`` where it has
+        one, else 0.0; a container sums its children's. ``LocalOptimizer``
+        adds it to the training loss."""
+        if hasattr(self, "regularization_loss"):
+            return self.regularization_loss(params)
+        return 0.0
+
     # --------------------------------------------------------------- stateful
     def forward(self, x):
         """Forward on the module's own parameters (dropout only in train mode)."""
@@ -312,6 +321,12 @@ class Container(AbstractModule):
 
     def get_grad_parameters(self) -> Dict[str, Any]:
         return {m.name(): m.get_grad_parameters() for m in self._layers}
+
+    def regularization_loss_tree(self, params):
+        total = 0.0
+        for m in self._layers:
+            total = total + m.regularization_loss_tree(params[m.name()])
+        return total
 
     @staticmethod
     def _build_child(m: AbstractModule, generator, x):

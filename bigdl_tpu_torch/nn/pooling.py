@@ -84,7 +84,9 @@ class _Pool2d(AbstractModule):
 
 
 class SpatialMaxPooling(_Pool2d):
-    """Max pool over NCHW; the backward is the max-pool kernel on the card."""
+    """Max pool over NCHW; the backward is the max-pool kernel on the card,
+    or the ``shift`` gradient under ``BIGDL_MAXPOOL_GRAD_IMPL=shift``
+    (:func:`~bigdl_tpu_torch.ops.maxpool.grad_impl`)."""
 
     def __init__(self, kernel_w: int, kernel_h: Optional[int] = None,
                  stride_w: Optional[int] = None, stride_h: Optional[int] = None,

@@ -16,8 +16,8 @@ zeros; under a reduced-precision policy each product has compute-dtype
 operands and an ``out_dtype()`` result, and adding the fp32 ``bias``
 promotes the gates, so c, h and the per-step outputs are fp32.
 
-``LSTMPeephole``, ``GRU``, ``RnnCell``, ``ConvLSTMPeephole``,
-``TimeDistributed`` and the cells' regularizers wait for a later slice.
+``LSTMPeephole``, ``GRU``, ``RnnCell``, ``ConvLSTMPeephole`` and
+``TimeDistributed`` wait for a later slice.
 """
 
 from __future__ import annotations
@@ -59,15 +59,15 @@ class LSTM(Cell):
     """Standard LSTM cell (reference: $DL/nn/LSTM.scala). Gates i, f, g (the
     candidate), o, packed into ``i2g`` (4H, D), ``h2g`` (4H, H) and one
     ``bias`` (4H), each drawn ``RandomUniform`` (U(±1/sqrt(fan_in)): fan_in
-    D for ``i2g`` and ``bias``, H for ``h2g``). The regularizer arguments
-    are not ported and raise when given."""
+    D for ``i2g`` and ``bias``, H for ``h2g``). ``w_regularizer`` penalises
+    ``i2g``, ``u_regularizer`` ``h2g`` and ``b_regularizer`` ``bias``."""
 
     def __init__(self, input_size: Optional[int], hidden_size: int, w_regularizer=None,
                  u_regularizer=None, b_regularizer=None, device=None):
         super().__init__(device)
-        if any(r is not None for r in (w_regularizer, u_regularizer, b_regularizer)):
-            raise NotImplementedError(
-                "LSTM(w_regularizer / u_regularizer / b_regularizer=...) is not ported yet")
+        self.w_regularizer = w_regularizer
+        self.u_regularizer = u_regularizer
+        self.b_regularizer = b_regularizer
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.weight_init: InitializationMethod = RandomUniform()
@@ -96,6 +96,14 @@ class LSTM(Cell):
         new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         new_h = torch.sigmoid(o) * torch.tanh(new_c)
         return (new_h, new_c), new_h
+
+    def regularization_loss(self, params):
+        loss = 0.0
+        for reg, key in ((self.w_regularizer, "i2g"), (self.u_regularizer, "h2g"),
+                         (self.b_regularizer, "bias")):
+            if reg is not None:
+                loss = loss + reg(params[key])
+        return loss
 
 
 class Recurrent(Container):

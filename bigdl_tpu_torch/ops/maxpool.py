@@ -19,17 +19,25 @@ dropped.
 * :func:`maxpool_grad` takes its route from where the tensors lie: CPU
   tensors go through the plain version, CUDA tensors launch the kernel, and
   anything the kernel does not take raises. There is no fallback.
+* :func:`maxpool_grad_shift` is the JAX package's ``shift`` gradient, torch
+  ops on any device: kh·kw strided compares against the window maximum,
+  each placed back by a stride-dilated add. Its ties differ: every tied
+  maximum of a window gets the window's whole dy (a valid subgradient).
 * :func:`maxpool2d` is differentiable: a ``torch.autograd.Function`` whose
   forward is torch ops (``F.max_pool2d`` without indices, after a -inf
   ``F.pad`` only where its own padding cannot express the geometry, as
   XLA's ``reduce_window`` is in JAX) and whose backward is
-  :func:`maxpool_grad`. It saves ``x`` only, never indices: the backward
-  recomputes each window's argmax from ``x``, as the TPU kernel does.
+  :func:`maxpool_grad`, or :func:`maxpool_grad_shift` when
+  ``BIGDL_MAXPOOL_GRAD_IMPL=shift`` (:func:`grad_impl`). It saves ``x``
+  only, never indices: the backward recomputes each window's argmax from
+  ``x``, as the TPU kernel does.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import warnings
 from typing import Tuple
 
 import torch
@@ -164,6 +172,66 @@ def maxpool_grad(x: torch.Tensor, dy: torch.Tensor, kernel: Pair, stride: Pair,
     return dx
 
 
+def maxpool_grad_shift(x: torch.Tensor, dy: torch.Tensor, kernel: Pair, stride: Pair,
+                       padding: Padding) -> torch.Tensor:
+    """The max pool's gradient as kh·kw strided compares (the JAX package's
+    ``maxpool_grad_shift``), torch ops on any device, no kernel of this
+    repo: for each window offset (a, b), the input cells it addresses are
+    one strided slice of the -inf-padded input, and ``dy`` where that slice
+    equals the window maximum is added back at those cells.
+
+    Every tied maximum of a window gets the window's whole ``dy`` (a
+    constant 2x2 window sends ``dy`` to all four cells, where
+    :func:`maxpool_grad` sends it to the first). The contributions add up
+    in ``dy``'s dtype, in (a, b) offset order, so bf16 sums round at each
+    add as the JAX package's do. A window whose maximum is NaN routes
+    nothing (NaN equals nothing). The padded working extent covers both
+    the windows and the input, so a stride larger than the kernel and
+    floor-mode windows that stop short of the input crop correctly. The
+    result is in ``dy``'s dtype."""
+    _check_geometry(x, dy, kernel, stride, padding, "maxpool_grad_shift")
+    n, c, h, w = x.shape
+    (kh, kw), (sh, sw) = kernel, stride
+    (h_lo, _), (w_lo, _) = padding
+    ho, wo = dy.shape[2:]
+    hpad = max((ho - 1) * sh + kh, h_lo + h)
+    wpad = max((wo - 1) * sw + kw, w_lo + w)
+    xp = F.pad(x, (w_lo, wpad - w - w_lo, h_lo, hpad - h - h_lo), value=float("-inf"))
+    m = maxpool_forward(x, kernel, stride, padding)
+    dxp = torch.zeros((n, c, hpad, wpad), dtype=dy.dtype, device=dy.device)
+    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    for a in range(kh):
+        for b in range(kw):
+            cells = (slice(None), slice(None), slice(a, a + (ho - 1) * sh + 1, sh),
+                     slice(b, b + (wo - 1) * sw + 1, sw))
+            dxp[cells] += torch.where(xp[cells] == m, dy, zero)
+    return dxp[:, :, h_lo:h_lo + h, w_lo:w_lo + w]
+
+
+GRAD_IMPLS = ("sas", "shift", "pallas")
+
+
+def grad_impl() -> str:
+    """The backward's implementation, from ``BIGDL_MAXPOOL_GRAD_IMPL`` with
+    the JAX package's values: ``shift`` takes :func:`maxpool_grad_shift`;
+    ``sas`` (the default; ``xla`` is its alias) and ``pallas`` both take
+    :func:`maxpool_grad` (the kernel on the card, its plain version on the
+    CPU), which computes the first-maximum gradient that XLA's
+    SelectAndScatter and the Pallas kernel both compute. An unknown value
+    warns and takes the default. The JAX package reads the variable when it
+    traces a step; the port reads it at every backward."""
+    impl = os.environ.get("BIGDL_MAXPOOL_GRAD_IMPL", "").lower()
+    if impl == "xla":
+        impl = "sas"
+    if impl in GRAD_IMPLS:
+        return impl
+    if impl:
+        warnings.warn(f"BIGDL_MAXPOOL_GRAD_IMPL={impl!r} not recognized "
+                      "(expected sas|shift|pallas); using the default", RuntimeWarning,
+                      stacklevel=2)
+    return "sas"
+
+
 class _MaxPool2dFunction(torch.autograd.Function):
     """Max pool with the backward of :func:`maxpool_grad` (see module docstring)."""
 
@@ -176,6 +244,8 @@ class _MaxPool2dFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
+        if grad_impl() == "shift":
+            return maxpool_grad_shift(x, dy, *ctx.geometry), None, None, None
         return maxpool_grad(x, dy.contiguous(), *ctx.geometry), None, None, None
 
 

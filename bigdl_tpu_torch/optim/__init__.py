@@ -1,15 +1,25 @@
-"""Training (LocalOptimizer, optimization methods, schedules, triggers),
-validation methods, and fixed-batch inference (Predictor, Evaluator)."""
+"""Training (LocalOptimizer, optimization methods, LBFGS, schedules,
+regularizers, triggers), validation methods, and fixed-batch inference
+(Predictor, Evaluator)."""
 
+from .lbfgs import LBFGS
 from .local_optimizer import LocalOptimizer, validate
-from .optim_method import SGD, Adam, OptimMethod
+from .optim_method import (SGD, Adadelta, Adagrad, Adam, Adamax, Ftrl, Lamb, LarsSGD,
+                           OptimMethod, ParallelAdam, RMSprop)
 from .predictor import Evaluator, Predictor
-from .schedules import Default, LearningRateSchedule
+from .regularizer import L1L2Regularizer, L1Regularizer, L2Regularizer, Regularizer
+from .schedules import (Cosine, Default, EpochDecay, EpochStep, Exponential,
+                        LearningRateSchedule, LinearWarmup, MultiStep, NaturalExp, Plateau, Poly,
+                        SequentialSchedule, Step, Warmup)
 from .trigger import Trigger
 from .validation import (MAE, NDCG, AccuracyResult, HitRatio, Loss, LossResult, Top1Accuracy,
                          Top5Accuracy, TreeNNAccuracy, ValidationMethod, ValidationResult)
 
-__all__ = ["AccuracyResult", "Adam", "Default", "Evaluator", "HitRatio", "LearningRateSchedule",
-           "LocalOptimizer", "Loss", "LossResult", "MAE", "NDCG", "OptimMethod", "Predictor",
-           "SGD", "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger",
-           "ValidationMethod", "ValidationResult", "validate"]
+__all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax", "Cosine", "Default",
+           "EpochDecay", "EpochStep", "Evaluator", "Exponential", "Ftrl", "HitRatio",
+           "L1L2Regularizer", "L1Regularizer", "L2Regularizer", "LBFGS", "Lamb", "LarsSGD",
+           "LearningRateSchedule", "LinearWarmup", "LocalOptimizer", "Loss", "LossResult", "MAE",
+           "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "ParallelAdam", "Plateau", "Poly",
+           "Predictor", "RMSprop", "Regularizer", "SGD", "SequentialSchedule", "Step",
+           "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger", "ValidationMethod",
+           "ValidationResult", "Warmup", "validate"]

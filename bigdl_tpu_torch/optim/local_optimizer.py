@@ -9,8 +9,13 @@ module's device, one eager step per batch:
 2. each epoch, ``dataset.shuffle(epoch)`` and one pass over its batches
    (after ``resume``, the batches of the checkpoint's epoch that were
    already trained are skipped: ``_iter_in_epoch``);
-3. each iteration: ``lr = method.get_learning_rate()``, a train-mode
-   forward through ``model.apply``, the criterion, ``loss.backward()``
+3. each iteration: ``lr = method.get_learning_rate()`` (the method's
+   schedule, :mod:`.schedules`, over the state table), a train-mode
+   forward through ``model.apply``, the criterion plus the model's
+   regularizer penalties (``model.regularization_loss_tree``; in the
+   logged loss too, added once to a padded batch's masked loss and once
+   to each micro-batch slice's, so the averaged gradient carries it
+   once), ``loss.backward()``
    (torch autograd; the flash attention's gradient is the dQ and dK/dV
    kernels, the max pool's the max-pool backward kernel), the gradients
    clipped (``set_constant_gradient_clipping`` first, then
@@ -293,12 +298,15 @@ class LocalOptimizer:
 
     def _loss(self, model_state, x, t, rng, nvalid: Optional[float]):
         """The training forward's loss (masked past ``nvalid`` real rows when
-        given) and new model state."""
-        y, new_state = self.model.apply(self.model.get_parameters(), model_state, x,
-                                        training=True, rng=rng)
-        if nvalid is not None:
-            return self._masked_loss(y, t, nvalid), new_state
-        return self.criterion._apply(y, t), new_state
+        given) plus the regularizer penalties, and the new model state."""
+        params = self.model.get_parameters()
+        y, new_state = self.model.apply(params, model_state, x, training=True, rng=rng)
+        loss = self._masked_loss(y, t, nvalid) if nvalid is not None else self.criterion._apply(
+            y, t)
+        reg = self.model.regularization_loss_tree(params)
+        if isinstance(reg, torch.Tensor):  # 0.0 when no layer has a regularizer
+            loss = loss + reg
+        return loss, new_state
 
     def _micro_step(self, x, t, rng, nvalid: Optional[float]):
         """Gradients (set as ``.grad``) summed over the row slices and divided

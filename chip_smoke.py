@@ -117,7 +117,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    flush accounting for every request, no flush mixing versions, a 1 ms
    deadline failing typed and counted, an over-``max_pending`` submit
    rejected and counted, device memory flat, and no kernel of this repo
-   launched (``flagship_serving`` in the kernels record, all 0).
+   launched (``flagship_serving`` in the kernels record, all 0);
+13. the rest of ``optim/`` and the ``shift`` max-pool gradient, driven by
+   the port's ResNet ImageNet recipe (``bigdl_tpu_torch/examples/
+   resnet_train.py``, ``examples/resnet/train.py --dataset imagenet``'s
+   counterpart): [13a] its ``main()`` at ResNet-50 conv7, 224x224, batch
+   128, bf16 activations, lr 0.01, 384 synthetic records (3 iterations an
+   epoch), one warmup epoch, 3 epochs, once with ``--lr-schedule
+   multistep`` and once with ``poly``: the rate of every iteration equal
+   to the schedule's closed form, finite losses, one max-pool backward
+   launch a step and none in the 3 validations, Top-1/Top-5 read at each
+   epoch end, memory flat after step 2, the step ms, and the card's busy
+   share over 2 more profiled iterations; [13b] 3 recipe steps under
+   ``BIGDL_MAXPOOL_GRAD_IMPL=shift`` (no kernel launch), then the shift
+   gradient at the stem pool (128, 64, 112, 112) 3x3/s2/p1 against kernel
+   #10 on tie-free f32 input and card against CPU on post-ReLU bf16 input
+   (bit for bit), timed beside #10, ATen's backward and #10's bound;
+   [13c] ``ParallelAdam``, ``Adagrad``, ``Adadelta``, ``Adamax``,
+   ``RMSprop``, ``Lamb`` and ``LarsSGD`` 3 steps each of the recipe's
+   model, ``Ftrl`` 3 steps of Wide&Deep (batch 2048), each step-3 update
+   repeated on the CPU from the same f32 gradients, parameters and slots
+   (within OPT_ROUTE_REL of the update) and timed alone on the card, and
+   ``Adamax`` on an all-zero gradient (the leaf unchanged, no NaN); [13d]
+   ``LBFGS`` (lswolfe, 5 iterations, max_eval 40) full batch on LeNet-5 at
+   512 records: a non-increasing loss history, at most max_eval feval
+   calls, 2 max-pool launches a call; [13e] a LeNet-5 of the port's layers
+   with ``L1L2Regularizer`` on every convolution and linear layer, 3
+   ``LocalOptimizer`` steps: each logged loss equal to the criterion's
+   loss plus the penalty, both recomputed apart.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -138,8 +165,10 @@ and RMSNorm kernels in [3e] and [4]. Each main path (serving,
 LM training, flagship training, VGG-16 training (``vgg16`` in the kernels
 record), VGG-16 evaluation, norm-LM training, the flagship
 validated/checkpointed/resumed, the five parity configs' training,
-each under its ``parity_config`` name, and the flagship served,
-``flagship_serving``) runs with every kernel's launch
+each under its ``parity_config`` name, the flagship served,
+``flagship_serving``, and [13]'s ``recipe_multistep``, ``recipe_poly``,
+``recipe_shift``, ``optimizers``, ``lbfgs`` and ``regularizers``) runs
+with every kernel's launch
 count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
@@ -3167,6 +3196,666 @@ def phase_flagship_serving(card):
     return counts
 
 
+# ---------------------------------------------------------------- [13]
+# [13] the rest of optim/ and the shift max-pool gradient, driven through the
+# port's ResNet ImageNet recipe (bigdl_tpu_torch/examples/resnet_train.py,
+# the counterpart of examples/resnet/train.py --dataset imagenet): ResNet-50
+# conv7 at 224x224, batch 128, bf16 activations (the recipe's card rule),
+# lr 0.01 (the recipe's default), 384 synthetic records (3 iterations an
+# epoch), one warmup epoch, 3 epochs, run once with multistep and once with
+# poly. Device memory may drift +-100 MiB after step 2 (about one f32 image
+# batch in flight, as [7]).
+RECIPE_ARGS = ["--dataset", "imagenet", "--depth", "50", "--stem", "conv7", "--image-size",
+               "224", "-b", "128", "--synthetic-size", "384", "--warmup-epochs", "1",
+               "--max-epoch", "3", "--learning-rate", "0.01"]
+RECIPE_DEVICE = "cuda"  # the CPU rehearsal sets "cpu" and cuts RECIPE_ARGS
+MEM_DRIFT = 100 * 2 ** 20
+# [13b] the shift gradient against kernel #10 at the stem pool on tie-free f32
+# input (each plane a permutation, so no window holds two equal values): a
+# cell sums at most 4 windows' dy (3x3/s2) in fp32 in another order, so
+# |err| <= SHIFT_F32_REL_SUM * 4 * max|dy| (as TOL_MAXPOOL's f32 term); on
+# post-ReLU bf16 input the card's shift against the CPU's: the same compares
+# and bf16 adds in the same order, so equal to the bit.
+SHIFT_F32_REL_SUM = 1e-6
+STEM_POOL = ((128, 64, 112, 112), (3, 3), (2, 2), ((1, 1), (1, 1)))
+# [13c] one update from identical float32 gradients, parameters and slots,
+# card against CPU, fixed before the first run: ||p_card - p_cpu|| over the
+# update's own norm ||p_cpu - p_before||. Both run the same elementwise ops
+# (IEEE division and square root on both); the card may fuse a multiply-add
+# (addcmul) and sums Lamb's/LARS's per-leaf norms in another order, each a
+# unit in the last place of a parameter (~6e-8 of it), which is ~1e-5 of an
+# update at these rates: the limit 1e-4. (Its first reading on an H100 failed
+# it for LarsSGD, 2.19e-4, and Lamb read 1.72e-5: the CPU's float32
+# vector_norm accumulates an error that grows with a leaf's size. The
+# methods now sum their norms in float64, optim_method._norm.)
+OPT_ROUTE_REL = 1e-4
+OPT_STEPS = 3
+LBFGS_RECORDS, LBFGS_ITERS, LBFGS_MAX_EVAL = 512, 5, 40
+# [13e] the logged loss against the criterion's loss plus the penalty, both
+# recomputed apart from the step's starting weights (f32, TF32 off: the same
+# forward): 1e-5 relative of the logged loss.
+REG_REL = 1e-5
+
+
+def _recipe_optimizers():
+    """(name, factory) of the eight new methods at rates that keep 3 steps
+    of the recipe's model finite; Ftrl is trained on Wide&Deep."""
+    from bigdl_tpu_torch import optim as O
+
+    ex = ("_bn", "bias")
+    return [("ParallelAdam", lambda: O.ParallelAdam(learningrate=1e-4)),
+            ("Adagrad", lambda: O.Adagrad(learningrate=1e-3, weightdecay=1e-4)),
+            ("Adadelta", lambda: O.Adadelta()),
+            ("Adamax", lambda: O.Adamax(learningrate=2e-4)),
+            ("RMSprop", lambda: O.RMSprop(learningrate=1e-5)),
+            ("Lamb", lambda: O.Lamb(learningrate=1e-3, weightdecay=0.01,
+                                    weightdecay_exclude=ex)),
+            ("LarsSGD", lambda: O.LarsSGD(trust=1e-3, learningrate=0.1, momentum=0.9,
+                                          weightdecay=1e-4, weightdecay_exclude=ex)),
+            ("Ftrl", lambda: O.Ftrl(learningrate=0.1, l1_regularization_strength=1e-4,
+                                    l2_regularization_strength=1e-4))]
+
+
+def _sync():
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _mem() -> int:
+    import torch
+
+    return torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+
+
+class _StepProbe:
+    """Wraps ``LocalOptimizer._train_step`` and ``_run_validation`` (class
+    attributes, restored on exit): each step's kernel launches and the
+    device memory after it, each validation's launches and results;
+    ``before_step(opt)`` runs before each step when given."""
+
+    def __init__(self, before_step=None):
+        self.before_step = before_step
+
+    def __enter__(self):
+        from bigdl_tpu_torch.optim import LocalOptimizer
+
+        self.steps, self.validations = [], []
+        self._cls = LocalOptimizer
+        self._orig = (LocalOptimizer._train_step, LocalOptimizer._run_validation)
+        step0, val0 = self._orig
+        probe = self
+
+        def step(opt, *a, **k):
+            if probe.before_step is not None:
+                probe.before_step(opt)
+            before = read_counts()
+            out = step0(opt, *a, **k)
+            after = read_counts()
+            probe.steps.append({"launches": {n: after[n] - before[n] for n in after},
+                                "mem": _mem()})
+            return out
+
+        def validation(opt):
+            before = read_counts()
+            res = val0(opt)
+            after = read_counts()
+            if res is not None:
+                probe.validations.append({
+                    "epoch": opt.optim_method.state["epoch"],
+                    "results": {k: v.result() for k, v in res.items()},
+                    "launches": sum(after.values()) - sum(before.values())})
+            return res
+
+        LocalOptimizer._train_step, LocalOptimizer._run_validation = step, validation
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._train_step, self._cls._run_validation = self._orig
+        return False
+
+
+def _check_steps(label, probe, n_steps, pools_per_step, want_validations=None):
+    """Exact launches a step (``maxpool2d_bwd`` ``pools_per_step`` times,
+    nothing else), none in the validations, memory flat after step 2."""
+    if len(probe.steps) != n_steps:
+        raise AssertionError(f"{label}: {len(probe.steps)} steps, expected {n_steps}")
+    for i, s in enumerate(probe.steps, 1):
+        want = {n: (pools_per_step if n == "maxpool2d_bwd" else 0) for n in s["launches"]}
+        if s["launches"] != want:
+            raise AssertionError(f"{label}: step {i} launched {s['launches']}, expected {want}")
+    if any(v["launches"] for v in probe.validations):
+        raise AssertionError(f"{label}: a validation launched a kernel: {probe.validations}")
+    if want_validations is not None and len(probe.validations) != want_validations:
+        raise AssertionError(f"{label}: {len(probe.validations)} validations, expected "
+                             f"{want_validations}")
+    if n_steps >= 3:
+        drift = probe.steps[-1]["mem"] - probe.steps[1]["mem"]
+        log(f"    device memory after step 2: {probe.steps[1]['mem'] / 2**20:.1f} MiB, after "
+            f"step {n_steps}: {probe.steps[-1]['mem'] / 2**20:.1f} MiB (drift "
+            f"{drift / 2**20:+.1f} MiB, allowed +-100 MiB)")
+        if abs(drift) > MEM_DRIFT:
+            raise AssertionError(f"{label}: device memory grew over the steps")
+
+
+def _recipe_lr(n: int, schedule: str, lr: float, ipe: int, warmup_epochs: int,
+               max_epoch: int) -> float:
+    """The recipe's rate at 0-based iteration ``n``, its closed form."""
+    warmup = warmup_epochs * ipe
+    if n < warmup:
+        return lr * (n + 1) / warmup
+    if schedule == "poly":
+        total = max_epoch * ipe
+        return 0.0 if n >= total else lr * (1 - n / total) ** 2.0
+    return lr * 0.1 ** sum(n >= e * ipe for e in (30, 60, 80))
+
+
+def _recipe_argv(*extra):
+    return RECIPE_ARGS + (["--platform", "cpu"] if RECIPE_DEVICE == "cpu" else []) + list(extra)
+
+
+def phase_recipe(card):
+    """[13a] The recipe twice (multistep, poly) through its ``main()``;
+    returns each run's launches and the recipes (for [13c]'s model and the
+    busy share)."""
+    import statistics
+
+    import numpy as np
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import resnet_train
+
+    by_path, recipes = {}, {}
+    args = resnet_train.parser().parse_args(_recipe_argv())
+    for schedule in ("multistep", "poly"):
+        Engine.set_compute_dtype(None)  # the recipe's policy, as in a fresh process
+        Engine.set_activation_dtype(None)
+        t0 = time.perf_counter()
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            recipe = resnet_train.main(_recipe_argv("--lr-schedule", schedule))
+            _sync()
+            counts = read_counts()  # the main path ends here
+        wall = time.perf_counter() - t0
+        opt = recipe.optimizer
+        hist = opt.history
+        ipe = recipe.iters_per_epoch
+        n_steps = args.max_epoch * ipe
+        lrs = [h["lr"] for h in hist]
+        want = [_recipe_lr(n, schedule, args.learning_rate, ipe, args.warmup_epochs,
+                           args.max_epoch) for n in range(n_steps)]
+        losses = [h["loss"] for h in hist]
+        step_ms = statistics.median(h["wall_s"] for h in hist[2:]) * 1e3
+        batch = args.batch_size
+        log(f"[13a] recipe --lr-schedule {schedule}: ResNet-{args.depth} {args.stem}, "
+            f"{recipe.model.n_parameters() / 1e6:.3f} M params, {args.synthetic_size} records of "
+            f"3x{args.image_size}x{args.image_size}, batch {batch}, {ipe} iterations an epoch, "
+            f"{args.max_epoch} epochs, activations {Engine.activation_dtype()}, compute "
+            f"{Engine.compute_dtype()}; {len(hist)} iterations in {wall:.2f} s (build, data "
+            f"and validations included): step {step_ms:.2f} ms (median of iterations "
+            f"3-{n_steps}; two of them also hold an epoch end), {batch / step_ms * 1e3:.1f} "
+            f"images/s; card {card}")
+        log("    lr: " + ", ".join(f"{v:.6g}" for v in lrs))
+        log("    losses: " + ", ".join(f"{v:.4f}" for v in losses))
+        if lrs != want:
+            raise AssertionError(f"[13a] {schedule}: rates {lrs} are not the closed form {want}")
+        if len(hist) != n_steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"[13a] {schedule}: {len(hist)} iterations, losses {losses}")
+        _check_steps(f"[13a] {schedule}", probe, n_steps, 1, want_validations=args.max_epoch)
+        for v in probe.validations:
+            top1, top5 = v["results"]["Top1Accuracy"], v["results"]["Top5Accuracy"]
+            log(f"    validation at the end of epoch {v['epoch'] - 1}: Top-1 {top1[0]:.4f}, "
+                f"Top-5 {top5[0]:.4f} (n={top1[1]}), kernel launches {v['launches']}")
+            if not (0 <= top1[0] <= top5[0] <= 1) or top1[1] != top5[1] or top1[1] < 1:
+                raise AssertionError(f"[13a] {schedule}: validation {v}")
+        if sorted(v["epoch"] for v in probe.validations) != list(range(2, args.max_epoch + 2)):
+            raise AssertionError(f"[13a] {schedule}: validations {probe.validations}")
+        log(f"    maxpool2d_bwd launches {counts['maxpool2d_bwd']} (1 a step, 0 in the "
+            f"{len(probe.validations)} validations and the final evaluation); others "
+            f"{sum(counts.values()) - counts['maxpool2d_bwd']}")
+        if counts["maxpool2d_bwd"] != n_steps or sum(counts.values()) != n_steps:
+            raise AssertionError(f"[13a] {schedule}: launches {counts}")
+        by_path[f"recipe_{schedule}"] = counts
+        recipes[schedule] = recipe
+    busy = _busy_share(recipes["multistep"].optimizer, 2)
+    log(f"    busy share (multistep recipe, 2 more iterations under torch.profiler, no "
+        f"validation): device {busy[0]:.2f} ms of {busy[1]:.2f} ms a step under the profiler "
+        f"({100 * busy[2]:.1f}% busy); card {card}")
+    return by_path, recipes
+
+
+def _busy_share(opt, iters):
+    """(device ms, wall ms, share) a step over ``iters`` more iterations of
+    ``opt`` under ``torch.profiler`` (the sum of the kernels' device time
+    over the profiled wall; the profiler slows the host, so the share is a
+    floor)."""
+    import torch
+    from bigdl_tpu_torch.optim import Trigger
+    from torch.profiler import ProfilerActivity, profile
+
+    state = opt.optim_method.state
+    opt.set_end_when(Trigger.max_iteration(state["neval"] - 1 + iters))
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                                     else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        opt.optimize()
+        _sync()
+        wall = time.perf_counter() - t0
+    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    dev_ms, wall_ms = dev_us / 1e3 / iters, wall * 1e3 / iters
+    return dev_ms, wall_ms, dev_ms / wall_ms
+
+
+def phase_shift(card):
+    """[13b] 3 recipe steps under BIGDL_MAXPOOL_GRAD_IMPL=shift (no kernel
+    launch), then the shift gradient against kernel #10 at the stem pool and
+    timed beside it, ATen's backward and #10's bound."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import resnet_train
+    from bigdl_tpu_torch.ops import maxpool as mp
+
+    prev = os.environ.get("BIGDL_MAXPOOL_GRAD_IMPL")
+    os.environ["BIGDL_MAXPOOL_GRAD_IMPL"] = "shift"
+    try:
+        if mp.grad_impl() != "shift":
+            raise AssertionError("[13b] BIGDL_MAXPOOL_GRAD_IMPL=shift does not select shift")
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+        args = resnet_train.parser().parse_args(_recipe_argv("--max-epoch", "1"))
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            recipe = resnet_train.main(_recipe_argv("--max-epoch", "1"))
+            _sync()
+            counts = read_counts()  # the main path ends here
+    finally:
+        if prev is None:
+            del os.environ["BIGDL_MAXPOOL_GRAD_IMPL"]
+        else:
+            os.environ["BIGDL_MAXPOOL_GRAD_IMPL"] = prev
+    hist = recipe.optimizer.history
+    losses = [h["loss"] for h in hist]
+    n_steps = recipe.iters_per_epoch
+    log(f"[13b] recipe under BIGDL_MAXPOOL_GRAD_IMPL=shift: {len(hist)} iterations, losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {counts}")
+    if len(hist) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[13b] shift: {len(hist)} iterations, losses {losses}")
+    _check_steps("[13b] shift", probe, n_steps, 0, want_validations=args.max_epoch)
+    if sum(counts.values()):
+        raise AssertionError(f"[13b] shift launched {counts}; expected no kernel")
+    del recipe
+    _free()
+
+    shape, kernel, stride, padding = STEM_POOL
+    dev = RECIPE_DEVICE
+    n, c, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    # tie-free f32: each plane a permutation of 0..h*w-1
+    x = torch.argsort(torch.rand((n * c, h * w), generator=g, device=dev), dim=1).float()
+    x = x.reshape(shape)
+    ho, wo = mp.pooled_size((h, w), kernel, stride, padding)
+    dy = torch.randn((n, c, ho, wo), generator=g, device=dev)
+    shift = mp.maxpool_grad_shift(x, dy, kernel, stride, padding)
+    ref = mp.maxpool_grad(x, dy, kernel, stride, padding)
+    err = (shift - ref).abs().max().item()
+    tol = SHIFT_F32_REL_SUM * 4 * dy.abs().max().item()
+    log(f"[13b] shift vs kernel #10 at the stem pool {shape} f32 3x3/s2/p1, tie-free: max "
+        f"|err| {err:.3g} (limit {tol:.3g})")
+    if not err <= tol:
+        raise AssertionError(f"[13b] shift and kernel #10 disagree at the stem pool: {err}")
+    del x, dy, shift, ref
+    # post-ReLU bf16, the training input: card against CPU, bit for bit
+    xb = torch.relu(torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    dyb = torch.randn((n, c, ho, wo), generator=g, device=dev).to(torch.bfloat16)
+    got = mp.maxpool_grad_shift(xb, dyb, kernel, stride, padding)
+    t0 = time.perf_counter()
+    want = mp.maxpool_grad_shift(xb.cpu(), dyb.cpu(), kernel, stride, padding)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(got.cpu(), want)
+    nz_shift = int((want != 0).sum())
+    nz_first = int((mp.maxpool_grad(xb, dyb, kernel, stride, padding) != 0).sum())
+    log(f"[13b] shift on the card vs on the CPU, post-ReLU bf16 {shape}: bit-identical "
+        f"{same} (CPU {cpu_s:.1f} s); cells receiving dy: shift {nz_shift}, first maximum "
+        f"{nz_first} (ties spread)")
+    if not same:
+        raise AssertionError("[13b] the shift gradient differs between the card and the CPU")
+    del want
+    rec = {"shape": list(shape), "geometry": "3x3/s2/p1", "dtype": "bfloat16",
+           "max_abs_err_vs_kernel_f32": err}
+    if dev == "cuda":
+        rec["shift_ms"] = cuda_ms(lambda: mp.maxpool_grad_shift(xb, dyb, kernel, stride,
+                                                                padding), iters=10)
+        rec["kernel_ms"] = cuda_ms(lambda: mp.maxpool_grad(xb, dyb, kernel, stride, padding),
+                                   iters=50)
+        _, idx = F.max_pool2d(xb, kernel, stride, padding[0][0], return_indices=True)
+        rec["aten_ms"] = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+            dyb, xb, list(kernel), list(stride), [padding[0][0], padding[1][0]], [1, 1], False,
+            idx), iters=50)
+        del idx
+        rec["bound_ms"], rec["bound_by"] = bound_ms(0.0, (xb, dyb, got), card)
+        log(f"[13b] A/B at the stem pool {shape} bf16 3x3/s2/p1 (post-ReLU): shift "
+            f"{rec['shift_ms']:.4f} ms, kernel #10 {rec['kernel_ms']:.4f} ms, ATen backward "
+            f"from saved indices {rec['aten_ms']:.4f} ms, #10's bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}); shift/kernel {rec['shift_ms'] / rec['kernel_ms']:.2f}; "
+            f"card {card}")
+    del xb, dyb, got
+    _free()
+    return {"recipe_shift": counts}, rec
+
+
+def _free():
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _clone(tree, device):
+    return {k: (_clone(v, device) if isinstance(v, dict) else v.detach().to(device, copy=True))
+            for k, v in tree.items()}
+
+
+def _tree_dist(a, b) -> float:
+    """||a - b|| over two trees of one structure, in float64 on the CPU."""
+    import torch
+
+    total = 0.0
+    for (_, x), (_, y) in zip(_flat_items(a), _flat_items(b)):
+        d = x.detach().cpu().double() - y.detach().cpu().double()
+        total += float(torch.sum(d * d))
+    return total ** 0.5
+
+
+def _flat_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+class _UpdateCapture:
+    """Wraps ``method.update`` on the instance: at call ``at`` it keeps a
+    host copy of the parameters, slots and gradients before the update and
+    of the parameters after it (and the rate and step); host copies leave
+    the card's memory as the step left it."""
+
+    def __init__(self, method, at: int):
+        self.method, self.at, self.calls, self.kept = method, at, 0, None
+        self._update = method.update
+        method.update = self
+
+    def __call__(self, grads, params, slots, lr, step):
+        self.calls += 1
+        if self.calls == self.at:
+            self.kept = {"grads": _clone(grads, "cpu"), "params": _clone(params, "cpu"),
+                         "slots": _clone(slots, "cpu"), "lr": lr, "step": step}
+        out = self._update(grads, params, slots, lr, step)
+        if self.calls == self.at:
+            self.kept["after"] = _clone(params, "cpu")
+        return out
+
+    def restore(self):
+        del self.method.update
+
+
+def phase_optimizers(card, recipes):
+    """[13c] Each new method 3 steps of the recipe's model (Ftrl: of
+    Wide&Deep) through LocalOptimizer, then one update from identical f32
+    gradients on the card against the CPU, and its update ms on the card."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch import optim as O
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples import resnet_train
+    from bigdl_tpu_torch.models import parity_config
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+
+    recipe = recipes["multistep"]
+    model = recipe.model
+    criterion = recipe.optimizer.criterion
+    train_ds = recipe.optimizer.dataset
+    p0, s0 = _clone(model.get_parameters(), "cpu"), _clone(model.get_state(), "cpu")
+    wd_model = None
+    counts_all = {}
+    for name, make in _recipe_optimizers():
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype("bfloat16" if RECIPE_DEVICE == "cuda" else None)
+        if name == "Ftrl":
+            RandomGenerator.set_seed(1)
+            batch = None if RECIPE_DEVICE == "cuda" else 256
+            wd_model, table, labels, batch = parity_config("widedeep", batch, device=RECIPE_DEVICE)
+            wd_model.init(sample_input=table)
+            m, ds, crit, pools, what = (wd_model, DataSet.array(table, labels, batch_size=batch),
+                                        ClassNLLCriterion(), 0, f"Wide&Deep, batch {batch}")
+        else:
+            with torch.no_grad():  # every method starts from the recipe model's weights
+                for (_, p), (_, v) in zip(_flat_items(model.get_parameters()), _flat_items(p0)):
+                    p.copy_(v)
+            model.set_state(_clone(s0, model.device))
+            m, ds, crit, pools, what = model, train_ds, criterion, 1, "the recipe's ResNet-50"
+        method = make()
+        cap = _UpdateCapture(method, OPT_STEPS)
+        opt = O.LocalOptimizer(m, ds, crit).set_optim_method(method)
+        opt.set_end_when(O.Trigger.max_iteration(OPT_STEPS))
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            opt.optimize()
+            _sync()
+            counts = read_counts()  # the main path ends here
+        cap.restore()
+        losses = [h["loss"] for h in opt.history]
+        if len(losses) != OPT_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"[13c] {name}: losses {losses}")
+        _check_steps(f"[13c] {name}", probe, OPT_STEPS, pools)
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+        kept = cap.kept
+        # the same update on the CPU from the same f32 values
+        cpu_after = _clone(kept["params"], "cpu")
+        make().update(_clone(kept["grads"], "cpu"), cpu_after, _clone(kept["slots"], "cpu"),
+                      kept["lr"], kept["step"])
+        upd = _tree_dist(cpu_after, kept["params"])
+        rel = _tree_dist(kept["after"], cpu_after) / max(upd, 1e-30)
+        finite = all(bool(torch.isfinite(v).all()) for _, v in _flat_items(kept["after"]))
+        ms = None
+        if RECIPE_DEVICE == "cuda":  # the update alone on the card, on copies of its inputs
+            g, p, s = (_clone(kept[k], "cuda") for k in ("grads", "params", "slots"))
+            ms = cuda_ms(lambda: method.update(g, p, s, kept["lr"], kept["step"]), iters=5,
+                         warmup=1)
+            del g, p, s
+        log(f"[13c] {name} on {what}: {OPT_STEPS} steps, losses "
+            + ", ".join(f"{v:.4f}" for v in losses)
+            + f"; step-{OPT_STEPS} update card vs CPU from identical f32 gradients: "
+            f"{rel:.3g} of the update (limit {OPT_ROUTE_REL}; update norm {upd:.4g}), finite "
+            f"{finite}; update " + (f"{ms:.3f} ms on the card" if ms is not None else
+                                    "not timed (CPU)") + f"; card {card}")
+        if not (rel <= OPT_ROUTE_REL and finite and upd > 0):
+            raise AssertionError(f"[13c] {name}: card and CPU updates differ by {rel}")
+        del opt, cap, kept, cpu_after
+        _free()
+    # Adamax's subnormal epsilon on a leaf whose gradient is all zero from the
+    # first step: m / u = 0 / 1e-38 must stay 0 (no flush to zero)
+    p = {"w": torch.randn(4096, device=RECIPE_DEVICE)}
+    before = p["w"].clone()
+    ax = O.Adamax()
+    ax.update({"w": torch.zeros_like(p["w"])}, p, ax.init_slots(p), 2e-3, 1)
+    ok = torch.equal(p["w"], before)
+    log(f"[13c] Adamax, an all-zero gradient from the first step: the leaf unchanged and "
+        f"finite {ok}")
+    if not ok:
+        raise AssertionError("[13c] Adamax moved (or NaN'd) a leaf whose gradient is zero")
+    del wd_model
+    _free()
+    return {"optimizers": counts_all}
+
+
+def _lenet_regularized(device, l1, l2):
+    """LeNet-5's layers with L1L2Regularizer(l1, l2) on every convolution's
+    and linear layer's weight and bias."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import L1L2Regularizer
+
+    def r():
+        return {"w_regularizer": L1L2Regularizer(l1, l2),
+                "b_regularizer": L1L2Regularizer(l1, l2)}
+
+    d = {"device": device}
+    return nn.Sequential(
+        nn.Reshape([1, 28, 28], **d), nn.SpatialConvolution(1, 6, 5, 5, **r(), **d), nn.Tanh(**d),
+        nn.SpatialMaxPooling(2, 2, 2, 2, **d), nn.SpatialConvolution(6, 12, 5, 5, **r(), **d),
+        nn.Tanh(**d), nn.SpatialMaxPooling(2, 2, 2, 2, **d), nn.Reshape([12 * 4 * 4], **d),
+        nn.Linear(12 * 4 * 4, 100, **r(), **d), nn.Tanh(**d), nn.Linear(100, 10, **r(), **d),
+        nn.LogSoftMax(**d), **d)
+
+
+def phase_lbfgs(card):
+    """[13d] LBFGS, full batch, line search lswolfe, on LeNet-5."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.models import parity_config
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import LBFGS
+
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(1)
+    model, x, y, _ = parity_config("lenet", LBFGS_RECORDS, device=RECIPE_DEVICE)
+    xt = torch.from_numpy(x).to(RECIPE_DEVICE)
+    yt = torch.from_numpy(np.asarray(y)).to(RECIPE_DEVICE)
+    model.init(sample_input=xt)
+    state = model.get_state()
+    crit = ClassNLLCriterion()
+    evals = []
+
+    def feval(params):
+        leaves = [v.requires_grad_() for _, v in _flat_items(params)]
+        out, _ = model.apply(params, state, xt, training=True)
+        loss = crit._apply(out, yt)
+        grads = iter(torch.autograd.grad(loss, leaves))
+        evals.append(float(loss.detach()))
+        return loss.detach(), _map_tree(lambda _: next(grads), params)
+
+    method = LBFGS(max_iter=LBFGS_ITERS, max_eval=LBFGS_MAX_EVAL, line_search="lswolfe")
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            reset_counts()  # the main path starts here
+            t0 = time.perf_counter()
+            new_params, hist = method.optimize(feval, model.get_parameters())
+            _sync()
+            wall = time.perf_counter() - t0
+            counts = read_counts()  # the main path ends here
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    log(f"[13d] LBFGS (lswolfe, max_iter {LBFGS_ITERS}, max_eval {LBFGS_MAX_EVAL}) on LeNet-5, "
+        f"full batch {LBFGS_RECORDS}, f32: loss history " + ", ".join(f"{v:.5f}" for v in hist)
+        + f"; {len(evals)} feval calls in {wall:.2f} s; launches {counts}; card {card}")
+    if any(b > a for a, b in zip(hist, hist[1:])) or not hist[-1] < hist[0]:
+        raise AssertionError(f"[13d] LBFGS's loss history increased or did not fall: {hist}")
+    if len(evals) > LBFGS_MAX_EVAL:
+        raise AssertionError(f"[13d] LBFGS made {len(evals)} feval calls, max_eval "
+                             f"{LBFGS_MAX_EVAL}")
+    want = {n: (2 * len(evals) if n == "maxpool2d_bwd" else 0) for n in counts}
+    if counts != want:
+        raise AssertionError(f"[13d] launches {counts}, expected {want} (2 pools a feval)")
+    if not all(v.device == xt.device for _, v in _flat_items(new_params)):
+        raise AssertionError("[13d] LBFGS's parameters left the card")
+    del model, new_params
+    _free()
+    return {"lbfgs": counts}
+
+
+def _map_tree(fn, tree):
+    return {k: (_map_tree(fn, v) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
+
+
+def phase_regularizers(card):
+    """[13e] A LeNet-5 of the port's layers with L1L2Regularizer on every
+    convolution and linear layer: 3 LocalOptimizer steps; each logged loss
+    minus the criterion's loss of the same forward equals the penalty."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import parity_config
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(1)
+    _, x, y, batch = parity_config("lenet", device="cpu")
+    model = _lenet_regularized(RECIPE_DEVICE, 1e-4, 5e-3)
+    xt = torch.from_numpy(x[:batch]).to(RECIPE_DEVICE)
+    yt = torch.from_numpy(np.asarray(y[:batch])).to(RECIPE_DEVICE)
+    model.init(sample_input=xt)
+    crit = ClassNLLCriterion()
+    apart = []  # (criterion loss, penalty) at each step's starting weights, float64
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), crit)
+
+    def before_step(_):
+        with torch.no_grad():
+            out, _ = model.apply(model.get_parameters(), model.get_state(), xt, training=True)
+            apart.append((float(crit._apply(out, yt)),
+                          float(model.regularization_loss_tree(model.get_parameters()))))
+
+    opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(OPT_STEPS))
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            with _StepProbe(before_step) as probe:
+                reset_counts()  # the main path starts here
+                opt.optimize()
+                _sync()
+                counts = read_counts()  # the main path ends here
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    logged = [h["loss"] for h in opt.history]
+    log(f"[13e] regularized LeNet-5 (L1L2Regularizer(1e-4, 5e-3) on every conv and linear "
+        f"weight and bias), batch {batch}, f32, SGD 0.01/0.9: {len(logged)} steps; card {card}")
+    for i, (loss, (c, pen)) in enumerate(zip(logged, apart), 1):
+        rel = abs(loss - (c + pen)) / abs(loss)
+        log(f"    step {i}: logged {loss:.6f} = criterion {c:.6f} + penalty {pen:.6f} "
+            f"(|diff| {rel:.2g} of it, limit {REG_REL})")
+        if not rel <= REG_REL or pen <= 0:
+            raise AssertionError(f"[13e] step {i}: logged {loss} is not {c} + {pen}")
+    if len(logged) != OPT_STEPS:
+        raise AssertionError(f"[13e] {len(logged)} steps")
+    _check_steps("[13e]", probe, OPT_STEPS, 2)
+    del opt, model
+    _free()
+    return {"regularizers": counts}
+
+
+def phase_optim(card):
+    """[13] The recipe, the shift gradient, the optimizers, LBFGS and the
+    regularizers; returns their main paths' launches and the shift A/B."""
+    by_path, recipes = phase_recipe(card)
+    counts, shift_rec = phase_shift(card)
+    by_path.update(counts)
+    by_path.update(phase_optimizers(card, recipes))
+    del recipes
+    _free()
+    by_path.update(phase_lbfgs(card))
+    by_path.update(phase_regularizers(card))
+    return by_path, shift_rec
+
+
 def main() -> int:
     import torch
 
@@ -3202,6 +3891,8 @@ def main() -> int:
     by_path["flagship_val"] = phase_flagship_val(card)
     by_path.update(phase_parity_configs(card))
     by_path["flagship_serving"] = phase_flagship_serving(card)
+    optim_paths, pool["shift_ab"] = phase_optim(card)
+    by_path.update(optim_paths)
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

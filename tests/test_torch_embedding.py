@@ -132,5 +132,20 @@ def test_output_stays_fp32_under_the_bf16_policy():
 
 
 def test_regularizer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="w_regularizer"):
-        pnn.LookupTable(V, D, w_regularizer=object(), device="cpu")
+    """(Named when the argument raised.) ``w_regularizer`` now penalises the
+    table as the JAX layer does: the penalty and its gradient on the
+    carried-over table, 1e-6 relative."""
+    import bigdl_tpu.optim.regularizer as jreg
+
+    from bigdl_tpu_torch.optim import regularizer as preg
+
+    jm = jnn.LookupTable(V, D, w_regularizer=jreg.L1L2Regularizer(0.01, 0.2))
+    jp, _ = jm.init(jax.random.PRNGKey(0), sample_input=np.zeros((2, 3), np.int32))
+    pm = pnn.LookupTable(V, D, w_regularizer=preg.L1L2Regularizer(0.01, 0.2), device="cpu")
+    pm.init(sample_input=np.zeros((2, 3), np.int32))
+    load_jax_params(pm, jax.tree_util.tree_map(np.asarray, jp))
+    got = pm.regularization_loss_tree(pm.get_parameters())
+    np.testing.assert_allclose(got.item(), float(jm.regularization_loss(jp)), rtol=1e-6)
+    (g,) = torch.autograd.grad(got, [pm.weight])
+    np.testing.assert_allclose(g.numpy(), np.asarray(jax.grad(jm.regularization_loss)(jp)["weight"]),
+                               rtol=1e-6, atol=1e-7)

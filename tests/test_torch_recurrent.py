@@ -126,8 +126,23 @@ def test_birecurrent_copies_the_cell_under_jax_names():
 
 
 def test_recurrent_layer_errors():
-    with pytest.raises(NotImplementedError, match="regularizer"):
-        pnn.LSTM(D, H, w_regularizer=object(), device="cpu")
+    # the regularizer arguments, which raised before they were ported, now
+    # penalise i2g, h2g and bias as the JAX cell does (1e-6 relative)
+    import bigdl_tpu.optim.regularizer as jreg
+
+    from bigdl_tpu_torch.optim import regularizer as preg
+
+    def cell(nn, r, d):
+        return nn.LSTM(D, H, w_regularizer=r.L2Regularizer(0.1), u_regularizer=r.L1Regularizer(
+            0.02), b_regularizer=r.L1L2Regularizer(0.01, 0.3), **d)
+
+    jm = cell(jnn, jreg, {})
+    jp, _ = jm.init(jax.random.PRNGKey(0), sample_input=np.zeros((N, D), np.float32))
+    pm = cell(pnn, preg, {"device": "cpu"})
+    pm.init(sample_input=np.zeros((N, D), np.float32))
+    load_jax_params(pm, np_tree(jp))
+    np.testing.assert_allclose(pm.regularization_loss_tree(pm.get_parameters()).item(),
+                               float(jm.regularization_loss_tree(jp)), rtol=1e-6)
     with pytest.raises(ValueError, match="exactly one Cell"):
         pnn.Recurrent(pnn.LSTM(D, H, device="cpu"), device="cpu").add(
             pnn.LSTM(D, H, device="cpu"))
