@@ -1,11 +1,15 @@
 """Layers, containers and criterions of the port."""
 
 from .activations import LogSoftMax, ReLU, Tanh
-from .attention import FeedForwardNetwork, Transformer, scaled_dot_product_attention
-from .conv import SpatialConvolution
+from .attention import (Attention, FeedForwardNetwork, SequenceBeamSearch, Transformer,
+                        attention_bias_lower_triangle, get_position_encoding,
+                        padding_attention_bias, scaled_dot_product_attention,
+                        sequence_beam_search)
+from .conv import SpatialConvolution, SpatialDilatedConvolution
 from .criterion import (AbstractCriterion, ClassNLLCriterion, CrossEntropyCriterion,
                         TimeDistributedCriterion)
-from .dropout import Dropout
+from .dropout import (Dropout, GaussianDropout, GaussianNoise, SpatialDropout1D,
+                      SpatialDropout2D, SpatialDropout3D)
 from .embedding import DenseToSparse, LookupTable, LookupTableSparse, SparseJoinTable
 from .graph import Graph, Input, ModuleNode
 from .initialization import MsraFiller, RandomNormal, RandomUniform, Xavier, Zeros
@@ -19,13 +23,17 @@ from .recurrent import LSTM, BiRecurrent, Cell, Recurrent
 from .structural import Reshape, Select, SpaceToDepth
 from .table_ops import CAddTable, Concat
 
-__all__ = ["AbstractCriterion", "AbstractModule", "BatchNormalization", "BiRecurrent", "CAddTable",
-           "Cell", "ClassNLLCriterion", "Concat", "Container", "CrossEntropyCriterion",
-           "DenseToSparse", "Dropout", "FeedForwardNetwork", "Graph", "Identity", "Input", "LSTM",
+__all__ = ["AbstractCriterion", "AbstractModule", "Attention", "BatchNormalization",
+           "BiRecurrent", "CAddTable", "Cell", "ClassNLLCriterion", "Concat", "Container",
+           "CrossEntropyCriterion", "DenseToSparse", "Dropout", "FeedForwardNetwork",
+           "GaussianDropout", "GaussianNoise", "Graph", "Identity", "Input", "LSTM",
            "LayerNormalization", "Linear", "LogSoftMax", "LookupTable", "LookupTableSparse",
            "ModuleNode", "MsraFiller", "PipelinedBlocks", "RMSNorm", "RandomNormal",
-           "RandomUniform", "ReLU", "Recurrent", "Reshape", "Select", "Sequential", "SpaceToDepth",
-           "SparseJoinTable", "SparseLinear", "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialCrossMapLRN", "SpatialMaxPooling", "Tanh",
+           "RandomUniform", "ReLU", "Recurrent", "Reshape", "Select", "SequenceBeamSearch",
+           "Sequential", "SpaceToDepth", "SparseJoinTable", "SparseLinear",
+           "SpatialAveragePooling", "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialCrossMapLRN", "SpatialDilatedConvolution", "SpatialDropout1D",
+           "SpatialDropout2D", "SpatialDropout3D", "SpatialMaxPooling", "Tanh",
            "TimeDistributedCriterion", "Transformer", "Xavier", "Zeros",
-           "scaled_dot_product_attention"]
+           "attention_bias_lower_triangle", "get_position_encoding", "padding_attention_bias",
+           "scaled_dot_product_attention", "sequence_beam_search"]

@@ -1,6 +1,7 @@
-"""``SpatialConvolution`` (counterpart of ``bigdl_tpu/nn/conv.py``): NCHW
-input, OIHW weights, Torch padding with ``-1`` meaning TensorFlow's SAME,
-groups, an optional bias and an optional ``activation`` epilogue
+"""``SpatialConvolution`` and ``SpatialDilatedConvolution`` (counterparts of
+``bigdl_tpu/nn/conv.py``): NCHW input, OIHW weights, Torch padding with
+``-1`` meaning TensorFlow's SAME (for the dilated kernel's extent), groups,
+dilation, an optional bias and an optional ``activation`` epilogue
 (``precision.channel_bias_act``): ``act(conv + b)`` in torch ops, or, with a
 bias under ``Engine.set_fused_kernels(True)``, the row-mode
 ``fused_bias_act`` (the CUDA kernels on the card). The convolution itself is
@@ -26,13 +27,16 @@ def conv_out_size(in_size: int, k: int, s: int, p: int, dilation: int = 1) -> in
 
 
 def resolve_padding(pad: Tuple[int, int], in_hw: Tuple[int, int], kernel: Tuple[int, int],
-                    stride: Tuple[int, int]):
+                    stride: Tuple[int, int], dilation: Tuple[int, int] = (1, 1)):
     """((h_lo, h_hi), (w_lo, w_hi)) zeros for Torch (padH, padW); -1 on either
-    dim means SAME on both, split as XLA splits it (the odd cell high)."""
+    dim means SAME on both, split as XLA splits it (the odd cell high), for
+    the dilated kernel's extent ``(k - 1) * d + 1`` as XLA's SAME with
+    ``rhs_dilation`` pads."""
     if SAME_PADDING in pad:
         out = []
-        for size, k, s in zip(in_hw, kernel, stride):
-            total = max(0, (conv_out_size(size, k, s, SAME_PADDING) - 1) * s + k - size)
+        for size, k, s, d in zip(in_hw, kernel, stride, dilation):
+            ke = (k - 1) * d + 1
+            total = max(0, (conv_out_size(size, k, s, SAME_PADDING) - 1) * s + ke - size)
             out.append((total // 2, total - total // 2))
         return tuple(out)
     return (pad[0], pad[0]), (pad[1], pad[1])
@@ -41,6 +45,8 @@ def resolve_padding(pad: Tuple[int, int], in_hw: Tuple[int, int], kernel: Tuple[
 class SpatialConvolution(AbstractModule):
     """2-D convolution over NCHW input; weight (nOutputPlane,
     nInputPlane/nGroup, kH, kW)."""
+
+    dilation: Tuple[int, int] = (1, 1)  # (dH, dW); SpatialDilatedConvolution sets it
 
     def __init__(self, n_input_plane: Optional[int], n_output_plane: int, kernel_w: int,
                  kernel_h: Optional[int] = None, stride_w: int = 1,
@@ -87,8 +93,10 @@ class SpatialConvolution(AbstractModule):
         return params, {}
 
     def _apply_params(self, params, state, x, training, rng):
-        padding = resolve_padding(self.pad, tuple(x.shape[2:]), self.kernel, self.stride)
-        y = precision.conv2d(x, params["weight"], self.stride, padding, self.n_group)
+        padding = resolve_padding(self.pad, tuple(x.shape[2:]), self.kernel, self.stride,
+                                  self.dilation)
+        y = precision.conv2d(x, params["weight"], self.stride, padding, self.n_group,
+                             self.dilation)
         return precision.channel_bias_act(y, params["bias"] if self.with_bias else None,
                                           self.activation), state
 
@@ -99,3 +107,12 @@ class SpatialConvolution(AbstractModule):
         if self.b_regularizer is not None and self.with_bias:
             loss = loss + self.b_regularizer(params["bias"])
         return loss
+
+
+class SpatialDilatedConvolution(SpatialConvolution):
+    """Atrous convolution (reference: ``$DL/nn/SpatialDilatedConvolution.scala``):
+    ``SpatialConvolution``'s arguments plus ``dilation_w``/``dilation_h``."""
+
+    def __init__(self, *args, dilation_w: int = 1, dilation_h: int = 1, **kw):
+        super().__init__(*args, **kw)
+        self.dilation = (dilation_h, dilation_w)

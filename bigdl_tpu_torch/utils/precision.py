@@ -71,22 +71,25 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     return torch.einsum(subscripts, *(_cast(o, dt) for o in operands)).to(out_dtype())
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1,
+           dilation=1) -> torch.Tensor:
     """NCHW × OIHW convolution under the policy (counterpart of the JAX
     package's ``conv_general_dilated``): compute-dtype operands, the product
     rounded to the compute dtype and returned in ``out_dtype()``; a
     pass-through in float32. ``padding`` is ((h_lo, h_hi), (w_lo, w_hi))
-    zeros. The convolution is cuDNN's on the card (XLA's work in JAX, not a
-    Pallas kernel)."""
+    zeros; ``dilation`` (an int or (dH, dW)) is the kernel's, XLA's
+    ``rhs_dilation``. The convolution is cuDNN's on the card (XLA's work in
+    JAX, not a Pallas kernel)."""
     (h_lo, h_hi), (w_lo, w_hi) = padding
     mixed = is_mixed()
     dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
     x, w = _cast(x, dt), _cast(w, dt)
     if h_lo == h_hi and w_lo == w_hi:
-        y = torch.nn.functional.conv2d(x, w, None, stride, (h_lo, w_lo), 1, groups)
+        y = torch.nn.functional.conv2d(x, w, None, stride, (h_lo, w_lo), dilation, groups)
     else:
         y = torch.nn.functional.conv2d(
-            torch.nn.functional.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, None, stride, 0, 1, groups)
+            torch.nn.functional.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, None, stride, 0,
+            dilation, groups)
     return y.to(out_dtype()) if mixed else y
 
 

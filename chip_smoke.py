@@ -17,13 +17,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``split_heads`` views the LM hands it; a repeat of the serving shape
    must give the same bits) and the backward kernels dQ and dK/dV [3b]
    (also on ``split_heads`` views, at both head dims and on ragged 128-row
-   work items; a repeat of the training shape must give the same bits);
+   work items; a repeat of the training shape must give the same bits),
+   both also at the translation mode's two masks at (8, 8, 2048, 2048, 64)
+   bf16 with source lengths drawn from [1024, 2048]: the encoder's
+   (non-causal, lengths, ``mask_q=True``) and the cross-attention's
+   (non-causal, lengths, ``mask_q=False``);
 4. kernel, plain-version and library times beside the card's bound (the
    probe kernel's too, through its C entry point, beside the same entry
    point launching one element: the launch floor;
-   ``rms_norm_fwd`` and ``F.rms_norm`` also in turns; SDPA's backward timed under each backend that takes
-   the shape, and the one it picks by default named; the host's time of one
-   backward call);
+   ``rms_norm_fwd`` and ``F.rms_norm`` also in turns; SDPA's backward timed
+   under each backend that takes the shape, and the one it picks by default
+   named; the host's time of one backward call; #1-#3 at the translation's
+   two masks beside their bound from the visible pairs and beside SDPA
+   given the same key mask as a boolean ``attn_mask``);
 5. serving: the full-width Transformer-LM (vocab 8192, hidden 512, 8
    heads, filter 2048, 6 layers, T=2048, random weights from a seed) served
    through ``ModelServer`` — 16 single-record requests from 4 threads, each
@@ -144,7 +150,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    calls, 2 max-pool launches a call; [13e] a LeNet-5 of the port's layers
    with ``L1L2Regularizer`` on every convolution and linear layer, 3
    ``LocalOptimizer`` steps: each logged loss equal to the criterion's
-   loss plus the penalty, both recomputed apart.
+   loss plus the penalty, both recomputed apart;
+14. the Transformer's translation mode, rotary positions, decode cache and
+   beam search, ``SpatialDilatedConvolution`` and the dropout variants, at
+   the LM's full width (``bench.py:929-933``: V 8192, H 512, 8 heads,
+   filter 2048, 6 layers, T 2048, batch 8): [14a] ``Transformer(mode=
+   "translation")`` (6 + 6 blocks, one shared embedding) trained 10
+   iterations through ``LocalOptimizer`` on ``Table [src, tgt]`` batches
+   (sources trailing-padded to lengths drawn from [1024, 2048],
+   ``pad_masking="lengths"``, attention dropout 0, postprocess and relu
+   dropout 0.1, bf16, ``Adam(1e-3)``, ``TimeDistributedCriterion``): finite
+   losses, exactly 18 launches of each flash kernel an iteration and
+   nothing else, memory flat from iteration 3, step ms, target tokens/s and
+   the busy share; then 3 f32 steps on the card held against the CPU at 2 +
+   2 blocks, batch 2, T 1024, at two seeds, the card's dense route logged
+   beside them as a witness of f32 rounding without the kernel; [14b] the
+   rotary LM trained 3 steps (6 of each flash kernel a step), then 64
+   ``decode_step_fn`` steps held against one full T = 2048 forward in f32
+   (flash route; the decode launches nothing);
+   [14c] the port's ``examples/transformer_train.py`` ``main()`` at the LM's
+   width (one epoch cut to 4 iterations, a validation, beam 4 over 2 prompts
+   for 32 steps): launches a step and in the validation, the decode's ms a
+   step and its launches (none), the same beam search on the CPU from the
+   same f32 weights (equal sequences, scores within BEAM_SCORE_TOL), and
+   ``SequenceBeamSearch`` over [14a]'s trained model (2 sources, beam 4, 16
+   steps); [14d] DeepLab-v3's ASPP branches (three 3x3
+   ``SpatialDilatedConvolution`` s at dilation 6, 12, 18 on (8, 2048, 33,
+   33) bf16, relu, the switch on) forward and backward: 3 #8 and 3 #9b
+   launches, card vs CPU in f32 at batch 2 and one SAME-padded case (#8 and
+   #9b are held against their plain versions at a branch's (8, 256, 33, 33)
+   bf16 in [3d] and timed there in [4]); [14e]
+   the five dropout variants on the card (kept shares, whole cells, noise
+   statistics, eval identity).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -167,9 +204,11 @@ record), VGG-16 evaluation, norm-LM training, the flagship
 validated/checkpointed/resumed, the five parity configs' training,
 each under its ``parity_config`` name, the flagship served,
 ``flagship_serving``, and [13]'s ``recipe_multistep``, ``recipe_poly``,
-``recipe_shift``, ``optimizers``, ``lbfgs`` and ``regularizers``) runs
-with every kernel's launch
-count set to 0 just before it and read just after.
+``recipe_shift``, ``optimizers``, ``lbfgs`` and ``regularizers``, and
+[14]'s ``translation``, ``rope_lm``, ``rope_decode``,
+``transformer_example``, ``transformer_example_decode``,
+``translation_beam``, ``aspp`` and ``dropout_variants``) runs with every
+kernel's launch count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -403,8 +442,33 @@ def _visible_pairs(n, h, tq, tk, causal, lengths, mask_q):
         h if lengths is not None else n * h)
 
 
+# The translation mode's two masks at the full-width shape (8, 8, 2048, 2048,
+# 64) bf16 on split_heads views, each sequence's source length drawn from a
+# seed in [1024, 2048] as [14a] draws them: the encoder's self-attention
+# (non-causal, key lengths, padded query rows zeroed) and the decoder's
+# cross-attention (non-causal, key lengths, every query row kept).
+TRANSLATION_MASKS = ("translation encoder: lengths + mask_q", "translation cross: lengths")
+
+
+def _src_lengths(n: int, lo: int, hi: int, seed: int):
+    """n source lengths drawn uniformly from [lo, hi]."""
+    import numpy as np
+
+    return [int(v) for v in np.random.default_rng(seed).integers(lo, hi + 1, n)]
+
+
+def _translation_cases():
+    import torch
+
+    bf = torch.bfloat16
+    lens = _src_lengths(8, 1024, 2048, SEED + 14)
+    return [(TRANSLATION_MASKS[0], 8, 8, 2048, 2048, 64, bf, False, lens, True, True),
+            (TRANSLATION_MASKS[1], 8, 8, 2048, 2048, 64, bf, False, lens, False, True)]
+
+
 def phase_parity():
-    """Kernel vs plain version on the card; returns the serving-shape record."""
+    """Kernel vs plain version on the card; returns the serving-shape record
+    (with the translation cases' errors under ``mask_errs``)."""
     import torch
     from bigdl_tpu_torch.ops.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_reference)
@@ -437,11 +501,12 @@ def phase_parity():
         ("views: d=128 T=1000 causal", 2, 4, 1000, 1000, 128, bf, True, None, None, True),
         ("views: lengths + mask_q", 4, 2, 1000, 1000, 64, bf, True, [1000, 517, 1, 0], True,
          True),
+        *_translation_cases(),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     log("[3] kernel vs plain version on the card "
         f"(|err| <= atol + rtol*|ref|; {TOL})")
-    record = None
+    record, mask_errs = None, {}
     for label, n, h, tq, tk, d, dt, causal, lens, mask_q, views in cases:
         make = _split_heads if views else _rand
         q, k, v = make((n, h, tq, d), dt, g), make((n, h, tk, d), dt, g), make((n, h, tk, d), dt, g)
@@ -462,6 +527,8 @@ def phase_parity():
             f"{'ok' if ok_out and ok_lse and finite else 'FAIL'}")
         if not (ok_out and ok_lse and finite):
             raise AssertionError(f"flash_attention_fwd disagrees with its plain version: {label}")
+        if label in TRANSLATION_MASKS:
+            mask_errs[label] = err_out.max().item()
         if record is None:
             again = flash_attention_fwd(q, k, v, causal, lengths=lengths, mask_q=mask_q)
             same = torch.equal(again[0], out) and torch.equal(again[1], lse)
@@ -474,12 +541,14 @@ def phase_parity():
             del again
         del q, k, v, out, lse, ref_out, ref_lse, err_out, err_lse
     torch.cuda.empty_cache()
+    record["mask_errs"] = mask_errs
     return record
 
 
 def phase_bwd_parity():
     """Backward kernels vs their plain version on the card; returns the
-    training-shape record."""
+    training-shape record (with the translation cases' tensors under
+    ``masks``)."""
     import torch
     from bigdl_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference, flash_attention_fwd)
@@ -517,11 +586,12 @@ def phase_bwd_parity():
          False),
         ("Tq<Tk, lengths + mask_q, d=128", 2, 4, 300, 1100, 128, bf, False, [1100, 1000], True,
          False),
+        *_translation_cases(),
     ]
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     log("[3b] backward kernels (dQ, dK/dV) vs plain version on the card "
         f"(|err| <= atol + rtol*|ref|; {TOL_BWD})")
-    record = None
+    record, masks = None, {}
     for label, n, h, tq, tk, d, dt, causal, lens, mask_q, views in cases:
         make = _split_heads if views else _rand
         q, k, v = make((n, h, tq, d), dt, g), make((n, h, tk, d), dt, g), make((n, h, tk, d), dt, g)
@@ -544,6 +614,10 @@ def phase_bwd_parity():
             f"dv {errs[2]:.3e}  {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {label}")
+        if label in TRANSLATION_MASKS:  # kept for [4]'s times at the translation's masks
+            masks[label] = dict(q=q, k=k, v=v, out=out, lse=lse, d_out=d_out, lengths=lengths,
+                                mask_q=mask_q, err_dq=errs[0], err_dkv=max(errs[1:]),
+                                pairs=_visible_pairs(n, h, tq, tk, causal, lengths, mask_q))
         if record is None:
             again = flash_attention_bwd(q, k, v, out, lse, d_out, causal)
             same = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -556,6 +630,7 @@ def phase_bwd_parity():
             del again
         del q, k, v, d_out, out, lse, grads, refs
     torch.cuda.empty_cache()
+    record["masks"] = masks
     return record
 
 
@@ -736,6 +811,64 @@ def phase_bwd_times(rec, card):
         f"{ms_wrapper:.4f} ms, least work (five products) bound {b_least[0]:.4f} ms "
         f"({b_least[1]}); host {host_us:.1f} us a flash_attention_bwd call; card {card}")
     return kernels
+
+
+def phase_mask_times(fwd_rec, bwd_rec, kernels, card):
+    """#1-#3 at the translation's two masks ([3b]'s tensors): each kernel's
+    ms beside its bound from the visible pairs, and SDPA's forward and
+    backward given the same key mask as a boolean ``attn_mask`` (N, 1, 1,
+    Tk) (a yardstick: it does not zero the padded query rows, which only
+    lowers its work). Adds ``translation_masks`` to each of the three
+    kernels' records."""
+    import torch
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention as fa
+
+    lib = _build.load()
+    fwd, dq_k, dkv_k = kernels
+
+    def run(rc):
+        if rc != 0:
+            raise RuntimeError(f"backward kernel launch failed with CUDA error {rc}")
+
+    for label, r in bwd_rec["masks"].items():
+        q, k, v, out, lse, d_out = (r[n] for n in ("q", "k", "v", "out", "lse", "d_out"))
+        lengths, mask_q, pairs, d = r["lengths"], r["mask_q"], r["pairs"], q.shape[-1]
+        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, False, lengths=lengths,
+                                                     mask_q=mask_q))
+        head, tail, keep = fa._bwd_kernel_args(q, k, v, out, lse, d_out, False, None, lengths,
+                                               mask_q)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        ms_dq = cuda_ms(lambda: run(lib.bigdl_flash_attention_bwd_dq(*head, dq.data_ptr(),
+                                                                       *tail)))
+        ms_dkv = cuda_ms(lambda: run(lib.bigdl_flash_attention_bwd_dkv(
+            *head, dk.data_ptr(), dv.data_ptr(), *tail)))
+        key_mask = (torch.arange(k.shape[-2], device="cuda")[None, :]
+                    < lengths[:, None])[:, None, None, :]
+        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask))
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=key_mask)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, leaves, d_out,
+                                                      retain_graph=True))
+        lib_name = type(lib_out.grad_fn).__name__
+        io = (q, k, v, d_out, lse, lse)
+        bounds = (attention_bound_ms(q, k, v, out, lse, pairs, card),
+                  bound_ms(6 * d * pairs, io + (dq,), card),
+                  bound_ms(8 * d * pairs, io + (dk, dv), card))
+        errs = (fwd_rec["mask_errs"][label], r["err_dq"], r["err_dkv"])
+        for kern, t, (b, by), err, lib_ms in zip((fwd, dq_k, dkv_k), (ms, ms_dq, ms_dkv),
+                                                   bounds, errs, (lib_fwd, lib_bwd, lib_bwd)):
+            kern.setdefault("translation_masks", {})[label] = {
+                "ms": t, "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                "library_ms": lib_ms, "visible_pairs": pairs}
+            log(f"[4] kernels: {kern['name']} (8,8,2048,64) bf16 {label} (lengths "
+                f"{lengths.tolist()}): kernel_ms {t:.4f}, bound_ms {b:.4f} ({by}; "
+                f"kernel/bound {t / b:.2f}), library_ms {lib_ms:.4f} (SDPA "
+                f"{'forward' if kern is fwd else 'backward, dq+dk+dv'} with the key mask as "
+                f"attn_mask, {lib_name}; yardstick only); card {card}")
+        del keep, leaves, lib_out
+    torch.cuda.empty_cache()
 
 
 def phase_slice(card):
@@ -1849,6 +1982,7 @@ def phase_epilogue_parity():
         ("VGG-16 conv6 batch 64 (56x56)", "relu", (64, 256, 56, 56), 1, bf, "normal", 0),
         ("VGG-16 conv14 batch 64 (H*W=196)", "relu", (64, 512, 14, 14), 1, bf, "normal", 0),
         ("VGG-16 fc6 batch 64", "relu", (64, 4096), -1, bf, "normal", 0),
+        ("ASPP branch (8, 256, 33, 33)", "relu", (8, 256, 33, 33), 1, bf, "normal", 0),
         ("wide feature (16384, 2048) gelu", "gelu", (16384, 2048), -1, bf, "normal", 0),
         ("ragged feature (37, 200)", "tanh", (37, 200), -1, f32, "normal", 0),
         ("ragged feature H odd (333, 1001)", "gelu", (333, 1001), -1, bf, "normal", 0),
@@ -1887,7 +2021,7 @@ def phase_epilogue_parity():
         if not ok:
             raise AssertionError(f"fused_bias_act kernels disagree with their plain versions: "
                                  f"{label}")
-        if label.startswith(("VGG-16 conv0", "VGG-16 fc6", "wide feature")):
+        if label.startswith(("VGG-16 conv0", "VGG-16 fc6", "wide feature", "ASPP branch")):
             records[label.split(" batch")[0].split(" (")[0]] = dict(
                 x=x, b=b, dy=dy, act=act, axis=axis, err_y=errs[0], err_dx=max(errs[1:]))
         del x, b, dy, y, dx, db, again, refs
@@ -1898,7 +2032,8 @@ def phase_epilogue_parity():
 def phase_epilogue_times(recs, card):
     """Kernel, plain-version and eager-chain times of the epilogue at conv0's
     shape (row mode) and (16384, 2048) (feature mode), forward and backward,
-    and at fc6's shape; returns the three kernels' records."""
+    at fc6's shape and at an ASPP branch's (row mode); returns the three
+    kernels' records."""
     import torch
     from bigdl_tpu_torch.ops import fused_epilogue as fe
 
@@ -1941,16 +2076,24 @@ def phase_epilogue_times(recs, card):
                "library_ms": None, "chain_ms": ch, "shape": shape}
         return {**out, **(extra or {})}
 
-    conv0, wide = timed["VGG-16 conv0"], timed["wide feature"]
+    conv0, wide, aspp_t = timed["VGG-16 conv0"], timed["wide feature"], timed["ASPP branch"]
+
+    def at_aspp(t, err):
+        """[14d]'s shape: each ASPP branch's epilogue."""
+        return {"ms_aspp": t[0], "plain_ms_aspp": t[1], "bound_ms_aspp": t[3],
+                "bound_by_aspp": t[4], "chain_ms_aspp": t[2], "max_abs_err_aspp": err,
+                "shape_aspp": "(8, 256, 33, 33) bf16 relu row"}
+
     return [
         entry("bias_act_fwd", 87, conv0[0], recs["VGG-16 conv0"]["err_y"],
               "(64, 64, 224, 224) bf16 relu row",
               {"ms_feature_16384x2048_gelu": wide[0][0], "bound_ms_feature_16384x2048_gelu":
-               wide[0][3]}),
+               wide[0][3], **at_aspp(aspp_t[0], recs["ASPP branch"]["err_y"])}),
         entry("bias_act_bwd_feature", 92, wide[1], recs["wide feature"]["err_dx"],
               "(16384, 2048) bf16 gelu feature"),
         entry("bias_act_bwd_row", 108, conv0[1], recs["VGG-16 conv0"]["err_dx"],
-              "(64, 64, 224, 224) bf16 relu row"),
+              "(64, 64, 224, 224) bf16 relu row",
+              at_aspp(aspp_t[1], recs["ASPP branch"]["err_dx"])),
     ]
 
 
@@ -2462,22 +2605,6 @@ def phase_norm_times(recs, card):
     return kernels
 
 
-def planted_bigram_ids(n_tokens: int, vocab_size: int, seed: int = 0, jump: float = 0.15):
-    """The LM examples' planted-bigram token stream (``examples/_common.py``):
-    with probability ``1 - jump`` the next id is ``(3*id + 1) % (V - 2) + 2``,
-    else a uniform draw from [2, V)."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    ids = np.empty(n_tokens, np.int32)
-    ids[0] = 2
-    do_jump = rng.random(n_tokens) < jump
-    rand = rng.integers(2, vocab_size, n_tokens)
-    for i in range(1, n_tokens):
-        ids[i] = rand[i] if do_jump[i] else (3 * ids[i - 1] + 1) % (vocab_size - 2) + 2
-    return ids
-
-
 def norm_lm(variant: str, vocab: int, hidden: int, stages: int, device):
     """The pipeline example's pre-norm block-stack LM (``examples/pipeline/
     train.py``) on its sequential path: ``variant`` "ln" builds it with
@@ -2521,6 +2648,7 @@ def phase_norm_lm(card):
     import torch
     from bigdl_tpu_torch import Engine, RandomGenerator
     from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
 
@@ -2657,6 +2785,7 @@ def _norm_lm_routes(variant):
     import torch
     from bigdl_tpu_torch import Engine, RandomGenerator
     from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
     from bigdl_tpu_torch.utils.convert import load_jax_params
@@ -3316,27 +3445,34 @@ class _StepProbe:
         return False
 
 
-def _check_steps(label, probe, n_steps, pools_per_step, want_validations=None):
-    """Exact launches a step (``maxpool2d_bwd`` ``pools_per_step`` times,
-    nothing else), none in the validations, memory flat after step 2."""
+def _check_launch_steps(label, probe, n_steps, want, mem_from):
+    """Exact launches each step (``want``), device memory flat from step
+    ``mem_from`` to the last (+-100 MiB, as the other paths)."""
     if len(probe.steps) != n_steps:
         raise AssertionError(f"{label}: {len(probe.steps)} steps, expected {n_steps}")
     for i, s in enumerate(probe.steps, 1):
-        want = {n: (pools_per_step if n == "maxpool2d_bwd" else 0) for n in s["launches"]}
         if s["launches"] != want:
-            raise AssertionError(f"{label}: step {i} launched {s['launches']}, expected {want}")
+            raise AssertionError(f"{label}: step {i} launched {_nonzero(s['launches'])}, "
+                                 f"expected {_nonzero(want)}")
+    if n_steps > mem_from:
+        m0, m1 = probe.steps[mem_from - 1]["mem"], probe.steps[-1]["mem"]
+        log(f"    device memory after step {mem_from}: {m0 / 2**20:.1f} MiB, after step "
+            f"{n_steps}: {m1 / 2**20:.1f} MiB (drift {(m1 - m0) / 2**20:+.1f} MiB, allowed "
+            "+-100 MiB)")
+        if abs(m1 - m0) > MEM_DRIFT:
+            raise AssertionError(f"{label}: device memory grew over the steps")
+
+
+def _check_steps(label, probe, n_steps, pools_per_step, want_validations=None):
+    """Exact launches a step (``maxpool2d_bwd`` ``pools_per_step`` times,
+    nothing else), none in the validations, memory flat after step 2."""
+    want = {n: (pools_per_step if n == "maxpool2d_bwd" else 0) for n in read_counts()}
+    _check_launch_steps(label, probe, n_steps, want, mem_from=2)
     if any(v["launches"] for v in probe.validations):
         raise AssertionError(f"{label}: a validation launched a kernel: {probe.validations}")
     if want_validations is not None and len(probe.validations) != want_validations:
         raise AssertionError(f"{label}: {len(probe.validations)} validations, expected "
                              f"{want_validations}")
-    if n_steps >= 3:
-        drift = probe.steps[-1]["mem"] - probe.steps[1]["mem"]
-        log(f"    device memory after step 2: {probe.steps[1]['mem'] / 2**20:.1f} MiB, after "
-            f"step {n_steps}: {probe.steps[-1]['mem'] / 2**20:.1f} MiB (drift "
-            f"{drift / 2**20:+.1f} MiB, allowed +-100 MiB)")
-        if abs(drift) > MEM_DRIFT:
-            raise AssertionError(f"{label}: device memory grew over the steps")
 
 
 def _recipe_lr(n: int, schedule: str, lr: float, ipe: int, warmup_epochs: int,
@@ -3856,6 +3992,691 @@ def phase_optim(card):
     return by_path, shift_rec
 
 
+# [14] the Transformer's translation mode, rotary positions, decode cache and
+# beam search (with the port's transformer example), SpatialDilatedConvolution
+# under the fused-kernel switch and the dropout variants, at the LM's full
+# width (bench.py:929-933: V 8192, H 512, 8 heads, filter 2048, 6 layers,
+# T 2048, batch 8), bf16 compute and activations unless a phase says f32.
+LM_WIDTH = {"vocab": 8192, "hidden": 512, "heads": 8, "filt": 2048, "layers": 6, "seq": 2048,
+            "batch": 8}
+# [14a] 24 records (3 iterations an epoch), 10 iterations; sources padded to
+# lengths drawn from [1024, 2048]; postprocess and relu dropout 0.1,
+# attention dropout 0 (the flash route). Per iteration 6 encoder self, 6
+# decoder self and 6 cross attentions: 18 launches of each flash kernel.
+TRANSLATION = {"records": 24, "iters": 10, "src_len": (1024, 2048)}
+# [14a] kernel route (card, f32, TF32 off) vs plain route (CPU, f32) over 3
+# Adam steps of a 2 + 2-block translation model (V 8192, H 512, batch 2, T
+# 1024 so the card still takes the flash route, sources padded to lengths
+# from [512, 1024], dropout off) from the same weights, at two seeds. The
+# same f32 function with sums in other orders, through the same Adam as
+# [9]'s norm-LM route, so [9]'s loss and update limits and their reasons
+# hold (Adam steps a weight whose gradient is near zero by about lr either
+# way, which moves the update far more than the losses; padded keys and
+# query rows get exact zeros on both routes). [9]'s parameter limit (1.5e-4
+# of ||p||) read 1.52e-4 here at the first seed, with the losses 6.8e-7 and
+# the update 2.84e-3 apart: the update is 5.4% of ||p|| here against ~1% in
+# [9], and ||p|| is not the scale of the drift: the update is, and the
+# update's limit holds the parameters. Beside it each seed also runs the
+# card's dense route (cuBLAS and torch softmax, no kernel), a second plain
+# route, and logs its distance from the CPU: what f32 rounding through 3
+# Adam steps of this model gives between two routes without the kernel.
+TRANSLATION_ROUTE_TOL = {
+    "loss_first": 1e-4,  # step 1, same weights: |loss_card - loss_cpu|
+    "loss": 5e-5,        # steps 2-3: |loss_card - loss_cpu| / max(1, |loss_cpu|)
+    "update": 2e-2,      # ||p_card - p_cpu|| / ||p_cpu - p0||
+}
+TRANSLATION_ROUTE_SEEDS = (SEED + 15, SEED + 20)
+# [14b] decode-cache parity, f32 with TF32 off on the card: 64 decode_step_fn
+# steps (a 1-row query against the cache, the dense route) against the same
+# positions of one full T = 2048 forward (the flash route): fp32 sums in
+# other orders through 6 blocks and the 512-term head (readings expected
+# near 1e-5 on logits of unit scale); a key rotated twice, or at the wrong
+# slot, moves the logits by O(1). |err| <= atol + rtol * |full|:
+DECODE_TOL = (1e-3, 1e-3)
+DECODE_STEPS = 64
+# [14c] the example's arguments: the LM's full width, one epoch of 40
+# planted-bigram sequences (the cut: --synthetic-size 40 * 2048 + 1 tokens,
+# so 36 train at 4 iterations and 4 validate in one padded batch), then beam
+# 4 over its 2 prompts for 32 steps.
+EXAMPLE_ARGS = ["--vocab-size", "8192", "--seq-len", "2048", "--hidden-size", "512",
+                "--num-layers", "6", "--num-heads", "8", "--batch-size", "8", "--max-epoch", "1",
+                "--synthetic-size", str(40 * 2048 + 1), "--beam-size", "4", "--decode-len", "32"]
+# [14c] the beam search on the card against the CPU, both f32 (TF32 off) from
+# the same weights: equal sequences, scores within 1e-4 absolute + relative
+# (a sum of 32 log-probabilities, each from fp32 logits that differ by sums
+# in other orders, ~1e-6 each).
+BEAM_SCORE_TOL = 1e-4
+# [14d] DeepLab-v3's ASPP (Chen et al. 2017, arXiv 1706.05587): three 3x3
+# branches of 256 outputs at dilation 6, 12 and 18 (padding = dilation) on
+# an (8, 2048, 33, 33) bf16 input, activation relu, the switch on: per
+# forward and backward 3 #8 and 3 #9b launches. Card vs CPU in f32 (TF32
+# off) at batch 2, each branch and one SAME-padded case (dilation 6):
+# ||card - cpu|| / ||cpu|| of y, dx, dw and db within 1e-4, fixed before the
+# first run: fp32 sums of 18,432 products in other orders (cuDNN's
+# algorithms, the CPU's), ~1e-6 relative, and ReLU gates near zero that such
+# differences flip.
+ASPP = {"shape": (8, 2048, 33, 33), "out": 256, "dilations": (6, 12, 18), "route_batch": 2}
+ASPP_ROUTE_REL = 1e-4
+# [14e] the dropout variants on the card, f32, p = 0.3: kept cells within 5
+# binomial standard deviations of 1 - p; the Gaussian variants' mean and
+# standard deviation within 5 standard errors.
+DROPOUT_P = 0.3
+
+
+def translation_model(layers: int, device, dropout=(0.1, 0.0, 0.1), **kw):
+    from bigdl_tpu_torch.nn import Transformer
+
+    w = LM_WIDTH
+    return Transformer(w["vocab"], w["hidden"], w["heads"], w["filt"], layers, *dropout,
+                       mode="translation", device=device, **kw)
+
+
+def _translation_data(n: int, seq: int, lo: int, hi: int, seed: int):
+    """(src, tgt, labels, lengths): targets the planted-bigram stream and its
+    next tokens; sources the next n * seq tokens of the stream, trailing
+    padded with id 0 to lengths drawn from [lo, hi]."""
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
+
+    stream = planted_bigram_ids(2 * n * seq + 1, LM_WIDTH["vocab"], seed=seed)
+    tgt, y = stream[:n * seq].reshape(n, seq), stream[1:n * seq + 1].reshape(n, seq)
+    src = stream[n * seq:2 * n * seq].reshape(n, seq).copy()
+    lengths = _src_lengths(n, lo, hi, seed)
+    for i, length in enumerate(lengths):
+        src[i, length:] = 0
+    return src, tgt, y, lengths
+
+
+def _flash_want(per_step: int, counts) -> dict:
+    return {n: (per_step if n.startswith("flash_attention") else 0) for n in counts}
+
+
+def _lm_criterion():
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, TimeDistributedCriterion
+
+    return TimeDistributedCriterion(CrossEntropyCriterion(), size_average=True)
+
+
+def phase_translation(card):
+    """[14a] Train the full-width translation model through LocalOptimizer on
+    Table [src, tgt] batches; returns its launches, the trained model and
+    the sources (for [14c]'s SequenceBeamSearch)."""
+    import statistics
+
+    import numpy as np
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.table import T
+
+    w, c = LM_WIDTH, TRANSLATION
+    batch, seq, iters, layers = w["batch"], w["seq"], c["iters"], w["layers"]
+    src, tgt, y, lengths = _translation_data(c["records"], seq, *c["src_len"], SEED + 14)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(SEED)
+    try:
+        model = translation_model(layers, "cuda")
+        opt = LocalOptimizer(model, DataSet.array(T(src, tgt), y, batch_size=batch),
+                             _lm_criterion())
+        opt.set_optim_method(Adam(learningrate=1e-3)).set_end_when(Trigger.max_iteration(iters))
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            t0 = time.perf_counter()
+            opt.optimize()
+            _sync()
+            wall = time.perf_counter() - t0
+            counts = read_counts()  # the main path ends here
+        hist = opt.history
+        losses = [h["loss"] for h in hist]
+        step_ms = statistics.median(h["wall_s"] for h in hist[2:]) * 1e3
+        # an epoch is 3 iterations here and the gap that closes one reads
+        # ~0.5 ms (the one-step-late pull meets the epoch's end), so 3 of the
+        # median's 8 gaps are near 0; beside it, the mean gap over the whole
+        # epochs after the first (iterations 4-9), where no gap is cut off
+        per_epoch = c["records"] // batch
+        whole, span = (per_epoch + 1, iters // per_epoch * per_epoch), "whole epochs"
+        if whole[1] < whole[0]:
+            whole, span = (3, iters), "no whole epoch after the first"
+        mean_ms = statistics.fmean(h["wall_s"] for h in hist[whole[0] - 1:whole[1]]) * 1e3
+        log(f"[14a] translation Transformer ({model.n_parameters() / 1e6:.1f} M params: "
+            f"{layers} + {layers} blocks, V {w['vocab']}, H {w['hidden']}, {w['heads']} heads, "
+            f"filter {w['filt']}, one shared embedding) trained through LocalOptimizer on "
+            f"{c['records']} Table [src, tgt] records of T {seq} (source lengths "
+            f"{min(lengths)}-{max(lengths)}, pad_masking='lengths'), batch {batch}, bf16 "
+            f"compute and activations, Adam 1e-3: {len(hist)} iterations in {wall:.2f} s; step "
+            f"{step_ms:.2f} ms (median of iterations 3-{iters}; mean of iterations "
+            f"{whole[0]}-{whole[1]}, {span}, {mean_ms:.2f}), "
+            f"{batch * seq / step_ms * 1e3:.0f} target tokens/s; card {card}")
+        log("    losses: " + ", ".join(f"{v:.4f}" for v in losses))
+        if len(hist) != iters or not all(np.isfinite(losses)):
+            raise AssertionError(f"[14a]: {len(hist)} iterations, losses {losses}")
+        per_step = 3 * layers
+        _check_launch_steps("[14a]", probe, iters, _flash_want(per_step, counts), mem_from=3)
+        log(f"    launches: {_nonzero(counts)} (expected {per_step} of each flash kernel an "
+            f"iteration = {per_step * iters}, nothing else)")
+        if counts != _flash_want(per_step * iters, counts):
+            raise AssertionError(f"[14a] launched {counts}")
+        busy = _busy_share(opt, 2)
+        log(f"    busy share (2 more iterations under torch.profiler): device {busy[0]:.2f} ms "
+            f"of {busy[1]:.2f} ms a step under the profiler ({100 * busy[2]:.1f}% busy, a "
+            f"floor: the profiler slows the host); device ms over the unprofiled step "
+            f"{busy[0]:.2f} / {step_ms:.2f} = {100 * busy[0] / step_ms:.1f}%; iteration walls "
+            f"ms " + ", ".join(f"{h['wall_s'] * 1e3:.2f}" for h in hist) + f"; card {card}")
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    del opt
+    _free()
+    _translation_routes()
+    return counts, model, src
+
+
+def _translation_routes():
+    """[14a] 3 Adam steps of an f32 2 + 2-block translation model on the card
+    (the flash kernels), on the card's dense route (no kernel) and on the
+    CPU (the dense route), from one set of weights, at each seed of
+    TRANSLATION_ROUTE_SEEDS."""
+    for seed in TRANSLATION_ROUTE_SEEDS:
+        _translation_route(seed)
+
+
+def _translation_route(seed):
+    import os
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+    from bigdl_tpu_torch.utils.table import T
+
+    layers, batch, seq = 2, 2, 1024
+    src, tgt, y, lengths = _translation_data(batch, seq, 512, 1024, seed)
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            os.environ.get("BIGDL_ATTN_IMPL"))
+    Engine.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        RandomGenerator.set_seed(seed)
+        init = translation_model(layers, "cpu", dropout=(0.0, 0.0, 0.0))
+        init.init(sample_input=[src, tgt])
+        w0 = {k: v.detach().numpy().copy() for k, v in init.named_parameters()}
+        del init
+        runs = {}
+        for route, device, impl in (("card", "cuda", "auto"), ("dense", "cuda", "dense"),
+                                    ("cpu", "cpu", "auto")):
+            os.environ["BIGDL_ATTN_IMPL"] = impl
+            m = translation_model(layers, device, dropout=(0.0, 0.0, 0.0))
+            m.init(sample_input=[src, tgt])
+            load_jax_params(m, _nest(w0))
+            o = LocalOptimizer(m, DataSet.array(T(src, tgt), y, batch_size=batch),
+                               _lm_criterion())
+            o.set_optim_method(Adam(learningrate=1e-3))
+            reset_counts()
+            t0 = time.perf_counter()
+            o.set_end_when(Trigger.max_iteration(3)).optimize()
+            _sync()
+            runs[route] = ([h["loss"] for h in o.history], _tree_to_numpy(m.get_parameters()),
+                           read_counts(), time.perf_counter() - t0)
+            del m, o
+            _free()
+    finally:
+        Engine.set_compute_dtype(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[:2]
+        if prev[2] is None:
+            os.environ.pop("BIGDL_ATTN_IMPL", None)
+        else:
+            os.environ["BIGDL_ATTN_IMPL"] = prev[2]
+    (lc, pc, kc, tc), (ld, pd, kd, td), (lp, pp, kp, tp) = (
+        runs["card"], runs["dense"], runs["cpu"])
+
+    def dist(a, b):
+        return float(np.sqrt(sum(np.sum((a[k] - b[k]) ** 2) for k in b)))
+
+    p_norm = dist(pp, {k: np.zeros_like(v) for k, v in pp.items()})
+    d_first = abs(lc[0] - lp[0])
+    d_loss = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lc[1:], lp[1:]))
+    d_card, d_dense = dist(pc, pp), dist(pd, pp)
+    d_update = d_card / dist(pp, w0)
+    want_card = _flash_want(3 * 3 * layers, kc)
+    tol = TRANSLATION_ROUTE_TOL
+    # where the routes part: each leaf's share of ||p_card - p_cpu||^2, and the
+    # share held by elements whose update has opposite signs on the two routes
+    d2 = {k: float(np.sum((pc[k] - pp[k]) ** 2)) for k in pp}
+    total = max(sum(d2.values()), 1e-300)
+    flips = {k: np.sign(pc[k] - w0[k]) != np.sign(pp[k] - w0[k]) for k in pp}
+    flip = sum(float(np.sum(((pc[k] - pp[k]) ** 2)[flips[k]])) for k in pp)
+    n_flip = sum(int(flips[k].sum()) for k in pp)
+    top = sorted(d2, key=d2.get, reverse=True)[:4]
+    log(f"    seed {seed}, where the kernel and plain routes part: {n_flip} of "
+        f"{sum(v.size for v in pp.values())} weights moved the other way and hold "
+        f"{flip / total:.1%} of ||p_card - p_cpu||^2; by leaf "
+        + ", ".join(f"{k} {d2[k] / total:.1%}" for k in top)
+        + f"; ||update|| / ||p_cpu|| {dist(pp, w0) / p_norm:.3f}")
+    log(f"    kernel route (card, f32, TF32 off) vs plain route (CPU, f32), translation "
+        f"{layers} + {layers} blocks, batch {batch}, T {seq}, seed {seed}, source lengths "
+        f"{lengths}, 3 Adam steps: losses {[round(v, 6) for v in lc]} vs "
+        f"{[round(v, 6) for v in lp]} (card dense route {[round(v, 6) for v in ld]}); step 1 "
+        f"diff {d_first:.2e} (tol {tol['loss_first']}), steps 2-3 rel diff {d_loss:.2e} (tol "
+        f"{tol['loss']}); update rel diff {d_update:.2e} (tol {tol['update']}); "
+        f"||p - p_cpu|| / ||p_cpu||: kernel route {d_card / p_norm:.3e}, card dense route "
+        f"{d_dense / p_norm:.3e} (the witness), kernel vs card dense {dist(pc, pd) / p_norm:.3e}; "
+        f"kernel / witness {d_card / max(d_dense, 1e-300):.2f}; launches card "
+        f"{_nonzero(kc)}, card dense {sum(kd.values())}, CPU {sum(kp.values())}; {tc:.1f} s "
+        f"card, {td:.1f} s card dense, {tp:.1f} s CPU")
+    if (any(len(r[0]) != 3 for r in runs.values()) or kc != want_card or any(kd.values())
+            or any(kp.values()) or d_first > tol["loss_first"] or d_loss > tol["loss"]
+            or d_update > tol["update"]):
+        raise AssertionError(f"the kernel route's translation training disagrees with the "
+                             f"plain route (seed {seed})")
+
+
+def phase_rope(card):
+    """[14b] 3 training steps of the full-width rotary LM, then decode-cache
+    parity; returns the launches of both paths."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    w = LM_WIDTH
+    batch, seq, layers = w["batch"], w["seq"], w["layers"]
+    ids = planted_bigram_ids(3 * batch * seq + 1, w["vocab"], seed=SEED + 16)
+    x, y = ids[:-1].reshape(3 * batch, seq), ids[1:].reshape(3 * batch, seq)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(SEED + 16)
+    try:
+        model = Transformer(w["vocab"], w["hidden"], w["heads"], w["filt"], layers, 0.1, 0.0,
+                            0.1, mode="lm", position_encoding="rope", device="cuda")
+        opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), _lm_criterion())
+        opt.set_optim_method(Adam(learningrate=1e-3)).set_end_when(Trigger.max_iteration(3))
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            opt.optimize()
+            _sync()
+            counts = read_counts()  # the main path ends here
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    losses = [h["loss"] for h in opt.history]
+    log(f"[14b] rotary LM ({model.n_parameters() / 1e6:.1f} M params, {layers} layers, "
+        f"position_encoding='rope') trained 3 steps through LocalOptimizer, batch {batch} x "
+        f"{seq}, bf16: losses {', '.join(f'{v:.4f}' for v in losses)}; launches "
+        f"{_nonzero(counts)} (expected {layers} of each flash kernel a step); card {card}")
+    _check_launch_steps("[14b]", probe, 3, _flash_want(layers, counts), mem_from=3)
+    if not all(np.isfinite(losses)) or counts != _flash_want(3 * layers, counts):
+        raise AssertionError(f"[14b] losses {losses}, launches {counts}")
+    del opt
+
+    # decode-cache parity, f32 with TF32 off
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model.eval()
+        ids2 = torch.as_tensor(x[:2], device="cuda")
+        with torch.no_grad():
+            reset_counts()  # the decode path starts here
+            full = model.forward(ids2)
+            _sync()
+            full_counts = read_counts()
+            fn = model.decode_step_fn(model.get_parameters(), max_len=seq)
+            cache, steps = model.init_decode_cache(2), []
+            t0 = time.perf_counter()
+            for i in range(DECODE_STEPS):
+                logits, cache = fn(ids2[:, :i + 1], i, cache)
+                steps.append(logits)
+            _sync()
+            step_ms = (time.perf_counter() - t0) / DECODE_STEPS * 1e3
+            path_counts = read_counts()  # the decode path ends here
+            decode_counts = _diff(path_counts, full_counts)
+    finally:
+        Engine.set_compute_dtype(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    got, want = torch.stack(steps, dim=1), full[:, :DECODE_STEPS]
+    err = (got - want).abs()
+    atol, rtol = DECODE_TOL
+    ok = bool((err <= atol + rtol * want.abs()).all()) and bool(torch.isfinite(got).all())
+    log(f"    decode-cache parity (f32, TF32 off): {DECODE_STEPS} decode_step_fn steps vs "
+        f"positions 0-{DECODE_STEPS - 1} of one full T={seq} forward, batch 2: max |err| "
+        f"{err.max().item():.3e} (|err| <= {atol} + {rtol}*|full|) {'ok' if ok else 'FAIL'}; "
+        f"full forward launches {_nonzero(full_counts)} (expected flash_attention_fwd "
+        f"{layers}), decode launches {_nonzero(decode_counts)} (expected none: Tq = 1 routes "
+        f"dense); {step_ms:.2f} ms a decode step (batch 2, f32); cache "
+        f"{tuple(cache['block0']['k'].shape)} {str(cache['block0']['k'].dtype)[6:]}")
+    if not ok or any(decode_counts.values()) or full_counts != {
+            n: (layers if n == "flash_attention_fwd" else 0) for n in full_counts}:
+        raise AssertionError("[14b] the decode cache disagrees with the full forward, or a "
+                             "path launched other kernels")
+    del model
+    _free()
+    return {"rope_lm": counts, "rope_decode": path_counts}
+
+
+def _cpu_twin(model, sample):
+    """An f32 CPU copy of ``model`` (the same class and arguments) holding
+    its weights."""
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+
+    m = Transformer(model.vocab_size, model.hidden_size, model.num_heads, model.filter_size,
+                    model.num_hidden_layers, model.postprocess_dropout,
+                    model.attention_dropout, model.relu_dropout, mode=model.mode,
+                    position_encoding=model.position_encoding, norm=model.norm, device="cpu")
+    m.init(sample_input=sample)
+    load_jax_params(m, _nest(_tree_to_numpy(model.get_parameters())))
+    return m.eval()
+
+
+def phase_example(card, trans_model, src):
+    """[14c] The port's transformer example through its ``main()``, its beam
+    search timed and held against the CPU's, and SequenceBeamSearch over
+    [14a]'s trained translation model; returns the paths' launches."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import transformer_train
+    from bigdl_tpu_torch.nn import SequenceBeamSearch
+
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    t0 = time.perf_counter()
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        run = transformer_train.main(EXAMPLE_ARGS)
+        _sync()
+        counts = read_counts()  # the main path ends here
+    wall = time.perf_counter() - t0
+    args, hist = run.args, run.optimizer.history
+    losses = [h["loss"] for h in hist]
+    layers, n_steps = args.num_layers, len(probe.steps)
+    n_seq = (args.synthetic_size - 1) // args.seq_len
+    want_steps = int(0.9 * n_seq) // args.batch_size  # the example's 90% training split
+    log(f"[14c] transformer_train.main({' '.join(EXAMPLE_ARGS)}): {n_steps} iterations in "
+        f"{wall:.2f} s (data, build, validation and decode included), losses "
+        f"{', '.join(f'{v:.4f}' for v in losses)}; validations "
+        f"{[(v['results'], v['launches']) for v in probe.validations]}; launches "
+        f"{_nonzero(counts)}; compute {Engine.compute_dtype()}; card {card}")
+    val_launches = [v["launches"] for v in probe.validations]
+    _check_launch_steps("[14c]", probe, want_steps, _flash_want(layers, counts), mem_from=2)
+    if (not all(np.isfinite(losses)) or val_launches != [layers]
+            or counts != {n: (layers * (n_steps + 1) if n == "flash_attention_fwd"
+                              else layers * n_steps if n.startswith("flash_attention")
+                              else 0) for n in counts}):
+        raise AssertionError(f"[14c] losses {losses}, validation launches {val_launches}, "
+                             f"launches {counts}")
+    seqs, scores = run.sequences, run.scores
+    log(f"    beam {args.beam_size} over prompts {run.prompts.tolist()}, {args.decode_len} "
+        f"steps: sequences {tuple(seqs.shape)}, beam-0 {seqs[:, 0].tolist()}, scores "
+        f"{[[round(float(s), 4) for s in row] for row in scores]}")
+    if (tuple(seqs.shape) != (2, args.beam_size, args.decode_len + 1)
+            or not bool(torch.isfinite(scores).all())
+            or not bool((scores[:, :-1] >= scores[:, 1:]).all())):
+        raise AssertionError("[14c] beam search output malformed")
+    # the decode path again, timed and counted
+    reset_counts()  # the decode path starts here
+    t0 = time.perf_counter()
+    seqs2, _ = transformer_train.beam_search(run.model, run.prompts, args)
+    _sync()
+    decode_ms = (time.perf_counter() - t0) / args.decode_len * 1e3
+    decode_counts = read_counts()  # the decode path ends here
+    log(f"    decode: {decode_ms:.2f} ms a step (beam {args.beam_size} x 2 prompts, cache to "
+        f"{args.decode_len} positions, {Engine.compute_dtype()} compute), launches "
+        f"{_nonzero(decode_counts)} (expected none: Tq = 1 routes dense); the same sequences "
+        f"again: {bool(torch.equal(seqs2, seqs))}; card {card}")
+    if any(decode_counts.values()):
+        raise AssertionError(f"[14c] the decode launched {decode_counts}")
+    # the same beam search, f32, on the card and on the CPU from the same weights
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card_out = transformer_train.beam_search(run.model, run.prompts, args)
+        t0 = time.perf_counter()
+        cpu_model = _cpu_twin(run.model, run.x[:1, :1])
+        cpu_out = transformer_train.beam_search(cpu_model, run.prompts.cpu(), args)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        Engine.set_compute_dtype(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    same = torch.equal(card_out[0].cpu(), cpu_out[0])
+    d_scores = (card_out[1].cpu() - cpu_out[1]).abs()
+    ok = same and bool((d_scores <= BEAM_SCORE_TOL * (1 + cpu_out[1].abs())).all())
+    log(f"    beam search card vs CPU (f32, TF32 off, same weights): sequences equal {same}, "
+        f"max |score diff| {d_scores.max().item():.3e} (tol {BEAM_SCORE_TOL} abs + rel); "
+        f"CPU {cpu_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("[14c] the card's beam search disagrees with the CPU's")
+    del run, cpu_model
+    _free()
+    # SequenceBeamSearch in translation mode over [14a]'s trained model
+    layer = SequenceBeamSearch(trans_model, beam_size=4, max_decode_length=16)
+    trans_model.eval()
+    reset_counts()  # the translation beam path starts here
+    t0 = time.perf_counter()
+    tseqs, tscores = layer.forward(src[:2])
+    _sync()
+    beam_s = time.perf_counter() - t0
+    beam_counts = read_counts()  # the translation beam path ends here
+    log(f"    SequenceBeamSearch (translation, [14a]'s model, 2 sources of lengths "
+        f"{[int((r != 0).sum()) for r in src[:2]]}, beam 4, 16 steps): sequences "
+        f"{tuple(tseqs.shape)}, beam-0 {tseqs[:, 0].tolist()}, scores "
+        f"{[[round(float(s), 4) for s in row] for row in tscores]}; {beam_s:.2f} s (the "
+        f"encoder's padding bias routes it dense); launches {_nonzero(beam_counts)}")
+    if (tuple(tseqs.shape) != (2, 4, 17) or not bool(torch.isfinite(tscores).all())
+            or not bool((tscores[:, :-1] >= tscores[:, 1:]).all())
+            or any(beam_counts.values())):
+        raise AssertionError("[14c] SequenceBeamSearch output malformed or launched a kernel")
+    return {"transformer_example": counts, "transformer_example_decode": decode_counts,
+            "translation_beam": beam_counts}
+
+
+def aspp(batch_shape, dilations, out, device, same=False):
+    """DeepLab-v3's atrous branches: a Concat of 3x3 SpatialDilatedConvolution
+    s at ``dilations`` (padding = dilation, or SAME), relu epilogues."""
+    from bigdl_tpu_torch import nn
+
+    cin = batch_shape[1]
+    m = nn.Concat(2, device=device)
+    for d in dilations:
+        pad = -1 if same else d
+        m.add(nn.SpatialDilatedConvolution(cin, out, 3, 3, 1, 1, pad, pad, dilation_w=d,
+                                           dilation_h=d, activation="relu", device=device)
+              .set_name(f"aspp_d{d}{'_same' if same else ''}"))
+    return m
+
+
+def phase_aspp(card):
+    """[14d] The ASPP branches forward and backward under the switch (3 #8
+    and 3 #9b launches), then card vs CPU in f32 at batch 2."""
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+
+    a = ASPP
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(), Engine._fused_kernels)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(True)
+    try:
+        RandomGenerator.set_seed(SEED + 17)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        x = _rand(a["shape"], torch.bfloat16, g).requires_grad_(True)
+        model = aspp(a["shape"], a["dilations"], a["out"], "cuda")
+        model.init(sample_input=x)  # builds each branch from an eval forward
+        with torch.no_grad():
+            for p in model.parameters():
+                if p.dim() == 1:
+                    p.normal_(0.0, 0.1, generator=g)  # a bias the epilogue can see
+        dy = _rand((a["shape"][0], a["out"] * 3) + a["shape"][2:], torch.bfloat16, g)
+        reset_counts()  # the main path starts here
+        y = model.forward(x)
+        y.backward(dy)
+        _sync()
+        counts = read_counts()  # the main path ends here
+
+        def step():
+            model.forward(x).backward(dy)
+
+        ms = cuda_ms(step, iters=10)
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        Engine.set_fused_kernels(prev[2])
+    n_br = len(a["dilations"])
+    want = {n: (n_br if n in ("bias_act_fwd", "bias_act_bwd_row") else 0) for n in counts}
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(x.grad).all()) and all(
+        bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    log(f"[14d] ASPP (DeepLab-v3, arXiv 1706.05587): {n_br} SpatialDilatedConvolution 3x3 "
+        f"branches {a['shape'][1]} -> {a['out']} at dilations {a['dilations']} (padding = "
+        f"dilation), relu epilogues, on {a['shape']} bf16, switch on: y {tuple(y.shape)} "
+        f"{str(y.dtype)[6:]}, finite {finite}; launches {_nonzero(counts)} (expected "
+        f"{_nonzero(want)}); forward + backward {ms:.2f} ms; card {card}")
+    if counts != want or not finite:
+        raise AssertionError(f"[14d] launched {counts} or non-finite")
+    del model, x, y, dy
+    _free()
+    _aspp_routes()
+    return counts
+
+
+def _aspp_routes():
+    """[14d] card (cuDNN, #8/#9b) vs CPU (plain versions), f32 with TF32 off,
+    at batch 2: each ASPP branch and one SAME-padded branch."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+
+    a = ASPP
+    shape = (a["route_batch"],) + a["shape"][1:]
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.standard_normal(shape).astype(np.float32)
+    prev = (Engine._fused_kernels, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_fused_kernels(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dilations, same in ((a["dilations"], False), ((6,), True)):
+            RandomGenerator.set_seed(SEED + 18)
+            models = {d: aspp(shape, dilations, a["out"], d, same=same) for d in ("cuda", "cpu")}
+            for m in models.values():
+                m.init(sample_input=x)
+            w0 = {k: v.detach().numpy().copy() for k, v in models["cpu"].named_parameters()}
+            for k in w0:
+                if w0[k].ndim == 1:
+                    w0[k] = rng.normal(0.0, 0.1, w0[k].shape).astype(np.float32)
+            dy = rng.standard_normal((shape[0], a["out"] * len(dilations)) + shape[2:]).astype(
+                np.float32)
+            outs = {}
+            for device, m in models.items():
+                load_jax_params(m, _nest(w0))
+                xt = torch.from_numpy(x).to(device).requires_grad_(True)
+                reset_counts()
+                y = m.forward(xt)
+                y.backward(torch.from_numpy(dy).to(device))
+                _sync()
+                outs[device] = ({"y": y.detach().cpu(), "dx": xt.grad.cpu(),
+                                 **{n: p.grad.cpu() for n, p in m.named_parameters()}},
+                                read_counts())
+            (card_t, kc), (cpu_t, kp) = outs["cuda"], outs["cpu"]
+            rel = {k: float((card_t[k] - cpu_t[k]).norm() / cpu_t[k].norm()) for k in cpu_t}
+            n_br = len(dilations)
+            want = {n: (n_br if n in ("bias_act_fwd", "bias_act_bwd_row") else 0) for n in kc}
+            worst = max(rel, key=rel.get)
+            log(f"    card vs CPU (f32, TF32 off, batch {shape[0]}), dilations {dilations}"
+                f"{' SAME' if same else ''}: y {tuple(card_t['y'].shape)}, ||card - cpu|| / "
+                f"||cpu|| y {rel['y']:.2e}, dx {rel['dx']:.2e}, worst {worst} {rel[worst]:.2e} "
+                f"(tol {ASPP_ROUTE_REL}); launches card {_nonzero(kc)}, CPU {sum(kp.values())}")
+            if max(rel.values()) > ASPP_ROUTE_REL or kc != want or any(kp.values()):
+                raise AssertionError(f"[14d] the card's dilated convolutions disagree with the "
+                                     f"CPU's ({dilations}, same={same})")
+            del outs, models
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_fused_kernels(prev[0])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[1:]
+
+
+def phase_dropout_variants(card):
+    """[14e] The dropout variants on the card in train and eval mode."""
+    import torch
+    from bigdl_tpu_torch import nn
+
+    p = DROPOUT_P
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    reset_counts()  # the main path starts here
+    results = []
+    for name, shape, spans in (("SpatialDropout1D", (64, 256, 512), (1,)),
+                               ("SpatialDropout2D", (64, 256, 33, 33), (2, 3)),
+                               ("SpatialDropout3D", (16, 256, 8, 8, 8), (2, 3, 4))):
+        x = torch.rand(shape, generator=g, device="cuda") + 0.5  # no zeros
+        m = getattr(nn, name)(p, device="cuda")
+        y = m.apply({}, {}, x, training=True, rng=torch.Generator().manual_seed(SEED))[0]
+        keep_dims = [d for d in range(x.dim()) if d not in spans]
+        cells = y.permute(*keep_dims, *spans).reshape(-1, int(torch.tensor(
+            [shape[d] for d in spans]).prod()))
+        xc = x.permute(*keep_dims, *spans).reshape(cells.shape)
+        kept = (cells != 0).any(dim=1)
+        whole = bool(torch.equal((cells != 0).all(dim=1), kept))
+        scaled = bool(torch.allclose(cells[kept], xc[kept] / (1 - p), rtol=1e-6, atol=0))
+        share, n = kept.float().mean().item(), kept.numel()
+        bound = 5 * ((p * (1 - p) / n) ** 0.5)
+        m.eval()
+        ident = torch.equal(m.forward(x), x)
+        ok = (whole and scaled and abs(share - (1 - p)) < bound and ident
+              and y.device == x.device)
+        results.append(ok)
+        log(f"[14e] {name}({p}) on {shape} f32: kept share {share:.4f} of {n} cells (1 - p = "
+            f"{1 - p}, 5-sigma bound {bound:.4f}), whole cells dropped {whole}, kept scaled by "
+            f"1/(1-p) {scaled}, eval identity {ident} {'ok' if ok else 'FAIL'}")
+    for name, arg in (("GaussianNoise", 0.5), ("GaussianDropout", p)):
+        x = torch.full((4096, 4096), 2.0, device="cuda")
+        m = getattr(nn, name)(arg, device="cuda")
+        y = m.apply({}, {}, x, training=True, rng=torch.Generator().manual_seed(SEED))[0]
+        z = (y - x) if name == "GaussianNoise" else y / x - 1.0
+        std = arg if name == "GaussianNoise" else (arg / (1 - arg)) ** 0.5
+        n = z.numel()
+        mean, sd = z.double().mean().item(), z.double().std().item()
+        m.eval()
+        ident = torch.equal(m.forward(x), x)
+        ok = (abs(mean) < 5 * std / n ** 0.5 and abs(sd - std) < 5 * std / (2 * n) ** 0.5
+              and ident)
+        results.append(ok)
+        log(f"[14e] {name}({arg}) on (4096, 4096) f32: noise mean {mean:.2e} (bound "
+            f"{5 * std / n ** 0.5:.2e}), std {sd:.5f} (expected {std:.5f} +- "
+            f"{5 * std / (2 * n) ** 0.5:.5f}), eval identity {ident} {'ok' if ok else 'FAIL'}")
+    _sync()
+    counts = read_counts()  # the main path ends here
+    if not all(results) or any(counts.values()):
+        raise AssertionError(f"[14e] a dropout variant failed its check, or a kernel "
+                             f"launched: {counts}")
+    return counts
+
+
+def phase_attention_slice(card):
+    """[14] Translation, rotary LM, the example and beam search, ASPP and the
+    dropout variants; returns their main paths' launches."""
+    counts, trans_model, src = phase_translation(card)
+    by_path = {"translation": counts}
+    by_path.update(phase_rope(card))
+    by_path.update(phase_example(card, trans_model, src))
+    del trans_model
+    _free()
+    by_path["aspp"] = phase_aspp(card)
+    by_path["dropout_variants"] = phase_dropout_variants(card)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3879,6 +4700,7 @@ def main() -> int:
     probe_k = phase_probe_times(card)
     fwd = phase_times(rec, card)
     dq, dkv = phase_bwd_times(bwd_rec, card)
+    phase_mask_times(rec, bwd_rec, (fwd, dq, dkv), card)
     pool = phase_maxpool_times(mp_rec, card)
     epilogue = phase_epilogue_times(ep_rec, card)
     norms = phase_norm_times(norm_rec, card)
@@ -3893,6 +4715,7 @@ def main() -> int:
     by_path["flagship_serving"] = phase_flagship_serving(card)
     optim_paths, pool["shift_ab"] = phase_optim(card)
     by_path.update(optim_paths)
+    by_path.update(phase_attention_slice(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -160,11 +160,23 @@ def test_load_jax_params_rejects_mismatches():
         load_jax_params(pm, bad)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        Transformer(**{**CFG, "mode": "translation"}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Transformer(**CFG, position_encoding="rope", device="cpu")
+@pytest.mark.parametrize("kw,match", [
+    (dict(mode="seq2seq"), "mode must be"),
+    (dict(hidden_size=60, num_heads=4, position_encoding="rope"), "even head dim"),
+    (dict(position_encoding="learned"), "position_encoding must be"),
+    (dict(pad_masking="none"), "pad_masking must be"),
+    (dict(norm="batch"), "norm must be"),
+    (dict(ffn_activation="tanh"), "ffn_activation must be"),
+])
+def test_unported_options_raise(kw, match):
+    """Translation mode and rotary positions are ported; the constructor now
+    refuses exactly what the JAX package's refuses, with its messages."""
+    cfg = {**CFG, **kw}
+    with pytest.raises(ValueError, match=match):
+        jnn.Transformer(**cfg)
+    with pytest.raises(ValueError, match=match):
+        Transformer(**cfg, device="cpu")
+    Transformer(**{**CFG, "mode": "translation", "position_encoding": "rope"}, device="cpu")
 
 
 def test_device_defaults_to_the_card():
@@ -193,6 +205,7 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "import bigdl_tpu_torch.ops.maxpool, bigdl_tpu_torch.ops.fused_epilogue\n"
         "import bigdl_tpu_torch.ops.fused_common, bigdl_tpu_torch.nn.dropout\n"
         "import bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.ops.probe\n"
+        "import bigdl_tpu_torch.examples.transformer_train\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"

@@ -295,9 +295,10 @@ def profile_vgg(card: str, warmup: int = 3, reps: int = 5) -> None:
 def profile_normlm(card: str, warmup: int = 3, reps: int = 5) -> None:
     from bigdl_tpu_torch import Engine, RandomGenerator
     from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
     from bigdl_tpu_torch.nn import CrossEntropyCriterion, TimeDistributedCriterion
     from bigdl_tpu_torch.optim import Adam, LocalOptimizer
-    from chip_smoke import NORM_LM, norm_lm, planted_bigram_ids
+    from chip_smoke import NORM_LM, norm_lm
 
     c = NORM_LM
     seq, batch = c["seq"], c["batch"]
