@@ -3,6 +3,9 @@
 from .criteo import load_criteo
 from .dataset import (AbstractDataSet, DataSet, LocalArrayDataSet, LocalTableDataSet, MiniBatch,
                       pad_minibatch, rows_of, to_device)
+from .mnist import load_mnist
+from .movielens import load_movielens
 
 __all__ = ["AbstractDataSet", "DataSet", "LocalArrayDataSet", "LocalTableDataSet", "MiniBatch",
-           "load_criteo", "pad_minibatch", "rows_of", "to_device"]
+           "load_criteo", "load_mnist", "load_movielens", "pad_minibatch", "rows_of",
+           "to_device"]

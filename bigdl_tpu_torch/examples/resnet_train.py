@@ -30,28 +30,15 @@ needs ``DistriOptimizer``, which the port does not have yet, and raises.
 from __future__ import annotations
 
 import argparse
-import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
+
+from ._common import base_parser, device_of, setup_logging
 
 
 def parser() -> argparse.ArgumentParser:
     """The JAX recipe's flags (its ``base_parser`` and the ResNet main's)."""
-    p = argparse.ArgumentParser(
-        description="ResNet (CIFAR-10 DistriOptimizer / ImageNet north-star recipe)")
-    p.add_argument("-f", "--data-dir", default=None,
-                   help="dataset folder; synthetic data when absent (hermetic default)")
-    p.add_argument("-b", "--batch-size", type=int, default=128)
-    p.add_argument("--max-epoch", type=int, default=2)
-    p.add_argument("--learning-rate", type=float, default=0.01)
-    p.add_argument("--checkpoint", default=None, help="checkpoint directory")
-    p.add_argument("--model-save", default=None, help="save the trained model here")
-    p.add_argument("--summary-dir", default=None, help="TensorBoard event dir")
-    p.add_argument("--platform", choices=["auto", "cpu"], default="auto",
-                   help="'cpu' trains on the CPU; 'auto' on the card")
-    p.add_argument("--n-devices", type=int, default=None, help="cards to use (1)")
-    p.add_argument("--synthetic-size", type=int, default=None,
-                   help="synthetic dataset size when no --data-dir")
+    p = base_parser("ResNet (CIFAR-10 DistriOptimizer / ImageNet north-star recipe)")
     p.add_argument("--depth", type=int, default=20,
                    help="cifar10: 6n+2; imagenet: 18/34/50/101/152")
     p.add_argument("--dataset", choices=["cifar10", "imagenet"], default="cifar10")
@@ -132,14 +119,7 @@ def build(args) -> Recipe:
         raise NotImplementedError(
             "--dataset cifar10 trains through DistriOptimizer, which the port does not have "
             "yet (ROADMAP Queue 1 item 8); --dataset imagenet trains on one card")
-    if args.n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--n-devices {args.n_devices}: the port trains on one card (DistriOptimizer "
-            "is ROADMAP Queue 1 item 8)")
-    for flag in ("model_save", "summary_dir"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
-    device = "cpu" if args.platform == "cpu" else None
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     if args.act_dtype == "bfloat16" and Engine.device(device).type == "cuda":
         Engine.set_activation_dtype("bfloat16")
@@ -166,9 +146,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Recipe:
     """Parse ``argv`` (the command line when None), train, validate once
     more and print Top-1 and Top-5."""
     args = parser().parse_args(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    setup_logging()
     recipe = build(args)
     model = recipe.optimizer.optimize()
     recipe.results = model.evaluate(recipe.val_dataset, recipe.val_methods)

@@ -27,29 +27,19 @@ whose targets are the next tokens, the first 90% for training.
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
+from ._common import base_parser, device_of, setup_logging
+
 
 def parser() -> argparse.ArgumentParser:
-    """The JAX main's flags (its ``base_parser`` at batch 16 and its own)."""
-    p = argparse.ArgumentParser(description="Transformer LM + beam search")
-    p.add_argument("-f", "--data-dir", default=None,
-                   help="folder holding corpus.txt; synthetic data when absent")
-    p.add_argument("-b", "--batch-size", type=int, default=16)
-    p.add_argument("--max-epoch", type=int, default=2)
-    p.add_argument("--learning-rate", type=float, default=0.01,
-                   help="not used: the recipe's rate is Adam(1e-3), as in the JAX main")
-    p.add_argument("--checkpoint", default=None, help="checkpoint directory")
-    p.add_argument("--model-save", default=None, help="save the trained model here")
-    p.add_argument("--summary-dir", default=None, help="TensorBoard event dir")
-    p.add_argument("--platform", choices=["auto", "cpu"], default="auto",
-                   help="'cpu' trains on the CPU; 'auto' on the card")
-    p.add_argument("--n-devices", type=int, default=None, help="cards to use (1)")
-    p.add_argument("--synthetic-size", type=int, default=None,
-                   help="synthetic corpus size in tokens when no --data-dir")
+    """The JAX main's flags (its ``base_parser`` at batch 16 and its own).
+    ``-f`` names a folder holding corpus.txt and ``--synthetic-size`` counts
+    tokens; ``--learning-rate`` is not used: the recipe's rate is
+    Adam(1e-3), as in the JAX main."""
+    p = base_parser("Transformer LM + beam search", batch_size=16)
     p.add_argument("--vocab-size", type=int, default=200)
     p.add_argument("--seq-len", type=int, default=64)
     p.add_argument("--hidden-size", type=int, default=64)
@@ -123,14 +113,7 @@ def build(args) -> Run:
     from ..optim import Adam, LocalOptimizer, Loss, Trigger
     from ..utils.random import RandomGenerator
 
-    if args.n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"--n-devices {args.n_devices}: the port trains on one card (DistriOptimizer "
-            "is ROADMAP Queue 1 item 8)")
-    for flag in ("model_save", "summary_dir"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
-    device = "cpu" if args.platform == "cpu" else None
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     ids, t = corpus_ids(args), args.seq_len
     n_seq = (len(ids) - 1) // t
@@ -176,9 +159,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     import torch
 
     args = parser().parse_args(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    setup_logging()
     run = build(args)
     run.model = run.optimizer.optimize()
     run.model.evaluate()

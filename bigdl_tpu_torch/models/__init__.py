@@ -1,10 +1,15 @@
-"""Models of the port: the flagship ResNet, VGG, and BASELINE's LeNet-5,
-VGG-for-CIFAR-10, Inception-v1, BiLSTM text classifier and Wide&Deep."""
+"""Models of the port: the flagship ResNet, VGG, BASELINE's LeNet-5,
+VGG-for-CIFAR-10, Inception-v1, BiLSTM text classifier and Wide&Deep, and
+AlexNet, the Autoencoder, NeuralCF, the CNN text classifier and the PTB
+language model."""
 
+from .alexnet import AlexNet
+from .autoencoder import Autoencoder
 from .inception import Inception_v1
 from .lenet import LeNet5
+from .ncf import NeuralCF
 from .resnet import ResNet
-from .textclassifier import BiLSTMClassifier
+from .textclassifier import BiLSTMClassifier, CNNTextClassifier, PTBModel
 from .vgg import Vgg_16, Vgg_19, VggForCifar10
 from .widedeep import WideAndDeep
 
@@ -65,5 +70,6 @@ def parity_config(name: str, batch=None, device=None):
     return model, x, rng.integers(0, classes, batch), batch
 
 
-__all__ = ["BiLSTMClassifier", "Inception_v1", "LeNet5", "ResNet", "Vgg_16", "Vgg_19",
-           "VggForCifar10", "WideAndDeep", "flagship_model", "parity_config"]
+__all__ = ["AlexNet", "Autoencoder", "BiLSTMClassifier", "CNNTextClassifier", "Inception_v1",
+           "LeNet5", "NeuralCF", "PTBModel", "ResNet", "Vgg_16", "Vgg_19", "VggForCifar10",
+           "WideAndDeep", "flagship_model", "parity_config"]

@@ -1,5 +1,5 @@
 """Activations (counterpart of part of ``bigdl_tpu/nn/activations.py``):
-``ReLU``, ``Tanh`` and ``LogSoftMax``."""
+``ReLU``, ``Tanh``, ``Sigmoid`` and ``LogSoftMax``."""
 
 from __future__ import annotations
 
@@ -32,6 +32,18 @@ class Tanh(AbstractModule):
 
     def _apply_params(self, params, state, x, training, rng):
         return torch.tanh(x), state
+
+
+class Sigmoid(AbstractModule):
+    """1 / (1 + exp(-x)) in ``x``'s dtype. ``inplace`` is accepted and
+    ignored."""
+
+    def __init__(self, inplace: bool = False, device=None):
+        super().__init__(device)
+        self.inplace = inplace
+
+    def _apply_params(self, params, state, x, training, rng):
+        return torch.sigmoid(x), state
 
 
 class LogSoftMax(AbstractModule):

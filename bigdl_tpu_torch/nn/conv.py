@@ -1,5 +1,6 @@
-"""``SpatialConvolution`` and ``SpatialDilatedConvolution`` (counterparts of
-``bigdl_tpu/nn/conv.py``): NCHW input, OIHW weights, Torch padding with
+"""``SpatialConvolution``, ``SpatialDilatedConvolution`` and
+``TemporalConvolution`` (counterparts of ``bigdl_tpu/nn/conv.py``). The
+spatial ones: NCHW input, OIHW weights, Torch padding with
 ``-1`` meaning TensorFlow's SAME (for the dilated kernel's extent), groups,
 dilation, an optional bias and an optional ``activation`` epilogue
 (``precision.channel_bias_act``): ``act(conv + b)`` in torch ops, or, with a
@@ -12,7 +13,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from ..utils import precision
-from .initialization import InitializationMethod, Xavier, Zeros
+from .initialization import InitializationMethod, RandomUniform, Xavier, Zeros
 from .module import AbstractModule
 
 SAME_PADDING = -1  # reference convention: pad = -1 means TF "SAME"
@@ -116,3 +117,52 @@ class SpatialDilatedConvolution(SpatialConvolution):
     def __init__(self, *args, dilation_w: int = 1, dilation_h: int = 1, **kw):
         super().__init__(*args, **kw)
         self.dilation = (dilation_h, dilation_w)
+
+
+class TemporalConvolution(AbstractModule):
+    """1-D convolution over (N, T, C) input (reference:
+    ``$DL/nn/TemporalConvolution.scala``): weight (O, C, K) and bias (O,),
+    both ``RandomUniform`` (U(±1/sqrt(C·K))), no padding, ``stride_w`` and
+    ``dilation_w``; (N, T', O) out. The convolution is
+    :func:`~bigdl_tpu_torch.utils.precision.conv1d`, the bias
+    ``precision.bias_add`` (no activation epilogue, as in the JAX package).
+    A frame size other than the declared one, an input that is not 3-D or
+    a dilated kernel wider than T raise ``ValueError`` with the JAX
+    package's words."""
+
+    def __init__(self, input_frame_size: Optional[int], output_frame_size: int, kernel_w: int,
+                 stride_w: int = 1, dilation_w: int = 1, device=None):
+        super().__init__(device)
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w
+        self.dilation_w = dilation_w
+        self.weight_init: InitializationMethod = RandomUniform()
+
+    def _check(self, x) -> None:
+        shape = tuple(x.shape)
+        if len(shape) != 3:
+            raise ValueError(f"{self.name()}: expects (N, T, C) input, got shape {shape}")
+        t, c = shape[1], shape[2]
+        if self.input_frame_size is not None and c != self.input_frame_size:
+            raise ValueError(f"{self.name()}: declared frame size {self.input_frame_size}, "
+                             f"got {c} (input shape {shape})")
+        ke = (self.kernel_w - 1) * self.dilation_w + 1
+        if (t - ke) // self.stride_w + 1 <= 0:
+            raise ValueError(f"{self.name()}: kernel {self.kernel_w} (dilation "
+                             f"{self.dilation_w}) exceeds the {t} input frames of {shape}")
+
+    def _build(self, generator, sample):
+        self._check(sample)
+        cin = sample.shape[-1]
+        self.input_frame_size = cin
+        fan_in, out = cin * self.kernel_w, self.output_frame_size
+        return {"weight": self.weight_init(generator, (out, cin, self.kernel_w), fan_in, out),
+                "bias": self.weight_init(generator, (out,), fan_in, out)}, {}
+
+    def _apply_params(self, params, state, x, training, rng):
+        self._check(x)
+        y = precision.conv1d(x.transpose(1, 2), params["weight"], self.stride_w,
+                             self.dilation_w)
+        return precision.bias_add(y.transpose(1, 2), params["bias"]), state

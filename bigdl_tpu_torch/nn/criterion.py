@@ -1,6 +1,6 @@
-"""Criterions (losses) of the port: counterpart of the LM-training part of
+"""Criterions (losses) of the port: counterpart of part of
 ``bigdl_tpu/nn/criterion.py`` (``ClassNLLCriterion``,
-``CrossEntropyCriterion``, ``TimeDistributedCriterion``).
+``CrossEntropyCriterion``, ``TimeDistributedCriterion``, ``MSECriterion``).
 
 ``forward(input, target) -> loss`` (a 0-d tensor that autograd can
 differentiate), ``backward(input, target) -> grad_input``; ``size_average``
@@ -24,6 +24,13 @@ def _as_target(target, device) -> torch.Tensor:
     if isinstance(target, np.ndarray):
         target = torch.from_numpy(target)
     return torch.as_tensor(target, device=device)
+
+
+def _float_target(target, device) -> torch.Tensor:
+    """A regression target as a tensor; float64 becomes float32, as the JAX
+    package's arrays are without x64."""
+    t = _as_target(target, device)
+    return t.float() if t.dtype == torch.float64 else t
 
 
 class AbstractCriterion:
@@ -145,6 +152,25 @@ class CrossEntropyCriterion(AbstractCriterion):
         uniform = -torch.mean(logp, dim=-1)
         uniform = torch.mean(uniform) if self._nll.size_average else torch.sum(uniform)
         return (1.0 - eps) * nll + eps * uniform
+
+
+class MSECriterion(AbstractCriterion):
+    """Mean (``size_average``) or sum of the squared differences over every
+    element. Its row-wise form is the squared differences with a ones
+    denominator, so a padded batch's mean counts only its real rows'
+    elements."""
+
+    def __init__(self, size_average: bool = True):
+        super().__init__()
+        self.size_average = size_average
+
+    def unreduced(self, input, target):
+        per = (input - _float_target(target, input.device)) ** 2
+        return per, torch.ones_like(per)
+
+    def _apply(self, input, target) -> torch.Tensor:
+        per = (input - _float_target(target, input.device)) ** 2
+        return torch.mean(per) if self.size_average else torch.sum(per)
 
 
 class TimeDistributedCriterion(AbstractCriterion):

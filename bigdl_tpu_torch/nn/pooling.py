@@ -1,5 +1,6 @@
-"""Pooling layers of the flagship (counterpart of ``SpatialMaxPooling`` and
-``SpatialAveragePooling`` in ``bigdl_tpu/nn/pooling.py``), with Torch's
+"""Pooling layers (counterpart of ``SpatialMaxPooling``,
+``SpatialAveragePooling`` and ``TemporalMaxPooling`` in
+``bigdl_tpu/nn/pooling.py``). The spatial ones have Torch's
 semantics: explicit (padW, padH) with ``-1`` meaning SAME, floor or ceil
 output sizes, and the rule that the last window starts inside the input or
 its left pad.
@@ -9,6 +10,8 @@ whose backward is the hand-written CUDA kernel on the card.
 ``SpatialAveragePooling`` sums each window with ``F.avg_pool2d`` (divisor 1),
 which accumulates in fp32 and rounds once to the input's dtype: for bf16 that
 is more exact than the JAX package, whose ``reduce_window`` sums in bf16.
+``TemporalMaxPooling`` is ``F.max_pool1d`` (torch ops, no kernel of this
+repo, as the JAX package's is ``reduce_window`` and not its Pallas kernel).
 """
 
 from __future__ import annotations
@@ -140,3 +143,25 @@ class SpatialAveragePooling(_Pool2d):
         counts = F.avg_pool2d((masks[0][:, None] * masks[1][None, :])[None, None], kernel,
                               stride, divisor_override=1)[0, 0]
         return summed / torch.clamp(counts, min=1.0).to(x.dtype), state
+
+
+class TemporalMaxPooling(AbstractModule):
+    """Max pool over the time dim of (N, T, C) input (reference:
+    ``$DL/nn/TemporalMaxPooling.scala``): windows of ``k_w`` frames every
+    ``d_w`` (default ``k_w``), none past the end (XLA's ``VALID``). Each
+    window's gradient goes to its first maximum, as the JAX package's
+    ``reduce_window`` gradient (a select with ``ge``) sends it; ATen's
+    max-pool backward picks the first maximum too (strict ``>``)."""
+
+    def __init__(self, k_w: int, d_w: Optional[int] = None, device=None):
+        super().__init__(device)
+        self.k_w = k_w
+        self.d_w = d_w if d_w is not None else k_w
+
+    def _apply_params(self, params, state, x, training, rng):
+        shape = tuple(x.shape)
+        if len(shape) != 3:
+            raise ValueError(f"{self.name()}: expects (N, T, C) input, got shape {shape}")
+        _check_window(self, shape, (shape[1],), (self.k_w,), (0,))
+        y = F.max_pool1d(x.transpose(1, 2), self.k_w, self.d_w)
+        return y.transpose(1, 2), state

@@ -1,7 +1,7 @@
-"""Recurrent layers (counterpart of ``Cell``, ``LSTM``, ``Recurrent`` and
-``BiRecurrent`` in ``bigdl_tpu/nn/recurrent.py``; reference:
-``$DL/nn/Recurrent.scala``, ``Cell.scala``, ``LSTM.scala``,
-``BiRecurrent.scala``): batch-first (N, T, D) input, one cell's step driven
+"""Recurrent layers (counterpart of ``Cell``, ``LSTM``, ``Recurrent``,
+``BiRecurrent`` and ``TimeDistributed`` in ``bigdl_tpu/nn/recurrent.py``;
+reference: ``$DL/nn/Recurrent.scala``, ``Cell.scala``, ``LSTM.scala``,
+``BiRecurrent.scala``, ``TimeDistributed.scala``): batch-first (N, T, D) input, one cell's step driven
 over T with its weights shared by every step.
 
 The JAX package compiles one step under ``lax.scan``; here the time loop is
@@ -16,8 +16,11 @@ zeros; under a reduced-precision policy each product has compute-dtype
 operands and an ``out_dtype()`` result, and adding the fp32 ``bias``
 promotes the gates, so c, h and the per-step outputs are fp32.
 
+``TimeDistributed`` folds time into the batch dim: one module call over
+N·T rows.
+
 ``LSTMPeephole``, ``GRU``, ``RnnCell``, ``ConvLSTMPeephole`` and
-``TimeDistributed`` wait for a later slice.
+``RecurrentDecoder`` wait for a later slice.
 """
 
 from __future__ import annotations
@@ -180,3 +183,30 @@ class BiRecurrent(Container):
         bwd = torch.flip(bwd, (1,))
         y = torch.cat([fwd, bwd], dim=-1) if self.merge_mode == "concat" else fwd + bwd
         return y, {fwd_m.name(): fwd_s, bwd_m.name(): bwd_s}
+
+
+class TimeDistributed(Container):
+    """One module applied at every time step of (N, T, ...) input
+    (reference: TimeDistributed), as one call over the (N·T, ...) rows
+    with time folded into the batch dim; (N, T, ...) out. Its parameter
+    tree nests the module's under the module's name, as in the JAX
+    package."""
+
+    def __init__(self, module: AbstractModule, device=None):
+        super().__init__(module, device=device)
+
+    def build(self, generator: torch.Generator, sample) -> None:
+        if self._built:
+            raise RuntimeError(f"{self.name()} is already built")
+        inner = self._layers[0]
+        if not inner.is_built():
+            inner.build(generator, sample.reshape((-1,) + tuple(sample.shape[2:])))
+        self._built = True
+
+    def _apply_params(self, params, state, x, training, rng):
+        inner = self._layers[0]
+        n, t = x.shape[0], x.shape[1]
+        y, inner_state = inner._apply_params(params[inner.name()], state[inner.name()],
+                                             x.reshape((n * t,) + tuple(x.shape[2:])),
+                                             training, rng)
+        return y.reshape((n, t) + tuple(y.shape[1:])), {inner.name(): inner_state}

@@ -8,7 +8,9 @@ JAX. Paths map one to one (``tree["block0"]["self_q_w"]`` ->
 ``tree["stem_seq"]["stem_s2d_seq"]["stem"]["stem_conv"]["weight"]`` ->
 ``module.stem_seq.stem_s2d_seq.stem.stem_conv.weight``; a translation
 Transformer's ``dec_block0.cross_q_w``, ``dec_block0.ln3_g`` and ``dec_ln_g``
-likewise, and a rotary one's tree is the sinusoidal one's); ``Linear``-style
+likewise, a rotary one's tree is the sinusoidal one's, NeuralCF's
+``mlp_tower.mlp_fc0.weight`` and ``TimeDistributed``'s
+``td_decoder.decoder.weight`` nest as in the JAX tree); ``Linear``-style
 weights are (out, in) and convolution weights OIHW in both packages, so
 every copy is a plain copy. ``load_jax_state(module, tree)`` does the same
 for the state tree (``model.get_state()``: BN running statistics).

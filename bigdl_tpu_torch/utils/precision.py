@@ -93,6 +93,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1,
     return y.to(out_dtype()) if mixed else y
 
 
+def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1) -> torch.Tensor:
+    """NCT × OIK convolution with no padding (XLA's ``VALID``) under the
+    policy, as :func:`conv2d`: compute-dtype operands, the product rounded
+    to the compute dtype and returned in ``out_dtype()``; a pass-through in
+    float32. cuDNN's on the card."""
+    mixed = is_mixed()
+    dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
+    y = torch.nn.functional.conv1d(_cast(x, dt), _cast(w, dt), None, stride, 0, dilation)
+    return y.to(out_dtype()) if mixed else y
+
+
 def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``y + b`` with the fp32 master bias cast to ``y``'s dtype, so a
     reduced-precision activation is not promoted."""

@@ -181,20 +181,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    #9b are held against their plain versions at a branch's (8, 256, 33, 33)
    bf16 in [3d] and timed there in [4]); [14e]
    the five dropout variants on the card (kept shares, whole cells, noise
-   statistics, eval identity).
+   statistics, eval identity);
+15. the rest of ``models/``, each at the size its users run, with the
+   port's card policy (bf16 products, f32 activations): [15a]
+   ``bigdl_tpu_torch/examples/alexnet_train.py`` ``main()`` at the
+   example's recipe (AlexNet, 1000 classes, 227x227, batch 64, SGD 0.01
+   momentum 0.9, one epoch with its validation; 640 synthetic records, the
+   one cut): step ms, images/s, the busy share, #10 three times a step
+   (pool1/pool2/pool5) and never in the validation, memory flat; [15b]
+   ``ncf_train.main()`` at its defaults (Top-1, HitRatio@10 and NDCG@10 in
+   [0, 1]) and NeuralCF at MovieLens-1M's tables (6040 users, 3952 items)
+   trained one epoch through ``LocalOptimizer``; [15c] ``ptb_train.main
+   --vocab-size 10000`` (PTBModel, hidden 200, 2 layers, T 35, batch 32);
+   [15d] ``autoencoder_train.main()``; [15e] ``CNNTextClassifier`` (vocab
+   20000, T 1000, batch 128, 20 classes) 10 SGD iterations. [15b]-[15e]:
+   finite losses, no kernel launched, memory flat. Each model's 3 f32 steps
+   on the card then held against the same steps on the CPU at a cut batch
+   (``MODEL_ROUTE_ROWS``), within limits fixed before the first run
+   (``MODEL_ROUTE_TOL``).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
 Inception-v1's ceil-mode 3x3/s2 pools with the overhang on the high side
 only and its 3x3/s1/p1 branch pools, LeNet-5's 2x2/s2 pools on 24- and
 8-wide planes, VGG-for-CIFAR-10's five 2x2/s2 pools on 32- to 2-wide
-planes; edge geometries, and its alignment traps: rows of 56 and 28
+planes, AlexNet's three 3x3/s2 pools without padding on 55-, 27- and
+13-wide planes at batch 64 in both dtypes, post-ReLU, with integer ties,
+with NaN and -inf, and at an offset of one element; edge geometries, and its alignment traps: rows of 56 and 28
 bytes, part-full plane groups, x and dy at a storage offset of one element,
 the stem at an odd size; the 3x3/s1 instance's at the branch pools' widths:
 7-wide rows, offsets, row bands, NaN and -inf inputs; repeats
 bit-identical) and timed in [4] at the stem, VGG-16's five pools and the
 parity configs' pools beside ATen's backward and the bound, with a line a
-branch-pool shape on ATen and the 4x-bound target; its four instances
+branch-pool shape on ATen and the 4x-bound target, and at AlexNet's three
+pools in f32 (its example's) and bf16 beside the launch floor; its four instances
 (3x3/s2, 2x2/s2, 3x3/s1, general) launch in [2], where a spill in any of
 them fails the run; the
 bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
@@ -207,8 +227,10 @@ each under its ``parity_config`` name, the flagship served,
 ``recipe_shift``, ``optimizers``, ``lbfgs`` and ``regularizers``, and
 [14]'s ``translation``, ``rope_lm``, ``rope_decode``,
 ``transformer_example``, ``transformer_example_decode``,
-``translation_beam``, ``aspp`` and ``dropout_variants``) runs with every
-kernel's launch count set to 0 just before it and read just after.
+``translation_beam``, ``aspp`` and ``dropout_variants``, and [15]'s
+``alexnet``, ``ncf_example``, ``ncf_ml1m``, ``ptb_example``,
+``autoencoder_example`` and ``cnntext``) runs with every kernel's launch
+count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -331,6 +353,17 @@ def _counters():
 
 
 def reset_counts() -> None:
+    """Every count to 0, just before a main path. Cyclic garbage of earlier
+    phases is collected first: a collection inside the path would free
+    tensors that are not the path's, and its memory checks would read that
+    as the path's memory moving (seen as -200 MiB inside [11] and [13a])."""
+    import gc
+
+    before = _mem()
+    found = gc.collect()
+    if before - _mem() > 16 * 2 ** 20:
+        log(f"    (a garbage collection before this path found {found} objects and freed "
+            f"{(before - _mem()) / 2**20:.1f} MiB of device memory)")
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
 
@@ -1155,6 +1188,16 @@ PARITY_CONFIG_POOLS = [
 # launches a step of each shape that more than one pool has
 POOLS_SHARING_A_SHAPE = {"Inception 4b-4d branch pools 3x3/s1/p1": 3,
                          "Inception 5a/5b branch pools 3x3/s1/p1": 2}
+# AlexNet's three pools ([15a]) at the example's batch of 64: 3x3/s2 without
+# padding on odd planes (55, 27 and 13 wide; pooled rows of 27, 13 and 6),
+# their inputs post-ReLU (pool1 and pool2 after an LRN, which keeps the
+# zeros); the example trains them in f32 on the card (f32 activations)
+ALEX_POOL = ((3, 3), (2, 2), ((0, 0), (0, 0)))
+ALEXNET_POOLS = [
+    ("AlexNet pool1 3x3/s2", (64, 96, 55, 55), ALEX_POOL, "relu"),
+    ("AlexNet pool2 3x3/s2", (64, 256, 27, 27), ALEX_POOL, "relu"),
+    ("AlexNet pool5 3x3/s2", (64, 256, 13, 13), ALEX_POOL, "relu"),
+]
 
 
 def phase_maxpool_parity():
@@ -1234,9 +1277,17 @@ def phase_maxpool_parity():
     config_cases = [(f"{label}, {str(dt)[6:]}", shape, geometry, dt, kind)
                     for label, shape, geometry, kind in PARITY_CONFIG_POOLS for dt in (bf, f32)]
     cases += config_cases
+    # AlexNet's three pools in both dtypes (f32 is the example's), each
+    # post-ReLU (zero ties), with integer duplicates (planted ties), with NaN
+    # and -inf cells, and at a storage offset of one element, each repeated
+    alex_cases = [(f"{label}, {kind}, {str(dt)[6:]}" + (" +1 offset" if kind == "offset" else ""),
+                   shape, geometry, dt, "relu" if kind == "offset" else kind)
+                  for label, shape, geometry, _ in ALEXNET_POOLS for dt in (f32, bf)
+                  for kind in ("relu", "ints", "nan", "offset")]
+    cases += alex_cases
     repeated = {"flagship stem pool", "VGG-16 pool2 batch 64",
                 "VGG-16 pool2, relu(normal) (zero windows)", *(c[0] for c in config_cases),
-                *(c[0] for c in s1_cases)}
+                *(c[0] for c in s1_cases), *(c[0] for c in alex_cases)}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     log(f"[3c] max-pool backward kernel vs plain version on the card "
         f"(|err| <= bf16_steps*|ref| [bf16] + f32_rel_sum*n*max|dy|; {TOL_MAXPOOL})")
@@ -1287,16 +1338,21 @@ MAXPOOL_SHAPES = [
     ("VGG-16 pool13", (64, 512, 28, 28), VGG_POOL, "relu"),
     ("VGG-16 pool17", (64, 512, 14, 14), VGG_POOL, "relu"),
     *PARITY_CONFIG_POOLS,
+    *((f"{label} f32", shape, geometry, kind, "float32")
+      for label, shape, geometry, kind in ALEXNET_POOLS),
+    *((f"{label} bf16", shape, geometry, kind, "bfloat16")
+      for label, shape, geometry, kind in ALEXNET_POOLS),
 ]
 
 
-def phase_maxpool_times(rec, card):
+def phase_maxpool_times(rec, card, floor_ms):
     """Times of the max-pool backward kernel (launched through its C entry
     point, so the wrapper's count stays the main paths'), its plain version
     and ATen's max-pool backward from saved indices, beside the bound, at
     the stem (the parity phase's inputs), VGG-16's five pools and the parity
-    configs' pools (bf16). ATen takes a high-side-only overhang as its ceil
-    mode with no padding."""
+    configs' pools (bf16), and AlexNet's three in f32 (its example's) and
+    bf16, each beside ``floor_ms``, the launch floor. ATen takes a
+    high-side-only overhang as its ceil mode with no padding."""
     import torch
     import torch.nn.functional as F
     from bigdl_tpu_torch.ops import _build
@@ -1306,19 +1362,21 @@ def phase_maxpool_times(rec, card):
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     rows = []
-    for label, shape, (kernel, stride, padding), kind in MAXPOOL_SHAPES:
+    for label, shape, (kernel, stride, padding), kind, *dtype in MAXPOOL_SHAPES:
+        dt = getattr(torch, dtype[0]) if dtype else torch.bfloat16
         if label == "stem":
             x, dy, dx = rec["x"], rec["dy"], torch.empty_like(rec["dx"])
         else:
-            x, dy = _maxpool_case(shape, kernel, stride, padding, torch.bfloat16, kind, g)
+            x, dy = _maxpool_case(shape, kernel, stride, padding, dt, kind, g)
             dx = torch.empty_like(x)
         n, c, h, w = x.shape
         ho, wo = dy.shape[2:]
 
         def launch():
-            rc = lib.bigdl_maxpool2d_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(), 1, n * c, h,
-                                         w, ho, wo, *kernel, *stride, padding[0][0],
-                                         padding[1][0], stream)
+            rc = lib.bigdl_maxpool2d_bwd(x.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                                         1 if x.dtype == torch.bfloat16 else 0, n * c, h, w, ho,
+                                         wo, *kernel, *stride, padding[0][0], padding[1][0],
+                                         stream)
             if rc != 0:
                 raise RuntimeError(f"maxpool kernel launch failed with CUDA error {rc}")
 
@@ -1339,22 +1397,26 @@ def phase_maxpool_times(rec, card):
         del idx
         geometry = (f"{kernel[0]}x{kernel[1]}/s{stride[0]}/p{padding[0][0]}"
                     + ("/ceil" if ceil else ""))
-        log(f"[4] kernels: maxpool2d_bwd {label} {tuple(x.shape)} bf16 {geometry}: verdict ok, "
+        log(f"[4] kernels: maxpool2d_bwd {label} {tuple(x.shape)} {str(x.dtype)[6:]} "
+            f"{geometry}: verdict ok, "
             f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {b:.4f} ({by}; x, dy read "
             f"and dx written once; kernel/bound {ms / b:.2f}), library_ms {library_ms:.4f} "
             f"(ATen max_pool2d_with_indices_backward, which also reads {idx_mb:.1f} MB of saved "
             f"int64 indices; yardstick only; ATen/kernel {library_ms / ms:.2f}); card {card}")
         if ms >= library_ms:
             log(f"    maxpool2d_bwd {label}: the kernel is not faster than ATen's backward")
-        rows.append({"shape": label, "x": list(x.shape), "geometry": geometry, "ms": ms,
+        rows.append({"shape": label, "x": list(x.shape), "dtype": str(x.dtype)[6:],
+                     "geometry": geometry, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "library_ms": library_ms})
         if label != "stem":
             del x, dy
         del dx
-    for net, n_pools in (("VGG-16", 5), ("Inception", 13), ("VGG-CIFAR", 5)):
+    for net, n_pools in (("VGG-16", 5), ("Inception", 13), ("VGG-CIFAR", 5),
+                         ("AlexNet", 3)):
         per_step = [(r, POOLS_SHARING_A_SHAPE.get(r["shape"], 1)) for r in rows
-                    if r["shape"].startswith(net)]
+                    if r["shape"].startswith(net) and r["dtype"] == (
+                        "float32" if net == "AlexNet" else "bfloat16")]
         if sum(k for _, k in per_step) != n_pools:
             raise AssertionError(f"[4] times {net}'s pools at {per_step}, not its {n_pools}")
         log(f"    {net}'s {n_pools} pools a step: " + ", ".join(
@@ -1373,6 +1435,13 @@ def phase_maxpool_times(rec, card):
             f"(ATen/kernel {r['library_ms'] / r['ms']:.2f}); 4x-bound target "
             f"{'met' if r['ms'] <= 4 * r['bound_ms'] else 'missed'} "
             f"(kernel/bound {r['ms'] / r['bound_ms']:.2f})")
+    for r in rows:
+        if r["shape"].startswith("AlexNet"):
+            log(f"    {r['shape']}: kernel/bound {r['ms'] / r['bound_ms']:.2f}, ATen/kernel "
+                f"{r['library_ms'] / r['ms']:.2f}; the bound is "
+                f"{'below' if r['bound_ms'] < floor_ms else 'above'} the launch floor, "
+                f"{floor_ms:.4f} ms (an all but empty kernel through the probe's C entry "
+                f"point, [4])")
     log(f"    stem half-bound target (<= 2x bound) "
         f"{'met' if rows[0]['ms'] <= 2 * rows[0]['bound_ms'] else 'missed'}")
     torch.cuda.empty_cache()
@@ -2088,7 +2157,9 @@ def phase_epilogue_times(recs, card):
         entry("bias_act_fwd", 87, conv0[0], recs["VGG-16 conv0"]["err_y"],
               "(64, 64, 224, 224) bf16 relu row",
               {"ms_feature_16384x2048_gelu": wide[0][0], "bound_ms_feature_16384x2048_gelu":
-               wide[0][3], **at_aspp(aspp_t[0], recs["ASPP branch"]["err_y"])}),
+               wide[0][3], "plain_ms_feature_16384x2048_gelu": wide[0][1],
+               "chain_ms_feature_16384x2048_gelu": wide[0][2],
+               **at_aspp(aspp_t[0], recs["ASPP branch"]["err_y"])}),
         entry("bias_act_bwd_feature", 92, wide[1], recs["wide feature"]["err_dx"],
               "(16384, 2048) bf16 gelu feature"),
         entry("bias_act_bwd_row", 108, conv0[1], recs["VGG-16 conv0"]["err_dx"],
@@ -2267,14 +2338,15 @@ def _vgg_routes():
                   {k: VGG_PER_ITER.get(k, 0) * 3 for k in r["launches"][0]})
 
 
-def _sgd_routes(build, x, y, seed, fused=False):
-    """3 f32 SGD steps (lr 0.01, momentum 0.9, ClassNLL, all of ``x`` a
-    batch) of ``build(device)`` on the card (TF32 off: full f32) and on the
-    CPU from one set of weights (the CPU build's initial ones, drawn after
-    seeding with ``seed``), the fused-kernel switch set to ``fused``.
-    Returns both routes' losses, launches and seconds, and their distances:
-    step 1's loss, steps 2-3's relative loss, the parameters relative to
-    their norm and relative to the update."""
+def _sgd_routes(build, x, y, seed, fused=False, criterion=None, method=None):
+    """3 f32 steps (SGD lr 0.01, momentum 0.9, ClassNLL unless ``method()``
+    and ``criterion()`` make others; all of ``x`` a batch) of
+    ``build(device)`` on the card (TF32 off: full f32) and on the CPU from
+    one set of weights (the CPU build's initial ones, drawn after seeding
+    with ``seed``), the fused-kernel switch set to ``fused``. Returns both
+    routes' losses, launches and seconds, and their distances: step 1's
+    loss, steps 2-3's relative loss, the parameters relative to their norm
+    and relative to the update."""
     import numpy as np
     import torch
     from bigdl_tpu_torch import Engine, RandomGenerator
@@ -2301,8 +2373,9 @@ def _sgd_routes(build, x, y, seed, fused=False):
             m = build(device)
             m.init(sample_input=x)
             load_jax_params(m, _nest(w0))
-            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=rows_of(x)), ClassNLLCriterion())
-            o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=rows_of(x)),
+                               criterion() if criterion else ClassNLLCriterion())
+            o.set_optim_method(method() if method else SGD(learningrate=0.01, momentum=0.9))
             reset_counts()
             t0 = time.perf_counter()
             o.set_end_when(Trigger.max_iteration(3)).optimize()
@@ -2326,14 +2399,14 @@ def _sgd_routes(build, x, y, seed, fused=False):
             "update": dist(pc, pp) / dist(pp, w0)}
 
 
-def _check_routes(label, x, r, tol, want_card):
+def _check_routes(label, x, r, tol, want_card, recipe="SGD lr 0.01 momentum 0.9"):
     """Log ``_sgd_routes``' readings against ``tol``; fail beyond any limit,
     on launches other than ``want_card`` on the card, or any on the CPU."""
     from bigdl_tpu_torch.dataset import rows_of
 
     (lc, lp), (kc, kp), (tc, tp) = r["losses"], r["launches"], r["seconds"]
     log(f"    kernel route (card, f32, TF32 off) vs plain route (CPU, f32), {label}, "
-        f"{rows_of(x)} x {_describe(x)}, 3 steps of SGD lr 0.01 momentum 0.9: losses "
+        f"{rows_of(x)} x {_describe(x)}, 3 steps of {recipe}: losses "
         f"{[round(v, 6) for v in lc]} vs {[round(v, 6) for v in lp]}; step 1 diff "
         f"{r['loss_first']:.2e} (tol {tol['loss_first']}), steps 2-3 rel diff {r['loss']:.2e} "
         f"(tol {tol['loss']}); params rel diff {r['params']:.2e} (tol {tol['params']}); "
@@ -2553,14 +2626,16 @@ def phase_norm_times(recs, card):
                      cuda_ms(p_bwd, iters=5)]}
         t["fwd"] += bound_ms(flops[0] * x.numel(), io_fwd, card, torch.float32)
         t["bwd"] += bound_ms(flops[1] * x.numel(), io_bwd, card, torch.float32)
-        lib_fwd = lib_bwd = None
-        if x.dtype == torch.float32:  # the library computes this function only for fp32 x
-            lib_fwd = cuda_ms(lambda: lib_f(x, w, b), iters=50)
-            leaves = [a.detach().clone().requires_grad_(True) for a in (x, w, b)]
-            lo = lib_f(*leaves)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-                lo, leaves[:2] if kind == "rms" else leaves, dy, retain_graph=True), iters=50)
-            del lo, leaves
+        # the library computes this function only for fp32 x; for a bf16 x its
+        # nearest call takes bf16 weights and returns a bf16 y (a yardstick)
+        wl, bl = (w, b) if x.dtype == torch.float32 else (w.to(x.dtype), b.to(x.dtype))
+        lib_fwd = cuda_ms(lambda: lib_f(x, wl, bl), iters=50)
+        leaves = [a.detach().clone().requires_grad_(True) for a in (x, wl, bl)]
+        lo = lib_f(*leaves)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+            lo, leaves[:2] if kind == "rms" else leaves, dy.to(lo.dtype), retain_graph=True),
+            iters=50)
+        del lo, leaves, wl, bl
         t["fwd"].append(lib_fwd)
         t["bwd"].append(lib_bwd)
         if kind == "rms" and x.dtype == torch.float32:  # is the kernel slower than F.rms_norm?
@@ -2577,9 +2652,10 @@ def phase_norm_times(recs, card):
         for what in ("fwd", "bwd"):
             ms, wrapper, plain, b_ms, by, lib_ms = t[what]
             libtxt = (f"{lib_ms:.4f} (torch {'F.layer_norm' if kind == 'ln' else 'F.rms_norm'}"
-                      f"{'' if what == 'fwd' else ' autograd backward'}, yardstick only)"
-                      if lib_ms is not None else "none (no single PyTorch call takes a bf16 x "
-                      "with fp32 statistics and this output dtype)")
+                      f"{'' if what == 'fwd' else ' autograd backward'}, yardstick only"
+                      + ("" if x.dtype == torch.float32 else "; bf16 weights, a bf16 y: no "
+                         "PyTorch call takes a bf16 x with fp32 weights and statistics")
+                      + ")")
             log(f"[4] kernels: {name}_{what} {shape}: verdict ok, kernel_ms {ms:.4f}, "
                 f"wrapper_ms {wrapper:.4f}, plain_ms {plain:.4f}, bound_ms {b_ms:.4f} ({by}), "
                 f"library_ms {libtxt}; card {card}")
@@ -2601,7 +2677,8 @@ def phase_norm_times(recs, card):
                 "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": by,
                 "library_ms": lib_ms, "wrapper_ms": wrapper, "shape": main[2],
                 "ms_wide": wide[0][what][0], "plain_ms_wide": wide[0][what][2],
-                "bound_ms_wide": wide[0][what][3], "shape_wide": wide[2]})
+                "bound_ms_wide": wide[0][what][3], "library_ms_wide": wide[0][what][5],
+                "shape_wide": wide[2]})
     return kernels
 
 
@@ -4677,6 +4754,333 @@ def phase_attention_slice(card):
     return by_path
 
 
+# [15] the rest of models/: AlexNet, NeuralCF, PTBModel, the Autoencoder and
+# CNNTextClassifier, each at the size its users run, trained through the
+# port's examples (bigdl_tpu_torch/examples/*_train.py, the counterparts of
+# examples/{alexnet,ncf,ptb,autoencoder}/train.py) or LocalOptimizer, with
+# the port's card policy (bf16 products, f32 activations) as a fresh
+# process has it. Only AlexNet runs a kernel of this repo: #10 at its three
+# pools (3x3/s2 without padding on 55-, 27- and 13-wide planes).
+MODELS_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+ALEXNET_ARGS = ["--max-epoch", "1", "--synthetic-size", "640"]  # cut: records (default 256)
+ALEXNET_POOLS_PER_STEP = 3
+NCF_ARGS = []  # the example's defaults: 4096 synthetic positives, 2 epochs
+ML1M = {"n_users": 6040, "n_items": 3952}  # MovieLens-1M's table sizes
+NCF_ML1M_EPOCHS = 1
+PTB_ARGS = ["--vocab-size", "10000"]  # PTB's vocabulary; hidden 200, 2 layers, T 35, batch 32
+AUTOENCODER_ARGS = []  # the example's defaults: 4096 images, batch 128, 2 epochs
+# the reference text-classification example's sizes; the model's widths its defaults
+CNNTEXT = {"vocab": 20000, "seq": 1000, "batch": 128, "classes": 20, "iters": 10}
+# Card-vs-CPU routes: 3 f32 steps at a cut size from one set of weights
+# (label -> rows of the route's batch). Their limits, fixed before the first
+# run: AlexNet is VGG-16's kind (ReLU convolutions, no BN, #10 at its pools,
+# fc weights dominating the parameters' norm) and the CNN text classifier
+# a smaller one (ReLU temporal convolutions, torch's max pools), both SGD:
+# VGG_ROUTE_TOL, whose readings on VGG-16 sat 25x or more under it.
+# NeuralCF, PTBModel and the Autoencoder train with Adam, whose first step
+# moves every weight that has a gradient by the rate, whatever the
+# gradient's size: a gradient entry at f32 noise on both routes (a sum that
+# cancels) may step either way, and its weight then parts by twice the
+# rate. So their parameters are held at 1e-4 of their norm (the
+# Autoencoder's 52,000 weights at lr 0.01 have a norm of ~16: one such
+# entry moves it by ~1e-3 of that, NeuralCF's and PTB's norms are ~100x
+# larger) and their update at 5e-2 (a few such entries); losses as VGG-16's.
+MODEL_ROUTE_ROWS = {"alexnet": 4, "ncf": 256, "ptb": 4, "autoencoder": 32, "cnntext": 4}
+ADAM_ROUTE_TOL = {"loss_first": 1e-4, "loss": 1e-3, "params": 1e-4, "update": 5e-2}
+MODEL_ROUTE_TOL = {"alexnet": VGG_ROUTE_TOL, "cnntext": VGG_ROUTE_TOL, "ncf": ADAM_ROUTE_TOL,
+                   "ptb": ADAM_ROUTE_TOL, "autoencoder": ADAM_ROUTE_TOL}
+
+
+def _example_argv(args):
+    return list(args) + (["--platform", "cpu"] if MODELS_DEVICE == "cpu" else [])
+
+
+def _models_device():
+    """The device argument of [15]'s own models: the card's default."""
+    return "cpu" if MODELS_DEVICE == "cpu" else None
+
+
+def _run_example(module, args, label):
+    """``module.main(args)`` under a ``_StepProbe`` with the counts set to 0
+    just before it and read just after; returns (run, probe, counts, wall)."""
+    from bigdl_tpu_torch import Engine
+
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(None)
+    t0 = time.perf_counter()
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        run = module.main(_example_argv(args))
+        _sync()
+        counts = read_counts()  # the main path ends here
+    wall = time.perf_counter() - t0
+    hist = run.optimizer.history
+    losses = [h["loss"] for h in hist]
+    log(f"    {label}: {len(hist)} iterations in {wall:.2f} s (data, build, validations and "
+        f"the final evaluation included); launches {_nonzero(counts)}")
+    log("    losses: " + ", ".join(f"{v:.4f}" for v in losses))
+    return run, probe, counts, wall
+
+
+def _step_ms(hist, batch, unit, card):
+    """The median gap between loss pulls over iterations 3 on, and the rate."""
+    import statistics
+
+    step_ms = statistics.median(h["wall_s"] for h in hist[2:]) * 1e3
+    log(f"    step {step_ms:.2f} ms (median of iterations 3-{len(hist)}), "
+        f"{batch / step_ms * 1e3:.1f} {unit}/s (batch {batch}); card {card}")
+    return step_ms
+
+
+def _check_no_launch_run(label, probe, counts, losses, n_steps, want_validations=None):
+    """Finite losses, no kernel launched anywhere in the run, memory flat."""
+    import numpy as np
+
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: {len(losses)} iterations (expected {n_steps}), "
+                             f"losses {losses}")
+    _check_steps(label, probe, n_steps, 0, want_validations)
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {_nonzero(counts)}")
+
+
+def phase_alexnet(card):
+    """[15a] AlexNet through ``alexnet_train.main`` at the example's recipe
+    (1000 classes, 227x227, batch 64, SGD 0.01 momentum 0.9, one epoch,
+    validation on; 640 records): #10 three times a step and never in the
+    validation, memory flat, the step's busy share; then card vs CPU."""
+    import numpy as np
+    from bigdl_tpu_torch.examples import alexnet_train
+    from bigdl_tpu_torch.models import AlexNet
+
+    run, probe, counts, _ = _run_example(alexnet_train, ALEXNET_ARGS,
+                                         f"[15a] alexnet_train.main({' '.join(ALEXNET_ARGS)})")
+    args, opt = run.args, run.optimizer
+    split = max(args.batch_size, int(0.75 * args.synthetic_size))
+    n_steps = args.max_epoch * (split // args.batch_size)
+    log(f"    AlexNet {run.model.n_parameters() / 1e6:.3f} M params, {args.class_num} classes, "
+        f"{split} training records of 3x227x227 at batch {args.batch_size}, "
+        f"{args.synthetic_size - split} validation records")
+    _step_ms(opt.history, args.batch_size, "images", card)
+    _check_steps("[15a]", probe, n_steps, ALEXNET_POOLS_PER_STEP, want_validations=args.max_epoch)
+    for v in probe.validations:
+        top1, top5 = v["results"]["Top1Accuracy"], v["results"]["Top5Accuracy"]
+        log(f"    validation: Top-1 {top1[0]:.4f}, Top-5 {top5[0]:.4f} (n={top1[1]}), kernel "
+            f"launches {v['launches']}")
+        if not (0 <= top1[0] <= top5[0] <= 1) or top1[1] != args.synthetic_size - split:
+            raise AssertionError(f"[15a] validation {v}")
+    want = ALEXNET_POOLS_PER_STEP * n_steps
+    log(f"    maxpool2d_bwd launches {counts['maxpool2d_bwd']} ({ALEXNET_POOLS_PER_STEP} a step "
+        f"x {n_steps}, 0 in the validation); others {sum(counts.values()) - counts['maxpool2d_bwd']}")
+    if counts["maxpool2d_bwd"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"[15a] launches {counts}")
+    losses = [h["loss"] for h in opt.history]
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"[15a] losses {losses}")
+    if MODELS_DEVICE == "cuda":
+        busy = _busy_share(opt, 2)
+        log(f"    busy share (2 more iterations under torch.profiler): device {busy[0]:.2f} ms "
+            f"of {busy[1]:.2f} ms a step under the profiler ({100 * busy[2]:.1f}% busy); "
+            f"card {card}")
+    del run, opt
+    _free()
+    x, y = alexnet_train.synthetic_images(MODEL_ROUTE_ROWS["alexnet"], 1000)
+    r = _sgd_routes(lambda device: AlexNet(1000, has_dropout=False, device=device), x, y,
+                    SEED + 21)
+    _check_routes("AlexNet (dropout off)", x, r, MODEL_ROUTE_TOL["alexnet"],
+                  {k: (ALEXNET_POOLS_PER_STEP * 3 if k == "maxpool2d_bwd" else 0)
+                   for k in r["launches"][0]})
+    return counts
+
+
+def _adam(lr):
+    from bigdl_tpu_torch.optim import Adam
+
+    return lambda: Adam(learningrate=lr)
+
+
+def phase_ncf(card):
+    """[15b] ``ncf_train.main`` at its defaults, then NeuralCF through
+    LocalOptimizer at MovieLens-1M's table sizes; card vs CPU."""
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet, load_movielens
+    from bigdl_tpu_torch.examples import ncf_train
+    from bigdl_tpu_torch.models import NeuralCF
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    run, probe, counts, _ = _run_example(ncf_train, NCF_ARGS,
+                                         f"[15b] ncf_train.main({' '.join(NCF_ARGS)})")
+    args, hist = run.args, run.optimizer.history
+    n = 2 * (args.synthetic_size or 4096)
+    n_steps = args.max_epoch * (int(0.8 * n) // args.batch_size)
+    _step_ms(hist, args.batch_size, "records", card)
+    log("    " + ", ".join(f"{k} {v:.4f}" for k, v in run.results.items()))
+    _check_no_launch_run("[15b] example", probe, counts, [h["loss"] for h in hist], n_steps,
+                         args.max_epoch)
+    if not all(0.0 <= run.results[k] <= 1.0 for k in ("Top1Accuracy", "HitRatio@10",
+                                                      "NDCG@10")):
+        raise AssertionError(f"[15b] results {run.results}")
+    by_path = {"ncf_example": counts}
+    del run
+    # the same model at MovieLens-1M's table sizes, the example's widths and batch
+    Engine.set_compute_dtype(None)
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(42)
+    x, y, users, items = load_movielens(None, seed=0, **ML1M)
+    e, batch = args.embed_dim, args.batch_size
+
+    def ml1m(device):
+        return NeuralCF(users, items, class_num=2, user_embed=e, item_embed=e,
+                        hidden_layers=(4 * e, 2 * e, e), mf_embed=args.mf_embed, device=device)
+
+    model = ml1m(_models_device())
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), ClassNLLCriterion())
+    opt.set_optim_method(Adam(learningrate=1e-3)).set_end_when(Trigger.max_epoch(NCF_ML1M_EPOCHS))
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        counts = read_counts()  # the main path ends here
+    n_steps = NCF_ML1M_EPOCHS * (len(x) // batch)
+    log(f"    [15b] NeuralCF at MovieLens-1M's tables ({users} users, {items} items, "
+        f"{model.n_parameters() / 1e6:.3f} M params), {len(x)} records of load_movielens's "
+        f"synthetic log, batch {batch}, Adam 1e-3: {len(opt.history)} iterations, losses "
+        + ", ".join(f"{h['loss']:.4f}" for h in opt.history[:3]) + " ... "
+        + f"{opt.history[-1]['loss']:.4f}; launches {_nonzero(counts)}")
+    _step_ms(opt.history, batch, "records", card)
+    _check_no_launch_run("[15b] MovieLens-1M tables", probe, counts,
+                         [h["loss"] for h in opt.history], n_steps)
+    by_path["ncf_ml1m"] = counts
+    del model, opt
+    _free()
+    xr, yr, _, _ = load_movielens(None, n=MODEL_ROUTE_ROWS["ncf"] // 2, seed=1, **ML1M)
+    r = _sgd_routes(ml1m, xr, yr, SEED + 22, method=_adam(1e-3))
+    _check_routes("NeuralCF at MovieLens-1M's tables", xr, r, MODEL_ROUTE_TOL["ncf"],
+                  {k: 0 for k in r["launches"][0]}, recipe="Adam 1e-3")
+    return by_path
+
+
+def phase_ptb(card):
+    """[15c] ``ptb_train.main --vocab-size 10000`` (hidden 200, 2 layers, T
+    35, batch 32); card vs CPU at batch 4."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.examples import ptb_train
+    from bigdl_tpu_torch.models import PTBModel
+
+    run, probe, counts, _ = _run_example(ptb_train, PTB_ARGS,
+                                         f"[15c] ptb_train.main({' '.join(PTB_ARGS)})")
+    args, hist = run.args, run.optimizer.history
+    n_seq = ((args.synthetic_size or 20000) - 1) // args.seq_len
+    n_steps = args.max_epoch * (max(1, int(0.9 * n_seq)) // args.batch_size)
+    log(f"    PTBModel vocab {args.vocab_size + 1}, hidden {args.hidden_size}, "
+        f"{args.num_layers} layers, T {args.seq_len}: {run.model.n_parameters() / 1e6:.3f} M "
+        f"params; validation loss {run.results.get('Loss', float('nan')):.4f}")
+    _step_ms(hist, args.batch_size, "sequences", card)
+    _check_no_launch_run("[15c]", probe, counts, [h["loss"] for h in hist], n_steps,
+                         args.max_epoch)
+    del run
+    _free()
+    ids, _, vocab = ptb_train.load_corpus(None, args.vocab_size, 2000, seed=0)
+    x, y = ptb_train.windows(ids, args.seq_len)
+    rows = MODEL_ROUTE_ROWS["ptb"]
+    r = _sgd_routes(lambda device: PTBModel(vocab + 1, args.hidden_size, args.hidden_size,
+                                            args.num_layers, device=device),
+                    x[:rows], y[:rows], SEED + 23, method=_adam(1e-3),
+                    criterion=lambda: nn.TimeDistributedCriterion(
+                        nn.ClassNLLCriterion(one_based_label=True), size_average=True))
+    _check_routes("PTBModel", x[:rows], r, MODEL_ROUTE_TOL["ptb"],
+                  {k: 0 for k in r["launches"][0]}, recipe="Adam 1e-3")
+    return counts
+
+
+def phase_autoencoder(card):
+    """[15d] ``autoencoder_train.main`` at its defaults; card vs CPU."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.dataset import load_mnist
+    from bigdl_tpu_torch.examples import autoencoder_train
+    from bigdl_tpu_torch.models import Autoencoder
+
+    run, probe, counts, _ = _run_example(autoencoder_train, AUTOENCODER_ARGS,
+                                         "[15d] autoencoder_train.main()")
+    args, hist = run.args, run.optimizer.history
+    n_steps = args.max_epoch * ((args.synthetic_size or 4096) // args.batch_size)
+    log(f"    reconstruction MSE {run.results['mse']:.4f} (data variance "
+        f"{run.results['variance']:.4f})")
+    _step_ms(hist, args.batch_size, "images", card)
+    _check_no_launch_run("[15d]", probe, counts, [h["loss"] for h in hist], n_steps)
+    del run
+    _free()
+    x, _ = load_mnist(None, normalize=False, synthetic_size=MODEL_ROUTE_ROWS["autoencoder"])
+    t = x.reshape(len(x), 784)
+    r = _sgd_routes(lambda device: Autoencoder(class_num=32, device=device), x, t, SEED + 24,
+                    method=_adam(args.learning_rate), criterion=nn.MSECriterion)
+    _check_routes("Autoencoder", x, r, MODEL_ROUTE_TOL["autoencoder"],
+                  {k: 0 for k in r["launches"][0]}, recipe=f"Adam {args.learning_rate}, MSE")
+    return counts
+
+
+def phase_cnntext(card):
+    """[15e] CNNTextClassifier through LocalOptimizer at the reference
+    text-classification example's sizes (vocab 20000, T 1000, batch 128, 20
+    classes; SGD 0.01 momentum 0.9, the one batch every iteration, as [11]
+    feeds its configs); card vs CPU at batch 4."""
+    import numpy as np
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import CNNTextClassifier
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    c = CNNTEXT
+    Engine.set_compute_dtype(None)
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(1)
+    rng = np.random.default_rng(SEED + 25)
+    x = rng.integers(0, c["vocab"], (c["batch"], c["seq"])).astype(np.int32)
+    y = rng.integers(0, c["classes"], c["batch"])
+    model = CNNTextClassifier(c["vocab"], class_num=c["classes"],
+                              device=_models_device())
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=c["batch"]), ClassNLLCriterion())
+    opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+    opt.set_end_when(Trigger.max_iteration(c["iters"]))
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        counts = read_counts()  # the main path ends here
+    hist = opt.history
+    log(f"[15e] CNNTextClassifier (vocab {c['vocab']}, embedding 128, {c['classes']} classes; "
+        f"{model.n_parameters() / 1e6:.3f} M params), batch {c['batch']} x T {c['seq']}: "
+        f"{len(hist)} iterations, losses " + ", ".join(f"{h['loss']:.4f}" for h in hist)
+        + f"; launches {_nonzero(counts)}")
+    _step_ms(hist, c["batch"], "records", card)
+    _check_no_launch_run("[15e]", probe, counts, [h["loss"] for h in hist], c["iters"])
+    del model, opt
+    _free()
+    rows = MODEL_ROUTE_ROWS["cnntext"]
+    r = _sgd_routes(lambda device: CNNTextClassifier(c["vocab"], class_num=c["classes"],
+                                                     device=device),
+                    x[:rows], y[:rows], SEED + 26)
+    _check_routes("CNNTextClassifier", x[:rows], r, MODEL_ROUTE_TOL["cnntext"],
+                  {k: 0 for k in r["launches"][0]})
+    return counts
+
+
+def phase_models(card):
+    """[15] AlexNet, NeuralCF, PTBModel, the Autoencoder and
+    CNNTextClassifier; returns their main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"alexnet": phase_alexnet(card)}
+    by_path.update(phase_ncf(card))
+    by_path["ptb_example"] = phase_ptb(card)
+    by_path["autoencoder_example"] = phase_autoencoder(card)
+    by_path["cnntext"] = phase_cnntext(card)
+    log(f"[15] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -4701,7 +5105,7 @@ def main() -> int:
     fwd = phase_times(rec, card)
     dq, dkv = phase_bwd_times(bwd_rec, card)
     phase_mask_times(rec, bwd_rec, (fwd, dq, dkv), card)
-    pool = phase_maxpool_times(mp_rec, card)
+    pool = phase_maxpool_times(mp_rec, card, probe_k["empty_kernel_ms"])
     epilogue = phase_epilogue_times(ep_rec, card)
     norms = phase_norm_times(norm_rec, card)
     del rec, bwd_rec, mp_rec, ep_rec, norm_rec
@@ -4716,6 +5120,7 @@ def main() -> int:
     optim_paths, pool["shift_ab"] = phase_optim(card)
     by_path.update(optim_paths)
     by_path.update(phase_attention_slice(card))
+    by_path.update(phase_models(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -7,7 +7,9 @@ Inputs come from numpy with a seed; the geometries, ties, duplicates,
 stride > kernel and bf16 cases are those of ``tests/test_maxpool_grad.py``,
 plus Inception-v1's, LeNet-5's and VGG-for-CIFAR-10's pool geometries at
 small batch and channels (3x3/s1/p1, ceil-mode 3x3/s2 with the overhang on
-the high side only, 2x2/s2 on 24x24, 8x8, 4x4 and 2x2 planes).
+the high side only, 2x2/s2 on 24x24, 8x8, 4x4 and 2x2 planes) and
+AlexNet's (3x3/s2 without padding on odd 55-, 27- and 13-wide planes, also
+at a storage offset of one element).
 Tolerances: f32 1e-6 absolute (each window's dy lands once; a position sums
 at most nine of them (3x3/s1) in fp32, in another order); bf16 1e-2 relative + 2e-2
 absolute against the Pallas kernel, which sums overlapping windows in bf16
@@ -127,6 +129,7 @@ CARD_CASES = [
 
 STEM = ((3, 3), (2, 2), ((1, 1), (1, 1)))
 VGG = ((2, 2), (2, 2), NO_PAD)
+ALEX = ((3, 3), (2, 2), NO_PAD)
 # The kernel's alignment traps, each in both dtypes: (label, (N, C, H, W),
 # (kernel, stride, padding), storage offset of x and dy in elements)
 ALIGNMENT_CASES = [
@@ -136,6 +139,8 @@ ALIGNMENT_CASES = [
     ("W=28 at storage offset 1", (2, 3, 28, 28), VGG, 1),
     ("stem at storage offset 1", (2, 3, 64, 64), STEM, 1),
     ("W=2 (one-wide pooled rows) at storage offset 1, 35 planes", (5, 7, 2, 2), VGG, 1),
+    ("AlexNet pool5 W=13 (odd, no padding) at storage offset 1", (2, 5, 13, 13), ALEX, 1),
+    ("AlexNet pool1 W=55 (odd, no padding) at storage offset 1", (1, 3, 55, 55), ALEX, 1),
 ]
 ALIGNMENT_PARAMS = [(*c, dt) for c in ALIGNMENT_CASES for dt in ("bfloat16", "float32")]
 ALIGNMENT_IDS = [f"{c[0]}-{c[-1]}" for c in ALIGNMENT_PARAMS]

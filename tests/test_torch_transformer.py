@@ -206,6 +206,12 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "import bigdl_tpu_torch.ops.fused_common, bigdl_tpu_torch.nn.dropout\n"
         "import bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.ops.probe\n"
         "import bigdl_tpu_torch.examples.transformer_train\n"
+        "import bigdl_tpu_torch.nn.math_ops, bigdl_tpu_torch.nn.recurrent\n"
+        "import bigdl_tpu_torch.models.alexnet, bigdl_tpu_torch.models.ncf\n"
+        "import bigdl_tpu_torch.models.autoencoder, bigdl_tpu_torch.models.textclassifier\n"
+        "import bigdl_tpu_torch.dataset.movielens, bigdl_tpu_torch.dataset.mnist\n"
+        "import bigdl_tpu_torch.examples.alexnet_train, bigdl_tpu_torch.examples.ncf_train\n"
+        "import bigdl_tpu_torch.examples.ptb_train, bigdl_tpu_torch.examples.autoencoder_train\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"

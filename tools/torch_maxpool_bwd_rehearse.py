@@ -20,9 +20,10 @@ CPU tensors and holds dx against ``maxpool_grad_reference`` (the plain
 version) with the card's tolerance (``chip_smoke.py`` ``TOL_MAXPOOL``): 3x3/s1
 at every padding the entry point takes on planes of 1x1 to 150x40 (row
 bands included), NaN, -inf, tied and integer inputs, storage offsets of one
-element, the other instances' geometries and VGG-for-CIFAR-10's five
-2x2/s2 pools (planes down to 2x2, pooled rows one element wide), in f32 and
-bf16. It prints one
+element, the other instances' geometries, VGG-for-CIFAR-10's five
+2x2/s2 pools (planes down to 2x2, pooled rows one element wide) and
+AlexNet's three 3x3/s2 pools on odd planes without padding (55, 27 and 13
+wide), in f32 and bf16. It prints one
 line a case and the count; exit 1 if any case disagrees. What it cannot
 show: anything about speed, warps, bank conflicts or the card's compiler.
 """
@@ -180,6 +181,13 @@ def cases():
         out += [((2, c, hw, hw), *vgg, dt, "relu", 0)
                 for c, hw in ((64, 32), (128, 16), (256, 8), (512, 4), (512, 2))]
         out += [((2, 512, hw, hw), *vgg, dt, kind, 1) for hw in (4, 2) for kind in ("relu", "nan")]
+        # AlexNet's three 3x3/s2 pools without padding on odd planes (55, 27
+        # and 13 wide: pooled rows of 27, 13 and 6), at batch 1-2, post-ReLU,
+        # with NaN and -inf, and at a storage offset of one element
+        alex = ((3, 3), (2, 2), ((0, 0), (0, 0)))
+        for c, hw in ((96, 55), (256, 27), (256, 13)):
+            out += [((2, c, hw, hw), *alex, dt, "relu", 0), ((1, c, hw, hw), *alex, dt, "nan", 0),
+                    ((1, c, hw, hw), *alex, dt, "normal", 1)]
     return out
 
 

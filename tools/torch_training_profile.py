@@ -2,7 +2,8 @@
 """Where the time goes in one training step of the port, on one CUDA card.
 
     python3 tools/torch_training_profile.py [lm] [flagship] [vgg16] [normlm] [lenet] [vgg]
-        [inception] [bilstm] [widedeep]   # one CUDA card
+        [inception] [bilstm] [widedeep] [alexnet] [ncf] [ptb] [autoencoder] [cnntext]
+        # one CUDA card
 
 Training steps through ``LocalOptimizer`` (every mode when none is
 named): ``lm``, the full-width Transformer-LM of ``chip_smoke.py`` (vocab
@@ -24,7 +25,15 @@ parity configs of ``chip_smoke.py`` [11] (``models.parity_config`` at the
 bench's batch: 512; 128 of 32x32 (VGG-for-CIFAR-10) and 128 of 224x224,
 dropout on; 128 of T 200; 2048 records of the synthetic click log; bf16
 compute and activations, ``ClassNLLCriterion``, SGD lr 0.01 momentum 0.9,
-the one batch every iteration).
+the one batch every iteration); ``alexnet``, ``ncf``, ``ptb`` and
+``autoencoder``, the port's examples as ``chip_smoke.py`` [15] runs them
+(``bigdl_tpu_torch/examples/*_train.py`` ``build``: AlexNet on 640
+synthetic 227x227 records at batch 64, 1000 classes; NeuralCF and the
+Autoencoder at their defaults; PTBModel at ``--vocab-size 10000``; each at
+the port's card policy, bf16 products and f32 activations, its validation
+left out), and ``cnntext``, ``CNNTextClassifier`` at the reference
+text-classification example's sizes (vocab 20000, T 1000, batch 128, 20
+classes, SGD lr 0.01 momentum 0.9, the one batch every iteration).
 
 Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
 Prints two step times and the rate of the first: the median gap between
@@ -343,10 +352,66 @@ def profile_parity(name: str, card: str, warmup: int = 3, reps: int = 5) -> None
     del opt, model
 
 
+# example -> (module, its arguments, kernel families, what a record is)
+EXAMPLES = {"alexnet": ("alexnet_train", ["--synthetic-size", "640"], image_family, "images"),
+            "ncf": ("ncf_train", [], wide_family, "records"),
+            "ptb": ("ptb_train", ["--vocab-size", "10000"], rnn_family, "sequences"),
+            "autoencoder": ("autoencoder_train", [], wide_family, "images")}
+
+
+def profile_example(name: str, card: str, warmup: int = 3, reps: int = 5) -> None:
+    import importlib
+
+    from bigdl_tpu_torch import Engine
+
+    module, argv, family, unit = EXAMPLES[name]
+    example = importlib.import_module(f"bigdl_tpu_torch.examples.{module}")
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(False)
+    built = example.build(example.parser().parse_args(argv))
+    run = built[0] if isinstance(built, tuple) else built
+    opt = run.optimizer
+    opt.validation_trigger = None  # the steps only
+    batch = run.args.batch_size
+    steps = _timed(opt, warmup, reps)
+    _report(f"{name} example training step (batch {batch})", steps,
+            f"{batch / steps[0] * 1e3:.1f} {unit}/s", _profile(opt, reps, family), card)
+    del opt, run, built
+
+
+def profile_cnntext(card: str, warmup: int = 3, reps: int = 5) -> None:
+    import numpy as np
+
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import CNNTextClassifier
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+
+    batch, seq, vocab = 128, 1000, 20000
+    Engine.set_compute_dtype(None)
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(False)
+    RandomGenerator.set_seed(1)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    y = rng.integers(0, 20, batch)
+    opt = LocalOptimizer(CNNTextClassifier(vocab, class_num=20, device="cuda"),
+                         DataSet.array(x, y, batch_size=batch), ClassNLLCriterion())
+    opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+    steps = _timed(opt, warmup, reps)
+    _report(f"cnntext training step (batch {batch} x T {seq})", steps,
+            f"{batch / steps[0] * 1e3:.1f} records/s", _profile(opt, reps, rnn_family), card)
+    del opt
+
+
 MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg16": profile_vgg,
          "normlm": profile_normlm,
          **{name: (lambda card, name=name: profile_parity(name, card))
-            for name in ("lenet", "vgg", "inception", "bilstm", "widedeep")}}
+            for name in ("lenet", "vgg", "inception", "bilstm", "widedeep")},
+         **{name: (lambda card, name=name: profile_example(name, card)) for name in EXAMPLES},
+         "cnntext": profile_cnntext}
 
 
 def main() -> int:
