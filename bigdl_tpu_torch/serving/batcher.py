@@ -29,6 +29,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -83,6 +84,18 @@ class ServeStats:
         return _nearest_rank(lats, 50) * 1e3, _nearest_rank(lats, 99) * 1e3, rps
 
 
+def _weak_transition(batcher: "ContinuousBatcher"):
+    """``batcher._breaker_transition`` without a strong reference to it."""
+    ref = weakref.ref(batcher)
+
+    def on_transition(old: str, new: str, info: Dict) -> None:
+        b = ref()
+        if b is not None:
+            b._breaker_transition(old, new, info)
+
+    return on_transition
+
+
 class ContinuousBatcher:
     """The per-model batching engine (used via ``ModelServer``).
 
@@ -124,7 +137,11 @@ class ContinuousBatcher:
             if breaker is not None and not isinstance(breaker, BreakerConfig):
                 raise ValueError(f"breaker must be a BreakerConfig, CircuitBreaker, False "
                                  f"or None, got {breaker!r}")
-            self.breaker = CircuitBreaker(breaker, on_transition=self._breaker_transition)
+            # the breaker reaches its batcher through a weak reference: a bound
+            # method would make batcher -> breaker -> batcher a cycle, leaving
+            # the predictor and its model's weights to the cyclic collector
+            # after stop()
+            self.breaker = CircuitBreaker(breaker, on_transition=_weak_transition(self))
         self._clock = clock
         self.max_batch = int(max_batch or predictor.batch_size)
         if not 0 < self.max_batch <= predictor.batch_size:

@@ -170,7 +170,15 @@ class ServeFuture:
         fire = False
         with self._lock:
             if self._error is not None:
-                raise self._error
+                try:
+                    raise self._error
+                finally:
+                    # the stored error's traceback holds this frame: without
+                    # ``self`` in it, future -> error -> traceback -> frame is
+                    # no cycle (as concurrent.futures does). A caller that
+                    # keeps the future after catching the error holds its own
+                    # frame the same way, and drops the future to free it.
+                    self = None  # noqa: F841
             if self.t_materialize is None:
                 self._value = self._value.cpu()
                 self.t_materialize = time.perf_counter()

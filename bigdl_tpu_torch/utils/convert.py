@@ -10,9 +10,14 @@ JAX. Paths map one to one (``tree["block0"]["self_q_w"]`` ->
 Transformer's ``dec_block0.cross_q_w``, ``dec_block0.ln3_g`` and ``dec_ln_g``
 likewise, a rotary one's tree is the sinusoidal one's, NeuralCF's
 ``mlp_tower.mlp_fc0.weight`` and ``TimeDistributed``'s
-``td_decoder.decoder.weight`` nest as in the JAX tree); ``Linear``-style
-weights are (out, in) and convolution weights OIHW in both packages, so
-every copy is a plain copy. ``load_jax_state(module, tree)`` does the same
+``td_decoder.decoder.weight`` nest as in the JAX tree, as do the cells'
+gates (``GRU``'s ``i2rz``/``h2rz``/``bias_rz``/``i2n``/``h2n``/``bias_n``,
+``ConvLSTMPeephole``'s OIHW ``i2g``/``h2g`` and ``peep``), the table
+containers' children (``ConcatTable``/``ParallelTable`` per branch,
+``MapTable``'s one child) and the learned activations and math layers
+(``PReLU``, ``SReLU``, ``Mul``, ``CMul``, ``Bilinear``, ``Scale``, ...));
+``Linear``-style weights are (out, in) and convolution weights OIHW in
+both packages, so every copy is a plain copy. ``load_jax_state(module, tree)`` does the same
 for the state tree (``model.get_state()``: BN running statistics).
 """
 

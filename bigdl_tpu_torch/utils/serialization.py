@@ -64,19 +64,23 @@ def tree_items(tree, prefix: str = "") -> Dict[str, Any]:
     order (None leaves are skipped), the leaves as they are; the paths are
     the JAX package's checkpoint keys. :func:`unflatten_to_like` rebuilds."""
     out: Dict[str, Any] = {}
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                rec(v, f"{path}/{k}" if path else str(k))
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                rec(v, f"{path}/{i}" if path else str(i))
-        elif node is not None:
-            out[path] = node
-
-    rec(tree, prefix)
+    _collect_items(tree, prefix, out)
     return out
+
+
+# The tree walks below are module-level functions, not closures that call
+# themselves: such a closure refers to itself through its cell, and the
+# cycle would hold what it closes over (the leaves: parameters and slots on
+# the device) until the cyclic collector runs.
+def _collect_items(node, path: str, out: Dict[str, Any]) -> None:
+    if isinstance(node, dict):
+        for k, v in node.items():
+            _collect_items(v, f"{path}/{k}" if path else str(k), out)
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            _collect_items(v, f"{path}/{i}" if path else str(i), out)
+    elif node is not None:
+        out[path] = node
 
 
 def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -86,22 +90,23 @@ def flatten_pytree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def unflatten_to_like(flat: Dict[str, Any], like) -> Any:
     """Rebuild ``flat``'s leaves into the structure of ``like`` (paths must match)."""
+    return _unflatten(flat, like, "")
 
-    def rec(node, path):
-        if isinstance(node, dict):
-            return {k: rec(v, f"{path}/{k}" if path else str(k)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)([rec(v, f"{path}/{i}" if path else str(i))
-                               for i, v in enumerate(node)])
-        if node is None:
-            return None
-        if path not in flat:
-            sample = ", ".join(sorted(flat)[:4])
-            raise KeyError(f"checkpoint missing array for {path!r} (stored keys look like: "
-                           f"{sample or '<empty>'})")
-        return flat[path]
 
-    return rec(like, "")
+def _unflatten(flat: Dict[str, Any], node, path: str) -> Any:
+    if isinstance(node, dict):
+        return {k: _unflatten(flat, v, f"{path}/{k}" if path else str(k))
+                for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)([_unflatten(flat, v, f"{path}/{i}" if path else str(i))
+                           for i, v in enumerate(node)])
+    if node is None:
+        return None
+    if path not in flat:
+        sample = ", ".join(sorted(flat)[:4])
+        raise KeyError(f"checkpoint missing array for {path!r} (stored keys look like: "
+                       f"{sample or '<empty>'})")
+    return flat[path]
 
 
 def copy_into(tree, flat: Dict[str, np.ndarray], what: str) -> None:

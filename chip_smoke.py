@@ -198,7 +198,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    finite losses, no kernel launched, memory flat. Each model's 3 f32 steps
    on the card then held against the same steps on the CPU at a cut batch
    (``MODEL_ROUTE_ROWS``), within limits fixed before the first run
-   (``MODEL_ROUTE_TOL``).
+   (``MODEL_ROUTE_TOL``);
+16. the other recurrent cells, the table ops and the rest of activations,
+   math_ops and criterion (no kernel of this repo among them: every path
+   launches 0): [16a] BASELINE config 4's classifier with a ``GRU``, an
+   ``LSTMPeephole`` and an ``RnnCell`` in place of its LSTM, at
+   ``parity_config("bilstm")``'s data and recipe (T 200, batch 128, bf16
+   compute and activations, SGD 0.01 momentum 0.9; one warm-up iteration,
+   then 5); [16b] two ``ConvLSTMPeephole`` layers of 64 channels predicting
+   the next 10 of Moving MNIST-sized 64x64 frames (batch 16, seeded values
+   in [0, 1], ``BCECriterion``, Adam 1e-3); [16c] a sequence autoencoder,
+   ``Recurrent(GRU)`` -> ``Select`` -> ``RecurrentDecoder(200, LSTM)`` at
+   width 128, batch 128 (MSE, Adam 1e-3); each with step ms, the host/device
+   split, finite losses, 0 launches a step and memory flat, then its 3 f32
+   steps on the card held against the CPU at a cut batch
+   (``CELL_ROUTE_ROWS``; [16b] without peepholes in its first layer, [16c]
+   also with a ``GRU`` decoder); [16d] every new activation, math op, table
+   op and criterion forward and backward on the card against the CPU from
+   the same weights and inputs (>= 1e6 elements an input; f32, and bf16
+   where the module takes it; ``MODULE_TOL``), the clip family at its exact
+   bounds and ``RReLU``'s training draws on the card, then 3 SGD steps of a
+   ``ConcatTable -> JoinTable``, a ``ParallelTable`` into a
+   ``ParallelCriterion`` and a ``MapTable -> CAveTable`` into a
+   ``MultiCriterion`` model, card vs CPU.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -229,7 +251,9 @@ each under its ``parity_config`` name, the flagship served,
 ``transformer_example``, ``transformer_example_decode``,
 ``translation_beam``, ``aspp`` and ``dropout_variants``, and [15]'s
 ``alexnet``, ``ncf_example``, ``ncf_ml1m``, ``ptb_example``,
-``autoencoder_example`` and ``cnntext``) runs with every kernel's launch
+``autoencoder_example`` and ``cnntext``, and [16]'s ``cells_gru``,
+``cells_lstmpeephole``, ``cells_rnncell``, ``convlstm``,
+``seq_autoencoder`` and ``modules``) runs with every kernel's launch
 count set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
@@ -1772,7 +1796,10 @@ def phase_flagship_val(card):
         wall = time.perf_counter() - t0
         first_counts = read_counts()
         first_vals, first_ckpts, first_mem = list(vals), list(ckpts), list(mem)
-        del model.set_state
+        # the instrumenting closures refer to their optimizer and model: each
+        # instance attribute removed, or optimizer -> closure -> optimizer
+        # (and its model and slots) waits for the cyclic collector
+        del model.set_state, opt._run_validation, opt._write_checkpoint
         # the trained model's outputs over the validation set, the labels
         # planted from them for the resumed run's validation and Evaluator
         out = _sweep_outputs(model, vx, batch)
@@ -1788,7 +1815,7 @@ def phase_flagship_val(card):
         load_s = time.perf_counter() - t0
         instrument(opt2, model2)
         opt2.optimize()
-        del model2.set_state
+        del model2.set_state, opt2._run_validation, opt2._write_checkpoint
         t0 = time.perf_counter()
         ev = Evaluator(model).evaluate(val2, methods)
         sweep_s = time.perf_counter() - t0
@@ -3262,6 +3289,10 @@ def phase_flagship_serving(card):
             raise AssertionError("a 1 ms deadline was served")
         except DeadlineExceeded as e:
             late_stage = e.stage
+        # the future keeps its error, whose traceback holds this frame: drop
+        # it, or this frame (v1, v2: two ResNet-50 weight sets) waits for the
+        # cyclic collector after the phase returns
+        del late
         after = server.infer("flagship", x[2])  # its flush's serve record carries the miss
         after.result(timeout=60)
         flushes = _settled(server, tel, n_served + 1)
@@ -3641,7 +3672,10 @@ def _busy_share(opt, iters):
     """(device ms, wall ms, share) a step over ``iters`` more iterations of
     ``opt`` under ``torch.profiler`` (the sum of the kernels' device time
     over the profiled wall; the profiler slows the host, so the share is a
-    floor)."""
+    floor). The device time is summed over the profiler's raw events:
+    ``key_averages()`` first parses every event into a ``FunctionEvent``,
+    ~30 s for the ~200k events of two iterations of a 200-step recurrence,
+    against ~1 s for the raw walk."""
     import torch
     from bigdl_tpu_torch.optim import Trigger
     from torch.profiler import ProfilerActivity, profile
@@ -3655,8 +3689,8 @@ def _busy_share(opt, iters):
         opt.optimize()
         _sync()
         wall = time.perf_counter() - t0
-    dev_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+    dev_us = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+                 if ev.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
     dev_ms, wall_ms = dev_us / 1e3 / iters, wall * 1e3 / iters
     return dev_ms, wall_ms, dev_ms / wall_ms
 
@@ -5081,6 +5115,644 @@ def phase_models(card):
     return by_path
 
 
+# [16] the other recurrent cells (GRU, LSTMPeephole, RnnCell, ConvLSTMPeephole,
+# RecurrentDecoder), the table ops and the rest of activations, math_ops and
+# criterion. None of them runs a kernel of this repo: every path launches 0.
+CELLS_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+# [16a] BASELINE config 4's classifier (bigdl_tpu/models/textclassifier.py's
+# BiLSTMClassifier) with the LSTM replaced, at parity_config("bilstm")'s data
+# and recipe: T 200, batch 128, bf16 compute and activations, ClassNLL, SGD
+# 0.01 momentum 0.9; one warm-up iteration, then 5
+CELL_CLASSIFIERS = ("GRU", "LSTMPeephole", "RnnCell")
+CELL_ITERS = 6
+CELL_BATCH = None  # parity_config's (128)
+# [16b] Moving MNIST's frames (Srivastava et al. 2015, arXiv 1502.04681:
+# 64x64, 10 input steps predicting the next 10) through two ConvLSTM layers
+# (Shi et al. 2015, arXiv 1506.04214) of 64 channels; the frames are seeded
+# values in [0, 1] (no dataset in the repo); BCE, Adam 1e-3
+MOVING_MNIST = {"batch": 16, "steps": 10, "hw": 64, "hidden": 64, "iters": 6}
+# [16c] a sequence autoencoder at config 4's widths: GRU encoder, the last
+# step's code decoded for 200 steps by RecurrentDecoder(LSTM); MSE, Adam 1e-3
+SEQ_AE = {"batch": 128, "seq": 200, "width": 128, "iters": 6}
+# [16d] every other new module at >= 1e6 elements an input
+MODULE_ROWS, MODULE_WIDTH = 256, 4096
+# Card-vs-CPU routes: 3 f32 steps at a cut batch from one set of weights.
+# Limits, fixed before the first run: [16a]'s classifiers are the BiLSTM's
+# kind (sigmoid/tanh cells, a contracting recurrence of 200 steps whose
+# loss reads the last, SGD), so [11]'s BiLSTM limits and batch hold them.
+# [16b] (sigmoid/tanh ConvLSTM gates, BCE) and [16c] (GRU/LSTM, MSE) train
+# with Adam, whose first step moves a weight by the rate whatever its
+# gradient's size: [15]'s Adam limits (ADAM_ROUTE_TOL) and their reasons.
+# [16d]'s three container models train with SGD through small Linear
+# layers: VGG-16's limits (VGG_ROUTE_TOL).
+CELL_ROUTE_ROWS = {"classifier": PARITY_ROUTE_BATCH["bilstm"], "convlstm": 2, "seq_ae": 4,
+                   "containers": 64}
+# [16d] each module on the card against the CPU, the same weights and
+# inputs, its outputs and the gradients of sum(y * dy) (fixed before the
+# first run): f32 |card - cpu| <= 1e-5 + 1e-4 |cpu| + 1e-5 max|cpu| (the
+# same formula: CUDA's exp, tanh and log against the CPU's within a few
+# units in the last place, and sums of up to 4096 terms (512 x 512 in
+# Bilinear) in another order, whose rounding grows with the largest term);
+# bf16 1e-5 + 2^-6 |cpu| + 2^-6 max|cpu| (both round each op's fp32 result
+# to bf16; two fp32 values a few units apart may round to neighbouring
+# bf16 values, and a following op carries that step); a loss 1e-5
+# relative. The clip family's gradient at its exact bounds must be 1/2 on
+# the card (jnp.clip's), Abs's at 0 must be 1 (jnp.abs's).
+MODULE_TOL = {"float32": (1e-5, 1e-4, 1e-5), "bfloat16": (1e-5, 2.0 ** -6, 2.0 ** -6)}
+MODULE_LOSS_RTOL = 1e-5
+
+
+def _cells_device():
+    return "cpu" if CELLS_DEVICE == "cpu" else None
+
+
+def cell_classifier(cell: str, device, vocab: int = 20001, width: int = 128,
+                    class_num: int = 20):
+    """BiLSTMClassifier's structure with ``cell`` in place of the LSTM:
+    LookupTable -> BiRecurrent(cell, concat) -> Select(2, -1) -> Linear ->
+    LogSoftMax."""
+    from bigdl_tpu_torch import nn
+
+    d = {"device": device}
+    return nn.Sequential(
+        nn.LookupTable(vocab, width, **d).set_name("embedding"),
+        nn.BiRecurrent(getattr(nn, cell)(width, width, **d), merge_mode="concat", **d)
+        .set_name("birnn"),
+        nn.Select(2, -1, **d).set_name("last_step"),
+        nn.Linear(2 * width, class_num, **d).set_name("fc"),
+        nn.LogSoftMax(**d).set_name("logsoftmax"), **d)
+
+
+def convlstm_predictor(device, hidden: int = 64, first_peephole: bool = True):
+    """Recurrent(ConvLSTMPeephole(1, hidden)) -> Recurrent(ConvLSTMPeephole(
+    hidden, hidden)) -> TimeDistributed(1x1 SpatialConvolution to 1) ->
+    Sigmoid: (N, T, 1, H, W) frames -> (N, T, 1, H, W) next frames."""
+    from bigdl_tpu_torch import nn
+
+    d = {"device": device}
+    return nn.Sequential(
+        nn.Recurrent(nn.ConvLSTMPeephole(1, hidden, 3, 3, with_peephole=first_peephole, **d),
+                     **d).set_name("convlstm1"),
+        nn.Recurrent(nn.ConvLSTMPeephole(hidden, hidden, 3, 3, **d), **d).set_name("convlstm2"),
+        nn.TimeDistributed(nn.SpatialConvolution(hidden, 1, 1, 1, **d), **d).set_name("readout"),
+        nn.Sigmoid(**d).set_name("sigmoid"), **d)
+
+
+def moving_mnist_frames(n: int, steps: int, hw: int, seed: int):
+    """(inputs, targets): 2 x ``steps`` seeded frames in [0, 1] a sequence,
+    the first ``steps`` in, the next ``steps`` to predict."""
+    import numpy as np
+
+    frames = np.random.default_rng(seed).random((n, 2 * steps, 1, hw, hw), dtype=np.float32)
+    return frames[:, :steps].copy(), frames[:, steps:].copy()
+
+
+def seq_autoencoder(device, decoder: str = "LSTM", width: int = 128, seq: int = 200):
+    """Recurrent(GRU) -> Select(2, -1) -> RecurrentDecoder(seq, <decoder>):
+    (N, seq, width) -> its reconstruction."""
+    from bigdl_tpu_torch import nn
+
+    d = {"device": device}
+    return nn.Sequential(
+        nn.Recurrent(nn.GRU(width, width, **d), **d).set_name("encoder"),
+        nn.Select(2, -1, **d).set_name("code"),
+        nn.RecurrentDecoder(seq, getattr(nn, decoder)(width, width, **d), **d)
+        .set_name("decoder"), **d)
+
+
+def _train_cells_path(label, model, x, y, batch, criterion, method, iters, card, unit):
+    """``iters`` iterations of ``model`` through LocalOptimizer, its one
+    batch every iteration, with the counts set to 0 just before and read
+    just after: finite losses, 0 launches every step, memory flat from step
+    2; the step's median ms over iterations 3 on and the device's busy share
+    over 2 more profiled iterations. Returns the counts."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+
+    t0 = time.perf_counter()
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), criterion)
+    opt.set_optim_method(method).set_end_when(Trigger.max_iteration(iters))
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        counts = read_counts()  # the main path ends here
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    log(f"{label}: {model.n_parameters() / 1e6:.3f} M params, batch {batch} of {_describe(x)}: "
+        f"{len(hist)} iterations in {time.perf_counter() - t0:.2f} s (build included), losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {_nonzero(counts)}")
+    _step_ms(hist, batch, unit, card)
+    _check_no_launch_run(label, probe, counts, losses, iters)
+    dev_ms, wall_ms, share = _busy_share(opt, 2)
+    log(f"    host/device split (2 more iterations under torch.profiler): device {dev_ms:.2f} ms "
+        f"of {wall_ms:.2f} ms a step ({100 * share:.1f}% busy); card {card}")
+    del opt
+    return counts
+
+
+def phase_cell_classifiers(card):
+    """[16a] config 4's classifier with a GRU, an LSTMPeephole and an RnnCell
+    in place of the LSTM; card vs CPU at batch 4."""
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.models import parity_config
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD
+
+    by_path = {}
+    _, x, y, batch = parity_config("bilstm", CELL_BATCH, device="cpu")
+    for cell in CELL_CLASSIFIERS:
+        Engine.set_compute_dtype("bfloat16")
+        Engine.set_activation_dtype("bfloat16")
+        RandomGenerator.set_seed(1)
+        try:
+            by_path[f"cells_{cell.lower()}"] = _train_cells_path(
+                f"[16a] BiRecurrent({cell}) classifier (vocab 20001, width 128, 20 classes, "
+                "bf16 compute and activations, SGD 0.01 momentum 0.9)",
+                cell_classifier(cell, _cells_device()), x, y, batch, ClassNLLCriterion(),
+                SGD(learningrate=0.01, momentum=0.9), CELL_ITERS, card, "records")
+        finally:
+            Engine.set_compute_dtype(None)
+            Engine.set_activation_dtype(None)
+        _free()
+        rows = CELL_ROUTE_ROWS["classifier"]
+        r = _sgd_routes(lambda device, c=cell: cell_classifier(c, device), x[:rows], y[:rows],
+                        SEED + 31)
+        _check_routes(f"BiRecurrent({cell}) classifier", x[:rows], r,
+                      PARITY_ROUTE_TOL["bilstm"], {k: 0 for k in r["launches"][0]})
+    return by_path
+
+
+def phase_convlstm(card):
+    """[16b] two ConvLSTMPeephole layers at Moving MNIST's frame size;
+    card vs CPU at batch 2, the first layer without peepholes."""
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.optim import Adam
+
+    c = MOVING_MNIST
+    Engine.set_compute_dtype(None)  # the card's policy: bf16 products, f32 activations
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(2)
+    x, y = moving_mnist_frames(c["batch"], c["steps"], c["hw"], SEED + 32)
+    counts = _train_cells_path(
+        f"[16b] ConvLSTMPeephole x2 ({c['hidden']} channels) predicting {c['steps']} frames of "
+        f"{c['hw']}x{c['hw']} (BCE, Adam 1e-3)",
+        convlstm_predictor(_cells_device(), c["hidden"]), x, y, c["batch"], nn.BCECriterion(),
+        Adam(learningrate=1e-3), c["iters"], card, "sequences")
+    _free()
+    rows = CELL_ROUTE_ROWS["convlstm"]
+    r = _sgd_routes(lambda device: convlstm_predictor(device, c["hidden"], first_peephole=False),
+                    x[:rows], y[:rows], SEED + 33, method=_adam(1e-3),
+                    criterion=nn.BCECriterion)
+    _check_routes("ConvLSTM predictor (first layer without peepholes)", x[:rows], r,
+                  ADAM_ROUTE_TOL, {k: 0 for k in r["launches"][0]}, recipe="Adam 1e-3, BCE")
+    return counts
+
+
+def phase_seq_autoencoder(card):
+    """[16c] GRU encoder -> RecurrentDecoder(LSTM) at config 4's widths;
+    card vs CPU at batch 4 with an LSTM and with a GRU decoder."""
+    import numpy as np
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.optim import Adam
+
+    c = SEQ_AE
+    Engine.set_compute_dtype(None)
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(3)
+    x = (0.5 * np.random.default_rng(SEED + 34).standard_normal(
+        (c["batch"], c["seq"], c["width"]))).astype(np.float32)
+    counts = _train_cells_path(
+        f"[16c] sequence autoencoder Recurrent(GRU) -> RecurrentDecoder({c['seq']}, LSTM), width "
+        f"{c['width']} (MSE, Adam 1e-3)",
+        seq_autoencoder(_cells_device(), "LSTM", c["width"], c["seq"]), x, x, c["batch"],
+        nn.MSECriterion(), Adam(learningrate=1e-3), c["iters"], card, "sequences")
+    _free()
+    rows = CELL_ROUTE_ROWS["seq_ae"]
+    for decoder in ("LSTM", "GRU"):
+        r = _sgd_routes(lambda device, dec=decoder: seq_autoencoder(device, dec, c["width"],
+                                                                    c["seq"]),
+                        x[:rows], x[:rows], SEED + 35, method=_adam(1e-3),
+                        criterion=nn.MSECriterion)
+        _check_routes(f"sequence autoencoder, {decoder} decoder", x[:rows], r, ADAM_ROUTE_TOL,
+                      {k: 0 for k in r["launches"][0]}, recipe="Adam 1e-3, MSE")
+    return counts
+
+
+# ------------------------------------------------------------------ [16d]
+_BOUNDS = [0.0, 6.0, -1.0, 1.0, -2.5, 2.5, 1e-6, 30.0, -30.0]
+
+
+def _module_cases():
+    """(label, module or criterion maker (device -> object), input maker
+    (rng -> numpy arrays; a list is a Table), target maker or None, dtypes)
+    of every module [16d] runs, at MODULE_ROWS x MODULE_WIDTH (>= 1e6
+    elements an input) unless the module's shape says otherwise."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+
+    R, W = MODULE_ROWS, MODULE_WIDTH
+    both, f32 = ("float32", "bfloat16"), ("float32",)
+
+    def normal(scale=3.0, shape=(R, W)):
+        def make(rng):
+            x = (scale * rng.standard_normal(shape)).astype(np.float32)
+            x.reshape(-1)[:len(_BOUNDS)] = _BOUNDS
+            return x
+        return make
+
+    def positive(shape=(R, W)):
+        return lambda rng: (0.1 + 3 * rng.random(shape)).astype(np.float32)
+
+    def probs(shape=(R, W)):
+        def make(rng):
+            p = rng.random(shape).astype(np.float32)
+            p.reshape(-1)[:4] = [0.0, 1.0, 0.0, 1.0]
+            return p
+        return make
+
+    def bits(shape=(R, W)):
+        def make(rng):
+            t = (rng.random(shape) > 0.5).astype(np.float32)
+            t.reshape(-1)[:4] = [1.0, 0.0, 0.0, 1.0]
+            return t
+        return make
+
+    def table(*makers):
+        return lambda rng: [m(rng) for m in makers]
+
+    def ties(rng):
+        a, b, c = (normal()(rng) for _ in range(3))
+        b[0], b[1, :64], c[1, :64] = a[0], a[1, :64], a[1, :64]
+        return [a, b, c]
+
+    def signs(n):
+        return lambda rng: np.where(rng.random(n) > 0.5, 1, -1).astype(np.float32)
+
+    def log_probs(rng):
+        x = rng.standard_normal((R, W)).astype(np.float32)
+        return x - np.log(np.exp(x).sum(-1, keepdims=True))
+
+    def dist(rng):
+        t = rng.random((R, W)).astype(np.float32)
+        t[:, 0] = 0.0
+        return t / t.sum(-1, keepdims=True)
+
+    def multi_label(rng):
+        t = rng.integers(1, W + 1, (R, 8))
+        t[:, 5:] = 0
+        t[0] = 0
+        t[1, 2:] = 0
+        return t
+
+    def m(make):
+        return lambda device: make({"device": device})
+
+    def c(make):
+        return lambda device: make()
+
+    n = R * W
+    cases = [
+        ("ReLU6", m(lambda d: nn.ReLU6(**d)), normal(), None, both),
+        ("Threshold", m(lambda d: nn.Threshold(0.5, -2.0, **d)), normal(), None, both),
+        ("HardSigmoid", m(lambda d: nn.HardSigmoid(**d)), normal(), None, both),
+        ("HardTanh", m(lambda d: nn.HardTanh(**d)), normal(), None, both),
+        ("ELU", m(lambda d: nn.ELU(0.7, **d)), normal(), None, both),
+        ("SELU", m(lambda d: nn.SELU(**d)), normal(), None, both),
+        ("LeakyReLU", m(lambda d: nn.LeakyReLU(0.1, **d)), normal(), None, both),
+        ("PReLU", m(lambda d: nn.PReLU(**d)), normal(), None, both),
+        ("PReLU(4096 planes)", m(lambda d: nn.PReLU(W, **d)), normal(), None, both),
+        ("RReLU (eval)", m(lambda d: nn.RReLU(**d)), normal(), None, both),
+        ("SoftMax", m(lambda d: nn.SoftMax(**d)), normal(), None, both),
+        ("SoftPlus", m(lambda d: nn.SoftPlus(2.0, **d)), normal(), None, both),
+        ("SoftSign", m(lambda d: nn.SoftSign(**d)), normal(), None, both),
+        ("SoftMin", m(lambda d: nn.SoftMin(**d)), normal(), None, both),
+        ("GELU", m(lambda d: nn.GELU(**d)), normal(), None, both),
+        ("Swish", m(lambda d: nn.Swish(**d)), normal(), None, both),
+        ("ThresholdedReLU", m(lambda d: nn.ThresholdedReLU(**d)), normal(), None, both),
+        ("SReLU", m(lambda d: nn.SReLU(**d)), normal(), None, both),
+        ("Abs", m(lambda d: nn.Abs(**d)), normal(), None, both),
+        ("Power", m(lambda d: nn.Power(2.0, 1.5, 0.5, **d)), normal(), None, both),
+        ("Square", m(lambda d: nn.Square(**d)), normal(), None, both),
+        ("Sqrt", m(lambda d: nn.Sqrt(**d)), positive(), None, both),
+        ("Log", m(lambda d: nn.Log(**d)), positive(), None, both),
+        ("Exp", m(lambda d: nn.Exp(**d)), normal(1.0), None, both),
+        ("Clamp", m(lambda d: nn.Clamp(-1.0, 2.5, **d)), normal(), None, both),
+        ("MulConstant", m(lambda d: nn.MulConstant(-1.5, **d)), normal(), None, both),
+        ("AddConstant", m(lambda d: nn.AddConstant(0.75, **d)), normal(), None, both),
+        ("Neg", m(lambda d: nn.Neg(**d)), normal(), None, both),
+        ("Mul", m(lambda d: nn.Mul(**d)), normal(), None, both),
+        ("Add", m(lambda d: nn.Add(W, **d)), normal(), None, both),
+        ("CMul", m(lambda d: nn.CMul((1, W), **d)), normal(), None, both),
+        ("CAdd", m(lambda d: nn.CAdd((1, W), **d)), normal(), None, both),
+        ("Scale", m(lambda d: nn.Scale(W, **d)), normal(), None, both),
+        ("Bilinear 512x512->64", m(lambda d: nn.Bilinear(512, 512, 64, **d)),
+         table(normal(1.0, (R, 512)), normal(1.0, (R, 512))), None, f32),
+        ("Euclidean 4096->16", m(lambda d: nn.Euclidean(W, 16, **d)), normal(1.0), None, f32),
+        ("Cosine 4096->64", m(lambda d: nn.Cosine(W, 64, **d)), normal(), None, f32),
+        ("ConcatTable", m(lambda d: nn.ConcatTable(nn.Linear(W, 64, **d), nn.Tanh(**d), **d)),
+         normal(), None, f32),
+        ("ParallelTable", m(lambda d: nn.ParallelTable(nn.Linear(W, 64, **d),
+                                                      nn.Linear(W, 64, **d), **d)),
+         table(normal(), normal()), None, f32),
+        ("MapTable", m(lambda d: nn.MapTable(nn.Linear(W, 64, **d), **d)),
+         table(normal(), normal(), normal()), None, f32),
+        ("JoinTable", m(lambda d: nn.JoinTable(2, **d)), table(normal(), normal()), None, both),
+        ("CAddTable", m(lambda d: nn.CAddTable(**d)), ties, None, both),
+        ("CSubTable", m(lambda d: nn.CSubTable(**d)), table(normal(), normal()), None, both),
+        ("CMulTable", m(lambda d: nn.CMulTable(**d)), ties, None, both),
+        ("CDivTable", m(lambda d: nn.CDivTable(**d)), table(normal(), positive()), None, both),
+        ("CMaxTable", m(lambda d: nn.CMaxTable(**d)), ties, None, both),
+        ("CMinTable", m(lambda d: nn.CMinTable(**d)), ties, None, both),
+        ("CAveTable", m(lambda d: nn.CAveTable(**d)), ties, None, both),
+        ("SelectTable", m(lambda d: nn.SelectTable(-1, **d)), ties, None, both),
+        ("FlattenTable", m(lambda d: nn.FlattenTable(**d)),
+         lambda rng: (lambda t: [t[0], [t[1], [t[2]]]])(ties(rng)), None, both),
+        ("MixtureTable", m(lambda d: nn.MixtureTable(**d)),
+         lambda rng: [rng.random((R, 3)).astype(np.float32), ties(rng)], None, f32),
+        ("DotProduct", m(lambda d: nn.DotProduct(**d)), table(normal(), normal()), None, f32),
+        ("CosineDistance", m(lambda d: nn.CosineDistance(**d)), table(normal(), normal()), None,
+         f32),
+        ("PairwiseDistance", m(lambda d: nn.PairwiseDistance(2, **d)),
+         table(normal(), normal()), None, f32),
+        ("MM (32, 256, 256)", m(lambda d: nn.MM(**d)),
+         table(normal(1.0, (32, 256, 256)), normal(1.0, (32, 256, 256))), None, f32),
+        ("MM transposed", m(lambda d: nn.MM(True, True, **d)),
+         table(normal(1.0, (32, 256, 256)), normal(1.0, (32, 256, 256))), None, f32),
+        ("MV (32, 256, 256)", m(lambda d: nn.MV(True, **d)),
+         table(normal(1.0, (32, 256, 256)), normal(1.0, (32, 256))), None, f32),
+        ("AbsCriterion", c(lambda: nn.AbsCriterion()), normal(), normal(), f32),
+        ("SmoothL1Criterion", c(lambda: nn.SmoothL1Criterion()), normal(), normal(1.0), f32),
+        ("BCECriterion", c(lambda: nn.BCECriterion()), probs(), bits(), f32),
+        ("BCECriterionWithLogits", c(lambda: nn.BCECriterionWithLogits()), normal(), bits(),
+         f32),
+        ("DistKLDivCriterion", c(lambda: nn.DistKLDivCriterion()), log_probs, dist, f32),
+        ("MarginRankingCriterion", c(lambda: nn.MarginRankingCriterion(0.5)),
+         table(normal(1.0, (n,)), normal(1.0, (n,))), signs(n), f32),
+        ("HingeEmbeddingCriterion", c(lambda: nn.HingeEmbeddingCriterion(1.5)),
+         lambda rng: np.abs(normal(2.0, (n,))(rng)), signs(n), f32),
+        ("CosineEmbeddingCriterion", c(lambda: nn.CosineEmbeddingCriterion(0.2)),
+         table(normal(), normal()), signs(R), f32),
+        ("MultiLabelSoftMarginCriterion", c(lambda: nn.MultiLabelSoftMarginCriterion()),
+         normal(), bits(), f32),
+        ("L1Cost", c(lambda: nn.L1Cost()), normal(), normal(), f32),
+        ("ParallelCriterion", c(lambda: nn.ParallelCriterion().add(nn.AbsCriterion(), 0.5)
+                                .add(nn.MSECriterion(), 2.0)),
+         table(normal(), normal()), table(normal(), normal()), f32),
+        ("MultiCriterion", c(lambda: nn.MultiCriterion().add(nn.MSECriterion(), 0.7)
+                             .add(nn.AbsCriterion())), normal(), normal(), f32),
+        ("MarginCriterion", c(lambda: nn.MarginCriterion(0.8, True, True)),
+         normal(1.0, (n,)), signs(n), f32),
+        ("MultiLabelMarginCriterion", c(lambda: nn.MultiLabelMarginCriterion()), normal(),
+         multi_label, f32),
+        ("DiceCoefficientCriterion", c(lambda: nn.DiceCoefficientCriterion()),
+         probs((R, 64, 64)), bits((R, 64, 64)), f32),
+        ("ClassSimplexCriterion", c(lambda: nn.ClassSimplexCriterion(W)), normal(0.01),
+         lambda rng: rng.integers(1, W + 1, R), f32),
+    ]
+    return cases
+
+
+def _leaves(x):
+    from bigdl_tpu_torch.utils.table import Table
+
+    if isinstance(x, (Table, list, tuple)):
+        return [v for e in x for v in _leaves(e)]
+    return [x]
+
+
+def _to_device(x, device, dtype):
+    """Numpy arrays (a list: a Table) as tensors on ``device``, float ones in
+    ``dtype`` and requiring grad."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.utils.table import T
+
+    if isinstance(x, list):
+        return T(*[_to_device(v, device, dtype) for v in x])
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    if t.is_floating_point():
+        t = t.to(dtype).requires_grad_(True)
+    return t
+
+
+def _run_module(obj, is_criterion, x, t, seed, device, dtype):
+    """Outputs (or the loss) and the gradients of sum(y * dy) (of the loss)
+    for every float input and parameter, all on the host in f32; dy drawn
+    from ``seed`` at the outputs' shapes."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.utils.table import T
+
+    xin = _to_device(x, device, dtype)
+    xs = [v for v in _leaves(xin) if v.is_floating_point()]
+    if is_criterion:
+        tgt = (T(*[torch.from_numpy(v).to(device) for v in t]) if isinstance(t, list)
+               else torch.from_numpy(t).to(device))
+        loss = obj._apply(xin, tgt)
+        ys, params = [loss], []
+    else:
+        params = list(obj.parameters())
+        ys = _leaves(obj.apply(obj.get_parameters(), obj.get_state(), xin)[0])
+        rng = np.random.default_rng(seed)
+        loss = sum((y.float() * torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+            np.float32)).to(device)).sum() for y in ys)
+    grads = torch.autograd.grad(loss, xs + params, allow_unused=True)
+    grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, xs + params)]
+    host = [v.detach().float().cpu() for v in ys + grads]
+    return host[:len(ys)], host[len(ys):], [str(y.dtype) for y in ys]
+
+
+def _module_diff(label, got, want, dtype, what):
+    """The worst |card - cpu| over its allowance (<= 1 passes)."""
+    import torch
+
+    atol, rtol, share = MODULE_TOL[dtype]
+    if got.shape != want.shape:
+        raise AssertionError(f"[16d] {label} {dtype} {what}: shape {tuple(got.shape)} on the card,"
+                             f" {tuple(want.shape)} on the CPU")
+    if not torch.isfinite(got).all() or not torch.isfinite(want).all():
+        raise AssertionError(f"[16d] {label} {dtype} {what}: non-finite values")
+    allow = atol + rtol * want.abs() + share * want.abs().max()
+    return float(((got - want).abs() / allow).max())
+
+
+def phase_module_sweep(card):
+    """[16d] every new activation, math op, table op and criterion forward
+    and backward on the card and on the CPU (same weights and inputs), the
+    clip family at its exact bounds on the card, RReLU's training draws on
+    the card; the counts 0 just before and read just after (no kernel
+    launched). Then 3 LocalOptimizer steps of one model per container."""
+    import copy
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+
+    device = "cpu" if CELLS_DEVICE == "cpu" else "cuda"
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    t0 = time.perf_counter()
+    worst, n_runs, cases = {}, 0, _module_cases()
+    try:
+        reset_counts()  # the main path starts here
+        for i, (label, make, data, target, dtypes) in enumerate(cases):
+            RandomGenerator.set_seed(SEED + 40 + i)
+            rng = np.random.default_rng(SEED + 40 + i)
+            x, t = data(rng), (target(rng) if target is not None else None)
+            is_crit = target is not None
+            host = make("cpu")
+            if not is_crit:
+                host.init(sample_input=_to_device(x, "cpu", torch.float32))
+            card_obj = host if is_crit else copy.deepcopy(host).to(device)
+            for dtype in dtypes:
+                dt = getattr(torch, dtype)
+                y_cpu, g_cpu, dts_cpu = _run_module(host, is_crit, x, t, SEED + 90 + i, "cpu", dt)
+                y_dev, g_dev, dts_dev = _run_module(card_obj, is_crit, x, t, SEED + 90 + i,
+                                                    device, dt)
+                if dts_cpu != dts_dev:
+                    raise AssertionError(f"[16d] {label} {dtype}: output dtypes {dts_dev} on the "
+                                         f"card, {dts_cpu} on the CPU")
+                if is_crit:
+                    a, b = y_dev[0].item(), y_cpu[0].item()
+                    w = (abs(a - b) / (MODULE_LOSS_RTOL * max(1.0, abs(b))) if np.isfinite(a)
+                         else float("inf"))
+                else:
+                    w = max(_module_diff(label, a, b, dtype, "output")
+                            for a, b in zip(y_dev, y_cpu))
+                w = max([w] + [_module_diff(label, a, b, dtype, "gradient")
+                               for a, b in zip(g_dev, g_cpu)])
+                if w > 1.0:
+                    raise AssertionError(f"[16d] {label} {dtype}: card vs CPU at {w:.2f} of the "
+                                         "allowance")
+                worst[(label, dtype)] = w
+                n_runs += 1
+            del host, card_obj
+        bounds = _exact_bounds_on(device)
+        rrelu = _rrelu_on(device)
+        _sync()
+        counts = read_counts()  # the main path ends here
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        Engine.set_compute_dtype(None)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[16d] {len(cases)} modules and criterions, {n_runs} (module, dtype) runs "
+        f"forward and backward on the card against the CPU, inputs of {MODULE_ROWS}x"
+        f"{MODULE_WIDTH} (Bilinear 512x512->64, MM/MV (32, 256, 256)): all within their "
+        "allowances (f32 1e-5 + 1e-4|cpu| + 1e-5 max|cpu|, bf16 1e-5 + 2^-6|cpu| + 2^-6 "
+        f"max|cpu|); the largest shares of the allowance: "
+        + ", ".join(f"{k[0]} {k[1]} {v:.3f}" for k, v in top)
+        + f"; {time.perf_counter() - t0:.1f} s; launches {_nonzero(counts)}")
+    log(f"    exact bounds on the card: {bounds}; {rrelu}")
+    if any(counts.values()):
+        raise AssertionError(f"[16d] launched {_nonzero(counts)}")
+    _free()
+    _container_routes()
+    return counts
+
+
+def _exact_bounds_on(device):
+    """The clip family's gradient at its exact bounds (1/2, jnp.clip's) and
+    Abs's at 0 (1, jnp.abs's) on ``device``, f32 and bf16."""
+    import torch
+    from bigdl_tpu_torch import nn
+
+    cases = [(nn.ReLU6, (), [0.0, 6.0], 0.5), (nn.HardTanh, (), [-1.0, 1.0], 0.5),
+             (nn.HardSigmoid, (), [-2.5, 2.5], 0.1), (nn.Clamp, (-1.0, 2.5), [-1.0, 2.5], 0.5),
+             (nn.ReLU, (), [0.0], 0.5), (nn.Abs, (), [0.0], 1.0)]
+    out = []
+    for cls, args, at, want in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.tensor(at, device=device, dtype=dt, requires_grad=True)
+            cls(*args, device="cpu").apply({}, {}, x)[0].sum().backward()
+            got = x.grad.float().cpu().tolist()
+            # 1/2 times the slope as the dtype holds it (0.2 is not exact in either)
+            if any(abs(g - want) > (1e-3 if dt == torch.bfloat16 else 1e-7) for g in got):
+                raise AssertionError(f"[16d] {cls.__name__}'s gradient at {at} in {dt}: {got}, "
+                                     f"expected {want}")
+        out.append(f"{cls.__name__} at {at}: {want}")
+    return "; ".join(out)
+
+
+def _rrelu_on(device):
+    """RReLU's training slopes on ``device``: within [lower, upper], their
+    mean near the middle, repeated under one generator seed."""
+    import torch
+    from bigdl_tpu_torch import nn
+
+    m = nn.RReLU(0.1, 0.3, device="cpu")
+    x = -torch.rand(MODULE_ROWS, MODULE_WIDTH, device=device) - 0.1
+    y1 = m.apply({}, {}, x, training=True, rng=torch.Generator().manual_seed(5))[0]
+    y2 = m.apply({}, {}, x, training=True, rng=torch.Generator().manual_seed(5))[0]
+    a = (y1 / x).flatten()
+    mean = float(a.mean())
+    if not (torch.equal(y1, y2) and float(a.min()) >= 0.1 - 1e-6
+            and float(a.max()) <= 0.3 + 1e-6
+            # six standard deviations of the mean of n draws of U(0.1, 0.3)
+            and abs(mean - 0.2) < 6 * 0.2 / 12 ** 0.5 / a.numel() ** 0.5):
+        raise AssertionError(f"[16d] RReLU's training slopes: min {float(a.min())}, max "
+                             f"{float(a.max())}, mean {mean}")
+    return (f"RReLU(0.1, 0.3) training slopes over {a.numel()} elements in "
+            f"[{float(a.min()):.4f}, {float(a.max()):.4f}], mean {mean:.5f}, repeated under one "
+            "seed")
+
+
+def _container_routes():
+    """3 SGD steps, card vs CPU, of one small model per container:
+    ConcatTable -> JoinTable (ClassNLL), ParallelTable into a
+    ParallelCriterion(Abs, SmoothL1), MapTable(Linear) -> CAveTable into a
+    MultiCriterion(MSE, Abs): their parameter trees through the optimizer."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.utils.table import T
+
+    rows = CELL_ROUTE_ROWS["containers"]
+    rng = np.random.default_rng(SEED + 36)
+    a, b, c = (rng.standard_normal((rows, 256)).astype(np.float32) for _ in range(3))
+    labels, target = rng.integers(0, 10, rows), rng.standard_normal((rows, 8)).astype(np.float32)
+
+    def concat_join(device):
+        d = {"device": device}
+        return nn.Sequential(
+            nn.ConcatTable(nn.Linear(256, 64, **d),
+                           nn.Sequential(nn.Linear(256, 64, **d), nn.Tanh(**d), **d), **d),
+            nn.JoinTable(2, **d), nn.Linear(128, 10, **d), nn.LogSoftMax(**d), **d)
+
+    def parallel(device):
+        d = {"device": device}
+        return nn.ParallelTable(nn.Linear(256, 8, **d),
+                                nn.Sequential(nn.Linear(256, 8, **d), nn.Tanh(**d), **d), **d)
+
+    def mapped(device):
+        d = {"device": device}
+        return nn.Sequential(nn.MapTable(nn.Linear(256, 8, **d), **d), nn.CAveTable(**d), **d)
+
+    runs = [("ConcatTable -> JoinTable, ClassNLL", concat_join, a, labels, None),
+            ("ParallelTable, ParallelCriterion(Abs, 0.5 SmoothL1)", parallel, T(a, b), target,
+             lambda: nn.ParallelCriterion(True).add(nn.AbsCriterion())
+             .add(nn.SmoothL1Criterion(), 0.5)),
+            ("MapTable(Linear) -> CAveTable, MultiCriterion(MSE, 0.5 Abs)", mapped, T(a, b, c),
+             target, lambda: nn.MultiCriterion().add(nn.MSECriterion())
+             .add(nn.AbsCriterion(), 0.5))]
+    for i, (label, build, x, y, crit) in enumerate(runs):
+        r = _sgd_routes(build, x, y, SEED + 37 + i, criterion=crit)
+        _check_routes(label, x, r, VGG_ROUTE_TOL, {k: 0 for k in r["launches"][0]})
+
+
+def phase_cells(card):
+    """[16] the other cells, the table ops and the rest of activations,
+    math_ops and criterion; returns their main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = phase_cell_classifiers(card)
+    by_path["convlstm"] = phase_convlstm(card)
+    by_path["seq_autoencoder"] = phase_seq_autoencoder(card)
+    by_path["modules"] = phase_module_sweep(card)
+    log(f"[16] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -5121,6 +5793,7 @@ def main() -> int:
     by_path.update(optim_paths)
     by_path.update(phase_attention_slice(card))
     by_path.update(phase_models(card))
+    by_path.update(phase_cells(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

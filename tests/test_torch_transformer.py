@@ -207,6 +207,7 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "import bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.ops.probe\n"
         "import bigdl_tpu_torch.examples.transformer_train\n"
         "import bigdl_tpu_torch.nn.math_ops, bigdl_tpu_torch.nn.recurrent\n"
+        "import bigdl_tpu_torch.nn.activations, bigdl_tpu_torch.nn.table_ops\n"
         "import bigdl_tpu_torch.models.alexnet, bigdl_tpu_torch.models.ncf\n"
         "import bigdl_tpu_torch.models.autoencoder, bigdl_tpu_torch.models.textclassifier\n"
         "import bigdl_tpu_torch.dataset.movielens, bigdl_tpu_torch.dataset.mnist\n"
