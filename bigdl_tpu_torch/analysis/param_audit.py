@@ -1,0 +1,122 @@
+"""ParamAudit — parameter-tree hygiene checks on a built model (counterpart
+of ``bigdl_tpu/analysis/param_audit.py``'s ``ParamAudit``).
+
+Three audits over each module's own parameters, with no forward pass:
+
+* **accidental sharing** — two parameter leaves (of two modules, or of one)
+  over the same memory. The JAX package keys on the array object, since its
+  arrays are immutable; in torch the aliasing that matters is shared
+  storage, where an in-place update through one leaf writes the other, so
+  leaves are grouped by their storage and overlapping byte ranges (a view
+  of another leaf aliases it). One module at several graph nodes is
+  intentional sharing: it registers once, each module is audited once, and
+  it never trips this. Two layers handed one tensor do. Suppress a
+  deliberate alias by listing either module's name in ``allow_shared``.
+* **dtype policy** — master parameters must be float32 (the bf16 policy
+  casts compute operands and activations, never the stored weights).
+  Non-float leaves are exempt.
+* **non-finite initializers** — NaN/Inf in a floating leaf, read with one
+  host transfer for the whole tree.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Tuple
+
+import torch
+
+from ..utils.serialization import tree_items
+from .errors import Finding, ParamAuditError
+
+
+def _raise_on_errors(found: List[Finding]) -> List[Finding]:
+    errors = [f for f in found if f.severity == "error"]
+    if errors:
+        raise ParamAuditError("; ".join(f.message for f in errors))
+    return found
+
+
+def _leaf_paths(model) -> Iterable[Tuple[str, str, torch.Tensor]]:
+    """(module name, leaf path, leaf) over every module's OWN parameters,
+    each module once."""
+    seen = set()
+    for m in model.walk():
+        if id(m) in seen or not m._param_tree:
+            continue
+        seen.add(id(m))
+        for path, leaf in tree_items(m._param_tree).items():
+            yield m.name(), "".join(f"['{k}']" for k in path.split("/")), leaf
+
+
+def _alias_groups(entries) -> List[list]:
+    """Groups of entries whose leaves overlap in memory: by storage, then by
+    overlapping byte ranges within it."""
+    by_storage: Dict[Tuple, list] = {}
+    for e in entries:
+        t = e[2]
+        if t.numel() == 0:
+            continue
+        size = t.element_size()
+        span = sum((n - 1) * abs(s) for n, s in zip(t.shape, t.stride())) + 1
+        start = t.storage_offset() * size
+        key = (t.device, t.untyped_storage().data_ptr())
+        by_storage.setdefault(key, []).append((start, start + span * size, e))
+    groups = []
+    for ranges in by_storage.values():
+        ranges.sort(key=lambda r: r[0])
+        cur, end = [], -1
+        for lo, hi, e in ranges:
+            if cur and lo < end:
+                cur.append(e)
+                end = max(end, hi)
+            else:
+                if len(cur) > 1:
+                    groups.append(cur)
+                cur, end = [e], hi
+        if len(cur) > 1:
+            groups.append(cur)
+    return groups
+
+
+class ParamAudit:
+    def __init__(self, model, allow_shared: Iterable[str] = ()):
+        if not model.is_built():
+            raise ValueError("ParamAudit needs a built model (params exist only after "
+                             "build/init); run ShapeProp for pre-build checks")
+        self.model = model
+        self.allow_shared = frozenset(allow_shared)
+
+    def findings(self) -> List[Finding]:
+        found: List[Finding] = []
+        entries = list(_leaf_paths(self.model))
+        floats = [e for e in entries if e[2].is_floating_point()]
+        for mod_name, leaf_path, leaf in floats:
+            if leaf.dtype != torch.float32:
+                name = str(leaf.dtype).replace("torch.", "")
+                found.append(Finding(
+                    "param-dtype-policy", "error",
+                    f"{mod_name}{leaf_path} is {name}; master parameters must stay float32 "
+                    "(the precision policy casts compute operands, never the stored "
+                    "weights — utils/precision.py)", path=mod_name))
+        if floats:
+            with torch.no_grad():  # one host transfer for the whole tree
+                finite = torch.stack([torch.isfinite(e[2]).all().to(floats[0][2].device)
+                                      for e in floats]).tolist()
+            for (mod_name, leaf_path, _), ok in zip(floats, finite):
+                if not ok:
+                    found.append(Finding(
+                        "param-nonfinite", "error",
+                        f"{mod_name}{leaf_path} contains NaN/Inf values at initialization",
+                        path=mod_name))
+        for group in _alias_groups(entries):
+            if not any(m in self.allow_shared for m, _, _ in group):
+                sites = ", ".join(f"{m}{p}" for m, p, _ in group)
+                found.append(Finding(
+                    "param-shared", "error",
+                    f"one parameter array is aliased at {len(group)} sites: {sites}; updates "
+                    "through one site clobber the other (pass allow_shared=[name] if "
+                    "intentional)", path=group[0][0]))
+        return found
+
+    def check(self) -> List[Finding]:
+        return _raise_on_errors(self.findings())

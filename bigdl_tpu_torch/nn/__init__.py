@@ -1,4 +1,5 @@
-"""Layers, containers and criterions of the port."""
+"""Layers, containers and criterions of the port; ``load_module`` reads a
+model file (``AbstractModule.save_module``, either package's)."""
 
 from .activations import (ELU, GELU, PReLU, RReLU, SELU, HardSigmoid, HardTanh, LeakyReLU,
                           LogSoftMax, ReLU, ReLU6, Sigmoid, SoftMax, SoftMin, SoftPlus,
@@ -37,6 +38,16 @@ from .table_ops import (MM, MV, CAddTable, CAveTable, CDivTable, CMaxTable, CMin
                         FlattenTable, JoinTable, MapTable, MixtureTable, PairwiseDistance,
                         ParallelTable, SelectTable)
 
+
+
+def load_module(path: str, device=None) -> AbstractModule:
+    """The model that ``save_module`` wrote (topology and arrays), rebuilt on
+    ``device`` (the card unless ``"cpu"``) without its building code."""
+    from ..utils.module_serializer import load_module_def
+
+    return load_module_def(path, device)
+
+
 __all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add",
            "AddConstant", "Attention", "BCECriterion", "BCECriterionWithLogits",
            "BatchNormalization", "BiRecurrent", "Bilinear", "CAdd", "CAddTable",
@@ -49,7 +60,7 @@ __all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add",
            "FlattenTable", "GELU", "GRU", "GaussianDropout", "GaussianNoise", "Graph",
            "HardSigmoid", "HardTanh", "HingeEmbeddingCriterion", "Identity", "Input",
            "JoinTable", "L1Cost", "LSTM", "LSTMPeephole", "LayerNormalization",
-           "LeakyReLU", "Linear", "Log", "LogSoftMax", "LookupTable", "LookupTableSparse",
+           "LeakyReLU", "Linear", "Log", "load_module", "LogSoftMax", "LookupTable", "LookupTableSparse",
            "MM", "MSECriterion", "MV", "MapTable", "MarginCriterion",
            "MarginRankingCriterion", "Max", "Mean", "Min", "MixtureTable", "ModuleNode",
            "MsraFiller", "Mul", "MulConstant", "MultiCriterion",

@@ -29,11 +29,13 @@ import torch.nn.functional as F
 from ..utils import precision
 from .dropout import _device_generator
 from .math_ops import _clip, _relu
-from .module import AbstractModule
+from .module import AbstractModule, spec
 
 
 class _Elementwise(AbstractModule):
     """A parameter-less activation: ``_fn(x, params, training, rng)``."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, inplace: bool = False, device=None):
         super().__init__(device)
@@ -142,6 +144,17 @@ class PReLU(AbstractModule):
     ``n_output_plane == 0``; initialised to 0.25. The result is promoted
     with the fp32 slope, as in the JAX package."""
 
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if self.n_output_plane > 0:
+            if len(shape) < 2:
+                raise ValueError(f"{self.name()}: per-channel slopes need an (N, C, ...) "
+                                 f"input, got shape {shape}")
+            if shape[1] != self.n_output_plane:
+                raise ValueError(f"{self.name()}: expected {self.n_output_plane} channels at "
+                                 f"dim 1, got {shape[1]} (input shape {shape})")
+        return spec(shape, torch.promote_types(in_spec.dtype, torch.float32))
+
     def __init__(self, n_output_plane: int = 0, device=None):
         super().__init__(device)
         self.n_output_plane = n_output_plane
@@ -170,6 +183,8 @@ class RReLU(AbstractModule):
     each element's slope ~ U(lower, upper), drawn on ``x``'s device; in eval
     mode (or without a generator) the mean slope (lower + upper) / 2."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def __init__(self, lower: float = 1.0 / 8, upper: float = 1.0 / 3, inplace: bool = False,
                  device=None):
         super().__init__(device)
@@ -189,12 +204,16 @@ class SoftMax(AbstractModule):
     """Softmax over the last dim, computed and returned in float32 (the loss
     head; reference: $DL/nn/SoftMax.scala)."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def _apply_params(self, params, state, x, training, rng):
         return torch.softmax(precision.to_float(x), dim=-1), state
 
 
 class LogSoftMax(AbstractModule):
     """log-softmax over the last dim, in float32 (the loss head)."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def _apply_params(self, params, state, x, training, rng):
         return torch.log_softmax(precision.to_float(x), dim=-1), state
@@ -243,6 +262,8 @@ class Swish(_Elementwise):
 class ThresholdedReLU(AbstractModule):
     """x if x > theta else 0 (reference: keras ``ThresholdedReLU``)."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def __init__(self, theta: float = 1.0, device=None):
         super().__init__(device)
         self.theta = theta
@@ -262,6 +283,17 @@ class SReLU(AbstractModule):
     ``shared_axes`` (1-based, batch excluded) share the tensors over those
     axes, e.g. (2, 3) over H and W of NCHW. ``t_left`` and ``a_left`` start
     at 0, ``t_right`` U(0, 1), ``a_right`` 1."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) < 2:
+            raise ValueError(f"{self.name()}: needs an (N, ...) input with non-batch dims, "
+                             f"got shape {shape}")
+        for ax in self.shared_axes:
+            if not 1 <= ax <= len(shape) - 1:
+                raise ValueError(f"{self.name()}: shared axis {ax} out of range for input "
+                                 f"shape {shape} (1-based, batch excluded)")
+        return spec(shape, torch.promote_types(in_spec.dtype, torch.float32))
 
     def __init__(self, shared_axes=None, device=None):
         super().__init__(device)

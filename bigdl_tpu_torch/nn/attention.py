@@ -229,6 +229,8 @@ class Attention(AbstractModule):
     and bias broadcastable to (N, heads, Tq, Tk); or x alone. Output
     (N, Tq, hidden)."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
     def __init__(self, hidden_size: Optional[int] = None, num_heads: int = 8,
                  attention_dropout: float = 0.0, device=None):
         super().__init__(device)
@@ -390,6 +392,8 @@ class Transformer(AbstractModule):
     ``'lengths'`` masks source pads (id 0, trailing) by per-sequence lengths,
     which keeps attention flash-eligible; ``'bias'`` by an additive bias over
     every id-0 token (the dense route)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
 
     def __init__(self, vocab_size: int, hidden_size: int = 512, num_heads: int = 8,
                  filter_size: int = 2048, num_hidden_layers: int = 6,
@@ -672,6 +676,8 @@ class SequenceBeamSearch(AbstractModule):
     ``padding_attention_bias`` (the dense route, whatever the model's
     ``pad_masking``), then beam-decoded from id 0. Output: ``[sequences,
     scores]``."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
 
     def __init__(self, model: Transformer, beam_size: int = 4, alpha: float = 0.6,
                  max_decode_length: int = 32, eos_id: int = 1):

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 from ..utils import precision
 from .initialization import InitializationMethod, RandomUniform, Xavier, Zeros
-from .module import AbstractModule
+from .module import AbstractModule, spec
 
 SAME_PADDING = -1  # reference convention: pad = -1 means TF "SAME"
 
@@ -46,6 +46,26 @@ def resolve_padding(pad: Tuple[int, int], in_hw: Tuple[int, int], kernel: Tuple[
 class SpatialConvolution(AbstractModule):
     """2-D convolution over NCHW input; weight (nOutputPlane,
     nInputPlane/nGroup, kH, kW)."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {shape}")
+        n, c, h, w = shape
+        if self.n_input_plane is not None and c != self.n_input_plane:
+            raise ValueError(f"{self.name()}: expected {self.n_input_plane} input channels, "
+                             f"got {c} (input shape {shape})")
+        if c % self.n_group:
+            raise ValueError(f"{self.name()}: {c} input channels not divisible by "
+                             f"n_group={self.n_group}")
+        (kh, kw), (sh, sw), (ph, pw) = self.kernel, self.stride, self.pad
+        dh, dw = self.dilation
+        oh, ow = conv_out_size(h, kh, sh, ph, dh), conv_out_size(w, kw, sw, pw, dw)
+        if oh <= 0 or ow <= 0:
+            raise ValueError(f"{self.name()}: kernel {self.kernel} / stride {self.stride} / "
+                             f"pad {self.pad} over-reduce the spatial dims of input {shape} "
+                             f"(computed output {(oh, ow)})")
+        return spec((n, self.n_output_plane, oh, ow), precision.result_dtype(in_spec.dtype))
 
     dilation: Tuple[int, int] = (1, 1)  # (dH, dW); SpatialDilatedConvolution sets it
 
@@ -129,6 +149,12 @@ class TemporalConvolution(AbstractModule):
     A frame size other than the declared one, an input that is not 3-D or
     a dilated kernel wider than T raise ``ValueError`` with the JAX
     package's words."""
+
+    def infer_shape(self, in_spec):
+        self._check(in_spec)
+        n, t, _ = in_spec.shape
+        ot = (t - ((self.kernel_w - 1) * self.dilation_w + 1)) // self.stride_w + 1
+        return spec((n, ot, self.output_frame_size), precision.result_dtype(in_spec.dtype))
 
     def __init__(self, input_frame_size: Optional[int], output_frame_size: int, kernel_w: int,
                  stride_w: int = 1, dilation_w: int = 1, device=None):

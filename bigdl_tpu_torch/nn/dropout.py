@@ -45,6 +45,8 @@ class Dropout(AbstractModule):
     (``scale=True``, the reference's default). ``inplace`` is accepted and
     ignored."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less, identity at eval
+
     def __init__(self, init_p: float = 0.5, inplace: bool = False, scale: bool = True,
                  device=None):
         super().__init__(device)
@@ -60,6 +62,8 @@ class Dropout(AbstractModule):
 class _SpatialDropout(AbstractModule):
     """Drops whole slices: the mask has ``x``'s size on the dims in ``_kept``
     and 1 elsewhere; kept slices are scaled by 1/(1-p)."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less, identity at eval
 
     _kept = ()
 
@@ -96,6 +100,8 @@ class GaussianNoise(AbstractModule):
     """Additive zero-mean Gaussian noise of std ``stddev`` at train time, in
     ``x``'s dtype."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less, identity at eval
+
     def __init__(self, stddev: float, device=None):
         super().__init__(device)
         self.stddev = stddev
@@ -111,6 +117,8 @@ class GaussianNoise(AbstractModule):
 class GaussianDropout(AbstractModule):
     """Multiplicative N(1, rate/(1-rate)) noise at train time, in ``x``'s
     dtype."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less, identity at eval
 
     def __init__(self, rate: float, device=None):
         super().__init__(device)

@@ -38,10 +38,15 @@ import torch.nn.functional as F
 
 from ..tensor.sparse import SparseTensor, sparse_join
 from .initialization import InitializationMethod, RandomNormal
-from .module import AbstractModule
+from .module import AbstractModule, spec
 
 
 class LookupTable(AbstractModule):
+
+    def infer_shape(self, in_spec):
+        if in_spec.is_complex() or in_spec.dtype == torch.bool:
+            raise ValueError(f"{self.name()}: index input must be numeric, got {in_spec.dtype}")
+        return spec(tuple(in_spec.shape) + (self.n_output,), torch.float32)
     def __init__(self, n_index: int, n_output: int, padding_value: Optional[int] = None,
                  max_norm: Optional[float] = None, norm_type: float = 2.0,
                  should_scale_grad_by_freq: bool = False, one_based_input: bool = False,
@@ -94,6 +99,12 @@ class LookupTable(AbstractModule):
 
 
 class LookupTableSparse(AbstractModule):
+
+    def infer_shape(self, in_spec):
+        if not isinstance(in_spec, SparseTensor):
+            raise ValueError(f"{self.name()}: expects a SparseTensor of feature ids, got "
+                             f"{type(in_spec).__name__}")
+        return spec((in_spec.shape[0], self.n_output), torch.float32)
     def __init__(self, n_index: int, n_output: int, combiner: str = "sum",
                  max_norm: Optional[float] = None, device=None):
         super().__init__(device)
@@ -135,6 +146,8 @@ class LookupTableSparse(AbstractModule):
 
 
 class DenseToSparse(AbstractModule):
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
     def _apply_params(self, params, state, x, training, rng):
         n, m = x.shape
         rows = torch.arange(n, dtype=torch.int32, device=x.device).repeat_interleave(m)
@@ -143,6 +156,8 @@ class DenseToSparse(AbstractModule):
 
 
 class SparseJoinTable(AbstractModule):
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
     def __init__(self, dimension: int = 2, device=None):
         super().__init__(device)
         if dimension != 2:

@@ -18,10 +18,20 @@ from typing import Optional
 from ..tensor.sparse import SparseTensor
 from ..utils import precision
 from .initialization import InitializationMethod, RandomUniform
-from .module import AbstractModule
+from .module import AbstractModule, spec
 
 
 class Linear(AbstractModule):
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if not shape:
+            raise ValueError(f"{self.name()}: needs a trailing feature dim, got a scalar input")
+        if self.input_size is not None and shape[-1] != self.input_size:
+            raise ValueError(f"{self.name()}: expected last dim {self.input_size}, got "
+                             f"{shape[-1]} (input shape {shape})")
+        dt = in_spec.values.dtype if isinstance(in_spec, SparseTensor) else in_spec.dtype
+        return spec(shape[:-1] + (self.output_size,), precision.result_dtype(dt))
     def __init__(self, input_size: Optional[int] = None, output_size: int = 0,
                  with_bias: bool = True, w_regularizer=None, b_regularizer=None,
                  activation: Optional[str] = None, device=None):

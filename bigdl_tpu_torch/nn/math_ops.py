@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from .initialization import RandomUniform
-from .module import AbstractModule
+from ..utils.table import Table
+from .module import AbstractModule, spec
 
 
 def _promote(*ts: torch.Tensor):
@@ -71,6 +72,8 @@ def _relu(x: torch.Tensor) -> torch.Tensor:
 
 class _Pointwise(AbstractModule):
     """A parameter-less layer ``y = _fn(x)``."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def _fn(self, x):
         raise NotImplementedError
@@ -154,6 +157,10 @@ class Neg(_Pointwise):
 class Mul(AbstractModule):
     """One learned scalar multiplier ``weight`` (1,) (reference: Mul)."""
 
+    def infer_shape(self, in_spec):
+        return spec(torch.broadcast_shapes(tuple(in_spec.shape), (1,)),
+                    torch.promote_types(in_spec.dtype, torch.float32))
+
     def _build(self, generator, sample):
         return {"weight": RandomUniform()(generator, (1,), 1, 1)}, {}
 
@@ -165,6 +172,9 @@ class Add(AbstractModule):
     """A learned bias over the non-batch dims, ``bias`` of the input's shape
     without its batch dim, zeros at first (reference: Add). ``input_size``
     is kept as the JAX package keeps it (the shape comes from the input)."""
+
+    def infer_shape(self, in_spec):
+        return spec(tuple(in_spec.shape), torch.promote_types(in_spec.dtype, torch.float32))
 
     def __init__(self, input_size: Optional[int] = None, device=None):
         super().__init__(device)
@@ -190,6 +200,11 @@ class CMul(AbstractModule):
     convention, a leading 1 for the batch: (1, C, 1, 1) per channel),
     broadcast over the input (reference: CMul)."""
 
+    def infer_shape(self, in_spec):
+        _check_broadcast(self, "weight", self.size, in_spec.shape)
+        return spec(torch.broadcast_shapes(tuple(in_spec.shape), self.size),
+                    torch.promote_types(in_spec.dtype, torch.float32))
+
     def __init__(self, size: Sequence[int], device=None):
         super().__init__(device)
         self.size = tuple(size)
@@ -207,6 +222,11 @@ class CAdd(AbstractModule):
     """A learned componentwise bias ``bias`` of ``size``, zeros at first,
     broadcast over the input (reference: CAdd)."""
 
+    def infer_shape(self, in_spec):
+        _check_broadcast(self, "bias", self.size, in_spec.shape)
+        return spec(torch.broadcast_shapes(tuple(in_spec.shape), self.size),
+                    torch.promote_types(in_spec.dtype, torch.float32))
+
     def __init__(self, size: Sequence[int], device=None):
         super().__init__(device)
         self.size = tuple(size)
@@ -221,6 +241,8 @@ class CAdd(AbstractModule):
 
 class _Reduce(AbstractModule):
     """A reduction over the 1-based ``dimension`` (see module docstring)."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, dimension: int = 1, n_input_dims: int = -1, size_average: bool = False,
                  squeeze: bool = True, device=None):
@@ -284,6 +306,20 @@ class Bilinear(AbstractModule):
     with fan-in input_size1·input_size2, ``bias`` (output_size) zeros when
     ``bias_res``."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def infer_shape(self, in_spec):
+        xs = in_spec.to_list() if isinstance(in_spec, Table) else list(in_spec)
+        if len(xs) < 2:
+            raise ValueError(f"{self.name()}: expects Table(x1, x2), got {len(xs)} input(s)")
+        a, b = xs[0], xs[1]
+        if a.shape[-1] != self.input_size1 or b.shape[-1] != self.input_size2:
+            raise ValueError(f"{self.name()}: declared input sizes ({self.input_size1}, "
+                             f"{self.input_size2}), got shapes {tuple(a.shape)} and "
+                             f"{tuple(b.shape)}")
+        return spec((a.shape[0], self.output_size),
+                    torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32))
+
     def __init__(self, input_size1: int, input_size2: int, output_size: int,
                  bias_res: bool = True, device=None):
         super().__init__(device)
@@ -323,6 +359,14 @@ class Euclidean(AbstractModule):
     centres, the columns of ``weight`` (input_size, output_size):
     sqrt(sum((x - w)²) + 1e-12) (reference: Euclidean)."""
 
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 2 or shape[-1] != self.input_size:
+            raise ValueError(f"{self.name()}: expects (N, {self.input_size}) input, got "
+                             f"shape {shape}")
+        return spec((shape[0], self.output_size),
+                    torch.promote_types(in_spec.dtype, torch.float32))
+
     def __init__(self, input_size: int, output_size: int, device=None):
         super().__init__(device)
         self.input_size = input_size
@@ -345,6 +389,14 @@ class Cosine(AbstractModule):
     """The cosine similarity of the input to each row of ``weight``
     (output_size, input_size), each norm clipped at 1e-12 (reference:
     Cosine)."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if shape[-1] != self.input_size:
+            raise ValueError(f"{self.name()}: declared input size {self.input_size}, got "
+                             f"last dim {shape[-1]} (input shape {shape})")
+        return spec(shape[:-1] + (self.output_size,),
+                    torch.promote_types(in_spec.dtype, torch.float32))
 
     def __init__(self, input_size: int, output_size: int, device=None):
         super().__init__(device)
@@ -371,6 +423,15 @@ class Scale(AbstractModule):
     """Per-channel affine ``y = x·w + b`` over dim 1 (reference:
     ``$DL/nn/Scale.scala``; Caffe's ``Scale``): ``weight`` ones and ``bias``
     zeros of the channel count, ``size`` or the input's dim 1."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) < 2:
+            raise ValueError(f"{self.name()}: needs a channel dim at axis 1, got shape {shape}")
+        if self.size is not None and shape[1] != self.size:
+            raise ValueError(f"{self.name()}: declared {self.size} channels, got {shape[1]} "
+                             f"(input shape {shape})")
+        return spec(shape, torch.promote_types(in_spec.dtype, torch.float32))
 
     def __init__(self, size: Optional[int] = None, device=None):
         super().__init__(device)

@@ -31,13 +31,27 @@ which is the card unless the caller asks for ``device="cpu"``; ``.to()``,
 ``.cuda()``, ``.cpu()`` and the dtype casts move the parameters and the
 state together, and ``device`` follows them.
 
+Every subclass records its constructor's arguments (``_ctor_spec``; the
+``device=`` keyword is left out: a model file does not say where a model
+runs) and the outermost ``build`` records the input's spec
+(``_top_in_spec``), so ``save_module`` can write the topology and
+``nn.load_module`` rebuild it in a fresh process
+(:mod:`bigdl_tpu_torch.utils.module_serializer`). ``infer_shape(in_spec)``
+is a module's static shape contract over specs (meta tensors, the
+counterpart of ``jax.ShapeDtypeStruct``), ``NotImplemented`` where it has
+none; :func:`infer_module_shape` resolves any module, and ``walk()`` yields
+a module and its descendants (:mod:`bigdl_tpu_torch.analysis`).
+
 Deliberate deviation: ``apply(params, state, x, *, training, rng)`` is the
 JAX package's API and shadows ``torch.nn.Module.apply(fn)``.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
+import os
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +63,62 @@ from ..utils.random import RandomGenerator
 from ..utils.table import T, Table
 
 _uid = itertools.count(1)
+META = torch.device("meta")
+
+
+def spec(shape, dtype: torch.dtype) -> torch.Tensor:
+    """A spec: a meta tensor of ``shape`` and ``dtype``."""
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def to_spec(x):
+    """The spec of ``x``: each tensor or array as a meta tensor of its shape
+    and dtype (the counterpart of ``jax.ShapeDtypeStruct``), through
+    ``Table`` s, lists and tuples; a ``SparseTensor``'s parts too."""
+    if isinstance(x, Table):
+        return T(*[to_spec(v) for v in x])
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_spec(v) for v in x)
+    if isinstance(x, SparseTensor):
+        return x.to(META)
+    if isinstance(x, np.ndarray):
+        return torch.empty(x.shape, dtype=torch.from_numpy(np.zeros(0, x.dtype)).dtype,
+                           device=META)
+    if isinstance(x, torch.Tensor):
+        return x if x.device == META else torch.empty(x.shape, dtype=x.dtype, device=META)
+    return x
+
+
+# --- constructor and build recording, for the model file (utils/module_serializer) ---
+_build_depth = threading.local()
+
+
+def _record_ctor(init):
+    @functools.wraps(init)
+    def wrapper(self, *args, **kwargs):
+        if "_ctor_spec" not in self.__dict__:  # the most-derived class wins
+            object.__setattr__(self, "_ctor_spec",
+                               (args, {k: v for k, v in kwargs.items() if k != "device"}))
+        init(self, *args, **kwargs)
+
+    wrapper._ctor_recorded = True
+    return wrapper
+
+
+def _record_build(build):
+    @functools.wraps(build)
+    def wrapper(self, generator, sample):
+        depth = getattr(_build_depth, "d", 0)
+        if depth == 0:  # only the outermost build sees the model's input
+            object.__setattr__(self, "_top_in_spec", to_spec(sample))
+        _build_depth.d = depth + 1
+        try:
+            return build(self, generator, sample)
+        finally:
+            _build_depth.d = depth
+
+    wrapper._build_recorded = True
+    return wrapper
 
 
 def _register_tree(owner: torch.nn.Module, tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -69,6 +139,15 @@ def _register_tree(owner: torch.nn.Module, tree: Dict[str, Any]) -> Dict[str, An
 
 class AbstractModule(torch.nn.Module):
     """Base class of the port's layers (see module docstring)."""
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        init = cls.__dict__.get("__init__")
+        if init is not None and not getattr(init, "_ctor_recorded", False):
+            cls.__init__ = _record_ctor(init)
+        bld = cls.__dict__.get("build")
+        if bld is not None and not getattr(bld, "_build_recorded", False):
+            cls.build = _record_build(bld)
 
     def __init__(self, device=None):
         super().__init__()
@@ -111,6 +190,25 @@ class AbstractModule(torch.nn.Module):
 
     def n_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def walk(self):
+        """This module and, for a container, every descendant."""
+        yield self
+
+    # ----------------------------------------------------------- shape contract
+    def infer_shape(self, in_spec):
+        """Static contract: input spec -> output spec (meta tensors). It
+        must not run the model or allocate a parameter, and raises
+        ``ValueError`` naming the module and the shapes on a violation.
+        ``NotImplemented`` (the default) means no contract:
+        :func:`infer_module_shape` then runs the module on meta tensors."""
+        return NotImplemented
+
+    def _infer_shape_via_apply(self, in_spec):
+        """The contract of a parameter-less layer: its own forward on the
+        meta spec."""
+        with torch.no_grad():
+            return to_spec(self._apply_params({}, {}, in_spec, False, None)[0])
 
     # --------------------------------------------------------------- building
     def _build(self, generator: torch.Generator, sample) -> Tuple[Dict, Dict]:
@@ -262,6 +360,38 @@ class AbstractModule(torch.nn.Module):
 
         return Predictor(self, batch_size).predict_class(data)
 
+    # ------------------------------------------------------------ persistence
+    def save_module(self, path: str, overwrite: bool = True) -> None:
+        """Write the topology, the parameters and the state as one ``.npz``
+        (the reference's ``Module.saveModule``), which ``nn.load_module``
+        rebuilds in a fresh process. Falls back to the arrays alone when a
+        constructor argument cannot be encoded; instance ``load_module``
+        reads those into a rebuilt module."""
+        from ..utils.module_serializer import save_module_def
+        from ..utils.serialization import save_pytree
+
+        if not overwrite and os.path.exists(path):
+            raise FileExistsError(path)
+        if not self.is_built():
+            raise ValueError("save_module: module not built yet")
+        try:
+            save_module_def(path, self)
+        except (TypeError, ValueError):
+            save_pytree(path, {"params": self.get_parameters(), "state": self.get_state()})
+
+    def load_module(self, path: str) -> "AbstractModule":
+        """Copy the arrays that ``save_module`` wrote into this built module,
+        in place (the reference's ``Module.loadModule``)."""
+        from ..utils.serialization import copy_into, load_pytree
+
+        if not self.is_built():
+            raise ValueError("load_module: build the module first (init with a sample input)")
+        flat = load_pytree(path)
+        for what, tree in (("params", self.get_parameters()), ("state", self.get_state())):
+            copy_into(tree, {k[len(what) + 1:]: v for k, v in flat.items()
+                             if k.startswith(what + "/")}, what)
+        return self
+
     # ----------------------------------------------------------------- graphs
     def inputs(self, *parents) -> "ModuleNode":
         """``layer.inputs(n1, n2)``: a graph node of this module fed by
@@ -269,6 +399,51 @@ class AbstractModule(torch.nn.Module):
         from .graph import ModuleNode
 
         return ModuleNode(self, parents)
+
+
+AbstractModule.build = _record_build(AbstractModule.build)
+
+
+def _meta_like(t):
+    return torch.empty(t.shape, dtype=t.dtype, device=META)
+
+
+def infer_module_shape(module: AbstractModule, in_spec):
+    """The output spec of ``module`` for ``in_spec`` without running the
+    model on data or allocating a parameter. In order: the module's own
+    ``infer_shape`` contract; for a built module, its forward over meta
+    copies of its parameters and state; for an unbuilt one, a build on
+    meta tensors with a throwaway generator, after which every module of
+    the subtree is restored exactly as it was (attributes, registered
+    parameters and children). None of the three touches the card or
+    launches a kernel: the kernels' entry points take their plain versions
+    on meta tensors."""
+    out = module.infer_shape(in_spec)
+    if out is not NotImplemented:
+        return out
+    with torch.no_grad():
+        if module.is_built():
+            return to_spec(module._apply_params(_map_tree(_meta_like, module.get_parameters()),
+                                                _map_tree(_meta_like, module.get_state()),
+                                                in_spec, False, None)[0])
+        saved = {}
+        for m in module.modules():
+            d = dict(m.__dict__)
+            for key in ("_parameters", "_buffers", "_modules", "_layers"):
+                if key in d:
+                    d[key] = type(d[key])(d[key])
+            saved[id(m)] = (m, d)
+        try:
+            for m, _ in saved.values():
+                if isinstance(m, AbstractModule):
+                    m._device = META
+            module.build(torch.Generator(), in_spec)
+            return to_spec(module._apply_params(module.get_parameters(), module.get_state(),
+                                                in_spec, False, None)[0])
+        finally:
+            for m, d in saved.values():
+                m.__dict__.clear()
+                m.__dict__.update(d)
 
 
 class Container(AbstractModule):
@@ -312,6 +487,11 @@ class Container(AbstractModule):
     def get_parameters(self) -> Dict[str, Any]:
         return {m.name(): m.get_parameters() for m in self._layers}
 
+    def walk(self):
+        yield self
+        for m in self._layers:
+            yield from m.walk()
+
     def get_state(self) -> Dict[str, Any]:
         return {m.name(): m.get_state() for m in self._layers}
 
@@ -351,6 +531,12 @@ class Sequential(Container):
                 x = self._build_child(m, generator, x)
         self._built = True
 
+    def infer_shape(self, in_spec):
+        out = in_spec
+        for m in self._layers:
+            out = infer_module_shape(m, out)
+        return out
+
     def _apply_params(self, params, state, x, training, rng):
         new_state: Dict[str, Any] = {}
         for m in self._layers:
@@ -361,6 +547,9 @@ class Sequential(Container):
 
 class Identity(AbstractModule):
     """Pass-through."""
+
+    def infer_shape(self, in_spec):
+        return in_spec
 
     def _apply_params(self, params, state, x, training, rng):
         return x, state

@@ -39,12 +39,21 @@ import torch.nn.functional as F
 
 from ..ops.fused_common import fused_kernels_active
 from ..ops.fused_norm import fused_layer_norm, fused_rms_norm
-from .module import AbstractModule
+from .module import AbstractModule, spec
 
 
 class BatchNormalization(AbstractModule):
     """BN over (N, C) or (N, C, ...) with C at dim 1; ``affine`` adds the
     learnable weight (γ) and bias (β)."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) <= 1:
+            raise ValueError(f"{self.name()}: needs a channel dim at axis 1, got shape {shape}")
+        if self.n_output is not None and shape[1] != self.n_output:
+            raise ValueError(f"{self.name()}: expected {self.n_output} channels, got "
+                             f"{shape[1]} (input shape {shape})")
+        return spec(shape, in_spec.dtype)
 
     def __init__(self, n_output: Optional[int] = None, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True, device=None):
@@ -118,6 +127,10 @@ class _LastDimNorm(AbstractModule):
 class LayerNormalization(_LastDimNorm):
     """LayerNorm over the last dim (reference: LayerNormalization.scala)."""
 
+    def infer_shape(self, in_spec):
+        self._hidden(in_spec)
+        return spec(tuple(in_spec.shape), torch.promote_types(in_spec.dtype, torch.float32))
+
     def __init__(self, hidden_size: Optional[int] = None, eps: float = 1e-5, device=None):
         super().__init__(hidden_size, eps, device)
 
@@ -139,6 +152,10 @@ class RMSNorm(_LastDimNorm):
     """Root-mean-square norm over the last dim (Zhang & Sennrich 2019):
     ``x · rsqrt(mean(x²) + eps) · g``, LayerNorm without centring or bias;
     fp32 statistics, the output in ``x``'s dtype."""
+
+    def infer_shape(self, in_spec):
+        self._hidden(in_spec)
+        return spec(tuple(in_spec.shape), in_spec.dtype)
 
     def __init__(self, hidden_size: Optional[int] = None, eps: float = 1e-6, device=None):
         super().__init__(hidden_size, eps, device)
@@ -166,6 +183,8 @@ class SpatialCrossMapLRN(AbstractModule):
     in fp32 and rounded once
     to ``x``'s dtype: for bf16 that is more exact than the JAX package, whose
     square, window sum, power and divide each round to bf16."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75, k: float = 1.0,
                  device=None):

@@ -91,6 +91,10 @@ class SpatialMaxPooling(_Pool2d):
     or the ``shift`` gradient under ``BIGDL_MAXPOOL_GRAD_IMPL=shift``
     (:func:`~bigdl_tpu_torch.ops.maxpool.grad_impl`)."""
 
+    def infer_shape(self, in_spec):
+        self._geometry(in_spec)  # NCHW, each window within the padded input
+        return self._infer_shape_via_apply(in_spec)
+
     def __init__(self, kernel_w: int, kernel_h: Optional[int] = None,
                  stride_w: Optional[int] = None, stride_h: Optional[int] = None,
                  pad_w: int = 0, pad_h: Optional[int] = None, device=None):
@@ -104,6 +108,14 @@ class SpatialAveragePooling(_Pool2d):
     """Average pool. ``count_include_pad`` counts the explicit pad cells in
     the divisor (the ceil-mode overhang never counts); ``global_pooling``
     pools the whole spatial extent; ``divide=False`` returns the sums."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {shape}")
+        if not self.global_pooling:
+            _check_window(self, shape, shape[2:], self.kernel, self.pad)
+        return self._infer_shape_via_apply(in_spec)
 
     def __init__(self, kernel_w: int, kernel_h: Optional[int] = None,
                  stride_w: Optional[int] = None, stride_h: Optional[int] = None,
@@ -152,6 +164,13 @@ class TemporalMaxPooling(AbstractModule):
     window's gradient goes to its first maximum, as the JAX package's
     ``reduce_window`` gradient (a select with ``ge``) sends it; ATen's
     max-pool backward picks the first maximum too (strict ``>``)."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 3:
+            raise ValueError(f"{self.name()}: expects (N, T, C) input, got shape {shape}")
+        _check_window(self, shape, (shape[1],), (self.k_w,), (0,))
+        return self._infer_shape_via_apply(in_spec)
 
     def __init__(self, k_w: int, d_w: Optional[int] = None, device=None):
         super().__init__(device)

@@ -45,6 +45,8 @@ class Cell(AbstractModule):
     ``init_carry(batch, device)`` is the zero state. A bare cell applied
     outside ``Recurrent`` runs ONE step from the zero carry."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
     hidden_size: int
 
     def init_carry(self, batch_size: int, device):

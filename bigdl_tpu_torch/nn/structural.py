@@ -5,11 +5,26 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from .module import AbstractModule
+import numpy as np
+
+from .module import AbstractModule, spec
 
 
 class Reshape(AbstractModule):
     """Reshape, keeping the batch dim when ``batch_mode``."""
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        want = int(np.prod(self.size, dtype=np.int64))
+        if self.batch_mode:
+            have, out = int(np.prod(shape[1:], dtype=np.int64)), (shape[0],) + self.size
+        else:
+            have, out = int(np.prod(shape, dtype=np.int64)), self.size
+        if have != want:
+            per_row = " per row" if self.batch_mode else ""
+            raise ValueError(f"{self.name()}: cannot reshape {have} elements{per_row} "
+                             f"(input shape {shape}) into {self.size} ({want} elements)")
+        return spec(tuple(out), in_spec.dtype)
 
     def __init__(self, size: Sequence[int], batch_mode: Optional[bool] = True, device=None):
         super().__init__(device)
@@ -27,6 +42,8 @@ class Select(AbstractModule):
     1-based, a negative value counting from the end (-1 is the last).
     Reference: $DL/nn/Select.scala."""
 
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def __init__(self, dimension: int, index: int, device=None):
         super().__init__(device)
         self.dimension = dimension
@@ -41,6 +58,8 @@ class Select(AbstractModule):
 class SpaceToDepth(AbstractModule):
     """(N, C, H, W) -> (N, C·b², H/b, W/b), each b×b spatial block folded into
     channels in (C, row offset, column offset) order."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, block_size: int = 2, device=None):
         super().__init__(device)

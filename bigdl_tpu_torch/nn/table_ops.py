@@ -19,13 +19,14 @@ gradient at a == b is NaN there as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List
 
 import torch
 
 from ..utils.table import T, Table
 from .math_ops import _abs, _clip_min, _norm, _promote
-from .module import AbstractModule, Container
+from .module import AbstractModule, Container, infer_module_shape, spec
 
 
 def _as_list(x) -> List[Any]:
@@ -61,6 +62,14 @@ class Concat(Container):
     ``dimension`` (1-based), in the branches' promoted dtype (Inception's
     modules). Reference: $DL/nn/Concat.scala."""
 
+    def infer_shape(self, in_spec):
+        specs = [infer_module_shape(m, in_spec) for m in self._layers]
+        d = self.dimension - 1
+        check_concat_specs(self, [s.shape for s in specs], d, [m.name() for m in self._layers])
+        shape = list(specs[0].shape)
+        shape[d] = sum(s.shape[d] for s in specs)
+        return spec(tuple(shape), functools.reduce(torch.promote_types, [s.dtype for s in specs]))
+
     def __init__(self, dimension: int = 2, device=None):
         super().__init__(device=device)
         self.dimension = dimension
@@ -90,6 +99,9 @@ class ConcatTable(Container):
     """Each branch applied to the same input; a ``Table`` of their outputs
     (reference: ConcatTable)."""
 
+    def infer_shape(self, in_spec):
+        return T(*[infer_module_shape(m, in_spec) for m in self._layers])
+
     def build(self, generator: torch.Generator, sample) -> None:
         if self._built:
             raise RuntimeError(f"{self.name()} is already built")
@@ -111,6 +123,15 @@ class ConcatTable(Container):
 class ParallelTable(Container):
     """The i-th branch applied to the i-th entry of the input table; a
     ``Table`` of their outputs (reference: ParallelTable)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def infer_shape(self, in_spec):
+        specs = _as_list(in_spec)
+        if len(specs) != len(self._layers):
+            raise ValueError(f"{self.name()}: {len(self._layers)} branches but {len(specs)} "
+                             "inputs")
+        return T(*[infer_module_shape(m, s) for m, s in zip(self._layers, specs)])
 
     def build(self, generator: torch.Generator, sample) -> None:
         if self._built:
@@ -140,6 +161,11 @@ class MapTable(Container):
     statistics) is kept; the parameters' gradient is the entries' sum. A
     container of one child, not a graph with a shared node."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def infer_shape(self, in_spec):
+        return T(*[infer_module_shape(self._layers[0], s) for s in _as_list(in_spec)])
+
     def __init__(self, module: AbstractModule, device=None):
         super().__init__(module, device=device)
 
@@ -165,6 +191,12 @@ class JoinTable(AbstractModule):
     """The table's entries concatenated along ``dimension`` (1-based); with
     ``n_input_dims > 0`` and entries of more dims than that, the dim moves
     one past the batch dim (reference: JoinTable)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def infer_shape(self, in_spec):
+        self._build(None, in_spec)  # the merge-point check
+        return self._infer_shape_via_apply(in_spec)
 
     def __init__(self, dimension: int, n_input_dims: int = 0, device=None):
         super().__init__(device)
@@ -193,6 +225,22 @@ class JoinTable(AbstractModule):
 class _ElementwiseTable(AbstractModule):
     """The table's entries combined left to right by ``_combine``
     (broadcasting as ``jnp`` does)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def infer_shape(self, in_spec):
+        xs = _as_list(in_spec)
+        if not xs:
+            raise ValueError(f"{self.name()}: empty input Table")
+        shape = tuple(xs[0].shape)
+        for i, s in enumerate(xs[1:], 2):
+            try:
+                shape = torch.broadcast_shapes(shape, tuple(s.shape))
+            except RuntimeError:
+                raise ValueError(f"{self.name()}: table entry 1 shape {tuple(xs[0].shape)} "
+                                 f"does not broadcast with entry {i} shape "
+                                 f"{tuple(s.shape)}") from None
+        return self._infer_shape_via_apply(in_spec)
 
     def _build(self, generator, sample):
         xs = _as_list(sample)
@@ -257,6 +305,9 @@ class CMinTable(_ElementwiseTable):
 class CAveTable(AbstractModule):
     """The entries' mean: their sum, left to right, over their count."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def _apply_params(self, params, state, x, training, rng):
         xs = _as_list(x)
         return sum(xs) / len(xs), state
@@ -265,6 +316,9 @@ class CAveTable(AbstractModule):
 class SelectTable(AbstractModule):
     """The ``index``-th entry (1-based; negative from the end) (reference:
     SelectTable)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, index: int, device=None):
         super().__init__(device)
@@ -278,6 +332,9 @@ class SelectTable(AbstractModule):
 class FlattenTable(AbstractModule):
     """Nested tables flattened into one ``Table``, depth first (reference:
     FlattenTable)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def _apply_params(self, params, state, x, training, rng):
         out: List[Any] = []
@@ -299,6 +356,9 @@ class MixtureTable(AbstractModule):
     """Table(gater (N, E), experts): the experts' outputs weighted by the
     gater and summed (reference: MixtureTable)."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def _apply_params(self, params, state, x, training, rng):
         gater, experts = _as_list(x)[:2]
         stacked = torch.stack(_as_list(experts), dim=1)  # (N, E, ...)
@@ -309,6 +369,9 @@ class MixtureTable(AbstractModule):
 class DotProduct(AbstractModule):
     """Row-wise dot product of Table(a, b) (reference: DotProduct)."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def _apply_params(self, params, state, x, training, rng):
         a, b = _as_list(x)[:2]
         return torch.sum(a * b, dim=-1), state
@@ -318,6 +381,9 @@ class CosineDistance(AbstractModule):
     """Row-wise cosine similarity of Table(a, b), the norms' product clipped
     at 1e-12 (reference: CosineDistance)."""
 
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
     def _apply_params(self, params, state, x, training, rng):
         a, b = _as_list(x)[:2]
         return torch.sum(a * b, dim=-1) / _clip_min(_norm(a) * _norm(b), 1e-12), state
@@ -326,6 +392,9 @@ class CosineDistance(AbstractModule):
 class PairwiseDistance(AbstractModule):
     """Row-wise Lp distance (Σ|a - b|^p)^(1/p) of Table(a, b) (reference:
     PairwiseDistance)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, norm: int = 2, device=None):
         super().__init__(device)
@@ -339,6 +408,9 @@ class PairwiseDistance(AbstractModule):
 class MM(AbstractModule):
     """(Batch) matrix product of Table(a, b), each optionally transposed in
     its last two dims (reference: MM)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, trans_a: bool = False, trans_b: bool = False, device=None):
         super().__init__(device)
@@ -356,6 +428,9 @@ class MM(AbstractModule):
 class MV(AbstractModule):
     """(Batch) matrix-vector product of Table(mat, vec), the matrix
     optionally transposed (reference: MV)."""
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
 
     def __init__(self, trans: bool = False, device=None):
         super().__init__(device)

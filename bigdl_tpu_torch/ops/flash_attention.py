@@ -296,7 +296,10 @@ def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None
                     lengths: Optional[torch.Tensor] = None,
                     mask_q: Optional[bool] = None) -> torch.Tensor:
     """Attention output only, differentiable in q, k and v (see
-    :func:`flash_attention_fwd` and :func:`flash_attention_bwd`)."""
+    :func:`flash_attention_fwd` and :func:`flash_attention_bwd`). A meta
+    tensor (shape inference) takes the plain version."""
     if mask_q is None:
         mask_q = q.shape[2] == k.shape[2]
+    if q.device.type == "meta":
+        return flash_attention_fwd_reference(q, k, v, causal, scale, lengths, bool(mask_q))[0]
     return _FlashAttentionFunction.apply(q, k, v, causal, scale, lengths, bool(mask_q))

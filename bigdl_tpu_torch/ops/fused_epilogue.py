@@ -275,6 +275,9 @@ def fused_bias_act(x: torch.Tensor, bias: torch.Tensor, act: Optional[str] = Non
                    axis: int = -1) -> torch.Tensor:
     """``act(x + bias)`` in one fused pass each way, the bias broadcast along
     ``axis`` (-1: features, 1: NCHW channels); differentiable in ``x`` and
-    ``bias``. The output keeps ``x``'s dtype."""
+    ``bias``. The output keeps ``x``'s dtype. A meta tensor (shape
+    inference, ``bigdl_tpu_torch.analysis``) takes the plain version."""
     _geometry(x, bias, act, axis, "fused_bias_act")
+    if x.device.type == "meta":
+        return fused_bias_act_reference(x, bias, act, axis)
     return _FusedBiasActFunction.apply(x, bias, act, axis)

@@ -313,13 +313,19 @@ class _RMSNormFunction(torch.autograd.Function):
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim in one fused pass each way, differentiable
-    in ``x``, ``weight`` and ``bias``; fp32 output."""
+    in ``x``, ``weight`` and ``bias``; fp32 output. A meta tensor (shape
+    inference) takes the plain version."""
     _check("fused_layer_norm", x, weight, bias)
+    if x.device.type == "meta":
+        return layer_norm_reference(x, weight, bias, eps)
     return _LayerNormFunction.apply(x, weight, bias, eps)
 
 
 def fused_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim in one fused pass each way, differentiable
-    in ``x`` and ``weight``; the output keeps ``x``'s dtype."""
+    in ``x`` and ``weight``; the output keeps ``x``'s dtype. A meta tensor
+    (shape inference) takes the plain version."""
     _check("fused_rms_norm", x, weight)
+    if x.device.type == "meta":
+        return rms_norm_reference(x, weight, eps)
     return _RMSNormFunction.apply(x, weight, eps)

@@ -52,11 +52,20 @@ or the port's): parameters, BN state and optimizer slots are copied into
 the existing tensors on the model's device, the state table and the RNG
 position are restored, and the next ``optimize()`` continues the run.
 
+``validate=True`` (the default) runs the static analysis
+(:mod:`bigdl_tpu_torch.analysis`) as the JAX package does: at construction,
+``GraphValidator`` over every ``Graph`` of the model (and ``ParamAudit`` of
+a model already built); in ``optimize()``, before the first step and
+before the model is built, ``ShapeProp`` against the first batch's spec,
+so that a wrong width or wiring stops on the host with the module's path
+before any parameter is allocated on the card; then ``ParamAudit`` (one
+host transfer) after the build. ``validate=False`` skips all of them.
+
 Each iteration is logged (loss, learning rate, records/s) and kept in
-``history``. The flat update and its precision policies, buffer donation
-and the construction-time audit are not ported (their keyword arguments
-raise ``NotImplementedError`` when not at their defaults); nor are
-summaries, telemetry, health, retry, preemption and elastic training.
+``history``. The flat update and its precision policies and buffer
+donation are not ported (their keyword arguments raise
+``NotImplementedError`` when not at their defaults); nor are summaries,
+telemetry, health, retry, preemption and elastic training.
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..dataset.dataset import pad_minibatch, to_device
+from ..nn.module import to_spec
 from ..nn.normalization import BatchNormalization
 from ..utils.random import RandomGenerator
 from ..utils.serialization import (copy_into, latest_checkpoint_step, load_checkpoint,
@@ -81,7 +91,7 @@ from .validation import ValidationMethod, ValidationResult
 log = logging.getLogger(__name__)
 
 # the JAX package's Optimizer keyword arguments and their defaults
-_UNPORTED = {"validate": True, "donate": True, "flat_update": False, "comms_dtype": None,
+_UNPORTED = {"donate": True, "flat_update": False, "comms_dtype": None,
              "error_feedback": True, "master_dtype": None, "slot_dtype": None}
 
 
@@ -115,7 +125,7 @@ class LocalOptimizer:
     """Trains ``model`` on ``dataset`` against ``criterion`` on the model's
     device (see the module docstring)."""
 
-    def __init__(self, model, dataset, criterion, **kwargs):
+    def __init__(self, model, dataset, criterion, validate: bool = True, **kwargs):
         for key, val in kwargs.items():
             if key not in _UNPORTED:
                 raise TypeError(f"LocalOptimizer got an unexpected keyword argument {key!r}")
@@ -126,6 +136,9 @@ class LocalOptimizer:
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
+        self.validate = validate
+        if validate:
+            self._validate_at_construction()
         self.optim_method: OptimMethod = SGD()
         self.end_when: Trigger = Trigger.max_epoch(1)
         self.validation_trigger: Optional[Trigger] = None
@@ -270,6 +283,37 @@ class LocalOptimizer:
         state["n_validations"] = state.get("n_validations", 0) + 1
         return results
 
+    # ------------------------------------------------------- static analysis
+    def _validate_at_construction(self) -> None:
+        """Every Graph of the model validated; a built model's parameters
+        audited."""
+        from ..analysis import GraphValidator, ParamAudit
+        from ..nn.graph import Graph
+
+        for m in self.model.walk():
+            if isinstance(m, Graph):
+                GraphValidator(m).check()
+        if self.model.is_built():
+            ParamAudit(self.model).check()
+
+    def _validate_before_step(self, x_spec) -> None:
+        """The Graphs again and ShapeProp against the first batch's spec."""
+        if not self.validate:
+            return
+        from ..analysis import GraphValidator, ShapeProp
+        from ..nn.graph import Graph
+
+        for m in self.model.walk():
+            if isinstance(m, Graph):
+                GraphValidator(m).check()
+        ShapeProp(self.model).infer(x_spec)
+
+    def _audit_params(self) -> None:
+        if self.validate:
+            from ..analysis import ParamAudit
+
+            ParamAudit(self.model).check()
+
     # ------------------------------------------------------------- the step
     def _has_batch_coupled_state(self) -> bool:
         """True when the training forward couples rows across the batch
@@ -412,8 +456,10 @@ class LocalOptimizer:
         state = method.state
         first = self._first_batch()
         self._step_rows = first.size()
+        self._validate_before_step(to_spec(first.get_input()))
         if not model.is_built():
             model.build(RandomGenerator.generator(), model._as_input(first.get_input()))
+        self._audit_params()
         self._mask_ragged = (self.criterion.supports_unreduced()
                              and not self._has_batch_coupled_state())
         device = model.device

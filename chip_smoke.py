@@ -220,7 +220,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    bounds and ``RReLU``'s training draws on the card, then 3 SGD steps of a
    ``ConcatTable -> JoinTable``, a ``ParallelTable`` into a
    ``ParallelCriterion`` and a ``MapTable -> CAveTable`` into a
-   ``MultiCriterion`` model, card vs CPU.
+   ``MultiCriterion`` model, card vs CPU;
+17. graphs with shared modules, the static analysis and the model file:
+   [17a] a Siamese ResNet-50 (the flagship's trunk, conv7, a 128-wide
+   embedding, wired at two nodes of an outer ``Graph``;
+   ``CosineEmbeddingCriterion(margin=0.5)`` on +-1 targets; 64 seeded
+   pairs a step, 128 images of 224x224, bf16 compute and activations, SGD
+   0.01 momentum 0.9; one warm-up iteration, then 10) trained through
+   ``LocalOptimizer``: one parameter set (a lone trunk's count), exactly
+   two max-pool backward launches a step, finite losses, memory flat, step
+   ms and the busy share; ``ParamAudit`` passes it; then, in f32 with
+   deterministic cuDNN at 8 pairs, its shared gradient against the sum of
+   two unshared copies' and its BN running statistics against the second
+   copy's, and its 3 f32 steps card vs CPU at 2 pairs; [17b] the trained
+   model written by ``save_module`` (topology record included) and loaded
+   by ``nn.load_module`` on the card in a fresh process (``jax`` and
+   ``bigdl_tpu`` blocked), its eval outputs of a fixed pair batch equal to
+   the parent's to the bit; then the flagship ResNet-50's file loaded in
+   the parent and served through ``ModelServer`` (16 requests, each row
+   within [12]'s limit of the loaded model's direct forward); [17c] the
+   passes on the flagship before its first step: GraphValidator, ShapeProp
+   (0 launches, no device memory, the real forward's shape and dtype) and
+   ParamAudit timed; a flagship whose ``fc`` is declared a wrong input
+   width stopped by ``ShapeInferenceError`` naming ``Linear(fc)`` before
+   any step or allocation; two ``Linear`` s handed one weight refused by
+   ``ParamAudit``; ``validate=False`` trains.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -229,7 +253,8 @@ only and its 3x3/s1/p1 branch pools, LeNet-5's 2x2/s2 pools on 24- and
 8-wide planes, VGG-for-CIFAR-10's five 2x2/s2 pools on 32- to 2-wide
 planes, AlexNet's three 3x3/s2 pools without padding on 55-, 27- and
 13-wide planes at batch 64 in both dtypes, post-ReLU, with integer ties,
-with NaN and -inf, and at an offset of one element; edge geometries, and its alignment traps: rows of 56 and 28
+with NaN and -inf, and at an offset of one element, the Siamese tower's
+stem pool at batch 64; edge geometries, and its alignment traps: rows of 56 and 28
 bytes, part-full plane groups, x and dy at a storage offset of one element,
 the stem at an odd size; the 3x3/s1 instance's at the branch pools' widths:
 7-wide rows, offsets, row bands, NaN and -inf inputs; repeats
@@ -253,8 +278,9 @@ each under its ``parity_config`` name, the flagship served,
 ``alexnet``, ``ncf_example``, ``ncf_ml1m``, ``ptb_example``,
 ``autoencoder_example`` and ``cnntext``, and [16]'s ``cells_gru``,
 ``cells_lstmpeephole``, ``cells_rnncell``, ``convlstm``,
-``seq_autoencoder`` and ``modules``) runs with every kernel's launch
-count set to 0 just before it and read just after.
+``seq_autoencoder`` and ``modules``, and [17]'s ``siamese``,
+``module_file`` and ``validate``) runs with every kernel's launch count
+set to 0 just before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -1244,6 +1270,8 @@ def phase_maxpool_parity():
         ("VGG-16 pool9, relu(normal)", (64, 256, 56, 56), vgg, bf, "relu"),
         ("VGG-16 pool13, relu(normal)", (64, 512, 28, 28), vgg, bf, "relu"),
         ("VGG-16 pool17, relu(normal)", (64, 512, 14, 14), vgg, bf, "relu"),
+        # [17a]'s Siamese tower: the stem pool once a site, each at 64 images
+        ("Siamese tower stem pool batch 64", (64, 64, 112, 112), stem, bf, "normal"),
         ("flagship stem pool f32", (128, 64, 112, 112), stem, f32, "normal"),
         ("flagship, relu(normal) (zero windows)", (128, 64, 112, 112), stem, bf, "relu"),
         ("2x2/s2 ceil overhang, odd size", (8, 16, 57, 57), ((2, 2), (2, 2), ((0, 1), (0, 1))),
@@ -1309,7 +1337,7 @@ def phase_maxpool_parity():
                   for label, shape, geometry, _ in ALEXNET_POOLS for dt in (f32, bf)
                   for kind in ("relu", "ints", "nan", "offset")]
     cases += alex_cases
-    repeated = {"flagship stem pool", "VGG-16 pool2 batch 64",
+    repeated = {"flagship stem pool", "VGG-16 pool2 batch 64", "Siamese tower stem pool batch 64",
                 "VGG-16 pool2, relu(normal) (zero windows)", *(c[0] for c in config_cases),
                 *(c[0] for c in s1_cases), *(c[0] for c in alex_cases)}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1361,6 +1389,8 @@ MAXPOOL_SHAPES = [
     ("VGG-16 pool9", (64, 256, 56, 56), VGG_POOL, "relu"),
     ("VGG-16 pool13", (64, 512, 28, 28), VGG_POOL, "relu"),
     ("VGG-16 pool17", (64, 512, 14, 14), VGG_POOL, "relu"),
+    ("Siamese tower stem (a site)", (64, 64, 112, 112), ((3, 3), (2, 2), ((1, 1), (1, 1))),
+     "normal"),
     *PARITY_CONFIG_POOLS,
     *((f"{label} f32", shape, geometry, kind, "float32")
       for label, shape, geometry, kind in ALEXNET_POOLS),
@@ -1466,6 +1496,10 @@ def phase_maxpool_times(rec, card, floor_ms):
                 f"{'below' if r['bound_ms'] < floor_ms else 'above'} the launch floor, "
                 f"{floor_ms:.4f} ms (an all but empty kernel through the probe's C entry "
                 f"point, [4])")
+    site = next(r for r in rows if r["shape"].startswith("Siamese"))
+    log(f"    Siamese tower: two sites a step, kernel {2 * site['ms']:.4f} ms, ATen "
+        f"{2 * site['library_ms']:.4f} ms, bound {2 * site['bound_ms']:.4f} ms (the stem at "
+        f"batch 128: kernel {rows[0]['ms']:.4f}, bound {rows[0]['bound_ms']:.4f})")
     log(f"    stem half-bound target (<= 2x bound) "
         f"{'met' if rows[0]['ms'] <= 2 * rows[0]['bound_ms'] else 'missed'}")
     torch.cuda.empty_cache()
@@ -5753,6 +5787,532 @@ def phase_cells(card):
     return by_path
 
 
+# ------------------------------------------------------------------ [17]
+# [17a] a Siamese ResNet-50 (Koch et al. 2015, "Siamese Neural Networks for
+# One-shot Image Recognition", with the flagship as the tower): the
+# flagship's trunk, conv7 stem, a 128-wide embedding, at two nodes of an
+# outer Graph; CosineEmbeddingCriterion(margin=0.5) on +-1 targets; 64
+# seeded pairs a step (the flagship's 128 images of 224x224), bf16 compute
+# and activations, SGD 0.01 momentum 0.9; one warm-up iteration, then 10
+SIAMESE = {"pairs": 64, "hw": 224, "embed": 128, "iters": 11, "margin": 0.5}
+SIAMESE_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes above
+# The shared model against two unshared copies of the trunk with the same
+# weights, one train-mode forward and backward in f32 (TF32 off,
+# deterministic cuDNN) at 8 pairs, fixed before the first run: each site's
+# gradient is the same arithmetic as its copy's, and autograd adds the two
+# sites' fp32 gradients once, as the check adds the copies' (an fp32 sum of
+# two terms is the same in either order), so the gradients are expected
+# equal to the bit; the limit, 1e-6 of each leaf's L2 norm, leaves room for
+# cuDNN choosing another deterministic algorithm for the shared weight's
+# accumulation and nothing more. The BN running statistics: every site
+# reads the pre-step statistics and the last site's update is kept, so the
+# shared model's must equal the second copy's (the same limit).
+SIAMESE_PAIR_TOL = 1e-6
+SIAMESE_CHECK_PAIRS = 8
+# Card vs CPU over 3 f32 steps at 2 pairs of 224x224: the flagship's trunk
+# and its BN state through the same ReLU gates as [7]'s route, so [7]'s
+# limits and their reasons (ROUTE_TOL) hold it.
+SIAMESE_ROUTE_PAIRS = 2
+MODULE_FILE_DIR = "build/module_file"  # [17b]'s files, removed after
+
+
+def siamese_model(device, embed: int = 128, depth: int = 50, dataset: str = "imagenet"):
+    """ResNet(depth, class_num=embed) as one tower at two nodes:
+    Table(images a, images b) -> Table(embedding a, embedding b)."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet
+
+    tower = ResNet(depth, class_num=embed, dataset=dataset, stem="conv7",
+                   device=device).set_name("tower")
+    a, b = nn.Input(), nn.Input()
+    return nn.Graph([a, b], [tower.inputs(a), tower.inputs(b)], device=device)
+
+
+def _unshared_model(device, embed: int):
+    """Two towers, one a site: the shared model's second reading."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.models import ResNet
+
+    a, b = nn.Input(), nn.Input()
+    ta = ResNet(50, class_num=embed, stem="conv7", device=device).set_name("tower_a")
+    tb = ResNet(50, class_num=embed, stem="conv7", device=device).set_name("tower_b")
+    return nn.Graph([a, b], [ta.inputs(a), tb.inputs(b)], device=device)
+
+
+def siamese_pairs(n: int, hw: int, seed: int):
+    """(images a, images b, targets +-1): seeded normal images, as
+    ``flagship_model`` draws its images."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xa = rng.standard_normal((n, 3, hw, hw)).astype(np.float32)
+    xb = rng.standard_normal((n, 3, hw, hw)).astype(np.float32)
+    return xa, xb, np.where(rng.random(n) < 0.5, 1.0, -1.0).astype(np.float32)
+
+
+def _siamese_device():
+    return "cpu" if SIAMESE_DEVICE == "cpu" else "cuda"
+
+
+def phase_siamese(card):
+    """[17a] Train the Siamese ResNet-50; returns (model, counts)."""
+    import numpy as np
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.analysis import ParamAudit
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.table import T
+
+    c = SIAMESE
+    xa, xb, y = siamese_pairs(c["pairs"], c["hw"], SEED + 40)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(40)
+    t0 = time.perf_counter()
+    model = siamese_model(_siamese_device(), c["embed"])
+    try:
+        opt = LocalOptimizer(model, DataSet.array(T(xa, xb), y, batch_size=c["pairs"]),
+                             nn.CosineEmbeddingCriterion(margin=c["margin"]))
+        opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(c["iters"]))
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            opt.optimize()
+            _sync()
+            counts = read_counts()  # the main path ends here
+        hist = opt.history
+        losses = [h["loss"] for h in hist]
+        tower = model[0]
+        log(f"[17a] Siamese ResNet-50 (conv7 tower at two nodes, {c['embed']}-wide embedding): "
+            f"{model.n_parameters() / 1e6:.3f} M params in {len(list(model.children()))} "
+            f"registered child ({tower.name()}: {tower.n_parameters() / 1e6:.3f} M), "
+            f"{c['pairs']} pairs of {c['hw']}x{c['hw']} a step (bf16 compute and activations, "
+            f"CosineEmbedding margin {c['margin']}, SGD 0.01 momentum 0.9): {len(hist)} "
+            f"iterations in {time.perf_counter() - t0:.2f} s (build included), losses "
+            + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {_nonzero(counts)}")
+        _step_ms(hist, 2 * c["pairs"], "images", card)
+        if len(losses) != c["iters"] or not all(np.isfinite(losses)):
+            raise AssertionError(f"[17a] losses {losses}")
+        if list(model.children()) != [tower] or model.n_parameters() != tower.n_parameters():
+            raise AssertionError("[17a] the shared tower is not one parameter set")
+        want = {n: (2 if n == "maxpool2d_bwd" else 0) for n in read_counts()}
+        _check_launch_steps("[17a] Siamese ResNet-50", probe, c["iters"], want, mem_from=2)
+        if counts != {n: v * c["iters"] for n, v in want.items()}:
+            raise AssertionError(f"[17a] launched {_nonzero(counts)}")
+        t1 = time.perf_counter()
+        found = ParamAudit(model).check()
+        log(f"    ParamAudit of the trained model: {len(found)} findings in "
+            f"{(time.perf_counter() - t1) * 1e3:.1f} ms (the tower at two nodes is sharing, "
+            "not aliasing)")
+        dev_ms, wall_ms, share = _busy_share(opt, 2)
+        log(f"    host/device split (2 more iterations under torch.profiler): device "
+            f"{dev_ms:.2f} ms of {wall_ms:.2f} ms a step ({100 * share:.1f}% busy); card {card}")
+        del opt
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    _free()
+    _siamese_against_copies(model)
+    _free()
+    _siamese_routes()
+    return model, counts
+
+
+def _siamese_against_copies(model):
+    """The shared gradient against the sum of two unshared copies', and the
+    shared BN statistics against the second copy's, one train-mode forward
+    in f32 (TF32 off, deterministic cuDNN) at SIAMESE_CHECK_PAIRS pairs."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, nn
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+    from bigdl_tpu_torch.utils.table import T
+
+    c = SIAMESE
+    dev = _siamese_device()
+    xa, xb, y = siamese_pairs(SIAMESE_CHECK_PAIRS, c["hw"], SEED + 41)
+    x = T(torch.from_numpy(xa).to(dev), torch.from_numpy(xb).to(dev))
+    yt = torch.from_numpy(y).to(dev)
+    params = _tree_to_numpy(model.get_parameters()["tower"])
+    state = _tree_to_numpy(model.get_state()["tower"])
+    copies = _unshared_model(dev, c["embed"])
+    copies.init(sample_input=T(xa[:2], xb[:2]))
+    load_jax_params(copies, {"tower_a": _nest(params), "tower_b": _nest(params)})
+    load_jax_state(copies, {"tower_a": _nest(state), "tower_b": _nest(state)})
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    crit = nn.CosineEmbeddingCriterion(margin=c["margin"])
+    try:
+        out = {}
+        for label, m in (("shared", model), ("copies", copies)):
+            y_out, new_state = m.apply(m.get_parameters(), m.get_state(), x, training=True)
+            named = list(m.named_parameters())
+            grads = torch.autograd.grad(crit._apply(y_out, yt), [p for _, p in named])
+            out[label] = ({n: g.detach() for (n, _), g in zip(named, grads)},
+                          _tree_to_numpy(new_state))
+            del y_out, grads
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = prev[2:]
+    (g_shared, s_shared), (g_copies, s_copies) = out["shared"], out["copies"]
+    worst_g, equal_g = 0.0, 0
+    for name, g in g_shared.items():
+        leaf = name[len("tower."):]
+        total = g_copies["tower_a." + leaf] + g_copies["tower_b." + leaf]
+        d = float(torch.linalg.vector_norm((g - total).double()) /
+                  max(float(torch.linalg.vector_norm(total.double())), 1e-30))
+        worst_g = max(worst_g, d)
+        equal_g += bool(torch.equal(g, total))
+    worst_s, equal_s = 0.0, 0
+    for name, v in s_shared.items():
+        w = s_copies["tower_b." + name[len("tower."):]]
+        worst_s = max(worst_s, float(np.linalg.norm(v - w) / max(np.linalg.norm(w), 1e-30)))
+        equal_s += bool(np.array_equal(v, w))
+    log(f"    shared vs two unshared copies (f32, TF32 off, deterministic cuDNN, "
+        f"{SIAMESE_CHECK_PAIRS} pairs): gradient vs the copies' sum, worst leaf rel L2 "
+        f"{worst_g:.2e} ({equal_g} of {len(g_shared)} leaves equal to the bit); BN running "
+        f"statistics vs the second copy's, worst {worst_s:.2e} ({equal_s} of {len(s_shared)} "
+        f"equal to the bit); limit {SIAMESE_PAIR_TOL}")
+    if worst_g > SIAMESE_PAIR_TOL or worst_s > SIAMESE_PAIR_TOL:
+        raise AssertionError("[17a] the shared tower disagrees with its unshared copies")
+    del copies, out, g_shared, g_copies
+
+
+def _siamese_routes():
+    """3 f32 SGD steps of the Siamese ResNet-50 on the card (#10) vs on the
+    CPU (its plain version) at SIAMESE_ROUTE_PAIRS pairs, one set of weights
+    and BN state (ROUTE_TOL, [7]'s limits)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+    from bigdl_tpu_torch.utils.table import T
+
+    c = SIAMESE
+    xa, xb, y = siamese_pairs(SIAMESE_ROUTE_PAIRS, c["hw"], SEED + 42)
+    x = T(xa, xb)
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        RandomGenerator.set_seed(SEED + 42)
+        init = siamese_model("cpu", c["embed"])
+        init.init(sample_input=x)
+        w0 = {k: v.detach().numpy().copy() for k, v in init.named_parameters()}
+        s0 = _tree_to_numpy(init.get_state())
+        del init
+        runs = {}
+        for device in (_siamese_device(), "cpu"):
+            m = siamese_model(device, c["embed"])
+            m.init(sample_input=x)
+            load_jax_params(m, _nest(w0))
+            load_jax_state(m, _nest(s0))
+            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=SIAMESE_ROUTE_PAIRS),
+                               nn.CosineEmbeddingCriterion(margin=c["margin"]))
+            o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+            reset_counts()
+            t0 = time.perf_counter()
+            o.set_end_when(Trigger.max_iteration(3)).optimize()
+            runs[device] = ([h["loss"] for h in o.history], _tree_to_numpy(m.get_parameters()),
+                            _tree_to_numpy(m.get_state()), read_counts()["maxpool2d_bwd"],
+                            time.perf_counter() - t0)
+            del m, o
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[2:]
+    (lc, pc, sc, kc, tc), (lp, pp, sp, kp, tp) = runs[_siamese_device()], runs["cpu"]
+
+    def dist(a, b):
+        return float(np.sqrt(sum(np.sum((a[k] - b[k]) ** 2) for k in b)))
+
+    d_first = abs(lc[0] - lp[0])
+    d_loss = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(lc[1:], lp[1:]))
+    d_params = dist(pc, pp) / dist(pp, {k: np.zeros_like(v) for k, v in pp.items()})
+    d_update = dist(pc, pp) / dist(pp, w0)
+    d_state = dist(sc, sp) / dist(sp, s0)
+    log(f"    kernel route (card, f32, TF32 off) vs plain route (CPU, f32), Siamese ResNet-50, "
+        f"{SIAMESE_ROUTE_PAIRS} pairs of {c['hw']}x{c['hw']}, 3 steps of SGD lr 0.01 momentum "
+        f"0.9: losses {[round(v, 6) for v in lc]} vs {[round(v, 6) for v in lp]}; step 1 diff "
+        f"{d_first:.2e} (tol {ROUTE_TOL['loss_first']}), steps 2-3 rel diff {d_loss:.2e} (tol "
+        f"{ROUTE_TOL['loss']}); params rel diff {d_params:.2e} (tol {ROUTE_TOL['params']}); "
+        f"update rel diff {d_update:.2e} (logged); BN state diff / its change {d_state:.2e} "
+        f"(tol {ROUTE_TOL['state']}); maxpool2d_bwd launches card {kc}, CPU {kp}; {tc:.1f} s "
+        f"card, {tp:.1f} s CPU")
+    want = 6 if _siamese_device() != "cpu" else 0
+    if (len(lc) != 3 or kc != want or kp != 0 or d_first > ROUTE_TOL["loss_first"]
+            or d_loss > ROUTE_TOL["loss"] or d_params > ROUTE_TOL["params"]
+            or d_state > ROUTE_TOL["state"]):
+        raise AssertionError("the Siamese kernel route disagrees with the plain route")
+
+
+# [17b] the trained model's file loaded in a fresh process on the card:
+# both processes take cuDNN's deterministic algorithms (benchmark off) and
+# the same bf16 policy, the file holds every f32 parameter and BN statistic
+# exactly, and an eval forward reads nothing else, so the child's outputs
+# must equal the parent's to the bit. The served rows: [12]'s limit against
+# the loaded model's batch-1 forward (SERVE_DIRECT_REL: a flush batches other
+# records, and cuDNN may take other bf16 algorithms at another batch).
+MODULE_FILE_PAIRS = 4
+SERVED_REQUESTS = (4, 4)  # 4 synchronous clients x 4 requests
+_CHILD = """
+import sys, time
+sys.modules["jax"] = None
+sys.modules["bigdl_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from bigdl_tpu_torch import Engine, nn
+from bigdl_tpu_torch.utils.table import T
+
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+Engine.set_compute_dtype("bfloat16")
+Engine.set_activation_dtype("bfloat16")
+t0 = time.perf_counter()
+m = nn.load_module(sys.argv[2])
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+m.evaluate()
+pairs = np.load(sys.argv[3])
+with torch.no_grad():
+    out = m.forward(T(pairs[0], pairs[1]))
+np.save(sys.argv[4], np.stack([o.float().cpu().numpy() for o in out]))
+print(f"{load_s:.3f} {next(m.parameters()).device}")
+"""
+
+
+def phase_module_file(card, model):
+    """[17b] save_module / nn.load_module in a fresh process, then the
+    flagship's file served; returns the path's counts."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.models import flagship_model
+    from bigdl_tpu_torch.serving import ModelServer
+    from bigdl_tpu_torch.utils.table import T
+
+    d = ROOT / MODULE_FILE_DIR
+    d.mkdir(parents=True, exist_ok=True)
+    path, pairs_path, out_path = d / "siamese.npz", d / "pairs.npy", d / "child_out.npy"
+    xa, xb, _ = siamese_pairs(MODULE_FILE_PAIRS, SIAMESE["hw"], SEED + 43)
+    np.save(pairs_path, np.stack([xa, xb]))
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    try:
+        reset_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        model.save_module(str(path))
+        save_s = time.perf_counter() - t0
+        with np.load(path) as z:
+            if "__bigdl__" not in z.files:
+                raise AssertionError("[17b] save_module wrote the arrays-only fallback")
+            top = json.loads(bytes(z["__bigdl__"]).decode())["topology"]
+        model.evaluate()
+        with torch.no_grad():
+            out = model.forward(T(xa, xb))
+        parent = np.stack([o.float().cpu().numpy() for o in out])
+        model.train()
+        t1 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT), str(path), str(pairs_path),
+                            str(out_path)], capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t1
+        if r.returncode != 0:
+            raise AssertionError(f"[17b] the child process failed: {r.stderr[-3000:]}")
+        load_s, child_device = r.stdout.split()[-2:]
+        child = np.load(out_path)
+        same = bool(np.array_equal(child, parent))
+        log(f"[17b] save_module: {os.path.getsize(path) / 1e6:.1f} MB (topology record: "
+            f"{top['module']}.{top['class']} of {len(top['graph']['nodes'])} nodes, "
+            f"{len(top['graph']['modules'])} modules) in {save_s:.2f} s; a fresh process (jax and bigdl_tpu blocked) loaded it on "
+            f"{child_device} in {float(load_s):.2f} s (build from the recorded "
+            f"{SIAMESE['pairs']}-pair spec, one forward, plus the copy; {child_s:.1f} s with "
+            f"the process's start), its eval outputs of {MODULE_FILE_PAIRS} pairs equal to the "
+            f"parent's to the bit: {same} (max |diff| "
+            f"{float(np.abs(child - parent).max()):.3e}); card {card}")
+        if not same or not child_device.startswith("cuda"):
+            raise AssertionError("[17b] the loaded model's outputs differ from the parent's")
+        # the flagship's file, loaded and served
+        Engine.set_activation_dtype(None)  # [12]'s policy: bf16 products, f32 activations
+        RandomGenerator.set_seed(1)
+        flagship, x, _, name = flagship_model(batch=SERVE_BATCH, seed=SEED, stem="conv7",
+                                              device=_siamese_device())
+        flagship.init(sample_input=x)
+        fpath = d / "flagship.npz"
+        flagship.save_module(str(fpath))
+        t2 = time.perf_counter()
+        loaded = nn.load_module(str(fpath))
+        _sync()
+        fload_s = time.perf_counter() - t2
+        same_w = all(torch.equal(a, b) for a, b in zip(flagship.parameters(), loaded.parameters()))
+        del flagship
+        loaded.evaluate()
+        with ModelServer() as server:
+            server.register("flagship", loaded, sample_input=x[0], batch_size=SERVE_BATCH,
+                            max_delay_ms=SERVE_DELAY_MS)
+            wall, done = _serve_mix(server, x, *SERVED_REQUESTS, seed0=2000)
+        worst = 0.0
+        with torch.no_grad():
+            for i, fut in done:
+                direct = loaded.forward(x[i:i + 1])[0].float().cpu().numpy()
+                worst = max(worst, _rel(fut.result().float().numpy(), direct))
+        _sync()
+        counts = read_counts()  # the main path ends here
+        log(f"    {name} (conv7, bf16 compute): its file {os.path.getsize(fpath) / 1e6:.1f} MB "
+            f"loaded in the parent in {fload_s:.2f} s (build from the recorded "
+            f"{tuple(x.shape)} spec, one forward, plus the copy), every weight equal: {same_w}; "
+            f"served {len(done)} requests from {SERVED_REQUESTS[0]} clients in {wall:.2f} s, "
+            f"worst row vs the loaded model's batch-1 forward {worst:.2e} (limit "
+            f"{SERVE_DIRECT_REL}); launches {_nonzero(counts)}; card {card}")
+        if not same_w or len(done) != SERVED_REQUESTS[0] * SERVED_REQUESTS[1] \
+                or worst > SERVE_DIRECT_REL or any(counts.values()):
+            raise AssertionError("[17b] the loaded flagship did not serve its own rows")
+        del loaded, done
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[2:]
+        shutil.rmtree(d, ignore_errors=True)
+    _free()
+    return counts
+
+
+def phase_validate(card):
+    """[17c] The static passes on the flagship before its first step;
+    returns the path's counts."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.analysis import (GraphValidator, ParamAudit, ParamAuditError,
+                                          ShapeInferenceError, ShapeProp)
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import ResNet, flagship_model
+    from bigdl_tpu_torch.nn.module import to_spec
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    dev = _siamese_device()
+    try:
+        RandomGenerator.set_seed(3)
+        model, x, labels, name = flagship_model(batch=SERVE_BATCH, seed=SEED + 44, stem="conv7",
+                                                device=dev)
+        _sync()
+        reset_counts()  # the main path starts here
+        mem0 = _mem()
+        t0 = time.perf_counter()
+        for m in model.walk():
+            if isinstance(m, nn.Graph):
+                GraphValidator(m).check()
+        gv_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        spec = ShapeProp(model).infer(to_spec(x))
+        sp_ms = (time.perf_counter() - t0) * 1e3
+        _sync()
+        sp_counts, mem1 = read_counts(), _mem()
+        if any(sp_counts.values()) or mem1 != mem0 or model.is_built():
+            raise AssertionError(f"[17c] ShapeProp launched {_nonzero(sp_counts)} or moved "
+                                 f"device memory {mem0} -> {mem1} or built the model")
+        opt = LocalOptimizer(model, DataSet.array(x, labels, batch_size=SERVE_BATCH),
+                             nn.ClassNLLCriterion())
+        opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(1)).optimize()
+        t0 = time.perf_counter()
+        ParamAudit(model).check()
+        pa_ms = (time.perf_counter() - t0) * 1e3
+        model.evaluate()
+        with torch.no_grad():
+            y = model.forward(x)
+        model.train()
+        log(f"[17c] {name} (conv7, bf16), before its first step: GraphValidator {gv_ms:.2f} ms, "
+            f"ShapeProp {sp_ms:.2f} ms (launches {_nonzero(sp_counts)}, device memory "
+            f"{mem0} -> {mem1} B, the model still unbuilt), ParamAudit {pa_ms:.2f} ms (161 "
+            f"leaves, one host transfer); ShapeProp's spec {tuple(spec.shape)} "
+            f"{str(spec.dtype)[6:]}, the real forward's {tuple(y.shape)} {str(y.dtype)[6:]}; "
+            f"one step {opt.history[0]['loss']:.4f}; card {card}")
+        if (tuple(spec.shape), spec.dtype) != (tuple(y.shape), y.dtype):
+            raise AssertionError("[17c] ShapeProp's spec is not the forward's")
+        # validate=False trains
+        opt = LocalOptimizer(model, DataSet.array(x, labels, batch_size=SERVE_BATCH),
+                             nn.ClassNLLCriterion(), validate=False)
+        opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9))
+        opt.set_end_when(Trigger.max_iteration(2)).optimize()
+        off = [h["loss"] for h in opt.history]
+        del opt, model, y
+        _free()
+        # a wrong width: refused on the host, nothing allocated on the card
+        bad = ResNet(50, class_num=1000, stem="conv7", device=dev)
+        fc = next(m for m in bad.walk() if m.name() == "fc")
+        fc.input_size = 2047  # the pooled trunk gives 2048
+        mem2 = _mem()
+        opt = LocalOptimizer(bad, DataSet.array(x, labels, batch_size=SERVE_BATCH),
+                             nn.ClassNLLCriterion())
+        try:
+            opt.optimize()
+            raise AssertionError("[17c] the broken flagship trained")
+        except ShapeInferenceError as e:
+            err = e
+        mem3 = _mem()
+        path_ok = (err.module_path[0].startswith("Graph(")
+                   and err.module_path[-1] == "Linear(fc)")
+        log(f"    a flagship with fc declared {fc.input_size} wide: ShapeInferenceError at "
+            f"{'/'.join(err.module_path)} before any step ({len(opt.history)} steps, built "
+            f"{bad.is_built()}, device memory {mem2} -> {mem3} B): {str(err)[:160]}...")
+        if not path_ok or opt.history or bad.is_built() or mem3 != mem2:
+            raise AssertionError("[17c] the broken flagship was not stopped before its step")
+        del opt, bad, err
+        # aliasing: two Linear layers handed one weight
+        twin = nn.Sequential(nn.Linear(512, 512, device=dev).set_name("a"),
+                             nn.Linear(512, 512, device=dev).set_name("b"), device=dev)
+        twin.init(sample_input=np.zeros((4, 512), np.float32))
+        twin[1]._param_tree = dict(twin[1]._param_tree, weight=twin[0]._param_tree["weight"])
+        try:
+            ParamAudit(twin).check()
+            raise AssertionError("[17c] ParamAudit accepted an aliased weight")
+        except ParamAuditError as e:
+            log(f"    two Linear layers handed one weight: ParamAuditError ({e})")
+        _sync()
+        counts = read_counts()  # the main path ends here
+        log(f"    validate=False: 2 steps, losses {[round(v, 4) for v in off]}; the path's "
+            f"launches {_nonzero(counts)}")
+        if not all(np.isfinite(off)) or len(off) != 2:
+            raise AssertionError(f"[17c] validate=False losses {off}")
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    _free()
+    return counts
+
+
+def phase_graphs(card):
+    """[17] graphs with shared modules, the static analysis and the model
+    file; returns their main paths' launches."""
+    t0 = time.perf_counter()
+    model, counts = phase_siamese(card)
+    by_path = {"siamese": counts, "module_file": phase_module_file(card, model)}
+    del model
+    _free()
+    by_path["validate"] = phase_validate(card)
+    log(f"[17] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -5794,6 +6354,7 @@ def main() -> int:
     by_path.update(phase_attention_slice(card))
     by_path.update(phase_models(card))
     by_path.update(phase_cells(card))
+    by_path.update(phase_graphs(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -166,8 +166,8 @@ def test_graph_errors():
         pnn.Graph([inp, other], pnn.ReLU(**d).inputs(inp), **d)
     shared = pnn.Linear(2, 2, **d)
     inp = pnn.Input()
-    with pytest.raises(NotImplementedError, match="several nodes"):
-        pnn.Graph(inp, shared.inputs(shared.inputs(inp)), **d)
+    g = pnn.Graph(inp, shared.inputs(shared.inputs(inp)), **d)  # a module at two nodes
+    assert list(g.children()) == [shared]
     g = pnn.Graph(inp, pnn.ReLU(**d).inputs(inp), **d)
     with pytest.raises(ValueError, match="expects 1 inputs"):
         g.forward(T(torch.zeros(2), torch.zeros(2)))

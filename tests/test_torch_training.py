@@ -267,3 +267,47 @@ def test_feed_forward_backward_returns_input_grad_with_dropout():
     torch.testing.assert_close(yr.detach(), y.detach())
     (want,) = torch.autograd.grad(yr, xr, gy)
     torch.testing.assert_close(gx, want)
+
+
+def _bad_model(nn, **d):
+    """tests/test_analysis.py's seeded bug: 5 features into a Linear of 7."""
+    return nn.Sequential(nn.Linear(10, 5, **d).set_name("fc_in"),
+                         nn.Linear(7, 3, **d).set_name("fc_bad"), nn.LogSoftMax(**d), **d)
+
+
+def test_a_wrong_width_stops_before_the_first_step_in_both_packages():
+    from bigdl_tpu.analysis import ShapeInferenceError as JShapeInferenceError
+    from bigdl_tpu_torch import nn as pnn
+    from bigdl_tpu_torch.analysis import ShapeInferenceError
+
+    x, y = np.zeros((8, 10), np.float32), np.ones((8,), np.int64)
+    jm = _bad_model(jnn)
+    jopt = joptim.LocalOptimizer(jm, JDataSet.array(x, y, batch_size=4), jnn.ClassNLLCriterion())
+    with pytest.raises(JShapeInferenceError, match=r"fc_bad.*expected last dim 7, got 5") as je:
+        jopt.optimize()
+    pm = _bad_model(pnn, device="cpu")
+    opt = LocalOptimizer(pm, DataSet.array(x, y, batch_size=4), pnn.ClassNLLCriterion())
+    with pytest.raises(ShapeInferenceError, match=r"fc_bad.*expected last dim 7, got 5") as pe:
+        opt.optimize()
+    assert pe.value.module_path[1:] == je.value.module_path[1:] == ("Linear(fc_bad)",)
+    assert not pm.is_built() and not jm.is_built() and not opt.history
+    # validate=False skips the passes: the fault surfaces inside the build
+    opt = LocalOptimizer(_bad_model(pnn, device="cpu"), DataSet.array(x, y, batch_size=4),
+                         pnn.ClassNLLCriterion(), validate=False)
+    with pytest.raises(ValueError) as ei:
+        opt.optimize()
+    assert not isinstance(ei.value, ShapeInferenceError)
+
+
+def test_validate_false_trains_as_validate_true():
+    ids, targets = _data()
+    runs = []
+    for validate in (True, False):
+        RandomGenerator.set_seed(SEED)
+        pm = Transformer(**CFG, device="cpu")
+        opt = LocalOptimizer(pm, DataSet.array(ids, targets, batch_size=BATCH),
+                             CrossEntropyCriterion(), validate=validate)
+        opt.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(2))
+        opt.optimize()
+        runs.append([h["loss"] for h in opt.history])
+    assert runs[0] == runs[1] and len(runs[0]) == 2

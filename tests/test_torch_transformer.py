@@ -189,30 +189,22 @@ def test_device_defaults_to_the_card():
 
 
 def test_package_imports_without_jax_or_bigdl_tpu():
+    """Every module of the package (``pkgutil.walk_packages``, so a new one
+    is covered without a list to keep) imports with ``jax`` and
+    ``bigdl_tpu`` blocked, and pulls in neither."""
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['bigdl_tpu'] = None\n"
-        "import bigdl_tpu_torch, bigdl_tpu_torch.nn, bigdl_tpu_torch.serving\n"
-        "import bigdl_tpu_torch.optim, bigdl_tpu_torch.ops.flash_attention\n"
-        "import bigdl_tpu_torch.ops._build, bigdl_tpu_torch.utils.convert\n"
-        "import bigdl_tpu_torch.utils.precision, bigdl_tpu_torch.dataset\n"
-        "import bigdl_tpu_torch.nn.criterion, bigdl_tpu_torch.optim.local_optimizer\n"
-        "import bigdl_tpu_torch.optim.optim_method, bigdl_tpu_torch.models\n"
-        "import bigdl_tpu_torch.nn.graph, bigdl_tpu_torch.nn.conv\n"
-        "import bigdl_tpu_torch.nn.normalization, bigdl_tpu_torch.nn.pooling\n"
-        "import bigdl_tpu_torch.ops.maxpool, bigdl_tpu_torch.ops.fused_epilogue\n"
-        "import bigdl_tpu_torch.ops.fused_common, bigdl_tpu_torch.nn.dropout\n"
-        "import bigdl_tpu_torch.models.vgg, bigdl_tpu_torch.ops.probe\n"
-        "import bigdl_tpu_torch.examples.transformer_train\n"
-        "import bigdl_tpu_torch.nn.math_ops, bigdl_tpu_torch.nn.recurrent\n"
-        "import bigdl_tpu_torch.nn.activations, bigdl_tpu_torch.nn.table_ops\n"
-        "import bigdl_tpu_torch.models.alexnet, bigdl_tpu_torch.models.ncf\n"
-        "import bigdl_tpu_torch.models.autoencoder, bigdl_tpu_torch.models.textclassifier\n"
-        "import bigdl_tpu_torch.dataset.movielens, bigdl_tpu_torch.dataset.mnist\n"
-        "import bigdl_tpu_torch.examples.alexnet_train, bigdl_tpu_torch.examples.ncf_train\n"
-        "import bigdl_tpu_torch.examples.ptb_train, bigdl_tpu_torch.examples.autoencoder_train\n"
+        "import importlib, pkgutil\n"
+        "import bigdl_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(bigdl_tpu_torch.__path__,\n"
+        "                                                'bigdl_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'bigdl_tpu_torch.analysis.shape_prop',\n"
+        "        'bigdl_tpu_torch.utils.module_serializer'} <= set(names), names\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"

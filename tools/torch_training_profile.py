@@ -3,6 +3,7 @@
 
     python3 tools/torch_training_profile.py [lm] [flagship] [vgg16] [normlm] [lenet] [vgg]
         [inception] [bilstm] [widedeep] [alexnet] [ncf] [ptb] [autoencoder] [cnntext]
+        [siamese]
         # one CUDA card
 
 Training steps through ``LocalOptimizer`` (every mode when none is
@@ -33,7 +34,11 @@ Autoencoder at their defaults; PTBModel at ``--vocab-size 10000``; each at
 the port's card policy, bf16 products and f32 activations, its validation
 left out), and ``cnntext``, ``CNNTextClassifier`` at the reference
 text-classification example's sizes (vocab 20000, T 1000, batch 128, 20
-classes, SGD lr 0.01 momentum 0.9, the one batch every iteration).
+classes, SGD lr 0.01 momentum 0.9, the one batch every iteration), and
+``siamese``, the Siamese ResNet-50 of ``chip_smoke.py`` [17a] (the
+flagship's conv7 trunk with a 128-wide embedding at two nodes of an outer
+``Graph``, 64 pairs of 224x224 a step, bf16 compute and activations,
+``CosineEmbeddingCriterion(margin=0.5)``, SGD lr 0.01 momentum 0.9).
 
 Each: 3 warm-up iterations, 5 timed ones, then 5 under ``torch.profiler``.
 Prints two step times and the rate of the first: the median gap between
@@ -41,8 +46,11 @@ the optimizer's one-step-late loss pulls (the first of a run left out; an
 epoch's set-up lands in one gap, which the median leaves out) and the
 timed run's wall over its iterations (set-up included). Then the device
 time per step by kernel family (and the optimizer update's, from a
-``record_function`` range around it) and the device's busy share of the
-profiled run's wall, with the card's name and power limit.
+``record_function`` range around it), the device's busy share of the
+profiled run's wall, and the host's time a step in the optimizer's step
+(``_train_step``: forward and loss, backward, update) against the rest of
+the iteration (the batch's gather and copy, the loss pull, the loop), from
+``record_function`` ranges, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -166,13 +174,17 @@ def _profile(opt, reps: int, family):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     method = opt.optim_method
-    update = method.update
+    update, step, loss = method.update, opt._train_step, opt._loss
 
-    def traced_update(*a, **k):
-        with record_function("optimizer_update"):
-            return update(*a, **k)
+    def traced(label, fn):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
 
-    method.update = traced_update
+    method.update = traced("optimizer_update", update)
+    opt._train_step = traced("host:train_step", step)
+    opt._loss = traced("host:forward_and_loss", loss)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -180,29 +192,32 @@ def _profile(opt, reps: int, family):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        del method.update
+        del method.update, opt._train_step, opt._loss
     # the profiler slows the host: the busy share is taken against the
     # profiled run's own wall per iteration
     prof_step_ms = wall * 1e3 / reps
     by_family: dict = {}
     update_ms = 0.0
+    host = {}
     for ev in prof.key_averages():
-        if ev.key == "optimizer_update":
-            # the range appears twice: as a host op (its device_time_total sums
+        if ev.key == "optimizer_update" or ev.key.startswith("host:"):
+            # a range appears twice: as a host op (its device_time_total sums
             # the kernels it launched) and as a device-side annotation spanning
             # them, which is no kernel and must not be counted in a family
             if ev.device_type == torch.autograd.DeviceType.CPU:
-                update_ms = ev.device_time_total / 1e3 / reps
+                host[ev.key.replace("host:", "")] = ev.cpu_time_total / 1e3 / reps
+                if ev.key == "optimizer_update":
+                    update_ms = ev.device_time_total / 1e3 / reps
             continue
         dev_us = ev.self_device_time_total
         if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             f = family(ev.key)
             by_family[f] = by_family.get(f, 0.0) + dev_us / 1e3 / reps
-    return by_family, update_ms, prof_step_ms
+    return by_family, update_ms, prof_step_ms, host
 
 
 def _report(label, steps, rate, profiled, card):
-    by_family, update_ms, prof_step_ms = profiled
+    by_family, update_ms, prof_step_ms, host = profiled
     busy = sum(by_family.values())
     print(f"card: {card}")
     print(f"{label}: step {steps[0]:.3f} ms (median gap), {rate}; {steps[1]:.3f} ms per "
@@ -211,6 +226,12 @@ def _report(label, steps, rate, profiled, card):
     for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {f:55s} {ms:8.3f} ms  {100 * ms / busy:5.1f}%")
     print(f"  of which the optimizer update (device time under its range) {update_ms:8.3f} ms")
+    step = host.get("train_step", 0.0)
+    fwd, upd = host.get("forward_and_loss", 0.0), host.get("optimizer_update", 0.0)
+    print(f"  host a step (under the profiler): train_step {step:.3f} ms = forward and loss "
+          f"{fwd:.3f} + update {upd:.3f} + backward and the rest {step - fwd - upd:.3f}; "
+          f"outside it (the batch's gather and copy, the loss pull, the loop) "
+          f"{prof_step_ms - step:.3f} ms")
 
 
 def _timed(opt, warmup: int, reps: int):
@@ -406,12 +427,41 @@ def profile_cnntext(card: str, warmup: int = 3, reps: int = 5) -> None:
     del opt
 
 
+def profile_siamese(card: str, warmup: int = 3, reps: int = 5) -> None:
+    import numpy as np
+
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.models import ResNet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer
+    from bigdl_tpu_torch.utils.table import T
+
+    pairs = 64
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(40)
+    rng = np.random.default_rng(40)
+    xa, xb = (rng.standard_normal((pairs, 3, 224, 224)).astype(np.float32) for _ in range(2))
+    y = np.where(rng.random(pairs) < 0.5, 1.0, -1.0).astype(np.float32)
+    tower = ResNet(50, class_num=128, stem="conv7", device="cuda")
+    a, b = nn.Input(), nn.Input()
+    model = nn.Graph([a, b], [tower.inputs(a), tower.inputs(b)], device="cuda")
+    opt = LocalOptimizer(model, DataSet.array(T(xa, xb), y, batch_size=pairs),
+                         nn.CosineEmbeddingCriterion(margin=0.5))
+    opt.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+    steps = _timed(opt, warmup, reps)
+    _report(f"Siamese ResNet-50 training step ({pairs} pairs, bf16)", steps,
+            f"{2 * pairs / steps[0] * 1e3:.1f} images/s", _profile(opt, reps, flagship_family),
+            card)
+    del opt
+
+
 MODES = {"lm": profile_lm, "flagship": profile_flagship, "vgg16": profile_vgg,
          "normlm": profile_normlm,
          **{name: (lambda card, name=name: profile_parity(name, card))
             for name in ("lenet", "vgg", "inception", "bilstm", "widedeep")},
          **{name: (lambda card, name=name: profile_example(name, card)) for name in EXAMPLES},
-         "cnntext": profile_cnntext}
+         "cnntext": profile_cnntext, "siamese": profile_siamese}
 
 
 def main() -> int:
