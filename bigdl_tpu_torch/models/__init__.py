@@ -1,12 +1,13 @@
 """Models of the port: the flagship ResNet, VGG, BASELINE's LeNet-5,
 VGG-for-CIFAR-10, Inception-v1, BiLSTM text classifier and Wide&Deep, and
-AlexNet, the Autoencoder, NeuralCF, the CNN text classifier and the PTB
-language model."""
+AlexNet, the Autoencoder, NeuralCF, the CNN text classifier, the PTB
+language model and the MaskRCNN detector."""
 
 from .alexnet import AlexNet
 from .autoencoder import Autoencoder
 from .inception import Inception_v1
 from .lenet import LeNet5
+from .maskrcnn import MaskRCNN
 from .ncf import NeuralCF
 from .resnet import ResNet
 from .textclassifier import BiLSTMClassifier, CNNTextClassifier, PTBModel
@@ -71,5 +72,5 @@ def parity_config(name: str, batch=None, device=None):
 
 
 __all__ = ["AlexNet", "Autoencoder", "BiLSTMClassifier", "CNNTextClassifier", "Inception_v1",
-           "LeNet5", "NeuralCF", "PTBModel", "ResNet", "Vgg_16", "Vgg_19", "VggForCifar10",
+           "LeNet5", "MaskRCNN", "NeuralCF", "PTBModel", "ResNet", "Vgg_16", "Vgg_19", "VggForCifar10",
            "WideAndDeep", "flagship_model", "parity_config"]

@@ -8,7 +8,8 @@ from .attention import (Attention, FeedForwardNetwork, SequenceBeamSearch, Trans
                         attention_bias_lower_triangle, get_position_encoding,
                         padding_attention_bias, scaled_dot_product_attention,
                         sequence_beam_search)
-from .conv import SpatialConvolution, SpatialDilatedConvolution, TemporalConvolution
+from .conv import (SpatialConvolution, SpatialDilatedConvolution, SpatialFullConvolution,
+                   TemporalConvolution)
 from .criterion import (AbsCriterion, AbstractCriterion, BCECriterion, BCECriterionWithLogits,
                         ClassNLLCriterion, ClassSimplexCriterion, CosineEmbeddingCriterion,
                         CrossEntropyCriterion, DiceCoefficientCriterion, DistKLDivCriterion,
@@ -16,6 +17,9 @@ from .criterion import (AbsCriterion, AbstractCriterion, BCECriterion, BCECriter
                         MarginRankingCriterion, MSECriterion, MultiCriterion,
                         MultiLabelMarginCriterion, MultiLabelSoftMarginCriterion,
                         ParallelCriterion, SmoothL1Criterion, TimeDistributedCriterion)
+from .detection import (FPN, Anchor, BoxHead, MaskHead, Pooler, RegionProposal, bbox_clip,
+                        bbox_decode, bbox_encode, bbox_iou, fast_rcnn_loss, match_targets,
+                        multilevel_roi_align, nms, roi_align, rpn_loss, sample_matches)
 from .dropout import (Dropout, GaussianDropout, GaussianNoise, SpatialDropout1D,
                       SpatialDropout2D, SpatialDropout3D)
 from .embedding import DenseToSparse, LookupTable, LookupTableSparse, SparseJoinTable
@@ -29,7 +33,7 @@ from .module import AbstractModule, Container, Identity, Sequential
 from .normalization import (BatchNormalization, LayerNormalization, RMSNorm,
                             SpatialBatchNormalization, SpatialCrossMapLRN)
 from .pipelined import PipelinedBlocks
-from .pooling import SpatialAveragePooling, SpatialMaxPooling, TemporalMaxPooling
+from .pooling import RoiPooling, SpatialAveragePooling, SpatialMaxPooling, TemporalMaxPooling
 from .recurrent import (GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, LSTMPeephole, Recurrent,
                         RecurrentDecoder, RnnCell, TimeDistributed)
 from .structural import Reshape, Select, SpaceToDepth
@@ -48,34 +52,36 @@ def load_module(path: str, device=None) -> AbstractModule:
     return load_module_def(path, device)
 
 
-__all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add",
-           "AddConstant", "Attention", "BCECriterion", "BCECriterionWithLogits",
-           "BatchNormalization", "BiRecurrent", "Bilinear", "CAdd", "CAddTable",
-           "CAveTable", "CDivTable", "CMaxTable", "CMinTable", "CMul", "CMulTable",
-           "CSubTable", "Cell", "Clamp", "ClassNLLCriterion", "ClassSimplexCriterion",
-           "Concat", "ConcatTable", "Container", "ConvLSTMPeephole", "Cosine",
-           "CosineDistance", "CosineEmbeddingCriterion", "CrossEntropyCriterion",
-           "DenseToSparse", "DiceCoefficientCriterion", "DistKLDivCriterion",
-           "DotProduct", "Dropout", "ELU", "Euclidean", "Exp", "FeedForwardNetwork",
-           "FlattenTable", "GELU", "GRU", "GaussianDropout", "GaussianNoise", "Graph",
+__all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add", "AddConstant",
+           "Anchor", "Attention", "attention_bias_lower_triangle", "BatchNormalization",
+           "bbox_clip", "bbox_decode", "bbox_encode", "bbox_iou", "BCECriterion",
+           "BCECriterionWithLogits", "Bilinear", "BiRecurrent", "BoxHead", "CAdd", "CAddTable",
+           "CAveTable", "CDivTable", "Cell", "Clamp", "ClassNLLCriterion",
+           "ClassSimplexCriterion", "CMaxTable", "CMinTable", "CMul", "CMulTable", "Concat",
+           "ConcatTable", "Container", "ConvLSTMPeephole", "Cosine", "CosineDistance",
+           "CosineEmbeddingCriterion", "CrossEntropyCriterion", "CSubTable", "DenseToSparse",
+           "DiceCoefficientCriterion", "DistKLDivCriterion", "DotProduct", "Dropout", "ELU",
+           "Euclidean", "Exp", "fast_rcnn_loss", "FeedForwardNetwork", "FlattenTable", "FPN",
+           "GaussianDropout", "GaussianNoise", "GELU", "get_position_encoding", "Graph", "GRU",
            "HardSigmoid", "HardTanh", "HingeEmbeddingCriterion", "Identity", "Input",
-           "JoinTable", "L1Cost", "LSTM", "LSTMPeephole", "LayerNormalization",
-           "LeakyReLU", "Linear", "Log", "load_module", "LogSoftMax", "LookupTable", "LookupTableSparse",
-           "MM", "MSECriterion", "MV", "MapTable", "MarginCriterion",
-           "MarginRankingCriterion", "Max", "Mean", "Min", "MixtureTable", "ModuleNode",
-           "MsraFiller", "Mul", "MulConstant", "MultiCriterion",
-           "MultiLabelMarginCriterion", "MultiLabelSoftMarginCriterion", "Neg", "PReLU",
+           "JoinTable", "L1Cost", "LayerNormalization", "LeakyReLU", "Linear", "load_module",
+           "Log", "LogSoftMax", "LookupTable", "LookupTableSparse", "LSTM", "LSTMPeephole",
+           "MapTable", "MarginCriterion", "MarginRankingCriterion", "MaskHead",
+           "match_targets", "Max", "Mean", "Min", "MixtureTable", "MM", "ModuleNode",
+           "MSECriterion", "MsraFiller", "Mul", "MulConstant", "MultiCriterion",
+           "MultiLabelMarginCriterion", "MultiLabelSoftMarginCriterion",
+           "multilevel_roi_align", "MV", "Neg", "nms", "padding_attention_bias",
            "PairwiseDistance", "ParallelCriterion", "ParallelTable", "PipelinedBlocks",
-           "Power", "RMSNorm", "RReLU", "RandomNormal", "RandomUniform", "ReLU", "ReLU6",
-           "Recurrent", "RecurrentDecoder", "Reshape", "RnnCell", "SELU", "SReLU",
-           "Scale", "Select", "SelectTable", "SequenceBeamSearch", "Sequential",
-           "Sigmoid", "SmoothL1Criterion", "SoftMax", "SoftMin", "SoftPlus", "SoftSign",
-           "SpaceToDepth", "SparseJoinTable", "SparseLinear", "SpatialAveragePooling",
+           "Pooler", "Power", "PReLU", "RandomNormal", "RandomUniform", "Recurrent",
+           "RecurrentDecoder", "RegionProposal", "ReLU", "ReLU6", "Reshape", "RMSNorm",
+           "RnnCell", "roi_align", "RoiPooling", "rpn_loss", "RReLU", "sample_matches",
+           "Scale", "scaled_dot_product_attention", "Select", "SelectTable", "SELU",
+           "sequence_beam_search", "SequenceBeamSearch", "Sequential", "Sigmoid",
+           "SmoothL1Criterion", "SoftMax", "SoftMin", "SoftPlus", "SoftSign", "SpaceToDepth",
+           "SparseJoinTable", "SparseLinear", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution", "SpatialCrossMapLRN",
            "SpatialDilatedConvolution", "SpatialDropout1D", "SpatialDropout2D",
-           "SpatialDropout3D", "SpatialMaxPooling", "Sqrt", "Square", "Sum", "Swish",
-           "Tanh", "TemporalConvolution", "TemporalMaxPooling", "Threshold",
-           "ThresholdedReLU", "TimeDistributed", "TimeDistributedCriterion",
-           "Transformer", "Xavier", "Zeros", "attention_bias_lower_triangle",
-           "get_position_encoding", "padding_attention_bias",
-           "scaled_dot_product_attention", "sequence_beam_search"]
+           "SpatialDropout3D", "SpatialFullConvolution", "SpatialMaxPooling", "Sqrt", "Square",
+           "SReLU", "Sum", "Swish", "Tanh", "TemporalConvolution", "TemporalMaxPooling",
+           "Threshold", "ThresholdedReLU", "TimeDistributed", "TimeDistributedCriterion",
+           "Transformer", "Xavier", "Zeros"]

@@ -1,5 +1,6 @@
-"""``SpatialConvolution``, ``SpatialDilatedConvolution`` and
-``TemporalConvolution`` (counterparts of ``bigdl_tpu/nn/conv.py``). The
+"""``SpatialConvolution``, ``SpatialDilatedConvolution``,
+``SpatialFullConvolution`` and ``TemporalConvolution`` (counterparts of
+``bigdl_tpu/nn/conv.py``). The
 spatial ones: NCHW input, OIHW weights, Torch padding with
 ``-1`` meaning TensorFlow's SAME (for the dilated kernel's extent), groups,
 dilation, an optional bias and an optional ``activation`` epilogue
@@ -11,6 +12,8 @@ bias under ``Engine.set_fused_kernels(True)``, the row-mode
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import torch
 
 from ..utils import precision
 from .initialization import InitializationMethod, RandomUniform, Xavier, Zeros
@@ -137,6 +140,65 @@ class SpatialDilatedConvolution(SpatialConvolution):
     def __init__(self, *args, dilation_w: int = 1, dilation_h: int = 1, **kw):
         super().__init__(*args, **kw)
         self.dilation = (dilation_h, dilation_w)
+
+
+class SpatialFullConvolution(AbstractModule):
+    """Transposed convolution, the deconvolution (reference:
+    ``$DL/nn/SpatialFullConvolution.scala``): NCHW input, weight (nInputPlane,
+    nOutputPlane, kH, kW) (Torch's own layout), ``Xavier`` weights and a zero
+    bias; output extent ``(in - 1) * stride - 2 * pad + kernel + adj`` per
+    dim for any ``adj`` (:func:`~bigdl_tpu_torch.utils.precision.
+    conv_transpose2d`). No activation epilogue, as in the JAX package."""
+
+    def __init__(self, n_input_plane: Optional[int], n_output_plane: int, kernel_w: int,
+                 kernel_h: Optional[int] = None, stride_w: int = 1,
+                 stride_h: Optional[int] = None, pad_w: int = 0, pad_h: Optional[int] = None,
+                 adj_w: int = 0, adj_h: int = 0, with_bias: bool = True, device=None):
+        super().__init__(device)
+        self.n_input_plane = n_input_plane
+        self.n_output_plane = n_output_plane
+        self.kernel = (kernel_h if kernel_h is not None else kernel_w, kernel_w)
+        self.stride = (stride_h if stride_h is not None else stride_w, stride_w)
+        self.pad = (pad_h if pad_h is not None else pad_w, pad_w)
+        self.adj = (adj_h, adj_w)
+        self.with_bias = with_bias
+        self.weight_init: InitializationMethod = Xavier()
+
+    def _build(self, generator, sample):
+        cin = sample.shape[1]
+        if self.n_input_plane is not None and self.n_input_plane != cin:
+            raise ValueError(f"{self.name()}: declared {self.n_input_plane} input planes, "
+                             f"got {cin}")
+        self.n_input_plane = cin
+        kh, kw = self.kernel
+        params = {"weight": self.weight_init(generator, (cin, self.n_output_plane, kh, kw),
+                                             cin * kh * kw, self.n_output_plane * kh * kw)}
+        if self.with_bias:
+            params["bias"] = torch.zeros(self.n_output_plane)
+        return params, {}
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {shape}")
+        n, c, h, w = shape
+        if self.n_input_plane is not None and c != self.n_input_plane:
+            raise ValueError(f"{self.name()}: declared {self.n_input_plane} input planes, "
+                             f"got {c} (input shape {shape})")
+        (kh, kw), (sh, sw), (ph, pw), (ah, aw) = self.kernel, self.stride, self.pad, self.adj
+        oh = (h - 1) * sh - 2 * ph + kh + ah
+        ow = (w - 1) * sw - 2 * pw + kw + aw
+        if oh <= 0 or ow <= 0:
+            raise ValueError(f"{self.name()}: deconv output {(oh, ow)} is empty for input "
+                             f"{shape} (kernel {self.kernel}, stride {self.stride}, "
+                             f"pad {self.pad}, adj {self.adj})")
+        return spec((n, self.n_output_plane, oh, ow), precision.result_dtype(in_spec.dtype))
+
+    def _apply_params(self, params, state, x, training, rng):
+        y = precision.conv_transpose2d(x, params["weight"], self.stride, self.pad, self.adj)
+        if self.with_bias:
+            y = precision.bias_add(y, params["bias"].reshape(1, -1, 1, 1))
+        return y, state
 
 
 class TemporalConvolution(AbstractModule):

@@ -56,13 +56,15 @@ def _abs(x: torch.Tensor) -> torch.Tensor:
 
 
 def _clip_min(v: torch.Tensor, lo: float) -> torch.Tensor:
-    """``jnp.clip(v, lo)``: max(v, lo) with its gradient (1/2 at v == lo)."""
-    return torch.maximum(v, v.new_tensor(lo))
+    """``jnp.clip(v, lo)``: max(v, lo) with its gradient (1/2 at v == lo).
+    The bound is filled on ``v``'s device (``new_full``), not copied from
+    the host, so a forward on the card does not wait for a copy."""
+    return torch.maximum(v, v.new_full((), lo))
 
 
 def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)`` with its gradient (1/2 at an exact bound)."""
-    return torch.minimum(_clip_min(x, lo), x.new_tensor(hi))
+    return torch.minimum(_clip_min(x, lo), x.new_full((), hi))
 
 
 def _relu(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@ which accumulates in fp32 and rounds once to the input's dtype: for bf16 that
 is more exact than the JAX package, whose ``reduce_window`` sums in bf16.
 ``TemporalMaxPooling`` is ``F.max_pool1d`` (torch ops, no kernel of this
 repo, as the JAX package's is ``reduce_window`` and not its Pallas kernel).
+``RoiPooling`` (Fast R-CNN's roi max pool) is a masked max in torch ops, as
+the JAX package's is XLA's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.maxpool import maxpool2d
+from ..utils.precision import true_div
 from .module import AbstractModule
 
 
@@ -184,3 +187,71 @@ class TemporalMaxPooling(AbstractModule):
         _check_window(self, shape, (shape[1],), (self.k_w,), (0,))
         y = F.max_pool1d(x.transpose(1, 2), self.k_w, self.d_w)
         return y.transpose(1, 2), state
+
+
+class RoiPooling(AbstractModule):
+    """Region-of-interest max pooling (reference: ``$DL/nn/RoiPooling.scala``).
+
+    Input: ``Table(features (N, C, H, W), rois (R, 5))``, each roi row
+    ``[batch_idx, x1, y1, x2, y2]`` in input-image coordinates; output (R, C,
+    pooled_h, pooled_w). The roi's corners are scaled and rounded (Torch
+    rounding, half to even), each bin spans ``floor``/``ceil`` of its
+    fractional edges clipped to the map, and a bin that covers no cell (a
+    degenerate roi) is 0. As in the JAX package, each bin's max is a masked
+    max over the roi's whole feature map, rows first then columns, one bin
+    row (then column) at a time: memory O(R C H W), torch ops only.
+    """
+
+    accepts_table_input = True  # consumes a multi-parent Table when graph-wired
+
+    def __init__(self, pooled_w: int, pooled_h: int, spatial_scale: float = 1.0, device=None):
+        super().__init__(device)
+        self.pooled_w = pooled_w
+        self.pooled_h = pooled_h
+        self.spatial_scale = spatial_scale
+
+    def infer_shape(self, in_spec):
+        specs = list(in_spec) if not hasattr(in_spec, "shape") else [in_spec]
+        if len(specs) < 2:
+            raise ValueError(f"{self.name()}: expects Table(features NCHW, rois (R, 5)), "
+                             f"got {len(specs)} input(s)")
+        feats, rois = specs[0], specs[1]
+        if len(feats.shape) != 4 or len(rois.shape) != 2 or rois.shape[1] != 5:
+            raise ValueError(f"{self.name()}: expects Table(features NCHW, rois (R, 5)), got "
+                             f"shapes {tuple(feats.shape)} and {tuple(rois.shape)}")
+        return self._infer_shape_via_apply(in_spec)
+
+    def _apply_params(self, params, state, x, training, rng):
+        feats, rois = list(x)[:2]
+        h, w = feats.shape[2], feats.shape[3]
+        ph, pw = self.pooled_h, self.pooled_w
+        batch_idx = rois[:, 0].to(torch.int32)
+        # the roi's corners on the feature map (inclusive), Torch rounding
+        x1 = torch.round(rois[:, 1] * self.spatial_scale)
+        y1 = torch.round(rois[:, 2] * self.spatial_scale)
+        x2 = torch.round(rois[:, 3] * self.spatial_scale)
+        y2 = torch.round(rois[:, 4] * self.spatial_scale)
+        bin_h = true_div(torch.clamp(y2 - y1 + 1.0, min=1.0), ph)  # (R,)
+        bin_w = true_div(torch.clamp(x2 - x1 + 1.0, min=1.0), pw)
+
+        def bounds(start, bin_size, n_bins, limit):
+            i = torch.arange(n_bins, dtype=torch.float32, device=start.device)
+            lo = torch.floor(start[:, None] + i[None, :] * bin_size[:, None])
+            hi = torch.ceil(start[:, None] + (i[None, :] + 1.0) * bin_size[:, None])
+            return torch.clamp(lo, 0, limit), torch.clamp(hi, 0, limit)
+
+        ylo, yhi = bounds(y1, bin_h, ph, h)  # (R, ph)
+        xlo, xhi = bounds(x1, bin_w, pw, w)  # (R, pw)
+        ys = torch.arange(h, dtype=torch.float32, device=feats.device)
+        xs = torch.arange(w, dtype=torch.float32, device=feats.device)
+        row_in = (ys >= ylo[..., None]) & (ys < yhi[..., None])  # (R, ph, H)
+        col_in = (xs >= xlo[..., None]) & (xs < xhi[..., None])  # (R, pw, W)
+        roi_feats = feats[batch_idx.long()]  # (R, C, H, W)
+        neg_inf = float("-inf")
+        tmp = torch.stack([torch.where(row_in[:, i, None, :, None], roi_feats, neg_inf).amax(2)
+                           for i in range(ph)])  # (ph, R, C, W)
+        out = torch.stack([torch.where(col_in[None, :, j, None, :], tmp, neg_inf).amax(-1)
+                           for j in range(pw)])  # (pw, ph, R, C)
+        out = out.permute(2, 3, 1, 0)  # (R, C, ph, pw)
+        # empty bins (degenerate rois) -> 0, as the reference's memset
+        return torch.where(torch.isfinite(out), out, 0.0), state

@@ -14,8 +14,13 @@ likewise, a rotary one's tree is the sinusoidal one's, NeuralCF's
 gates (``GRU``'s ``i2rz``/``h2rz``/``bias_rz``/``i2n``/``h2n``/``bias_n``,
 ``ConvLSTMPeephole``'s OIHW ``i2g``/``h2g`` and ``peep``), the table
 containers' children (``ConcatTable``/``ParallelTable`` per branch,
-``MapTable``'s one child) and the learned activations and math layers
-(``PReLU``, ``SReLU``, ``Mul``, ``CMul``, ``Bilinear``, ``Scale``, ...));
+``MapTable``'s one child), the learned activations and math layers
+(``PReLU``, ``SReLU``, ``Mul``, ``CMul``, ``Bilinear``, ``Scale``, ...) and
+MaskRCNN's children (``backbone_level0.SpatialConvolution_0.weight``,
+``fpn.SpatialConvolution_4.weight`` (the smoothing convolutions follow the
+laterals), ``rpn.SpatialConvolution_1.bias``, ``box_head.Linear_3.weight``,
+``mask_head.SpatialFullConvolution_2.weight``, whose deconvolution weight
+is (in, out, kH, kW) in both packages));
 ``Linear``-style weights are (out, in) and convolution weights OIHW in
 both packages, so every copy is a plain copy. ``load_jax_state(module, tree)`` does the same
 for the state tree (``model.get_state()``: BN running statistics).

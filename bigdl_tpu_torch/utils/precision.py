@@ -93,6 +93,28 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1,
     return y.to(out_dtype()) if mixed else y
 
 
+def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, stride, pad, adj) -> torch.Tensor:
+    """Torch's transposed convolution of NCHW ``x`` by a (Cin, Cout, kH, kW)
+    ``w`` under the policy, as :func:`conv2d`: output extent ``(in - 1) *
+    stride - 2 * pad + kernel + adj`` per dim (the JAX package's lhs-dilated
+    ``conv_general_dilated``). ``F.conv_transpose2d`` takes ``adj`` as its
+    ``output_padding`` only below the stride; for any larger ``adj`` the
+    full transposed convolution (no pad, extent ``(in - 1) * stride +
+    kernel``) is cropped by ``pad`` at the low end and cut or zero-extended
+    at the high end to the output extent (cells past the full extent lie
+    past every input's footprint: zeros). cuDNN's on the card."""
+    mixed = is_mixed()
+    dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
+    x, w = _cast(x, dt), _cast(w, dt)
+    (sh, sw), (ph, pw), (ah, aw) = stride, pad, adj
+    if ah < sh and aw < sw:
+        y = torch.nn.functional.conv_transpose2d(x, w, None, (sh, sw), (ph, pw), (ah, aw))
+    else:
+        y = torch.nn.functional.pad(torch.nn.functional.conv_transpose2d(x, w, None, (sh, sw)),
+                                    (-pw, aw - pw, -ph, ah - ph))
+    return y.to(out_dtype()) if mixed else y
+
+
 def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1) -> torch.Tensor:
     """NCT × OIK convolution with no padding (XLA's ``VALID``) under the
     policy, as :func:`conv2d`: compute-dtype operands, the product rounded
@@ -102,6 +124,14 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1)
     dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
     y = torch.nn.functional.conv1d(_cast(x, dt), _cast(w, dt), None, stride, 0, dilation)
     return y.to(out_dtype()) if mixed else y
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` rounded once, as XLA and the CPU divide, on every device:
+    on the card ATen divides by a host scalar as a product with its
+    reciprocal, a unit in the last place off where ``1 / c`` is inexact; a
+    0-dim divisor filled on ``x``'s device takes the true division."""
+    return x / x.new_full((), c)
 
 
 def bias_add(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -244,7 +244,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    ParamAudit timed; a flagship whose ``fc`` is declared a wrong input
    width stopped by ``ShapeInferenceError`` naming ``Linear(fc)`` before
    any step or allocation; two ``Linear`` s handed one weight refused by
-   ``ParamAudit``; ``validate=False`` trains.
+   ``ParamAudit``; ``validate=False`` trains;
+18. detection (no kernel of this repo on these paths: each launches 0):
+   [18a] ``MaskRCNN(81)`` at the class's defaults (backbone (32, 64, 128,
+   256), FPN 128, 256 pre-NMS and 64 post-NMS proposals, 16 detections,
+   box pool 7, mask pool 14; random f32 weights from a seed, eval mode)
+   served batch 2 of 800x1344 images (COCO's inference size:
+   maskrcnn-benchmark's MIN_SIZE_TEST 800, MAX_SIZE_TEST 1333 padded to a
+   multiple of 32) at the port's default policy: 10 timed forwards (host
+   and CUDA-event ms, images/s), device memory flat, the peak, one forward
+   under ``torch.profiler`` (device events and ms) and one under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), valid
+   detections (shapes, corner boxes inside the image, scores non-increasing
+   and zero on the padding, labels in [0, 80]); [18a'] the same widths at
+   one 256x256 image, card vs CPU in f32 with TF32 off, stage by stage
+   within ``DET_ROUTE_TOL`` (backbone and FPN features, the RPN's logits and
+   deltas, RoiAlign of the same rois, the heads on the same input), the
+   proposals from the CPU's logits and NMS of the same boxes equal, and the
+   share of agreeing detections against ``DET_AGREE_MIN``; [18b]
+   ``bigdl_tpu_torch/examples/maskrcnn_infer.py`` at its defaults; [18c] a
+   COCO ``instances.json`` (polygon and compressed-RLE masks, crowd and
+   not) through ``COCODataset.load``, the ground truth padded to
+   ``DET_GT`` rows, ``rpn_loss`` and ``fast_rcnn_loss`` on [18a']'s detector
+   and their gradients, card vs CPU from the same draws and proposals
+   (``DET_LOSS_TOL``); [18d] [18a']'s detector through ``save_module`` /
+   ``nn.load_module``: the same detections to the bit.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -279,8 +303,10 @@ each under its ``parity_config`` name, the flagship served,
 ``autoencoder_example`` and ``cnntext``, and [16]'s ``cells_gru``,
 ``cells_lstmpeephole``, ``cells_rnncell``, ``convlstm``,
 ``seq_autoencoder`` and ``modules``, and [17]'s ``siamese``,
-``module_file`` and ``validate``) runs with every kernel's launch count
-set to 0 just before it and read just after.
+``module_file`` and ``validate``, and [18]'s ``maskrcnn_coco``,
+``maskrcnn_example``, ``detection_losses`` and ``maskrcnn_file``) runs
+with every kernel's launch count set to 0 just before it and read just
+after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -6313,6 +6339,609 @@ def phase_graphs(card):
     return by_path
 
 
+# ------------------------------------------------------------------ [18]
+# [18a] MaskRCNN(n_classes=81) at the class's defaults (backbone (32, 64,
+# 128, 256), FPN 128, 256 pre-NMS and 64 post-NMS proposals, 16 detections,
+# box pool 7, mask pool 14; 81 = COCO's 80 classes and the background),
+# random f32 weights from a seed, eval mode, served batch 2 of 800x1344
+# images: maskrcnn-benchmark's test sizes (INPUT.MIN_SIZE_TEST 800,
+# MAX_SIZE_TEST 1333, padded to SIZE_DIVISIBILITY 32), drawn as
+# flagship_model draws its images. Nothing is cut.
+DETECTION_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+MASKRCNN_COCO = {"n_classes": 81, "batch": 2, "hw": (800, 1344), "timed": 10}
+DET_ROUTE_HW = (256, 256)  # [18a'] one image, card vs CPU, f32, TF32 off
+# [18a'] limits, fixed before the first run (|card - cpu| against the CPU's
+# values; "rel" is the L2 norm of the difference over the CPU's L2 norm,
+# "max" the largest difference over the CPU's largest magnitude):
+# * backbone and FPN features, the RPN's logits and deltas: fp32 sums of up
+#   to 1152 products a convolution taken in another order (cuDNN's
+#   algorithms, Winograd's transforms among them), through up to 11 stacked
+#   convolutions: a few 1e-6 a layer;
+# * RoiAlign of the same rois on the same features: the same gathers and
+#   lerps elementwise (each division by a constant rounded once on both,
+#   ``precision.true_div``), the 2x2 sample mean summed in another order;
+# * the heads on the same pooled input: one matmul or convolution chain
+#   (K <= 6272) in another order;
+# * the proposals from the CPU's own logits and deltas, decoded on the card:
+#   exp and log a unit in the last place apart, so the selection must be
+#   the CPU's and each box within 1e-4 px (boxes reach 256 px);
+# * NMS indices of the same boxes and scores: equal.
+DET_ROUTE_TOL = {"features": (1e-4, 1e-3), "roi_align": (1e-6, 1e-5), "heads": (1e-5, 1e-4),
+                 "proposal_px": 1e-4}
+# End to end, the share of the card's detections that agree with the CPU's
+# (the same row: same label and IoU >= 0.99), fixed before the first run:
+# the card's features part from the CPU's by the limits above, so a near-tie
+# in the RPN's top-256 order or in a class argmax can flip a detection
+DET_AGREE_MIN = 0.75
+DET_LOSS_TOL = {"loss": 1e-4, "grad": 1e-3}  # [18c] card vs CPU, same draws and proposals
+DET_GT = 8  # [18c] ground truth padded to a fixed G with gt_valid
+MODULE_FILE_DET_DIR = "build/module_file_det"  # [18d]'s file, removed after
+
+
+def _det_device():
+    return "cpu" if DETECTION_DEVICE == "cpu" else "cuda"
+
+
+def _det_twin(model, sample):
+    """A CPU MaskRCNN of the same arguments holding ``model``'s weights."""
+    from bigdl_tpu_torch.models import MaskRCNN
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+
+    m = MaskRCNN(MASKRCNN_COCO["n_classes"], device="cpu")
+    m.init(sample_input=sample)
+    load_jax_params(m, _nest(_tree_to_numpy(model.get_parameters())))
+    return m.evaluate()
+
+
+def _rel_max(got, want):
+    """(L2-relative, max-relative) difference of ``got`` from ``want``, on the CPU."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    d = (g - w).abs()
+    return (float(d.norm() / max(float(w.norm()), 1e-30)),
+            float(d.max() / max(float(w.abs().max()), 1e-30)))
+
+
+def _within(label, got, want, tol):
+    rel, mx = _rel_max(got, want)
+    log(f"    {label}: rel {rel:.3g}, max {mx:.3g} (limits {tol[0]:g}, {tol[1]:g})")
+    if not (rel <= tol[0] and mx <= tol[1]):
+        raise AssertionError(f"[18a'] {label}: card vs CPU rel {rel:.3g} max {mx:.3g} over the "
+                             f"limits {tol}")
+
+
+def _check_detections(label, out, n, hw, n_classes, d):
+    """Shapes and dtypes, valid corner boxes inside the image, scores
+    non-increasing over the valid rows (label > 0) and exactly zero on the
+    padded ones, labels in [0, n_classes - 1], finite masks."""
+    import torch
+
+    boxes, scores, labels, masks = (o.detach().cpu() for o in out)
+    want = [(n, d, 4), (n, d), (n, d), (n, d, n_classes, 28, 28)]
+    if [tuple(o.shape) for o in (boxes, scores, labels, masks)] != want or \
+            labels.dtype != torch.int32 or boxes.dtype != torch.float32:
+        raise AssertionError(f"{label}: outputs {[(tuple(o.shape), o.dtype) for o in out]}, "
+                             f"expected shapes {want}, int32 labels")
+    h, w = hw
+    valid = labels > 0
+    ok = bool((boxes[..., 2] >= boxes[..., 0]).all() and (boxes[..., 3] >= boxes[..., 1]).all()
+              and (boxes >= 0).all() and (boxes[..., 2] <= w).all()
+              and (boxes[..., 3] <= h).all())
+    ok &= bool(((labels >= 0) & (labels < n_classes)).all() and torch.isfinite(masks).all())
+    ok &= bool((scores[~valid] == 0).all() and (boxes[~valid] == 0).all())
+    ok &= bool(((scores[:, 1:] <= scores[:, :-1]) | ~valid[:, 1:]).all())
+    ok &= bool((valid[:, 1:] <= valid[:, :-1]).all())  # the padding comes last
+    if not ok:
+        raise AssertionError(f"{label}: invalid detections: boxes {boxes[0, :4].tolist()}, "
+                             f"scores {scores.tolist()}, labels {labels.tolist()}")
+    return int(valid.sum())
+
+
+def _cuda_events_ms(fn):
+    """(result, device ms by CUDA events, host ms) of one call."""
+    import torch
+
+    if not torch.cuda.is_available() or DETECTION_DEVICE == "cpu":
+        t0 = time.perf_counter()
+        out = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, ms
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def _device_events(fn):
+    """(device events (kernels, copies, fills), their summed device ms) of
+    one call of ``fn`` under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if DETECTION_DEVICE == "cpu":
+        return 0, 0.0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    evs = [ev for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum(ev.duration_ns() for ev in evs) / 1e6
+
+
+def phase_maskrcnn_coco(card):
+    """[18a] The full-width detector served at COCO's inference size, at
+    the port's default policy; returns the path's counts."""
+    import torch
+
+    dev = _det_device()
+    cfg = MASKRCNN_COCO
+    n, (h, w) = cfg["batch"], cfg["hw"]
+    # torch's own TF32 defaults (earlier phases' f32 checks turn TF32 off
+    # for the rest of the smoke); restored after the path
+    prev_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        return _maskrcnn_coco(card, dev, cfg, n, h, w)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+
+def _maskrcnn_coco(card, dev, cfg, n, h, w):
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.models import MaskRCNN
+
+    RandomGenerator.set_seed(SEED + 50)
+    model = MaskRCNN(cfg["n_classes"], device=dev).evaluate()
+    x = torch.from_numpy(np.random.default_rng(SEED + 51).standard_normal(
+        (n, 3, h, w)).astype(np.float32)).to(dev)
+    policy = (f"compute dtype {Engine.compute_dtype()}, activation dtype "
+              f"{Engine.activation_dtype() or 'float32'}, cuDNN TF32 "
+              f"{torch.backends.cudnn.allow_tf32}, matmul TF32 "
+              f"{torch.backends.cuda.matmul.allow_tf32}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.forward(x)  # builds the model; the anchors' base is copied to the card once
+        _sync()
+        log(f"[18a] MaskRCNN({cfg['n_classes']}) at its defaults, {model.n_parameters():,} "
+            f"parameters, batch {n} of {h}x{w} f32 images, eval mode; the port's defaults: "
+            f"{policy}")
+        log(f"    build and first forward: {time.perf_counter() - t0:.2f} s")
+        model.forward(x)  # warm
+        _sync()
+        reset_counts()  # the main path starts here
+        base = _mem()
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        dev_ms, host_ms, mems = [], [], []
+        out = None
+        for _ in range(cfg["timed"]):
+            out = None
+            out, dms, hms = _cuda_events_ms(lambda: model.forward(x))
+            dev_ms.append(dms)
+            host_ms.append(hms)
+            mems.append(_mem())
+        peak = (torch.cuda.max_memory_allocated() - base) if dev == "cuda" else 0
+        if dev == "cuda":
+            torch.cuda.set_sync_debug_mode("error")  # any host sync in the forward raises
+        try:
+            checked = model.forward(x)
+        finally:
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        _sync()
+        counts = read_counts()  # the main path ends here
+        n_events, ev_ms = _device_events(lambda: model.forward(x))
+    med = statistics.median(host_ms)
+    log(f"    {cfg['timed']} forwards: host {med:.2f} ms median ({min(host_ms):.2f}-"
+        f"{max(host_ms):.2f}), device by CUDA events {statistics.median(dev_ms):.2f} ms median "
+        f"({min(dev_ms):.2f}-{max(dev_ms):.2f}), {n / med * 1e3:.2f} images/s; card {card}")
+    log(f"    one forward under torch.profiler: {n_events} device events (kernels, copies, "
+        f"fills), {ev_ms:.2f} ms of device time; device memory after each forward "
+        f"{sorted(set(mems))} B above the model's {base} B, peak {peak / 2**30:.2f} GiB above "
+        f"it; a forward under set_sync_debug_mode('error'): no host sync")
+    if len(set(mems)) != 1:
+        raise AssertionError(f"[18a] device memory moved across the timed forwards: {mems}")
+    if any(counts.values()):
+        raise AssertionError(f"[18a] launched kernels of this repo: {_nonzero(counts)}")
+    valid = _check_detections("[18a]", checked, n, (h, w), cfg["n_classes"],
+                              model.detections_per_image)
+    for a, b in zip(checked, out):
+        if not torch.equal(a, b):
+            raise AssertionError("[18a] a repeated forward gave other detections")
+    _, scores, labels, _ = checked.to_list()
+    log(f"    outputs {[tuple(o.shape) for o in checked]}: {valid} valid detections of "
+        f"{n * model.detections_per_image}, labels {sorted(set(labels.flatten().tolist()))}, "
+        f"scores max {float(scores.max()):.4f} (random weights: softmax over 81 classes "
+        f"sits near 1/81, under the 0.05 score threshold, so the scores are 0 and NMS keeps "
+        f"proposals in RPN order)")
+    del model, x, out, checked
+    _free()
+    return counts
+
+
+def _det_stages(model, x):
+    """The stages of one forward of ``model`` on ``x`` (f32, no gradient)."""
+    import torch
+
+    p, s = model.get_parameters(), model.get_state()
+    with torch.no_grad():
+        backbone, y = [], x
+        for m in model[: model.n_backbone]:
+            y = m.forward(y)
+            backbone.append(y)
+        levels, _ = model.features(p, s, x)
+        rpn = model[model.n_backbone + 1]
+        logits, deltas, _ = rpn.head(p[rpn.name()], s[rpn.name()], levels[0])
+        props = rpn.proposals(logits, deltas)
+    return {"backbone": backbone, "levels": levels, "logits": logits, "deltas": deltas,
+            "proposals": props}
+
+
+def _iou_rows(a, b):
+    """Row i of ``a`` against row i of ``b``: (..., 4) corner boxes -> IoU."""
+    from bigdl_tpu_torch.nn.detection import bbox_iou
+
+    return bbox_iou(a[..., None, :], b[..., None, :])[..., 0, 0]
+
+
+def phase_maskrcnn_route(card):
+    """[18a'] The same class widths at one 256x256 image, card against
+    CPU stage by stage, f32 with TF32 off."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.models import MaskRCNN
+    from bigdl_tpu_torch.nn.detection import batched_multilevel_roi_align, batched_nms
+
+    dev = _det_device()
+    prev = (Engine._compute_dtype, torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        RandomGenerator.set_seed(SEED + 52)
+        hw = DET_ROUTE_HW
+        x = np.random.default_rng(SEED + 53).standard_normal((1, 3) + hw).astype(np.float32)
+        model = MaskRCNN(MASKRCNN_COCO["n_classes"], device=dev).evaluate()
+        model.init(sample_input=x)
+        twin = _det_twin(model, x)
+        xc = torch.from_numpy(x)
+        card_s, cpu_s = _det_stages(model, xc.to(dev)), _det_stages(twin, xc)
+        log(f"[18a'] MaskRCNN(81) at 1 image of {hw[0]}x{hw[1]}, card vs CPU, f32, TF32 off")
+        tol = DET_ROUTE_TOL
+        for i, (a, b) in enumerate(zip(card_s["backbone"], cpu_s["backbone"])):
+            _within(f"backbone level {i} {tuple(b.shape)}", a, b, tol["features"])
+        for i, (a, b) in enumerate(zip(card_s["levels"], cpu_s["levels"])):
+            _within(f"FPN level {i} {tuple(b.shape)}", a, b, tol["features"])
+        _within("RPN logits", card_s["logits"], cpu_s["logits"], tol["features"])
+        _within("RPN deltas", card_s["deltas"], cpu_s["deltas"], tol["features"])
+        rpn = model[model.n_backbone + 1]
+        with torch.no_grad():
+            props = rpn.proposals(cpu_s["logits"].to(dev), cpu_s["deltas"].to(dev)).cpu()
+        px = float((props - cpu_s["proposals"]).abs().max())
+        log(f"    proposals from the CPU's logits and deltas, on the card: max |diff| {px:.3g} "
+            f"px (limit {tol['proposal_px']:g})")
+        if not px <= tol["proposal_px"]:
+            raise AssertionError(f"[18a'] proposals from the same logits differ by {px} px")
+        with torch.no_grad():
+            props_f = rpn.forward(cpu_s["levels"][0].to(dev)).cpu()
+        same = float((_iou_rows(props_f, cpu_s["proposals"]) >= 0.99).float().mean())
+        log(f"    proposals from the CPU's FPN level 0 on the card (its own RPN convolution): "
+            f"{same:.4f} of rows the CPU's (IoU >= 0.99)")
+        levels_c, props_c = cpu_s["levels"], cpu_s["proposals"]
+        with torch.no_grad():
+            pooled = {d: batched_multilevel_roi_align([v.to(d) for v in levels_c], props_c.to(d),
+                                                      model.fpn_scales, (7, 7))
+                      for d in (dev, "cpu")}
+        _within("RoiAlign of the same rois", pooled[dev], pooled["cpu"], tol["roi_align"])
+        heads = {}
+        with torch.no_grad():
+            for d, m in ((dev, model), ("cpu", twin)):
+                heads[d] = m.detect(m.get_parameters(), m.get_state(),
+                                    [v.to(d) for v in levels_c], props_c.to(d), hw)[0]
+            box_head = model[model.n_backbone + 2]
+            flat = pooled["cpu"].reshape((-1,) + pooled["cpu"].shape[2:])
+            sc_card, dl_card = box_head.forward(flat.to(dev))
+            sc_cpu, dl_cpu = twin[twin.n_backbone + 2].forward(flat)
+            mask_in = torch.randn((16, 128, 14, 14), generator=torch.Generator().manual_seed(5))
+            mk_card = model[model.n_backbone + 3].forward(mask_in.to(dev))
+            mk_cpu = twin[twin.n_backbone + 3].forward(mask_in)
+        _within("box head scores, the same pooled input", sc_card, sc_cpu, tol["heads"])
+        _within("box head deltas, the same pooled input", dl_card, dl_cpu, tol["heads"])
+        _within("mask head, the same input", mk_card, mk_cpu, tol["heads"])
+        # NMS on the same boxes and scores: the detector's own (all scores
+        # under the threshold, so all zero: a stable order decides) and
+        # random scores on the same boxes
+        boxes = props_c
+        for name, scores in (("zero scores", torch.zeros(boxes.shape[:2])),
+                             ("random scores", torch.rand(boxes.shape[:2],
+                                                          generator=torch.Generator()
+                                                          .manual_seed(6)))):
+            keep_card = batched_nms(boxes.to(dev), scores.to(dev), 0.5, 16).cpu()
+            keep_cpu = batched_nms(boxes, scores, 0.5, 16)
+            if not torch.equal(keep_card, keep_cpu):
+                raise AssertionError(f"[18a'] NMS indices of the same boxes, {name}: card "
+                                     f"{keep_card.tolist()} CPU {keep_cpu.tolist()}")
+        log("    NMS indices of the same boxes (zero and random scores): equal")
+        flips = int((heads[dev][2].cpu() != heads["cpu"][2]).sum())
+        log(f"    detect() on the same levels and proposals: {flips} label(s) differ")
+        with torch.no_grad():
+            card_out = [o.cpu() for o in model.forward(xc.to(dev))]
+            cpu_out = twin.forward(xc).to_list()
+        agree = (card_out[2] == cpu_out[2]) & (_iou_rows(card_out[0], cpu_out[0]) >= 0.99)
+        share = float(agree.float().mean())
+        log(f"    end to end: {share:.4f} of detections agree (same label, IoU >= 0.99; limit "
+            f"{DET_AGREE_MIN})")
+        if share < DET_AGREE_MIN:
+            raise AssertionError(f"[18a'] {share:.4f} of the card's detections agree with the "
+                                 f"CPU's, under {DET_AGREE_MIN}")
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[1:]
+    return model, twin, x
+
+
+def phase_maskrcnn_example(card):
+    """[18b] ``examples/maskrcnn_infer.py`` at its defaults; returns the
+    path's counts."""
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import maskrcnn_infer
+
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    argv = ["--platform", "cpu"] if DETECTION_DEVICE == "cpu" else []
+    log(f"[18b] bigdl_tpu_torch/examples/maskrcnn_infer.py main({argv}):")
+    reset_counts()  # the main path starts here
+    run = maskrcnn_infer.main(argv)
+    _sync()
+    counts = read_counts()  # the main path ends here
+    r, args = run.results, run.args
+    out = [r[k] for k in ("boxes", "scores", "labels", "masks")]
+    import torch
+
+    _check_detections("[18b]", [torch.from_numpy(o) for o in out], args.batch_size,
+                      (args.image_size, args.image_size), args.classes,
+                      run.model.detections_per_image)
+    log(f"    first batch {r['first_s']:.2f} s, steady state {r['steady_s'] * 1e3:.2f} ms a batch "
+        f"of {args.batch_size}; launches {_nonzero(counts)}; card {card}")
+    if any(counts.values()):
+        raise AssertionError(f"[18b] launched kernels of this repo: {_nonzero(counts)}")
+    return counts
+
+
+def _coco_blob(hw, seed):
+    """A COCO ``instances.json`` of 3 images: polygon and compressed-RLE
+    masks, crowd and not, with their boxes."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset.segmentation import rle_encode, rle_to_string
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    images, anns = [], []
+    for i in range(3):
+        images.append({"id": 100 + i, "file_name": f"{i:012d}.jpg", "height": h, "width": w})
+        for k in range(4 + i):
+            x0, y0 = rng.uniform(0, w - 64), rng.uniform(0, h - 64)
+            bw, bh = rng.uniform(16, 64), rng.uniform(16, 64)
+            ann = {"image_id": 100 + i, "category_id": int(rng.choice([1, 3, 18, 44, 90])),
+                   "bbox": [x0, y0, bw, bh], "area": bw * bh, "iscrowd": int(k == 3)}
+            if k % 2 == 0:
+                ann["segmentation"] = [[x0, y0, x0 + bw, y0, x0 + bw, y0 + bh, x0, y0 + bh]]
+            else:
+                mask = np.zeros((h, w), np.uint8)
+                mask[int(y0): int(y0 + bh), int(x0): int(x0 + bw)] = 1
+                ann["segmentation"] = {"size": [h, w], "counts": rle_to_string(rle_encode(mask))}
+            anns.append(ann)
+    cats = [{"id": c, "name": f"class{c}"} for c in (1, 3, 18, 44, 90)]
+    return {"images": images, "annotations": anns, "categories": cats}
+
+
+def _gt_of(ds, image, g):
+    """The image's non-crowd boxes (x1, y1, x2, y2), 1-based labels and the
+    valid mask, padded to ``g`` rows (numpy)."""
+    import numpy as np
+
+    boxes, labels = np.zeros((g, 4), np.float32), np.zeros(g, np.int32)
+    rows = [a for a in image.annotations if not a.is_crowd][:g]
+    for i, a in enumerate(rows):
+        x, y, bw, bh = a.bbox
+        boxes[i] = [x, y, x + bw, y + bh]
+        labels[i] = ds.cat_id_to_idx[a.category_id]
+    return boxes, labels, (np.arange(g) < len(rows)).astype(np.float32)
+
+
+def _det_losses(model, x, gt, props, draws):
+    """[18c]'s losses on ``model``'s device: ``rpn_loss`` over the RPN's
+    objectness and deltas against its anchors, ``fast_rcnn_loss`` over the
+    box head's outputs for ``props``, and the gradients of their sum
+    (the four terms' weights 1) to every parameter; returns (losses, grads,
+    RPN matches)."""
+    import torch
+    from bigdl_tpu_torch.nn.detection import (batched_multilevel_roi_align, fast_rcnn_loss,
+                                              match_targets, rpn_loss)
+
+    dev = model.device
+    p, s = model.get_parameters(), model.get_state()
+    boxes, labels, valid = (torch.from_numpy(a).to(dev) for a in gt)
+    with torch.enable_grad():
+        levels, _ = model.features(p, s, x)
+        rpn, box_head = model[model.n_backbone + 1], model[model.n_backbone + 2]
+        logits, deltas, _ = rpn.head(p[rpn.name()], s[rpn.name()], levels[0])
+        obj, d = rpn.flat_outputs(logits, deltas)
+        anchors = rpn.anchor.generate(logits.shape[2], logits.shape[3], rpn.stride, dev)
+        rc, rb = rpn_loss(obj[0], d[0], anchors, boxes, valid, [v.to(dev) for v in draws[0]])
+        pr = props.to(dev)
+        pooled = batched_multilevel_roi_align(levels, pr, model.fpn_scales, (7, 7))
+        sc, dl = box_head.apply(p[box_head.name()], s[box_head.name()],
+                                pooled.reshape((-1,) + pooled.shape[2:]))[0]
+        fc, fb = fast_rcnn_loss(sc, dl, pr[0], boxes, labels, valid,
+                                [v.to(dev) for v in draws[1]])
+        total = rc + rb + fc + fb
+        params = [q for q in model.parameters()]
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        match = match_targets(anchors, boxes, valid)
+    return ([float(v.detach()) for v in (rc, rb, fc, fb)],
+            {k: g.detach().cpu() for k, g in zip(names, grads) if g is not None},
+            match.cpu())
+
+
+def phase_detection_losses(card, model, twin, x):
+    """[18c] A COCO file through ``COCODataset.load``, its ground truth
+    padded to a fixed G, the RPN and Fast R-CNN losses on [18a']'s detector
+    and their gradients, card against CPU; returns the path's counts."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset.segmentation import COCODataset
+
+    dev = _det_device()
+    prev = (Engine._compute_dtype, torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        hw = DET_ROUTE_HW
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "instances.json"
+            path.write_text(_json.dumps(_coco_blob(hw, SEED + 54)))
+            reset_counts()  # the main path starts here
+            t0 = time.perf_counter()
+            ds = COCODataset.load(str(path), image_root=tmp)
+            load_ms = (time.perf_counter() - t0) * 1e3
+        kinds = {}
+        for img in ds.images:
+            for a in img.annotations:
+                kinds[(type(a.mask).__name__, a.is_crowd)] = kinds.get(
+                    (type(a.mask).__name__, a.is_crowd), 0) + 1
+        rle = [a.mask for img in ds.images for a in img.annotations
+               if type(a.mask).__name__ == "RLEMasks"]
+        areas = [int(m.decode().sum()) for m in rle]
+        try:
+            import PIL  # noqa: F401  (polygons rasterize through PIL)
+            poly = [int(a.mask.decode().sum()) for img in ds.images for a in img.annotations
+                    if type(a.mask).__name__ == "PolyMasks"]
+            poly_note = f"{len(poly)} polygon masks decoded, areas {poly}"
+        except ImportError:
+            poly_note = "PIL is not installed here: the polygon masks stay undecoded"
+        log(f"[18c] COCODataset.load: {len(ds)} images in {load_ms:.2f} ms, annotations by "
+            f"(mask, crowd) {kinds}, {len(rle)} RLE masks decoded (areas {areas}); {poly_note}")
+        gt = _gt_of(ds, ds.images[0], DET_GT)
+        log(f"    image 0's ground truth: {int(gt[2].sum())} of G={DET_GT} rows valid, labels "
+            f"{gt[1].tolist()}")
+        xc = torch.from_numpy(x)
+        with torch.no_grad():
+            props = twin[twin.n_backbone + 1].forward(twin.features(
+                twin.get_parameters(), twin.get_state(), xc)[0][0])
+        # the ground truth joins the proposals, as the reference's training
+        # does (add_gt_proposals): random weights propose no positive roi
+        props = torch.cat([props, torch.from_numpy(gt[0])[None]], dim=1)
+        rpn = twin[twin.n_backbone + 1]
+        n_anchors = len(rpn.anchor.ratios) * (hw[0] // 2) * (hw[1] // 2)
+        g = torch.Generator().manual_seed(SEED + 55)
+        draws = (tuple(torch.rand((2, n_anchors), generator=g)),
+                 tuple(torch.rand((2, props.shape[1]), generator=g)))
+        card_l, card_g, card_m = _det_losses(model, xc.to(dev), gt, props, draws)
+        _sync()
+        counts = read_counts()  # the main path ends here
+        cpu_l, cpu_g, cpu_m = _det_losses(twin, xc, gt, props, draws)
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev[1:]
+    names = ("rpn cls", "rpn box", "fast rcnn cls", "fast rcnn box")
+    log("    losses card / CPU: " + ", ".join(f"{n} {a:.6f} / {b:.6f}"
+                                             for n, a, b in zip(names, card_l, cpu_l)))
+    n_pos = int((cpu_m >= 0).sum())
+    log(f"    RPN matches: {n_pos} positive, {int((cpu_m == -1).sum())} negative anchors of "
+        f"{len(cpu_m)}; equal on the card: {bool(torch.equal(card_m, cpu_m))}")
+    if not torch.equal(card_m, cpu_m) or n_pos == 0:
+        raise AssertionError("[18c] the RPN's matches differ card vs CPU, or none is positive")
+    if not all(np.isfinite(card_l)) or card_l[1] <= 0:
+        raise AssertionError(f"[18c] losses {card_l}")
+    worst_l = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card_l, cpu_l))
+    heads = [k for k in cpu_g if k.startswith(("rpn.", "box_head."))]
+    bad = [k for k in heads if not bool(torch.isfinite(card_g[k]).all())]
+    zero = [k for k in heads if float(card_g[k].abs().sum()) == 0]
+    worst_g = max(_rel_max(card_g[k], cpu_g[k])[0] for k in cpu_g)
+    log(f"    card vs CPU: losses within {worst_l:.3g} (limit {DET_LOSS_TOL['loss']:g}), "
+        f"gradients of {len(cpu_g)} leaves within {worst_g:.3g} L2-relative (limit "
+        f"{DET_LOSS_TOL['grad']:g}); the heads' {len(heads)} leaves finite, {len(zero)} zero")
+    if bad or zero or worst_l > DET_LOSS_TOL["loss"] or worst_g > DET_LOSS_TOL["grad"] or \
+            set(card_g) != set(cpu_g):
+        raise AssertionError(f"[18c] non-finite {bad} or zero {zero} head gradients, or card "
+                             f"vs CPU losses {worst_l:.3g} / gradients {worst_g:.3g} over "
+                             f"{DET_LOSS_TOL}")
+    if any(counts.values()):
+        raise AssertionError(f"[18c] launched kernels of this repo: {_nonzero(counts)}")
+    return counts
+
+
+def phase_maskrcnn_file(card, model, x):
+    """[18d] [18a']'s detector through save_module / nn.load_module: the
+    same detections to the bit; returns the path's counts."""
+    import shutil
+
+    import torch
+    from bigdl_tpu_torch import Engine, nn
+
+    dev = _det_device()
+    d = ROOT / MODULE_FILE_DET_DIR
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / "maskrcnn.npz"
+    prev = Engine._compute_dtype
+    Engine.set_compute_dtype("float32")
+    try:
+        reset_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        model.save_module(str(path))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = nn.load_module(str(path), device=dev if dev == "cpu" else None).evaluate()
+        load_s = time.perf_counter() - t0
+        xt = torch.from_numpy(x).to(dev)
+        with torch.no_grad():
+            a, b = model.forward(xt).to_list(), loaded.forward(xt).to_list()
+        _sync()
+        counts = read_counts()  # the main path ends here
+        size = path.stat().st_size
+    finally:
+        Engine.set_compute_dtype(prev)
+        shutil.rmtree(d, ignore_errors=True)
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    log(f"[18d] save_module {save_s:.2f} s ({size / 2**20:.1f} MiB), nn.load_module "
+        f"{load_s:.2f} s ({type(loaded).__name__} on {loaded.device}); detections equal to the "
+        f"bit: {same}; launches {_nonzero(counts)}")
+    if not same or type(loaded).__name__ != "MaskRCNN":
+        raise AssertionError("[18d] the loaded detector gives other detections")
+    if any(counts.values()):
+        raise AssertionError(f"[18d] launched kernels of this repo: {_nonzero(counts)}")
+    return counts
+
+
+def phase_detection(card):
+    """[18] detection on the card; returns its main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"maskrcnn_coco": phase_maskrcnn_coco(card)}
+    model, twin, x = phase_maskrcnn_route(card)
+    by_path["maskrcnn_example"] = phase_maskrcnn_example(card)
+    by_path["detection_losses"] = phase_detection_losses(card, model, twin, x)
+    by_path["maskrcnn_file"] = phase_maskrcnn_file(card, model, x)
+    del model, twin
+    _free()
+    log(f"[18] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -6355,6 +6984,7 @@ def main() -> int:
     by_path.update(phase_models(card))
     by_path.update(phase_cells(card))
     by_path.update(phase_graphs(card))
+    by_path.update(phase_detection(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
