@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from typing import Any, List, Tuple
 
-from ..nn.module import AbstractModule, Sequential, infer_module_shape
+from ..nn.module import AbstractModule, Sequential, import_torch_dynamo, infer_module_shape
 from ..nn.module import to_spec as _to_spec
 from .errors import ShapeInferenceError, format_path
 
@@ -42,6 +42,7 @@ class ShapeProp:
         self.report: List[Tuple[str, Any, Any]] = []
 
     def infer(self, sample_or_spec):
+        import_torch_dynamo()  # the first meta dispatch must not hold the model's frames
         self.report = []
         return self._infer(self.model, to_spec(sample_or_spec), (_path_entry(self.model),))
 

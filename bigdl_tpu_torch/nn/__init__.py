@@ -30,10 +30,15 @@ from .math_ops import (Abs, Add, AddConstant, Bilinear, CAdd, Clamp, CMul, Cosin
                        Exp, Log, Max, Mean, Min, Mul, MulConstant, Neg, Power, Scale, Sqrt,
                        Square, Sum)
 from .module import AbstractModule, Container, Identity, Sequential
+from .moe import MoE
 from .normalization import (BatchNormalization, LayerNormalization, RMSNorm,
                             SpatialBatchNormalization, SpatialCrossMapLRN)
 from .pipelined import PipelinedBlocks
 from .pooling import RoiPooling, SpatialAveragePooling, SpatialMaxPooling, TemporalMaxPooling
+from .quantized import (Fp8Linear, Fp8SpatialConvolution, Fp8SpatialDilatedConvolution,
+                        QuantizedLinear, QuantizedSpatialConvolution,
+                        QuantizedSpatialDilatedConvolution, quantize, quantized_mode)
+from .remat import Remat
 from .recurrent import (GRU, LSTM, BiRecurrent, Cell, ConvLSTMPeephole, LSTMPeephole, Recurrent,
                         RecurrentDecoder, RnnCell, TimeDistributed)
 from .structural import Reshape, Select, SpaceToDepth
@@ -41,6 +46,7 @@ from .table_ops import (MM, MV, CAddTable, CAveTable, CDivTable, CMaxTable, CMin
                         CMulTable, Concat, ConcatTable, CosineDistance, CSubTable, DotProduct,
                         FlattenTable, JoinTable, MapTable, MixtureTable, PairwiseDistance,
                         ParallelTable, SelectTable)
+from .tree_lstm import BinaryTreeLSTM, encode_tree
 
 
 
@@ -55,30 +61,31 @@ def load_module(path: str, device=None) -> AbstractModule:
 __all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add", "AddConstant",
            "Anchor", "Attention", "attention_bias_lower_triangle", "BatchNormalization",
            "bbox_clip", "bbox_decode", "bbox_encode", "bbox_iou", "BCECriterion",
-           "BCECriterionWithLogits", "Bilinear", "BiRecurrent", "BoxHead", "CAdd", "CAddTable",
-           "CAveTable", "CDivTable", "Cell", "Clamp", "ClassNLLCriterion",
+           "BCECriterionWithLogits", "Bilinear", "BinaryTreeLSTM", "BiRecurrent", "BoxHead",
+           "CAdd", "CAddTable", "CAveTable", "CDivTable", "Cell", "Clamp", "ClassNLLCriterion",
            "ClassSimplexCriterion", "CMaxTable", "CMinTable", "CMul", "CMulTable", "Concat",
            "ConcatTable", "Container", "ConvLSTMPeephole", "Cosine", "CosineDistance",
            "CosineEmbeddingCriterion", "CrossEntropyCriterion", "CSubTable", "DenseToSparse",
            "DiceCoefficientCriterion", "DistKLDivCriterion", "DotProduct", "Dropout", "ELU",
-           "Euclidean", "Exp", "fast_rcnn_loss", "FeedForwardNetwork", "FlattenTable", "FPN",
-           "GaussianDropout", "GaussianNoise", "GELU", "get_position_encoding", "Graph", "GRU",
-           "HardSigmoid", "HardTanh", "HingeEmbeddingCriterion", "Identity", "Input",
+           "encode_tree", "Euclidean", "Exp", "fast_rcnn_loss", "FeedForwardNetwork",
+           "FlattenTable", "Fp8Linear", "Fp8SpatialConvolution", "Fp8SpatialDilatedConvolution",
+           "FPN", "GaussianDropout", "GaussianNoise", "GELU", "get_position_encoding", "Graph",
+           "GRU", "HardSigmoid", "HardTanh", "HingeEmbeddingCriterion", "Identity", "Input",
            "JoinTable", "L1Cost", "LayerNormalization", "LeakyReLU", "Linear", "load_module",
            "Log", "LogSoftMax", "LookupTable", "LookupTableSparse", "LSTM", "LSTMPeephole",
-           "MapTable", "MarginCriterion", "MarginRankingCriterion", "MaskHead",
-           "match_targets", "Max", "Mean", "Min", "MixtureTable", "MM", "ModuleNode",
-           "MSECriterion", "MsraFiller", "Mul", "MulConstant", "MultiCriterion",
-           "MultiLabelMarginCriterion", "MultiLabelSoftMarginCriterion",
-           "multilevel_roi_align", "MV", "Neg", "nms", "padding_attention_bias",
-           "PairwiseDistance", "ParallelCriterion", "ParallelTable", "PipelinedBlocks",
-           "Pooler", "Power", "PReLU", "RandomNormal", "RandomUniform", "Recurrent",
-           "RecurrentDecoder", "RegionProposal", "ReLU", "ReLU6", "Reshape", "RMSNorm",
-           "RnnCell", "roi_align", "RoiPooling", "rpn_loss", "RReLU", "sample_matches",
-           "Scale", "scaled_dot_product_attention", "Select", "SelectTable", "SELU",
-           "sequence_beam_search", "SequenceBeamSearch", "Sequential", "Sigmoid",
-           "SmoothL1Criterion", "SoftMax", "SoftMin", "SoftPlus", "SoftSign", "SpaceToDepth",
-           "SparseJoinTable", "SparseLinear", "SpatialAveragePooling",
+           "MapTable", "MarginCriterion", "MarginRankingCriterion", "MaskHead", "match_targets",
+           "Max", "Mean", "Min", "MixtureTable", "MM", "ModuleNode", "MoE", "MSECriterion",
+           "MsraFiller", "Mul", "MulConstant", "MultiCriterion", "MultiLabelMarginCriterion",
+           "MultiLabelSoftMarginCriterion", "multilevel_roi_align", "MV", "Neg", "nms",
+           "padding_attention_bias", "PairwiseDistance", "ParallelCriterion", "ParallelTable",
+           "PipelinedBlocks", "Pooler", "Power", "PReLU", "quantize", "quantized_mode",
+           "QuantizedLinear", "QuantizedSpatialConvolution", "QuantizedSpatialDilatedConvolution",
+           "RandomNormal", "RandomUniform", "Recurrent", "RecurrentDecoder", "RegionProposal",
+           "ReLU", "ReLU6", "Remat", "Reshape", "RMSNorm", "RnnCell", "roi_align", "RoiPooling",
+           "rpn_loss", "RReLU", "sample_matches", "Scale", "scaled_dot_product_attention",
+           "Select", "SelectTable", "SELU", "sequence_beam_search", "SequenceBeamSearch",
+           "Sequential", "Sigmoid", "SmoothL1Criterion", "SoftMax", "SoftMin", "SoftPlus",
+           "SoftSign", "SpaceToDepth", "SparseJoinTable", "SparseLinear", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution", "SpatialCrossMapLRN",
            "SpatialDilatedConvolution", "SpatialDropout1D", "SpatialDropout2D",
            "SpatialDropout3D", "SpatialFullConvolution", "SpatialMaxPooling", "Sqrt", "Square",

@@ -290,6 +290,24 @@ class AbstractModule(torch.nn.Module):
             return self.regularization_loss(params)
         return 0.0
 
+    def auxiliary_loss_tree(self, state):
+        """The sum of the input-dependent losses a training forward left in
+        the state tree under ``"_aux_loss"`` keys (the MoE router's
+        load-balancing term), else 0.0. ``LocalOptimizer`` adds it to the
+        training loss, as it adds ``regularization_loss_tree``."""
+        total = 0.0
+        for v in _aux_losses(state):  # in the JAX package's order: depth first
+            total = total + v
+        return total
+
+    def quantize(self, dtype: str = "int8") -> "AbstractModule":
+        """This built tree with quantized inference layers (reference:
+        ``AbstractModule.quantize``): ``dtype`` ``"int8"`` or ``"fp8"``
+        (:func:`bigdl_tpu_torch.nn.quantized.quantize`)."""
+        from .quantized import quantize
+
+        return quantize(self, dtype=dtype)
+
     # --------------------------------------------------------------- stateful
     def forward(self, x):
         """Forward on the module's own parameters (dropout only in train mode)."""
@@ -301,7 +319,7 @@ class AbstractModule(torch.nn.Module):
         y, new_state = self._apply_params(self.get_parameters(), self._last_state, x,
                                           self.training, rng)
         if self.training:
-            self.set_state(new_state)
+            self.set_state(detach_tree(new_state))
         return y
 
     def backward(self, x, grad_output):
@@ -408,6 +426,27 @@ def _meta_like(t):
     return torch.empty(t.shape, dtype=t.dtype, device=META)
 
 
+def import_torch_dynamo() -> None:
+    """Import ``torch._dynamo`` once, on a thread of its own. torch imports
+    it lazily at the first call of a function it wraps with
+    ``_disable_dynamo`` (the meta kernels of ops such as ``torch.maximum``,
+    ``torch.utils.checkpoint``). That import runs ``torch.fx.wrap``, whose
+    frame refers to itself (``inspect.currentframe()`` in a local), so it
+    and, through ``f_back``, every frame below it wait for the cyclic
+    collector: imported inside a model's forward or ShapeProp, those frames
+    hold the model. A new thread's stack holds nothing of the caller's.
+    Called before the port's first meta dispatch and checkpoint."""
+    import sys
+
+    if "torch._dynamo" not in sys.modules:
+        import importlib
+
+        t = threading.Thread(target=importlib.import_module, args=("torch._dynamo",),
+                             name="bigdl-import-dynamo")
+        t.start()
+        t.join()
+
+
 def infer_module_shape(module: AbstractModule, in_spec):
     """The output spec of ``module`` for ``in_spec`` without running the
     model on data or allocating a parameter. In order: the module's own
@@ -418,6 +457,7 @@ def infer_module_shape(module: AbstractModule, in_spec):
     parameters and children). None of the three touches the card or
     launches a kernel: the kernels' entry points take their plain versions
     on meta tensors."""
+    import_torch_dynamo()
     out = module.infer_shape(in_spec)
     if out is not NotImplemented:
         return out
@@ -553,6 +593,24 @@ class Identity(AbstractModule):
 
     def _apply_params(self, params, state, x, training, rng):
         return x, state
+
+
+def _aux_losses(state):
+    """The ``"_aux_loss"`` leaves of a state tree, depth first."""
+    if isinstance(state, dict):
+        for k, v in state.items():
+            if k == "_aux_loss":
+                yield v
+            else:
+                yield from _aux_losses(v)
+
+
+def detach_tree(tree):
+    """``tree`` with every tensor detached: a state kept across steps must
+    not hold a step's graph (the MoE's ``"_aux_loss"`` carries one)."""
+    if isinstance(tree, dict):
+        return {k: detach_tree(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
 def _map_tree(fn, tree: Dict[str, Any]) -> Dict[str, Any]:

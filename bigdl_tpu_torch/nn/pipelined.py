@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .module import AbstractModule, _map_tree, _register_tree, _to_device
+from .module import AbstractModule, _map_tree, _register_tree, _to_device, import_torch_dynamo
 
 
 def _leaves(tree):
@@ -118,6 +118,8 @@ class PipelinedBlocks(AbstractModule):
             return self._runner._apply_params(p, self._stage_state, h, training, gen)[0]
 
         remat = self.remat_stages and torch.is_grad_enabled()
+        if remat:
+            import_torch_dynamo()  # checkpoint's first call imports it: not in this stack
         for i in range(self.n_stages):
             x = checkpoint(run, i, x, use_reentrant=False) if remat else run(i, x)
         return x, state

@@ -78,7 +78,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..dataset.dataset import pad_minibatch, to_device
-from ..nn.module import to_spec
+from ..nn.module import detach_tree, to_spec
 from ..nn.normalization import BatchNormalization
 from ..utils.random import RandomGenerator
 from ..utils.serialization import (copy_into, latest_checkpoint_step, load_checkpoint,
@@ -93,6 +93,15 @@ log = logging.getLogger(__name__)
 # the JAX package's Optimizer keyword arguments and their defaults
 _UNPORTED = {"donate": True, "flat_update": False, "comms_dtype": None,
              "error_feedback": True, "master_dtype": None, "slot_dtype": None}
+
+
+def _has_aux(state) -> bool:
+    """Whether a state tree holds an ``"_aux_loss"`` key at any depth."""
+    if isinstance(state, dict):
+        return any(k == "_aux_loss" or _has_aux(v) for k, v in state.items())
+    if isinstance(state, (list, tuple)):
+        return any(_has_aux(v) for v in state)
+    return False
 
 
 def validate(model, params, model_state, dataset, methods) -> Dict[str, ValidationResult]:
@@ -317,9 +326,13 @@ class LocalOptimizer:
     # ------------------------------------------------------------- the step
     def _has_batch_coupled_state(self) -> bool:
         """True when the training forward couples rows across the batch
-        outside the criterion (BatchNormalization's batch statistics): pad
-        rows would reach them even with the loss masked."""
-        return any(isinstance(m, BatchNormalization) for m in self.model.modules())
+        outside the criterion: BatchNormalization's batch statistics, or a
+        batch-derived auxiliary loss in the state tree (``"_aux_loss"``, the
+        MoE router's load-balancing term). Pad rows would reach them even
+        with the loss masked. Call on a built model."""
+        if any(isinstance(m, BatchNormalization) for m in self.model.modules()):
+            return True
+        return _has_aux(self.model.get_state())
 
     def _masked_loss(self, y, t, nvalid: float) -> torch.Tensor:
         """The criterion's loss over the first ``nvalid`` rows of a padded
@@ -350,6 +363,9 @@ class LocalOptimizer:
         reg = self.model.regularization_loss_tree(params)
         if isinstance(reg, torch.Tensor):  # 0.0 when no layer has a regularizer
             loss = loss + reg
+        aux = self.model.auxiliary_loss_tree(new_state)
+        if isinstance(aux, torch.Tensor):  # 0.0 when no layer left one
+            loss = loss + aux
         return loss, new_state
 
     def _micro_step(self, x, t, rng, nvalid: Optional[float]):
@@ -419,7 +435,7 @@ class LocalOptimizer:
         grads = self._clip_grads(model.get_grad_parameters())
         self.optim_method.update(grads, params, slots, lr, self.optim_method.state["neval"])
         model.zero_grad(set_to_none=True)
-        model.set_state(new_state)
+        model.set_state(detach_tree(new_state))
         return loss.detach()
 
     def _ragged_seam(self, batch):

@@ -16,11 +16,17 @@ the batcher's dispatch lock: the in-flight batch drains first, every future
 resolves on the version that dispatched it, and the old version is kept
 until its last future is materialized.
 
+Quantized tiers: a model whose tree holds the quantized twins
+(``nn/quantized.py``) is detected and its family (``"int8"`` / ``"fp8"``)
+tagged on every serve record; ``register(..., quantize=True)`` (or
+``"int8"``) converts a float model into its int8 twin at registration (int32
+accumulation), ``quantize="fp8"`` into the float8 tier (float32
+accumulation). ``update(..., quantize=...)`` takes the same values.
+
 The server runs each model where its parameters live and never moves it.
-Not ported (each raises ``NotImplementedError``): ``quantize`` (the int8 and
-fp8 tiers), ``artifacts`` / ``warm_start`` / ``export_artifacts`` (AOT
-bundles), ``drift`` (activation drift) and ``metrics_port`` (the scrape
-endpoint).
+Not ported (each raises ``NotImplementedError``): ``artifacts`` /
+``warm_start`` / ``export_artifacts`` (AOT bundles), ``drift`` (activation
+drift) and ``metrics_port`` (the scrape endpoint).
 """
 
 from __future__ import annotations
@@ -49,8 +55,47 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to bigdl_tpu_torch yet")
 
 
+def _resolve_and_convert(name: str, model, quantize):
+    """The quantize contract of ``register`` and ``update``: normalize the
+    requested family, refuse one that differs from an already-quantized
+    model's, convert a float model when asked. Returns ``(model, tag)``,
+    the tag the detected family or ``False`` (the serve records' field)."""
+    from ..nn.quantized import quantize as _quantize, quantized_mode
+
+    mode = _resolve_quantize(quantize)
+    detected = quantized_mode(model)  # a pre-quantized model is tagged without asking
+    if mode is not None and detected is not None and detected != mode:
+        raise ValueError(f"model {name!r}: quantize={mode!r} requested but the model is already "
+                         f"{detected}-quantized; pass the float model (or "
+                         f"quantize={detected!r})")
+    if mode is not None and detected is None:
+        model = _quantize(model, dtype=mode)
+        detected = mode
+    return model, (detected or False)
+
+
+def _resolve_quantize(quantize):
+    """``False`` / ``None``: no conversion; ``True``: int8; ``"int8"`` /
+    ``"fp8"``: that family. fp8 on a torch build without float8 fails here
+    with the probe's reason, at registration."""
+    if quantize is None or quantize is False:
+        return None
+    if quantize is True:
+        return "int8"
+    if quantize in ("int8", "fp8"):
+        if quantize == "fp8":
+            from ..utils.compat import probe_float8
+
+            support = probe_float8()
+            if not support.available:
+                raise ValueError("register(quantize='fp8') requires float8 support, which "
+                                 f"this stack lacks ({support.reason})")
+        return quantize
+    raise ValueError(f"quantize={quantize!r}: expected False, True, 'int8' or 'fp8'")
+
+
 class _Entry:
-    __slots__ = ("name", "model", "predictor", "batcher", "version", "sample",
+    __slots__ = ("name", "model", "predictor", "batcher", "version", "quantized", "sample",
                  "shape_buckets", "batch_size", "max_batch", "max_delay_ms", "max_pending",
                  "flush_trigger", "deadline_ms", "breaker", "supervise", "warmup_s",
                  "warmup_compiles", "warmup_fresh")
@@ -144,8 +189,6 @@ class ModelServer:
         request deadline (``infer(..., deadline_ms=...)`` overrides it);
         ``breaker`` the circuit breaker (``None``: defaults, ``False``:
         off); ``supervise=False`` keeps the model off the supervisor."""
-        if quantize not in (False, None):
-            raise _not_ported("register(quantize=...) (the int8/fp8 serving tiers)")
         if artifacts is not None:
             raise _not_ported("register(artifacts=...) (AOT artifact bundles)")
         if drift not in (None, False):
@@ -174,6 +217,7 @@ class ModelServer:
             e.supervise = bool(supervise)
             self._ensure_run()
             self._ensure_built(e, model)
+            model, e.quantized = _resolve_and_convert(name, model, quantize)
             e.model = model
             e.version = 1
             e.warmup_s, e.warmup_compiles, e.warmup_fresh = 0.0, 0, None
@@ -189,7 +233,7 @@ class ModelServer:
                 predictor, name=name, version=1, max_batch=max_batch,
                 max_delay_ms=max_delay_ms, max_pending=e.max_pending,
                 deadline_ms=deadline_ms, breaker=breaker, flush_trigger=flush_trigger,
-                telemetry=self.telemetry, tags={"quantized": False},
+                telemetry=self.telemetry, tags={"quantized": e.quantized},
                 # heartbeats live in the supervisor's clock domain
                 clock=self.supervisor.clock if self.supervisor is not None else time.monotonic)
             with self._lock:
@@ -237,8 +281,6 @@ class ModelServer:
         new version is built and warmed while the old one keeps serving;
         the swap drains the in-flight batch, and every future resolves on
         exactly one version."""
-        if quantize not in (False, None):
-            raise _not_ported("update(quantize=...) (the int8/fp8 serving tiers)")
         with self._mgmt_lock:
             e = self._entry(name)
             version = e.version + 1
@@ -246,6 +288,7 @@ class ModelServer:
                 raise ValueError(f"update({name!r}) with an unbuilt model needs the "
                                  "sample_input the original registration provided")
             self._ensure_built(e, new_model)
+            new_model, quantized = _resolve_and_convert(name, new_model, quantize)
             predictor = Predictor(new_model, e.predictor.batch_size, e.shape_buckets)
             prior = (e.warmup_s, e.warmup_compiles, e.warmup_fresh)
             try:
@@ -255,7 +298,8 @@ class ModelServer:
             except Exception:
                 e.warmup_s, e.warmup_compiles, e.warmup_fresh = prior
                 raise
-            e.model, e.predictor, e.version = new_model, predictor, version
+            e.batcher.tags["quantized"] = quantized
+            e.model, e.predictor, e.version, e.quantized = new_model, predictor, version, quantized
             return version
 
     def unregister(self, name: str) -> None:
@@ -307,7 +351,7 @@ class ModelServer:
         return {
             name: {
                 "version": e.version,
-                "quantized": False,
+                "quantized": e.quantized,
                 "batch_size": e.predictor.batch_size,
                 "max_batch": e.batcher.max_batch,
                 "max_delay_ms": e.max_delay_ms,

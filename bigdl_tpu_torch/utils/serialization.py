@@ -124,7 +124,8 @@ def copy_into(tree, flat: Dict[str, np.ndarray], what: str) -> None:
         raise ValueError(f"{what} shape mismatch (path, checkpoint, model): {bad}")
     with torch.no_grad():
         for path, t in dst.items():
-            a = np.ascontiguousarray(flat[path])
+            # ascontiguousarray returns at least 1-d: a 0-d leaf stays 0-d
+            a = np.ascontiguousarray(flat[path]).reshape(np.shape(flat[path]))
             if not a.flags.writeable:  # torch.from_numpy takes writable arrays
                 a = a.copy()
             src = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

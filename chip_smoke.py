@@ -268,7 +268,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``DET_GT`` rows, ``rpn_loss`` and ``fast_rcnn_loss`` on [18a']'s detector
    and their gradients, card vs CPU from the same draws and proposals
    (``DET_LOSS_TOL``); [18d] [18a']'s detector through ``save_module`` /
-   ``nn.load_module``: the same detections to the bit.
+   ``nn.load_module``: the same detections to the bit;
+19. the int8/fp8 serving tiers, MoE, Remat and the tree LSTM: [19a] the
+   flagship at ``bench.py::_measure_int8``'s configuration (ResNet-50
+   conv7, weights from seed 1, eval mode, batch 128 of 224x224, bf16
+   compute): float, ``quantize("int8")`` and ``quantize("fp8")`` forwards
+   timed by CUDA events (images/s), one each under
+   ``set_sync_debug_mode("error")``, the logits against the float model's,
+   and every quantized layer's weight and input codes, scales and
+   accumulators on the card's own input (8 of 64x64) against the CPU route
+   (int8 to the bit, fp8 within ``FP8_ACC_REL``); [19a'] each tier served
+   through ``ModelServer.register(quantize=...)`` at [12]'s mixes, every
+   serve record tagged with the family, each checked flush re-forwarded at
+   the same geometry and its rows equal to the served ones; [19b]
+   ``bench.py``'s MoE model (``Linear(1024, 1024)`` -> ``MoE(4,
+   ffn_size=4096, capacity_factor=2.0)`` -> ``Linear(1024, 1000)`` ->
+   ``LogSoftMax``, batch 128, ``ClassNLLCriterion``, SGD 0.05 momentum
+   0.9) trained top-1 and top-2 10 iterations each on the dense path with
+   the load-balancing term in the objective (0 launches, memory flat, the
+   busy share), step 1 card vs CPU with equal dropped entries, then
+   ``bigdl_tpu_torch/examples/moe_train.py`` at the norm-LM's widths (V
+   8192, T 2048, H 512, 8 experts, capacity 1.5, batch 8, the switch on: 2
+   #4 and 2 #5 a step) and its graph's step 1 card vs CPU; [19c] [9]'s
+   norm-LM/LN trained 10 iterations unwrapped twice (the run-to-run
+   difference) and with its stage as ``PipelinedBlocks(nn.Remat(stage,
+   policy), 6)`` for ``None`` and ``"dots_saveable"``: step ms, peak
+   memory, the busy share, 13 #4 (6 recomputed) and 7 #5 a step, losses and
+   weights within the unwrapped run-to-run difference; [19d]
+   ``bigdl_tpu_torch/examples/treelstm_train.py`` at its defaults (root
+   accuracy, step ms, 0 launches) and its step 1 card vs CPU.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -304,9 +332,13 @@ each under its ``parity_config`` name, the flagship served,
 ``cells_lstmpeephole``, ``cells_rnncell``, ``convlstm``,
 ``seq_autoencoder`` and ``modules``, and [17]'s ``siamese``,
 ``module_file`` and ``validate``, and [18]'s ``maskrcnn_coco``,
-``maskrcnn_example``, ``detection_losses`` and ``maskrcnn_file``) runs
-with every kernel's launch count set to 0 just before it and read just
-after.
+``maskrcnn_example``, ``detection_losses`` and ``maskrcnn_file``, and
+[19]'s ``quant_float``, ``quant_int8``, ``quant_fp8``,
+``quant_serving_int8``, ``quant_serving_fp8``, ``moe_bench_top1``,
+``moe_bench_top2``, ``moe_example``, ``remat_unwrapped``,
+``remat_unwrapped_again``, ``remat_none``, ``remat_dots_saveable`` and
+``treelstm_example``) runs with every kernel's launch count set to 0 just
+before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -2769,11 +2801,12 @@ def phase_norm_times(recs, card):
     return kernels
 
 
-def norm_lm(variant: str, vocab: int, hidden: int, stages: int, device):
+def norm_lm(variant: str, vocab: int, hidden: int, stages: int, device, wrap=None):
     """The pipeline example's pre-norm block-stack LM (``examples/pipeline/
     train.py``) on its sequential path: ``variant`` "ln" builds it with
     ``LayerNormalization`` as the example does, "rms" with ``RMSNorm`` in each
-    of those places."""
+    of those places; ``wrap`` (a callable) wraps the stage, as [19c] wraps it
+    in ``nn.Remat``."""
     from bigdl_tpu_torch import nn
 
     def norm():
@@ -2784,8 +2817,9 @@ def norm_lm(variant: str, vocab: int, hidden: int, stages: int, device):
     ln = norm().inputs(inp)
     ffn = nn.FeedForwardNetwork(hidden, filter_size=4 * hidden, device=device).inputs(ln)
     add = nn.CAddTable(device=device).inputs(inp, ffn)
+    stage = nn.Graph(inp, add, device=device)
     return nn.Sequential(nn.LookupTable(vocab, hidden, device=device),
-                         nn.PipelinedBlocks(nn.Graph(inp, add, device=device), stages,
+                         nn.PipelinedBlocks(stage if wrap is None else wrap(stage), stages,
                                             device=device),
                          norm(), nn.Linear(hidden, vocab, device=device), device=device)
 
@@ -6942,6 +6976,674 @@ def phase_detection(card):
     return by_path
 
 
+# ---------------------------------------------------------------- [19]
+# [19] (slice 20) the int8/fp8 serving tiers, MoE, Remat and the tree LSTM.
+# None of these paths declares an epilogue or a pool with a backward, so
+# only the LayerNorm kernels (#4/#5, under the switch) run: in the MoE
+# example and the Remat norm-LM.
+SLICE20_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+QUANT = {"batch": 128, "hw": 224, "timed": 10, "check_batch": 8, "check_hw": 64}
+# [19a] limits, fixed before the first run:
+# * int8, each quantized layer on the card's own input to it in one forward
+#   of a check batch: the weight codes and scales, the input codes and scale
+#   and the int32 accumulator equal the CPU route's to the bit (integer sums;
+#   each scale a true division on both, precision.true_div);
+# * fp8 likewise, codes and scales to the bit; the float32 accumulator within
+#   FP8_ACC_REL of the layer's largest |value|: the card's fp8 tensor cores
+#   add products in a narrower accumulator before cuBLASLt promotes partial
+#   sums to float32 (no fast accumulation), the CPU adds in float32 in
+#   another order;
+# * served rows: the activation scales are per flush (the amax of the
+#   padded batch), so a row depends on its flush-mates: each checked flush's
+#   records are forwarded again at the same geometry, and every served row
+#   must equal its row there, int8 to the bit (integer sums, elementwise
+#   float ops), fp8 within SERVE_FP8_REL relative L2 (the same kernels on
+#   the same shapes; the rows may sit at other positions of the batch).
+FP8_ACC_REL = 1e-3
+SERVE_FP8_REL = 1e-6
+SERVE_FLUSHES_CHECKED = 16
+MOE_BENCH = {"hidden": 1024, "experts": 4, "batch": 128, "classes": 1000, "iters": 10,
+             "lr": 0.05, "capacity_factor": 2.0}  # bench.py:1046-1050, 1074
+MOE_EXAMPLE = {"vocab": 8192, "seq": 2048, "hidden": 512, "experts": 8, "batch": 8,
+               "capacity_factor": 1.5, "epochs": 2, "batches": 5}  # the norm-LM's widths
+MOE_ROUTE = {"bench_batch": 128, "example_batch": 2, "example_seq": 512}
+# [19b] step 1 card (f32, TF32 off) vs CPU from the same weights and batch,
+# fixed before the first run: the loss within 1e-5 relative (f32 sums in
+# another order through three layers and the experts), the updated weights
+# within 1e-5 relative L2, the dropped (token, choice) entries equal (the
+# routing reads f32 logits a few ulps apart: a flip needs a near-tie).
+MOE_ROUTE_TOL = {"loss": 1e-5, "params": 1e-5}
+REMAT_POLICIES = (None, "dots_saveable")
+TREE_ARGS = []  # the example's defaults: d 16, h 32, 7 slots, batch 32, 512 trees, 2 epochs
+TREE_ROUTE_TOL = {"loss": 1e-5, "params": 1e-5}  # [19d] step 1, f32, card vs CPU
+
+
+def _s20_device():
+    return "cpu" if SLICE20_DEVICE == "cpu" else "cuda"
+
+
+def _quant_flagship(dev, family=None):
+    """The flagship served at bench.py's _measure_int8 configuration:
+    ResNet-50 conv7, 1000 classes, weights from seed 1, eval mode; its
+    ``family`` twin when given."""
+    import numpy as np
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.models import ResNet
+
+    RandomGenerator.set_seed(1)
+    m = ResNet(50, class_num=1000, stem="conv7", device=dev)
+    m.init(sample_input=np.zeros((1, 3, QUANT["hw"], QUANT["hw"]), np.float32))
+    m.evaluate()
+    return m.quantize(family) if family else m
+
+
+def _quant_inputs(model, x):
+    """Each quantized layer's input in one eval forward of ``model``."""
+    import torch
+    from bigdl_tpu_torch.nn import quantized as pq
+
+    seen = {}
+    classes = (pq.QuantizedLinear, pq.QuantizedSpatialConvolution)
+    origs = {c: c.products for c in classes}
+
+    def wrap(orig):
+        def products(self, params, xx):
+            if self not in seen:
+                seen[self] = xx.detach().clone()
+            return orig(self, params, xx)
+        return products
+
+    for c in classes:
+        c.products = wrap(origs[c])
+    try:
+        with torch.no_grad():
+            model.forward(x)
+    finally:
+        for c, f in origs.items():
+            c.products = f
+    return seen
+
+
+def _bits(t):
+    import torch
+
+    t = t.detach().cpu()
+    return t.view(torch.uint8) if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else t
+
+
+def _quant_layers_card_vs_cpu(family, float_model, qmodel, x):
+    """[19a] every quantized layer's weight codes, input codes, scale and
+    accumulator on the card against the CPU route on the same input."""
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.tensor import quantized as pqt
+
+    floats = [m for m in float_model.walk()
+              if type(m) in (nn.Linear, nn.SpatialConvolution, nn.SpatialDilatedConvolution)]
+    inputs = _quant_inputs(qmodel, x)
+    layers = [m for m in qmodel.walk() if m in inputs]
+    if len(layers) != len(floats):
+        raise AssertionError(f"[19a] {family}: {len(layers)} quantized layers ran, the float "
+                             f"model has {len(floats)} quantizable ones")
+    quantizer = pqt.quantize_symmetric if family == "int8" else pqt.quantize_fp8
+    worst, n_acc = 0.0, 0
+    with torch.no_grad():
+        for f, q in zip(floats, layers):
+            p = q.get_parameters()
+            cpu = {k: v.detach().cpu() for k, v in p.items()}
+            ref = quantizer(f.get_parameters()["weight"].detach().cpu(), channel_axis=0)
+            if not (torch.equal(_bits(p["weight_q"]), _bits(ref.values))
+                    and torch.equal(p["weight_scale"].cpu(), ref.scales)):
+                raise AssertionError(f"[19a] {family} {q.name()}: the card's weight codes or "
+                                     "scales differ from the CPU's")
+            xq, sx, acc = q.products(p, inputs[q])
+            cxq, csx, cacc = q.products(cpu, inputs[q].cpu())
+            if not (torch.equal(_bits(xq), _bits(cxq)) and torch.equal(sx.cpu(), csx)):
+                raise AssertionError(f"[19a] {family} {q.name()}: input codes or scale differ")
+            if family == "int8":
+                if acc.dtype != torch.int32 or not torch.equal(acc.cpu(), cacc):
+                    raise AssertionError(f"[19a] int8 {q.name()}: the int32 accumulators "
+                                         "differ from the CPU's")
+            else:
+                rel = float((acc.cpu() - cacc).abs().max() / cacc.abs().max().clamp_min(1e-30))
+                worst = max(worst, rel)
+            n_acc += acc.numel()
+    return len(layers), n_acc, worst
+
+
+def _timed_forwards(model, x, n):
+    """(device ms median, host ms median) over ``n`` eval forwards after one warm-up."""
+    import statistics
+
+    import torch
+
+    with torch.no_grad():
+        model.forward(x)
+        _sync()
+        dev_ms, host_ms = [], []
+        for _ in range(n):
+            _, d, h = _cuda_events_ms(lambda: model.forward(x))
+            dev_ms.append(d)
+            host_ms.append(h)
+    return statistics.median(dev_ms), statistics.median(host_ms)
+
+
+def _sync_free(model, x, dev):
+    """One eval forward under set_sync_debug_mode("error")."""
+    import torch
+
+    if dev != "cuda":
+        return
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model.forward(x)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        _sync()
+
+
+def phase_quantized(card):
+    """[19a] The flagship's float, int8 and fp8 eval forwards timed, each
+    quantized layer held card vs CPU, and both tiers served through
+    ModelServer(quantize=...) at [12]'s mixes; returns the paths' counts."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+
+    dev = _s20_device()
+    b, hw = QUANT["batch"], QUANT["hw"]
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (b, 3, hw, hw)).astype(np.float32)).to(dev)
+    xc = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (QUANT["check_batch"], 3, QUANT["check_hw"], QUANT["check_hw"])).astype(np.float32)).to(dev)
+    by_path, ips, logits = {}, {}, {}
+    float_model = _quant_flagship(dev)
+    log(f"[19a] the flagship (ResNet-50 conv7, {float_model.n_parameters() / 1e6:.3f} M params, "
+        f"seed 1, eval mode) at bench.py _measure_int8's configuration: batch {b} of {hw}x{hw}, "
+        f"bf16 compute; card {card}")
+    for family in (None, "int8", "fp8"):
+        label = family or "float"
+        model = float_model if family is None else _quant_flagship(dev, family)
+        reset_counts()  # the main path starts here
+        dev_ms, host_ms = _timed_forwards(model, x, QUANT["timed"])
+        _sync_free(model, x, dev)
+        by_path[f"quant_{label}"] = counts = read_counts()  # the main path ends here
+        ips[label] = b / dev_ms * 1e3
+        with torch.no_grad():
+            logits[label] = model.forward(x).float().cpu()
+        kinds = sorted({type(m).__name__ for m in model.walk()
+                        if "Quantized" in type(m).__name__ or "Fp8" in type(m).__name__})
+        log(f"    {label}: {QUANT['timed']} forwards, device {dev_ms:.3f} ms (CUDA events, "
+            f"median), host {host_ms:.3f} ms, {ips[label]:.2f} images/s; {kinds or 'no'} "
+            f"quantized layers; no host sync in a forward; launches {_nonzero(counts)}")
+        if any(counts.values()):
+            raise AssertionError(f"[19a] {label} forward launched {_nonzero(counts)}")
+        if family is not None:
+            n, n_acc, worst = _quant_layers_card_vs_cpu(family, float_model, model, xc)
+            log(f"    {family} card vs CPU on a batch of {QUANT['check_batch']} of "
+                f"{QUANT['check_hw']}x{QUANT['check_hw']}: {n} layers, weight and input codes and "
+                f"scales equal to the bit, {n_acc:,} accumulator entries "
+                + ("equal to the bit (int32)" if family == "int8" else
+                   f"within {worst:.3g} of each layer's largest (limit {FP8_ACC_REL})"))
+            if worst > FP8_ACC_REL:
+                raise AssertionError(f"[19a] fp8 accumulators {worst:.3g} over {FP8_ACC_REL}")
+            ref, got = logits["float"], logits[label]
+            log(f"    {family} logits vs the float model's on the timed batch: relative L2 "
+                f"{float((got - ref).norm() / ref.norm()):.4g}, top-1 agreement "
+                f"{float((got.argmax(1) == ref.argmax(1)).float().mean()):.4f}")
+            del model
+    log(f"    images/s: float {ips['float']:.2f}, int8 {ips['int8']:.2f} "
+        f"({ips['int8'] / ips['float']:.3f}x), fp8 {ips['fp8']:.2f} "
+        f"({ips['fp8'] / ips['float']:.3f}x)")
+    del float_model
+    _free()
+    for family in ("int8", "fp8"):
+        by_path[f"quant_serving_{family}"] = _quant_serving(card, dev, family,
+                                                            x.cpu().numpy())
+    return by_path
+
+
+def _quant_serving(card, dev, family, x):
+    """[19a'] The flagship registered with quantize=family, served at [12]'s
+    mixes; its serve records tagged with the family."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.obs import Telemetry
+    from bigdl_tpu_torch.optim import Predictor
+    from bigdl_tpu_torch.serving import ModelServer
+    from bigdl_tpu_torch.serving.batcher import _nearest_rank
+
+    model = _quant_flagship(dev)
+    tel = Telemetry()
+    reset_counts()  # the main path starts here
+    with ModelServer(telemetry=tel) as server:
+        server.register("flagship", model, sample_input=x[0], batch_size=QUANT["batch"],
+                        max_delay_ms=SERVE_DELAY_MS, quantize=family)
+        info = server.models()["flagship"]
+        mixes, n_served = {}, 0
+        for label, (clients, per), seed0 in (("A", MIX_A, 0), ("B", MIX_B, 1000)):
+            wall, done = _serve_mix(server, x, clients, per, seed0)
+            n_served += len(done)
+            _settled(server, tel, n_served)
+            mixes[label] = (clients, wall, done)
+    _sync()
+    counts = read_counts()  # the main path ends here
+    tags = {r["quantized"] for r in tel.ring.records if r["type"] == "serve"}
+    log(f"[19a'] ModelServer.register(quantize={family!r}): models()['quantized'] "
+        f"{info['quantized']!r}, warmup {info['warmup_s']:.3f} s, serve records tagged {tags}")
+    if info["quantized"] != family or tags != {family}:
+        raise AssertionError(f"[19a'] {family}: tagged {info['quantized']!r} / {tags}")
+    for label, (clients, wall, done) in mixes.items():
+        lats = sorted(f.spans()["total_s"] for _, f in done)
+        log(f"    mix {label} ({clients} synchronous clients, {len(done)} requests): "
+            f"{len(done) / wall:.2f} requests/s, total_s p50 {_nearest_rank(lats, 50) * 1e3:.3f} "
+            f"ms, p99 {_nearest_rank(lats, 99) * 1e3:.3f} ms; card {card}")
+    flushes = {}
+    for i, f in mixes["A"][2] + mixes["B"][2]:
+        flushes.setdefault(f.t_batch, []).append((i, f))
+    pred, worst = Predictor(model, QUANT["batch"]), 0.0
+    for members in list(flushes.values())[:SERVE_FLUSHES_CHECKED]:
+        with torch.inference_mode():
+            again = pred.forward_batch(np.stack([x[i] for i, _ in members])).float().cpu()
+        for row, (_, f) in zip(again, members):
+            got = f.result().float()
+            if got.shape != (1000,) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"[19a'] a served row has shape {tuple(got.shape)} or is "
+                                     "not finite")
+            worst = max(worst, float((got - row).norm() / row.norm()))
+    limit = 0.0 if family == "int8" else SERVE_FP8_REL
+    log(f"    served rows vs their flush's records forwarded again at the same geometry "
+        f"({min(len(flushes), SERVE_FLUSHES_CHECKED)} of {len(flushes)} flushes): relative L2 "
+        f"at most {worst:.3g} (limit {limit}); launches {_nonzero(counts)}")
+    if worst > limit or any(counts.values()):
+        raise AssertionError(f"[19a'] {family}: served rows or launches off")
+    del model, pred
+    _free()
+    return counts
+
+
+def _bench_moe(k, device):
+    """bench.py's MoE model (BENCH_MOE=1): Linear -> MoE(4 experts, FFN 4H,
+    capacity 2.0) -> Linear -> LogSoftMax."""
+    from bigdl_tpu_torch import nn
+
+    c = MOE_BENCH
+    h = c["hidden"]
+    return nn.Sequential(nn.Linear(h, h, device=device),
+                         nn.MoE(c["experts"], ffn_size=4 * h, capacity_factor=c["capacity_factor"],
+                                router_top_k=k, device=device),
+                         nn.Linear(h, c["classes"], device=device), nn.LogSoftMax(device=device),
+                         device=device)
+
+
+def _moe_dropped(moe, tokens):
+    """The (token, choice) entries past their expert's capacity in one
+    forward of ``moe`` on ``tokens`` (N, D)."""
+    import torch
+    from bigdl_tpu_torch.parallel.moe import _route, moe_capacity
+
+    e, k = moe.n_experts, moe.router_top_k
+    t_local = tokens.shape[0] // e
+    cap = moe_capacity(t_local, e, moe.capacity_factor, k)
+    w = moe.get_parameters()["router_w"]
+    with torch.no_grad():
+        logits = tokens.float().reshape(e, t_local, -1) @ w
+        return sum(int((~_route(logits[s], e, cap, k)[2]).sum()) for s in range(e))
+
+
+def _moe_input(model, x):
+    """The input the model's MoE sees in an eval forward on ``x`` and the MoE."""
+    import torch
+    from bigdl_tpu_torch import nn
+
+    moe = next(m for m in model.walk() if isinstance(m, nn.MoE))
+    seen = []
+    orig = moe._apply_params
+    moe._apply_params = lambda p, s, xx, t, r: (seen.append(xx.detach()), orig(p, s, xx, t, r))[1]
+    try:
+        with torch.no_grad():
+            model.forward(x)
+    finally:
+        del moe._apply_params
+    return moe, seen[0].reshape(-1, seen[0].shape[-1])
+
+
+def _one_step_routes(label, build, x, y, criterion, method, tol):
+    """Step 1 from the same weights on the card (f32, TF32 off) and on the
+    CPU: losses, updated weights and the MoE's dropped entries."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        RandomGenerator.set_seed(SEED + 60)
+        init = build("cpu")
+        init.init(sample_input=x)
+        w0 = _tree_to_numpy(init.get_parameters())
+        runs = {}
+        for dev in (_s20_device(), "cpu"):
+            m = build(dev)
+            m.init(sample_input=x)
+            load_jax_params(m, _nest(w0))
+            dropped = _moe_dropped(*_moe_input(m, x))
+            o = LocalOptimizer(m, DataSet.array(x, y, batch_size=len(x)), criterion())
+            o.set_optim_method(method()).set_end_when(Trigger.max_iteration(1)).optimize()
+            runs[dev] = (o.history[0]["loss"], _tree_to_numpy(m.get_parameters()), dropped)
+            del m, o
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[2:]
+    (lc, pc, dc), (lp, pp, dp) = runs[_s20_device()], runs["cpu"]
+    dist = float(np.sqrt(sum(np.sum((pc[k] - pp[k]) ** 2) for k in pp)))
+    d_params = dist / float(np.sqrt(sum(np.sum(v ** 2) for v in pp.values())))
+    d_loss = abs(lc - lp) / max(1.0, abs(lp))
+    log(f"    {label} step 1 card (f32, TF32 off) vs CPU from the same weights: loss {lc:.6f} vs "
+        f"{lp:.6f} (rel {d_loss:.2e}, limit {tol['loss']}), updated weights rel L2 "
+        f"{d_params:.2e} (limit {tol['params']}), dropped entries {dc} vs {dp}")
+    if d_loss > tol["loss"] or d_params > tol["params"] or dc != dp:
+        raise AssertionError(f"[19] {label}: step 1 card vs CPU off")
+
+
+def phase_moe(card):
+    """[19b] bench.py's MoE model trained top-1 and top-2, then the MoE
+    example's graph at the norm-LM's widths with the switch on; returns the
+    paths' counts."""
+    import numpy as np
+    from bigdl_tpu_torch import Engine, nn
+    from bigdl_tpu_torch.examples import moe_train
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
+    from bigdl_tpu_torch.optim import SGD, Adam
+    from bigdl_tpu_torch.parallel.moe import moe_capacity
+
+    dev = _s20_device()
+    c = MOE_BENCH
+    by_path = {}
+    gen = np.random.default_rng(0)  # bench.py's draws: one batch a step
+    x = gen.standard_normal((c["batch"] * c["iters"], c["hidden"])).astype(np.float32)
+    y = gen.integers(0, c["classes"], c["batch"] * c["iters"])
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(None)
+    for k in (1, 2):
+        model = _bench_moe(k, dev)
+        moe = model[1]
+        label = f"[19b] bench MoE top-{k}"
+        by_path[f"moe_bench_top{k}"] = _train_moe_path(
+            label, model, x, y, c["batch"], nn.ClassNLLCriterion(),
+            SGD(learningrate=c["lr"], momentum=0.9), c["iters"], card)
+        _, tokens = _moe_input(model, x[:c["batch"]])
+        cap = moe_capacity(len(tokens) // moe.n_experts, moe.n_experts, moe.capacity_factor, k)
+        log(f"    capacity {moe.n_experts} shards x {moe.n_experts} experts x {cap} slots; after "
+            f"training, dropped (token, choice) entries on batch 1: {_moe_dropped(moe, tokens)} "
+            f"of {len(tokens) * k}")
+        del model, moe
+        _free()
+        _one_step_routes(f"bench MoE top-{k}", lambda d, k=k: _bench_moe(k, d),
+                         x[:MOE_ROUTE["bench_batch"]], y[:MOE_ROUTE["bench_batch"]],
+                         nn.ClassNLLCriterion, lambda: SGD(learningrate=c["lr"], momentum=0.9),
+                         MOE_ROUTE_TOL)
+    e = MOE_EXAMPLE
+    argv = ["--vocab-size", str(e["vocab"]), "--seq-len", str(e["seq"]), "--hidden-size",
+            str(e["hidden"]), "--n-experts", str(e["experts"]), "--capacity-factor",
+            str(e["capacity_factor"]), "-b", str(e["batch"]), "--max-epoch", str(e["epochs"]),
+            "--synthetic-size", str(e["batch"] * e["batches"] * e["seq"] + 1)]
+    if dev == "cpu":
+        argv += ["--platform", "cpu"]
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(True)
+    try:
+        t0 = time.perf_counter()
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            run = moe_train.main(argv)
+            _sync()
+            counts = read_counts()  # the main path ends here
+        wall = time.perf_counter() - t0
+        hist = run.optimizer.history
+        losses = [h["loss"] for h in hist]
+        n_steps = e["epochs"] * e["batches"]
+        log(f"[19b] examples/moe_train.py at V {e['vocab']}, T {e['seq']}, H {e['hidden']}, "
+            f"{e['experts']} experts, capacity {e['capacity_factor']}, batch {e['batch']}, "
+            f"switch on: {len(hist)} iterations in {wall:.2f} s; losses "
+            + ", ".join(f"{v:.4f}" for v in losses)
+            + f"; bigram recovery {run.results['bigram_recovery']:.4f}; launches "
+            f"{_nonzero(counts)}")
+        _step_ms(hist, e["batch"] * e["seq"], "tokens", card)
+        per_step = {n: (2 if n in ("layer_norm_fwd", "layer_norm_bwd") else 0) for n in counts}
+        _check_launch_steps("[19b] MoE example", probe, n_steps, per_step, mem_from=3)
+        want = {n: n_steps * k for n, k in per_step.items()}
+        want["layer_norm_fwd"] += 4  # the build's eval forward and the probe's after training
+        if counts != want or len(losses) != n_steps or not np.isfinite(losses).all():
+            raise AssertionError(f"[19b] MoE example: {len(losses)} steps, launches "
+                                 f"{_nonzero(counts)}, expected {_nonzero(want)}")
+        by_path["moe_example"] = counts
+        ids = planted_bigram_ids(MOE_ROUTE["example_batch"] * MOE_ROUTE["example_seq"] + 1,
+                                 e["vocab"], seed=SEED + 61)
+        ex_x = ids[:-1].reshape(MOE_ROUTE["example_batch"], MOE_ROUTE["example_seq"])
+        ex_y = ids[1:].reshape(ex_x.shape)
+        _one_step_routes(
+            f"MoE example graph (batch {ex_x.shape[0]} x T {ex_x.shape[1]}, switch on)",
+            lambda d: moe_train.moe_lm(e["vocab"], e["hidden"], e["experts"],
+                                       e["capacity_factor"], 1, device=d),
+            ex_x, ex_y, lambda: nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(),
+                                                            size_average=True),
+            lambda: Adam(learningrate=3e-3), MOE_ROUTE_TOL)
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_fused_kernels(None)
+    del run
+    _free()
+    return by_path
+
+
+def _train_moe_path(label, model, x, y, batch, criterion, method, iters, card):
+    """``iters`` LocalOptimizer steps with the counts set to 0 just before
+    and read just after: finite losses, the aux loss in the objective, 0
+    launches a step, memory flat; the step's median ms."""
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+
+    t0 = time.perf_counter()
+    opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch), criterion)
+    opt.set_optim_method(method).set_end_when(Trigger.max_iteration(iters))
+    with _StepProbe() as probe:
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        counts = read_counts()  # the main path ends here
+    hist = opt.history
+    losses = [h["loss"] for h in hist]
+    aux = float(model.auxiliary_loss_tree(model.get_state()))
+    log(f"{label}: {model.n_parameters() / 1e6:.3f} M params, batch {batch} of {_describe(x)}: "
+        f"{len(hist)} iterations in {time.perf_counter() - t0:.2f} s (build included), losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f" (the last step's load-balancing term "
+        f"{aux:.6f}, in the objective); launches {_nonzero(counts)}")
+    _step_ms(hist, batch, "records", card)
+    _check_no_launch_run(label, probe, counts, losses, iters)
+    if not aux > 0:
+        raise AssertionError(f"{label}: no load-balancing term in the state")
+    dev_ms, wall_ms, share = _busy_share(opt, 2)
+    log(f"    host/device split (2 more iterations under torch.profiler): device {dev_ms:.2f} ms "
+        f"of {wall_ms:.2f} ms a step ({100 * share:.1f}% busy); card {card}")
+    del opt
+    return counts
+
+
+def phase_remat(card):
+    """[19c] [9]'s norm-LM (LN, switch on, Adam) with its stage wrapped as
+    PipelinedBlocks(nn.Remat(stage), 6) under each policy, against the
+    unwrapped model run twice; returns the paths' counts."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
+    from bigdl_tpu_torch.optim import Adam, LocalOptimizer, Trigger
+
+    dev = _s20_device()
+    c = NORM_LM
+    vocab, seq, batch, iters = c["vocab"], c["seq"], c["batch"], c["iters"]
+    ids = planted_bigram_ids(c["n_seq"] * seq + 1, vocab, seed=SEED)
+    x, y = ids[:-1].reshape(c["n_seq"], seq), ids[1:].reshape(c["n_seq"], seq)
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(), Engine._fused_kernels)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(True)
+    variants = [("unwrapped", None), ("unwrapped again", None)] + [
+        (f"Remat(policy={p!r})", p) for p in REMAT_POLICIES]
+    runs, by_path, w_init = {}, {}, None
+    try:
+        for label, policy in variants:
+            wrap = None if label.startswith("unwrapped") else (
+                lambda s, p=policy: nn.Remat(s, policy=p, device=dev))
+            RandomGenerator.set_seed(SEED)
+            model = norm_lm("ln", vocab, c["hidden"], c["stages"], device=dev, wrap=wrap)
+            model.init(sample_input=x[:batch])
+            w0 = [p.detach().float().cpu().clone() for p in model.parameters()]
+            if w_init is None:
+                w_init = w0
+            elif not all(torch.equal(a, b) for a, b in zip(w_init, w0)):
+                raise AssertionError(f"[19c] {label}: other initial weights")
+            opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=batch),
+                                 nn.TimeDistributedCriterion(nn.CrossEntropyCriterion(),
+                                                             size_average=True))
+            opt.set_optim_method(Adam(learningrate=3e-3)).set_end_when(Trigger.max_iteration(iters))
+            _free()
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            base = _mem()
+            with _StepProbe() as probe:
+                reset_counts()  # the main path starts here
+                opt.optimize()
+                _sync()
+                counts = read_counts()  # the main path ends here
+            peak = (torch.cuda.max_memory_allocated() - base) if dev == "cuda" else 0
+            hist = opt.history
+            step_ms = statistics.median(h["wall_s"] for h in hist[2:]) * 1e3
+            per_step = probe.steps[-1]["launches"]
+            runs[label] = ([h["loss"] for h in hist],
+                           [p.detach().float().cpu().clone() for p in model.parameters()])
+            log(f"[19c] norm-LM/LN, {label}: {len(hist)} iterations, step {step_ms:.2f} ms (median "
+                f"of iterations 3-{iters}), peak device memory {peak / 2**30:.3f} GiB above the "
+                f"{base / 2**30:.3f} GiB before the run, launches a step {_nonzero(per_step)}, "
+                f"the run {_nonzero(counts)}; card {card}")
+            n_norm = c["stages"] + 1
+            recompute = 0 if label.startswith("unwrapped") else c["stages"]
+            want = {n: {"layer_norm_fwd": n_norm + recompute, "layer_norm_bwd": n_norm}.get(n, 0)
+                    for n in counts}
+            _check_launch_steps(f"[19c] {label}", probe, iters, want, mem_from=3)
+            dev_ms, wall_ms, share = _busy_share(opt, 2)
+            log(f"    host/device split (2 more iterations under torch.profiler): device "
+                f"{dev_ms:.2f} ms of {wall_ms:.2f} ms a step ({100 * share:.1f}% busy)")
+            key = label.replace(" ", "_") if label.startswith("unwrapped") else str(policy).lower()
+            by_path["remat_" + key] = counts
+            del opt, model
+            _free()
+    finally:
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        Engine.set_fused_kernels(prev[2])
+    (l0, p0), (l1, p1) = runs["unwrapped"], runs["unwrapped again"]
+
+    def dist(a, b):
+        return (max(abs(u - v) for u, v in zip(a[0], b[0])),
+                max(float((u - v).abs().max()) for u, v in zip(a[1], b[1])))
+
+    run_to_run = dist(runs["unwrapped"], runs["unwrapped again"])
+    log(f"    unwrapped run to run: losses {run_to_run[0]:.3g}, weights {run_to_run[1]:.3g} "
+        f"(max abs over {iters} steps)")
+    for label, _ in variants[2:]:
+        d = dist(runs[label], runs["unwrapped"])
+        log(f"    {label} vs unwrapped: losses {d[0]:.3g}, weights {d[1]:.3g} (limit: the "
+            "unwrapped run-to-run difference; 0 where the path is deterministic)")
+        if d[0] > run_to_run[0] or d[1] > run_to_run[1]:
+            raise AssertionError(f"[19c] {label} departs from the unwrapped run by more than "
+                                 "its own run-to-run difference")
+    if not np.isfinite(l0).all():
+        raise AssertionError("[19c] non-finite losses")
+    return by_path
+
+
+def phase_tree_lstm(card):
+    """[19d] examples/treelstm_train.py at its defaults on the card, then
+    step 1 card vs CPU; returns the path's counts."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import treelstm_train
+
+    dev = _s20_device()
+    argv = list(TREE_ARGS) + (["--platform", "cpu"] if dev == "cpu" else [])
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(None)
+    t0 = time.perf_counter()
+    reset_counts()  # the main path starts here
+    run = treelstm_train.main(argv)
+    _sync()
+    counts = read_counts()  # the main path ends here
+    step_ms = statistics.median(run.step_ms[2:])
+    log(f"[19d] examples/treelstm_train.py at its defaults ({len(run.x)} trees of 7 slots, batch "
+        f"{run.args.batch_size}, {run.args.max_epoch} epochs): {len(run.losses)} steps in "
+        f"{time.perf_counter() - t0:.2f} s, step {step_ms:.2f} ms (median from step 3, the "
+        f"loss pulled each step), root accuracy {run.results['root_accuracy']:.4f}, last loss "
+        f"{run.losses[-1]:.4f}; launches {_nonzero(counts)}; card {card}")
+    if any(counts.values()) or not np.isfinite(run.losses).all():
+        raise AssertionError(f"[19d] launched {_nonzero(counts)} or gave non-finite losses")
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        one = ["--synthetic-size", str(run.args.batch_size), "--max-epoch", "1"]
+        a = treelstm_train.main(one + (["--platform", "cpu"] if dev == "cpu" else []))
+        b = treelstm_train.main(one + ["--platform", "cpu"])
+    finally:
+        Engine.set_compute_dtype(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    pa = [p.detach().cpu() for m in (a.tree, a.head) for p in m.parameters()]
+    pb = [p.detach().cpu() for m in (b.tree, b.head) for p in m.parameters()]
+    d_params = float(sum(((u - v) ** 2).sum() for u, v in zip(pa, pb)) ** 0.5
+                     / sum((v ** 2).sum() for v in pb) ** 0.5)
+    d_loss = abs(a.losses[0] - b.losses[0]) / max(1.0, abs(b.losses[0]))
+    log(f"    step 1 card (f32, TF32 off) vs CPU: loss {a.losses[0]:.6f} vs {b.losses[0]:.6f} "
+        f"(rel {d_loss:.2e}, limit {TREE_ROUTE_TOL['loss']}), weights after it rel L2 "
+        f"{d_params:.2e} (limit {TREE_ROUTE_TOL['params']})")
+    if d_loss > TREE_ROUTE_TOL["loss"] or d_params > TREE_ROUTE_TOL["params"]:
+        raise AssertionError("[19d] step 1 card vs CPU off")
+    del run, a, b
+    _free()
+    return counts
+
+
+def phase_slice20(card):
+    """[19] the quantized tiers, MoE, Remat and the tree LSTM; returns the
+    main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = phase_quantized(card)
+    by_path.update(phase_moe(card))
+    by_path.update(phase_remat(card))
+    by_path["treelstm_example"] = phase_tree_lstm(card)
+    log(f"[19] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -6985,6 +7687,7 @@ def main() -> int:
     by_path.update(phase_cells(card))
     by_path.update(phase_graphs(card))
     by_path.update(phase_detection(card))
+    by_path.update(phase_slice20(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

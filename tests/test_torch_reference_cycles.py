@@ -132,3 +132,54 @@ def test_tree_walks_and_flatten_table_leave_no_cycle(no_collector):
         return weakref.ref(t)
 
     assert flatten()() is None
+
+
+_FRESH_PROCESS = r"""
+import gc, sys, tempfile, weakref
+from pathlib import Path
+
+sys.path[:0] = [sys.argv[1], str(Path(sys.argv[1]).parent)]
+import torch
+import test_torch_reference_cycles as t
+from bigdl_tpu_torch import nn
+
+gc.disable()
+assert "torch._dynamo" not in sys.modules, "the check needs a process that has not imported it"
+
+
+def trained():
+    m = t._model()
+    with tempfile.TemporaryDirectory() as d:
+        t._optimizer(m, Path(d), 1).optimize()  # validate=True: ShapeProp's first meta dispatch
+    return weakref.ref(next(m.parameters()))
+
+
+def checkpointed():
+    m = nn.Remat(nn.Linear(4, 4, device="cpu"), device="cpu")
+    m.init(sample_input=torch.ones(2, 4))
+    y, _ = m.apply(m.get_parameters(), m.get_state(), torch.ones(2, 4), training=True)
+    y.sum().backward()  # checkpoint's first call
+    return weakref.ref(next(m.parameters()))
+
+
+print([r() is None for r in (trained(), checkpointed())])
+"""
+
+
+def test_first_meta_dispatch_and_checkpoint_of_a_process_keep_no_model():
+    """The first meta dispatch of a process (ShapeProp in ``optimize()``) and
+    the first ``torch.utils.checkpoint`` call (``nn.Remat``) import
+    ``torch._dynamo``; that import leaves a frame referring to itself, and
+    through ``f_back`` every frame below it, to the cyclic collector. Done
+    inside the caller's stack, it kept the model. Run in a fresh process:
+    in this one another test may have imported ``torch._dynamo`` already,
+    which is why the trained-model case above passed in a whole run and
+    failed with its file alone."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", _FRESH_PROCESS, str(Path(__file__).parent)],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[True, True]", out.stdout[-2000:]

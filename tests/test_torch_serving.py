@@ -395,17 +395,13 @@ class TestServerSurface:
         with pytest.raises(NotImplementedError, match="metrics_port"):
             PORT.s.ModelServer(metrics_port=0)
         with _server(PORT, telemetry=PORT.Telemetry(exporters=[])) as srv:
-            for kw in (dict(quantize=True), dict(quantize="fp8"), dict(artifacts="bundle"),
-                       dict(drift=True)):
+            for kw in (dict(artifacts="bundle"), dict(drift=True)):
                 with pytest.raises(NotImplementedError):
                     srv.register("m", PORT.mlp(), sample_input=z, **kw)
             for call in (srv.warm_start, srv.export_artifacts):
                 with pytest.raises(NotImplementedError, match="artifact"):
                     call("bundle")
-            srv.register("m", PORT.mlp(), sample_input=z)
-            with pytest.raises(NotImplementedError, match="quantize"):
-                srv.update("m", PORT.mlp(seed=2), quantize=True)
-            assert srv.models()["m"]["version"] == 1
+            assert srv.models() == {}
 
 
 # ---------------------------------------------------------------------------
