@@ -228,7 +228,9 @@ class SoftPlus(_Elementwise):
 
     def _fn(self, x, params, training, rng):
         bx = self.beta * x
-        return torch.logaddexp(bx, torch.zeros_like(bx)) / self.beta
+        # one rounding on every device: the card's ATen divides by a host
+        # scalar as a product with its reciprocal (precision.true_div)
+        return precision.true_div(torch.logaddexp(bx, torch.zeros_like(bx)), self.beta)
 
 
 class SoftSign(_Elementwise):

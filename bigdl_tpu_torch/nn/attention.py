@@ -112,6 +112,16 @@ def apply_rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q·kᵀ / sqrt(d)`` under the policy, the divisor ``sqrt(d)`` in the
+    logits' dtype (the JAX package's ``jnp.sqrt(jnp.asarray(d, q.dtype))``)
+    and the division rounded once on every device (``precision.true_div``:
+    on the card ATen would multiply by the reciprocal, inexact at head
+    widths that are not a power of 4)."""
+    logits = precision.einsum("...qd,...kd->...qk", q, k)
+    return precision.true_div(logits, math.sqrt(q.shape[-1]))
+
+
 def scaled_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -173,7 +183,7 @@ def scaled_dot_product_attention(
         causal_bias = torch.zeros((tq, tk), device=q.device).masked_fill(
             rows < cols, NEG_INF)
         bias = causal_bias if bias is None else bias + causal_bias
-    logits = precision.einsum("...qd,...kd->...qk", q, k) / math.sqrt(q.shape[-1])
+    logits = _scaled_logits(q, k)
     if bias is not None:
         logits = logits + bias
     weights = torch.softmax(logits, dim=-1)
@@ -585,7 +595,11 @@ class Transformer(AbstractModule):
 
 # ----------------------------------------------------------------- beam search
 def _length_penalty(length, alpha: float):
-    return torch.pow((5.0 + length) / 6.0, alpha)
+    """``((5 + length) / 6) ** alpha``, the division rounded once on every
+    device (``precision.true_div``): on the card ATen would multiply by
+    1/6, a unit in the last place off the CPU's and the JAX package's
+    quotient, and finished beams make rows of near ties."""
+    return torch.pow(precision.true_div(5.0 + length, 6.0), alpha)
 
 
 def _expand_to_beam(t: torch.Tensor, beam_size: int) -> torch.Tensor:

@@ -54,6 +54,25 @@ class ModuleNode:
         for p in self.parents:
             p._children.append(weakref.ref(self))
 
+    def __deepcopy__(self, memo):
+        """A copy whose module and parents are copies (through ``memo``):
+        each copied node registers itself with its copied parents, so no
+        weak reference of the copy points into the original (``copy``
+        would keep a ``weakref.ref`` as it is)."""
+        import copy
+
+        node = ModuleNode.__new__(ModuleNode)
+        memo[id(self)] = node
+        node.id = next(_node_ids)
+        node.__dict__.update({k: copy.deepcopy(v, memo) for k, v in self.__dict__.items()
+                              if k not in ("id", "module", "parents", "_children")})
+        node.module = copy.deepcopy(self.module, memo)
+        node.parents = [copy.deepcopy(p, memo) for p in self.parents]
+        node._children = []
+        for p in node.parents:
+            p._children.append(weakref.ref(node))
+        return node
+
     @property
     def children(self) -> List["ModuleNode"]:
         """The live nodes wired to this one as a parent."""

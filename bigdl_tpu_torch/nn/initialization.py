@@ -23,6 +23,21 @@ class Zeros(InitializationMethod):
         return torch.zeros(shape, dtype=dtype)
 
 
+class Ones(InitializationMethod):
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        return torch.ones(shape, dtype=dtype)
+
+
+class ConstInitMethod(InitializationMethod):
+    """Every entry ``value``."""
+
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        return torch.full(shape, self.value, dtype=dtype)
+
+
 class Xavier(InitializationMethod):
     """Glorot uniform: U(±sqrt(6/(fanIn+fanOut)))."""
 
@@ -68,3 +83,21 @@ class MsraFiller(InitializationMethod):
         n = (fan_in + fan_out) / 2.0 if self.variance_norm_average else float(fan_in)
         std = math.sqrt(2.0 / max(1.0, n))
         return std * torch.randn(shape, generator=generator, dtype=dtype)
+
+
+class BilinearFiller(InitializationMethod):
+    """The bilinear upsampling kernel, a transposed convolution's weight
+    (reference: ``BilinearFiller``): over the trailing (kH, kW) of
+    ``shape``, ``(1 - |i/f_h - c_h|)·(1 - |j/f_w - c_w|)`` with ``f =
+    ceil(k/2)`` and ``c = (2f - 1 - f mod 2) / (2f)``, the same filter at
+    every leading index. It draws nothing."""
+
+    def __call__(self, generator, shape, fan_in, fan_out, dtype=torch.float32):
+        kh, kw = shape[-2], shape[-1]
+        f_h, f_w = math.ceil(kh / 2.0), math.ceil(kw / 2.0)
+        c_h, c_w = (2 * f_h - 1 - f_h % 2) / (2.0 * f_h), (2 * f_w - 1 - f_w % 2) / (2.0 * f_w)
+        ih = torch.arange(kh, dtype=dtype)
+        iw = torch.arange(kw, dtype=dtype)
+        filt = ((1 - torch.abs(ih[:, None] / f_h - c_h))
+                * (1 - torch.abs(iw[None, :] / f_w - c_w)))
+        return filt.expand(tuple(shape)).to(dtype).clone()

@@ -42,8 +42,26 @@ counterpart of ``jax.ShapeDtypeStruct``), ``NotImplemented`` where it has
 none; :func:`infer_module_shape` resolves any module, and ``walk()`` yields
 a module and its descendants (:mod:`bigdl_tpu_torch.analysis`).
 
-Deliberate deviation: ``apply(params, state, x, *, training, rng)`` is the
-JAX package's API and shadows ``torch.nn.Module.apply(fn)``.
+Deliberate deviations, each where a JAX name meets ``torch.nn.Module``'s:
+
+* ``apply(params, state, x, *, training, rng)`` is the JAX package's API and
+  shadows ``torch.nn.Module.apply(fn)``.
+* ``register_forward_hook(hook)`` is the JAX package's and shadows torch's:
+  ``hook(module, x, y)`` runs after every pure forward of the module (at the
+  root, inside a container, at each graph node, in ``LocalOptimizer``'s
+  step), and a dict it returns is merged into the module's new state; torch's
+  ``hook(module, args, output)`` fires on ``forward`` only. The returned
+  :class:`ForwardHookHandle`'s ``remove()`` restores the forward as it was
+  before the hook, hooks removed in LIFO order.
+* The JAX ``parameters()`` (a (weights, gradients) pair of leaf lists) and
+  ``training()`` (a method switching to train mode) are not ported under
+  those names: torch's ``parameters()`` feeds torch's own machinery (the
+  optimizers, ``.to()``), and ``self.training`` is the bool that torch's
+  ``train()``/``eval()`` set and ``forward`` reads. Their counterparts are
+  ``get_parameters()`` / ``get_grad_parameters()`` (the trees on the JAX
+  paths) and ``train()``; ``is_training()`` reads the mode.
+* ``Echo`` prints on every call (the port runs eagerly); the JAX one prints
+  once a trace.
 """
 
 from __future__ import annotations
@@ -188,6 +206,9 @@ class AbstractModule(torch.nn.Module):
         self._name = name
         return self
 
+    def get_name(self) -> str:
+        return self.name()
+
     def n_parameters(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
@@ -265,6 +286,35 @@ class AbstractModule(torch.nn.Module):
     def get_parameters(self) -> Dict[str, Any]:
         return self._param_tree
 
+    def set_parameters(self, params: Dict[str, Any]) -> None:
+        """Copy ``params`` (this module's tree: tensors or arrays on the JAX
+        paths) into the registered parameters, in place; a key or shape that
+        differs raises."""
+        if not self._built:
+            raise ValueError(f"{self.name()}: set_parameters needs a built module")
+        with torch.no_grad():
+            _copy_tree(self.get_parameters(), params, f"{self.name()} parameters",
+                       lambda p, v: p.copy_(v))
+
+    def set_grad_parameters(self, grads: Dict[str, Any]) -> None:
+        """Set each parameter's ``.grad`` to ``grads`` at its path (a copy
+        on the parameter's device and dtype)."""
+        if not self._built:
+            raise ValueError(f"{self.name()}: set_grad_parameters needs a built module")
+
+        def put(p, v):
+            p.grad = v.detach().clone()
+
+        _copy_tree(self.get_parameters(), grads, f"{self.name()} gradients", put)
+
+    def get_parameters_table(self) -> Dict[str, Dict[str, Any]]:
+        """``{name: own parameter tree}`` for every module of the subtree
+        that holds parameters of its own."""
+        return {m.name(): m._param_tree for m in self.walk() if m._param_tree}
+
+    def is_training(self) -> bool:
+        return self.training
+
     def get_state(self) -> Dict[str, Any]:
         return self._state
 
@@ -322,11 +372,15 @@ class AbstractModule(torch.nn.Module):
             self.set_state(detach_tree(new_state))
         return y
 
-    def backward(self, x, grad_output):
-        """Gradient of the input (``None`` for integer ids); accumulates the
-        parameter gradients into ``.grad`` (BigDL semantics). The forward is
-        recomputed with the generator state of the preceding ``forward``, so
-        dropout draws the same masks."""
+    def update_output(self, x):
+        """BigDL's name for ``forward``."""
+        return self.forward(x)
+
+    def _vjp(self, x, grad_output, params):
+        """The gradients of the preceding forward's output against
+        ``grad_output`` for ``params`` and then the input (``None`` for
+        integer ids). The forward is recomputed with that forward's
+        generator state and module state, so dropout draws the same masks."""
         x = self._as_input(x)
         self._ensure_built(x)
         rng = None
@@ -335,18 +389,79 @@ class AbstractModule(torch.nn.Module):
             rng.set_state(self._last_rng_state)
         state = self._last_state if self._last_state is not None else self.get_state()
         xin = x.detach().requires_grad_(x.is_floating_point())
-        params = list(self.parameters())
         with torch.enable_grad():
             y, _ = self._apply_params(self.get_parameters(), state, xin,
                                       self.training, rng)
             wrt = params + ([xin] if xin.requires_grad else [])
             grads = torch.autograd.grad(y, wrt, torch.as_tensor(grad_output, device=y.device),
                                         allow_unused=True)
+        return grads[:len(params)], (grads[-1] if xin.requires_grad else None)
+
+    def backward(self, x, grad_output):
+        """Gradient of the input (``None`` for integer ids); accumulates the
+        parameter gradients into ``.grad`` (BigDL semantics)."""
+        params = list(self.parameters())
+        gps, gx = self._vjp(x, grad_output, params)
         with torch.no_grad():
-            for p, gp in zip(params, grads):
+            for p, gp in zip(params, gps):
                 if gp is not None:
                     p.grad = gp if p.grad is None else p.grad + gp
-        return grads[-1] if xin.requires_grad else None
+        return gx
+
+    def update_grad_input(self, x, grad_output):
+        """The gradient of the input alone; the parameters' ``.grad`` stay
+        as they were (BigDL's ``updateGradInput``)."""
+        return self._vjp(x, grad_output, [])[1]
+
+    def acc_grad_parameters(self, x, grad_output) -> None:
+        """Accumulate the parameter gradients into ``.grad`` (BigDL's
+        ``accGradParameters``; in the JAX package also a full ``backward``)."""
+        self.backward(x, grad_output)
+
+    # ---------------------------------------------------------- forward hooks
+    def register_forward_hook(self, hook) -> "ForwardHookHandle":
+        """Wrap this module's pure forward: after every ``_apply_params``
+        (the root ``forward``/``apply``, a container's call of its child, a
+        graph node, ``LocalOptimizer``'s step) ``hook(module, x, y)`` runs,
+        and a dict it returns is merged into the new state (the channel the
+        JAX package's activation probes use). Shadows
+        ``torch.nn.Module.register_forward_hook`` (module docstring).
+        Returns a handle whose ``remove()`` restores the previous forward."""
+        prev = self.__dict__.get("_apply_params")  # None: the class's forward
+        inner = self._apply_params  # the current, possibly already hooked, forward
+
+        def hooked(params, state, x, training, rng):
+            y, new_state = inner(params, state, x, training, rng)
+            extra = hook(self, x, y)
+            if extra is not None:
+                new_state = dict(new_state)
+                new_state.update(extra)
+            return y, new_state
+
+        object.__setattr__(self, "_apply_params", hooked)
+        return ForwardHookHandle(self, hooked, prev)
+
+    # ------------------------------------------------------------------- misc
+    def reset(self) -> None:
+        """Drop the parameters and state of this subtree: the next forward
+        re-samples them from the generator (lazily, as the JAX package's:
+        building needs an input). The device the parameters were on is kept."""
+        for m in self.modules():
+            if isinstance(m, AbstractModule) and m._built:
+                m._device = m.device
+                for key in m._param_tree:
+                    m._parameters.pop(key, None)
+                    m._modules.pop(key, None)
+                m._param_tree, m._state, m._last_state = {}, {}, None
+                m._last_rng_state = None
+                m._built = False
+
+    def clone(self) -> "AbstractModule":
+        """A deep copy: parameters, state and, for a ``Graph``, its nodes
+        (each node's weak references to its children point into the copy)."""
+        import copy
+
+        return copy.deepcopy(self)
 
     # -------------------------------------------------------------- inference
     def evaluate(self, dataset=None, methods=None, batch_size: Optional[int] = None):
@@ -420,6 +535,45 @@ class AbstractModule(torch.nn.Module):
 
 
 AbstractModule.build = _record_build(AbstractModule.build)
+
+
+class ForwardHookHandle:
+    """Undo token of :meth:`AbstractModule.register_forward_hook`: ``remove()``
+    restores the forward from before the hook (the class's, or an earlier
+    hook's). Removal is LIFO: a handle whose hook another hook has wrapped
+    since does nothing."""
+
+    __slots__ = ("_module", "_wrapped", "_prev")
+
+    def __init__(self, module, wrapped, prev):
+        self._module, self._wrapped, self._prev = module, wrapped, prev
+
+    def remove(self) -> None:
+        m = self._module
+        if m.__dict__.get("_apply_params") is not self._wrapped:
+            return  # a later hook wrapped this one, or it is removed already
+        if self._prev is None:
+            del m.__dict__["_apply_params"]
+        else:
+            object.__setattr__(m, "_apply_params", self._prev)
+
+
+def _copy_tree(dst, src, what, put) -> None:
+    """``put(dst_leaf, src_leaf as a tensor on dst_leaf's device and dtype)``
+    at every path of ``dst``; ``src`` must have the same paths and shapes."""
+    if not isinstance(src, dict) or set(src) != set(dst):
+        raise KeyError(f"{what}: paths differ: expected {sorted(dst)}, got "
+                       f"{sorted(src) if isinstance(src, dict) else type(src).__name__}")
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_tree(d, src[k], what, put)
+            continue
+        v = torch.as_tensor(np.asarray(src[k]) if not isinstance(src[k], torch.Tensor)
+                            else src[k]).to(device=d.device, dtype=d.dtype)
+        if tuple(v.shape) != tuple(d.shape):
+            raise ValueError(f"{what}: {k} has shape {tuple(v.shape)}, expected "
+                             f"{tuple(d.shape)}")
+        put(d, v)
 
 
 def _meta_like(t):
@@ -593,6 +747,27 @@ class Identity(AbstractModule):
 
     def _apply_params(self, params, state, x, training, rng):
         return x, state
+
+
+class Echo(AbstractModule):
+    """Pass-through that prints its name and the input's shapes (reference:
+    ``$DL/nn/Echo.scala``) on every call: the port runs eagerly, where the
+    JAX package prints once a trace."""
+
+    def infer_shape(self, in_spec):
+        return in_spec
+
+    def _apply_params(self, params, state, x, training, rng):
+        shapes = (tuple(x.shape) if isinstance(x, torch.Tensor)
+                  else [tuple(v.shape) for v in _leaves(x)])
+        print(f"[{self.name()}] {shapes}")
+        return x, state
+
+
+def _leaves(x):
+    if isinstance(x, (Table, list, tuple)):
+        return [v for e in x for v in _leaves(e)]
+    return [x]
 
 
 def _aux_losses(state):

@@ -1,6 +1,7 @@
 """Normalization layers (counterpart of ``bigdl_tpu/nn/normalization.py``):
 ``BatchNormalization`` / ``SpatialBatchNormalization``, ``LayerNormalization``,
-``RMSNorm`` and ``SpatialCrossMapLRN``.
+``RMSNorm``, ``SpatialCrossMapLRN``, ``SpatialWithinChannelLRN`` and
+``Normalize``.
 
 Batch normalization is in torch ops with the JAX package's semantics, which
 are not cuDNN's:
@@ -17,6 +18,13 @@ autograd history (detached batch statistics, under ``torch.no_grad()``):
 state is never differentiated, and a state that held the step's graph would
 keep every saved activation of that step alive for as long as the state
 lives.
+
+``Normalize`` divides by the Lp norm of the LAST dim plus ``eps`` (not
+``F.normalize``'s ``max(norm, eps)`` over dim 1), and
+``SpatialWithinChannelLRN`` divides by ``(1 + alpha/size² · the sum of x²
+over a size×size window)^beta``, the window zero-padded (size//2,
+size-1-size//2) on H and W, as the JAX package's ``reduce_window``; both in
+torch ops (XLA's in the JAX package, no Pallas kernel).
 
 ``LayerNormalization`` (eps 1e-5) and ``RMSNorm`` (eps 1e-6) normalize over
 the last dim. With the fused-kernel switch off they run the JAX package's
@@ -200,3 +208,44 @@ class SpatialCrossMapLRN(AbstractModule):
         # torch's pads the window (size//2, (size-1)//2), the same as the JAX one's
         y = F.local_response_norm(x.float(), self.size, self.alpha, self.beta, self.k)
         return y.to(x.dtype), state
+
+
+class Normalize(AbstractModule):
+    """Lp-normalize over the last dim (reference: ``$DL/nn/Normalize.scala``):
+    ``x / (||x||_p + eps)``, ``p = inf`` the largest magnitude."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
+    def __init__(self, p: float = 2.0, eps: float = 1e-10, device=None):
+        super().__init__(device)
+        self.p = p
+        self.eps = eps
+
+    def _apply_params(self, params, state, x, training, rng):
+        if self.p == float("inf"):
+            norm = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+        else:
+            norm = torch.sum(torch.abs(x) ** self.p, dim=-1, keepdim=True) ** (1.0 / self.p)
+        return x / (norm + self.eps), state
+
+
+class SpatialWithinChannelLRN(AbstractModule):
+    """Local response norm within each channel over a size×size spatial
+    window of NCHW input (reference: ``SpatialWithinChannelLRN``)."""
+
+    infer_shape = AbstractModule._infer_shape_via_apply  # parameter-less
+
+    def __init__(self, size: int = 5, alpha: float = 1.0, beta: float = 0.75, device=None):
+        super().__init__(device)
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+
+    def _apply_params(self, params, state, x, training, rng):
+        if x.dim() != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {tuple(x.shape)}")
+        half, rest = self.size // 2, self.size - 1 - self.size // 2
+        summed = F.avg_pool2d(F.pad(x * x, (half, rest, half, rest)), self.size, 1,
+                              divisor_override=1)
+        denom = (1.0 + self.alpha / (self.size * self.size) * summed) ** self.beta
+        return x / denom, state

@@ -14,6 +14,18 @@ is more exact than the JAX package, whose ``reduce_window`` sums in bf16.
 repo, as the JAX package's is ``reduce_window`` and not its Pallas kernel).
 ``RoiPooling`` (Fast R-CNN's roi max pool) is a masked max in torch ops, as
 the JAX package's is XLA's.
+
+The rest are torch ops too, as the JAX package's are XLA's
+``reduce_window`` (none reaches a Pallas kernel):
+``VolumetricMaxPooling`` is ``F.max_pool3d``, whose backward sends each
+window's gradient to its first maximum, as XLA's select-and-scatter does
+(``-inf`` padding); ``SpatialAdaptiveMaxPooling`` is an ``amax`` over each
+cell's slice, which splits a window's gradient evenly among tied maxima,
+as ``jnp.max``'s does (``F.adaptive_max_pool2d`` would send it to one);
+``TemporalAveragePooling`` and ``VolumetricAveragePooling`` sum each window
+(in fp32 for bf16 input, rounded once, where XLA sums in bf16) and divide
+by the window's size with ``precision.true_div``, rounded once on every
+device.
 """
 
 from __future__ import annotations
@@ -255,3 +267,105 @@ class RoiPooling(AbstractModule):
         out = out.permute(2, 3, 1, 0)  # (R, C, ph, pw)
         # empty bins (degenerate rois) -> 0, as the reference's memset
         return torch.where(torch.isfinite(out), out, 0.0), state
+
+
+class VolumetricMaxPooling(AbstractModule):
+    """3-D max pool over NCDHW (reference: ``$DL/nn/VolumetricMaxPooling.scala``):
+    windows (k_t, k_h, k_w) every (d_t, d_h, d_w), ``-inf`` padding
+    (pad_t, pad_h, pad_w) on both sides, none past the end."""
+
+    def __init__(self, k_t: int, k_w: int, k_h: int, d_t: int = 1, d_w: int = 1, d_h: int = 1,
+                 pad_t: int = 0, pad_w: int = 0, pad_h: int = 0, device=None):
+        super().__init__(device)
+        self.kernel = (k_t, k_h, k_w)
+        self.stride = (d_t, d_h, d_w)
+        self.pad = (pad_t, pad_h, pad_w)
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 5:
+            raise ValueError(f"{self.name()}: expects NCDHW input, got shape {shape}")
+        _check_window(self, shape, shape[2:], self.kernel, self.pad)
+        return self._infer_shape_via_apply(in_spec)
+
+    def _apply_params(self, params, state, x, training, rng):
+        if all(2 * p <= k for p, k in zip(self.pad, self.kernel)):
+            return F.max_pool3d(x, self.kernel, self.stride, self.pad), state
+        pt, ph, pw = self.pad  # wider than ATen's implicit padding takes
+        xp = F.pad(x, (pw, pw, ph, ph, pt, pt), value=float("-inf"))
+        return F.max_pool3d(xp, self.kernel, self.stride), state
+
+
+class SpatialAdaptiveMaxPooling(AbstractModule):
+    """Max pool of NCHW to (out_h, out_w) cells, cell i spanning
+    [floor(i·in/out), ceil((i+1)·in/out)) (reference: the Torch layer of
+    the same name); each cell an ``amax`` of its slice, so tied maxima
+    share the gradient evenly, as in the JAX package."""
+
+    def __init__(self, out_w: int, out_h: int, device=None):
+        super().__init__(device)
+        self.out_w, self.out_h = out_w, out_h
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 4:
+            raise ValueError(f"{self.name()}: expects NCHW input, got shape {shape}")
+        return self._infer_shape_via_apply(in_spec)
+
+    def _apply_params(self, params, state, x, training, rng):
+        in_h, in_w = x.shape[2], x.shape[3]
+        rows = []
+        for i in range(self.out_h):
+            h0, h1 = (i * in_h) // self.out_h, -(-((i + 1) * in_h) // self.out_h)
+            cols = []
+            for j in range(self.out_w):
+                w0, w1 = (j * in_w) // self.out_w, -(-((j + 1) * in_w) // self.out_w)
+                cols.append(x[:, :, h0:h1, w0:w1].amax(dim=(2, 3)))
+            rows.append(torch.stack(cols, dim=-1))
+        return torch.stack(rows, dim=-2), state
+
+
+class TemporalAveragePooling(AbstractModule):
+    """Average pool over the time dim of (N, T, C) (reference:
+    ``$DL/nn/TemporalAveragePooling.scala``; keras ``AveragePooling1D``):
+    windows of ``k_w`` frames every ``d_w`` (default ``k_w``), none past
+    the end."""
+
+    def __init__(self, k_w: int, d_w: Optional[int] = None, device=None):
+        super().__init__(device)
+        self.k_w = k_w
+        self.d_w = d_w if d_w is not None else k_w
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 3:
+            raise ValueError(f"{self.name()}: expects (N, T, C) input, got shape {shape}")
+        _check_window(self, shape, (shape[1],), (self.k_w,), (0,))
+        return self._infer_shape_via_apply(in_spec)
+
+    def _apply_params(self, params, state, x, training, rng):
+        summed = x.unfold(1, self.k_w, self.d_w).sum(dim=-1, dtype=torch.float32)
+        return true_div(summed, self.k_w).to(x.dtype), state
+
+
+class VolumetricAveragePooling(AbstractModule):
+    """Average pool over (N, C, D, H, W) (reference:
+    ``$DL/nn/VolumetricAveragePooling.scala``): windows (k_t, k_h, k_w) every
+    (d_t, d_h, d_w) (default the window), no padding."""
+
+    def __init__(self, k_t: int, k_w: int, k_h: int, d_t: Optional[int] = None,
+                 d_w: Optional[int] = None, d_h: Optional[int] = None, device=None):
+        super().__init__(device)
+        self.k = (k_t, k_h, k_w)
+        self.d = (d_t or k_t, d_h or k_h, d_w or k_w)
+
+    def infer_shape(self, in_spec):
+        shape = tuple(in_spec.shape)
+        if len(shape) != 5:
+            raise ValueError(f"{self.name()}: expects NCDHW input, got shape {shape}")
+        _check_window(self, shape, shape[2:], self.k, (0, 0, 0))
+        return self._infer_shape_via_apply(in_spec)
+
+    def _apply_params(self, params, state, x, training, rng):
+        summed = F.avg_pool3d(x.float(), self.k, self.d, divisor_override=1)
+        return true_div(summed, float(self.k[0] * self.k[1] * self.k[2])).to(x.dtype), state

@@ -246,7 +246,9 @@ class _MaxPool2dFunction(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         if grad_impl() == "shift":
             return maxpool_grad_shift(x, dy, *ctx.geometry), None, None, None
-        return maxpool_grad(x, dy.contiguous(), *ctx.geometry), None, None, None
+        # the kernel reads NCHW: a channels-last x (on the card, cuDNN's
+        # output of a convolution over a one-channel input) is copied to it
+        return maxpool_grad(x.contiguous(), dy.contiguous(), *ctx.geometry), None, None, None
 
 
 def maxpool2d(x: torch.Tensor, kernel: Pair, stride: Pair, padding: Padding) -> torch.Tensor:

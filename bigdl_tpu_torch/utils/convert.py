@@ -20,7 +20,14 @@ MaskRCNN's children (``backbone_level0.SpatialConvolution_0.weight``,
 ``fpn.SpatialConvolution_4.weight`` (the smoothing convolutions follow the
 laterals), ``rpn.SpatialConvolution_1.bias``, ``box_head.Linear_3.weight``,
 ``mask_head.SpatialFullConvolution_2.weight``, whose deconvolution weight
-is (in, out, kH, kW) in both packages));
+is (in, out, kH, kW) in both packages), the volumetric, locally connected
+and separable convolutions' (``VolumetricConvolution``'s OIDHW ``weight``,
+``LocallyConnected2D``'s per-position (oH·oW, out, C·kH·kW) bank and (out,
+oH, oW) bias, ``SpatialSeparableConvolution``'s ``depth_weight`` and
+``point_weight``), ``Maxout``'s and ``Highway``'s ``Linear_<i>`` children,
+and a keras model's, whose wrappers nest ``{child name: child tree}`` of
+the core layers they made (``Dense_5.Linear_0.weight``,
+``Convolution2D_0.SpatialConvolution_0.bias``));
 ``Linear``-style weights are (out, in) and convolution weights OIHW in
 both packages, so every copy is a plain copy. ``load_jax_state(module, tree)`` does the same
 for the state tree (``model.get_state()``: BN running statistics).

@@ -93,6 +93,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1,
     return y.to(out_dtype()) if mixed else y
 
 
+def conv3d(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """NCDHW × OIDHW convolution under the policy, as :func:`conv2d`:
+    ``padding`` (pad_t, pad_h, pad_w) zeros on both sides of each dim (the
+    JAX package's 5-D ``conv_general_dilated``). cuDNN's on the card."""
+    mixed = is_mixed()
+    dt = compute_dtype() if mixed else torch.promote_types(x.dtype, w.dtype)
+    y = torch.nn.functional.conv3d(_cast(x, dt), _cast(w, dt), None, tuple(stride),
+                                   tuple(padding))
+    return y.to(out_dtype()) if mixed else y
+
+
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, stride, pad, adj) -> torch.Tensor:
     """Torch's transposed convolution of NCHW ``x`` by a (Cin, Cout, kH, kW)
     ``w`` under the policy, as :func:`conv2d`: output extent ``(in - 1) *

@@ -296,7 +296,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory, the busy share, 13 #4 (6 recomputed) and 7 #5 a step, losses and
    weights within the unwrapped run-to-run difference; [19d]
    ``bigdl_tpu_torch/examples/treelstm_train.py`` at its defaults (root
-   accuracy, step ms, 0 launches) and its step 1 card vs CPU.
+   accuracy, step ms, 0 launches) and its step 1 card vs CPU;
+20. the keras API and the rest of ``nn/``: [20a]
+   ``bigdl_tpu_torch/examples/keras_train.py`` at its defaults (the keras
+   ``Sequential`` CNN, 2048 synthetic digits, batch 64, 2 epochs: 64 steps
+   through ``fit``, a validation each epoch, ``evaluate``, then ``predict``
+   and ``predict_classes``) with a forward hook on the first convolution
+   stashing its output's mean into the state at every step (held against
+   the mean recomputed without the hook, then removed: the forward
+   unchanged to the bit); #10 exactly 2 a step and none in the
+   validations, memory flat, the busy share over 2 more profiled steps; 3
+   SGD steps of its model card vs CPU (dropout 0); [20b] C3D (Tran et al. 2015) through ``LocalOptimizer`` at its
+   widths (78 M parameters, 3x16x112x112 clips drawn from the seed, batch
+   30, 101 classes, bf16 compute and activations, SGD 0.003/0.9) 10
+   iterations: step ms, the busy share, peak memory, 0 launches, memory
+   flat, the host's batch gather and copy to the card; 3 f32 steps card vs CPU at widths (8, 16, 16, 32, 32), fc 64 and a
+   16x32x32 clip, dropout 0; [20c] the U-Net (Ronneberger et al. 2015)
+   built with the keras functional API (base 64, 2 classes) served by
+   ``Model.predict`` on 8 tiles of 1x572x572 in batches of 4 (bf16):
+   CUDA-event ms a call, tiles/s, peak memory, 0 launches, output (8, 2,
+   388, 388), one more call's device ms under ``torch.profiler``; card (f32) vs CPU at 188x188 and base 8 (``UNET_ROUTE_REL``);
+   [20d] every other class of the slice and the keras breadth table's
+   wrappers forward and backward card vs CPU (``MODULE_TOL``), 0
+   launches; the three host-scalar divisions of ROADMAP Queue 3 (the beam
+   search's length penalty, the attention logits' ``/ sqrt(d)`` at d 48 and
+   80, ``SoftPlus(3)``) card vs CPU, plain and through
+   ``precision.true_div``, and a beam search at alpha 0.6.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -306,14 +331,16 @@ only and its 3x3/s1/p1 branch pools, LeNet-5's 2x2/s2 pools on 24- and
 planes, AlexNet's three 3x3/s2 pools without padding on 55-, 27- and
 13-wide planes at batch 64 in both dtypes, post-ReLU, with integer ties,
 with NaN and -inf, and at an offset of one element, the Siamese tower's
-stem pool at batch 64; edge geometries, and its alignment traps: rows of 56 and 28
+stem pool at batch 64, the keras example's two 2x2/s2 pools on 24- and
+8-wide planes at batch 64 in both dtypes; edge geometries, and its alignment traps: rows of 56 and 28
 bytes, part-full plane groups, x and dy at a storage offset of one element,
 the stem at an odd size; the 3x3/s1 instance's at the branch pools' widths:
 7-wide rows, offsets, row bands, NaN and -inf inputs; repeats
 bit-identical) and timed in [4] at the stem, VGG-16's five pools and the
 parity configs' pools beside ATen's backward and the bound, with a line a
 branch-pool shape on ATen and the 4x-bound target, and at AlexNet's three
-pools in f32 (its example's) and bf16 beside the launch floor; its four instances
+pools and the keras example's two in f32 (their examples') and bf16
+beside the launch floor; its four instances
 (3x3/s2, 2x2/s2, 3x3/s1, general) launch in [2], where a spill in any of
 them fails the run; the
 bias+activation epilogue kernels likewise in [3d] and [4]; the LayerNorm
@@ -337,7 +364,8 @@ each under its ``parity_config`` name, the flagship served,
 ``quant_serving_int8``, ``quant_serving_fp8``, ``moe_bench_top1``,
 ``moe_bench_top2``, ``moe_example``, ``remat_unwrapped``,
 ``remat_unwrapped_again``, ``remat_none``, ``remat_dots_saveable`` and
-``treelstm_example``) runs with every kernel's launch count set to 0 just
+``treelstm_example``, and [20]'s ``keras_example``, ``c3d``,
+``unet_predict`` and ``modules_slice21``) runs with every kernel's launch count set to 0 just
 before it and read just after.
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
@@ -1306,6 +1334,13 @@ ALEXNET_POOLS = [
     ("AlexNet pool2 3x3/s2", (64, 256, 27, 27), ALEX_POOL, "relu"),
     ("AlexNet pool5 3x3/s2", (64, 256, 13, 13), ALEX_POOL, "relu"),
 ]
+# the keras example's two pools ([20a]) at its batch of 64: 2x2/s2 on 24- and
+# 8-wide planes of 8 and 16 channels (pooled rows of 12 and 4), post-ReLU;
+# the example trains in f32 activations on the card
+KERAS_POOLS = [
+    ("keras CNN pool1 2x2/s2", (64, 8, 24, 24), VGG_POOL, "relu"),
+    ("keras CNN pool2 2x2/s2", (64, 16, 8, 8), VGG_POOL, "relu"),
+]
 
 
 def phase_maxpool_parity():
@@ -1395,9 +1430,14 @@ def phase_maxpool_parity():
                   for label, shape, geometry, _ in ALEXNET_POOLS for dt in (f32, bf)
                   for kind in ("relu", "ints", "nan", "offset")]
     cases += alex_cases
+    # the keras example's two pools in both dtypes (f32 is the example's), each repeated
+    keras_cases = [(f"{label}, {str(dt)[6:]}", shape, geometry, dt, kind)
+                   for label, shape, geometry, kind in KERAS_POOLS for dt in (f32, bf)]
+    cases += keras_cases
     repeated = {"flagship stem pool", "VGG-16 pool2 batch 64", "Siamese tower stem pool batch 64",
                 "VGG-16 pool2, relu(normal) (zero windows)", *(c[0] for c in config_cases),
-                *(c[0] for c in s1_cases), *(c[0] for c in alex_cases)}
+                *(c[0] for c in s1_cases), *(c[0] for c in alex_cases),
+                *(c[0] for c in keras_cases)}
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     log(f"[3c] max-pool backward kernel vs plain version on the card "
         f"(|err| <= bf16_steps*|ref| [bf16] + f32_rel_sum*n*max|dy|; {TOL_MAXPOOL})")
@@ -1454,6 +1494,9 @@ MAXPOOL_SHAPES = [
       for label, shape, geometry, kind in ALEXNET_POOLS),
     *((f"{label} bf16", shape, geometry, kind, "bfloat16")
       for label, shape, geometry, kind in ALEXNET_POOLS),
+    *((f"{label} {name}", shape, geometry, kind, dt)
+      for label, shape, geometry, kind in KERAS_POOLS
+      for name, dt in (("f32", "float32"), ("bf16", "bfloat16"))),
 ]
 
 
@@ -1462,8 +1505,9 @@ def phase_maxpool_times(rec, card, floor_ms):
     point, so the wrapper's count stays the main paths'), its plain version
     and ATen's max-pool backward from saved indices, beside the bound, at
     the stem (the parity phase's inputs), VGG-16's five pools and the parity
-    configs' pools (bf16), and AlexNet's three in f32 (its example's) and
-    bf16, each beside ``floor_ms``, the launch floor. ATen takes a
+    configs' pools (bf16), and AlexNet's three and the keras example's two
+    in f32 (their examples') and bf16, each beside ``floor_ms``, the launch
+    floor. ATen takes a
     high-side-only overhang as its ceil mode with no padding."""
     import torch
     import torch.nn.functional as F
@@ -1525,10 +1569,10 @@ def phase_maxpool_times(rec, card, floor_ms):
             del x, dy
         del dx
     for net, n_pools in (("VGG-16", 5), ("Inception", 13), ("VGG-CIFAR", 5),
-                         ("AlexNet", 3)):
+                         ("AlexNet", 3), ("keras CNN", 2)):
         per_step = [(r, POOLS_SHARING_A_SHAPE.get(r["shape"], 1)) for r in rows
                     if r["shape"].startswith(net) and r["dtype"] == (
-                        "float32" if net == "AlexNet" else "bfloat16")]
+                        "float32" if net in ("AlexNet", "keras CNN") else "bfloat16")]
         if sum(k for _, k in per_step) != n_pools:
             raise AssertionError(f"[4] times {net}'s pools at {per_step}, not its {n_pools}")
         log(f"    {net}'s {n_pools} pools a step: " + ", ".join(
@@ -1548,7 +1592,7 @@ def phase_maxpool_times(rec, card, floor_ms):
             f"{'met' if r['ms'] <= 4 * r['bound_ms'] else 'missed'} "
             f"(kernel/bound {r['ms'] / r['bound_ms']:.2f})")
     for r in rows:
-        if r["shape"].startswith("AlexNet"):
+        if r["shape"].startswith(("AlexNet", "keras CNN")):
             log(f"    {r['shape']}: kernel/bound {r['ms'] / r['bound_ms']:.2f}, ATen/kernel "
                 f"{r['library_ms'] / r['ms']:.2f}; the bound is "
                 f"{'below' if r['bound_ms'] < floor_ms else 'above'} the launch floor, "
@@ -7644,6 +7688,647 @@ def phase_slice20(card):
     return by_path
 
 
+# ------------------------------------------------------------------ [20]
+SLICE21_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+KERAS_ARGS = []  # the example's defaults: 2048 synthetic digits, batch 64, 2 epochs: 64 steps
+KERAS_POOLS_PER_STEP = 2  # K.MaxPooling2D twice: SpatialMaxPooling 2x2/s2, #10 in the backward
+KERAS_ROUTE_ROWS = 64  # [20a] card vs CPU: one batch of the example, dropout 0
+# [20b] C3D (Tran et al. 2015, arXiv:1412.0767, Sec. 3.2 / Fig. 3) at its widths, a
+# 3x16x112x112 clip, batch 30, UCF101's 101 classes; the clips are drawn from the seed
+C3D = {"batch": 30, "clip": (16, 112, 112), "widths": (64, 128, 256, 512, 512), "fc": 4096,
+       "classes": 101, "iters": 10, "lr": 0.003, "records": 60}
+C3D_ROUTE = {"batch": 2, "clip": (16, 32, 32), "widths": (8, 16, 16, 32, 32), "fc": 64}
+# [20c] U-Net (Ronneberger et al. 2015, arXiv:1505.04597, Fig. 1): 572x572 tiles, base
+# width 64, 2 classes, served by Model.predict in batches of 4
+UNET = {"tiles": 8, "batch": 4, "tile": 572, "base": 64, "classes": 2, "timed": 10}
+UNET_ROUTE = {"tiles": 2, "tile": 188, "base": 8}
+# [20c] card (f32, TF32 off) vs CPU: max |diff| over max |cpu| of the output (fixed before the
+# first run: 23 layers of f32 products summed in other orders)
+UNET_ROUTE_REL = 1e-5
+SLICE21_MODULE_SHAPE = (256, 256)  # [20d] a 2-D input's shape; the other ranks hold as many values
+
+
+def _s21_device():
+    return "cpu" if SLICE21_DEVICE == "cpu" else "cuda"
+
+
+def c3d(device, widths, fc, classes, dropout=0.5):
+    """C3D through the core API: 3x3x3/s1/p1 ``VolumetricConvolution`` s at
+    ``widths`` (conv1a, conv2a, conv3a-b, conv4a-b, conv5a-b), each with a
+    ReLU; ``VolumetricMaxPooling`` pool1 1x2x2, pools 2-5 2x2x2, pool5
+    padded (0, 1, 1); ``View`` to one vector a clip; fc6 and fc7 ``fc``
+    wide with ReLU and ``Dropout(dropout)``; fc8 to ``classes``."""
+    from bigdl_tpu_torch import nn
+
+    d = {"device": device}
+    w1, w2, w3, w4, w5 = widths
+    layers = []
+
+    def conv(cin, cout):
+        layers.extend([nn.VolumetricConvolution(cin, cout, 3, 3, 3, 1, 1, 1, 1, 1, 1, **d),
+                       nn.ReLU(**d)])
+
+    conv(3, w1)
+    layers.append(nn.VolumetricMaxPooling(1, 2, 2, 1, 2, 2, **d))
+    conv(w1, w2)
+    layers.append(nn.VolumetricMaxPooling(2, 2, 2, 2, 2, 2, **d))
+    for cin, cout in ((w2, w3), (w3, w4), (w4, w5)):
+        conv(cin, cout)
+        conv(cout, cout)
+        pad = (0, 1, 1) if cout == w5 and cin == w4 else (0, 0, 0)
+        layers.append(nn.VolumetricMaxPooling(2, 2, 2, 2, 2, 2, *pad, **d))
+    layers.extend([nn.View(-1, **d), nn.Linear(None, fc, **d), nn.ReLU(**d), nn.Dropout(dropout, **d),
+                   nn.Linear(fc, fc, **d), nn.ReLU(**d), nn.Dropout(dropout, **d),
+                   nn.Linear(fc, classes, **d)])
+    return nn.Sequential(*layers, **d)
+
+
+def unet(device, base, classes, tile):
+    """The U-Net through the keras functional API: valid 3x3 ReLU
+    ``Convolution2D`` pairs at base x (1, 2, 4, 8, 16), ``MaxPooling2D``,
+    ``Deconvolution2D(n, 2, 2, subsample=(2, 2))`` up, each skip
+    ``Cropping2D``-ed to the up-convolution's size and joined by
+    ``Merge(mode="concat", concat_axis=1)``, a 1x1 ``Convolution2D`` to
+    ``classes``."""
+    from bigdl_tpu_torch.nn import keras as K
+
+    d = {"device": device}
+
+    def pair(x, n):
+        x = K.Convolution2D(n, 3, 3, activation="relu", **d)(x)
+        return K.Convolution2D(n, 3, 3, activation="relu", **d)(x)
+
+    inp = K.Input(shape=(1, tile, tile))
+    skips, sizes, x, s = [], [], inp, tile
+    for level in range(4):
+        x = pair(x, base * 2 ** level)
+        s -= 4
+        skips.append(x)
+        sizes.append(s)
+        x = K.MaxPooling2D(**d)(x)
+        s //= 2
+    x = pair(x, base * 16)
+    s -= 4
+    for level in reversed(range(4)):
+        x = K.Deconvolution2D(base * 2 ** level, 2, 2, subsample=(2, 2), **d)(x)
+        s *= 2
+        c = (sizes[level] - s) // 2
+        skip = K.Cropping2D(((c, c), (c, c)), **d)(skips[level])
+        x = pair(K.Merge(mode="concat", concat_axis=1, **d)([skip, x]), base * 2 ** level)
+        s -= 4
+    return K.Model(inp, K.Convolution2D(classes, 1, 1, **d)(x), **d), s
+
+
+def phase_keras_example(card):
+    """[20a] ``examples/keras_train.py`` at its defaults through ``fit``: a
+    forward hook on the first convolution stashes its output's mean into the
+    state at every step; #10 twice a step and nowhere else; then the hook's
+    stash against a recomputed mean, its removal, and 3 SGD steps card vs
+    CPU of the example's model from the same weights. Returns the counts."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, nn
+    from bigdl_tpu_torch.dataset import load_mnist
+    from bigdl_tpu_torch.examples import keras_train
+    from bigdl_tpu_torch.nn import keras as K
+
+    dev = _s21_device()
+    argv = list(KERAS_ARGS) + (["--platform", "cpu"] if dev == "cpu" else [])
+    Engine.set_compute_dtype(None)  # the example's policy, as in a fresh process
+    Engine.set_activation_dtype(None)
+    Engine.set_fused_kernels(None)
+    stash, hooked = [], []
+
+    def hook(module, x, y):
+        return {"act_mean": y.float().mean()}
+
+    def before_step(opt):
+        conv = opt.model[0][0]  # Convolution2D_0's SpatialConvolution, made at the build
+        if not hooked:
+            hooked.append(conv.register_forward_hook(hook))
+        else:
+            stash.append(conv.get_state()["act_mean"])
+
+    t0 = time.perf_counter()
+    with _StepProbe(before_step) as probe:
+        reset_counts()  # the main path starts here
+        run = keras_train.main(argv)
+        _sync()
+        counts = read_counts()  # the main path ends here
+    wall = time.perf_counter() - t0
+    hist = run.optimizer.history
+    losses = [h["loss"] for h in hist]
+    n_steps = run.args.max_epoch * ((run.args.synthetic_size or 2048) // run.args.batch_size)
+    loss, acc = run.results["validation"]
+    log(f"[20a] examples/keras_train.py ({len(hist)} steps of batch {run.args.batch_size}, "
+        f"{run.args.max_epoch} epochs, validation every epoch on {keras_train.VALIDATION}) in "
+        f"{wall:.2f} s: losses {losses[0]:.4f} -> {losses[-1]:.4f}, final validation loss "
+        f"{loss:.4f}, accuracy {acc:.4f}; launches {_nonzero(counts)}")
+    _step_ms(hist, run.args.batch_size, "images", card)
+    per_step = {n: (KERAS_POOLS_PER_STEP if n == "maxpool2d_bwd" else 0) for n in counts}
+    _check_launch_steps("[20a] keras example", probe, n_steps, per_step, mem_from=3)
+    want = {n: n_steps * k for n, k in per_step.items()}
+    if (counts != want or len(losses) != n_steps or not np.isfinite(losses).all()
+            or any(v["launches"] for v in probe.validations) or len(probe.validations) != 2):
+        raise AssertionError(f"[20a] {len(losses)} steps, launches {_nonzero(counts)}, expected "
+                             f"{_nonzero(want)}; validations {probe.validations}")
+    model = run.model
+    x = load_mnist(None, synthetic_size=KERAS_ROUTE_ROWS)[0]
+    preds, classes = model.predict(x), model.predict_classes(x)
+    if preds.shape != (len(x), 10) or classes.shape != (len(x),) or not np.isfinite(preds).all():
+        raise AssertionError(f"[20a] predict {preds.shape}, predict_classes {classes.shape}")
+    if len(stash) != n_steps - 1 or not all(torch.isfinite(v) for v in stash):
+        raise AssertionError(f"[20a] the hook stashed {len(stash)} means in {n_steps} steps")
+    conv = model[0][0]
+    xt = torch.from_numpy(x).to(conv.device)
+    model.train()
+    with torch.no_grad():
+        model.forward(xt)  # one hooked forward on a known batch
+        got = float(conv.get_state()["act_mean"])
+        y = type(conv)._apply_params(conv, conv.get_parameters(), {}, xt, False, None)[0]
+        want_mean, scale = float(y.float().mean()), float(y.float().abs().mean())
+        model.evaluate()
+        y_hooked = model.forward(xt).clone()
+        hooked[0].remove()
+        y_plain = model.forward(xt)
+    rel = abs(got - want_mean) / scale
+    log(f"    forward hook on the first convolution: {len(stash)} stashes during fit (last "
+        f"{float(stash[-1]):.6f}); on a known batch {got:.6f} vs recomputed without the hook "
+        f"{want_mean:.6f} (|diff| {rel:.2e} of mean |y|, limit 1e-6); removed, the eval output "
+        f"{'equal' if torch.equal(y_hooked, y_plain) else 'CHANGED'} to the bit; predict "
+        f"{tuple(preds.shape)}, predict_classes {tuple(classes.shape)}")
+    if rel > 1e-6 or not torch.equal(y_hooked, y_plain) or "_apply_params" in conv.__dict__:
+        raise AssertionError("[20a] the hook's stash or its removal is off")
+    dev_ms, wall_ms, share = _busy_share(run.optimizer, 2)
+    log(f"    host/device split (2 more iterations under torch.profiler): device {dev_ms:.2f} ms "
+        f"of {wall_ms:.2f} ms a step ({100 * share:.1f}% busy); card {card}")
+    del run, model
+    _free()
+    rng = np.random.default_rng(SEED + 70)
+    xr = rng.standard_normal((KERAS_ROUTE_ROWS, 1, 28, 28)).astype(np.float32)
+    yr = rng.integers(0, 10, KERAS_ROUTE_ROWS)
+    r = _sgd_routes(lambda device: keras_train.cnn(K, dropout=0.0, device=device), xr, yr,
+                    SEED + 70, criterion=nn.CrossEntropyCriterion)
+    _check_routes("the keras example's CNN (dropout 0)", xr, r, VGG_ROUTE_TOL,
+                  {k: (3 * KERAS_POOLS_PER_STEP if k == "maxpool2d_bwd" else 0)
+                   for k in r["launches"][0]})
+    return counts
+
+
+def phase_c3d(card):
+    """[20b] C3D trained through ``LocalOptimizer`` at its widths (bf16
+    compute and activations, SGD 0.003/0.9, ``CrossEntropyCriterion``),
+    then 3 f32 SGD steps card vs CPU at a cut width and clip. Returns the
+    counts."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.optim import SGD
+
+    dev = _s21_device()
+    c = C3D
+    t, h, w = c["clip"]
+    rng = np.random.default_rng(SEED + 71)
+    x = rng.standard_normal((c["records"], 3, t, h, w)).astype(np.float32)
+    y = rng.integers(0, c["classes"], c["records"])
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(None)
+    try:
+        RandomGenerator.set_seed(SEED + 71)
+        model = c3d(dev, c["widths"], c["fc"], c["classes"])
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        counts = _train_cells_path(
+            f"[20b] C3D ({c['widths']}, fc {c['fc']}, {c['classes']} classes; bf16 compute and "
+            "activations)", model, x, y, c["batch"], nn.CrossEntropyCriterion(),
+            SGD(learningrate=c["lr"], momentum=0.9), c["iters"], card, "clips")
+        peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+        _host_batch_ms(x, y, c["batch"], dev)
+        gmac = _c3d_gmac(c["widths"], c["clip"], c["fc"], c["classes"])
+        log(f"    peak device memory {peak / 2**30:.2f} GiB; forward {gmac:.2f} GMAC a clip "
+            f"(counted from the layer shapes), {3 * gmac * 2 * c['batch'] / 1e3:.2f} TFLOP a step "
+            "at 3x the forward")
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    del model
+    _free()
+    rc = C3D_ROUTE
+    rt, rh, rw = rc["clip"]
+    xr = rng.standard_normal((rc["batch"], 3, rt, rh, rw)).astype(np.float32)
+    yr = rng.integers(0, c["classes"], rc["batch"])
+    r = _sgd_routes(lambda device: c3d(device, rc["widths"], rc["fc"], c["classes"], 0.0), xr, yr,
+                    SEED + 72, criterion=nn.CrossEntropyCriterion,
+                    method=lambda: SGD(learningrate=c["lr"], momentum=0.9))
+    _check_routes(f"C3D cut to widths {rc['widths']}, fc {rc['fc']}, dropout 0", xr, r,
+                  VGG_ROUTE_TOL, {k: 0 for k in r["launches"][0]},
+                  recipe=f"SGD lr {c['lr']} momentum 0.9")
+    return counts
+
+
+def _host_batch_ms(x, y, batch, dev):
+    """The host's share of a step's data path, as ``LocalOptimizer`` runs it:
+    a batch's gather from the dataset's arrays and its copy to the card
+    (median of 5 each)."""
+    import statistics
+
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet, to_device
+
+    ds = DataSet.array(x, y, batch_size=batch)
+    gather, copy = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        b = next(iter(ds.data(train=True)))
+        t1 = time.perf_counter()
+        to_device(b.get_input(), torch.device(dev))  # pinned, then the card, as a step's
+        _sync()
+        gather.append((t1 - t0) * 1e3)
+        copy.append((time.perf_counter() - t1) * 1e3)
+    log(f"    the host's data path a step: the batch's gather {statistics.median(gather):.2f} ms, "
+        f"its copy to the card {statistics.median(copy):.2f} ms "
+        f"({b.get_input().nbytes / 2**20:.1f} MiB; medians of 5)")
+
+
+def _c3d_gmac(widths, clip, fc, classes):
+    """C3D's forward multiply-adds a clip, from its layer shapes."""
+    t, h, w = clip
+    total, cin = 0, 3
+    plan = [(widths[0], (1, 2, 2), (0, 0, 0)), (widths[1], (2, 2, 2), (0, 0, 0)),
+            (widths[2], (2, 2, 2), (0, 0, 0)), (widths[3], (2, 2, 2), (0, 0, 0)),
+            (widths[4], (2, 2, 2), (0, 1, 1))]
+    for i, (cout, k, p) in enumerate(plan):
+        for _ in range(1 if i < 2 else 2):
+            total += t * h * w * cout * cin * 27
+            cin = cout
+        t, h, w = ((s + 2 * pp - kk) // kk + 1 for s, kk, pp in zip((t, h, w), k, p))
+    flat = cin * t * h * w
+    total += flat * fc + fc * fc + fc * classes
+    return total / 1e9
+
+
+def phase_unet(card):
+    """[20c] the U-Net served by the keras ``Model.predict`` (bf16 compute
+    and activations): CUDA-event ms a call, tiles/s, peak memory, 0
+    launches; then card (f32, TF32 off) vs CPU at a 188x188 tile and base
+    width 8. Returns the counts."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.utils.convert import load_jax_params
+
+    dev = _s21_device()
+    u = UNET
+    rng = np.random.default_rng(SEED + 73)
+    x = rng.standard_normal((u["tiles"], 1, u["tile"], u["tile"])).astype(np.float32)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    try:
+        RandomGenerator.set_seed(SEED + 73)
+        model, out_hw = unet(dev, u["base"], u["classes"], u["tile"])
+        model.init(sample_input=x[:u["batch"]])
+        model.evaluate()
+        model.predict(x, batch_size=u["batch"])  # warm: cuDNN's algorithm choice
+        _sync()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        timed = []
+        reset_counts()  # the main path starts here
+        for _ in range(u["timed"]):
+            if torch.cuda.is_available():
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = model.predict(x, batch_size=u["batch"])
+                end.record()
+                _sync()
+                timed.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                out = model.predict(x, batch_size=u["batch"])
+                timed.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()  # the main path ends here
+        peak = torch.cuda.max_memory_allocated() if torch.cuda.is_available() else 0
+        n_events, dev_ms = _device_events(lambda: model.predict(x, batch_size=u["batch"]))
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    ms = statistics.median(timed)
+    n_batches = -(-u["tiles"] // u["batch"])
+    log(f"[20c] U-Net (base {u['base']}, {model.n_parameters() / 1e6:.2f} M params) served by "
+        f"Model.predict: {u['tiles']} tiles of 1x{u['tile']}x{u['tile']} in batches of "
+        f"{u['batch']}, output {tuple(out.shape)}: {ms:.2f} ms a call (median of {u['timed']}, "
+        f"CUDA events; {', '.join(f'{v:.2f}' for v in timed)}; min {min(timed):.2f}), "
+        f"{ms / n_batches:.2f} ms a batch, "
+        f"{u['tiles'] / ms * 1e3:.1f} tiles/s; peak device memory {peak / 2**30:.2f} GiB; "
+        f"launches {_nonzero(counts)}; card {card}")
+    log(f"    one more call under torch.profiler: {n_events} device events, {dev_ms:.2f} ms of "
+        f"device work ({100 * dev_ms / ms:.1f}% of the median call)")
+    if (tuple(out.shape) != (u["tiles"], u["classes"], out_hw, out_hw)
+            or not np.isfinite(out).all() or any(counts.values())):
+        raise AssertionError(f"[20c] output {out.shape}, launches {_nonzero(counts)}")
+    del model
+    _free()
+    ru = UNET_ROUTE
+    xr = rng.standard_normal((ru["tiles"], 1, ru["tile"], ru["tile"])).astype(np.float32)
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs, w0 = {}, None
+        for d in ("cpu", dev):
+            RandomGenerator.set_seed(SEED + 74)
+            m, _ = unet(d, ru["base"], u["classes"], ru["tile"])
+            m.init(sample_input=xr[:1])
+            if w0 is None:
+                w0 = _tree_to_numpy(m.get_parameters())
+            else:
+                load_jax_params(m, _nest(w0))
+            outs[d] = m.predict(xr, batch_size=1)
+            del m
+    finally:
+        Engine.set_compute_dtype(None)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    rel = float(np.abs(outs[dev] - outs["cpu"]).max() / np.abs(outs["cpu"]).max())
+    log(f"    card (f32, TF32 off) vs CPU, base {ru['base']}, {ru['tiles']} tiles of "
+        f"{ru['tile']}x{ru['tile']} -> {tuple(outs['cpu'].shape)} from the same weights: max "
+        f"|diff| / max |cpu| {rel:.2e} (limit {UNET_ROUTE_REL})")
+    if rel > UNET_ROUTE_REL:
+        raise AssertionError("[20c] the U-Net's card route disagrees with the CPU's")
+    return counts
+
+
+def _slice21_cases():
+    """(label, maker (device -> module), input maker (rng -> numpy; a list
+    is a Table), dtypes) of every other class this slice ported, and the
+    keras wrappers of test_keras_breadth.py's table, at sizes of ~1e5
+    values an input."""
+    import numpy as np
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import keras as K
+
+    R, W = SLICE21_MODULE_SHAPE
+    both, f32 = ("float32", "bfloat16"), ("float32",)
+
+    def x(*shape):
+        return lambda rng: rng.standard_normal(shape).astype(np.float32)
+
+    def masked(rng):
+        v = rng.standard_normal((R, 32, 8)).astype(np.float32)
+        v[:, ::3] = 0.0
+        return v
+
+    def index(rng):
+        return [rng.standard_normal((R, W)).astype(np.float32),
+                rng.integers(1, R + 1, (16, 8)).astype(np.int64)]
+
+    def mask_select(rng):
+        v = rng.standard_normal((R, W)).astype(np.float32)
+        return [v, (v > 0.3).astype(np.uint8)]
+
+    def m(cls, *a, **k):
+        return lambda device: cls(*a, **k, device=device)
+
+    cases = [
+        ("View", m(nn.View, W // 4, 4), x(R, W), both),
+        ("Squeeze", m(nn.Squeeze, 2), x(R, 1, W), both),
+        ("Unsqueeze", m(nn.Unsqueeze, 1), x(R, W), both),
+        ("Transpose", m(nn.Transpose, [(2, 3), (1, 2)]), x(R, 16, 16), both),
+        ("Contiguous", m(nn.Contiguous), x(R, W), both),
+        ("Narrow", m(nn.Narrow, 2, 3, -5), x(R, W), both),
+        ("Index", m(nn.Index, 1), index, both),
+        ("Padding", m(nn.Padding, 2, -3, 2, 0.5), x(R, 32, 8), both),
+        ("SpatialZeroPadding", m(nn.SpatialZeroPadding, 1, 2, 3, 0), x(R // 8, 8, 16, 16), both),
+        ("ZeroPadding2D", m(nn.ZeroPadding2D, (2, 1)), x(R // 8, 8, 16, 16), both),
+        ("Masking", m(nn.Masking, 0.0), masked, both),
+        ("InferReshape", m(nn.InferReshape, (0, -1, 4), True), x(R, 16, 16), both),
+        ("Flatten", m(nn.Flatten), x(R, 16, 16), both),
+        ("MaskedSelect", m(nn.MaskedSelect), mask_select, both),
+        ("UpSampling1D", m(nn.UpSampling1D, 2), x(R, 64, 8), both),
+        ("UpSampling2D", m(nn.UpSampling2D, (2, 3)), x(R // 8, 8, 16, 16), both),
+        ("UpSampling3D", m(nn.UpSampling3D, (2, 2, 1)), x(R // 8, 4, 8, 8, 8), both),
+        ("Cropping1D", m(nn.Cropping1D, (3, 5)), x(R, 64, 8), both),
+        ("Cropping2D", m(nn.Cropping2D, ((1, 2), (3, 0))), x(R // 8, 8, 16, 16), both),
+        ("Cropping3D", m(nn.Cropping3D, ((1, 0), (0, 2), (2, 1))), x(R // 8, 4, 8, 8, 8), both),
+        ("Replicate", m(nn.Replicate, 3, 1), x(R, W), both),
+        ("LocallyConnected1D", m(nn.LocallyConnected1D, 32, 16, 24, 3, 2), x(R, 32, 16), f32),
+        ("LocallyConnected2D", m(nn.LocallyConnected2D, 8, 16, 12, 16, 3, 2, 1, 1),
+         x(R // 8, 8, 12, 16), f32),
+        ("SpatialSeparableConvolution", m(nn.SpatialSeparableConvolution, 8, 16, 2, 3, 3, 1, 1,
+                                          -1, -1), x(R // 8, 8, 16, 16), f32),
+        ("VolumetricConvolution", m(nn.VolumetricConvolution, 4, 8, 3, 3, 3, 1, 2, 2, 1, 1, 1),
+         x(R // 8, 4, 8, 16, 16), f32),
+        ("VolumetricMaxPooling", m(nn.VolumetricMaxPooling, 2, 2, 2, 2, 2, 2, 0, 1, 1),
+         x(R // 8, 4, 8, 16, 16), both),
+        ("VolumetricAveragePooling", m(nn.VolumetricAveragePooling, 2, 3, 2, 1, 2, 1),
+         x(R // 8, 4, 8, 16, 16), both),
+        ("SpatialAdaptiveMaxPooling", m(nn.SpatialAdaptiveMaxPooling, 5, 3),
+         x(R // 8, 8, 16, 16), both),
+        ("TemporalAveragePooling", m(nn.TemporalAveragePooling, 3, 2), x(R, 64, 8), both),
+        ("Normalize", m(nn.Normalize, 2.0), x(R, W), both),
+        ("Normalize_inf", m(nn.Normalize, float("inf")), x(R, W), both),
+        ("SpatialWithinChannelLRN", m(nn.SpatialWithinChannelLRN, 5, 1e-2, 0.75),
+         x(R // 8, 8, 16, 16), both),
+        ("Highway", m(nn.Highway), x(R, W), f32),
+        ("Maxout", m(nn.Maxout, W, 32, 4), x(R, W), f32),
+        ("Echo", m(nn.Echo), x(R, W), f32),
+    ]
+    breadth = [
+        ("K.Convolution1D", m(K.Convolution1D, 16, 3), x(R, 32, 8)),
+        ("K.Convolution3D", m(K.Convolution3D, 8, 2, 2, 2), x(R // 8, 4, 8, 8, 8)),
+        ("K.AtrousConvolution2D", m(K.AtrousConvolution2D, 8, 3, 3, atrous_rate=(2, 2)),
+         x(R // 8, 8, 16, 16)),
+        ("K.AtrousConvolution1D", m(K.AtrousConvolution1D, 16, 3, atrous_rate=2), x(R, 32, 8)),
+        ("K.Deconvolution2D", m(K.Deconvolution2D, 8, 3, 3, subsample=(2, 2)),
+         x(R // 8, 8, 16, 16)),
+        ("K.SeparableConvolution2D", m(K.SeparableConvolution2D, 12, 3, 3, border_mode="same",
+                                       depth_multiplier=2), x(R // 8, 8, 16, 16)),
+        ("K.LocallyConnected1D", m(K.LocallyConnected1D, 16, 3), x(R, 32, 8)),
+        ("K.LocallyConnected2D", m(K.LocallyConnected2D, 8, 3, 3), x(R // 8, 8, 16, 16)),
+        ("K.MaxPooling1D", m(K.MaxPooling1D, 2), x(R, 64, 8)),
+        ("K.AveragePooling1D", m(K.AveragePooling1D, 2), x(R, 64, 8)),
+        ("K.MaxPooling3D", m(K.MaxPooling3D, (2, 2, 2)), x(R // 8, 4, 8, 8, 8)),
+        ("K.AveragePooling3D", m(K.AveragePooling3D, (2, 2, 2)), x(R // 8, 4, 8, 8, 8)),
+        ("K.GlobalMaxPooling1D", m(K.GlobalMaxPooling1D), x(R, 64, 8)),
+        ("K.GlobalAveragePooling1D", m(K.GlobalAveragePooling1D), x(R, 64, 8)),
+        ("K.GlobalMaxPooling3D", m(K.GlobalMaxPooling3D), x(R // 8, 4, 8, 8, 8)),
+        ("K.GlobalAveragePooling3D", m(K.GlobalAveragePooling3D), x(R // 8, 4, 8, 8, 8)),
+        ("K.UpSampling1D", m(K.UpSampling1D, 2), x(R, 64, 8)),
+        ("K.UpSampling2D", m(K.UpSampling2D, (2, 3)), x(R // 8, 8, 16, 16)),
+        ("K.UpSampling3D", m(K.UpSampling3D, (2, 2, 2)), x(R // 8, 4, 8, 8, 8)),
+        ("K.ZeroPadding1D", m(K.ZeroPadding1D, 2), x(R, 64, 8)),
+        ("K.ZeroPadding2D", m(K.ZeroPadding2D, (1, 2)), x(R // 8, 8, 16, 16)),
+        ("K.Cropping1D", m(K.Cropping1D, (1, 2)), x(R, 64, 8)),
+        ("K.Cropping2D", m(K.Cropping2D, ((1, 1), (2, 1))), x(R // 8, 8, 16, 16)),
+        ("K.Cropping3D", m(K.Cropping3D, ((1, 1), (1, 1), (1, 1))), x(R // 8, 4, 8, 8, 8)),
+        ("K.Permute", m(K.Permute, (2, 1)), x(R, 64, 8)),
+        ("K.Permute_3", m(K.Permute, (3, 1, 2)), x(R // 8, 8, 16, 16)),
+        ("K.RepeatVector", m(K.RepeatVector, 6), x(R, W)),
+        ("K.Masking", m(K.Masking, 0.0), masked),
+        ("K.GaussianNoise", m(K.GaussianNoise, 0.1), x(R, W)),
+        ("K.GaussianDropout", m(K.GaussianDropout, 0.1), x(R, W)),
+        ("K.SpatialDropout1D", m(K.SpatialDropout1D, 0.3), x(R, 64, 8)),
+        ("K.SpatialDropout2D", m(K.SpatialDropout2D, 0.3), x(R // 8, 8, 16, 16)),
+        ("K.SpatialDropout3D", m(K.SpatialDropout3D, 0.3), x(R // 8, 4, 8, 8, 8)),
+        ("K.ELU", m(K.ELU, 0.5), x(R, W)),
+        ("K.LeakyReLU", m(K.LeakyReLU, 0.1), x(R, W)),
+        ("K.PReLU", m(K.PReLU), x(R, W)),
+        ("K.SReLU", m(K.SReLU), x(R, W)),
+        ("K.ThresholdedReLU", m(K.ThresholdedReLU, 0.5), x(R, W)),
+        ("K.SoftMax", m(K.SoftMax), x(R, W)),
+        ("K.Highway", m(K.Highway), x(R, W)),
+        ("K.MaxoutDense", m(K.MaxoutDense, 32, nb_feature=3), x(R, W)),
+        ("K.TimeDistributed", lambda device: K.TimeDistributed(K.Dense(16, device=device),
+                                                               device=device), x(R, 32, 8)),
+        ("K.Bidirectional_concat", lambda device: K.Bidirectional(
+            K.LSTM(16, return_sequences=True, device=device), merge_mode="concat",
+            device=device), x(R, 16, 8)),
+        ("K.Bidirectional_sum", lambda device: K.Bidirectional(K.LSTM(16, device=device),
+                                                               merge_mode="sum", device=device),
+         x(R, 16, 8)),
+        ("K.ConvLSTM2D_sequences", m(K.ConvLSTM2D, 8, 3, return_sequences=True),
+         x(R // 16, 4, 4, 16, 16)),
+        ("K.ConvLSTM2D", m(K.ConvLSTM2D, 8, 3), x(R // 16, 4, 4, 16, 16)),
+    ]
+    return cases + [(label, make, data, f32) for label, make, data in breadth]
+
+
+def _host_division_sites(device):
+    """The three divisions by a host scalar that ROADMAP Queue 3 suspected,
+    on ``device`` and on the CPU, on inputs whose other operations are exact
+    on both: how many quotients the plain ``x / c`` and the site (through
+    ``precision.true_div``) get differently; then a beam search at alpha 0.6
+    (sequences, scores' largest relative difference)."""
+    import math
+
+    import torch
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.nn import attention as att
+
+    def pair(fn):
+        return [fn(d) for d in (device, "cpu")]
+
+    def differ(a, b):
+        return int((a.cpu() != b).sum())
+
+    out = {}
+    length = torch.arange(1, 4097, dtype=torch.float32)
+    raw = pair(lambda d: (5.0 + length.to(d)) / 6.0)
+    site = pair(lambda d: att._length_penalty(length.to(d), 1.0))
+    out["length penalty (5 + l) / 6"] = (differ(*raw), differ(*site), length.numel())
+    g = torch.Generator().manual_seed(SEED + 75)
+    for dh in (48, 80):
+        q = torch.randn(2, 3, 64, dh, generator=g)
+        k = torch.nn.functional.one_hot(torch.randint(0, dh, (2, 3, 64), generator=g),
+                                        dh).float()
+        raw = pair(lambda d: torch.einsum("...qd,...kd->...qk", q.to(d), k.to(d))
+                   / math.sqrt(dh))
+        site = pair(lambda d: att._scaled_logits(q.to(d), k.to(d)))
+        out[f"logits / sqrt({dh})"] = (differ(*raw), differ(*site), raw[1].numel())
+    xs = torch.linspace(10.0, 1000.0, 1 << 16)
+    raw = pair(lambda d: torch.logaddexp(3.0 * xs.to(d), torch.zeros(1, device=d)) / 3.0)
+    site = pair(lambda d: nn.SoftPlus(3.0, device=d).forward(xs.to(d)))
+    out["SoftPlus(3) / beta"] = (differ(*raw), differ(*site), xs.numel())
+    table = torch.randn(37, 37, generator=g)
+    table[:, 1] -= 1.5  # EOS now and then: finished beams and near ties
+    beams = {}
+    for d in (device, "cpu"):
+        t = table.to(d)
+        seqs, scores = att.sequence_beam_search(
+            lambda ids, i, cache: (t[ids[:, -1]], cache), torch.tensor([2, 5, 9, 11], device=d),
+            {}, 37, beam_size=4, alpha=0.6, max_decode_length=12, eos_id=1)
+        beams[d] = (seqs.cpu(), scores.cpu())
+    same = torch.equal(beams[device][0], beams["cpu"][0])
+    rel = float(((beams[device][1] - beams["cpu"][1]).abs()
+                 / beams["cpu"][1].abs().clamp(min=1e-30)).max())
+    return out, same, rel
+
+
+def phase_slice21_modules(card):
+    """[20d] every other class of the slice and the keras breadth table's
+    wrappers forward and backward on the card against the CPU (same weights
+    and inputs; ``MODULE_TOL``), the counts 0 just before and read just
+    after; then the three host-scalar division sites, card vs CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+
+    device = _s21_device()
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    t0 = time.perf_counter()
+    worst, n_runs, cases = {}, 0, _slice21_cases()
+    try:
+        reset_counts()  # the main path starts here
+        for i, (label, make, data, dtypes) in enumerate(cases):
+            RandomGenerator.set_seed(SEED + 80 + i)
+            x = data(np.random.default_rng(SEED + 80 + i))
+            host = make("cpu")
+            host.init(sample_input=_to_device(x, "cpu", torch.float32))
+            card_obj = copy.deepcopy(host).to(device)
+            for dtype in dtypes:
+                dt = getattr(torch, dtype)
+                y_cpu, g_cpu, dts_cpu = _run_module(host, False, x, None, SEED + 130 + i, "cpu",
+                                                    dt)
+                y_dev, g_dev, dts_dev = _run_module(card_obj, False, x, None, SEED + 130 + i,
+                                                    device, dt)
+                if dts_cpu != dts_dev:
+                    raise AssertionError(f"[20d] {label} {dtype}: output dtypes {dts_dev} on the "
+                                         f"card, {dts_cpu} on the CPU")
+                w = max([_module_diff(label, a, b, dtype, "output") for a, b in zip(y_dev, y_cpu)]
+                        + [_module_diff(label, a, b, dtype, "gradient")
+                           for a, b in zip(g_dev, g_cpu)])
+                if w > 1.0:
+                    raise AssertionError(f"[20d] {label} {dtype}: card vs CPU at {w:.2f} of the "
+                                         "allowance")
+                worst[(label, dtype)] = w
+                n_runs += 1
+            del host, card_obj
+        _sync()
+        counts = read_counts()  # the main path ends here
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        Engine.set_compute_dtype(None)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[20d] {len(cases)} modules and keras wrappers, {n_runs} (module, dtype) runs forward "
+        f"and backward on the card against the CPU: all within their allowances (f32 1e-5 + "
+        f"1e-4|cpu| + 1e-5 max|cpu|, bf16 1e-5 + 2^-6|cpu| + 2^-6 max|cpu|); the largest shares: "
+        + ", ".join(f"{k[0]} {k[1]} {v:.3f}" for k, v in top)
+        + f"; {time.perf_counter() - t0:.1f} s; launches {_nonzero(counts)}")
+    if any(counts.values()):
+        raise AssertionError(f"[20d] launched {_nonzero(counts)}")
+    sites, same, rel = _host_division_sites(device)
+    for name, (raw, routed, n) in sites.items():
+        log(f"    host-scalar division, card vs CPU: {name}: the plain x / c differs at {raw} of "
+            f"{n}, the site (precision.true_div) at {routed}")
+    log(f"    beam search at alpha 0.6 (4 beams, 12 steps, vocab 37): sequences "
+        f"{'equal' if same else 'DIFFERENT'}, scores' largest relative difference {rel:.2e} "
+        "(limit 1e-6)")
+    if any(routed for _, routed, _ in sites.values()) or not same or rel > 1e-6:
+        raise AssertionError("[20d] a host-scalar division site differs card vs CPU")
+    _free()
+    return counts
+
+
+def phase_slice21(card):
+    """[20] the keras API and the rest of nn/: the keras example trained,
+    C3D trained, the keras U-Net served, the module sweep; returns the main
+    paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"keras_example": phase_keras_example(card)}
+    by_path["c3d"] = phase_c3d(card)
+    by_path["unet_predict"] = phase_unet(card)
+    by_path["modules_slice21"] = phase_slice21_modules(card)
+    log(f"[20] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -7688,6 +8373,7 @@ def main() -> int:
     by_path.update(phase_graphs(card))
     by_path.update(phase_detection(card))
     by_path.update(phase_slice20(card))
+    by_path.update(phase_slice21(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
