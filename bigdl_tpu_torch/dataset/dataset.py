@@ -1,5 +1,6 @@
-"""In-memory training data (counterpart of the array and ``Table`` parts of
-``bigdl_tpu/dataset/dataset.py``).
+"""Training data core (counterpart of ``bigdl_tpu/dataset/dataset.py``;
+reference: ``DataSet.scala``, ``Sample.scala``, ``MiniBatch.scala``,
+``Transformer.scala``).
 
 Batches are assembled on the host; the optimizer moves each to the card
 (:func:`to_device`, which maps over a ``Table`` and moves a
@@ -15,13 +16,24 @@ entries are not rows): a ragged evaluation tail of one runs at its own row
 count and a ragged train batch of one is dropped. (The JAX package's
 ``pad_minibatch`` pads any leaf whose length equals the row count, so a
 sparse column with one entry a row gets its entries repeated while its
-shape keeps the old row count; the port does not copy that.) Transformer
-chains wait for a later slice of the port.
+shape keeps the old row count; the port does not copy that.)
+
+``Transformer`` chains (composed with ``//`` or ``and_then``) turn the
+``Sample`` stream of ``LocalArrayDataSet.samples`` into ``MiniBatch`` es
+(``SampleToMiniBatch``, with ``padding_value`` for variable-length
+features); without a chain ``LocalArrayDataSet`` gathers each batch with
+one ``native.gather_rows`` (the host library's threaded copy for float32
+batches of 1 MiB or more). ``BucketedTextDataSet`` batches token sequences
+by length bucket; ``DistributedDataSet`` keeps the batches whose rows
+divide into ``n_devices`` (host-side: the port trains on one card). The
+``DataSet`` facade builds each of them, a ``DataPipeline``, an image
+folder and record shards. Every batch stream here is the JAX package's,
+byte for byte, for the same seed.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Any, Callable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +41,20 @@ import torch
 from ..tensor.sparse import SparseTensor
 from ..utils.random import RandomGenerator
 from ..utils.table import T, Table
+
+
+class Sample:
+    """One record: a feature and a label (reference: ``Sample``/``ArraySample``)."""
+
+    __slots__ = ("feature", "label")
+
+    def __init__(self, feature, label=None):
+        self.feature = feature
+        self.label = label
+
+    def __repr__(self):
+        f = np.shape(self.feature)
+        return f"Sample(feature{f}, label={self.label!r})"
 
 
 class MiniBatch:
@@ -47,6 +73,21 @@ class MiniBatch:
     def get_target(self):
         return self.target
 
+    def slice(self, offset: int, length: int) -> "MiniBatch":
+        """Rows ``[offset, offset + length)`` of every leaf."""
+        def cut(tree):
+            if tree is None:
+                return None
+            if isinstance(tree, Table):
+                return Table({k: cut(v) for k, v in tree.items()})
+            if isinstance(tree, dict):
+                return {k: cut(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(cut(v) for v in tree)
+            return tree[offset:offset + length]
+
+        return MiniBatch(cut(self.input), cut(self.target))
+
 
 def rows_of(x) -> int:
     """A batch's rows: the leading dim of its first leaf (a ``Table``'s or a
@@ -56,23 +97,40 @@ def rows_of(x) -> int:
     return int(x.shape[0] if hasattr(x, "shape") else np.shape(x)[0])
 
 
-def to_device(x, device: Optional[torch.device] = None):
+def to_device(x, device: Optional[torch.device] = None, pinned: Optional[list] = None):
     """A numpy array or tensor as a tensor on ``device`` (None: where it
     is, the host for an array); a host tensor goes to the card from pinned
-    memory without blocking (a pageable copy would wait for the queued step).
-    A ``Table`` is moved entry by entry, a ``SparseTensor`` as its three
-    tensors."""
+    memory without blocking (a pageable copy would wait for the queued step)
+    on the current stream; ``pinned``, when given, collects the pinned host
+    copies so that a caller can keep them alive past the copy. A ``Table``
+    is moved entry by entry, a ``SparseTensor`` as its three tensors."""
     if isinstance(x, Table):
-        return Table({k: to_device(v, device) for k, v in x.items()})
+        return Table({k: to_device(v, device, pinned) for k, v in x.items()})
     if isinstance(x, SparseTensor):
-        return SparseTensor(to_device(x.row_indices, device), to_device(x.col_indices, device),
-                            to_device(x.values, device), x.shape)
+        return SparseTensor(to_device(x.row_indices, device, pinned),
+                            to_device(x.col_indices, device, pinned),
+                            to_device(x.values, device, pinned), x.shape)
     t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else torch.as_tensor(x)
     if device is None or t.device == device:
         return t
     if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
+        host = t.pin_memory()
+        if pinned is not None:
+            pinned.append(host)
+        return host.to(device, non_blocking=True)
     return t.to(device)
+
+
+def device_tensors(x):
+    """Every tensor of a batch leaf tree (a ``Table``'s entries, a
+    ``SparseTensor``'s three tensors), in order."""
+    if isinstance(x, Table):
+        for _, v in x.items():
+            yield from device_tensors(v)
+    elif isinstance(x, SparseTensor):
+        yield from (x.row_indices, x.col_indices, x.values)
+    elif isinstance(x, torch.Tensor):
+        yield x
 
 
 def pad_rows(tree, n: int, total: int):
@@ -116,6 +174,79 @@ def pad_minibatch(batch: "MiniBatch", total: int):
     return MiniBatch(x, t), n
 
 
+class Transformer:
+    """Iterator -> iterator stage; compose with ``//`` or ``.and_then`` (the
+    reference composes with ``->``, which Python cannot overload)."""
+
+    def apply(self, it: Iterator) -> Iterator:
+        raise NotImplementedError
+
+    def __call__(self, it):
+        return self.apply(iter(it))
+
+    def and_then(self, other: "Transformer") -> "Transformer":
+        return _Chained(self, other)
+
+    def __floordiv__(self, other: "Transformer") -> "Transformer":
+        return self.and_then(other)
+
+
+class _Chained(Transformer):
+    def __init__(self, first: Transformer, second: Transformer):
+        self.first, self.second = first, second
+
+    def apply(self, it):
+        return self.second.apply(self.first.apply(it))
+
+
+class Lambda(Transformer):
+    """``fn`` applied to every item."""
+
+    def __init__(self, fn: Callable[[Any], Any]):
+        self.fn = fn
+
+    def apply(self, it):
+        return (self.fn(x) for x in it)
+
+
+class SampleToMiniBatch(Transformer):
+    """Group Samples into MiniBatches (reference: ``SampleToMiniBatch`` with
+    an optional ``PaddingParam``: with ``padding_value``, each feature is
+    padded on its first axis to the longest of its batch)."""
+
+    def __init__(self, batch_size: int, padding_value: Optional[float] = None,
+                 drop_remainder: bool = False):
+        self.batch_size = batch_size
+        self.padding_value = padding_value
+        self.drop_remainder = drop_remainder
+
+    def _stack(self, items: List[np.ndarray]) -> np.ndarray:
+        if self.padding_value is not None:
+            max_len = max(np.shape(i)[0] for i in items)
+            items = [np.pad(np.asarray(i),
+                            [(0, max_len - np.shape(i)[0])] + [(0, 0)] * (np.ndim(i) - 1),
+                            constant_values=self.padding_value)
+                     for i in items]
+        return np.stack([np.asarray(i) for i in items])
+
+    def apply(self, it):
+        buf: List[Sample] = []
+        for s in it:
+            buf.append(s)
+            if len(buf) == self.batch_size:
+                yield self._to_batch(buf)
+                buf = []
+        if buf and not self.drop_remainder:
+            yield self._to_batch(buf)
+
+    def _to_batch(self, buf: List[Sample]) -> MiniBatch:
+        feats = self._stack([s.feature for s in buf])
+        labels = None
+        if buf[0].label is not None:
+            labels = np.stack([np.asarray(s.label) for s in buf])
+        return MiniBatch(feats, labels)
+
+
 def _epoch_order(n: int, epoch: Optional[int]) -> np.ndarray:
     """Deterministic per-epoch permutation seeded by (global seed, epoch); with
     ``epoch=None``, a draw from the global numpy stream."""
@@ -139,15 +270,19 @@ class AbstractDataSet:
 
 
 class LocalArrayDataSet(AbstractDataSet):
-    """Dataset over (features, labels) arrays; each batch is one fancy-index
-    gather in epoch order. Training drops the ragged last batch (reference
-    semantics); evaluation keeps it."""
+    """Dataset over (features, labels) arrays (reference: ``DataSet.array``).
+    Without a ``transformer`` each batch is one ``native.gather_rows`` in
+    epoch order; with one, the chain runs over the epoch's ``Sample`` s and
+    yields what it makes (end it with a ``SampleToMiniBatch``). Training
+    drops the ragged last batch (reference semantics); evaluation keeps it."""
 
-    def __init__(self, features, labels=None, batch_size: int = 32):
+    def __init__(self, features, labels=None, transformer: Optional[Transformer] = None,
+                 batch_size: int = 32):
         self.features = np.asarray(features)
         self.labels = None if labels is None else np.asarray(labels)
         if self.labels is not None and len(self.labels) != len(self.features):
             raise ValueError(f"{len(self.labels)} labels for {len(self.features)} records")
+        self.transformer = transformer
         self.batch_size = batch_size
         self._order = np.arange(len(self.features))
 
@@ -157,14 +292,100 @@ class LocalArrayDataSet(AbstractDataSet):
     def shuffle(self, epoch: Optional[int] = None) -> None:
         self._order = _epoch_order(len(self.features), epoch)
 
+    def _samples(self) -> Iterator[Sample]:
+        for i in self._order:
+            yield Sample(self.features[i], None if self.labels is None else self.labels[i])
+
+    def samples(self, train: bool) -> Iterator[Sample]:
+        """The record stream in epoch order: the ``DataPipeline`` source seam."""
+        return self._samples()
+
     def data(self, train: bool) -> Iterator[MiniBatch]:
-        bs = self.batch_size
-        for start in range(0, len(self._order), bs):
-            idx = self._order[start:start + bs]
-            if train and len(idx) < bs:
-                break
-            yield MiniBatch(self.features[idx],
-                            None if self.labels is None else self.labels[idx])
+        if self.transformer is None:
+            from ..native import gather_rows
+
+            bs = self.batch_size
+            for start in range(0, len(self._order), bs):
+                idx = self._order[start:start + bs]
+                if train and len(idx) < bs:
+                    break
+                yield MiniBatch(gather_rows(self.features, idx),
+                                None if self.labels is None else self.labels[idx])
+            return
+        yield from self.transformer.apply(self._samples())
+
+
+class BucketedTextDataSet(AbstractDataSet):
+    """Variable-length token sequences batched by length bucket (the JAX
+    package's; TF's ``bucket_by_sequence_length``): each sequence joins the
+    smallest boundary that holds it, each bucket's batches are padded
+    (``pad_id``, trailing) to its boundary, longer sequences are cut to the
+    last boundary (counted in ``truncated_count``), and a training epoch's
+    batches are shuffled across buckets from ``(seed, epoch)``. Ragged
+    training batches are dropped."""
+
+    def __init__(self, sequences, labels=None, boundaries=(64, 128, 256),
+                 batch_size: int = 32, pad_id: int = 0):
+        if not boundaries or list(boundaries) != sorted(set(boundaries)):
+            raise ValueError(f"boundaries must be ascending and unique, got {boundaries}")
+        self.boundaries = tuple(int(b) for b in boundaries)
+        self.batch_size = batch_size
+        self.pad_id = pad_id
+        if pad_id != 0:
+            import warnings
+
+            warnings.warn(f"pad_id={pad_id}: the framework's lengths/pad masking assumes pad "
+                          "id 0; nonzero pads are NOT masked by Transformer(pad_masking=...)",
+                          stacklevel=3)
+        self.labels = None if labels is None else np.asarray(labels)
+        self._buckets = {b: [] for b in self.boundaries}  # boundary -> [idx]
+        self.truncated_count = 0
+        self._seqs = []
+        for i, s in enumerate(sequences):
+            s = np.asarray(s)
+            if s.ndim != 1:
+                raise ValueError(f"sequence {i} has shape {s.shape}; expected 1-D ids")
+            if len(s) > self.boundaries[-1]:
+                s = s[: self.boundaries[-1]]
+                self.truncated_count += 1
+            self._seqs.append(s)
+            for b in self.boundaries:
+                if len(s) <= b:
+                    self._buckets[b].append(i)
+                    break
+        if self.labels is not None and len(self.labels) != len(self._seqs):
+            raise ValueError(f"{len(self.labels)} labels for {len(self._seqs)} sequences")
+        # one dtype for every batch
+        self._dtype = np.result_type(*self._seqs) if self._seqs else np.dtype(np.int32)
+        self._epoch = 0
+
+    def size(self) -> int:
+        return len(self._seqs)
+
+    def shuffle(self, epoch: Optional[int] = None) -> None:
+        self._epoch = epoch if epoch is not None else self._epoch + 1
+
+    def _batches_of(self, b: int, rng) -> list:
+        idx = np.asarray(self._buckets[b], dtype=np.int64)
+        if rng is not None:
+            idx = idx[rng.permutation(len(idx))]
+        return [(b, idx[s:s + self.batch_size]) for s in range(0, len(idx), self.batch_size)]
+
+    def data(self, train: bool) -> Iterator[MiniBatch]:
+        rng = np.random.default_rng((RandomGenerator.get_seed(), self._epoch))
+        batches = []
+        for b in self.boundaries:
+            batches.extend(self._batches_of(b, rng if train else None))
+        if train:
+            batches = [batches[i] for i in rng.permutation(len(batches))]
+        for b, idx in batches:
+            if train and len(idx) < self.batch_size:
+                continue
+            x = np.full((len(idx), b), self.pad_id, self._dtype)
+            for row, i in enumerate(idx):
+                s = self._seqs[i]
+                x[row, : len(s)] = s
+            yield MiniBatch(x, None if self.labels is None else self.labels[idx])
 
 
 class LocalTableDataSet(AbstractDataSet):
@@ -232,16 +453,107 @@ class LocalTableDataSet(AbstractDataSet):
             yield MiniBatch(T(*cols), None if self.labels is None else self.labels[idx])
 
 
+class DistributedDataSet(AbstractDataSet):
+    """The batches of ``base`` whose rows divide into ``n_devices`` (a ragged
+    training batch that does not is dropped; evaluation keeps every batch):
+    the JAX package's partition <-> device wrapper, on the host only."""
+
+    def __init__(self, base: AbstractDataSet, n_devices: int):
+        self.base = base
+        self.n_devices = n_devices
+
+    def size(self) -> int:
+        return self.base.size()
+
+    @property
+    def supports_skip_positions(self) -> bool:
+        """Forwarded from the base dataset (a ``DataPipeline`` takes
+        ``skip_positions`` at its source)."""
+        return bool(getattr(self.base, "supports_skip_positions", False))
+
+    def shuffle(self, epoch: Optional[int] = None) -> None:
+        self.base.shuffle(epoch)
+
+    def data(self, train: bool, skip_positions=None) -> Iterator[MiniBatch]:
+        if skip_positions is not None and self.supports_skip_positions:
+            inner = self.base.data(train, skip_positions=skip_positions)
+        else:
+            inner = self.base.data(train)
+        return _DivisibleStream(inner, self.n_devices, train)
+
+
+class _DivisibleStream:
+    """``DistributedDataSet``'s filter as a stream that keeps the base
+    stream's ``qsize`` and ``close``."""
+
+    def __init__(self, inner, n_devices: int, train: bool):
+        self._inner = iter(inner)
+        self._raw = inner
+        self._n = n_devices
+        self._train = train
+
+    def __iter__(self) -> "_DivisibleStream":
+        return self
+
+    def __next__(self) -> MiniBatch:
+        while True:
+            batch = next(self._inner)
+            if batch.size() % self._n == 0 or not self._train:
+                return batch
+
+    def qsize(self) -> int:
+        q = getattr(self._raw, "qsize", None)
+        return q() if q is not None else 0
+
+    def close(self) -> None:
+        c = getattr(self._raw, "close", None)
+        if c is not None:
+            c()
+
+
 class DataSet:
     """Factory facade (reference: ``object DataSet``)."""
 
     @staticmethod
-    def array(features, labels=None, batch_size: int = 32, transformer=None) -> AbstractDataSet:
+    def array(features, labels=None, batch_size: int = 32,
+              transformer: Optional[Transformer] = None) -> AbstractDataSet:
         """A ``LocalTableDataSet`` for a ``Table`` of feature columns, else a
         ``LocalArrayDataSet``."""
-        if transformer is not None:
-            raise NotImplementedError(
-                "transformer chains are not ported yet; pass arrays of batched records")
         if isinstance(features, Table):
+            if transformer is not None:
+                raise ValueError("transformer chains are not supported on Table features")
             return LocalTableDataSet(features, labels, batch_size)
-        return LocalArrayDataSet(features, labels, batch_size)
+        return LocalArrayDataSet(features, labels, transformer, batch_size)
+
+    @staticmethod
+    def distributed(base: AbstractDataSet, n_devices: int) -> DistributedDataSet:
+        return DistributedDataSet(base, n_devices)
+
+    @staticmethod
+    def bucket_by_length(sequences, labels=None, boundaries=(64, 128, 256),
+                         batch_size: int = 32, pad_id: int = 0) -> BucketedTextDataSet:
+        """Length-bucketed batches of token sequences (:class:`BucketedTextDataSet`)."""
+        return BucketedTextDataSet(sequences, labels, boundaries, batch_size, pad_id)
+
+    @staticmethod
+    def pipeline(source: AbstractDataSet, transformer: Optional[Transformer] = None,
+                 num_workers: int = 4, **kw):
+        """A worker pool's transform and batch assembly over a record source,
+        byte-identical for any worker count (:class:`.pipeline.DataPipeline`)."""
+        from .pipeline import DataPipeline
+
+        return DataPipeline(source, transformer, num_workers=num_workers, **kw)
+
+    @staticmethod
+    def image_folder(path: str, batch_size: int = 32, **kw):
+        """A class-per-subdirectory image tree (reference: ``DataSet.ImageFolder``)."""
+        from .files import ImageFolderDataSet
+
+        return ImageFolderDataSet(path, batch_size=batch_size, **kw)
+
+    @staticmethod
+    def record_shards(shard_paths, decode, batch_size: int = 32, **kw):
+        """Record shard files (reference: ``DataSet.SeqFileFolder``)."""
+        from .files import ShardedRecordDataSet
+
+        return ShardedRecordDataSet(shard_paths, decode, batch_size=batch_size, **kw)

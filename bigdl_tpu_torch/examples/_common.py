@@ -1,6 +1,7 @@
 """What the example mains share (counterpart of ``examples/_common.py``):
 the flags of its ``base_parser``, the refusal of what the port does not
-have, the device an ``--platform`` names, and logging."""
+have, the device an ``--platform`` names, logging, and ``finish`` (the
+trained model written by ``--model-save``, ``nn.load_module`` 's format)."""
 
 from __future__ import annotations
 
@@ -30,17 +31,26 @@ def base_parser(description: str, batch_size: int = 128) -> argparse.ArgumentPar
     return p
 
 
-def device_of(args) -> Optional[str]:
+def device_of(args, saves: bool = False) -> Optional[str]:
     """The device the run trains on (None: the card), after refusing the
-    flags the port does not have yet."""
+    flags the port does not have yet (``--model-save`` too, unless the main
+    ``saves`` through :func:`finish`)."""
     if args.n_devices not in (None, 1):
         raise NotImplementedError(
             f"--n-devices {args.n_devices}: the port trains on one card (DistriOptimizer "
             "is ROADMAP Queue 1 item 8)")
-    for flag in ("model_save", "summary_dir"):
+    flags = ("summary_dir",) if saves else ("model_save", "summary_dir")
+    for flag in flags:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
     return "cpu" if args.platform == "cpu" else None
+
+
+def finish(model, args) -> None:
+    """Write the trained model to ``--model-save`` when given."""
+    if getattr(args, "model_save", None):
+        model.save_module(args.model_save)
+        print(f"saved model to {args.model_save}")
 
 
 def setup_logging() -> None:

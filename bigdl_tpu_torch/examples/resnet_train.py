@@ -14,11 +14,19 @@ unless ``--no-wd-exclusions``; Top-1 and Top-5 validated every epoch and
 once more after training. It trains through ``LocalOptimizer`` on one
 card, or on the CPU with ``--platform cpu``.
 
-Data: synthetic, as the JAX recipe draws it (``default_rng(0)``: N standard
-normal images of 3 x size x size and labels in [0, class_num); the first
-``max(batch, N // 4)`` records are the validation set), N =
-``--synthetic-size`` (1024 by default). Record shards (``--data-dir``) wait
-for the port's sharded record reader and raise.
+Data: with ``--data-dir``, the record shards there (``BDLSHRD1`` files of
+``write_record_shards``, each record a size x size x 3 uint8 image and its
+label; the files without a valid shard header are passed over, as the JAX
+recipe does, and a directory without any stops the run), decoded by a
+``ShardedRecordDataSet`` 's threads as the JAX recipe decodes them
+(``(x / 255 - 0.449) / 0.226``, CHW) and batched by a ``DataPipeline`` of
+four workers, with no validation set. Without it, synthetic, as the JAX
+recipe draws it (``default_rng(0)``: N standard normal images of 3 x size x
+size and labels in [0, class_num); the first ``max(batch, N // 4)`` records
+are the validation set), N = ``--synthetic-size`` (1024 by default).
+
+    python3 -m bigdl_tpu_torch.examples.resnet_train --dataset imagenet --depth 50 \\
+        --data-dir /path/to/shards --max-epoch 1
 
 Kept from the TPU era: bf16 activations (``--act-dtype bfloat16``, the
 default) are set when the recipe runs on an accelerator, which for the port
@@ -34,6 +42,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 from ._common import base_parser, device_of, setup_logging
+
+PIPELINE_WORKERS = 4  # the DataPipeline's batch-assembly threads over record shards
 
 
 def parser() -> argparse.ArgumentParser:
@@ -71,17 +81,49 @@ def build_imagenet_schedule(args, iters_per_epoch: int):
     return LinearWarmup(warmup_iters, main) if warmup_iters else main
 
 
+def record_shards(data_dir: str) -> List[str]:
+    """The files of ``data_dir`` with a valid record shard header, sorted
+    (data directories often hold metadata files beside the shards)."""
+    import os
+
+    from ..dataset.files import record_shard_count
+
+    shards = []
+    for f in sorted(os.listdir(data_dir)):
+        p = os.path.join(data_dir, f)
+        if not os.path.isfile(p):
+            continue
+        try:
+            record_shard_count(p)
+        except (ValueError, OSError):
+            continue
+        shards.append(p)
+    return shards
+
+
 def load_imagenet(args):
-    """``(train, val, iters_per_epoch)``: the JAX recipe's synthetic draw."""
+    """``(train, val, iters_per_epoch)``: the record shards of ``--data-dir``
+    through a ``DataPipeline`` (no validation set), else the JAX recipe's
+    synthetic draw."""
     import numpy as np
 
-    from ..dataset import DataSet
+    from ..dataset import DataSet, Sample, ShardedRecordDataSet
 
-    if args.data_dir:
-        raise NotImplementedError(
-            "record shards (--data-dir) need the sharded record reader, which the port "
-            "does not have yet (ROADMAP Queue 1 item 7); omit --data-dir for synthetic data")
     size = args.image_size
+    if args.data_dir:
+        shards = record_shards(args.data_dir)
+        if not shards:
+            raise SystemExit(f"no record shards in {args.data_dir}")
+
+        def decode(payload, label):
+            img = np.frombuffer(payload, np.uint8).reshape(size, size, 3)
+            x = (img.astype(np.float32) / 255.0 - 0.449) / 0.226
+            return Sample(x.transpose(2, 0, 1), np.int64(label))
+
+        records = ShardedRecordDataSet(shards, decode, batch_size=args.batch_size)
+        n = records.size()  # header counts
+        return (DataSet.pipeline(records, num_workers=PIPELINE_WORKERS), None,
+                max(1, n // args.batch_size))
     n = args.synthetic_size or 1024
     rng = np.random.default_rng(0)
     x = rng.standard_normal((n, 3, size, size)).astype(np.float32)
@@ -95,8 +137,9 @@ def load_imagenet(args):
 @dataclass
 class Recipe:
     """What :func:`main` trained: the optimizer (its ``history`` holds each
-    iteration's loss and learning rate), the model, the validation set and
-    methods, the iterations an epoch and the final validation's results."""
+    iteration's loss and learning rate), the model, the validation set (None
+    over record shards) and methods, the iterations an epoch and the final
+    validation's results."""
 
     optimizer: Any
     model: Any
@@ -136,7 +179,8 @@ def build(args) -> Recipe:
     opt = LocalOptimizer(model, train_ds, criterion)
     opt.set_optim_method(method)
     opt.set_end_when(Trigger.max_epoch(args.max_epoch))
-    opt.set_validation(Trigger.every_epoch(), val_ds, val_methods)
+    if val_ds is not None:
+        opt.set_validation(Trigger.every_epoch(), val_ds, val_methods)
     if args.checkpoint:
         opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
     return Recipe(opt, model, val_ds, val_methods, iters_per_epoch)
@@ -149,9 +193,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Recipe:
     setup_logging()
     recipe = build(args)
     model = recipe.optimizer.optimize()
-    recipe.results = model.evaluate(recipe.val_dataset, recipe.val_methods)
-    for name, r in recipe.results.items():
-        print(f"{name}: {r.result()[0]:.4f}")
+    if recipe.val_dataset is not None:
+        recipe.results = model.evaluate(recipe.val_dataset, recipe.val_methods)
+        for name, r in recipe.results.items():
+            print(f"{name}: {r.result()[0]:.4f}")
     return recipe
 
 

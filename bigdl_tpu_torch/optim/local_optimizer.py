@@ -36,6 +36,24 @@ module's device, one eager step per batch:
    checkpoint (``set_checkpoint``, see :mod:`bigdl_tpu_torch.utils.serialization`)
    and the ``end_when`` check.
 
+The prefetch seam (the JAX package's ``_prefetch_batches``): a daemon
+thread pulls each epoch's batches from ``dataset.data(train=True)`` (so the
+dataset's gather, or a ``DataPipeline`` 's hand-off, runs there), applies
+the ragged seam below, and copies the batch to the device, handing it over
+through a depth-2 ``StagingRing``: the next batches are assembled and
+copied while the current step runs. On the card the copy is issued on a
+side stream the thread owns, from pinned host memory, and an event is
+recorded after it; the driver makes its own stream wait on that event
+before the step and marks the tensors used there (``record_stream``), so
+the copy overlaps the queued step and the caching allocator does not hand
+their memory out early. Kernels still launch on the driver's stream. Each
+device batch carries the thread's wait for it from the dataset
+(``input_wait_s``, in ``history``) and the dataset's staging depth when it
+has one. An early stop, an exception on either side or an abandoned resumed
+epoch closes the ring (a blocked thread wakes at once), closes the
+dataset's stream (a ``DataPipeline`` 's worker pool ends) and joins the
+thread, so ``optimize()`` leaves no thread behind.
+
 The ragged-batch seam: the dataset's first training batch fixes the step's
 rows. A shorter train batch (from a dataset that yields its epoch tail;
 ``LocalArrayDataSet`` drops it) is padded back to them by repeating row 0
@@ -72,17 +90,21 @@ from __future__ import annotations
 
 import itertools
 import logging
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..dataset.dataset import pad_minibatch, to_device
+from ..dataset.dataset import device_tensors, pad_minibatch, to_device
+from ..dataset.pipeline import RING_CLOSED, StagingRing
 from ..nn.module import detach_tree, to_spec
 from ..nn.normalization import BatchNormalization
+from ..tensor.sparse import SparseTensor
 from ..utils.random import RandomGenerator
 from ..utils.serialization import (copy_into, latest_checkpoint_step, load_checkpoint,
                                    save_checkpoint, tree_items, unflatten_to_like)
+from ..utils.table import Table
 from .optim_method import SGD, OptimMethod
 from .predictor import forward_padded
 from .trigger import Trigger
@@ -93,6 +115,56 @@ log = logging.getLogger(__name__)
 # the JAX package's Optimizer keyword arguments and their defaults
 _UNPORTED = {"donate": True, "flat_update": False, "comms_dtype": None,
              "error_feedback": True, "master_dtype": None, "slot_dtype": None}
+
+
+_staged_lock = threading.Lock()
+_staged = [0]  # device bytes the prefetch threads copied that no loop has taken yet
+
+
+def staged_device_bytes() -> int:
+    """Device bytes of batches that prefetch threads have copied (or are
+    copying) and that no training loop has taken yet: the input staging a
+    reading of ``torch.cuda.memory_allocated()`` includes besides the model's
+    own memory (at most two batches and the one a thread holds, a run)."""
+    with _staged_lock:
+        return _staged[0]
+
+
+def _host_bytes(tree) -> int:
+    """Bytes of a batch leaf tree's arrays (what its copy allocates on the
+    device)."""
+    if isinstance(tree, Table):
+        return sum(_host_bytes(v) for _, v in tree.items())
+    if isinstance(tree, SparseTensor):
+        return sum(_host_bytes(t) for t in (tree.row_indices, tree.col_indices, tree.values))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return int(getattr(tree, "nbytes", 0))
+
+
+class _DeviceBatch:
+    """A training batch on the step's device: input, target, real rows ``n``
+    of its ``rows``, the prefetch thread's wait for it from the dataset
+    (``wait_s``), the dataset's staging depth then (``qdepth``, None without
+    a gauge), the event after its copy on the thread's stream (None off the
+    card) and the pinned host copies it was made from."""
+
+    __slots__ = ("x", "t", "n", "rows", "wait_s", "qdepth", "ready", "pinned", "nbytes")
+
+    def __init__(self, x, t, n, rows, wait_s, qdepth, ready=None, pinned=(), nbytes=0):
+        self.x, self.t, self.n, self.rows = x, t, n, rows
+        self.wait_s, self.qdepth, self.ready, self.pinned = wait_s, qdepth, ready, pinned
+        self.nbytes = nbytes  # its share of staged_device_bytes() until the loop takes it
+
+    def wait_on(self, device: torch.device) -> None:
+        """Make ``device`` 's current stream wait for the copy and mark the
+        batch's tensors as used there."""
+        if self.ready is None:
+            return
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(self.ready)
+        for tensor in (*device_tensors(self.x), *device_tensors(self.t)):
+            tensor.record_stream(stream)
 
 
 def _has_aux(state) -> bool:
@@ -164,6 +236,8 @@ class LocalOptimizer:
         self._warned_ragged_drop = False
         self._restored_slots: Optional[Dict[str, Any]] = None
         self._resume_skip_iters = 0
+        self._copy_stream = None  # the prefetch thread's copy stream on the card
+        self._prefetch_thread: Optional[threading.Thread] = None
         self.history: List[Dict[str, Any]] = []
 
     # ----------------------------------------------------------- configuration
@@ -457,13 +531,114 @@ class LocalOptimizer:
 
     def _first_batch(self):
         """The dataset's first training batch: it builds the model and fixes
-        the step's rows (also when a resume skips it)."""
-        first = next(iter(self.dataset.data(train=True)), None)
+        the step's rows (also when a resume skips it). The stream it opens is
+        closed (a ``DataPipeline`` 's pool ends with it)."""
+        stream = self.dataset.data(train=True)
+        try:
+            first = next(iter(stream), None)
+        finally:
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()
         if first is None:
             raise ValueError(
                 f"dataset yields no full training batch: size={self.dataset.size()} "
                 "is smaller than the batch size (ragged train batches are dropped)")
         return first
+
+    # ------------------------------------------------------- the prefetch seam
+    def _prefetch_batches(self, it, device: torch.device, depth: int = 2, close=None):
+        """The epoch's batches of ``it`` as ``_DeviceBatch`` es, assembled,
+        seamed and copied by a thread ``depth`` batches ahead of the caller
+        (see the module docstring). ``close`` is the dataset stream's own
+        ``close`` when ``it`` wraps it (the resume path's ``islice``)."""
+        ring = StagingRing(depth)
+        end = object()
+        qsize = getattr(it, "qsize", None)
+        on_card = device.type == "cuda"
+        mine = [0]  # this call's share of staged_device_bytes()
+
+        def stage(nbytes: int) -> None:
+            with _staged_lock:
+                mine[0] += nbytes
+                _staged[0] += nbytes
+
+        side = None
+        if on_card:  # one copy stream a run: the allocator caches a stream's blocks
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(device=device)
+            side = self._copy_stream
+
+        def worker():
+            try:
+                src = iter(it)
+                while True:
+                    t_wait = time.perf_counter()
+                    try:
+                        batch = next(src)
+                    except StopIteration:
+                        break
+                    wait_s = time.perf_counter() - t_wait
+                    qdepth = qsize() if qsize is not None else None
+                    if ring.closed:
+                        return
+                    seam = self._ragged_seam(batch)
+                    if seam is None:
+                        continue
+                    batch, n = seam
+                    pinned: list = []
+                    nbytes, ready = 0, None
+                    if on_card:
+                        nbytes = _host_bytes(batch.get_input()) + _host_bytes(batch.get_target())
+                        stage(nbytes)  # counted before the allocation, taken off below
+                        with torch.cuda.stream(side):
+                            x = to_device(batch.get_input(), device, pinned)
+                            t = to_device(batch.get_target(), device, pinned)
+                            ready = torch.cuda.Event()
+                            ready.record(side)
+                    else:
+                        x, t = to_device(batch.get_input(), device), to_device(
+                            batch.get_target(), device)
+                    item = _DeviceBatch(x, t, n, batch.size(), wait_s, qdepth, ready, pinned,
+                                        nbytes)
+                    if not ring.put(item):
+                        return
+                ring.put(end)
+            except BaseException as e:  # raised again in the training loop
+                ring.put(e)
+
+        thread = threading.Thread(target=worker, name="bigdl-prefetch", daemon=True)
+        self._prefetch_thread = thread
+        thread.start()
+        try:
+            while True:
+                item = ring.get()
+                if item is end or item is RING_CLOSED:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                stage(-item.nbytes)
+                item.wait_on(device)
+                yield item
+        finally:
+            # an early stop, an exception or the epoch's end: a thread blocked
+            # on the ring wakes now and the staged batches are dropped; the
+            # dataset's stream is closed (a DataPipeline closes its rings
+            # first, which wakes the thread if it waits there), the thread is
+            # joined (at most the batch it is assembling), and a generator
+            # that was running on it is closed after it
+            ring.close()
+            closer = close if close is not None else getattr(it, "close", None)
+            closed = True
+            if closer is not None:
+                try:
+                    closer()
+                except ValueError:  # a generator running on the thread
+                    closed = False
+            thread.join()
+            if not closed:
+                closer()
+            stage(-mine[0])  # the batches the close dropped
 
     # ----------------------------------------------------------- the loop
     def optimize(self):
@@ -486,7 +661,7 @@ class LocalOptimizer:
         mark: Dict[str, Optional[float]] = {"t": None}  # host time of the last loss pull
 
         def flush(rec) -> None:
-            neval, epoch, loss, n, lr = rec
+            neval, epoch, loss, n, lr, wait_s = rec
             loss_f = float(loss)  # one step late: the next step is queued already
             now = time.perf_counter()
             wall = now - mark["t"]
@@ -495,7 +670,7 @@ class LocalOptimizer:
             state["loss"] = loss_f
             self.history.append({"neval": neval, "epoch": epoch, "loss": loss_f, "lr": lr,
                                  "records": n, "wall_s": wall,
-                                 "records_per_sec": throughput})
+                                 "records_per_sec": throughput, "input_wait_s": wait_s})
             log.info("[Epoch %d][Iteration %d][Wall %.3fs] loss is %.6f, lr %.6g, "
                      "throughput is %.1f records/s", epoch, neval, now - t_start,
                      loss_f, lr, throughput)
@@ -505,35 +680,37 @@ class LocalOptimizer:
         while not stop:
             self.dataset.shuffle(state["epoch"])  # the epoch's order, also on resume
             state["_epoch_done"] = False
-            batches = self.dataset.data(train=True)
+            stream = self.dataset.data(train=True)
+            batches, close = stream, None
             skip = self._resume_skip_iters
             if skip:  # resumed mid-epoch: skip the batches already trained
                 self._resume_skip_iters = 0
-                batches = itertools.islice(batches, skip, None)
+                batches = itertools.islice(stream, skip, None)
+                close = getattr(stream, "close", None)
             state["_iter_in_epoch"] = skip
-            for batch in batches:
-                seam = self._ragged_seam(batch)
-                if seam is None:
-                    continue
-                batch, n = seam
-                lr = method.get_learning_rate()
-                if mark["t"] is None:
-                    mark["t"] = time.perf_counter()
-                loss = self._train_step(to_device(batch.get_input(), device),
-                                        to_device(batch.get_target(), device),
-                                        float(n) if n < batch.size() else None, lr,
-                                        params, slots)
-                prev, pending = pending, (state["neval"], state["epoch"], loss, n, lr)
-                if prev is not None:
-                    flush(prev)
-                state["learningrate"] = lr
-                state["neval"] += 1
-                state["_iter_in_epoch"] += 1
-                self._run_validation()
-                self._maybe_checkpoint(state, slots)
-                if self.end_when(state):
-                    stop = True
-                    break
+            staged = self._prefetch_batches(batches, device, close=close)
+            try:
+                for batch in staged:
+                    lr = method.get_learning_rate()
+                    if mark["t"] is None:
+                        mark["t"] = time.perf_counter()
+                    loss = self._train_step(batch.x, batch.t,
+                                            float(batch.n) if batch.n < batch.rows else None,
+                                            lr, params, slots)
+                    prev, pending = pending, (state["neval"], state["epoch"], loss, batch.n,
+                                              lr, batch.wait_s)
+                    if prev is not None:
+                        flush(prev)
+                    state["learningrate"] = lr
+                    state["neval"] += 1
+                    state["_iter_in_epoch"] += 1
+                    self._run_validation()
+                    self._maybe_checkpoint(state, slots)
+                    if self.end_when(state):
+                        stop = True
+                        break
+            finally:
+                staged.close()
             if pending is not None:
                 flush(pending)
                 pending = None

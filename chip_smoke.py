@@ -11,6 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    is wrong; its verdict is logged; a ``ptxas`` line saying that it
    serialized a kernel's wgmma (C7514) fails the run) and launch each
    kernel once (the backward's dQ and dK/dV entry points also alone);
+   beside nvcc, g++ builds the host library (``bigdl_tpu_torch/native.py``;
+   timed; a failed build raises);
 3. each kernel against its plain PyTorch version on the card, over the
    serving/training shape and the masking/shape edge cases, with stated
    tolerances: the forward [3] (on contiguous tensors and on the
@@ -321,7 +323,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches; the three host-scalar divisions of ROADMAP Queue 3 (the beam
    search's length penalty, the attention logits' ``/ sqrt(d)`` at d 48 and
    80, ``SoftPlus(3)``) card vs CPU, plain and through
-   ``precision.true_div``, and a beam search at alpha 0.6.
+   ``precision.true_div``, and a beam search at alpha 0.6;
+21. the host data path: [21a] 1,280 seeded 224x224x3 uint8 records written
+   into 8 record shards, then ``bigdl_tpu_torch/examples/resnet_train.py
+   --dataset imagenet --depth 50 --data-dir`` (conv7, batch 128, bf16
+   activations) one epoch of 10 steps, the shards decoded by a
+   ``ShardedRecordDataSet`` 's threads, batched by a ``DataPipeline`` of 4
+   workers and copied by ``LocalOptimizer`` 's prefetch thread: step ms
+   (median and range), images/s, the thread's input wait, peak memory,
+   exactly one max-pool backward launch a step, memory flat (less the
+   staged batches), every step's input on the card equal to the CPU's
+   reading of the same epoch, and the device work a step over 2 more
+   profiled steps; [21b] a ``DataPipeline`` with ``RandomCrop(224)``, a
+   random ``HFlip``, ``ChannelNormalize``, ``MatToTensor`` and
+   ``ImageFrameToSample`` over 512 256x256 uint8 records at 0, 4 and 8
+   workers: the host's images/s, the streams at 0 and 8 workers equal by
+   a hash; [21c] the host library (built by g++ in [2], beside nvcc): the
+   build time, ``gather_rows`` at C3D's batch (69 MiB) against numpy (bit
+   for bit), its route threshold measured from 64 KiB to 64 MiB,
+   ``u8hwc_to_f32chw`` at 128x224x224x3 (within 1e-5) and ``crc32c`` over
+   1 MiB against their plain versions, all timed. [13a] and [20b] also
+   print the prefetch thread's wait and the host's gather (native and
+   numpy) and copy of their batch.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -365,8 +388,11 @@ each under its ``parity_config`` name, the flagship served,
 ``moe_bench_top2``, ``moe_example``, ``remat_unwrapped``,
 ``remat_unwrapped_again``, ``remat_none``, ``remat_dots_saveable`` and
 ``treelstm_example``, and [20]'s ``keras_example``, ``c3d``,
-``unet_predict`` and ``modules_slice21``) runs with every kernel's launch count set to 0 just
-before it and read just after.
+``unet_predict`` and ``modules_slice21``, and [21]'s ``imagenet_shards`` and
+``augment_pipeline``) runs with every kernel's launch count set to 0 just
+before it and read just after. The flat-memory checks read the device
+memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
+(``staged_device_bytes``).
 
 The last lines are the ``{"kernels": [...]}`` record, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX
@@ -527,10 +553,28 @@ def phase_build():
     from bigdl_tpu_torch.ops import flash_attention as fa
     from bigdl_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
+    from bigdl_tpu_torch import native
+
+    host_errors = []
+
+    def build_host():  # g++ beside the nvcc processes
+        try:
+            native.build(force=True)
+        except BaseException as e:  # raised below, on the main thread
+            host_errors.append(e)
+
+    host = threading.Thread(target=build_host)
     t0 = time.perf_counter()
+    host.start()
     path = _build.build(force=True)
     lib = _build.load()  # loads and probes: raises if the probe kernel fails or is wrong
     log(f"[2] built {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    host.join()
+    if host_errors:
+        raise host_errors[0]
+    native._load()  # raises if it does not load or has another ABI
+    log(f"    built the host library {Path(native.BUILD_DIR, native.LIB_NAME).relative_to(ROOT)} "
+        f"from {native.SOURCE.relative_to(ROOT)} with g++ in {native.build_s:.2f} s (beside nvcc)")
     from bigdl_tpu_torch.ops import probe
 
     log(f"    probe (y = x + 1 on an {probe.SHAPE} f32 block, at the library's first load): "
@@ -1691,7 +1735,7 @@ def phase_flagship(card):
     opt.set_end_when(Trigger.max_iteration(iters))
     mem = []  # device memory after each iteration (LocalOptimizer sets the state once per step)
     set_state = model.set_state
-    model.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+    model.set_state = lambda st: (set_state(st), mem.append(_mem()))[0]
     reset_counts()  # the main path starts here
     t0, cpu0 = time.perf_counter(), (time.thread_time(), time.process_time())
     opt.optimize()
@@ -1903,11 +1947,11 @@ def phase_flagship_val(card):
                                                            o._write_checkpoint, m.set_state)
 
             def timed_validation():
-                t, before = time.perf_counter(), torch.cuda.memory_allocated()
+                t, before = time.perf_counter(), _mem()
                 res = run_validation()
                 if res is not None:
                     vals.append((o.optim_method.state["neval"], res, time.perf_counter() - t,
-                                 torch.cuda.memory_allocated() - before))
+                                 _mem() - before))
                 return res
 
             def timed_checkpoint(state, slots):
@@ -1921,7 +1965,7 @@ def phase_flagship_val(card):
                 return manifest
 
             o._run_validation, o._write_checkpoint = timed_validation, timed_checkpoint
-            m.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+            m.set_state = lambda st: (set_state(st), mem.append(_mem()))[0]
 
         opt = optimizer(model, ckpt_dir, val)
         instrument(opt, model)
@@ -2398,7 +2442,7 @@ def phase_vgg(card):
         opt.set_end_when(Trigger.max_iteration(iters))
         mem = []  # device memory after each iteration (LocalOptimizer sets the state once per step)
         set_state = model.set_state
-        model.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+        model.set_state = lambda st: (set_state(st), mem.append(_mem()))[0]
         reset_counts()  # the main path starts here
         t0 = time.perf_counter()
         opt.optimize()
@@ -2928,7 +2972,7 @@ def phase_norm_lm(card):
             mem = []  # device memory after each iteration (the state is set once per step)
             set_state = model.set_state
             model.set_state = lambda st: (set_state(st),
-                                          mem.append(torch.cuda.memory_allocated()))[0]
+                                          mem.append(_mem()))[0]
             before = read_counts()
             t0 = time.perf_counter()
             opt.optimize()
@@ -3201,7 +3245,7 @@ def _train_parity_config(name, card):
     opt.set_end_when(Trigger.max_iteration(iters))
     mem = []  # device memory after each iteration (LocalOptimizer sets the state once per step)
     set_state = model.set_state
-    model.set_state = lambda st: (set_state(st), mem.append(torch.cuda.memory_allocated()))[0]
+    model.set_state = lambda st: (set_state(st), mem.append(_mem()))[0]
     reset_counts()  # the main path starts here
     t0, cpu0 = time.perf_counter(), (time.thread_time(), time.process_time())
     opt.optimize()
@@ -3639,9 +3683,16 @@ def _sync():
 
 
 def _mem() -> int:
+    """Device memory allocated, less the input batches that ``LocalOptimizer``'s
+    prefetch threads have staged and no step has taken yet
+    (``staged_device_bytes``; up to three batches, with depth 2): the memory
+    that a step leaves behind, which the flat-memory checks compare."""
     import torch
+    from bigdl_tpu_torch.optim.local_optimizer import staged_device_bytes
 
-    return torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+    if not torch.cuda.is_available():
+        return 0
+    return torch.cuda.memory_allocated() - staged_device_bytes()
 
 
 class _StepProbe:
@@ -3803,7 +3854,23 @@ def phase_recipe(card):
     log(f"    busy share (multistep recipe, 2 more iterations under torch.profiler, no "
         f"validation): device {busy[0]:.2f} ms of {busy[1]:.2f} ms a step under the profiler "
         f"({100 * busy[2]:.1f}% busy); card {card}")
+    _log_input_wait("[13a] multistep", recipes["multistep"].optimizer.history[:-2])
+    rng = np.random.default_rng(0)  # the recipe's draw: its host data path, timed alone
+    x = rng.standard_normal((args.synthetic_size, 3, args.image_size, args.image_size)).astype(
+        np.float32)
+    _host_batch_ms(x, rng.integers(0, args.class_num, len(x)), args.batch_size, "cuda")
     return by_path, recipes
+
+
+def _log_input_wait(label, hist):
+    """The prefetch thread's wait for each batch from the dataset (the host
+    time the data path failed to stay ahead of the steps), from ``history``."""
+    import statistics
+
+    waits = [h["input_wait_s"] * 1e3 for h in hist]
+    log(f"    {label}: the prefetch thread's wait for a batch from the dataset, median "
+        f"{statistics.median(waits):.2f} ms (range {min(waits):.2f}-{max(waits):.2f}) over "
+        f"{len(waits)} steps")
 
 
 def _busy_share(opt, iters):
@@ -5381,6 +5448,7 @@ def _train_cells_path(label, model, x, y, batch, criterion, method, iters, card,
         f"{len(hist)} iterations in {time.perf_counter() - t0:.2f} s (build included), losses "
         + ", ".join(f"{v:.4f}" for v in losses) + f"; launches {_nonzero(counts)}")
     _step_ms(hist, batch, unit, card)
+    _log_input_wait(label.split(" ")[0], hist)
     _check_no_launch_run(label, probe, counts, losses, iters)
     dev_ms, wall_ms, share = _busy_share(opt, 2)
     log(f"    host/device split (2 more iterations under torch.profiler): device {dev_ms:.2f} ms "
@@ -7928,27 +7996,33 @@ def phase_c3d(card):
 
 
 def _host_batch_ms(x, y, batch, dev):
-    """The host's share of a step's data path, as ``LocalOptimizer`` runs it:
-    a batch's gather from the dataset's arrays and its copy to the card
-    (median of 5 each)."""
+    """The host's share of a step's data path, as ``LocalOptimizer`` 's
+    prefetch thread runs it: a batch's gather from the dataset's arrays (the
+    host library's threaded ``gather_rows``; numpy fancy indexing beside it)
+    and its copy to the card from pinned memory (median of 5 each)."""
     import statistics
 
+    import numpy as np
     import torch
     from bigdl_tpu_torch.dataset import DataSet, to_device
 
     ds = DataSet.array(x, y, batch_size=batch)
-    gather, copy = [], []
+    gather, plain, copy = [], [], []
     for _ in range(5):
         t0 = time.perf_counter()
         b = next(iter(ds.data(train=True)))
         t1 = time.perf_counter()
         to_device(b.get_input(), torch.device(dev))  # pinned, then the card, as a step's
         _sync()
+        t2 = time.perf_counter()
+        np.ascontiguousarray(x[np.arange(batch)])
+        plain.append((time.perf_counter() - t2) * 1e3)
         gather.append((t1 - t0) * 1e3)
-        copy.append((time.perf_counter() - t1) * 1e3)
-    log(f"    the host's data path a step: the batch's gather {statistics.median(gather):.2f} ms, "
-        f"its copy to the card {statistics.median(copy):.2f} ms "
-        f"({b.get_input().nbytes / 2**20:.1f} MiB; medians of 5)")
+        copy.append((t2 - t1) * 1e3)
+    log(f"    the host's data path a step: the batch's gather {statistics.median(gather):.2f} ms "
+        f"(native gather_rows; numpy fancy indexing {statistics.median(plain):.2f}), its copy "
+        f"to the card {statistics.median(copy):.2f} ms ({b.get_input().nbytes / 2**20:.1f} MiB; "
+        "medians of 5); both now run on the prefetch thread, behind the step")
 
 
 def _c3d_gmac(widths, clip, fc, classes):
@@ -8329,6 +8403,293 @@ def phase_slice21(card):
     return by_path
 
 
+# [21a] the ImageNet recipe from record shards: 1,280 records of 224x224x3
+# uint8 in 8 BDLSHRD1 shards (one epoch of 10 steps at batch 128)
+SHARDS = {"records": 1280, "shards": 8, "size": 224, "batch": 128, "classes": 1000}
+# [21b] DataPipeline over 256x256 uint8 records with an ImageNet augmentation chain
+AUGMENT = {"records": 512, "size": 256, "crop": 224, "batch": 128, "workers": (0, 4, 8)}
+
+
+def _write_shards(directory, c, seed):
+    """``c["records"]`` seeded uint8 images and labels written into
+    ``c["shards"]`` record shards; returns (seconds, bytes, labels)."""
+    import numpy as np
+    from bigdl_tpu_torch.dataset import write_record_shards
+
+    rng = np.random.default_rng(seed)
+    n, hw = c["records"], c["size"]
+    imgs = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+    labels = rng.integers(0, c["classes"], n)
+    t0 = time.perf_counter()
+    paths = write_record_shards(((imgs[i].tobytes(), int(labels[i])) for i in range(n)),
+                                str(directory), records_per_shard=n // c["shards"])
+    if len(paths) != c["shards"]:
+        raise AssertionError(f"[21a] wrote {len(paths)} shards, expected {c['shards']}")
+    return time.perf_counter() - t0, imgs.nbytes, labels
+
+
+class _InputSums:
+    """Wraps ``LocalOptimizer._train_step`` (class attribute, inside a
+    ``_StepProbe``): a device-side integer sum of each step's input bits,
+    taken on the driver's stream after the prefetch copy's event (no sync,
+    no launch of this repo's kernels)."""
+
+    def __enter__(self):
+        import torch
+        from bigdl_tpu_torch.optim import LocalOptimizer
+
+        self.sums, self._cls = [], LocalOptimizer
+        self._orig = LocalOptimizer._train_step
+        orig, sums = self._orig, self.sums
+
+        def step(opt, x, *a, **k):
+            sums.append(x.contiguous().view(torch.int32).sum(dtype=torch.int64))
+            return orig(opt, x, *a, **k)
+
+        LocalOptimizer._train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._train_step = self._orig
+        return False
+
+
+def _bits_sum(a) -> int:
+    import numpy as np
+
+    return int(np.ascontiguousarray(a, np.float32).view(np.int32).sum(dtype=np.int64))
+
+
+def phase_imagenet_shards(card):
+    """[21a] ``resnet_train.py --dataset imagenet --depth 50 --data-dir``
+    over record shards for one epoch of 10 steps (conv7, batch 128, bf16
+    activations): the shards read by a ``ShardedRecordDataSet`` 's threads,
+    batched by a ``DataPipeline`` and copied by the optimizer's prefetch
+    thread; every step's input on the card equal to the CPU's reading of the
+    same epoch, #10 once a step, finite losses, memory flat. Returns the
+    counts."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import resnet_train
+
+    c = SHARDS
+    with tempfile.TemporaryDirectory(prefix="bigdl_shards_") as d:
+        write_s, nbytes, _ = _write_shards(d, c, SEED + 90)
+        log(f"[21a] wrote {c['records']} records of {c['size']}x{c['size']}x3 uint8 "
+            f"({nbytes / 1e6:.1f} MB) into {c['shards']} record shards in {write_s:.2f} s")
+        argv = ["--dataset", "imagenet", "--depth", "50", "--data-dir", d, "--max-epoch", "1",
+                "-b", str(c["batch"]), "--class-num", str(c["classes"])]
+        Engine.set_compute_dtype(None)  # the recipe's policy, as in a fresh process
+        Engine.set_activation_dtype(None)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StepProbe() as probe, _InputSums() as sums:
+            reset_counts()  # the main path starts here
+            recipe = resnet_train.main(argv)
+            _sync()
+            counts = read_counts()  # the main path ends here
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        opt = recipe.optimizer
+        hist = opt.history
+        n_steps = c["records"] // c["batch"]
+        losses = [h["loss"] for h in hist]
+        walls = [h["wall_s"] * 1e3 for h in hist[2:-1]]  # the last pull holds the epoch end
+        step_ms = statistics.median(walls)
+        log(f"    ResNet-50 conv7, {recipe.model.n_parameters() / 1e6:.3f} M params, batch "
+            f"{c['batch']}, activations {Engine.activation_dtype()}, the pipeline's "
+            f"{resnet_train.PIPELINE_WORKERS} workers over {opt.dataset.source.n_workers} decode "
+            f"threads: {len(hist)} steps in {wall:.2f} s (build and first batch included); step "
+            f"{step_ms:.2f} ms (median of steps 3-{n_steps - 1}; range {min(walls):.2f}-"
+            f"{max(walls):.2f}), {c['batch'] / step_ms * 1e3:.1f} images/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; card {card}")
+        log("    losses: " + ", ".join(f"{v:.4f}" for v in losses))
+        _log_input_wait("[21a]", hist)
+        if len(hist) != n_steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"[21a] {len(hist)} steps, losses {losses}")
+        _check_steps("[21a]", probe, n_steps, 1, want_validations=0)
+        log(f"    maxpool2d_bwd launches {counts['maxpool2d_bwd']} (1 a step); others "
+            f"{sum(counts.values()) - counts['maxpool2d_bwd']}")
+        if counts["maxpool2d_bwd"] != n_steps or sum(counts.values()) != n_steps:
+            raise AssertionError(f"[21a] launches {counts}")
+        # every step's input as the card saw it against the CPU's reading of the epoch
+        got = [int(v) for v in torch.stack(sums.sums).cpu()]
+        ds = opt.dataset
+        ds.shuffle(hist[0]["epoch"])
+        want = [_bits_sum(b.get_input()) for b in ds.data(train=True)]
+        log(f"    the {len(got)} steps' inputs on the card against the CPU's reading of the "
+            f"same epoch (integer sums of their bits): {'equal' if got == want else 'DIFFER'}")
+        if got != want:
+            raise AssertionError(f"[21a] the card's inputs {got} are not the epoch's {want}")
+        dev_ms, wall_ms, share = _busy_share(opt, 2)
+        log(f"    device work a step {dev_ms:.2f} ms (2 more steps of the next epoch under "
+            f"torch.profiler, whose wall, {wall_ms:.2f} ms a step, holds the epoch's start: the "
+            f"shards' first decode and the first batch), {100 * dev_ms / step_ms:.1f}% of the "
+            f"unprofiled step; card {card}")
+    del recipe, opt
+    _free()
+    return counts
+
+
+def _augment_lambda():
+    """The [21b] chain as a ``Lambda`` over (HWC uint8 record, label) samples:
+    RandomCrop(224), a random HFlip, ChannelNormalize, MatToTensor,
+    ImageFrameToSample."""
+    from bigdl_tpu_torch.dataset import Lambda, Sample
+    from bigdl_tpu_torch.transform.vision.image import (ChannelNormalize, HFlip, ImageFeature,
+                                                        ImageFrameToSample, MatToTensor,
+                                                        RandomCrop, RandomTransformer)
+
+    crop = AUGMENT["crop"]
+    chain = (RandomCrop(crop, crop) >> RandomTransformer(HFlip(), 0.5)
+             >> ChannelNormalize(104.0, 117.0, 123.0, 58.4, 57.1, 57.4) >> MatToTensor()
+             >> ImageFrameToSample())
+
+    def fn(s):
+        x, t = chain(ImageFeature(mat=s.feature, label=s.label)).sample()
+        return Sample(x, t)
+
+    return Lambda(fn)
+
+
+def phase_augment_pipeline(card):
+    """[21b] ``DataPipeline`` with the ImageNet augmentation chain over 256x256
+    uint8 records at 0, 4 and 8 workers: the host's images/s, and the batch
+    streams at 0 and 8 workers equal by a hash. Returns the counts (no
+    launch)."""
+    import hashlib
+
+    import numpy as np
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.dataset import DataPipeline, LocalArrayDataSet
+
+    c = AUGMENT
+    rng = np.random.default_rng(SEED + 91)
+    x = rng.integers(0, 256, (c["records"], c["size"], c["size"], 3), dtype=np.uint8)
+    y = rng.integers(0, 1000, c["records"])
+    RandomGenerator.set_seed(SEED + 91)
+    digests, rates = {}, {}
+    reset_counts()
+    for workers in c["workers"]:
+        pipe = DataPipeline(LocalArrayDataSet(x, y, batch_size=c["batch"]), _augment_lambda(),
+                            num_workers=workers)
+        pipe.shuffle(1)
+        h = hashlib.sha256()
+        t0 = time.perf_counter()
+        n = 0
+        for b in pipe.data(train=True):
+            h.update(b.get_input().tobytes())
+            h.update(b.get_target().tobytes())
+            n += b.size()
+        secs = time.perf_counter() - t0
+        digests[workers], rates[workers] = h.hexdigest(), n / secs
+        log(f"[21b] DataPipeline, {workers} workers: {n} images of {c['size']}x{c['size']}x3 "
+            f"uint8 through RandomCrop({c['crop']}), HFlip (p 0.5), ChannelNormalize, "
+            f"MatToTensor and ImageFrameToSample in {secs:.2f} s: {n / secs:.1f} images/s "
+            f"(hashing included); stream sha256 {digests[workers][:16]}; host of card {card}")
+        if n != c["records"]:
+            raise AssertionError(f"[21b] {workers} workers gave {n} images")
+    counts = read_counts()
+    if digests[0] != digests[max(c["workers"])]:
+        raise AssertionError(f"[21b] the batch streams differ by worker count: {digests}")
+    log(f"    the streams at 0 and {max(c['workers'])} workers are byte-identical; "
+        f"{rates[max(c['workers'])] / rates[0]:.2f}x the serial rate at "
+        f"{max(c['workers'])} workers")
+    return counts
+
+
+def _median_ms(fn, n=5):
+    import statistics
+
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def phase_native_host(card):
+    """[21c] The host library on the card's host: its build time, and each
+    entry point against its plain version at the main paths' sizes (timed,
+    median of 5), and the gather's threshold measured."""
+    import numpy as np
+    from bigdl_tpu_torch import native
+
+    log(f"[21c] host library {Path(native.BUILD_DIR, native.LIB_NAME).relative_to(ROOT)}: "
+        f"built by g++ in {native.build_s:.2f} s in [2] (beside nvcc); host of card {card}; "
+        f"{__import__('os').cpu_count()} CPUs")
+    rng = np.random.default_rng(SEED + 92)
+    t, hw = C3D["clip"][0], C3D["clip"][1:]
+    src = rng.standard_normal((3 * C3D["batch"], 3, t, *hw)).astype(np.float32)
+    idx = rng.permutation(len(src))[:C3D["batch"]]
+    got, want = native.gather_rows(src, idx), native.gather_rows_plain(src, idx)
+    equal = got.tobytes() == want.tobytes()
+    log(f"    gather_rows at C3D's batch ({C3D['batch']} of {src.shape[1:]} f32, "
+        f"{got.nbytes / 2**20:.1f} MiB): native {_median_ms(lambda: native.gather_rows(src, idx)):.2f}"
+        f" ms, numpy {_median_ms(lambda: native.gather_rows_plain(src, idx)):.2f} ms; "
+        f"bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("[21c] gather_rows differs from numpy fancy indexing")
+    lib = native._load()
+    small = rng.standard_normal((16384, 1024)).astype(np.float32)  # 4 KiB rows
+    sidx = rng.permutation(len(small))
+    parts = []
+    for kib in (64, 256, 1024, 4096, 16384, 65536):
+        rows = kib // 4
+        s_idx = sidx[:rows]
+        nat = _median_ms(lambda: _forced_gather(lib, small, s_idx), 9)
+        plain = _median_ms(lambda: np.ascontiguousarray(small[s_idx]), 9)
+        parts.append(f"{kib} KiB native {nat:.3f} / numpy {plain:.3f} ms")
+    log("    the gather's route threshold (native.py routes below 1 MiB to numpy, the JAX "
+        "package's number from a host it does not name), measured here on 4 KiB rows: "
+        + "; ".join(parts))
+    batch = rng.integers(0, 256, (128, 224, 224, 3), dtype=np.uint8)
+    mean, std = (104.0, 117.0, 123.0), (58.4, 57.1, 57.4)
+    a = native.u8hwc_to_f32chw(batch, mean, std)
+    b = native.u8hwc_to_f32chw_plain(batch, mean, std)
+    err = float(np.abs(a - b).max())
+    log(f"    u8hwc_to_f32chw at 128x224x224x3: native "
+        f"{_median_ms(lambda: native.u8hwc_to_f32chw(batch, mean, std)):.2f} ms, numpy "
+        f"{_median_ms(lambda: native.u8hwc_to_f32chw_plain(batch, mean, std)):.2f} ms; max "
+        f"|native - numpy| {err:.2e} (limit 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"[21c] u8hwc_to_f32chw differs by {err}")
+    data = rng.bytes(1 << 20)
+    crc, plain_crc = native.crc32c(data), native._py_crc32c(data)
+    log(f"    crc32c over 1 MiB: native {_median_ms(lambda: native.crc32c(data)):.3f} ms, "
+        f"the plain loop {_median_ms(lambda: native._py_crc32c(data), 1):.1f} ms; equal: "
+        f"{crc == plain_crc}")
+    if crc != plain_crc:
+        raise AssertionError("[21c] crc32c differs from the plain version")
+
+
+def _forced_gather(lib, src, idx):
+    """The library's threaded gather whatever the size (the route bypassed)."""
+    import numpy as np
+
+    dst = np.empty((len(idx),) + src.shape[1:], np.float32)
+    lib.bigdl_gather_f32(src.ctypes.data, np.ascontiguousarray(idx, np.int64).ctypes.data,
+                         dst.ctypes.data, len(idx), int(np.prod(src.shape[1:])))
+    return dst
+
+
+def phase_slice22(card):
+    """[21] the host data path: the ImageNet recipe from record shards, the
+    augmentation pipeline and the host library; returns the main paths'
+    launches."""
+    t0 = time.perf_counter()
+    by_path = {"imagenet_shards": phase_imagenet_shards(card)}
+    by_path["augment_pipeline"] = phase_augment_pipeline(card)
+    phase_native_host(card)
+    log(f"[21] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -8374,6 +8735,7 @@ def main() -> int:
     by_path.update(phase_detection(card))
     by_path.update(phase_slice20(card))
     by_path.update(phase_slice21(card))
+    by_path.update(phase_slice22(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -163,7 +163,7 @@ def test_micro_batches_match_jax(build):
 
 def test_micro_batches_reject_an_indivisible_batch():
     x, y = _data(8, 1)
-    opt = poptim.LocalOptimizer(mlp(pnn, {"device": "cpu"}), LocalArrayDataSet(x, y, 8),
+    opt = poptim.LocalOptimizer(mlp(pnn, {"device": "cpu"}), LocalArrayDataSet(x, y, batch_size=8),
                                 pnn.ClassNLLCriterion()).set_micro_batches(3)
     with pytest.raises(ValueError, match="not divisible"):
         opt.optimize()

@@ -99,7 +99,6 @@ def test_synthetic_data_is_the_jax_recipes_draw():
 
 @pytest.mark.parametrize("extra,match", [
     (["--dataset", "cifar10"], "DistriOptimizer"),
-    (["--data-dir", "/nonexistent"], "record"),
     (["--n-devices", "2"], "one card"),
     (["--model-save", "m.bin"], "model-save"),
 ])

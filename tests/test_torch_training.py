@@ -22,7 +22,7 @@ from bigdl_tpu.dataset.dataset import DataSet as JDataSet
 from bigdl_tpu.utils.random import RandomGenerator as JRandom
 from bigdl_tpu_torch import Engine, RandomGenerator
 from bigdl_tpu_torch.dataset import DataSet, MiniBatch
-from bigdl_tpu_torch.dataset.dataset import _epoch_order
+from bigdl_tpu_torch.dataset.dataset import SampleToMiniBatch, _epoch_order
 from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
 from bigdl_tpu_torch.ops import flash_attention as fa
 from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
@@ -182,8 +182,8 @@ def test_unported_optimizer_options_raise():
     with pytest.raises(TypeError):
         LocalOptimizer(pm, ds, CrossEntropyCriterion(), bogus=1)
     LocalOptimizer(pm, ds, CrossEntropyCriterion(), validate=True)  # the default is fine
-    with pytest.raises(NotImplementedError):
-        DataSet.array(ids, targets, transformer=object())
+    chained = DataSet.array(ids, targets, transformer=SampleToMiniBatch(BATCH))
+    assert next(iter(chained.data(train=True))).size() == BATCH  # chains are ported now
     with pytest.raises(ValueError, match="no full training batch"):
         LocalOptimizer(pm, DataSet.array(ids[:2], targets[:2], batch_size=BATCH),
                        CrossEntropyCriterion()).optimize()

@@ -204,7 +204,11 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'bigdl_tpu_torch.analysis.shape_prop',\n"
-        "        'bigdl_tpu_torch.utils.module_serializer'} <= set(names), names\n"
+        "        'bigdl_tpu_torch.utils.module_serializer', 'bigdl_tpu_torch.native',\n"
+        "        'bigdl_tpu_torch.dataset.pipeline', 'bigdl_tpu_torch.dataset.tfrecord',\n"
+        "        'bigdl_tpu_torch.utils.protowire',\n"
+        "        'bigdl_tpu_torch.transform.vision.image.augmentation',\n"
+        "        'bigdl_tpu_torch.examples.lenet_train'} <= set(names), names\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"
