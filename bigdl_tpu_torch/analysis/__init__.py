@@ -8,11 +8,12 @@ on the host, before anything is allocated or launched on the card.
   unreachable inputs, duplicate names, merge arity, dangling nodes).
 * :class:`ParamAudit` — parameter hygiene (accidental aliasing, float32
   masters, non-finite values).
+* :class:`FlatParamAudit` — the same over the flat layout's vector (codec
+  geometry, float32, finiteness), before the first flat step.
 
-``validate_model`` composes them; ``Graph`` and ``LocalOptimizer`` run them
-by default (``validate=False`` skips them). The JAX package's
-``ShardedParamAudit`` and ``FlatParamAudit`` wait for the multi-process and
-flat-update ports.
+``validate_model`` composes them; ``Graph`` and the optimizers run them by
+default (``validate=False`` skips them). The JAX package's
+``ShardedParamAudit`` waits for ``hybrid.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import List
 from .errors import (AnalysisError, Finding, GraphValidationError, ParamAuditError,
                      ShapeInferenceError)
 from .graph_validator import GraphValidator
-from .param_audit import ParamAudit
+from .param_audit import FlatParamAudit, ParamAudit
 from .shape_prop import ShapeProp, infer_shapes, to_spec
 
 
@@ -44,6 +45,6 @@ def validate_model(model, sample_or_spec=None, allow_shared=()) -> List[Finding]
     return findings
 
 
-__all__ = ["AnalysisError", "Finding", "GraphValidationError", "GraphValidator", "ParamAudit",
+__all__ = ["AnalysisError", "FlatParamAudit", "Finding", "GraphValidationError", "GraphValidator", "ParamAudit",
            "ParamAuditError", "ShapeInferenceError", "ShapeProp", "infer_shapes", "to_spec",
            "validate_model"]

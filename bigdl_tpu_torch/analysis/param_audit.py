@@ -1,5 +1,6 @@
 """ParamAudit — parameter-tree hygiene checks on a built model (counterpart
-of ``bigdl_tpu/analysis/param_audit.py``'s ``ParamAudit``).
+of ``bigdl_tpu/analysis/param_audit.py``'s ``ParamAudit`` and
+``FlatParamAudit``).
 
 Three audits over each module's own parameters, with no forward pass:
 
@@ -116,6 +117,61 @@ class ParamAudit:
                     f"one parameter array is aliased at {len(group)} sites: {sites}; updates "
                     "through one site clobber the other (pass allow_shared=[name] if "
                     "intentional)", path=group[0][0]))
+        return found
+
+    def check(self) -> List[Finding]:
+        return _raise_on_errors(self.findings())
+
+
+class FlatParamAudit:
+    """ParamAudit of the flat layout (the JAX package's ``FlatParamAudit``),
+    run before the first flat step: the codec's geometry (leaf sizes sum to
+    ``total``, ``n_shards`` equal shards tile ``padded_total``, the vector
+    has the padded length), the dtype policy (the leaves the codec
+    round-trips and the vector are float32) and finiteness (the first
+    non-finite offset named by its parameter path). The JAX package checks
+    the addressable shards of a sharded array; each rank here holds the
+    whole vector, which it checks."""
+
+    def __init__(self, fp, flat):
+        self.fp = fp
+        self.flat = flat
+
+    def findings(self) -> List[Finding]:
+        found: List[Finding] = []
+        fp = self.fp
+        if sum(fp.sizes) != fp.total or fp.shard_size * fp.n_shards != fp.padded_total:
+            found.append(Finding(
+                "flat-param-geometry", "error",
+                f"FlatParameter codec geometry is inconsistent: sum(sizes)={sum(fp.sizes)} vs "
+                f"total={fp.total}, {fp.n_shards} shards x {fp.shard_size} vs "
+                f"padded_total={fp.padded_total}"))
+        for path, dt in zip(fp.paths, fp.dtypes):
+            if dt.is_floating_point and dt != torch.float32:
+                found.append(Finding(
+                    "flat-param-dtype-policy", "error",
+                    f"{path} is {str(dt).replace('torch.', '')}; the flat update computes on a "
+                    "float32 vector and the parameters are its views: a bf16 master would lose "
+                    "every update's low bits (bf16 belongs on the gradient wire, or to "
+                    "master_dtype, not the stored weights)", path=path))
+        shape = tuple(getattr(self.flat, "shape", ()))
+        if shape != (fp.padded_total,):
+            found.append(Finding(
+                "flat-param-geometry", "error",
+                f"flat vector has shape {shape}; the codec expects ({fp.padded_total},)"))
+            return found
+        if self.flat.dtype != torch.float32:
+            found.append(Finding(
+                "flat-param-dtype-policy", "error",
+                f"flat master vector is {str(self.flat.dtype).replace('torch.', '')}; the "
+                "optimizer update runs on float32 masters"))
+        finite = torch.isfinite(self.flat)
+        if not bool(finite.all()):
+            off = int(torch.argmin(finite.to(torch.uint8)))
+            found.append(Finding(
+                "flat-param-nonfinite", "error",
+                f"non-finite value at flat offset {off} ({fp.path_of_offset(off)})",
+                path=fp.path_of_offset(off)))
         return found
 
     def check(self) -> List[Finding]:

@@ -1,6 +1,6 @@
-"""The ResNet ImageNet training recipe on one card (counterpart of the
-``--dataset imagenet`` branch of ``examples/resnet/train.py``; reference:
-``$DL/models/resnet/TrainImageNet.scala``).
+"""The ResNet training mains (counterpart of ``examples/resnet/train.py``;
+reference: ``$DL/models/resnet/TrainImageNet.scala`` and the CIFAR-10
+``Train.scala``), trained through ``DistriOptimizer`` as the JAX main is.
 
     python3 -m bigdl_tpu_torch.examples.resnet_train --dataset imagenet --depth 50 \\
         --warmup-epochs 5 --label-smoothing 0.1 --lr-schedule multistep
@@ -11,8 +11,16 @@ and 80 (gamma 0.1) or Poly(2.0) to the last epoch; label-smoothed
 ``CrossEntropyCriterion``; nesterov SGD (momentum 0.9, dampening 0) with
 weight decay, BN parameters and biases excluded (``("_bn", "bias")``)
 unless ``--no-wd-exclusions``; Top-1 and Top-5 validated every epoch and
-once more after training. It trains through ``LocalOptimizer`` on one
-card, or on the CPU with ``--platform cpu``.
+once more after training. It trains through ``DistriOptimizer``
+(``--parameter-sync``, sharded by default) on one card, on ``--n-devices N``
+ranks (``_common.run_ranks``, or torchrun), or on the CPU with
+``--platform cpu``; the global batch ``-b`` divides into the ranks.
+
+``--dataset cifar10`` (the default, as in the JAX main): ResNet-``depth``
+(6n+2) for CIFAR-10 with a log-softmax head, ``ClassNLLCriterion``,
+nesterov SGD (momentum 0.9, weight decay 1e-4) with MultiStep at epochs 80
+and 120 (gamma 0.1), Top-1 every epoch; data from ``load_cifar10``
+(synthetic without ``--data-dir``).
 
 Data: with ``--data-dir``, the record shards there (``BDLSHRD1`` files of
 ``write_record_shards``, each record a size x size x 3 uint8 image and its
@@ -31,8 +39,7 @@ are the validation set), N = ``--synthetic-size`` (1024 by default).
 Kept from the TPU era: bf16 activations (``--act-dtype bfloat16``, the
 default) are set when the recipe runs on an accelerator, which for the port
 is the card (the JAX recipe sets them when its engine is the TPU); on the
-CPU the activations stay f32. The CIFAR-10 branch (``--dataset cifar10``)
-needs ``DistriOptimizer``, which the port does not have yet, and raises.
+CPU the activations stay f32.
 """
 
 from __future__ import annotations
@@ -41,8 +48,9 @@ import argparse
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
-from ._common import base_parser, device_of, setup_logging
+from ._common import base_parser, device_of, join_from_env, run_ranks, setup_logging
 
+MODULE = "bigdl_tpu_torch.examples.resnet_train"
 PIPELINE_WORKERS = 4  # the DataPipeline's batch-assembly threads over record shards
 
 
@@ -53,7 +61,7 @@ def parser() -> argparse.ArgumentParser:
                    help="cifar10: 6n+2; imagenet: 18/34/50/101/152")
     p.add_argument("--dataset", choices=["cifar10", "imagenet"], default="cifar10")
     p.add_argument("--parameter-sync", choices=["sharded", "replicated"], default="sharded",
-                   help="DistriOptimizer's; one card has nothing to synchronise")
+                   help="DistriOptimizer's: ZeRO-1 sharded update or replicated")
     p.add_argument("--warmup-epochs", type=int, default=5)
     p.add_argument("--lr-schedule", choices=["multistep", "poly"], default="multistep")
     p.add_argument("--label-smoothing", type=float, default=0.1)
@@ -101,10 +109,11 @@ def record_shards(data_dir: str) -> List[str]:
     return shards
 
 
-def load_imagenet(args):
+def load_imagenet(args, n_dev: int = 1):
     """``(train, val, iters_per_epoch)``: the record shards of ``--data-dir``
     through a ``DataPipeline`` (no validation set), else the JAX recipe's
-    synthetic draw."""
+    synthetic draw; the training set divides into ``n_dev`` ranks
+    (``DataSet.distributed``)."""
     import numpy as np
 
     from ..dataset import DataSet, Sample, ShardedRecordDataSet
@@ -122,13 +131,13 @@ def load_imagenet(args):
 
         records = ShardedRecordDataSet(shards, decode, batch_size=args.batch_size)
         n = records.size()  # header counts
-        return (DataSet.pipeline(records, num_workers=PIPELINE_WORKERS), None,
-                max(1, n // args.batch_size))
+        return (DataSet.distributed(DataSet.pipeline(records, num_workers=PIPELINE_WORKERS),
+                                    n_dev), None, max(1, n // args.batch_size))
     n = args.synthetic_size or 1024
     rng = np.random.default_rng(0)
     x = rng.standard_normal((n, 3, size, size)).astype(np.float32)
     y = rng.integers(0, args.class_num, n)
-    train = DataSet.array(x, y, batch_size=args.batch_size)
+    train = DataSet.distributed(DataSet.array(x, y, batch_size=args.batch_size), n_dev)
     n_val = max(args.batch_size, n // 4)
     val = DataSet.array(x[:n_val], y[:n_val], batch_size=args.batch_size)
     return train, val, max(1, n // args.batch_size)
@@ -147,36 +156,58 @@ class Recipe:
     val_methods: List[Any]
     iters_per_epoch: int
     results: Optional[Dict[str, Any]] = None
+    ranks: Optional[List[Dict[str, Any]]] = None  # each spawned rank's summary
 
 
 def build(args) -> Recipe:
     """The recipe's model, data, criterion, method and triggers, ready to
-    ``optimizer.optimize()``."""
+    ``optimizer.optimize()``, for the process's rank of the group (or alone)."""
     from .. import nn
     from ..models import ResNet
-    from ..optim import SGD, LocalOptimizer, Top1Accuracy, Top5Accuracy, Trigger
+    from ..optim import SGD, Top1Accuracy, Top5Accuracy, Trigger
+    from ..optim.schedules import MultiStep
+    from ..parallel import DistriOptimizer
     from ..utils.engine import Engine
     from ..utils.random import RandomGenerator
 
-    if args.dataset != "imagenet":
-        raise NotImplementedError(
-            "--dataset cifar10 trains through DistriOptimizer, which the port does not have "
-            "yet (ROADMAP Queue 1 item 8); --dataset imagenet trains on one card")
-    device = device_of(args)
+    device = device_of(args, distributed=True)
+    n_dev = Engine.device_count()
+    if args.batch_size % n_dev:
+        raise SystemExit(f"batch size {args.batch_size} not divisible by {n_dev} devices")
     RandomGenerator.set_seed(42)
-    if args.act_dtype == "bfloat16" and Engine.device(device).type == "cuda":
-        Engine.set_activation_dtype("bfloat16")
-    train_ds, val_ds, iters_per_epoch = load_imagenet(args)
-    model = ResNet(args.depth, class_num=args.class_num, dataset="imagenet", stem=args.stem,
-                   device=device)
-    criterion = nn.CrossEntropyCriterion(label_smoothing=args.label_smoothing)
-    exclude = () if args.no_wd_exclusions else ("_bn", "bias")
-    method = SGD(learningrate=args.learning_rate, momentum=0.9, dampening=0.0,
-                 weightdecay=args.weight_decay, nesterov=True,
-                 leaningrate_schedule=build_imagenet_schedule(args, iters_per_epoch),
-                 weightdecay_exclude=exclude)
-    val_methods = [Top1Accuracy(), Top5Accuracy()]
-    opt = LocalOptimizer(model, train_ds, criterion)
+    if args.dataset == "imagenet":
+        if args.act_dtype == "bfloat16" and Engine.device(device).type == "cuda":
+            Engine.set_activation_dtype("bfloat16")
+        train_ds, val_ds, iters_per_epoch = load_imagenet(args, n_dev)
+        model = ResNet(args.depth, class_num=args.class_num, dataset="imagenet",
+                       stem=args.stem, device=device)
+        criterion = nn.CrossEntropyCriterion(label_smoothing=args.label_smoothing)
+        exclude = () if args.no_wd_exclusions else ("_bn", "bias")
+        method = SGD(learningrate=args.learning_rate, momentum=0.9, dampening=0.0,
+                     weightdecay=args.weight_decay, nesterov=True,
+                     leaningrate_schedule=build_imagenet_schedule(args, iters_per_epoch),
+                     weightdecay_exclude=exclude)
+        val_methods = [Top1Accuracy(), Top5Accuracy()]
+    else:
+        from ..dataset import DataSet
+        from ..dataset.cifar import load_cifar10
+
+        x_train, y_train = load_cifar10(args.data_dir, train=True,
+                                        synthetic_size=args.synthetic_size)
+        x_val, y_val = load_cifar10(args.data_dir, train=False,
+                                    synthetic_size=args.synthetic_size)
+        train_ds = DataSet.distributed(
+            DataSet.array(x_train, y_train, batch_size=args.batch_size), n_dev)
+        val_ds = DataSet.array(x_val, y_val, batch_size=args.batch_size)
+        model = ResNet(args.depth, class_num=10, dataset="cifar10", with_log_softmax=True,
+                       device=device)
+        iters_per_epoch = max(1, len(x_train) // args.batch_size)
+        schedule = MultiStep([80 * iters_per_epoch, 120 * iters_per_epoch], 0.1)
+        criterion = nn.ClassNLLCriterion()
+        method = SGD(learningrate=args.learning_rate, momentum=0.9, dampening=0.0,
+                     weightdecay=1e-4, nesterov=True, leaningrate_schedule=schedule)
+        val_methods = [Top1Accuracy()]
+    opt = DistriOptimizer(model, train_ds, criterion, parameter_sync=args.parameter_sync)
     opt.set_optim_method(method)
     opt.set_end_when(Trigger.max_epoch(args.max_epoch))
     if val_ds is not None:
@@ -188,9 +219,19 @@ def build(args) -> Recipe:
 
 def main(argv: Optional[Sequence[str]] = None) -> Recipe:
     """Parse ``argv`` (the command line when None), train, validate once
-    more and print Top-1 and Top-5."""
+    more and print the results. With ``--n-devices N`` outside a group, the
+    N ranks are spawned and the returned ``Recipe`` holds their summaries
+    (``ranks``) and rank 0's final results."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser().parse_args(argv)
     setup_logging()
+    if (args.n_devices or 1) > 1 and not join_from_env(args):
+        ranks = run_ranks(MODULE, argv, args)
+        for name, (value, _) in ranks[0]["results"].items():
+            print(f"{name}: {value:.4f}")
+        return Recipe(None, None, None, [], 0, results=ranks[0]["results"], ranks=ranks)
     recipe = build(args)
     model = recipe.optimizer.optimize()
     if recipe.val_dataset is not None:

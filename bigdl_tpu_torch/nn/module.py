@@ -467,18 +467,16 @@ class AbstractModule(torch.nn.Module):
     def evaluate(self, dataset=None, methods=None, batch_size: Optional[int] = None):
         """No arguments: switch to eval mode and return the module. With a
         dataset and validation methods: also run them over the dataset
-        (``Evaluator``) and return ``{method name: result}``. The sweep's
-        batches are the dataset's: ``batch_size``, which sizes the JAX
-        package's sharded predictor, is not ported and raises."""
+        (``Evaluator(self, batch_size)``) and return ``{method name:
+        result}``. The sweep's batches are the dataset's (``batch_size``
+        sizes the predictor, as in the JAX package); under a process group
+        each rank evaluates its rows and the counters are summed."""
         self.eval()
         if dataset is None:
             return self
-        if batch_size is not None:
-            raise NotImplementedError(
-                "evaluate(batch_size=...) is not ported: the sweep runs the dataset's batches")
         from ..optim.predictor import Evaluator
 
-        return Evaluator(self).evaluate(dataset, methods)
+        return Evaluator(self, batch_size).evaluate(dataset, methods)
 
     def predict(self, data, batch_size: Optional[int] = None) -> torch.Tensor:
         """Batched eval-mode forward over a dataset, an array or a list of

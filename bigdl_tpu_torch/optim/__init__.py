@@ -1,9 +1,9 @@
-"""Training (LocalOptimizer, optimization methods, LBFGS, schedules,
+"""Training (the Optimizer facade, LocalOptimizer, optimization methods, LBFGS, schedules,
 regularizers, triggers), validation methods, and fixed-batch inference
 (Predictor, Evaluator)."""
 
 from .lbfgs import LBFGS
-from .local_optimizer import LocalOptimizer, validate
+from .local_optimizer import LocalOptimizer, Optimizer, validate
 from .optim_method import (SGD, Adadelta, Adagrad, Adam, Adamax, Ftrl, Lamb, LarsSGD,
                            OptimMethod, ParallelAdam, RMSprop)
 from .predictor import Evaluator, Predictor
@@ -19,7 +19,7 @@ __all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax", "Cosine", 
            "EpochDecay", "EpochStep", "Evaluator", "Exponential", "Ftrl", "HitRatio",
            "L1L2Regularizer", "L1Regularizer", "L2Regularizer", "LBFGS", "Lamb", "LarsSGD",
            "LearningRateSchedule", "LinearWarmup", "LocalOptimizer", "Loss", "LossResult", "MAE",
-           "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "ParallelAdam", "Plateau", "Poly",
+           "MultiStep", "NDCG", "NaturalExp", "OptimMethod", "Optimizer", "ParallelAdam", "Plateau", "Poly",
            "Predictor", "RMSprop", "Regularizer", "SGD", "SequentialSchedule", "Step",
            "Top1Accuracy", "Top5Accuracy", "TreeNNAccuracy", "Trigger", "ValidationMethod",
            "ValidationResult", "Warmup", "validate"]

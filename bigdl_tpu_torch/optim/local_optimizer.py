@@ -1,6 +1,10 @@
-"""Single-device training (counterpart of ``bigdl_tpu/optim/local_optimizer.py``'s
+"""Training (counterpart of ``bigdl_tpu/optim/local_optimizer.py``'s
 ``Optimizer`` facade, ``LocalOptimizer`` and module-level ``validate``).
 
+``Optimizer`` holds the model, dataset, criterion and the run's
+configuration, and drives the loop; ``Optimizer.apply(model, dataset,
+criterion)`` picks ``DistriOptimizer`` for a ``DistributedDataSet`` and
+``LocalOptimizer`` otherwise, as the reference's factory does.
 ``LocalOptimizer(model, dataset, criterion).set_optim_method(...)
 .set_end_when(...).optimize()`` runs the JAX package's drive loop on the
 module's device, one eager step per batch:
@@ -79,11 +83,26 @@ so that a wrong width or wiring stops on the host with the module's path
 before any parameter is allocated on the card; then ``ParamAudit`` (one
 host transfer) after the build. ``validate=False`` skips all of them.
 
+``flat_update=True`` trains over the flat layout (the JAX package's
+``_make_flat_step``): one float32 master vector that the parameters are
+views of, one flat gradient buffer that their ``.grad`` s are views of, the
+gradient clipped as one vector and one ``update_flat`` of the method over
+the vector, with the weight-decay exclusions as a per-element coefficient
+vector. The precision policies hang off it: ``comms_dtype`` passes the
+gradient through the wire's quantize -> dequantize with error feedback
+(``GradCompressor.exchange_local``), ``master_dtype`` / ``slot_dtype``
+store the master and the slots narrow (``StatePrecision``; the parameters
+stay the float32 decode of the stored master). ``validate=True`` runs
+``FlatParamAudit`` over the vector before the first step. Checkpoints of a
+flat run stay in the tree layout and in float32, as in the JAX package.
+The policies need the flat layout; ``flat_update`` refuses micro-batches
+and the methods that are not elementwise.
+
 Each iteration is logged (loss, learning rate, records/s) and kept in
-``history``. The flat update and its precision policies and buffer
-donation are not ported (their keyword arguments raise
-``NotImplementedError`` when not at their defaults); nor are summaries,
-telemetry, health, retry, preemption and elastic training.
+``history``. ``donate=False`` (buffer donation: in-place updates are the
+port's idiom already) is ROADMAP Queue 1 item 9 and raises
+``NotImplementedError``; so do ``set_health``, ``set_elastic`` and
+``set_telemetry``. Summaries, retry and preemption are not ported.
 """
 
 from __future__ import annotations
@@ -107,14 +126,13 @@ from ..utils.serialization import (copy_into, latest_checkpoint_step, load_check
 from ..utils.table import Table
 from .optim_method import SGD, OptimMethod
 from .predictor import forward_padded
+from .quantization import MASTER_SCALE_KEY, LowPrecisionPolicy
 from .trigger import Trigger
 from .validation import ValidationMethod, ValidationResult
 
 log = logging.getLogger(__name__)
 
-# the JAX package's Optimizer keyword arguments and their defaults
-_UNPORTED = {"donate": True, "flat_update": False, "comms_dtype": None,
-             "error_feedback": True, "master_dtype": None, "slot_dtype": None}
+_ITEM_9 = "ROADMAP Queue 1 item 9"
 
 
 _staged_lock = threading.Lock()
@@ -183,7 +201,12 @@ def validate(model, params, model_state, dataset, methods) -> Dict[str, Validati
     (``forward_padded``; one holding a ``SparseTensor`` runs at its own
     rows) and its output sliced back before the metrics,
     whose targets stay unpadded. One host transfer a batch: its numerators
-    together."""
+    together. Under a process group of more than one rank the sweep is
+    sharded (:func:`_validate_sharded`)."""
+    from ..parallel import _comm
+
+    if _comm.world() > 1:
+        return _validate_sharded(model, params, model_state, dataset, methods)
     totals: Dict[str, ValidationResult] = {}
     rows: Optional[int] = None
     device = model.device
@@ -202,18 +225,67 @@ def validate(model, params, model_state, dataset, methods) -> Dict[str, Validati
     return totals
 
 
-class LocalOptimizer:
-    """Trains ``model`` on ``dataset`` against ``criterion`` on the model's
-    device (see the module docstring)."""
+def _validate_sharded(model, params, model_state, dataset, methods
+                      ) -> Dict[str, ValidationResult]:
+    """:func:`validate` under a group of n ranks: each batch is padded (row 0
+    repeated) to the first batch's rows rounded up to a multiple of n, rank
+    r forwards rows ``[r·B/n, (r+1)·B/n)`` of it, its metrics take the real
+    rows among them, and each method's numerator and count are summed over
+    the sweep and then over the ranks (one collective), so every rank holds
+    the single-process result."""
+    from ..parallel import _comm
 
-    def __init__(self, model, dataset, criterion, validate: bool = True, **kwargs):
-        for key, val in kwargs.items():
-            if key not in _UNPORTED:
-                raise TypeError(f"LocalOptimizer got an unexpected keyword argument {key!r}")
-            if val != _UNPORTED[key]:
-                raise NotImplementedError(
-                    f"LocalOptimizer({key}={val!r}) is not ported yet "
-                    f"(only the default {_UNPORTED[key]!r})")
+    n, r = _comm.world(), _comm.rank()
+    device = model.device
+    rows: Optional[int] = None
+    nums = torch.zeros(len(methods), dtype=torch.float64, device=device)
+    cnts = torch.zeros(len(methods), dtype=torch.float64, device=device)
+    for batch in dataset.data(train=False):
+        if rows is None:
+            rows = -(-batch.size() // n) * n
+        real = batch.size()
+        if real < rows:
+            padded = pad_minibatch(batch, rows)
+            if padded is None:
+                raise ValueError("a sharded validation needs batches that can be row-padded")
+            batch = padded[0]
+        k = rows // n
+        lo, hi = r * k, min((r + 1) * k, real)
+        if hi <= lo:
+            continue
+        part = batch.slice(r * k, k)
+        with torch.inference_mode():
+            y = forward_padded(model, params, model_state, to_device(part.get_input(), device), k)
+            t = to_device(part.get_target(), device)
+            y, t = y[:hi - lo], t[:hi - lo]
+            for i, m in enumerate(methods):
+                num, cnt = m.metric(y, t)
+                nums[i] += num.reshape(()).to(torch.float64)
+                cnts[i] += cnt
+    both = _comm.psum_(torch.cat([nums, cnts]))
+    totals: Dict[str, ValidationResult] = {}
+    for m, num, cnt in zip(methods, both[:len(methods)].tolist(), both[len(methods):].tolist()):
+        res = m.make_result(num, int(cnt))
+        totals[m.name] = totals[m.name] + res if m.name in totals else res
+    return totals
+
+
+class Optimizer:
+    """The facade: model, dataset, criterion and the run's configuration,
+    and the drive loop (see the module docstring); ``apply`` picks the
+    concrete optimizer."""
+
+    def __init__(self, model, dataset, criterion, validate: bool = True, donate: bool = True,
+                 flat_update: bool = False, comms_dtype=None, error_feedback: bool = True,
+                 master_dtype=None, slot_dtype=None):
+        if not donate:
+            raise NotImplementedError(
+                f"{type(self).__name__}(donate=False) is not ported ({_ITEM_9}): updates are "
+                "in place already")
+        policy = LowPrecisionPolicy(comms_dtype=comms_dtype, error_feedback=error_feedback,
+                                    master_dtype=master_dtype, slot_dtype=slot_dtype)
+        self._precision = policy if policy.active else None
+        self.flat_update = bool(flat_update)
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
@@ -238,26 +310,51 @@ class LocalOptimizer:
         self._resume_skip_iters = 0
         self._copy_stream = None  # the prefetch thread's copy stream on the card
         self._prefetch_thread: Optional[threading.Thread] = None
+        self._copy_in_worker = True  # the prefetch thread copies batches to the device
+        self._flat = None  # the flat layout's state (_FlatState) while one is bound
         self.history: List[Dict[str, Any]] = []
 
+    # --------------------------------------------------------------- factory
+    @staticmethod
+    def apply(model, dataset, criterion) -> "Optimizer":
+        """``DistriOptimizer`` for a ``DistributedDataSet``, else
+        ``LocalOptimizer``."""
+        from ..dataset.dataset import DistributedDataSet
+
+        if isinstance(dataset, DistributedDataSet):
+            from ..parallel.distri_optimizer import DistriOptimizer
+
+            return DistriOptimizer(model, dataset, criterion)
+        return LocalOptimizer(model, dataset, criterion)
+
+    # ------------------------------------------------------- not ported yet
+    def set_health(self, config=True):
+        raise NotImplementedError(f"set_health is not ported ({_ITEM_9})")
+
+    def set_elastic(self, config=True):
+        raise NotImplementedError(f"set_elastic is not ported ({_ITEM_9})")
+
+    def set_telemetry(self, telemetry):
+        raise NotImplementedError(f"set_telemetry is not ported ({_ITEM_9})")
+
     # ----------------------------------------------------------- configuration
-    def set_optim_method(self, method: OptimMethod) -> "LocalOptimizer":
+    def set_optim_method(self, method: OptimMethod) -> "Optimizer":
         self.optim_method = method
         return self
 
-    def set_end_when(self, trigger: Trigger) -> "LocalOptimizer":
+    def set_end_when(self, trigger: Trigger) -> "Optimizer":
         self.end_when = trigger
         return self
 
     def set_validation(self, trigger: Trigger, dataset,
-                       methods: Sequence[ValidationMethod]) -> "LocalOptimizer":
+                       methods: Sequence[ValidationMethod]) -> "Optimizer":
         self.validation_trigger = trigger
         self.validation_dataset = dataset
         self.validation_methods = list(methods)
         return self
 
     def set_checkpoint(self, path: Optional[str] = None, trigger: Optional[Trigger] = None,
-                       keep_last: Optional[int] = None) -> "LocalOptimizer":
+                       keep_last: Optional[int] = None) -> "Optimizer":
         """Checkpoint into ``path`` whenever ``trigger`` fires; ``keep_last=N``
         prunes all but the N newest after each save (None keeps all)."""
         if trigger is None:
@@ -270,7 +367,7 @@ class LocalOptimizer:
         self.checkpoint_keep_last = keep_last
         return self
 
-    def set_micro_batches(self, n: int) -> "LocalOptimizer":
+    def set_micro_batches(self, n: int) -> "Optimizer":
         """Split each batch into ``n`` row slices, one update a batch (see the
         module docstring; BN statistics become slice-local)."""
         if n < 1:
@@ -278,16 +375,16 @@ class LocalOptimizer:
         self._micro_batches = int(n)
         return self
 
-    def set_gradient_clipping_by_l2_norm(self, clip_norm: float) -> "LocalOptimizer":
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float) -> "Optimizer":
         self._grad_clip_norm = float(clip_norm)
         return self
 
-    def set_constant_gradient_clipping(self, min_v: float, max_v: float) -> "LocalOptimizer":
+    def set_constant_gradient_clipping(self, min_v: float, max_v: float) -> "Optimizer":
         self._grad_clip_const = (float(min_v), float(max_v))
         return self
 
     # ---------------------------------------------------------------- resume
-    def resume(self, checkpoint_path: Optional[str] = None) -> "LocalOptimizer":
+    def resume(self, checkpoint_path: Optional[str] = None) -> "Optimizer":
         """Restore params, BN state, slots, the state table, the RNG position
         and the data position from the newest verified checkpoint, so that
         the next :meth:`optimize` continues the run; builds the model from
@@ -300,13 +397,14 @@ class LocalOptimizer:
             raise FileNotFoundError(f"resume(): no checkpoints under {self.checkpoint_path}")
         if not self.model.is_built():
             self.model.build(RandomGenerator.generator(),
-                             self.model._as_input(self._first_batch().get_input()))
+                             self.model._as_input(self._build_input(self._first_batch())))
         self._resume_from_checkpoint()
         return self
 
     def _resume_from_checkpoint(self) -> int:
         """Restore from the newest verified checkpoint; returns its step."""
-        params, flat_slots, host, flat_model_state = load_checkpoint(self.checkpoint_path)
+        params, flat_slots, host, flat_model_state = load_checkpoint(
+            self.checkpoint_path, params_like=self.model.get_parameters())
         self._commit_restored(params, flat_model_state, flat_slots,
                               {k: v for k, v in host.items() if not k.startswith("_rng")},
                               (host["_rng_seed"], host["_rng_counter"]),
@@ -344,11 +442,21 @@ class LocalOptimizer:
             self._write_checkpoint(state, slots)
 
     def _write_checkpoint(self, state, slots) -> Dict[str, Any]:
-        """One verified checkpoint at the current step (``neval``)."""
+        """One verified checkpoint at the current step (``neval``): the tree
+        layout, the slots as :meth:`_checkpoint_slots` gives them."""
         return save_checkpoint(self.checkpoint_path, step=state["neval"],
-                               params=self.model.get_parameters(), optim_slots=slots,
+                               params=self.model.get_parameters(),
+                               optim_slots=self._checkpoint_slots(slots),
                                optim_state=dict(state), model_state=self.model.get_state(),
                                keep_last=self.checkpoint_keep_last)
+
+    def _checkpoint_slots(self, slots):
+        """The slots in the tree layout and float32 (the flat layout's
+        vectors decoded and viewed per leaf)."""
+        fs = self._flat
+        if fs is None:
+            return slots
+        return fs.fp.slots_tree_view(fs.decoded_slots())
 
     # ------------------------------------------------------------ validation
     def _run_validation(self) -> Optional[Dict[str, ValidationResult]]:
@@ -512,11 +620,27 @@ class LocalOptimizer:
         model.set_state(detach_tree(new_state))
         return loss.detach()
 
+    def _ragged_seam_policy(self) -> str:
+        """How the seam treats a train batch shorter than the step's rows:
+        ``"pad"`` (padded and masked), ``"drop"`` or ``"pass"`` (handed on
+        as it is; DistriOptimizer's)."""
+        return "pad" if self._mask_ragged else "drop"
+
+    def _local_rows(self, batch):
+        """The rows of a training batch that this process trains on (all of
+        them; DistriOptimizer takes its rank's)."""
+        return batch
+
+    def _build_input(self, first):
+        """The input the model is built from: the first batch's (the rank's
+        rows of it under DistriOptimizer)."""
+        return first.get_input()
+
     def _ragged_seam(self, batch):
         """``(batch, real rows)``, the batch padded to the step's rows when it
         is short and can be masked, or None to drop it."""
         n = batch.size()
-        if n < self._step_rows:
+        if n < self._step_rows and self._ragged_seam_policy() != "pass":
             padded = pad_minibatch(batch, self._step_rows) if self._mask_ragged else None
             if padded is None:
                 if not self._warned_ragged_drop:
@@ -586,9 +710,13 @@ class LocalOptimizer:
                     if seam is None:
                         continue
                     batch, n = seam
+                    rows = batch.size()
+                    batch = self._local_rows(batch)
                     pinned: list = []
                     nbytes, ready = 0, None
-                    if on_card:
+                    if not self._copy_in_worker:  # copied on the driver thread
+                        x, t = batch.get_input(), batch.get_target()
+                    elif on_card:
                         nbytes = _host_bytes(batch.get_input()) + _host_bytes(batch.get_target())
                         stage(nbytes)  # counted before the allocation, taken off below
                         with torch.cuda.stream(side):
@@ -599,8 +727,7 @@ class LocalOptimizer:
                     else:
                         x, t = to_device(batch.get_input(), device), to_device(
                             batch.get_target(), device)
-                    item = _DeviceBatch(x, t, n, batch.size(), wait_s, qdepth, ready, pinned,
-                                        nbytes)
+                    item = _DeviceBatch(x, t, n, rows, wait_s, qdepth, ready, pinned, nbytes)
                     if not ring.put(item):
                         return
                 ring.put(end)
@@ -618,7 +745,10 @@ class LocalOptimizer:
                 if isinstance(item, BaseException):
                     raise item
                 stage(-item.nbytes)
-                item.wait_on(device)
+                if self._copy_in_worker:
+                    item.wait_on(device)
+                else:
+                    item.x, item.t = to_device(item.x, device), to_device(item.t, device)
                 yield item
         finally:
             # an early stop, an exception or the epoch's end: a thread blocked
@@ -641,22 +771,37 @@ class LocalOptimizer:
             stage(-mine[0])  # the batches the close dropped
 
     # ----------------------------------------------------------- the loop
+    def _check_first_batch(self, first) -> None:
+        """Refuse what the step cannot train (DistriOptimizer: a global batch
+        that does not divide into its ranks)."""
+        if self._precision is not None and not self.flat_update:
+            raise ValueError(
+                "low-precision policies (comms_dtype/master_dtype/slot_dtype) hang off the "
+                "flat master buffer; construct the optimizer with flat_update=True (or use "
+                "the ZeRO-1 sharded DistriOptimizer, which always carries the flat layout)")
+
+    def _init_step_state(self, method: OptimMethod, params):
+        """The slots the steps carry (fresh, or the checkpoint's)."""
+        return self._init_slots(method, params)
+
     def optimize(self):
         """Run until ``end_when`` fires; returns the trained model."""
         model, method = self.model, self.optim_method
         state = method.state
         first = self._first_batch()
         self._step_rows = first.size()
-        self._validate_before_step(to_spec(first.get_input()))
+        self._check_first_batch(first)
+        x0 = self._build_input(first)
+        self._validate_before_step(to_spec(x0))
         if not model.is_built():
-            model.build(RandomGenerator.generator(), model._as_input(first.get_input()))
+            model.build(RandomGenerator.generator(), model._as_input(x0))
         self._audit_params()
         self._mask_ragged = (self.criterion.supports_unreduced()
                              and not self._has_batch_coupled_state())
         device = model.device
         params = model.get_parameters()
-        slots = self._init_slots(method, params)
         model.zero_grad(set_to_none=True)
+        slots = self._init_step_state(method, params)
         t_start = time.perf_counter()
         mark: Dict[str, Optional[float]] = {"t": None}  # host time of the last loss pull
 
@@ -724,3 +869,193 @@ class LocalOptimizer:
                     stop = True
                 state["_epoch_done"] = False
         return model
+
+
+class _FlatState:
+    """The flat layout of one run: the codec, the stored master (float32,
+    or narrow under ``master_dtype``), the float32 working vector the
+    parameters are views of (the master itself when it is float32), the
+    flat gradient buffer the ``.grad`` s are views of, the stored slot
+    vectors (a shard of each under the ZeRO-1 layout), the error-feedback
+    residual, the precision objects and the weight-decay coefficients (of
+    the shard under ZeRO-1)."""
+
+    def __init__(self, fp, params, device, precision, method, wd_full, shard=None):
+        from ..parallel.compression import GradCompressor
+        from .quantization import StatePrecision
+
+        self.fp = fp
+        self.work = torch.zeros(fp.padded_total, dtype=torch.float32, device=device)
+        fp.bind(params, self.work)
+        self.grads = torch.zeros(fp.padded_total, dtype=torch.float32, device=device)
+        self.shard = shard  # (rank, lo, hi) under ZeRO-1
+        lo, hi = (0, fp.padded_total) if shard is None else shard[1:]
+        self.sp = (StatePrecision(fp, precision)
+                   if precision is not None and precision.quantizes_state else None)
+        self.comp = (GradCompressor(fp, precision)
+                     if precision is not None and precision.comms_dtype is not None else None)
+        self.err = (self.comp.init_residual(device)
+                    if self.comp is not None and self.comp.error_feedback else None)
+        self.wd = None if wd_full is None else wd_full[lo:hi]
+        self.slots = method.init_flat_slots(
+            torch.zeros(hi - lo, dtype=torch.float32, device=device))
+        self.master = self.work
+        if self.sp is not None:
+            self.master, mscale = self.sp.encode_master(self.work)
+            self.slots = self.sp.encode_slots(self.slots)
+            if mscale is not None:
+                self.slots[MASTER_SCALE_KEY] = mscale
+            self.decode()
+
+    def decode(self) -> None:
+        """The working vector (the parameters) from the stored master."""
+        if self.master is not self.work:
+            self.sp.decode_master(self.master, self.slots.get(MASTER_SCALE_KEY), out=self.work)
+
+    def decoded_slots(self) -> Dict[str, Any]:
+        """The float32 slot vectors, whole (gathered under ZeRO-1)."""
+        from ..parallel import _comm
+
+        slots = {k: v for k, v in self.slots.items() if k != MASTER_SCALE_KEY}
+        if self.sp is not None:
+            slots = self.sp.decode_slots(slots)
+        if self.shard is None:
+            return slots
+        full = {}
+        for k, v in slots.items():
+            if isinstance(v, torch.Tensor) and v.dim() == 1:
+                out = torch.empty(self.fp.padded_total, dtype=v.dtype, device=v.device)
+                full[k] = _comm.all_gather_into(out, v.contiguous())
+            else:
+                full[k] = v
+        return full
+
+    def restore_slots(self, restored: Dict[str, Any]) -> None:
+        """Copy a checkpoint's tree-layout slots (``{path: array}``) into the
+        stored slot vectors (this rank's shard of them under ZeRO-1)."""
+        lo, hi = (0, self.fp.padded_total) if self.shard is None else self.shard[1:]
+        full = {k: torch.zeros(self.fp.padded_total, dtype=torch.float32,
+                               device=self.work.device)
+                for k, v in self.slots.items() if k != MASTER_SCALE_KEY and v.dim() == 1}
+        copy_into(self.fp.slots_tree_view(full), restored, "optimizer slot")
+        for k, vec in full.items():
+            self.slots[k].copy_(vec[lo:hi])
+
+
+def _clip_flat_(opt, g: torch.Tensor, norm_sq_sum=None) -> torch.Tensor:
+    """``opt`` 's clipping of a flat gradient (or shard), in place: the
+    constant clip, then the L2-norm clip over the vector (``norm_sq_sum``
+    sums the squares over the ranks for a shard)."""
+    if opt._grad_clip_const is not None:
+        g.clamp_(*opt._grad_clip_const)
+    if opt._grad_clip_norm is not None:
+        sq = torch.sum(g * g)
+        if norm_sq_sum is not None:
+            sq = norm_sq_sum(sq.reshape(1)).reshape(())
+        scale = torch.clamp(opt._grad_clip_norm / (torch.sqrt(sq) + 1e-12), max=1.0)
+        g.mul_(scale)
+    return g
+
+
+
+def _apply_flat_(opt, fs: _FlatState, g: torch.Tensor, lr: float, step: int, shard=None,
+                 norm_sq_sum=None, gather=None) -> None:
+    """Clip the exchanged flat gradient ``g`` (:func:`_clip_flat_`) and
+    update ``fs`` 's master with it in float32, the padding tail re-zeroed:
+    the whole vector, or with ``shard = (rank, lo, hi)`` the rank's part of
+    it, then ``gather(whole, part)`` puts the parts back together; the
+    working vector is then decoded from the stored master."""
+    g = _clip_flat_(opt, g, norm_sq_sum)
+    method = opt.optim_method
+    if shard is None:
+        part, pad_zero = slice(None), fs.fp.zero_pad
+    else:
+        part = slice(shard[1], shard[2])
+
+        def pad_zero(v):
+            return fs.fp.zero_pad_shard(v, shard[0])
+
+    if fs.sp is None:
+        method.update_flat(g, fs.work[part], fs.slots, lr, step, wd_coeff=fs.wd)
+        pad_zero(fs.work[part])
+    else:
+        master, fs.slots, _ = fs.sp.apply_update(
+            method, g, fs.master[part], fs.slots, lr, step, wd_coeff=fs.wd,
+            pad_zero=pad_zero, p32=fs.work[part])
+        if shard is None:
+            fs.master = master
+    if shard is not None:
+        stored = fs.master if fs.sp is not None else fs.work
+        gather(stored, stored[part])
+    fs.decode()
+
+class LocalOptimizer(Optimizer):
+    """Trains ``model`` on ``dataset`` against ``criterion`` on the model's
+    device (see the module docstring); the reference's
+    ``$DL/optim/LocalOptimizer.scala``."""
+
+    def _check_first_batch(self, first) -> None:
+        super()._check_first_batch(first)
+        if self.flat_update:
+            if self._micro_batches != 1:
+                raise NotImplementedError(
+                    "flat_update does not compose with set_micro_batches; pick one")
+            if not getattr(self.optim_method, "elementwise", True):
+                raise ValueError(
+                    f"{type(self.optim_method).__name__} is layer-structure-aware and cannot "
+                    "run on the flat parameter layout; use flat_update=False")
+
+    def _init_step_state(self, method: OptimMethod, params):
+        if not self.flat_update:
+            self._flat = None
+            return super()._init_step_state(method, params)
+        from ..parallel.parameter import FlatParameter
+
+        fp = FlatParameter(params, 1)
+        self._flat = _bind_flat(self, fp, params, method, None)
+        return self._flat.slots
+
+    def _train_step(self, x, t, nvalid: Optional[float], lr: float, params,
+                    slots) -> torch.Tensor:
+        if self._flat is None:
+            return super()._train_step(x, t, nvalid, lr, params, slots)
+        fs, model = self._flat, self.model
+        step = self.optim_method.state["neval"]
+        rng = RandomGenerator.generator()
+        fs.grads.zero_()
+        fs.fp.bind_grads(params, fs.grads)
+        loss, new_state = self._loss(model.get_state(), x, t, rng, nvalid)
+        loss.backward()
+        g = fs.grads
+        if fs.comp is not None:
+            g, fs.err = fs.comp.exchange_local(g, fs.err)
+        _apply_flat_(self, fs, g, lr, step)
+        model.set_state(detach_tree(new_state))
+        return loss.detach()
+
+
+def _wd_coefficients(method, fp, device):
+    """The per-element weight-decay coefficients on ``device`` when the
+    method excludes paths from its decay, else None (its own uniform
+    term)."""
+    wd = float(getattr(method, "weightdecay", 0.0) or 0.0)
+    exclude = tuple(getattr(method, "weightdecay_exclude", ()) or ())
+    if wd <= 0 or not exclude:
+        return None
+    return fp.coefficient_vector(lambda path: 0.0 if any(p in path for p in exclude) else wd,
+                                 device)
+
+
+def _bind_flat(opt, fp, params, method, shard) -> _FlatState:
+    """Bind ``params`` to a new flat layout of ``fp`` on the model's device,
+    audit it (``validate=True``) and put a resumed run's slots in."""
+    fs = _FlatState(fp, params, opt.model.device, opt._precision, method,
+                    _wd_coefficients(method, fp, opt.model.device), shard)
+    if opt.validate:
+        from ..analysis import FlatParamAudit
+
+        FlatParamAudit(fp, fs.work).check()
+    if opt._restored_slots is not None:
+        fs.restore_slots(opt._restored_slots)
+        opt._restored_slots = None
+    return fs

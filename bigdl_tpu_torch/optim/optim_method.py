@@ -17,8 +17,11 @@ rounding of that factor). The host-side state table (``epoch``, ``neval``)
 and the learning-rate schedule live on the method, as in the reference.
 ``elementwise`` is the JAX package's flag: False for the methods that take
 per-leaf norms (``Lamb``, ``LarsSGD``; each norm summed in float64 and
-rounded once to the leaf's dtype, on every device); the port has no
-flat-vector update that reads it.
+rounded once to the leaf's dtype, on every device), which have no
+flat-vector update. ``update_flat`` is the flat layout's update (the ZeRO-1
+``DistriOptimizer``, ``flat_update=True``): the method's own rule over one
+vector (a one-leaf tree), in place, with per-element weight-decay
+coefficients and rate scales.
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ class OptimMethod:
     """Base optimizer; ``state`` is the host-side state table."""
 
     elementwise = True
+    # True while update_flat applies the decay itself (wd_coeff): the
+    # methods with a built-in decay term skip theirs
+    external_weight_decay = False
 
     def __init__(self):
         self.state: Dict[str, Any] = {"epoch": 1, "neval": 1}
@@ -89,6 +95,45 @@ class OptimMethod:
     def update(self, grads, params, slots, lr: float, step: int):
         """One step in place; returns ``(params, slots)``."""
         raise NotImplementedError
+
+    def init_flat_slots(self, vec: torch.Tensor) -> Dict[str, Any]:
+        """The slots of a flat parameter vector: one vector like ``vec`` a
+        slot (scalar slot state as it is)."""
+        return {k: v["flat"] if isinstance(v, dict) else v
+                for k, v in self.init_slots({"flat": vec}).items()}
+
+    def update_flat(self, gvec, pvec, slot_vecs, lr, step, *, wd_coeff=None, lr_scale=None):
+        """One step over a flat float32 vector, in place (the JAX package's
+        ``update_flat``): ``wd_coeff`` is the per-element weight-decay
+        coefficient (0 on excluded segments and the padding tail), applied
+        here as ``g + wd_coeff * p`` with the method's own decay off for the
+        call; ``lr_scale`` a per-element rate multiplier. A method with
+        ``weightdecay_exclude`` needs ``wd_coeff`` (the flat layout has no
+        paths); ``elementwise=False`` methods refuse. Returns ``(pvec,
+        slot_vecs)``."""
+        if not self.elementwise:
+            raise NotImplementedError(
+                f"{type(self).__name__} is layer-structure-aware "
+                "(elementwise=False) and has no flat-vector update")
+        if (wd_coeff is None and float(getattr(self, "weightdecay", 0.0) or 0.0) > 0
+                and getattr(self, "weightdecay_exclude", ())):
+            raise ValueError(
+                f"{type(self).__name__} has weightdecay_exclude patterns; the flat layout "
+                "carries no parameter paths, so the caller must precompute the exclusions "
+                "into a wd_coeff vector (FlatParameter.coefficient_vector)")
+        if lr_scale is not None:
+            lr = lr * lr_scale
+        if wd_coeff is not None:
+            gvec = gvec + wd_coeff * pvec
+        slots = {k: {"flat": v} if isinstance(v, torch.Tensor) and v.shape == pvec.shape else v
+                 for k, v in slot_vecs.items()}
+        prev = self.external_weight_decay
+        self.external_weight_decay = wd_coeff is not None
+        try:
+            self.update({"flat": gvec}, {"flat": pvec}, slots, lr, step)
+        finally:
+            self.external_weight_decay = prev
+        return pvec, slot_vecs
 
     def optimize(self, feval, params):
         """One eager step, the reference's ``optimize(feval, x)``:
@@ -138,8 +183,9 @@ class SGD(OptimMethod):
     def update(self, grads, params, slots, lr, step):
         wd, mom, damp = self.weightdecay, self.momentum, self.dampening
         vel = dict(_leaves(slots["velocity"])) if mom > 0 else {}
+        own_wd = wd > 0 and not self.external_weight_decay
         for (path, p), (_, g) in zip(_leaves(params), _leaves(grads)):
-            if wd > 0 and not _wd_excluded(path, self.weightdecay_exclude):
+            if own_wd and not _wd_excluded(path, self.weightdecay_exclude):
                 g = g + wd * p
             if mom > 0:
                 v = vel[path]
@@ -201,7 +247,7 @@ class Adagrad(OptimMethod):
         wd = self.weightdecay
         for (_, p), (_, g), (_, a) in zip(_leaves(params), _leaves(grads),
                                           _leaves(slots["accum"])):
-            if wd > 0:
+            if wd > 0 and not self.external_weight_decay:
                 g = g + wd * p
             a.addcmul_(g, g)
             p.sub_(lr * g / (torch.sqrt(a) + 1e-10))

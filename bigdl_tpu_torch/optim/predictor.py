@@ -18,7 +18,12 @@ padded forward (:func:`forward_padded`) and its output rows are sliced back
 to the real ones before the metrics, whose targets are never padded: the
 sweep of ``LocalOptimizer``'s validation (``local_optimizer.validate``).
 Each call runs its own methods, so same-named methods with other parameters
-(``HitRatio(k=5)`` and ``k=10``) never share a step.
+(``HitRatio(k=5)`` and ``k=10``) never share a step. ``Evaluator(model,
+batch_size)`` takes the JAX package's ``batch_size``, which sizes its
+predictor: the sweep runs the dataset's batches in both packages. Under a
+process group (``Engine.init_distributed``) the sweep is sharded: each
+rank forwards its rows of each padded batch and the counters are summed
+over the ranks, so every rank holds the single-process result.
 """
 
 from __future__ import annotations
@@ -157,7 +162,9 @@ class Evaluator:
     ``Evaluator``): one eval-mode sweep folding each method's counters with
     ``+`` (see the module docstring)."""
 
-    def __init__(self, model):
+    def __init__(self, model, batch_size: Optional[int] = None):
+        # batch_size sizes the JAX package's predictor; the sweep runs the
+        # dataset's batches in both packages
         self.model = model
 
     def evaluate(self, dataset, methods: Sequence[ValidationMethod]

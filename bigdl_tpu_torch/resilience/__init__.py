@@ -1,5 +1,5 @@
 """Typed faults of the port's runtime: the checkpoint part and serving's."""
 
-from .errors import CheckpointCorrupt, CircuitOpen, DeadlineExceeded
+from .errors import ArtifactIncompatible, CheckpointCorrupt, CircuitOpen, DeadlineExceeded
 
-__all__ = ["CheckpointCorrupt", "CircuitOpen", "DeadlineExceeded"]
+__all__ = ["ArtifactIncompatible", "CheckpointCorrupt", "CircuitOpen", "DeadlineExceeded"]

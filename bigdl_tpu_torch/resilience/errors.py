@@ -1,6 +1,8 @@
 """Typed fault exceptions (counterpart of ``bigdl_tpu/resilience/errors.py``;
 ``CheckpointCorrupt`` and serving's ``DeadlineExceeded`` and ``CircuitOpen``
-so far, the port's own copies with the same fields and messages)."""
+so far, the port's own copies with the same fields and messages), and of
+``bigdl_tpu/utils/aot.py``'s ``ArtifactIncompatible``, which a fleet
+checkpoint that does not fit the model raises."""
 
 from __future__ import annotations
 
@@ -54,3 +56,14 @@ class CircuitOpen(RuntimeError):
         self.model = model
         self.reason = reason
         self.retry_in_s = retry_in_s
+
+
+class ArtifactIncompatible(Exception):
+    """An artifact cannot be used by this process: here a fleet checkpoint
+    whose codec geometry is not the model's, or whose generation is stale.
+    Carries a human-readable ``reason``."""
+
+    def __init__(self, bundle: str, reason: str):
+        self.bundle = bundle
+        self.reason = reason
+        super().__init__(f"artifact bundle {bundle}: {reason}")

@@ -3,21 +3,39 @@
 Counterpart of ``bigdl_tpu/utils/engine.py`` reduced to what the port uses:
 the compute/activation dtype policy (``compute_dtype`` / ``set_compute_dtype``
 / ``activation_dtype`` / ``set_activation_dtype``), the fused-kernel switch
-(``fused_kernels`` / ``set_fused_kernels``) and device resolution. There is
-no mesh and no topology here.
+(``fused_kernels`` / ``set_fused_kernels``), device resolution and the
+process group of a data-parallel run.
 
 Entry points run on the card: ``Engine.device(None)`` is ``cuda`` and raises
 when no CUDA device is present; the CPU is used only when asked for
 (``device="cpu"``), as the tests do.
+
+``Engine.init_distributed(coordinator_address, num_processes, process_id)``
+joins this process, as one rank, to a ``torch.distributed`` group (the JAX
+package's ``jax.distributed.initialize``; one rank a process, where the
+JAX package counts devices). Missing arguments come from the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``,
+then from torchrun's ``MASTER_ADDR``:``MASTER_PORT`` / ``WORLD_SIZE`` /
+``RANK``. The rank's device is the card, ``cuda:LOCAL_RANK`` when every
+rank has a card of its own and ``cuda:0`` when more ranks than cards share
+one, unless ``device="cpu"``. The backend is fixed there and then: NCCL
+when each rank has its own card, gloo on the CPU and when ranks share a
+card (NCCL refuses two ranks on one device). ``Engine.backend()`` reads
+it; ``device_count()`` (the world size), ``node_number()``,
+``core_number()`` and ``process_slice()`` are the JAX package's accessors
+over the group.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
+
+log = logging.getLogger(__name__)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -38,6 +56,8 @@ class Engine:
     _compute_dtype: Optional[str] = None
     _activation_dtype: Optional[str] = None
     _fused_kernels: Optional[bool] = None
+    # the data-parallel group: (backend, rank, world size, the rank's device)
+    _group: Optional[Tuple[str, int, int, torch.device]] = None
 
     @classmethod
     def device(cls, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -93,6 +113,94 @@ class Engine:
         if cls._fused_kernels is not None:
             return cls._fused_kernels
         return env_flag("BIGDL_FUSED_KERNELS")
+
+
+    # ------------------------------------------------------- the process group
+    @classmethod
+    def init_distributed(cls, coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None,
+                         device: Union[str, torch.device, None] = None) -> None:
+        """Join this process to the data-parallel group as rank
+        ``process_id`` of ``num_processes`` (see the module docstring).
+        ``coordinator_address`` is ``host:port`` or an ``init_method`` URL
+        (``tcp://...``, ``file://...``)."""
+        import torch.distributed as dist
+
+        env = os.environ
+        if cls._group is not None or dist.is_initialized():
+            raise RuntimeError("Engine.init_distributed: this process is already in a group")
+        addr = coordinator_address or env.get("JAX_COORDINATOR_ADDRESS")
+        if addr is None and env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+            addr = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        world = num_processes if num_processes is not None else env.get(
+            "JAX_NUM_PROCESSES", env.get("WORLD_SIZE"))
+        rank = process_id if process_id is not None else env.get(
+            "JAX_PROCESS_ID", env.get("RANK"))
+        if addr is None or world is None or rank is None:
+            raise RuntimeError(
+                "multi-process initialization needs coordinator_address/num_processes/"
+                "process_id (or the JAX_* or torchrun environment variables)")
+        world, rank = int(world), int(rank)
+        if not 0 <= rank < world:
+            raise ValueError(f"process_id {rank} is outside [0, {world})")
+        init_method = addr if "://" in addr else f"tcp://{addr}"
+        dev = cls.device(device)
+        if dev.type == "cuda":
+            cards = torch.cuda.device_count()
+            local = int(env.get("LOCAL_RANK", rank))
+            own = world <= cards and local < cards
+            dev = torch.device("cuda", local if own else 0)
+            backend = "nccl" if own else "gloo"
+            torch.cuda.set_device(dev)
+        else:
+            backend = "gloo"
+        dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+        with cls._lock:
+            cls._group = (backend, rank, world, dev)
+        log.info("rank %d of %d joined over %s on %s", rank, world, backend, dev)
+
+    @classmethod
+    def shutdown_distributed(cls) -> None:
+        """Leave the group (``destroy_process_group``); a no-op without one."""
+        import torch.distributed as dist
+
+        with cls._lock:
+            group, cls._group = cls._group, None
+        if group is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+    @classmethod
+    def backend(cls) -> Optional[str]:
+        """The group's backend (``"nccl"`` or ``"gloo"``), None without one."""
+        return None if cls._group is None else cls._group[0]
+
+    @classmethod
+    def rank_device(cls) -> Optional[torch.device]:
+        """The device ``init_distributed`` gave this rank, None without a group."""
+        return None if cls._group is None else cls._group[3]
+
+    @classmethod
+    def process_slice(cls) -> Optional[Tuple[int, int]]:
+        """``(rank, world size)`` for the per-process reader slice under
+        ``init_distributed``, else None."""
+        return None if cls._group is None else (cls._group[1], cls._group[2])
+
+    @classmethod
+    def device_count(cls) -> int:
+        """Devices that one data-parallel step spans: the group's world
+        size (one device a rank), 1 without a group."""
+        return 1 if cls._group is None else cls._group[2]
+
+    @classmethod
+    def node_number(cls) -> int:
+        """Reference: ``Engine.nodeNumber``; here the processes of the group."""
+        return cls.device_count()
+
+    @classmethod
+    def core_number(cls) -> int:
+        """Reference: ``Engine.coreNumber``; here devices a process (one)."""
+        return 1
 
 
 def torch_dtype(name: str) -> torch.dtype:

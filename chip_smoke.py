@@ -344,7 +344,51 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``u8hwc_to_f32chw`` at 128x224x224x3 (within 1e-5) and ``crc32c`` over
    1 MiB against their plain versions, all timed. [13a] and [20b] also
    print the prefetch thread's wait and the host's gather (native and
-   numpy) and copy of their batch.
+   numpy) and copy of their batch;
+22. data-parallel training across processes: [22a] the ResNet recipe
+   (``resnet_train.build``: conv7, 224x224, batch 128, bf16 activations,
+   nesterov SGD with ``("_bn", "bias")`` excluded from weight decay)
+   through ``Optimizer.apply(model, DataSet.distributed(base, 1), ...)``,
+   which gives ``DistriOptimizer`` (sharded), after
+   ``Engine.init_distributed`` over NCCL at world size 1: 10 steps (ms a
+   step, images/s, peak memory, the flat master's and slots' bytes, one
+   max-pool backward launch a step and nothing else, memory flat), one
+   update's device kernels on the flat layout against the tree, the device
+   work a step over 2 profiled steps; then 3 steps of it against the tree
+   and the flat ``LocalOptimizer`` from the same weights under
+   deterministic cuDNN (``DISTRI_LOCAL_REL``); [22b] two ranks spawned
+   from here sharing the card over gloo (each ``Engine.init_distributed``
+   through a file; a rank that fails prints its exit code and the end of
+   its stderr, one that outlives ``RANK_DEADLINE_S`` is killed; either
+   fails the run): the recipe at global batch 128 and
+   ``vgg_train.py``'s VGG-for-CIFAR-10 at 128, 3 steps each (ms a step and
+   peak memory a rank, the collectives' operand bytes, #10 1 and 5 a step
+   a rank), the ranks'
+   parameters and BN state bit-equal after every step, the averaged BN
+   state the mean of the ranks' own to the bit, and each run against the
+   plain simulation of the 2-rank step (``simulate_step``) on the card
+   from rank 0's initial weights (``DISTRI_SIM_REL``); [22c] VGG-for-
+   CIFAR-10 at 2 ranks, 4 steps a policy: ``comms_dtype`` bfloat16 and
+   int8 with error feedback (the gradient exchange's operand bytes a step
+   >= 2x and >= 3.5x under f32), ``master_dtype``/``slot_dtype``
+   bfloat16 (the stored master and slot bytes halved), each run's
+   parameters held against the f32 run's update (``POLICY_BETA``,
+   ``POLICY_REL``; a run that never moves must fail them) and its losses
+   within ``POLICY_LOSS_ATOL`` of the f32 run's; ``replicated`` with
+   ``flat_update=True`` (``REPLICATED_LOSS_ATOL``); one step clipped by
+   the global norm against the simulation (``DISTRI_CLIP_REL``); [22d]
+   the 2-rank VGG run checkpointed at step 2 and resumed at 2 ranks,
+   equal to the uninterrupted run at step 4 to the bit, and the file
+   resumed by a 1-rank ``LocalOptimizer``; then
+   ``tools/torch_multiprocess_smoke.py --device cuda``. Rehearse [22] on
+   the CPU by importing ``chip_smoke`` from a script guarded by
+   ``if __name__ == "__main__"`` (the ranks are spawned), setting
+   ``DISTRI_DEVICE = "cpu"``, cutting ``DISTRI_RECIPE`` (``--depth 18
+   --image-size 32 -b 8 --class-num 10 --synthetic-size 80``) and
+   ``DISTRI_VGG`` (``-b 8 --synthetic-size 32``), widening
+   ``POLICY_LOSS_ATOL`` (batches of 4 a rank) and ``POLICY_BETA`` and
+   ``POLICY_REL`` to what those batches read, and calling
+   ``phase_slice23("cpu")`` (~70 s; the launch checks are the card's).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -389,7 +433,9 @@ each under its ``parity_config`` name, the flagship served,
 ``remat_unwrapped_again``, ``remat_none``, ``remat_dots_saveable`` and
 ``treelstm_example``, and [20]'s ``keras_example``, ``c3d``,
 ``unet_predict`` and ``modules_slice21``, and [21]'s ``imagenet_shards`` and
-``augment_pipeline``) runs with every kernel's launch count set to 0 just
+``augment_pipeline``, and [22]'s ``distri_recipe``, ``distri_resnet_2rank``,
+``distri_vgg_2rank``, ``distri_policies`` and ``distri_resume``, the last
+four counted in the ranks' processes and summed) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -402,6 +448,7 @@ package is imported (both are blocked below).
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -3695,50 +3742,81 @@ def _mem() -> int:
     return torch.cuda.memory_allocated() - staged_device_bytes()
 
 
+class _ClassPatch:
+    """Replaces attributes of the optimizer classes (``LocalOptimizer`` and
+    ``DistriOptimizer``) and restores them on exit, as they were: set on the
+    class or inherited."""
+
+    def __init__(self):
+        from bigdl_tpu_torch.optim import LocalOptimizer
+        from bigdl_tpu_torch.parallel import DistriOptimizer
+
+        self.classes = (LocalOptimizer, DistriOptimizer)
+        self._saved = []
+
+    def patch(self, name, make):
+        """``setattr(cls, name, make(original))`` on each class."""
+        for cls in self.classes:
+            self._saved.append((cls, name, cls.__dict__.get(name)))
+            setattr(cls, name, make(getattr(cls, name)))
+
+    def restore(self):
+        for cls, name, old in reversed(self._saved):
+            if old is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, old)
+        self._saved = []
+
+
 class _StepProbe:
-    """Wraps ``LocalOptimizer._train_step`` and ``_run_validation`` (class
-    attributes, restored on exit): each step's kernel launches and the
-    device memory after it, each validation's launches and results;
-    ``before_step(opt)`` runs before each step when given."""
+    """Wraps ``_train_step`` and ``_run_validation`` of ``LocalOptimizer``
+    and ``DistriOptimizer`` (class attributes, restored on exit): each step's
+    kernel launches and the device memory after it, each validation's
+    launches and results; ``before_step(opt)`` runs before each step when
+    given."""
 
     def __init__(self, before_step=None):
         self.before_step = before_step
 
     def __enter__(self):
-        from bigdl_tpu_torch.optim import LocalOptimizer
-
         self.steps, self.validations = [], []
-        self._cls = LocalOptimizer
-        self._orig = (LocalOptimizer._train_step, LocalOptimizer._run_validation)
-        step0, val0 = self._orig
+        self._patch = _ClassPatch()
         probe = self
 
-        def step(opt, *a, **k):
-            if probe.before_step is not None:
-                probe.before_step(opt)
-            before = read_counts()
-            out = step0(opt, *a, **k)
-            after = read_counts()
-            probe.steps.append({"launches": {n: after[n] - before[n] for n in after},
-                                "mem": _mem()})
-            return out
+        def wrap_step(step0):
+            def step(opt, *a, **k):
+                if probe.before_step is not None:
+                    probe.before_step(opt)
+                before = read_counts()
+                out = step0(opt, *a, **k)
+                after = read_counts()
+                probe.steps.append({"launches": {n: after[n] - before[n] for n in after},
+                                    "mem": _mem()})
+                return out
 
-        def validation(opt):
-            before = read_counts()
-            res = val0(opt)
-            after = read_counts()
-            if res is not None:
-                probe.validations.append({
-                    "epoch": opt.optim_method.state["epoch"],
-                    "results": {k: v.result() for k, v in res.items()},
-                    "launches": sum(after.values()) - sum(before.values())})
-            return res
+            return step
 
-        LocalOptimizer._train_step, LocalOptimizer._run_validation = step, validation
+        def wrap_validation(val0):
+            def validation(opt):
+                before = read_counts()
+                res = val0(opt)
+                after = read_counts()
+                if res is not None:
+                    probe.validations.append({
+                        "epoch": opt.optim_method.state["epoch"],
+                        "results": {k: v.result() for k, v in res.items()},
+                        "launches": sum(after.values()) - sum(before.values())})
+                return res
+
+            return validation
+
+        self._patch.patch("_train_step", wrap_step)
+        self._patch.patch("_run_validation", wrap_validation)
         return self
 
     def __exit__(self, *exc):
-        self._cls._train_step, self._cls._run_validation = self._orig
+        self._patch.restore()
         return False
 
 
@@ -8429,28 +8507,30 @@ def _write_shards(directory, c, seed):
 
 
 class _InputSums:
-    """Wraps ``LocalOptimizer._train_step`` (class attribute, inside a
-    ``_StepProbe``): a device-side integer sum of each step's input bits,
-    taken on the driver's stream after the prefetch copy's event (no sync,
-    no launch of this repo's kernels)."""
+    """Wraps ``_train_step`` of ``LocalOptimizer`` and ``DistriOptimizer``
+    (class attributes, inside a ``_StepProbe``): a device-side integer sum
+    of each step's input bits, taken on the driver's stream after the
+    prefetch copy's event (no sync, no launch of this repo's kernels)."""
 
     def __enter__(self):
         import torch
-        from bigdl_tpu_torch.optim import LocalOptimizer
 
-        self.sums, self._cls = [], LocalOptimizer
-        self._orig = LocalOptimizer._train_step
-        orig, sums = self._orig, self.sums
+        self.sums = []
+        self._patch = _ClassPatch()
+        sums = self.sums
 
-        def step(opt, x, *a, **k):
-            sums.append(x.contiguous().view(torch.int32).sum(dtype=torch.int64))
-            return orig(opt, x, *a, **k)
+        def wrap(orig):
+            def step(opt, x, *a, **k):
+                sums.append(x.contiguous().view(torch.int32).sum(dtype=torch.int64))
+                return orig(opt, x, *a, **k)
 
-        LocalOptimizer._train_step = step
+            return step
+
+        self._patch.patch("_train_step", wrap)
         return self
 
     def __exit__(self, *exc):
-        self._cls._train_step = self._orig
+        self._patch.restore()
         return False
 
 
@@ -8502,7 +8582,7 @@ def phase_imagenet_shards(card):
         step_ms = statistics.median(walls)
         log(f"    ResNet-50 conv7, {recipe.model.n_parameters() / 1e6:.3f} M params, batch "
             f"{c['batch']}, activations {Engine.activation_dtype()}, the pipeline's "
-            f"{resnet_train.PIPELINE_WORKERS} workers over {opt.dataset.source.n_workers} decode "
+            f"{resnet_train.PIPELINE_WORKERS} workers over {opt.dataset.base.source.n_workers} decode "
             f"threads: {len(hist)} steps in {wall:.2f} s (build and first batch included); step "
             f"{step_ms:.2f} ms (median of steps 3-{n_steps - 1}; range {min(walls):.2f}-"
             f"{max(walls):.2f}), {c['batch'] / step_ms * 1e3:.1f} images/s; peak device memory "
@@ -8690,6 +8770,736 @@ def phase_slice22(card):
     return by_path
 
 
+# ----------------------------------------------------------------------------- [22]
+# data-parallel training across processes (bigdl_tpu_torch/parallel/distri_optimizer.py)
+DISTRI_DEVICE = None  # the card; "cpu" rehearses [22] on the CPU
+DISTRI_STEPS = 10  # [22a]'s main path
+DISTRI_RECIPE = ["--dataset", "imagenet", "--depth", "50", "-b", "128", "--warmup-epochs", "0",
+                 "--max-epoch", "1", "--synthetic-size", "1280"]
+DISTRI_VGG = ["-b", "128", "--max-epoch", "1", "--synthetic-size", "512"]
+DISTRI_RANK_STEPS = 3  # [22b]
+POLICY_STEPS = 4  # [22c], [22d]
+# tolerances, stated before the first run on the card:
+# [22a] DistriOptimizer at one rank and LocalOptimizer (tree and flat) from the
+#   same weights, 3 SGD steps under deterministic cuDNN: the same elementwise
+#   arithmetic, so bit-equal is expected; the check holds them within 1e-6 of
+#   the update's norm (relative L2) and logs whether they are bit-equal
+DISTRI_LOCAL_REL = 1e-6
+# [22b] the 2-rank run against the plain simulation of the 2-rank step on the
+#   card (simulate_step), 3 steps under deterministic cuDNN: the same sums in
+#   the same order (a + b, then / 2), bit-equal expected; held within 1e-5 of
+#   the update's norm, BN state within 1e-5 absolute
+DISTRI_SIM_REL = 1e-5
+DISTRI_SIM_STATE_ATOL = 1e-5
+# [22c] each policy run against the f32 run over its 4 steps. The f32 run's
+#   loss moves by only ~0.045 over them, so the parameters decide: with the
+#   f32 run's update d = p_f32 - p0, beta = <p - p0, d> / <d, d> (1 for a
+#   run that follows the update, 0 for one whose weights never move) within
+#   POLICY_BETA of 1, and rel = ||p - p_f32|| / ||d|| under POLICY_REL
+#   (None: the bf16 master's stochastic rounding, 2**-8 of each weight a
+#   step, is larger than the update, so only beta can tell). The same two
+#   numbers read on a run that never moves (its own initial weights) must
+#   fail the limits. Readings on the H100 (deterministic cuDNN; the run
+#   that never moves in brackets): bf16 wire beta 0.931, rel 0.370; int8
+#   wire 0.924, 0.389 (0, 1); bf16 state 0.890, 1.557 (0.00004, 1.308).
+#   rel is large for every policy because VGG-for-CIFAR-10 from random
+#   weights amplifies any difference ~6x a step (1.7e-3 of the update
+#   after one step, 0.085 after four, on the CPU in float32). The limits
+#   are a few times the distance of beta from 1, and rel under 0.6. The
+#   losses within POLICY_LOSS_ATOL of the f32 run's (a few times the
+#   readings 0.0068 / 0.0072 / 0.0122); the replicated flat run within
+#   1e-4 of the sharded one
+POLICY_BETA = {"p_bf16": 0.25, "p_int8": 0.25, "p_state": 0.35}
+POLICY_REL = {"p_bf16": 0.6, "p_int8": 0.6, "p_state": None}
+POLICY_LOSS_ATOL = {"p_bf16": 0.025, "p_int8": 0.025, "p_state": 0.04}
+REPLICATED_LOSS_ATOL = 1e-4
+DISTRI_CLIP = 0.05  # [22c] one step clipped by the global norm
+# the clipped step against the simulation: the global norm is summed shard
+#   by shard and then over the ranks, the simulation's leaf by leaf, so the
+#   scale may differ by an ulp and a weight's p - lr·v round the other way
+#   (2**-24 of the weight, against an update ~1e-3 of it): 1e-3 of the
+#   update's norm
+DISTRI_CLIP_REL = 1e-3
+RANK_DEADLINE_S = 420.0
+
+
+def _deterministic(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def _distri_argv(argv, device):
+    return list(argv) + (["--platform", "cpu"] if device == "cpu" else [])
+
+
+def _vec_of(tree):
+    """A tree's floating leaves as one float32 vector, in its path order."""
+    import torch
+    from bigdl_tpu_torch.utils.serialization import tree_items
+
+    leaves = [v.detach().reshape(-1).float() for v in tree_items(tree).values()
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    return torch.cat(leaves) if leaves else torch.zeros(0)
+
+
+def _hash(t) -> tuple:
+    """Two integer sums of a float32 vector's bits (equal vectors, equal
+    pairs; a difference of one bit changes both)."""
+    import torch
+
+    b = t.detach().contiguous().view(torch.int32).to(torch.int64)
+    w = torch.arange(1, b.numel() + 1, device=b.device, dtype=torch.int64) % 65521
+    return int(b.sum()), int((b * w).sum())
+
+
+def _update_rel(a, b, a0) -> float:
+    """||a - b|| over ||b - a0|| (float64 on the host)."""
+    import torch
+
+    a, b, a0 = (v.detach().double().cpu() for v in (a, b, a0))
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b - a0)),
+                                                       1e-30))
+
+
+def _against_update(p, ref, p0) -> tuple:
+    """``(beta, rel)`` of ``p`` against the reference run's update ``d = ref -
+    p0``: ``<p - p0, d> / <d, d>`` and ``||p - ref|| / ||d||`` (float64 on
+    the host)."""
+    import torch
+
+    p, ref, p0 = (v.detach().double().cpu() for v in (p, ref, p0))
+    d = ref - p0
+    return float(torch.dot(p - p0, d) / torch.dot(d, d)), _update_rel(p, ref, p0)
+
+
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _kernels_in(fn):
+    """``(launch calls, device kernels)`` of ``fn`` under torch.profiler: the
+    CUDA runtime's launch calls on the host, and the kernels the device
+    recorded (CUPTI can drop device records, seen in a long process)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    evs = list(prof.profiler.kineto_results.events())
+    return (sum(1 for ev in evs if ev.name() in _LAUNCH_CALLS),
+            sum(1 for ev in evs if ev.device_type() == torch.autograd.DeviceType.CUDA
+                and not ev.name().startswith(("Memcpy", "Memset"))))
+
+
+def _update_launches(opt):
+    """:func:`_kernels_in` of one flat update and of one tree update of
+    ``opt`` 's method over its model, on copies."""
+    import torch
+
+    fs, method = opt._flat, opt.optim_method
+    fp = fs.fp
+    step = method.state["neval"]
+    p = fs.work.clone()
+    slots = {k: v.clone() for k, v in fs.slots.items()}
+    g = torch.zeros_like(p)
+    flat_n = _kernels_in(lambda: method.update_flat(g, p, slots, 0.1, step, wd_coeff=fs.wd))
+    tp = fp.unflatten(fs.work.clone())
+    ts = {k: fp.unflatten(v.clone()) for k, v in fs.slots.items()}
+    tg = fp.unflatten(torch.zeros_like(p))
+    tree_n = _kernels_in(lambda: method.update(tg, tp, ts, 0.1, step))
+    return flat_n, tree_n
+
+
+def _recipe_optimizer(kind, argv):
+    """``(optimizer, model)``: the ResNet recipe's pieces through
+    ``Optimizer.apply`` (``kind="apply"``), or through ``LocalOptimizer``
+    on the tree (``"local"``) or the flat layout (``"local_flat"``)."""
+    from bigdl_tpu_torch.examples import resnet_train
+    from bigdl_tpu_torch.optim import LocalOptimizer, Optimizer
+
+    recipe = resnet_train.build(resnet_train.parser().parse_args(argv))
+    base = recipe.optimizer
+    if kind == "apply":
+        opt = Optimizer.apply(recipe.model, base.dataset, base.criterion)
+    else:
+        opt = LocalOptimizer(recipe.model, base.dataset, base.criterion,
+                             flat_update=kind == "local_flat")
+    return opt.set_optim_method(base.optim_method), recipe.model
+
+
+def phase_distri_one_rank(card):
+    """[22a] the ResNet recipe through ``Optimizer.apply(...,
+    DataSet.distributed(base, 1), ...)`` -> ``DistriOptimizer`` (sharded)
+    after ``Engine.init_distributed`` over NCCL at world size 1, 10 steps;
+    then 3 steps of it against the tree and the flat ``LocalOptimizer`` from
+    the same weights. Returns the main path's counts."""
+    import socket
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+
+    device = DISTRI_DEVICE
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    Engine.init_distributed(f"localhost:{port}", 1, 0, device=device)
+    try:
+        log(f"[22a] rank 0 of 1 joined tcp://localhost:{port} over {Engine.backend()} on "
+            f"{Engine.rank_device()}")
+        if device is None and Engine.backend() != "nccl":
+            raise AssertionError(f"[22a] one rank on its own card took {Engine.backend()}")
+        argv = _distri_argv(DISTRI_RECIPE, device)
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+        opt, model = _recipe_optimizer("apply", argv)
+        if type(opt) is not DistriOptimizer:
+            raise AssertionError(f"[22a] Optimizer.apply gave {type(opt).__name__}")
+        opt.set_end_when(Trigger.max_iteration(DISTRI_STEPS))
+        if device is None:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StepProbe() as probe:
+            reset_counts()  # the main path starts here
+            opt.optimize()
+            _sync()
+            counts = read_counts()  # the main path ends here
+        wall = time.perf_counter() - t0
+        hist = opt.history
+        losses = [h["loss"] for h in hist]
+        if opt._sync != "sharded" or len(hist) != DISTRI_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"[22a] sync {opt._sync}, losses {losses}")
+        walls = [h["wall_s"] * 1e3 for h in hist[2:]]
+        step_ms = statistics.median(walls)
+        batch = hist[0]["records"]
+        fs = opt._flat
+        master_b = fs.master.numel() * fs.master.element_size()
+        slot_b = sum(v.numel() * v.element_size() for v in fs.slots.values())
+        peak = torch.cuda.max_memory_allocated() / 2**30 if device is None else float("nan")
+        log(f"    ResNet-{DISTRI_RECIPE[DISTRI_RECIPE.index('--depth') + 1]} conv7, "
+            f"{model.n_parameters() / 1e6:.3f} M params, batch {batch}, "
+            f"activations {Engine.activation_dtype()}: {len(hist)} steps in {wall:.2f} s (build "
+            f"included); step {step_ms:.2f} ms (median of steps 3-{DISTRI_STEPS}; range "
+            f"{min(walls):.2f}-{max(walls):.2f}), {batch / step_ms * 1e3:.1f} images/s; peak "
+            f"device memory {peak:.2f} GiB; flat master {master_b / 2**20:.1f} MiB "
+            f"({fs.fp.total} parameters, padded {fs.fp.padded_total}), slots "
+            f"{slot_b / 2**20:.1f} MiB; card {card}")
+        log("    losses: " + ", ".join(f"{v:.4f}" for v in losses))
+        if device is None:
+            _check_steps("[22a]", probe, DISTRI_STEPS, 1, want_validations=0)
+            if counts["maxpool2d_bwd"] != DISTRI_STEPS or sum(counts.values()) != DISTRI_STEPS:
+                raise AssertionError(f"[22a] launches {counts}")
+        log(f"    maxpool2d_bwd launches {counts['maxpool2d_bwd']} (1 a step); others "
+            f"{sum(counts.values()) - counts['maxpool2d_bwd']}")
+        if device is None:
+            flat_k, tree_k = _update_launches(opt)
+            log(f"    one update's kernel launches (launch calls / kernels the device "
+                f"recorded): flat {flat_k[0]} / {flat_k[1]}, tree {tree_k[0]} / {tree_k[1]} "
+                f"({len(fs.fp.paths)} leaves)")
+            dev_ms, wall_ms, _ = _busy_share(opt, 2)
+            log(f"    device work a step {dev_ms:.2f} ms (2 more steps under torch.profiler, "
+                f"{wall_ms:.2f} ms a step there), {100 * dev_ms / step_ms:.1f}% of the "
+                f"unprofiled step; card {card}")
+        del opt, model, fs
+        _free()
+        _distri_vs_local(card, argv)
+    finally:
+        Engine.shutdown_distributed()
+    return counts
+
+
+def _distri_vs_local(card, argv):
+    """[22a] 3 steps of DistriOptimizer (one rank), LocalOptimizer on the
+    tree and on the flat layout, from the same weights, deterministic cuDNN."""
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.parallel import FlatParameter
+
+    _deterministic(True)
+    try:
+        out = {}
+        for kind in ("apply", "local", "local_flat"):
+            opt, model = _recipe_optimizer(kind, argv)
+            opt.set_end_when(Trigger.max_iteration(3))
+            first = opt._first_batch()
+            model.build(RandomGenerator.generator(), model._as_input(first.get_input()))
+            p0 = _vec_of(model.get_parameters()).clone()
+            opt.optimize()
+            fp = FlatParameter(model.get_parameters(), 1)
+            out[kind] = (fp.flatten(model.get_parameters()).cpu(), p0.cpu(),
+                         [h["loss"] for h in opt.history])
+            del opt, model
+            _free()
+    finally:
+        _deterministic(False)
+    ref, ref0, ref_l = out["apply"]
+    for kind in ("local", "local_flat"):
+        got, got0, got_l = out[kind]
+        if not bool((got0 == ref0).all()):
+            raise AssertionError(f"[22a] {kind} started from other weights")
+        rel = _update_rel(got, ref, ref0)
+        exact = bool((got == ref).all())
+        log(f"[22a] 3 SGD steps of the recipe, DistriOptimizer at one rank against "
+            f"LocalOptimizer ({kind}): {rel:.3g} of the update's norm (limit "
+            f"{DISTRI_LOCAL_REL}), bit-equal {exact}; losses {got_l} / {ref_l}; card {card}")
+        if not rel <= DISTRI_LOCAL_REL:
+            raise AssertionError(f"[22a] DistriOptimizer and {kind} differ by {rel}")
+
+
+# --- [22b]-[22d]: two ranks sharing the card, spawned from here ----------------------------
+def _rank_job_optimizer(job, rank):
+    """The job's optimizer and model on this rank."""
+    from bigdl_tpu_torch.examples import resnet_train, vgg_train
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer
+
+    if job["model"] == "resnet":
+        run = resnet_train.build(resnet_train.parser().parse_args(job["argv"]))
+    else:
+        run = vgg_train.build(vgg_train.parser().parse_args(job["argv"]))
+    base = run.optimizer
+    opt = DistriOptimizer(run.model, base.dataset, base.criterion, **job.get("kw", {}))
+    opt.set_optim_method(base.optim_method)
+    if job.get("clip") is not None:
+        opt.set_gradient_clipping_by_l2_norm(job["clip"])
+    opt.set_end_when(Trigger.max_iteration(job["steps"]))
+    return opt, run.model
+
+
+def _rank_run(job, rank, folder):
+    """One job on this rank: train, recording every step's parameter and
+    state hashes, the BN state before and after the average, the step's
+    generator seed; returns what the parent checks."""
+    import torch
+    from bigdl_tpu_torch.parallel import _comm
+    from bigdl_tpu_torch.parallel import distri_optimizer as dmod
+    from bigdl_tpu_torch.utils.random import RandomGenerator
+
+    opt, model = _rank_job_optimizer(job, rank)
+    if job.get("resume"):
+        opt.resume(os.path.join(folder, job["resume"]))
+    if job.get("checkpoint"):
+        from bigdl_tpu_torch.optim import Trigger
+
+        opt.set_checkpoint(os.path.join(folder, job["checkpoint"]),
+                           Trigger.several_iteration(2))
+    rec = {"hashes": [], "pre": [], "post": [], "seeds": [], "init": None}
+    orig_avg = dmod.average_state
+
+    def average_state(state, loss):
+        rec["pre"].append(_vec_of(state).cpu())
+        out = orig_avg(state, loss)
+        rec["post"].append(_vec_of(out[0]).cpu())
+        return out
+
+    orig_step = opt._train_step
+
+    def step(*a, **k):
+        if rec["init"] is None:
+            rec["init"] = (opt._flat.work.detach().cpu().clone() if opt._flat is not None
+                           else _vec_of(model.get_parameters()).cpu(),
+                           _vec_of(model.get_state()).cpu())
+        rec["seeds"].append(RandomGenerator._seed * 1_000_003 + RandomGenerator._counter + 1)
+        out = orig_step(*a, **k)
+        params = opt._flat.work if opt._flat is not None else _vec_of(model.get_parameters())
+        rec["hashes"].append((_hash(params), _hash(_vec_of(model.get_state()))))
+        return out
+
+    opt._train_step = step
+    dmod.average_state = average_state
+    on_card = torch.cuda.is_available() and model.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        _comm.reset_counts()
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        counts = read_counts()  # the main path ends here
+    finally:
+        dmod.average_state = orig_avg
+    comm = _comm.counts()
+    fs = opt._flat
+    params = fs.work if fs is not None else _vec_of(model.get_parameters())
+    out = {
+        "counts": counts, "comm": comm,
+        "losses": [h["loss"] for h in opt.history],
+        "walls": [h["wall_s"] * 1e3 for h in opt.history],
+        "records": [h["records"] for h in opt.history],
+        "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+        "hashes": rec["hashes"], "seeds": rec["seeds"],
+        "master_bytes": fs.master.numel() * fs.master.element_size() if fs else 0,
+        "slot_bytes": sum(v.numel() * v.element_size() for v in fs.slots.values()) if fs else 0,
+        "sync": opt._sync,
+    }
+    torch.save({"pre": rec["pre"], "post": rec["post"], "init": rec["init"],
+                "final": (params.detach().cpu().clone(), _vec_of(model.get_state()).cpu())},
+               os.path.join(folder, f"{job['name']}.{rank}.pt"))
+    del opt, model, fs, params, step, orig_step
+    _free()
+    return out
+
+
+def _distri_rank(rank, world, folder):
+    """A spawned rank: join the group through a file, run the jobs of
+    ``jobs.json`` in order, write ``rank<r>.json``."""
+    sys.path.insert(0, str(ROOT))
+    from bigdl_tpu_torch import Engine
+
+    with open(os.path.join(folder, "jobs.json")) as f:
+        spec = json.load(f)
+    Engine.init_distributed(f"file://{folder}/group", world, rank, device=spec["device"])
+    if spec["device"] is None:  # the library's load launches the probe once: before any path
+        from bigdl_tpu_torch.ops import _build
+
+        _build.load()
+    _deterministic(True)
+    results = {"backend": Engine.backend(), "device": str(Engine.rank_device())}
+    try:
+        for job in spec["jobs"]:
+            results[job["name"]] = _rank_run(job, rank, folder)
+            if job.get("keep_oldest_checkpoint") and rank == 0:
+                _keep_oldest(os.path.join(folder, job["checkpoint"]))
+            from bigdl_tpu_torch.parallel import _comm
+
+            _comm.barrier()
+    finally:
+        Engine.shutdown_distributed()
+    with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def _keep_oldest(directory):
+    """Remove every checkpoint of ``directory`` but the oldest."""
+    from bigdl_tpu_torch.utils.serialization import _checkpoint_steps, _remove_checkpoint
+
+    for step in _checkpoint_steps(directory)[:-1]:
+        _remove_checkpoint(directory, step)
+
+
+def _spawn_ranks(jobs, folder, world=2):
+    """Run ``jobs`` on ``world`` spawned ranks (gloo, sharing the card);
+    a rank that fails or outlives ``RANK_DEADLINE_S`` fails the run (its
+    exit code and the end of its stderr are printed)."""
+    from bigdl_tpu_torch.examples._common import spawn
+
+    with open(os.path.join(folder, "jobs.json"), "w") as f:
+        json.dump({"device": DISTRI_DEVICE, "jobs": jobs}, f)
+    spawn(_distri_rank, (folder,), world, RANK_DEADLINE_S, stderr_dir=folder)
+    out = []
+    for r in range(world):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _simulate(job, folder, rank0, clip=None):
+    """The plain simulation of the job's 2-rank steps in this process, from
+    rank 0's initial weights and state, each step with the ranks' generator
+    seed; returns (parameters, state, initial parameters, losses) on the
+    host."""
+    import torch
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.parallel import FlatParameter, simulate_step
+    from bigdl_tpu_torch.parallel.parameter import tree_leaves_with_path
+    from bigdl_tpu_torch.utils.serialization import tree_items
+
+    saved = torch.load(os.path.join(folder, f"{job['name']}.0.pt"))
+    opt, model = _rank_job_optimizer(job, 0)  # no group in this process: whole batches
+    first = opt._first_batch()
+    model.build(RandomGenerator.generator(),
+                model._as_input(first.slice(0, first.size() // 2).get_input()))
+    params = model.get_parameters()
+    fp = FlatParameter(params, 1)
+    init_p, init_s = saved["init"]
+    vec = torch.zeros(fp.padded_total, device=model.device)
+    vec[:fp.total] = init_p[:fp.total].to(model.device)
+    with torch.no_grad():
+        for (_, p), (_, v) in zip(tree_leaves_with_path(params),
+                                  tree_leaves_with_path(fp.unflatten(vec))):
+            p.copy_(v)
+        off = 0
+        for v in tree_items(model.get_state()).values():
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                v.copy_(init_s[off:off + v.numel()].view(v.shape).to(v))
+                off += v.numel()
+    method = opt.optim_method
+    slots = method.init_slots(params)
+    ds = opt.dataset
+    ds.shuffle(1)
+    losses, norms = [], []
+    for i, batch in enumerate(ds.data(train=True)):
+        if i == job["steps"]:
+            break
+        x = torch.as_tensor(batch.get_input()).to(model.device)
+        t = torch.as_tensor(batch.get_target()).to(model.device)
+        gen = torch.Generator().manual_seed(rank0["seeds"][i])
+        stats = {}
+        losses.append(float(simulate_step(
+            model, opt.criterion, method, slots, x, t, 2, method.get_learning_rate(),
+            method.state["neval"], rng=gen, clip_norm=clip, stats=stats)))
+        norms.append(stats["grad_norm"])
+        method.state["neval"] += 1
+    final = fp.flatten(model.get_parameters()).cpu()
+    out = (final[:fp.total], _vec_of(model.get_state()).cpu(), vec[:fp.total].cpu(), losses,
+           norms)
+    del opt, model, params, slots
+    _free()
+    return out
+
+
+def _check_against_sim(label, job, folder, ranks, card, clip=None):
+    """A 2-rank job's final parameters and state against the simulation
+    (``DISTRI_SIM_REL``; ``DISTRI_CLIP_REL`` with clipping)."""
+    import torch
+
+    _deterministic(True)
+    try:
+        p, st, p0, sim_losses, norms = _simulate(job, folder, ranks[0][job["name"]], clip=clip)
+    finally:
+        _deterministic(False)
+    got_p, got_s = torch.load(os.path.join(folder, f"{job['name']}.0.pt"))["final"]
+    got_p = got_p[:p.numel()]
+    rel = _update_rel(got_p, p, p0)
+    sd = float((got_s - st).abs().max()) if st.numel() else 0.0
+    exact = bool((got_p == p).all()) and bool((got_s == st).all())
+    limit = DISTRI_SIM_REL if clip is None else DISTRI_CLIP_REL
+    log(f"{label} against the plain simulation of the 2-rank step on this device "
+        f"(simulate_step, {job['steps']} steps, deterministic cuDNN): parameters "
+        f"{rel:.3g} of the update's norm (limit {limit}), BN state max |diff| "
+        f"{sd:.3g} (limit {DISTRI_SIM_STATE_ATOL}), bit-equal {exact}; losses "
+        f"{ranks[0][job['name']]['losses']} / simulation {sim_losses}; the averaged "
+        f"gradient's norm " + ", ".join(f"{v:.4g}" for v in norms) + f"; card {card}")
+    if clip is not None and not min(norms) > clip:
+        raise AssertionError(f"{label} the gradient norm {norms} never reached the clip {clip}")
+    if not (rel <= limit and sd <= DISTRI_SIM_STATE_ATOL):
+        raise AssertionError(f"{label} differs from the simulation: {rel}, {sd}")
+
+
+def _check_rank_equal_and_bn_mean(label, name, folder, ranks):
+    """Bit-equal parameters and state across the ranks after every step;
+    the averaged BN state the mean of the ranks' own."""
+    import torch
+
+    h0, h1 = ranks[0][name]["hashes"], ranks[1][name]["hashes"]
+    if h0 != h1:
+        raise AssertionError(f"{label} the ranks' parameters or state differ: {h0} / {h1}")
+    a = torch.load(os.path.join(folder, f"{name}.0.pt"))
+    b = torch.load(os.path.join(folder, f"{name}.1.pt"))
+    for i, (pre0, pre1, post) in enumerate(zip(a["pre"], b["pre"], a["post"])):
+        if not bool((post == (pre0 + pre1) / 2).all()):
+            raise AssertionError(f"{label} step {i + 1}: the averaged BN state is not the "
+                                 "mean of the ranks' states")
+    log(f"{label} the ranks' parameters and BN state bit-equal after each of the "
+        f"{len(h0)} steps; the averaged BN state ({a['pre'][0].numel()} values) equal to the "
+        f"mean of the two ranks' own after every step, to the bit")
+
+
+def _rank_times(label, name, ranks, card, per_step_pools):
+    import statistics
+
+    for r, res in enumerate(ranks):
+        x = res[name]
+        walls = x["walls"][1:] or x["walls"]
+        comm = {k: v["bytes"] for k, v in x["comm"].items() if v["calls"]}
+        log(f"{label} rank {r}: {len(x['losses'])} steps of {x['records'][0]} records "
+            f"({x['records'][0] // 2} a rank), step {statistics.median(walls):.2f} ms "
+            f"(median after the first; two processes time-sharing one card), peak "
+            f"{x['peak'] / 2**30:.2f} GiB, losses "
+            + ", ".join(f"{v:.4f}" for v in x["losses"])
+            + f"; collective operand bytes {comm} (the comm layer stages none: gloo takes "
+            f"CUDA tensors); "
+            f"maxpool2d_bwd {x['counts']['maxpool2d_bwd']}; card {card}")
+        if DISTRI_DEVICE is None and (
+                x["counts"]["maxpool2d_bwd"] != per_step_pools * len(x["losses"])
+                or sum(x["counts"].values()) != x["counts"]["maxpool2d_bwd"]):
+            raise AssertionError(f"{label} rank {r} launches {x['counts']}")
+
+
+def _sum_counts(ranks, names):
+    total = {}
+    for res in ranks:
+        for name in names:
+            for k, v in res[name]["counts"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_distri_two_ranks(card):
+    """[22b]-[22d] on two ranks sharing the card over gloo; returns the
+    main paths' counts (both ranks')."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    dev = DISTRI_DEVICE
+    rn, vg = _distri_argv(DISTRI_RECIPE, dev), _distri_argv(DISTRI_VGG, dev)
+
+    def vgg(name, steps=POLICY_STEPS, **extra):
+        return dict(name=name, model="vgg", argv=vg, steps=steps, **extra)
+
+    jobs = [dict(name="resnet", model="resnet", argv=rn, steps=DISTRI_RANK_STEPS),
+            vgg("vgg", DISTRI_RANK_STEPS),
+            vgg("p_f32"), vgg("p_bf16", kw={"comms_dtype": "bfloat16"}),
+            vgg("p_int8", kw={"comms_dtype": "int8"}),
+            vgg("p_state", kw={"master_dtype": "bfloat16", "slot_dtype": "bfloat16"}),
+            vgg("p_replicated_flat", kw={"parameter_sync": "replicated", "flat_update": True}),
+            vgg("p_clip", 1, clip=DISTRI_CLIP),
+            vgg("ckpt_a", checkpoint="ckpt", keep_oldest_checkpoint=True),
+            vgg("ckpt_b", resume="ckpt")]
+    by_name = {j["name"]: j for j in jobs}
+    folder = tempfile.mkdtemp(prefix="bigdl_ranks_")
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(jobs, folder)
+    log(f"[22b] two ranks on {ranks[0]['device']} over {ranks[0]['backend']}: {len(jobs)} "
+        f"runs in {time.perf_counter() - t0:.1f} s (the processes' start included)")
+    if ranks[0]["backend"] != "gloo":
+        raise AssertionError(f"[22b] two ranks on one card took {ranks[0]['backend']}")
+    # [22b] the recipe and VGG-for-CIFAR-10
+    for name, pools in (("resnet", 1), ("vgg", 5)):
+        label = f"[22b] {'ResNet-50 recipe' if name == 'resnet' else 'VGG-for-CIFAR-10'}:"
+        _rank_times(label, name, ranks, card, pools)
+        _check_rank_equal_and_bn_mean(label, name, folder, ranks)
+        _check_against_sim(label, by_name[name], folder, ranks, card)
+    # [22c] the policies
+    res = {n: ranks[0][n] for n in by_name if n.startswith("p_")}
+    # the sharded runs' gradient exchange: the reduce-scatter or the codes'
+    # all-to-all (the replicated run averages it with pmean)
+    ex = {n: (r["comm"]["psum_scatter"]["bytes"] + r["comm"]["all_to_all"]["bytes"]
+              + (r["comm"]["pmean"]["bytes"] if r["sync"] == "replicated" else 0))
+          / len(r["losses"]) for n, r in res.items()}
+    ref = np.asarray(res["p_f32"]["losses"])
+    for n, r in res.items():
+        dl = float(np.max(np.abs(np.asarray(r["losses"]) - ref[:len(r["losses"])])))
+        log(f"[22c] {n}: gradient exchange {ex[n] / 2**20:.2f} MiB a step (f32 "
+            f"{ex['p_f32'] / ex[n]:.2f}x of it), stored master "
+            f"{r['master_bytes'] / 2**20:.1f} MiB, slots {r['slot_bytes'] / 2**20:.1f} MiB, "
+            f"losses " + ", ".join(f"{v:.4f}" for v in r["losses"])
+            + f" (max |diff| to f32 {dl:.3g}); ranks equal "
+            f"{ranks[0][n]['hashes'] == ranks[1][n]['hashes']}; card {card}")
+        if ranks[0][n]["hashes"] != ranks[1][n]["hashes"] or not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"[22c] {n}: ranks differ or a loss is not finite")
+        limit = REPLICATED_LOSS_ATOL if n == "p_replicated_flat" else POLICY_LOSS_ATOL.get(n)
+        if limit is not None and dl > limit:
+            raise AssertionError(f"[22c] {n}: losses {dl} from the f32 run's (limit {limit})")
+    _check_policy_params(folder, card)
+    if not (ex["p_f32"] / ex["p_bf16"] >= 2.0 and ex["p_f32"] / ex["p_int8"] >= 3.5):
+        raise AssertionError(f"[22c] exchange bytes {ex}")
+    st, f32 = res["p_state"], res["p_f32"]
+    if not (st["master_bytes"] * 2 == f32["master_bytes"]
+            and st["slot_bytes"] * 2 == f32["slot_bytes"]):
+        raise AssertionError(f"[22c] bf16 state bytes {st['master_bytes']}, {st['slot_bytes']}")
+    if res["p_replicated_flat"]["sync"] != "replicated":
+        raise AssertionError("[22c] the replicated run did not run replicated")
+    _check_against_sim(f"[22c] clipping by the global norm ({DISTRI_CLIP}):",
+                       by_name["p_clip"], folder, ranks, card, clip=DISTRI_CLIP)
+    # [22d] checkpoint at step 2, resume at world size 2, equal at step 4
+    a = torch.load(os.path.join(folder, "ckpt_a.0.pt"))["final"]
+    b = torch.load(os.path.join(folder, "ckpt_b.0.pt"))["final"]
+    same = bool((a[0] == b[0]).all()) and bool((a[1] == b[1]).all())
+    log(f"[22d] VGG-for-CIFAR-10 at 2 ranks checkpointed at step 2 and resumed at 2 ranks: "
+        f"step 4 bit-equal to the uninterrupted run {same} (losses "
+        f"{ranks[0]['ckpt_a']['losses']} / resumed {ranks[0]['ckpt_b']['losses']})")
+    if not same or ranks[0]["ckpt_b"]["hashes"] != ranks[1]["ckpt_b"]["hashes"]:
+        raise AssertionError("[22d] the resumed run is not the uninterrupted one")
+    _local_reads_checkpoint(os.path.join(folder, "ckpt"), vg, card)
+    import shutil
+
+    shutil.rmtree(folder, ignore_errors=True)
+    return {"distri_resnet_2rank": _sum_counts(ranks, ["resnet"]),
+            "distri_vgg_2rank": _sum_counts(ranks, ["vgg"]),
+            "distri_policies": _sum_counts(ranks, [n for n in by_name if n.startswith("p_")]),
+            "distri_resume": _sum_counts(ranks, ["ckpt_a", "ckpt_b"])}
+
+
+def _check_policy_params(folder, card):
+    """[22c] each policy run's final parameters against the f32 run's
+    update (``POLICY_BETA``, ``POLICY_REL``); a run that never moves (the
+    run's own initial weights) must fail the same limits."""
+    import torch
+
+    f32 = torch.load(os.path.join(folder, "p_f32.0.pt"))
+    p0, ref = f32["init"][0], f32["final"][0]
+    for n in ("p_bf16", "p_int8", "p_state"):
+        saved = torch.load(os.path.join(folder, f"{n}.0.pt"))
+        own0, got = saved["init"][0], saved["final"][0]
+        beta_lim, rel_lim = POLICY_BETA[n], POLICY_REL[n]
+
+        def ok(beta, rel):
+            return abs(beta - 1) <= beta_lim and (rel_lim is None or rel <= rel_lim)
+
+        beta, rel = _against_update(got, ref, p0)
+        beta_c, rel_c = _against_update(own0, ref, p0)
+        log(f"[22c] {n}: parameters against the f32 run's update (||d|| "
+            f"{float(torch.linalg.vector_norm((ref - p0).double())):.4g}): beta {beta:.6g} "
+            f"(limit |beta - 1| <= {beta_lim}), rel {rel:.6g} (limit {rel_lim}); a run that "
+            f"never moves reads beta {beta_c:.6g}, rel {rel_c:.6g}; its initial weights "
+            f"max |diff| to f32's {float((own0 - p0).abs().max()):.3g}; card {card}")
+        if not ok(beta, rel):
+            raise AssertionError(f"[22c] {n}: the parameters do not follow the f32 update: "
+                                 f"beta {beta}, rel {rel}")
+        if ok(beta_c, rel_c):
+            raise AssertionError(f"[22c] {n}: the limits pass a run that never moves")
+
+
+def _local_reads_checkpoint(directory, argv, card):
+    """[22d] the 2-rank checkpoint resumed by a 1-rank LocalOptimizer."""
+    import numpy as np
+    from bigdl_tpu_torch.examples import vgg_train
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.serialization import load_checkpoint, tree_items
+
+    run = vgg_train.build(vgg_train.parser().parse_args(argv))
+    base = run.optimizer
+    opt = LocalOptimizer(run.model, base.dataset, base.criterion)
+    opt.set_optim_method(base.optim_method).resume(directory)
+    params, _, host, _ = load_checkpoint(directory)
+    mine = {k: v.detach().cpu().numpy() for k, v in tree_items(run.model.get_parameters()).items()}
+    equal = all(np.array_equal(mine[k], v) for k, v in params.items())
+    opt.set_end_when(Trigger.max_iteration(host["neval"] + 1))
+    opt.optimize()
+    losses = [h["loss"] for h in opt.history]
+    log(f"[22d] the checkpoint (step {host['neval'] - 1}) read by a 1-rank LocalOptimizer: "
+        f"parameters equal to the file's {equal}, 2 more steps at the whole batch, losses "
+        f"{losses}; card {card}")
+    if not equal or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError("[22d] LocalOptimizer did not resume the 2-rank checkpoint")
+    del opt, run
+    _free()
+
+
+def phase_slice23(card):
+    """[22] data-parallel training across processes; returns the main
+    paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"distri_recipe": phase_distri_one_rank(card)}
+    by_path.update(phase_distri_two_ranks(card))
+    _multiprocess_tool(card)
+    log(f"[22] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def _multiprocess_tool(card):
+    """[22] ``tools/torch_multiprocess_smoke.py`` on this device."""
+    args = [sys.executable, str(ROOT / "tools" / "torch_multiprocess_smoke.py"), "--json",
+            "--device", "cpu" if DISTRI_DEVICE == "cpu" else "cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run(args, capture_output=True, text=True, timeout=300, cwd=str(ROOT))
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    log(f"[22] tools/torch_multiprocess_smoke.py: exit {r.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s, {lines[-1] if lines else r.stdout[-500:]}; "
+        f"card {card}")
+    if r.returncode != 0:
+        raise AssertionError(f"[22] the two-process smoke failed:\n{r.stdout[-2000:]}"
+                             f"\n{r.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -8736,6 +9546,7 @@ def main() -> int:
     by_path.update(phase_slice20(card))
     by_path.update(phase_slice21(card))
     by_path.update(phase_slice22(card))
+    by_path.update(phase_slice23(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

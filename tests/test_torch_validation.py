@@ -275,11 +275,13 @@ def test_evaluator_never_shares_a_step_between_differently_parameterised_methods
 
 
 def test_evaluate_batch_size_is_not_ported():
-    """The sweep runs the dataset's batches; ``batch_size`` raises, never ignored."""
+    """``batch_size`` sizes the predictor, as in the JAX package: the sweep
+    runs the dataset's batches, so the result is the one without it."""
     x, y = images(4, 3)
     _, pm = carried_pair(cnn, x)
-    with pytest.raises(NotImplementedError, match="batch_size"):
-        pm.evaluate(DataSet.array(x, y, batch_size=2), [poptim.Top1Accuracy()], batch_size=4)
+    ds = DataSet.array(x, y, batch_size=2)
+    got = pm.evaluate(ds, [poptim.Top1Accuracy()], batch_size=4)
+    assert_results_equal(got, pm.evaluate(ds, [poptim.Top1Accuracy()]))
     assert not pm.training  # the no-argument part still switched to eval mode
 
 
