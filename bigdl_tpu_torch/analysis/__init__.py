@@ -10,10 +10,12 @@ on the host, before anything is allocated or launched on the card.
   masters, non-finite values).
 * :class:`FlatParamAudit` — the same over the flat layout's vector (codec
   geometry, float32, finiteness), before the first flat step.
+* :class:`ShardedParamAudit` — the same over a rank's blocks of a tree cut
+  by a ``ShardingPlan`` (finiteness naming the block and the rank, float32,
+  aliasing over the tree before the cut).
 
 ``validate_model`` composes them; ``Graph`` and the optimizers run them by
-default (``validate=False`` skips them). The JAX package's
-``ShardedParamAudit`` waits for ``hybrid.py``.
+default (``validate=False`` skips them).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import List
 from .errors import (AnalysisError, Finding, GraphValidationError, ParamAuditError,
                      ShapeInferenceError)
 from .graph_validator import GraphValidator
-from .param_audit import FlatParamAudit, ParamAudit
+from .param_audit import FlatParamAudit, ParamAudit, ShardedParamAudit
 from .shape_prop import ShapeProp, infer_shapes, to_spec
 
 
@@ -46,5 +48,5 @@ def validate_model(model, sample_or_spec=None, allow_shared=()) -> List[Finding]
 
 
 __all__ = ["AnalysisError", "FlatParamAudit", "Finding", "GraphValidationError", "GraphValidator", "ParamAudit",
-           "ParamAuditError", "ShapeInferenceError", "ShapeProp", "infer_shapes", "to_spec",
+           "ParamAuditError", "ShapeInferenceError", "ShapeProp", "ShardedParamAudit", "infer_shapes", "to_spec",
            "validate_model"]

@@ -176,3 +176,86 @@ class FlatParamAudit:
 
     def check(self) -> List[Finding]:
         return _raise_on_errors(self.findings())
+
+
+class ShardedParamAudit:
+    """ParamAudit of a tree that a ``ShardingPlan`` has cut into blocks (the
+    JAX package's ``ShardedParamAudit``), run by the hybrid, pipeline and
+    expert-parallel optimizers before the first step, on every rank:
+
+    * **finiteness** on this rank's own blocks (the other ranks' are never
+      gathered for it), naming the path, the block's index in the whole leaf
+      (from ``specs``, ``{path: spec}``, and ``mesh``, when given) and the
+      rank;
+    * **dtype policy**: floating leaves are float32 masters;
+    * **aliasing** over ``aliasing_tree``, the tree before it was cut (each
+      block is a copy, so two tied leaves would become two independent
+      blocks with nothing to show it), keyed on storage as ``ParamAudit``
+      keys it; ``allow_shared`` substrings of a path suppress a finding.
+    """
+
+    def __init__(self, params, allow_shared: Iterable[str] = (), aliasing_tree=None,
+                 specs=None, mesh=None):
+        self.params = params
+        self.allow_shared = frozenset(allow_shared)
+        self.aliasing_tree = aliasing_tree
+        self.specs = specs
+        self.mesh = mesh
+
+    def _where(self, path: str, leaf: torch.Tensor) -> str:
+        from ..parallel._comm import rank
+
+        if self.specs is None or self.mesh is None:
+            return f" (rank {rank()})"
+        from ..parallel.sharding import spec_axes
+
+        spec = self.specs.get(path, ())
+        index = []
+        for dim, k in enumerate(leaf.shape):
+            axes = spec_axes(spec[dim]) if dim < len(spec) else ()
+            i = self.mesh.index(axes)
+            index.append(f"{i * k}:{(i + 1) * k}")
+        return f" (shard [{', '.join(index)}] on rank {rank()})"
+
+    def findings(self) -> List[Finding]:
+        found: List[Finding] = []
+        items = tree_items(self.params)
+        floats = []
+        for path, leaf in items.items():
+            name = "".join(f"['{k}']" for k in path.split("/"))
+            if not leaf.is_floating_point():
+                continue  # int8 weights and index tables are exempt
+            if leaf.dtype != torch.float32:
+                found.append(Finding(
+                    "sharded-param-dtype-policy", "error",
+                    f"{name} is {str(leaf.dtype).replace('torch.', '')}; master parameters "
+                    "must stay float32 under a ShardingPlan too (the precision policy casts "
+                    "compute operands, never stored weights)", path=name))
+                continue
+            floats.append((path, name, leaf))
+        if floats:
+            with torch.no_grad():  # one host transfer for the rank's blocks
+                finite = torch.stack([torch.isfinite(v).all().to(floats[0][2].device)
+                                      for _, _, v in floats]).tolist()
+            for (path, name, leaf), ok in zip(floats, finite):
+                if not ok:
+                    found.append(Finding(
+                        "sharded-param-nonfinite", "error",
+                        f"non-finite value in {name}{self._where(path, leaf)}: a poisoned "
+                        "shard seeds a divergence every later step inherits", path=name))
+        tree = self.params if self.aliasing_tree is None else self.aliasing_tree
+        entries = [(p, "".join(f"['{k}']" for k in p.split("/")), v)
+                   for p, v in tree_items(tree).items() if isinstance(v, torch.Tensor)]
+        for group in _alias_groups(entries):
+            names = [n for _, n, _ in group]
+            if not any(a in n for a in self.allow_shared for n in names):
+                found.append(Finding(
+                    "sharded-param-shared", "error",
+                    f"one committed parameter array is aliased at {len(names)} tree paths: "
+                    f"{', '.join(names)}; the first in-place update through one path clobbers "
+                    "the other (pass allow_shared=[substring] if intentional)",
+                    path=names[0]))
+        return found
+
+    def check(self) -> List[Finding]:
+        return _raise_on_errors(self.findings())

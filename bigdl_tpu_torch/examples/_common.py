@@ -12,7 +12,11 @@ run); under ``torchrun --nproc-per-node N`` every process takes its rank
 from the environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``). On the card the ranks take a card each over NCCL when
 there are enough, else they share ``cuda:0`` over gloo; ``--platform cpu``
-runs them on the CPU over gloo. The other mains train through
+runs them on the CPU over gloo. The mesh mains (``pipeline_train``,
+``longctx_train``, ``moe_train``) take their world from their own flags
+(``--dp`` x ``--n-stages``, ``--sp``, ``--n-experts``) and start those ranks
+the same way (:func:`mesh_ranks`), each rank running the JAX main's
+replicated program on its mesh. The other mains train through
 ``LocalOptimizer`` on one device, as their JAX mains do, and refuse N > 1.
 """
 
@@ -191,9 +195,27 @@ def run_ranks(module: str, argv: List[str], args,
     world = int(args.n_devices)
     device = device_of(args, distributed=True)
     with tempfile.TemporaryDirectory(prefix="bigdl_ranks_") as folder:
-        spawn(_rank_entry, (module, list(argv), folder, device), world, deadline_s)
+        spawn(_rank_entry, (module, list(argv), folder, device), world, deadline_s,
+              stderr_dir=folder)
         out = []
         for r in range(world):
             with open(os.path.join(folder, f"rank{r}.json")) as f:
                 out.append(json.load(f))
         return out
+
+
+def mesh_ranks(module: str, argv: List[str], args, world: int,
+               deadline_s: float = RANK_DEADLINE_S) -> Optional[List[Dict[str, Any]]]:
+    """For a mesh main: None when this process is a rank of a group already
+    (spawned, or under torchrun: the main then trains here), else the
+    ``world`` ranks are spawned running ``module`` 's main and their
+    :func:`rank_summary` s returned."""
+    if join_from_env(args):
+        from ..utils.engine import Engine
+
+        if Engine.device_count() != world:
+            raise ValueError(f"{module} needs {world} ranks, the group has "
+                             f"{Engine.device_count()}")
+        return None
+    args.n_devices = world
+    return run_ranks(module, argv, args, deadline_s)

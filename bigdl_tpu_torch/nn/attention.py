@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
 from ..utils import precision
+from ..utils.engine import Engine
 from .dropout import dropout as _dropout
 from .initialization import Xavier, Zeros
 from .module import AbstractModule, _map_tree
@@ -146,12 +147,39 @@ def scaled_dot_product_attention(
     with the aligned-at-end convention; ``lengths`` (N,) masks keys past
     each sequence's length and, with ``mask_q`` (default Tq == Tk), zeroes
     the query rows past it.
+
+    With ``Engine.set_sequence_parallel(mesh, axis)`` registered, ``'auto'``
+    and ``'ring'`` run an eligible call (4-D operands, no bias, no dropout,
+    both lengths divisible by the axis size) as the ring of
+    :func:`bigdl_tpu_torch.parallel.sequence.ring_attention` on the
+    policy's compute dtype, cast back to ``q`` 's; ``'auto'`` takes the
+    other routes for an ineligible one, ``'ring'`` raises.
     """
     if mask_q is None:
         mask_q = q.shape[-2] == k.shape[-2]
     structural = bias is None and dropout_p == 0.0 and q.dim() == 4
     if impl == "auto":
         impl = os.environ.get("BIGDL_ATTN_IMPL", "auto")
+    sp = Engine.sequence_parallel() if q.device.type != "meta" else None  # shape inference
+    if impl in ("auto", "ring") and sp is not None:
+        mesh, axis = sp
+        n_sp = mesh.shape[axis]
+        if structural and q.shape[-2] % n_sp == 0 and k.shape[-2] % n_sp == 0:
+            from ..parallel.sequence import ring_attention
+
+            out = ring_attention(precision.cast_compute(q), precision.cast_compute(k),
+                                 precision.cast_compute(v), mesh, axis_name=axis,
+                                 causal=causal, lengths=lengths, mask_q=mask_q)
+            return out.to(q.dtype)
+        if impl == "ring":
+            raise ValueError(
+                "impl='ring' needs 4-D operands, no additive bias, no attention dropout, and "
+                f"sequence lengths divisible by the registered axis (size {n_sp}); got "
+                f"bias={bias is not None}, dropout_p={dropout_p}, "
+                f"shape={tuple(q.shape)}/{tuple(k.shape)}")
+    elif impl == "ring":
+        raise ValueError("impl='ring' requires Engine.set_sequence_parallel(mesh, axis) to be "
+                         "registered first")
     if impl == "auto":
         # The JAX package's routing rule (flash from T=1024, chosen there for
         # its TPU kernel), kept here as a rule; it is not a measurement on
@@ -169,7 +197,7 @@ def scaled_dot_product_attention(
                               lengths=lengths, mask_q=mask_q)
         return out.to(q.dtype)
     if impl != "dense":
-        raise ValueError(f"impl must be 'auto', 'flash' or 'dense', got {impl!r}")
+        raise ValueError(f"impl must be 'auto', 'flash', 'dense' or 'ring', got {impl!r}")
     tq, tk = q.shape[-2], k.shape[-2]
     if lengths is not None:
         key_mask = torch.arange(tk, device=q.device)[None, :] < lengths[:, None]

@@ -25,10 +25,14 @@ argmax is e, ``P_e`` the mean router probability) in the state under
 ``"_aux_loss"``, which ``LocalOptimizer`` adds to the objective
 (``auxiliary_loss_tree``); an eval forward leaves the state as it is.
 
-``expert_parallel=True`` with a mesh (``set_mesh``) is the expert-parallel
-path (``parallel.moe.moe_ffn``), which is not ported (ROADMAP Queue 1 item
-8): ``set_mesh`` raises, and without a mesh the layer runs its dense path,
-as the JAX layer does without an ``expert`` mesh axis.
+``expert_parallel=True`` with a mesh carrying ``mesh_axis`` (from
+``set_mesh``, or ``Engine.mesh()``) is the expert-parallel path
+(:func:`bigdl_tpu_torch.parallel.moe.moe_ffn`): one expert a rank, the
+tokens carried by two all-to-all hops, ``batch_axis`` cutting them over a
+second axis. Under ``ExpertParallelOptimizer`` each rank holds only its
+expert's block of ``w1``/``b1``/``w2``/``b2`` (a leading dim of 1, not E). Without
+a mesh the layer runs its dense path. The load-balancing loss is computed
+on the whole batch on both paths.
 """
 
 from __future__ import annotations
@@ -87,12 +91,28 @@ class MoE(AbstractModule):
         self.batch_axis = batch_axis
         self.aux_loss_coeff = aux_loss_coeff
         self.weight_init = Xavier()
+        self._mesh = None  # runtime state, never serialized
 
     def set_mesh(self, mesh) -> "MoE":
-        raise NotImplementedError(
-            "MoE.set_mesh: the expert-parallel path (parallel.moe.moe_ffn over an 'expert' "
-            "mesh axis) is not ported; it waits for the multi-process runtime, ROADMAP Queue 1 "
-            "item 8. Without a mesh the layer runs its dense path on one device")
+        """The mesh of the expert-parallel path (runtime state, not
+        serialized)."""
+        self._mesh = mesh
+        return self
+
+    def _resolve_mesh(self):
+        if self._mesh is not None:
+            return self._mesh
+        from ..utils.engine import Engine
+
+        mesh = Engine.mesh()
+        if self.mesh_axis in mesh.shape:
+            if mesh.shape[self.mesh_axis] != self.n_experts:
+                raise ValueError(
+                    f"{self.name()}: n_experts={self.n_experts} but the Engine mesh's "
+                    f"{self.mesh_axis!r} axis has {mesh.shape[self.mesh_axis]} devices; size "
+                    "the layer to the mesh or inject a matching mesh with set_mesh()")
+            return mesh
+        return None
 
     def infer_shape(self, in_spec):
         shape = tuple(in_spec.shape)
@@ -130,7 +150,19 @@ class MoE(AbstractModule):
         if tokens.shape[0] % self.n_experts:
             raise ValueError(f"{self.name()}: token count {tokens.shape[0]} not divisible by "
                              f"n_experts {self.n_experts}")
-        y = self._dense(params, tokens)
+        mesh = self._resolve_mesh() if self.expert_parallel else None
+        experts = {n: params[n] for n in ("w1", "b1", "w2", "b2")}
+        if mesh is not None:
+            from ..parallel.moe import moe_ffn
+
+            y = moe_ffn(params["router_w"], experts,
+                        lambda p, h: _expert_ffn(p, h, self.activation), tokens, mesh,
+                        axis=self.mesh_axis, capacity_factor=self.capacity_factor,
+                        router_top_k=self.router_top_k, batch_axis=self.batch_axis,
+                        # one expert's block a rank (ExpertParallelOptimizer)
+                        local_experts=params["w1"].shape[0] == 1 < self.n_experts)
+        else:
+            y = self._dense(params["router_w"], experts, tokens)
         if self.aux_loss_coeff and training:
             probs = torch.softmax(tokens @ params["router_w"], dim=-1)
             e = self.n_experts
@@ -140,7 +172,7 @@ class MoE(AbstractModule):
             state = {**state, "_aux_loss": aux}
         return y.reshape(*lead, d), state
 
-    def _dense(self, params, tokens):
+    def _dense(self, router_w, params, tokens):
         """Dispatch, batched experts, combine on one device, with the
         expert-parallel layout's capacity (the ``all_to_all`` a transpose)."""
         e, k = self.n_experts, self.router_top_k
@@ -148,7 +180,7 @@ class MoE(AbstractModule):
         t_local = b // e
         capacity = moe_capacity(t_local, e, self.capacity_factor, k)
         xs = tokens.reshape(e, t_local, d)  # (S, T, D): S source shards
-        logits = torch.einsum("std,de->ste", xs, params["router_w"])
+        logits = torch.einsum("std,de->ste", xs, router_w)
         routes = [_route(logits[s], e, capacity, k) for s in range(e)]
         expert_id, slot, keep, w = (torch.stack(r) for r in zip(*routes))  # each (S, T, k)
         shard = torch.arange(e, device=tokens.device)[:, None, None]

@@ -17,9 +17,16 @@ the JAX package hands every stage the same key: one seed is drawn from
 (``torch.utils.checkpoint``, non-reentrant): the backward recomputes the
 stage's activations; outputs and gradients keep their bits.
 
-The GPipe schedule over a device mesh (``pipeline_parallel=True`` with a
-mesh) is not ported yet: without a mesh the stack runs sequentially, as the
-JAX package does, and ``set_mesh`` raises.
+The GPipe schedule (``pipeline_parallel=True`` with a mesh carrying
+``mesh_axis``, from ``set_mesh`` or ``Engine.mesh()``) runs the stack as
+:func:`bigdl_tpu_torch.parallel.pipeline.pipeline_apply` over the ranks of
+that axis, one stage a rank, ``batch_axis`` cutting the batch over a second
+axis. Under ``PipelineOptimizer`` each rank holds only its stage's block
+of every stacked leaf (a leading dim of 1, not S) and runs the
+schedule on it (its training batches fill the grid: the optimizer checks
+them; its validation runs on the whole stacks). A batch that cannot fill
+the microbatch grid (an inference row, a ragged tail) takes the sequential
+path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,12 +75,41 @@ class PipelinedBlocks(AbstractModule):
         self.batch_axis = batch_axis
         self.remat_stages = remat_stages
         self._stage_state = None
+        self._mesh = None  # runtime state, never serialized
 
     def set_mesh(self, mesh) -> "PipelinedBlocks":
-        raise NotImplementedError(
-            "PipelinedBlocks.set_mesh: the GPipe schedule over a device mesh is not ported "
-            "yet (ROADMAP Queue 1, parallel/pipeline*.py); without a mesh the stack runs "
-            "its stages sequentially")
+        """The mesh of the pipeline path (runtime state, not serialized)."""
+        self._mesh = mesh
+        return self
+
+    def infer_shape(self, in_spec):
+        """The stage's contract (the unbuilt template on meta tensors), which
+        must keep the spec."""
+        from .module import infer_module_shape
+
+        out = infer_module_shape(self.stage, in_spec)
+        if not (isinstance(out, torch.Tensor) and out.shape == in_spec.shape
+                and out.dtype == in_spec.dtype):
+            raise ValueError(f"{self.name()}: stage maps {_spec(in_spec)} -> {_spec(out)}; the "
+                             "pipelined stack needs a shape-preserving stage (put reshaping "
+                             "head/tail layers outside)")
+        return out
+
+    def _fits_grid(self, mesh, batch: int) -> bool:
+        """Does this batch fill the dp x microbatch grid?"""
+        n_micro = self.n_micro or mesh.shape[self.mesh_axis]
+        if self.batch_axis is not None and self.batch_axis in mesh.shape:
+            dp = mesh.shape[self.batch_axis]
+            return batch % dp == 0 and (batch // dp) % n_micro == 0
+        return batch % n_micro == 0
+
+    def _resolve_mesh(self):
+        if self._mesh is not None:
+            return self._mesh
+        from ..utils.engine import Engine
+
+        mesh = Engine.mesh()
+        return mesh if self.mesh_axis in mesh.shape else None
 
     def build(self, generator: torch.Generator, sample) -> None:
         """Build S copies of the template from ``sample`` (independent
@@ -112,10 +148,26 @@ class PipelinedBlocks(AbstractModule):
         stacked = params["stages"]
         seed = None if rng is None else int(torch.randint(0, 2 ** 62, (1,), generator=rng))
 
-        def run(i, h):
+        def stage_fn(p, h):
             gen = None if seed is None else torch.Generator().manual_seed(seed)
-            p = _map_tree(lambda t: t[i], stacked)
             return self._runner._apply_params(p, self._stage_state, h, training, gen)[0]
+
+        # shape inference runs the stack on meta tensors: sequentially
+        on_mesh = self.pipeline_parallel and x.device.type != "meta"
+        mesh = self._resolve_mesh() if on_mesh else None
+        if mesh is not None and self._fits_grid(mesh, x.shape[0]):
+            from ..parallel.pipeline import pipeline_apply, pipeline_local
+
+            remat = self.remat_stages and torch.is_grad_enabled()
+            kw = dict(axis=self.mesh_axis, n_micro=self.n_micro, batch_axis=self.batch_axis,
+                      remat_stages=remat)
+            if _leading_dim(stacked) == 1:  # this rank's stage alone (PipelineOptimizer)
+                return pipeline_local(stage_fn, _map_tree(lambda t: t[0], stacked), x, mesh,
+                                      **kw), state
+            return pipeline_apply(stage_fn, stacked, x, mesh, **kw), state
+
+        def run(i, h):
+            return stage_fn(_map_tree(lambda t: t[i], stacked), h)
 
         remat = self.remat_stages and torch.is_grad_enabled()
         if remat:
@@ -123,6 +175,10 @@ class PipelinedBlocks(AbstractModule):
         for i in range(self.n_stages):
             x = checkpoint(run, i, x, use_reentrant=False) if remat else run(i, x)
         return x, state
+
+
+def _leading_dim(tree) -> int:
+    return next(iter(_leaves(tree))).shape[0]
 
 
 def _spec(x) -> str:

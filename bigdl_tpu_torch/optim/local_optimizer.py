@@ -207,6 +207,13 @@ def validate(model, params, model_state, dataset, methods) -> Dict[str, Validati
 
     if _comm.world() > 1:
         return _validate_sharded(model, params, model_state, dataset, methods)
+    return validate_whole(model, params, model_state, dataset, methods)
+
+
+def validate_whole(model, params, model_state, dataset, methods) -> Dict[str, ValidationResult]:
+    """:func:`validate` on this process alone, every batch whole (the
+    replicated program of the mesh optimizers, whose modules' collectives
+    need every rank on the same rows)."""
     totals: Dict[str, ValidationResult] = {}
     rows: Optional[int] = None
     device = model.device
@@ -464,8 +471,7 @@ class Optimizer:
         if (self.validation_trigger is None or self.validation_dataset is None
                 or not self.validation_trigger(state)):
             return None
-        results = validate(self.model, self.model.get_parameters(), self.model.get_state(),
-                           self.validation_dataset, self.validation_methods)
+        results = self._validate_now()
         for name, res in results.items():
             v, n = res.result()
             log.info("%s is %.6f (n=%d)", name, v, n)
@@ -473,6 +479,11 @@ class Optimizer:
         state["score"] = next(iter(results.values())).result()[0]
         state["n_validations"] = state.get("n_validations", 0) + 1
         return results
+
+    def _validate_now(self) -> Dict[str, ValidationResult]:
+        """The validation methods over the validation set, now."""
+        return validate(self.model, self.model.get_parameters(), self.model.get_state(),
+                        self.validation_dataset, self.validation_methods)
 
     # ------------------------------------------------------- static analysis
     def _validate_at_construction(self) -> None:
@@ -535,10 +546,12 @@ class Optimizer:
             return num / torch.clamp(torch.sum(denom * mask), min=1e-8)
         return num
 
-    def _loss(self, model_state, x, t, rng, nvalid: Optional[float]):
+    def _loss(self, model_state, x, t, rng, nvalid: Optional[float], params=None):
         """The training forward's loss (masked past ``nvalid`` real rows when
-        given) plus the regularizer penalties, and the new model state."""
-        params = self.model.get_parameters()
+        given) plus the regularizer penalties, and the new model state; over
+        ``params`` (default the model's own)."""
+        if params is None:
+            params = self.model.get_parameters()
         y, new_state = self.model.apply(params, model_state, x, training=True, rng=rng)
         loss = self._masked_loss(y, t, nvalid) if nvalid is not None else self.criterion._apply(
             y, t)
@@ -993,6 +1006,12 @@ class LocalOptimizer(Optimizer):
     """Trains ``model`` on ``dataset`` against ``criterion`` on the model's
     device (see the module docstring); the reference's
     ``$DL/optim/LocalOptimizer.scala``."""
+
+    def _validate_now(self):
+        """Every batch whole on this process: under a group every rank runs
+        the same program (a mesh's modules, the ring), the validation too."""
+        return validate_whole(self.model, self.model.get_parameters(), self.model.get_state(),
+                              self.validation_dataset, self.validation_methods)
 
     def _check_first_batch(self, first) -> None:
         super()._check_first_batch(first)

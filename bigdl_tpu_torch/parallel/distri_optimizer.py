@@ -87,15 +87,18 @@ def _floating_leaves(tree) -> List[torch.Tensor]:
             if isinstance(v, torch.Tensor) and v.is_floating_point()]
 
 
-def average_state(state, loss: torch.Tensor):
-    """``state`` 's floating leaves and ``loss`` averaged over the ranks in
-    one collective; returns ``(state, loss)`` (new tensors, the tree's
-    other leaves as they were)."""
+def average_state(state, loss: torch.Tensor, mesh=None, axes=None):
+    """``state`` 's floating leaves and ``loss`` averaged over the ranks (over
+    ``mesh`` 's ``axes`` when given) in one collective; returns ``(state,
+    loss)`` (new tensors, the tree's other leaves as they were)."""
     if _comm.world() == 1:
         return state, loss
     leaves = _floating_leaves(state)
     buf = torch.cat([v.reshape(-1).float() for v in leaves] + [loss.reshape(1).float()])
-    _comm.pmean_(buf)
+    if mesh is None:
+        _comm.pmean_(buf)
+    else:
+        _comm.axis_pmean_(buf, mesh, axes)
     out, off = {}, 0
     for path, v in tree_items(state).items():
         if isinstance(v, torch.Tensor) and v.is_floating_point():

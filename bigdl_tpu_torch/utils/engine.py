@@ -3,8 +3,9 @@
 Counterpart of ``bigdl_tpu/utils/engine.py`` reduced to what the port uses:
 the compute/activation dtype policy (``compute_dtype`` / ``set_compute_dtype``
 / ``activation_dtype`` / ``set_activation_dtype``), the fused-kernel switch
-(``fused_kernels`` / ``set_fused_kernels``), device resolution and the
-process group of a data-parallel run.
+(``fused_kernels`` / ``set_fused_kernels``), device resolution, the
+process group of a multi-process run, its default mesh (``mesh()``) and
+the sequence-parallel registration (``set_sequence_parallel``).
 
 Entry points run on the card: ``Engine.device(None)`` is ``cuda`` and raises
 when no CUDA device is present; the CPU is used only when asked for
@@ -58,6 +59,8 @@ class Engine:
     _fused_kernels: Optional[bool] = None
     # the data-parallel group: (backend, rank, world size, the rank's device)
     _group: Optional[Tuple[str, int, int, torch.device]] = None
+    _mesh = None  # Engine.mesh()'s 1-D data mesh over the group, built at first use
+    _sequence_parallel: Optional[tuple] = None  # (mesh, axis name) of the ring route
 
     @classmethod
     def device(cls, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -166,7 +169,8 @@ class Engine:
         import torch.distributed as dist
 
         with cls._lock:
-            group, cls._group = cls._group, None
+            group, cls._group, cls._mesh = cls._group, None, None
+            cls._sequence_parallel = None
         if group is not None and dist.is_initialized():
             dist.destroy_process_group()
 
@@ -191,6 +195,37 @@ class Engine:
         """Devices that one data-parallel step spans: the group's world
         size (one device a rank), 1 without a group."""
         return 1 if cls._group is None else cls._group[2]
+
+    @classmethod
+    def mesh(cls):
+        """A 1-D ``data`` mesh over the group's ranks (one rank without a
+        group), built at the first call (collectively, on every rank)."""
+        if cls._mesh is None:
+            from ..parallel.sharding import Mesh
+
+            cls._mesh = Mesh({"data": cls.device_count()})
+        return cls._mesh
+
+    @classmethod
+    def set_sequence_parallel(cls, mesh, axis_name: str = "sp") -> None:
+        """Register (or clear, with ``mesh=None``) the sequence-parallel mesh
+        axis: while it is registered, ``scaled_dot_product_attention`` with
+        ``impl`` ``'auto'`` or ``'ring'`` runs as a ring over
+        ``mesh[axis_name]`` when eligible (4-D operands, no additive bias, no
+        attention dropout, sequence lengths divisible by the axis size).
+        Every rank of the mesh registers it and runs the same program on the
+        same inputs."""
+        if mesh is None:
+            cls._sequence_parallel = None
+            return
+        if axis_name not in mesh.shape:
+            raise ValueError(f"mesh has no axis {axis_name!r}; axes: {tuple(mesh.shape)}")
+        cls._sequence_parallel = (mesh, axis_name)
+
+    @classmethod
+    def sequence_parallel(cls) -> Optional[tuple]:
+        """The registered ``(mesh, axis name)``, or None."""
+        return cls._sequence_parallel
 
     @classmethod
     def node_number(cls) -> int:

@@ -288,8 +288,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``LogSoftMax``, batch 128, ``ClassNLLCriterion``, SGD 0.05 momentum
    0.9) trained top-1 and top-2 10 iterations each on the dense path with
    the load-balancing term in the objective (0 launches, memory flat, the
-   busy share), step 1 card vs CPU with equal dropped entries, then
-   ``bigdl_tpu_torch/examples/moe_train.py`` at the norm-LM's widths (V
+   busy share), step 1 card vs CPU with equal dropped entries, then the
+   model, data and optimizer of ``bigdl_tpu_torch/examples/moe_train.py``
+   (its ``build``, on the layer's dense path; the main itself trains
+   expert-parallel over spawned ranks in [23e]) at the norm-LM's widths (V
    8192, T 2048, H 512, 8 experts, capacity 1.5, batch 8, the switch on: 2
    #4 and 2 #5 a step) and its graph's step 1 card vs CPU; [19c] [9]'s
    norm-LM/LN trained 10 iterations unwrapped twice (the run-to-run
@@ -389,6 +391,46 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``POLICY_LOSS_ATOL`` (batches of 4 a rank) and ``POLICY_BETA`` and
    ``POLICY_REL`` to what those batches read, and calling
    ``phase_slice23("cpu")`` (~70 s; the launch checks are the card's).
+23. the mesh parallelisms, each on ranks spawned here that share the card
+   over gloo (NCCL refuses two ranks on one device), from seeded weights
+   and planted-bigram or seeded data: [23a] the norm-LM/LN at [9]'s width
+   through ``PipelineOptimizer`` on ``make_mesh({"pipe": 6})``, 6 ranks,
+   ``n_micro`` 8, bf16, the fused-kernel switch on, ``Adam(3e-3)``, 6
+   iterations: finite falling losses equal on every rank, each rank 1/6 of
+   every stacked leaf and twice that in Adam slots (its held bytes), 9
+   #4 and 9 #5 launches a step a rank (8 microbatches' stage norm and the
+   final one) and nothing else, then 3 f32 SGD steps against the
+   sequential stack through ``LocalOptimizer`` on rank 0 from the same
+   weights (``MESH_TOL``; each f32 check of [23] also runs with one split
+   leaf's gradient doubled, which must fail its limits); [23b] the LM at
+   [5]/[6]'s width through ``LocalOptimizer`` on every rank of
+   ``make_mesh({"sp": 4})`` with the ring registered, bf16, 3 SGD steps:
+   0 launches, the ppermute bytes a rank equal to 3 hops x K, V x 6
+   layers x the bf16 chunk, forward and backward, a step; after
+   ``set_sequence_parallel(None)`` one step on rank 0 launches 6 of each
+   flash kernel; then 3 f32 steps of the ring
+   against the dense route on rank 0; [23c] the bench's MoE model
+   (``MOE_BENCH``) through ``ExpertParallelOptimizer`` on
+   ``make_mesh({"expert": 4})``, top-1 and top-2, f32: one expert a rank
+   (held bytes), the all-to-all operand bytes a rank equal to 2 hops x E
+   x C x D x 4 B forward and backward a step, 3 steps against the dense
+   ``MoE`` through ``LocalOptimizer`` on rank 0 (``MESH_TOL``);
+   [23d] the LM under ``megatron_transformer_plan()`` through
+   ``HybridParallelOptimizer`` on ``make_mesh({"data": 2, "model": 2})``,
+   bf16, SGD 0.1, 3 steps: each rank holds the replicated leaves and half
+   of every Megatron-sharded one, 6 of each flash kernel a step a rank
+   (its data rows), ``ShardedParamAudit`` passes, and with a NaN planted
+   in rank 1's block rank 1's audit names the leaf, the block and the
+   rank while every other rank stops naming rank 1; then 3 f32 steps
+   against ``LocalOptimizer`` on rank 0 (``MESH_TOL``, tighter than the
+   JAX test's loss 1e-4 and parameters 2e-4 absolute); [23e]
+   ``examples/{pipeline,longctx,moe}_train.py`` at their JAX mains'
+   defaults (8, 8 and 4 spawned ranks), each exit 0 with its bigram-map
+   recovery. Rehearse on the CPU by importing
+   ``chip_smoke`` from a guarded script, setting ``MESH_DEVICE = "cpu"``,
+   cutting ``MESH_PIPE``, ``MESH_LM`` and ``MESH_MOE`` and calling
+   ``phase_mesh_pipe("cpu")`` and ``phase_mesh_four("cpu")`` (the launch
+   checks are the card's).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -7455,12 +7497,13 @@ def _quant_serving(card, dev, family, x):
     return counts
 
 
-def _bench_moe(k, device):
+def _bench_moe(k, device, c=None):
     """bench.py's MoE model (BENCH_MOE=1): Linear -> MoE(4 experts, FFN 4H,
-    capacity 2.0) -> Linear -> LogSoftMax."""
+    capacity 2.0) -> Linear -> LogSoftMax (``c``: its sizes, default
+    ``MOE_BENCH``)."""
     from bigdl_tpu_torch import nn
 
-    c = MOE_BENCH
+    c = c or MOE_BENCH
     h = c["hidden"]
     return nn.Sequential(nn.Linear(h, h, device=device),
                          nn.MoE(c["experts"], ffn_size=4 * h, capacity_factor=c["capacity_factor"],
@@ -7598,14 +7641,20 @@ def phase_moe(card):
         t0 = time.perf_counter()
         with _StepProbe() as probe:
             reset_counts()  # the main path starts here
-            run = moe_train.main(argv)
+            # the example's model, data and optimizer on the layer's dense path
+            # (its main trains expert-parallel over spawned ranks: [23e])
+            run = moe_train.build(moe_train.parser().parse_args(argv))
+            run.model = run.optimizer.optimize()
+            run.results["bigram_recovery"] = moe_train.probe_recovery(
+                run.model, e["vocab"], e["experts"])[0]
             _sync()
             counts = read_counts()  # the main path ends here
         wall = time.perf_counter() - t0
         hist = run.optimizer.history
         losses = [h["loss"] for h in hist]
         n_steps = e["epochs"] * e["batches"]
-        log(f"[19b] examples/moe_train.py at V {e['vocab']}, T {e['seq']}, H {e['hidden']}, "
+        log(f"[19b] examples/moe_train.py's build (dense) at V {e['vocab']}, T {e['seq']}, "
+            f"H {e['hidden']}, "
             f"{e['experts']} experts, capacity {e['capacity_factor']}, batch {e['batch']}, "
             f"switch on: {len(hist)} iterations in {wall:.2f} s; losses "
             + ", ".join(f"{v:.4f}" for v in losses)
@@ -9500,6 +9549,743 @@ def _multiprocess_tool(card):
                              f"\n{r.stderr[-2000:]}")
 
 
+# ----------------------------------------------------------------------------- [23]
+# the mesh parallelisms (bigdl_tpu_torch/parallel/{sharding,hybrid,sequence,moe,
+# pipeline,pipeline_optimizer}.py), each phase on ranks spawned here that
+# share the card over gloo (NCCL refuses two ranks on one device)
+MESH_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+MESH_PIPE = {"vocab": 8192, "hidden": 512, "stages": 6, "seq": 2048, "batch": 8, "n_seq": 24,
+             "n_micro": 8, "iters": 6, "check_batch": 8}  # [23a]: [9]'s widths
+MESH_LM = dict(LM_WIDTH, records=8, steps=3, sp=4)  # [23b], [23d]: [5]/[6]'s widths
+MESH_MOE = dict(MOE_BENCH, iters=6, check_steps=3)  # [23c]: bench.py's MoE model
+MESH_EXAMPLES = ("pipeline_train", "longctx_train", "moe_train")  # [23e], their defaults
+MESH_EXAMPLE_TIMEOUT_S = 300
+# Limits of the f32 checks (TF32 off). Each check runs twice on the mesh:
+# sound, and with a planted fault, the gradient of one split leaf doubled
+# before the update (``_doubled``: what a boundary whose backward sums
+# where JAX takes a block gives over an axis of 2).
+# Each limit sits between the two runs' readings on an H100 (80GB HBM3,
+# 700 W; "sound / planted" below), both logged beside it on every run; a
+# sound run over a limit fails, and so does a planted run under every
+# limit. The checks step with SGD: Adam's first steps are blind to a
+# gradient's scale.
+# [23a] 3 SGD steps of the 6-stage GPipe run against the sequential stack
+#   through LocalOptimizer on one rank from the same weights (the batch
+#   gradient a sum of 8 microbatch gradients against one sum); planted on
+#   a stage's FFN filter weight. Loss 0 / 5.1e-3, update 1.2e-3 / 0.55
+#   (spread over every stage leaf and the embedding alike, with the fused
+#   norms on or off).
+# [23b] 3 SGD steps of the ring (4 ranks of 512 positions, bf16 policy off)
+#   against the dense route on one rank (the softmax accumulated online
+#   over 4 blocks against one exp-normalise); planted on block 0's query
+#   weight, whose gradient comes through the ring's backward. Loss
+#   1.0e-7 / 1.0e-6, update 5.4e-5 / 1.0e-2.
+# [23c] 3 SGD steps of ExpertParallelOptimizer against the dense MoE on one
+#   rank (the same per-expert products over the same rows); planted on the
+#   expert-stacked w1. Top-1 / top-2: loss 0, 7.0e-8 / 6.5e-4, 2.7e-3;
+#   update 8.0e-6, 5.8e-6 / 0.47, 0.47; params 4.9e-9, 7.1e-9 / 2.9e-4,
+#   5.8e-4.
+# [23d] 3 SGD steps of data 2 x model 2 under the Megatron plan against
+#   LocalOptimizer on one rank (tighter than the JAX test's loss 1e-4 and
+#   parameters 2e-4 absolute, which the planted fault passes); planted on
+#   block 0's query weight, cut over the model axis. Loss 0 / 7.0e-7,
+#   update 1.3e-5 / 1.1e-2, parameters 3.7e-7 / 1.2e-4 absolute.
+MESH_TOL = {"pipe": {"loss": 1e-5, "update": 1e-2},
+            "ring": {"loss": 3e-7, "update": 5e-4},
+            "moe": {"loss": 1e-6, "update": 1e-4, "params": 1e-7},
+            "hybrid": {"loss": 1e-7, "update": 2e-4, "params_abs": 5e-6}}
+MESH_PLANT = {"pipe": "/stages/FeedForwardNetwork_1/filter_w", "ring": "block0/self_q_w",
+              "moe": "/w1", "hybrid": "block0/self_q_w"}  # the leaf each check's fault doubles
+
+
+def _f32_card():
+    """f32 compute, no bf16 activations, TF32 off; returns a restore function."""
+    import torch
+    from bigdl_tpu_torch import Engine
+
+    prev = (Engine.compute_dtype(), Engine.activation_dtype(), Engine._fused_kernels,
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    Engine.set_compute_dtype("float32")
+    Engine.set_activation_dtype(None)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def restore():
+        Engine.set_compute_dtype(prev[0])
+        Engine.set_activation_dtype(prev[1])
+        Engine.set_fused_kernels(prev[2])
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev[3:]
+
+    return restore
+
+
+def _bf16_card(fused: bool):
+    from bigdl_tpu_torch import Engine
+
+    restore = _f32_card()
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    Engine.set_fused_kernels(fused)
+    return restore
+
+
+def _flat_params(model):
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1).cpu() for p in model.parameters()])
+
+
+def _doubled(cls, leaf: str):
+    """``cls`` with the gradient of the first parameter whose path ends in
+    ``leaf`` doubled before the update (the planted fault of the f32
+    checks)."""
+    from bigdl_tpu_torch.utils.serialization import tree_items, unflatten_to_like
+
+    class Doubled(cls):
+        def _clip_grads(self, grads):
+            items = tree_items(grads)
+            path = next(p for p in items if p.endswith(leaf))
+            items[path] = items[path] * 2
+            return super()._clip_grads(unflatten_to_like(items, grads))
+
+    return Doubled
+
+
+def _distance(run, ref, p0):
+    """The largest loss difference relative to max(1, |loss|), and the
+    parameters' update-relative (``update``), norm-relative (``params``) and
+    absolute (``params_abs``) distance."""
+    (l1, p1), (l2, p2) = run, ref
+    return {"loss": max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(l1, l2)),
+            "update": float((p1 - p2).norm() / (p2 - p0).norm()),
+            "params": float((p1 - p2).norm() / p2.norm()),
+            "params_abs": float((p1 - p2).abs().max())}
+
+
+def _against(label, run, ref, p0, tol, planted):
+    """``run`` (losses, parameters) against ``ref`` from the same ``p0``
+    within every limit of ``tol``, and ``planted`` (the same run with the
+    planted fault) over at least one of them."""
+    got, bad = _distance(run, ref, p0), _distance(planted, ref, p0)
+    log(f"    {label}: losses {[round(v, 5) for v in run[0]]} vs "
+        f"{[round(v, 5) for v in ref[0]]}; "
+        + ", ".join(f"{k} {v:.2e}" + (f" (limit {tol[k]}; planted {bad[k]:.2e})" if k in tol
+                                      else f" (planted {bad[k]:.2e})")
+                    for k, v in got.items()))
+    if len(run[0]) != len(ref[0]) or any(got[k] > v for k, v in tol.items()):
+        raise AssertionError(f"{label}: the mesh run disagrees with the one-rank run")
+    if not any(bad[k] > v for k, v in tol.items()):
+        raise AssertionError(f"{label}: the planted fault (a doubled gradient) passes the "
+                             f"limits {tol}: {bad}")
+
+
+def _pipe_data(c, seed):
+    from bigdl_tpu_torch.examples.transformer_train import planted_bigram_ids
+
+    ids = planted_bigram_ids(c["n_seq"] * c["seq"] + 1, c["vocab"], seed=seed)
+    return ids[:-1].reshape(c["n_seq"], c["seq"]), ids[1:].reshape(c["n_seq"], c["seq"])
+
+
+def _mesh_job_pipe(rank, world, out):
+    """[23a] the norm-LM/LN through PipelineOptimizer on a 6-stage mesh."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.parallel import PipelineOptimizer, _comm, make_mesh
+
+    c, dev = MESH_PIPE, MESH_DEVICE
+    mesh = make_mesh({"pipe": c["stages"]})
+    x, y = _pipe_data(c, SEED)
+    restore = _bf16_card(fused=True)
+    try:
+        RandomGenerator.set_seed(SEED)
+        model = norm_lm("ln", c["vocab"], c["hidden"], c["stages"], device=dev)
+        model.init(sample_input=x[:c["batch"]])
+        whole = sum(p.numel() * 4 for p in model.parameters())
+        stacked = sum(p.numel() * 4 for n, p in model.named_parameters() if ".stages." in n)
+        opt = PipelineOptimizer(model, DataSet.array(x, y, batch_size=c["batch"]),
+                                _lm_criterion(), mesh=mesh, n_micro=c["n_micro"])
+        opt.set_optim_method(Adam(learningrate=3e-3))
+        opt.set_end_when(Trigger.max_iteration(c["iters"]))
+        _comm.reset_counts()
+        reset_counts()  # the main path starts here
+        opt.optimize()
+        _sync()
+        out["counts"] = read_counts()  # the main path ends here
+        out["comm"] = _comm.counts()
+        hist = opt.history
+        out.update(losses=[h["loss"] for h in hist],
+                   step_ms=statistics.median(h["wall_s"] for h in hist[2:]) * 1e3,
+                   held=opt.held_bytes, whole=whole, stacked=stacked)
+        del opt, model
+        _free()
+    finally:
+        restore()
+    # 3 f32 SGD steps on the mesh, sound and planted, then (rank 0) the
+    # sequential stack
+    restore = _f32_card()
+    try:
+        from bigdl_tpu_torch import Engine
+
+        Engine.set_fused_kernels(True)
+        n = c["check_batch"]
+
+        def build():
+            RandomGenerator.set_seed(SEED + 1)
+            m = norm_lm("ln", c["vocab"], c["hidden"], c["stages"], device=dev)
+            m.init(sample_input=x[:n])
+            return m
+
+        def fit(model, cls, **kw):
+            o = cls(model, DataSet.array(x[:n], y[:n], batch_size=n), _lm_criterion(), **kw)
+            o.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(3))
+            o.optimize()
+            return [h["loss"] for h in o.history], _flat_params(model)
+
+        model = build()
+        p0 = _flat_params(model)
+        out["check"] = fit(model, PipelineOptimizer, mesh=mesh, n_micro=c["n_micro"])
+        del model
+        model = build()
+        out["planted"] = fit(model, _doubled(PipelineOptimizer, MESH_PLANT["pipe"]), mesh=mesh,
+                             n_micro=c["n_micro"])
+        del model
+        _free()
+        _comm.barrier()
+        if rank == 0:
+            model = build()
+            out["ref"] = fit(model, LocalOptimizer)
+            out["p0"] = p0
+            del model
+            _free()
+        _comm.barrier()
+    finally:
+        restore()
+
+
+def _mesh_lm(dev, seed):
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.nn import Transformer
+
+    w = MESH_LM
+    RandomGenerator.set_seed(seed)
+    return Transformer(w["vocab"], w["hidden"], w["heads"], w["filt"], w["layers"], 0.0, 0.0,
+                       0.0, mode="lm", device=dev)
+
+
+def _lm_data(seed):
+    import numpy as np
+
+    w = MESH_LM
+    gen = np.random.default_rng(seed)
+    return (gen.integers(0, w["vocab"], (w["records"], w["seq"])),
+            gen.integers(0, w["vocab"], (w["records"], w["seq"])))
+
+
+def _lm_fit(model, cls, x, y, steps, **kw):
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import SGD, Trigger
+
+    o = cls(model, DataSet.array(x, y, batch_size=MESH_LM["batch"]), CrossEntropyCriterion(),
+            **kw)
+    o.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(steps))
+    o.optimize()
+    return o
+
+
+def _mesh_job_ring(rank, world, out):
+    """[23b] the LM through LocalOptimizer on every rank with the ring
+    registered over ``sp``."""
+    import os
+
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.parallel import _comm, make_mesh
+
+    w, dev = MESH_LM, MESH_DEVICE
+    mesh = make_mesh({"sp": w["sp"]})
+    x, y = _lm_data(SEED)
+    restore = _bf16_card(fused=False)
+    try:
+        model = _mesh_lm(dev, SEED)
+        model.init(sample_input=x[:w["batch"]])
+        Engine.set_sequence_parallel(mesh, "sp")
+        _comm.reset_counts()
+        reset_counts()  # the main path starts here
+        opt = _lm_fit(model, LocalOptimizer, x, y, w["steps"])
+        _sync()
+        out["counts"] = read_counts()  # the main path ends here
+        Engine.set_sequence_parallel(None)
+        out["comm"] = _comm.counts()
+        out["losses"] = [h["loss"] for h in opt.history]
+        out["step_ms"] = [h["wall_s"] * 1e3 for h in opt.history]
+        del opt
+        if rank == 0:  # registration cleared: the flash route again, one step
+            reset_counts()
+            _lm_fit(model, LocalOptimizer, x, y, 1)
+            _sync()
+            out["cleared_counts"] = read_counts()
+        del model
+        _free()
+        _comm.barrier()
+    finally:
+        Engine.set_sequence_parallel(None)
+        restore()
+    restore = _f32_card()
+    prev = os.environ.get("BIGDL_ATTN_IMPL")
+    try:
+        model = _mesh_lm(dev, SEED + 1)
+        model.init(sample_input=x[:w["batch"]])
+        p0 = _flat_params(model)
+        Engine.set_sequence_parallel(mesh, "sp")
+        o = _lm_fit(model, LocalOptimizer, x, y, 3)
+        out["check"] = ([h["loss"] for h in o.history], _flat_params(model))
+        del o, model
+        model = _mesh_lm(dev, SEED + 1)
+        model.init(sample_input=x[:w["batch"]])
+        o = _lm_fit(model, _doubled(LocalOptimizer, MESH_PLANT["ring"]), x, y, 3)
+        Engine.set_sequence_parallel(None)
+        out["planted"] = ([h["loss"] for h in o.history], _flat_params(model))
+        del o, model
+        _free()
+        _comm.barrier()
+        if rank == 0:
+            os.environ["BIGDL_ATTN_IMPL"] = "dense"
+            model = _mesh_lm(dev, SEED + 1)
+            model.init(sample_input=x[:w["batch"]])
+            o = _lm_fit(model, LocalOptimizer, x, y, 3)
+            out["ref"], out["p0"] = ([h["loss"] for h in o.history], _flat_params(model)), p0
+            del o, model
+            _free()
+        _comm.barrier()
+    finally:
+        Engine.set_sequence_parallel(None)
+        if prev is None:
+            os.environ.pop("BIGDL_ATTN_IMPL", None)
+        else:
+            os.environ["BIGDL_ATTN_IMPL"] = prev
+        restore()
+
+
+def _mesh_job_moe(rank, world, out):
+    """[23c] the bench's MoE model through ExpertParallelOptimizer, top-1
+    and top-2."""
+    import numpy as np
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.parallel import ExpertParallelOptimizer, _comm, make_mesh
+
+    c, dev = MESH_MOE, MESH_DEVICE
+    mesh = make_mesh({"expert": c["experts"]})
+    gen = np.random.default_rng(SEED + 70)
+    x = gen.standard_normal((c["batch"] * 2, c["hidden"])).astype(np.float32)
+    y = gen.integers(0, c["classes"], c["batch"] * 2)
+    restore = _f32_card()
+    try:
+        for k in (1, 2):
+            def build():
+                RandomGenerator.set_seed(SEED + 71)
+                m = _bench_moe(k, dev, c)
+                m.init(sample_input=x[:c["batch"]])
+                return m
+
+            def fit(model, cls, steps, **kw):
+                o = cls(model, DataSet.array(x, y, batch_size=c["batch"]), ClassNLLCriterion(),
+                        **kw)
+                o.set_optim_method(SGD(learningrate=c["lr"]))
+                o.set_end_when(Trigger.max_iteration(steps)).optimize()
+                return o
+
+            model = build()
+            whole = sum(p.numel() * 4 for p in model.parameters())
+            experts = sum(p.numel() * 4 for n, p in model.named_parameters()
+                          if n.split(".")[-1] in ("w1", "b1", "w2", "b2"))
+            p0 = _flat_params(model)
+            _comm.reset_counts()
+            reset_counts()  # the main path starts here
+            opt = fit(model, ExpertParallelOptimizer, c["iters"], mesh=mesh)
+            _sync()
+            res = {"counts": read_counts(), "comm": _comm.counts(),  # the main path ends here
+                   "losses": [h["loss"] for h in opt.history], "held": opt.held_bytes,
+                   "whole": whole, "experts": experts,
+                   "step_ms": [h["wall_s"] * 1e3 for h in opt.history]}
+            del opt, model
+            model = build()
+            o = fit(model, ExpertParallelOptimizer, c["check_steps"], mesh=mesh)
+            res["check"] = ([h["loss"] for h in o.history], _flat_params(model))
+            del o, model
+            model = build()
+            o = fit(model, _doubled(ExpertParallelOptimizer, MESH_PLANT["moe"]),
+                    c["check_steps"], mesh=mesh)
+            res["planted"] = ([h["loss"] for h in o.history], _flat_params(model))
+            del o, model
+            _free()
+            _comm.barrier()
+            if rank == 0:
+                model = build()
+                o = fit(model, LocalOptimizer, c["check_steps"])
+                res["ref"], res["p0"] = ([h["loss"] for h in o.history],
+                                         _flat_params(model)), p0
+                del o, model
+                _free()
+            _comm.barrier()
+            out[f"top{k}"] = res
+    finally:
+        restore()
+
+
+def _mesh_job_hybrid(rank, world, out):
+    """[23d] the LM through HybridParallelOptimizer on data 2 x model 2
+    under the Megatron plan."""
+    from bigdl_tpu_torch.analysis import ParamAuditError
+    from bigdl_tpu_torch.optim import LocalOptimizer
+    from bigdl_tpu_torch.parallel import (HybridParallelOptimizer, _comm, hybrid, make_mesh,
+                                          megatron_transformer_plan)
+
+    w, dev = MESH_LM, MESH_DEVICE
+    mesh = make_mesh({"data": 2, "model": 2})
+    x, y = _lm_data(SEED + 2)
+    restore = _bf16_card(fused=False)
+    try:
+        model = _mesh_lm(dev, SEED)
+        model.init(sample_input=x[:w["batch"]])
+        from bigdl_tpu_torch.utils.serialization import tree_items
+
+        plan = megatron_transformer_plan()
+        items = tree_items(model.get_parameters())
+        out["whole"] = sum(p.numel() * 4 for p in items.values())
+        out["sharded"] = sum(p.numel() * 4 for k, p in items.items() if plan.spec_for(k) != ())
+        _comm.reset_counts()
+        reset_counts()  # the main path starts here
+        opt = _lm_fit(model, HybridParallelOptimizer, x, y, w["steps"],
+                      plan=megatron_transformer_plan(), mesh=mesh)
+        _sync()
+        out["counts"] = read_counts()  # the main path ends here
+        out["comm"] = _comm.counts()
+        out.update(losses=[h["loss"] for h in opt.history], held=opt.held_bytes,
+                   step_ms=[h["wall_s"] * 1e3 for h in opt.history])
+        del opt
+        # a NaN planted in one block of rank 1: its audit names the leaf,
+        # the block and the rank; every other rank stops naming rank 1
+        real = hybrid.shard_leaf
+        planted = []
+
+        def shard_and_plant(leaf, spec, m):
+            blk = real(leaf, spec, m)
+            if m.rank == 1 and not planted and blk.dim() == 2:
+                blk[0, 0] = float("nan")
+                planted.append(True)
+            return blk
+
+        hybrid.shard_leaf = shard_and_plant
+        try:
+            _lm_fit(model, HybridParallelOptimizer, x, y, 1, plan=megatron_transformer_plan(),
+                    mesh=mesh)
+            out["audit"] = "passed"
+        except ParamAuditError as e:
+            out["audit"] = str(e)
+        finally:
+            hybrid.shard_leaf = real
+        del model
+        _free()
+    finally:
+        restore()
+    restore = _f32_card()
+    try:
+        model = _mesh_lm(dev, SEED + 3)
+        model.init(sample_input=x[:w["batch"]])
+        p0 = _flat_params(model)
+        o = _lm_fit(model, HybridParallelOptimizer, x, y, 3, plan=megatron_transformer_plan(),
+                    mesh=mesh)
+        out["check"] = ([h["loss"] for h in o.history], _flat_params(model))
+        del o, model
+        model = _mesh_lm(dev, SEED + 3)
+        model.init(sample_input=x[:w["batch"]])
+        o = _lm_fit(model, _doubled(HybridParallelOptimizer, MESH_PLANT["hybrid"]), x, y, 3,
+                    plan=megatron_transformer_plan(), mesh=mesh)
+        out["planted"] = ([h["loss"] for h in o.history], _flat_params(model))
+        del o, model
+        _free()
+        _comm.barrier()
+        if rank == 0:
+            model = _mesh_lm(dev, SEED + 3)
+            model.init(sample_input=x[:w["batch"]])
+            o = _lm_fit(model, LocalOptimizer, x, y, 3)
+            out["ref"], out["p0"] = ([h["loss"] for h in o.history], _flat_params(model)), p0
+            del o, model
+            _free()
+        _comm.barrier()
+    finally:
+        restore()
+
+
+_MESH_JOBS = {"pipe": _mesh_job_pipe, "ring": _mesh_job_ring, "moe": _mesh_job_moe,
+              "hybrid": _mesh_job_hybrid}
+
+
+def _mesh_rank(rank, world, folder, jobs, settings):
+    """A spawned rank of [23]: take the parent's ``settings`` (device and
+    sizes), join the group through a file, run ``jobs`` in order, save what
+    the parent checks as ``rank<r>.pt``."""
+    import torch
+
+    global MESH_DEVICE
+    MESH_DEVICE = settings["device"]
+    for table, values in ((MESH_PIPE, settings["pipe"]), (MESH_LM, settings["lm"]),
+                          (MESH_MOE, settings["moe"])):
+        table.update(values)
+    sys.path.insert(0, str(ROOT))
+    from bigdl_tpu_torch import Engine
+
+    Engine.init_distributed(f"file://{folder}/group", world, rank,
+                            device=None if MESH_DEVICE == "cuda" else "cpu")
+    if MESH_DEVICE == "cuda":  # the library's load launches the probe once: before any path
+        from bigdl_tpu_torch.ops import _build
+
+        _build.load()
+    results = {"backend": Engine.backend(), "device": str(Engine.rank_device())}
+    try:
+        for job in jobs:
+            t0 = time.perf_counter()
+            results[job] = {}
+            _MESH_JOBS[job](rank, world, results[job])
+            results[job]["wall_s"] = time.perf_counter() - t0
+    finally:
+        Engine.shutdown_distributed()
+    torch.save(results, os.path.join(folder, f"rank{rank}.pt"))
+
+
+def _spawn_mesh(jobs, world):
+    """``jobs`` on ``world`` spawned ranks sharing the card; each rank's
+    results. A rank that fails or outlives ``RANK_DEADLINE_S`` fails the
+    run (the end of its stderr is printed)."""
+    import tempfile
+
+    import torch
+    from bigdl_tpu_torch.examples._common import spawn
+
+    with tempfile.TemporaryDirectory(prefix="smoke_mesh_") as folder:
+        settings = {"device": MESH_DEVICE, "pipe": MESH_PIPE, "lm": MESH_LM, "moe": MESH_MOE}
+        spawn(_mesh_rank, (folder, list(jobs), settings), world, RANK_DEADLINE_S,
+              stderr_dir=folder)
+        return [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+def _sum_rank_counts(ranks, job, key="counts"):
+    total = {}
+    for res in ranks:
+        for k, v in res[job][key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _check_backend(label, ranks):
+    log(f"{label} {len(ranks)} ranks on {ranks[0]['device']} over {ranks[0]['backend']}")
+    if MESH_DEVICE == "cuda" and ranks[0]["backend"] != "gloo":
+        raise AssertionError(f"{label} ranks sharing one card took {ranks[0]['backend']}")
+
+
+def phase_mesh_pipe(card):
+    """[23a]; returns the path's launches (summed over the ranks)."""
+    import numpy as np
+
+    c = MESH_PIPE
+    ranks = _spawn_mesh(["pipe"], c["stages"])
+    _check_backend("[23a] GPipe norm-LM/LN:", ranks)
+    r0 = ranks[0]["pipe"]
+    losses = r0["losses"]
+    log(f"[23a] PipelineOptimizer on make_mesh({{'pipe': {c['stages']}}}), n_micro "
+        f"{c['n_micro']}, batch {c['batch']} x {c['seq']}, bf16, the fused-kernel switch on, "
+        f"Adam(3e-3): {len(losses)} iterations in {r0['wall_s']:.1f} s (the phase), step "
+        f"{r0['step_ms']:.1f} ms (median of iterations 3-{c['iters']}); losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; card {card}")
+    for r, res in enumerate(ranks):
+        if res["pipe"]["losses"] != losses:
+            raise AssertionError(f"[23a] rank {r}'s losses differ from rank 0's")
+    if len(losses) != c["iters"] or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[23a] losses {losses}")
+    whole, stacked = r0["whole"], r0["stacked"]
+    want = whole - stacked + stacked // c["stages"]
+    held = [res["pipe"]["held"] for res in ranks]
+    log(f"    held a rank: parameters {held[0]['params'] / 2**20:.2f} MiB, Adam slots "
+        f"{held[0]['slots'] / 2**20:.2f} MiB (the whole model {whole / 2**20:.2f} MiB, its "
+        f"stack {stacked / 2**20:.2f} MiB: expected {want / 2**20:.2f} and twice that)")
+    if any(h["params"] != want or h["slots"] != 2 * want for h in held):
+        raise AssertionError(f"[23a] held bytes {held}, expected {want} and {2 * want}")
+    per_rank = (c["n_micro"] + 1) * c["iters"]  # each microbatch's stage norm and the final one
+    for r, res in enumerate(ranks):
+        got = _nonzero(res["pipe"]["counts"])
+        exp = {"layer_norm_fwd": per_rank, "layer_norm_bwd": per_rank}
+        if MESH_DEVICE == "cuda" and got != exp:
+            raise AssertionError(f"[23a] rank {r} launched {got}, expected {exp}")
+    comm = r0["comm"]
+    log(f"    launches a rank: layer_norm_fwd / _bwd {per_rank} each ({c['n_micro']} "
+        f"microbatches + the final norm, x {c['iters']} iterations), nothing else; hops a "
+        f"rank: ppermute {comm['ppermute']['calls']} ({comm['ppermute']['bytes'] / 2**20:.1f} "
+        f"MiB), broadcast {comm['broadcast']['calls']} "
+        f"({comm['broadcast']['bytes'] / 2**20:.1f} MiB)")
+    _against("[23a] 3 f32 SGD steps, GPipe vs the sequential stack on one rank", r0["check"],
+             r0["ref"], r0["p0"], MESH_TOL["pipe"], r0["planted"])
+    return _sum_rank_counts(ranks, "pipe")
+
+
+def phase_mesh_four(card):
+    """[23b]-[23d] on 4 ranks; returns their paths' launches."""
+    import numpy as np
+
+    ranks = _spawn_mesh(["ring", "moe", "hybrid"], 4)
+    _check_backend("[23b]-[23d]:", ranks)
+    w = MESH_LM
+    by_path = {}
+    # [23b]
+    r0 = ranks[0]["ring"]
+    chunk = w["batch"] * w["heads"] * (w["seq"] // w["sp"]) * (w["hidden"] // w["heads"]) * 2
+    want_bytes = 2 * (w["sp"] - 1) * 2 * w["layers"] * chunk * w["steps"]
+    log(f"[23b] ring attention: the LM (V {w['vocab']}, H {w['hidden']}, {w['heads']} heads, "
+        f"{w['layers']} layers, T {w['seq']}, batch {w['batch']}, bf16) through LocalOptimizer "
+        f"on {w['sp']} ranks of {w['seq'] // w['sp']} positions: losses "
+        + ", ".join(f"{v:.4f}" for v in r0["losses"]) + ", step ms "
+        + ", ".join(f"{v:.0f}" for v in r0["step_ms"]) + f"; ppermute "
+        f"{r0['comm']['ppermute']['bytes'] / 2**20:.1f} MiB a rank over {w['steps']} steps "
+        f"(3 hops x K, V x {w['layers']} layers, forward and backward: "
+        f"{want_bytes / 2**20:.1f} MiB); card {card}")
+    for r, res in enumerate(ranks):
+        if res["ring"]["comm"]["ppermute"]["bytes"] != want_bytes:
+            raise AssertionError(f"[23b] rank {r} moved {res['ring']['comm']['ppermute']}")
+        if any(res["ring"]["counts"].values()):
+            raise AssertionError(f"[23b] rank {r} launched {_nonzero(res['ring']['counts'])} "
+                                 "under the ring registration")
+        if res["ring"]["losses"] != r0["losses"] or not all(np.isfinite(r0["losses"])):
+            raise AssertionError(f"[23b] rank {r}'s losses {res['ring']['losses']}")
+    cleared = _nonzero(r0["cleared_counts"])
+    exp = {k: w["layers"] for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")}
+    log(f"    after set_sequence_parallel(None), one step on rank 0: launches {cleared} "
+        f"(expected {exp}, [6]'s count for one iteration)")
+    if MESH_DEVICE == "cuda" and cleared != exp:
+        raise AssertionError(f"[23b] the cleared step launched {cleared}")
+    _against("[23b] 3 f32 SGD steps, the ring vs the dense route on one rank", r0["check"],
+             r0["ref"], r0["p0"], MESH_TOL["ring"], r0["planted"])
+    by_path["mesh_ring"] = _sum_rank_counts(ranks, "ring")
+    by_path["mesh_ring_cleared"] = dict(r0["cleared_counts"])
+    # [23c]
+    c = MESH_MOE
+    for k in (1, 2):
+        res0 = ranks[0]["moe"][f"top{k}"]
+        cap = int(np.ceil(c["batch"] / c["experts"] / c["experts"] * c["capacity_factor"] * k))
+        a2a = 2 * 2 * c["experts"] * cap * c["hidden"] * 4 * c["iters"]
+        whole, experts = res0["whole"], res0["experts"]
+        want = whole - experts + experts // c["experts"]
+        log(f"[23c] expert parallelism, top-{k}: the bench's MoE (H {c['hidden']}, "
+            f"{c['experts']} experts, batch {c['batch']}, capacity {c['capacity_factor']}) "
+            f"through ExpertParallelOptimizer, f32: losses "
+            + ", ".join(f"{v:.4f}" for v in res0["losses"]) + ", step ms "
+            + ", ".join(f"{v:.1f}" for v in res0["step_ms"]) + f"; all-to-all "
+            f"{res0['comm']['all_to_all']['bytes'] / 2**20:.2f} MiB a rank over {c['iters']} "
+            f"steps (2 hops x E {c['experts']} x C {cap} x D {c['hidden']} x 4 B, forward and "
+            f"backward: {a2a / 2**20:.2f} MiB); held parameters {res0['held']['params'] / 2**20:.2f}"
+            f" MiB (expected {want / 2**20:.2f}: one expert of {experts / 2**20:.2f}); card {card}")
+        for r, res in enumerate(ranks):
+            rr = res["moe"][f"top{k}"]
+            if rr["comm"]["all_to_all"]["bytes"] != a2a or rr["held"]["params"] != want:
+                raise AssertionError(f"[23c] top-{k} rank {r}: {rr['comm']['all_to_all']}, "
+                                     f"held {rr['held']}")
+            if rr["losses"] != res0["losses"] or not all(np.isfinite(rr["losses"])):
+                raise AssertionError(f"[23c] top-{k} rank {r}'s losses {rr['losses']}")
+        _against(f"[23c] top-{k}, 3 f32 SGD steps vs the dense MoE on one rank", res0["check"],
+                 res0["ref"], res0["p0"], MESH_TOL["moe"], res0["planted"])
+        by_path[f"mesh_moe_top{k}"] = _sum_rank_counts([r["moe"] for r in ranks], f"top{k}")
+    # [23d]
+    r0 = ranks[0]["hybrid"]
+    held = [res["hybrid"]["held"]["params"] for res in ranks]
+    log(f"[23d] data 2 x model 2, the LM under megatron_transformer_plan(), bf16, SGD 0.1: "
+        f"losses " + ", ".join(f"{v:.4f}" for v in r0["losses"]) + ", step ms "
+        + ", ".join(f"{v:.0f}" for v in r0["step_ms"]) + f"; held parameters a rank "
+        f"{held[0] / 2**20:.2f} MiB against {r0['whole'] / 2**20:.2f} MiB replicated (its "
+        f"Megatron-sharded leaves {r0['sharded'] / 2**20:.2f} MiB, halved); card {card}")
+    want = r0["whole"] - r0["sharded"] + r0["sharded"] // 2  # the model axis halves them
+    if any(h != want for h in held) or any(res["hybrid"]["held"]["slots"] for res in ranks):
+        raise AssertionError(f"[23d] held bytes {held}, expected {want} and no slots")
+    exp = {k: w["layers"] * w["steps"] for k in ("flash_attention_fwd",
+                                                 "flash_attention_bwd_dq",
+                                                 "flash_attention_bwd_dkv")}
+    for r, res in enumerate(ranks):
+        if MESH_DEVICE == "cuda" and _nonzero(res["hybrid"]["counts"]) != exp:
+            raise AssertionError(f"[23d] rank {r} launched {_nonzero(res['hybrid']['counts'])}")
+    audits = [res["hybrid"]["audit"] for res in ranks]
+    log(f"    flash launches a rank {exp} (its data rows); ShardedParamAudit passed on the "
+        f"run; with a NaN planted in rank 1's block: rank 1 says {audits[1][:160]!r}; rank 0 "
+        f"says {audits[0][:100]!r}")
+    # rank 1 is (data 0, model 1): the second half of the rows of the first
+    # leaf cut, block0's q
+    h = w["hidden"]
+    if not (f"['block0']['self_q_w'] (shard [{h // 2}:{h}, 0:{h}] on rank 1)" in audits[1]
+            and all("rank(s) [1]" in a for i, a in enumerate(audits) if i != 1)):
+        raise AssertionError(f"[23d] the audits said {audits}")
+    _against("[23d] 3 f32 SGD steps, hybrid vs LocalOptimizer on one rank", r0["check"],
+             r0["ref"], r0["p0"], MESH_TOL["hybrid"], r0["planted"])
+    by_path["mesh_hybrid"] = _sum_rank_counts(ranks, "hybrid")
+    return by_path
+
+
+def phase_mesh_examples(card):
+    """[23e] the three mesh mains at their JAX mains' defaults, started
+    together (20 ranks sharing the card; their output to files, so no pipe
+    fills while another is read) and each joined under its deadline."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="smoke_examples_") as folder:
+        procs = {}
+        for name in MESH_EXAMPLES:
+            args = [sys.executable, "-m", f"bigdl_tpu_torch.examples.{name}"]
+            if MESH_DEVICE == "cpu":
+                args += ["--platform", "cpu"]
+            out = open(os.path.join(folder, f"{name}.out"), "w")
+            err = open(os.path.join(folder, f"{name}.err"), "w")
+            procs[name] = (subprocess.Popen(args, stdout=out, stderr=err, cwd=str(ROOT)),
+                           time.perf_counter(), out, err)
+        failed = []
+        for name, (proc, t0, out, err) in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, MESH_EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            wall = time.perf_counter() - t0
+            out.close()
+            err.close()
+            with open(out.name) as f:
+                text = f.read()
+            with open(err.name) as f:
+                tail = f.read()[-3000:]
+            found = re.findall(r"bigram-map recovery: ([0-9.]+) \(rank 0 of (\d+)\)", text)
+            log(f"[23e] examples/{name}.py: exit {proc.returncode} in {wall:.1f} s, "
+                f"bigram-map recovery {found[-1][0] if found else None} over "
+                f"{found[-1][1] if found else '?'} ranks; card {card}")
+            if proc.returncode != 0 or not found:
+                failed.append(f"{name}:\n{text[-2000:]}\n{tail}")
+    if failed:
+        raise AssertionError("[23e] " + "\n".join(failed))
+
+
+def phase_slice24(card):
+    """[23] the mesh parallelisms; returns the main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"mesh_pipe": phase_mesh_pipe(card)}
+    by_path.update(phase_mesh_four(card))
+    phase_mesh_examples(card)
+    log(f"[23] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -9547,6 +10333,7 @@ def main() -> int:
     by_path.update(phase_slice21(card))
     by_path.update(phase_slice22(card))
     by_path.update(phase_slice23(card))
+    by_path.update(phase_slice24(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -28,6 +28,7 @@ from bigdl_tpu.parallel import moe as jmoe
 from bigdl_tpu.utils.random import RandomGenerator as JRandom
 from bigdl_tpu_torch import nn as pnn
 from bigdl_tpu_torch.examples import moe_train
+from torch_mesh_worker import spawn_module_case
 from bigdl_tpu_torch.nn.moe import _expert_ffn
 from bigdl_tpu_torch.parallel import moe as pmoe
 from bigdl_tpu_torch.utils.convert import load_jax_params
@@ -154,7 +155,7 @@ def test_reference_oracle_equals_the_dense_path_and_jax_oracle(k):
         pmoe.moe_ffn_reference(p["router_w"], experts, None, torch.zeros(6, 8), 4)
 
 
-def test_contract_errors_and_the_expert_parallel_path_raise():
+def test_contract_errors_and_the_expert_parallel_path_raise(tmp_path):
     with pytest.raises(ValueError, match="n_experts must be >= 2"):
         pnn.MoE(1, device="cpu")
     with pytest.raises(ValueError, match="activation"):
@@ -170,8 +171,12 @@ def test_contract_errors_and_the_expert_parallel_path_raise():
         jm.infer_shape(jax.ShapeDtypeStruct((3, 5, 8), jnp.float32))
     assert str(pe.value).split(":", 1)[1] == str(je.value).split(":", 1)[1]
     assert tuple(m.infer_shape(torch.empty((4, 5, 8), device="meta")).shape) == (4, 5, 8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        m.set_mesh(object())
+    # the expert-parallel path runs (it raised before it was ported): on
+    # 4 spawned ranks its output equals the dense path's within 1e-5
+    assert m.set_mesh(None) is m
+    got = spawn_module_case(4, dict(name="moe", fn="module_moe", mesh={"expert": 4}, k=1),
+                            str(tmp_path))
+    np.testing.assert_allclose(got[0]["par.y"], got[0]["dense.y"], atol=1e-5)
 
 
 def _bench_moe(nn, dev):
@@ -214,11 +219,20 @@ def test_aux_loss_keeps_a_ragged_tail_out_of_the_step_as_jax_does():
 
 
 def test_moe_example_trains_on_the_dense_path():
-    run = moe_train.main(["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "3000",
-                          "--router-top-k", "2"])
-    losses = [h["loss"] for h in run.optimizer.history]
+    """The example now trains expert-parallel (4 spawned ranks, as its JAX
+    main); the same run on the layer's dense path in this process gives
+    the same losses (within 1e-5) and the same bigram recovery."""
+    argv = ["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "3000",
+            "--router-top-k", "2"]
+    run = moe_train.main(argv)
+    mesh_losses = [h["loss"] for h in run.results["ranks"][0]["history"]]
+    dense = moe_train.build(moe_train.parser().parse_args(argv))
+    model = dense.optimizer.optimize()
+    losses = [h["loss"] for h in dense.optimizer.history]
     assert len(losses) == 2 and np.isfinite(losses).all()
+    np.testing.assert_allclose(mesh_losses, losses, atol=1e-5)
+    share = moe_train.probe_recovery(model, 64, 4)[0]
     assert 0.0 <= run.results["bigram_recovery"] <= 1.0
-    moe = next(m for m in run.model.walk() if isinstance(m, pnn.MoE))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        moe.set_mesh("expert")
+    assert abs(share - run.results["bigram_recovery"]) < 1e-9
+    moe = next(m for m in model.walk() if isinstance(m, pnn.MoE))
+    assert moe.expert_parallel is False and moe._mesh is None

@@ -1,0 +1,442 @@
+"""The port's mesh optimizers against the JAX package's, on the CPU:
+``PipelineOptimizer`` and ``ExpertParallelOptimizer`` (their 2-epoch
+fits, 56 rows in batches of 16, alone and composed with a data axis), ``HybridParallelOptimizer`` under ``megatron_transformer_plan``,
+``ShardedParamAudit``, every refusal, a checkpoint resumed to the bit, and
+the three mesh examples at a small size.
+
+The JAX fits run in this process on the conftest's 8 virtual CPU devices,
+from weights the JAX model was built with; the port's run in 8 spawned
+gloo ranks (``torch_mesh_worker.py``, one spawn for the module) from the
+same weights, on meshes of the JAX tests' shapes (an unused ``rep`` axis
+fills the 8 ranks where a JAX mesh has 4 devices).
+
+Tolerances (float32): the pipeline and expert fits' parameters atol 1e-5
+against the JAX fits (the JAX tests hold theirs to the local oracle at
+1e-6; the port's products round in another order); the hybrid LM, 3 SGD
+steps: loss within 1e-4 and parameters within 2e-4 of the local run, the
+JAX test's bounds, against the port's ``LocalOptimizer`` and the JAX
+``HybridParallelOptimizer`` alike; a resumed run equals the uninterrupted
+one to the bit; every rank returns the same parameters.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import pytest
+
+import bigdl_tpu.nn as jnn
+from bigdl_tpu.dataset import DataSet as JDataSet
+from bigdl_tpu.optim import SGD as JSGD
+from bigdl_tpu.optim import LocalOptimizer as JLocal
+from bigdl_tpu.optim import Trigger as JTrigger
+from bigdl_tpu.parallel import ExpertParallelOptimizer as JExpert
+from bigdl_tpu.parallel import HybridParallelOptimizer as JHybrid
+from bigdl_tpu.parallel import PipelineOptimizer as JPipeline
+from bigdl_tpu.parallel import make_mesh as j_make_mesh
+from bigdl_tpu.parallel import megatron_transformer_plan as j_plan
+from bigdl_tpu.utils.engine import Engine as JEngine
+from bigdl_tpu.utils.random import RandomGenerator as JRandom
+from bigdl_tpu_torch import nn as pnn
+from bigdl_tpu_torch.dataset import DataSet
+from bigdl_tpu_torch.optim import SGD, Trigger
+from bigdl_tpu_torch.parallel import (ExpertParallelOptimizer, HybridParallelOptimizer,
+                                      ParallelCompositionError, PipelineOptimizer, make_mesh)
+
+from test_torch_conv_bn import flat, np_tree
+from torch_mesh_worker import CASES, spawn_mesh_cases
+
+W = 8
+
+
+def _problem(n=56, d=8, classes=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            rng.integers(0, classes, n).astype(np.int64))
+
+
+def _j_problem_model(kind, d=8, classes=4):
+    if kind == "pipe":
+        return jnn.Sequential(jnn.Linear(d, 16),
+                              jnn.PipelinedBlocks(jnn.Sequential(jnn.Linear(16, 16), jnn.Tanh()),
+                                                  4),
+                              jnn.Linear(16, classes), jnn.LogSoftMax())
+    return jnn.Sequential(jnn.Linear(d, 16), jnn.MoE(4, ffn_size=16, capacity_factor=4.0),
+                          jnn.Linear(16, classes), jnn.LogSoftMax())
+
+
+def _jax_built(kind, x, seed=11):
+    JRandom.set_seed(seed)
+    m = _j_problem_model(kind)
+    m.init(jax.random.PRNGKey(seed), sample_input=x[:16])
+    return m
+
+
+def _jax_fit(kind, opt_cls=None, mesh=None, data_axis=None, seed=11):
+    x, y = _problem()
+    m = _jax_built(kind, x)
+    ds = JDataSet.array(x, y, batch_size=16)
+    if opt_cls is None:
+        opt = JLocal(m, ds, jnn.ClassNLLCriterion())
+    else:
+        opt = opt_cls(m, ds, jnn.ClassNLLCriterion(), mesh=mesh, data_axis=data_axis)
+    JRandom.set_seed(seed)
+    opt.set_optim_method(JSGD(learningrate=0.1))
+    opt.set_end_when(JTrigger.max_epoch(2))
+    opt.optimize()
+    jax.block_until_ready(jax.tree_util.tree_leaves(m.get_parameters()))
+    return flat(np_tree(m.get_parameters()))
+
+
+def _lm_data(n=16, vocab=32, t=8, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.integers(1, vocab, (n, t)).astype(np.int32)
+    y = np.concatenate([x[:, 1:], np.ones((n, 1), np.int32)], axis=1)
+    return x, y
+
+
+def _j_lm():
+    return jnn.Transformer(vocab_size=32, hidden_size=16, num_heads=2, filter_size=32,
+                           num_hidden_layers=2, postprocess_dropout=0.0, attention_dropout=0.0,
+                           relu_dropout=0.0, mode="lm")
+
+
+def _jax_lm(hybrid: bool):
+    x, y = _lm_data()
+    JRandom.set_seed(7)
+    m = _j_lm()
+    m.init(jax.random.PRNGKey(7), sample_input=x)
+    init = np_tree(m.get_parameters())
+    ds = JDataSet.array(x, y, batch_size=16)
+    crit = jnn.TimeDistributedCriterion(jnn.CrossEntropyCriterion())
+    if hybrid:
+        opt = JHybrid(m, ds, crit, plan=j_plan(), mesh=j_make_mesh({"data": 2, "model": 4}))
+    else:
+        opt = JLocal(m, ds, crit)
+    opt.set_optim_method(JSGD(learningrate=0.1))
+    opt.set_end_when(JTrigger.max_iteration(3))
+    opt.optimize()
+    return init, flat(np_tree(m.get_parameters())), opt.optim_method.state["loss"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_engine_as_found():
+    """The JAX Engine is process-wide, and the JAX calls here initialise it
+    on every virtual device: a later test file on this worker sees it as it
+    was."""
+    saved = JEngine._state
+    JEngine.reset()
+    yield
+    JEngine._state = saved
+
+
+# ------------------------------------------------------------------ the cases
+@pytest.fixture(scope="module")
+def inits():
+    x, _ = _problem()
+    return {k: np_tree(_jax_built(k, x).get_parameters()) for k in ("pipe", "moe")}
+
+
+@pytest.fixture(scope="module")
+def ranks(inits, tmp_path_factory):
+    folder = str(tmp_path_factory.mktemp("opt"))
+    x, y = _problem()
+    xl, yl = _lm_data()
+    lm_init = _jax_lm(False)[0]
+
+    def fit(name, kind, mesh, **kw):
+        return dict(name=name, fn="fit", kind=kind, mesh=mesh, x=x, y=y, batch=16,
+                    init=inits[kind], **kw)
+
+    cases = [
+        fit("pp", "pipe", {"rep": 2, "pipe": 4}),
+        fit("ep", "moe", {"rep": 2, "expert": 4}),
+        fit("dp_pp", "pipe", {"data": 2, "pipe": 4}, data_axis="data"),
+        fit("dp_ep", "moe", {"data": 2, "expert": 4}, data_axis="data"),
+        fit("pp_local", "pipe", None),
+        fit("pp_nmicro8", "pipe", {"rep": 2, "pipe": 4}, n_micro=8),
+        fit("pp_cv", "pipe", {"rep": 2, "pipe": 4}, clip=0.05, validate=True),
+        fit("pp_local_cv", "pipe", None, clip=0.05, validate=True),
+        fit("ep_cv", "moe", {"rep": 2, "expert": 4}, clip=0.05, validate=True),
+        fit("ep_local_cv", "moe", None, clip=0.05, validate=True),
+        fit("pp_resume", "pipe", {"rep": 2, "pipe": 4}, steps=8, momentum=0.9,
+            ckpt_dir=f"{folder}/ckpt"),
+        dict(name="hybrid", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl, batch=16,
+             init=lm_init),
+        dict(name="hybrid_local", fn="hybrid", mesh=None, x=xl, y=yl, batch=16, init=lm_init),
+        dict(name="hybrid_resume", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl,
+             batch=16, init=lm_init, steps=1, ckpt_dir=f"{folder}/hybrid_ckpt"),
+        dict(name="hybrid_nan", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl, batch=16,
+             init=lm_init, nan_rank=5),
+    ]
+    # the one-rank references run here, once (each rank would run the same)
+    local = {c["name"]: [CASES[c["fn"]](c, "cpu")] for c in cases if c["mesh"] is None}
+    spawned = spawn_mesh_cases(W, [c for c in cases if c["mesh"] is not None], folder,
+                               deadline_s=240.0)
+    return {**spawned, **local}
+
+
+def _params(got):
+    return {k[2:]: v for k, v in got.items() if k.startswith("p.")}
+
+
+def _same_on_every_rank(got, prefix="p."):
+    for r in range(1, W):
+        for k, v in got[0].items():
+            if k.startswith(prefix):
+                np.testing.assert_array_equal(got[r][k], v, err_msg=f"rank {r} {k}")
+
+
+# ----------------------------------------------------------------- parity
+@pytest.mark.parametrize("name,kind,opt,mesh,data_axis", [
+    ("pp", "pipe", JPipeline, {"pipe": 4}, None),
+    ("ep", "moe", JExpert, {"expert": 4}, None),
+    ("dp_pp", "pipe", JPipeline, {"data": 2, "pipe": 4}, "data"),
+    ("dp_ep", "moe", JExpert, {"data": 2, "expert": 4}, "data"),
+])
+def test_fit_matches_the_jax_fit(name, kind, opt, mesh, data_axis, ranks):
+    """The 2-epoch fit (56 rows: the array dataset drops each epoch's
+    8-row tail in both packages) of each composition against the JAX
+    optimizer's on the virtual mesh."""
+    devices = jax.devices()[:int(np.prod(list(mesh.values())))]
+    want = _jax_fit(kind, opt, j_make_mesh(mesh, devices=devices), data_axis)
+    got = ranks[name]
+    _same_on_every_rank(got)
+    assert set(_params(got[0])) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(_params(got[0])[k], v, atol=1e-5, err_msg=k)
+    assert list(got[0]["records"]) == [16] * 6
+
+
+def test_pipeline_fit_matches_the_local_fit(ranks):
+    got, local = _params(ranks["pp"][0]), _params(ranks["pp_local"][0])
+    for k, v in local.items():
+        np.testing.assert_allclose(got[k], v, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["pp", "ep"])
+def test_clipping_and_validation_on_the_mesh(name, ranks):
+    """Clipping by the global L2 norm (the stacked blocks' squares summed
+    over their axis) and a validation each epoch (on the whole parameters,
+    gathered for it): the same parameters (1e-6) and scores as one rank's
+    LocalOptimizer."""
+    got, local = ranks[f"{name}_cv"], ranks[f"{name}_local_cv"][0]
+    _same_on_every_rank(got)
+    assert int(got[0]["n_validations"]) == int(local["n_validations"]) == 2
+    np.testing.assert_allclose(got[0]["score"], local["score"], atol=1e-6)
+    for k, v in _params(local).items():
+        np.testing.assert_allclose(_params(got[0])[k], v, atol=1e-6, err_msg=k)
+
+
+def test_each_rank_holds_one_stage_and_its_slots(ranks):
+    """A stacked leaf and its slot are a quarter on every rank: the held
+    bytes are the replicated layers' plus a quarter of the stack's."""
+    got = ranks["pp_resume"][0]
+    d, classes = 8, 4
+    replicated = (d * 16 + 16 + 16 * classes + classes) * 4
+    stack = 4 * (16 * 16 + 16) * 4
+    assert int(got["held.params"]) == replicated + stack // 4
+    assert int(got["held.slots"]) == replicated + stack // 4  # SGD momentum: one slot
+
+
+def test_checkpoint_resume_is_bit_equal(ranks):
+    """A run checkpointed at step 4 (rank 0 writes the gathered tree) and
+    resumed to step 8 equals the uninterrupted 8 steps to the bit."""
+    got = ranks["pp_resume"]
+    _same_on_every_rank(got, "r.")
+    for k, v in _params(got[0]).items():
+        np.testing.assert_array_equal(got[0][f"r.{k}"], v, err_msg=k)
+
+
+def test_hybrid_matches_local_and_jax(ranks):
+    """Data 2 x model 4 under the Megatron plan, 3 SGD steps: loss within
+    1e-4 and parameters within 2e-4 of one rank's LocalOptimizer, and of
+    the JAX HybridParallelOptimizer."""
+    _, j_params, j_loss = _jax_lm(True)
+    got, local = ranks["hybrid"], ranks["hybrid_local"][0]
+    _same_on_every_rank(got)
+    assert abs(got[0]["losses"][-1] - local["losses"][-1]) < 1e-4
+    assert abs(got[0]["losses"][-1] - j_loss) < 1e-4
+    for k, v in _params(local).items():
+        np.testing.assert_allclose(_params(got[0])[k], v, atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(_params(got[0])[k], j_params[k], atol=2e-4, err_msg=k)
+
+
+def test_hybrid_holds_its_blocks(ranks):
+    """Each rank holds a quarter of every Megatron-sharded leaf (and, with
+    no momentum, no slots): its bytes against a replicated rank's, and the
+    (16, 16) q projection's block is 4 rows (the JAX test's shard shape)."""
+    for got in ranks["hybrid"]:
+        assert tuple(got["q_block"]) == (4, 16)
+    got, local = ranks["hybrid"][0], ranks["hybrid_local"][0]
+    params = _params(local)
+    sharded = sum(v.size for k, v in params.items()
+                  if k.endswith(("_q_w", "_k_w", "_v_w", "_out_w", "filter_w", "filter_b"))
+                  or k.split(".")[-1] == "out_w")
+    whole = sum(v.size for v in params.values())
+    assert int(got["held.params"]) == (whole - sharded + sharded // 4) * 4
+    assert int(got["held.slots"]) == 0
+
+
+def test_hybrid_checkpoint_resumes_at_any_mesh(ranks):
+    """Momentum SGD on data 2 x model 4, checkpointed at step 2 (rank 0
+    writes the gathered tree and slots) and resumed to step 4: on the mesh
+    equal to the uninterrupted run to the bit; by a one-rank
+    ``LocalOptimizer`` within the JAX test's 2e-4."""
+    got = ranks["hybrid_resume"]
+    _same_on_every_rank(got, "resumed.")
+    gold = {k[5:]: v for k, v in got[0].items() if k.startswith("gold.")}
+    assert gold
+    for k, v in gold.items():
+        np.testing.assert_array_equal(got[0][f"resumed.{k}"], v, err_msg=k)
+        np.testing.assert_allclose(got[0][f"local.{k}"], v, atol=2e-4, err_msg=k)
+
+
+def test_sharded_audit_names_the_leaf_and_the_rank(ranks):
+    got = ranks["hybrid_nan"]
+    msgs = [str(g.get("message", "")) for g in got]
+    assert "planted" in got[5] and "non-finite" in msgs[5] and "rank 5" in msgs[5]
+    # rank 5 is (data 1, model 1): rows 4:8 of the first (16, 16) leaf cut
+    assert "['block0']['self_q_w'] (shard [4:8, 0:16] on rank 5)" in msgs[5], msgs[5]
+    # the other ranks' blocks are finite; they stop too, naming rank 5
+    for r, m in enumerate(msgs):
+        if r != 5:
+            assert "non-finite" not in m and "rank(s) [5]" in m, m
+
+
+# ---------------------------------------------------------------- refusals
+class _ShapeMesh:
+    """A mesh's shape alone: the refusals below raise before any collective."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def _p_model(kind):
+    from torch_mesh_worker import _problem_model
+
+    return _problem_model(pnn, kind)
+
+
+def _p_opt(cls, model, rows=16, batch=16, **kw):
+    x, y = _problem(n=rows)
+    opt = cls(model, DataSet.array(x, y, batch_size=batch), pnn.ClassNLLCriterion(), **kw)
+    return opt.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(1))
+
+
+@pytest.mark.parametrize("cls,kind", [(PipelineOptimizer, "pipe"),
+                                      (ExpertParallelOptimizer, "moe")])
+@pytest.mark.parametrize("kw", [{"flat_update": True}, {"comms_dtype": "bfloat16"}])
+def test_incompatible_composition_is_typed(cls, kind, kw):
+    jcls = {PipelineOptimizer: JPipeline, ExpertParallelOptimizer: JExpert}[cls]
+    x, y = _problem(n=16)
+    with pytest.raises(ParallelCompositionError) as pe:
+        cls(_p_model(kind), DataSet.array(x, y, batch_size=16), pnn.ClassNLLCriterion(), **kw)
+    with pytest.raises(Exception) as je:
+        jcls(_j_problem_model(kind), JDataSet.array(x, y, batch_size=16),
+             jnn.ClassNLLCriterion(), **kw)
+    assert isinstance(pe.value, ValueError) and "incompatible" in str(pe.value)
+    assert str(pe.value).split(":")[0] == str(je.value).split(":")[0]
+
+
+def test_hybrid_refuses_flat_update_and_micro_batches():
+    from bigdl_tpu_torch.parallel import megatron_transformer_plan
+
+    x, y = _problem(n=16)
+    with pytest.raises(ParallelCompositionError, match="flat_update"):
+        HybridParallelOptimizer(_p_model("pipe"), DataSet.array(x, y, batch_size=16),
+                                pnn.ClassNLLCriterion(), flat_update=True)
+    opt = HybridParallelOptimizer(_p_model("pipe"), DataSet.array(x, y, batch_size=16),
+                                  pnn.ClassNLLCriterion(), plan=megatron_transformer_plan())
+    with pytest.raises(NotImplementedError, match="set_micro_batches"):
+        opt.set_micro_batches(2)
+
+
+def test_set_micro_batches_refused():
+    opt = _p_opt(PipelineOptimizer, _p_model("pipe"))
+    with pytest.raises(NotImplementedError, match="n_micro"):
+        opt.set_micro_batches(2)
+    with pytest.raises(ValueError, match="n_micro must be"):
+        _p_opt(PipelineOptimizer, _p_model("pipe"), n_micro=0)
+
+
+def test_mesh_missing_axis_fails_loudly():
+    """Without a mesh the Engine's 1-D data mesh has no 'pipe' axis; a
+    data axis the mesh lacks fails too."""
+    with pytest.raises(ValueError, match="make_mesh"):
+        _p_opt(PipelineOptimizer, _p_model("pipe")).optimize()
+    with pytest.raises(ValueError, match="data_axis 'batch' not in mesh axes"):
+        _p_opt(PipelineOptimizer, _p_model("pipe"), mesh=_ShapeMesh(pipe=4),
+               data_axis="batch").optimize()
+    with pytest.raises(ValueError, match="lack data axis"):
+        _p_opt(HybridParallelOptimizer, _p_model("pipe"), data_axis="batch").optimize()
+
+
+def test_batch_must_fill_schedule_grid():
+    with pytest.raises(ValueError, match="n_micro"):
+        _p_opt(PipelineOptimizer, _p_model("pipe"), rows=12, batch=6,
+               mesh=_ShapeMesh(pipe=4)).optimize()
+    with pytest.raises(ValueError, match="tile the mesh"):
+        _p_opt(ExpertParallelOptimizer, _p_model("moe"), rows=12, batch=12,
+               mesh=_ShapeMesh(data=2, expert=4), data_axis="data").optimize()
+
+
+def test_model_without_parallel_module_fails_loudly():
+    plain = pnn.Sequential(pnn.Linear(8, 4, device="cpu"), pnn.LogSoftMax(device="cpu"),
+                           device="cpu")
+    with pytest.raises(ValueError, match="PipelinedBlocks"):
+        _p_opt(PipelineOptimizer, plain, mesh=make_mesh({"pipe": 1})).optimize()
+    plain = pnn.Sequential(pnn.Linear(8, 4, device="cpu"), pnn.LogSoftMax(device="cpu"),
+                           device="cpu")
+    with pytest.raises(ValueError, match="nn.MoE"):
+        _p_opt(ExpertParallelOptimizer, plain, mesh=make_mesh({"expert": 1})).optimize()
+    with pytest.raises(ValueError, match="size the stack"):
+        _p_opt(PipelineOptimizer, _p_model("pipe"), mesh=_ShapeMesh(pipe=2)).optimize()
+
+
+def test_plan_over_the_data_axis_is_refused():
+    from bigdl_tpu_torch.parallel import P, ShardingPlan
+
+    with pytest.raises(NotImplementedError, match="data axis"):
+        _p_opt(HybridParallelOptimizer, _p_model("pipe"),
+               plan=ShardingPlan([(r"weight$", P("data", None))])).optimize()
+
+
+def test_make_mesh_spans_the_group():
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
+        make_mesh({"data": 2})
+    with pytest.raises(ValueError, match="every rank of the group"):
+        make_mesh({"data": 1}, devices=[3])
+
+
+# ---------------------------------------------------------------- examples
+@pytest.mark.parametrize("name,argv,world", [
+    ("pipeline_train", ["--n-stages", "2", "--dp", "2"], 4),
+    ("longctx_train", ["--sp", "2", "--seq-len", "16"], 2),
+])
+def test_mesh_example_matches_its_one_rank_run(name, argv, world):
+    """The main on its spawned mesh ranks (the GPipe schedule, the ring)
+    against the same model trained in this process on its sequential or
+    dense path: losses within 1e-5, and the bigram recovery read alike."""
+    import importlib
+
+    from bigdl_tpu_torch.utils.engine import Engine
+
+    mod = importlib.import_module(f"bigdl_tpu_torch.examples.{name}")
+    argv = ["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "3000"] + argv
+    run = mod.main(argv)
+    ranks = run.results["ranks"]
+    assert len(ranks) == world and 0.0 <= run.results["bigram_recovery"] <= 1.0
+    mesh_losses = [h["loss"] for h in ranks[0]["history"]]
+    for r in ranks[1:]:
+        assert [h["loss"] for h in r["history"]] == mesh_losses
+    local = mod.build(mod.parser().parse_args(argv))
+    assert Engine.sequence_parallel() is None
+    model = local.optimizer.optimize()
+    losses = [h["loss"] for h in local.optimizer.history]
+    assert len(losses) == len(mesh_losses) > 0 and np.isfinite(losses).all()
+    np.testing.assert_allclose(mesh_losses, losses, atol=1e-5)
+    from bigdl_tpu_torch.examples.pipeline_train import probe_recovery
+
+    assert abs(probe_recovery(model, 64)[0] - run.results["bigram_recovery"]) < 0.05
