@@ -24,9 +24,12 @@ through a bounded staging ring. The contract, the JAX package's:
 ``StagingRing`` is the bounded, event-aware hand-off this module and the
 optimizer's prefetch seam share: ``close()`` wakes every blocked ``put``
 and ``get`` at once, so an abandoned epoch frees its batches promptly.
-The JAX package runs each chunk under a ``pipeline_transform`` trace span
-(``_process_traced``); the port has no ``obs/trace`` yet and runs the
-untraced ``_process``.
+Each chunk runs under a ``pipeline_transform`` span (``_process_traced``)
+with a causal trace context keyed on (epoch, chunk): the same trace for a
+chunk on every run and for any worker count. The context travels with the
+batch (the stream's ``last_context``), so the optimizer's prefetch and
+dispatch spans chain onto it; pool workers record into the consumer's span
+collector.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Iterator, List, Optional, Set
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from ..utils.random import RandomGenerator
 from .dataset import AbstractDataSet, MiniBatch, Sample, SampleToMiniBatch, Transformer
 
@@ -176,7 +180,8 @@ class _OrderedStaging:
 
 class _PipelineStream:
     """Iterator over one epoch of pipeline batches, with ``qsize()`` (the
-    staging ring's depth, the optimizer's input gauge) and ``close()`` for
+    staging ring's depth, the optimizer's input gauge), ``last_context``
+    (the causal trace context of the batch just yielded) and ``close()`` for
     early abandonment."""
 
     def __init__(self, gen, ring: Optional[_OrderedStaging],
@@ -184,12 +189,14 @@ class _PipelineStream:
         self._gen = gen
         self._ring = ring
         self._in_q = in_q
+        self.last_context = None
 
     def __iter__(self) -> "_PipelineStream":
         return self
 
     def __next__(self):
-        return next(self._gen)
+        batch, self.last_context = next(self._gen)
+        return batch
 
     def qsize(self) -> int:
         return self._ring.ready_count() if self._ring is not None else 0
@@ -338,6 +345,15 @@ class DataPipeline(AbstractDataSet):
             )
         return self._assemble._to_batch(out)
 
+    def _process_traced(self, chunk_index: int, records: List[Sample]):
+        """:meth:`_process` under the chunk's causal trace: a root context
+        keyed on ``(epoch, chunk_index)`` and a ``pipeline_transform`` span;
+        returns ``(batch, context)``."""
+        ctx = obs_trace.new_context(key=("pipeline", int(self._epoch), int(chunk_index)))
+        with obs_trace.context_scope(ctx), obs_trace.span("pipeline_transform"):
+            out = self._process(chunk_index, records)
+        return out, ctx
+
     # ------------------------------------------------------------------ data
     def data(self, train: bool, skip_positions=None) -> _PipelineStream:
         """One epoch of MiniBatches. ``skip_positions`` is the
@@ -370,7 +386,7 @@ class DataPipeline(AbstractDataSet):
     def _serial(self, train: bool, skips: Set[int], drop: bool):
         for index, records in enumerate(self._chunks(train)):
             if self._keep(records, index, skips, drop):
-                yield self._process(index, records)
+                yield self._process_traced(index, records)
 
     def _parallel(self, train: bool, skips: Set[int], drop: bool,
                   ring: _OrderedStaging, in_q: StagingRing):
@@ -395,14 +411,18 @@ class DataPipeline(AbstractDataSet):
                     if not in_q.put(_NO_MORE):
                         return
 
+        # the consumer's span collector, bound on each pool worker
+        col = obs_trace.current_collector()
+
         def worker():
+            obs_trace.bind_collector(col)
             while True:
                 item = in_q.get()
                 if item is RING_CLOSED or item is _NO_MORE:
                     return
                 index, records = item
                 try:
-                    out = self._process(index, records)
+                    out = self._process_traced(index, records)
                 except BaseException as e:  # propagate at this position
                     out = e
                 ring.deliver(index, out)

@@ -123,6 +123,18 @@ def _scaled_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return precision.true_div(logits, math.sqrt(q.shape[-1]))
 
 
+def _on_card(q: torch.Tensor) -> bool:
+    """A CUDA tensor, or a meta tensor of a step-cost count that takes the
+    card's routes (``obs/perf.py``'s ``program_cost``)."""
+    if q.is_cuda:
+        return True
+    if q.device.type != "meta":
+        return False
+    from ..obs.perf import cost_routes_like
+
+    return cost_routes_like() == "cuda"
+
+
 def scaled_dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -184,7 +196,7 @@ def scaled_dot_product_attention(
         # The JAX package's routing rule (flash from T=1024, chosen there for
         # its TPU kernel), kept here as a rule; it is not a measurement on
         # this card.
-        impl = ("flash" if structural and q.is_cuda
+        impl = ("flash" if structural and _on_card(q)
                 and min(q.shape[-2], k.shape[-2]) >= 1024 else "dense")
     if impl == "flash":
         if not structural:

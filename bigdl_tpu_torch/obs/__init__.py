@@ -1,9 +1,66 @@
-"""Observability of the port (counterpart of ``bigdl_tpu/obs``): the
-telemetry stream serving writes and the monitor chassis its supervisor runs
-on, the port's own copies."""
+"""Observability of the port (counterpart of ``bigdl_tpu/obs``; the port's
+own copies, the same record types and fields):
 
-from .telemetry import JsonlExporter, RingBufferExporter, Telemetry, TelemetryExporter
-from .watchdog import MonitorBase
+* :mod:`.telemetry` — the per-step event stream fanned out through
+  exporters (JSONL, ``TrainSummary``, the ring, the flight recorder), with
+  no device sync of its own;
+* :mod:`.trace` — ``span("name")`` host seams, also ranges of a
+  ``torch.profiler`` trace, and the causal trace context;
+* :mod:`.watchdog` — :class:`StallWatchdog` and the monitors' chassis;
+* :mod:`.health` — :class:`HealthMonitor` (``set_health``): per-layer
+  statistics computed on the device, read with the loss;
+* :mod:`.profiler` — the one-shot memory breakdown and step cost;
+* :mod:`.perf` — MFU accounting (:class:`PerfAccountant`), the step-time
+  decomposition and the :class:`PerfMonitor`;
+* :mod:`.fleet` — process identity and heartbeat files;
+* :mod:`.blackbox` — the flight recorder and postmortem bundles.
 
-__all__ = ["JsonlExporter", "MonitorBase", "RingBufferExporter", "Telemetry",
-           "TelemetryExporter"]
+``FleetMonitor`` and the scrape endpoint (``ObsEndpoint``) come with the
+elastic runtime and the rest of serving's surface (ROADMAP Queue 1 item 9).
+"""
+
+from .blackbox import (BundleTampered, BundleTruncated, FlightRecorder, PostmortemBundleError,
+                       arm_crash_handler, disarm_crash_handler, dump_postmortem, load_bundle,
+                       verify_bundle)
+from .fleet import process_identity, read_heartbeats, write_heartbeat
+from .health import HealthConfig, HealthMonitor
+from .perf import PerfAccountant, PerfConfig, PerfMonitor
+from .profiler import cost_summary, memory_breakdown, profile_optimizer
+from .telemetry import (JsonlExporter, Metrics, RingBufferExporter, SummaryExporter, Telemetry,
+                        TelemetryExporter, device_memory_stats)
+from .trace import span, step_annotation
+from .watchdog import MonitorBase, StallWatchdog
+
+__all__ = [
+    "Telemetry",
+    "TelemetryExporter",
+    "JsonlExporter",
+    "RingBufferExporter",
+    "SummaryExporter",
+    "device_memory_stats",
+    "Metrics",
+    "span",
+    "step_annotation",
+    "MonitorBase",
+    "StallWatchdog",
+    "process_identity",
+    "read_heartbeats",
+    "write_heartbeat",
+    "HealthConfig",
+    "HealthMonitor",
+    "PerfAccountant",
+    "PerfConfig",
+    "PerfMonitor",
+    "memory_breakdown",
+    "cost_summary",
+    "profile_optimizer",
+    "FlightRecorder",
+    "PostmortemBundleError",
+    "BundleTruncated",
+    "BundleTampered",
+    "arm_crash_handler",
+    "disarm_crash_handler",
+    "dump_postmortem",
+    "verify_bundle",
+    "load_bundle",
+]

@@ -12,6 +12,9 @@ from where the tensors lie: CPU tensors go through the plain versions
 (:func:`flash_attention_fwd_reference`, :func:`flash_attention_bwd_reference`);
 CUDA tensors launch the kernels, and anything the kernels do not take
 raises. There is no fallback from a kernel to its plain version.
+A meta tensor takes the plain version (shape inference), except inside a
+step-cost count (``obs/perf.py``'s ``program_cost``), where the call reports
+its analytic FLOPs (:func:`attention_flops`) instead of computing.
 :func:`flash_attention` is differentiable: a ``torch.autograd.Function``
 whose backward is :func:`flash_attention_bwd`, as ``jax.custom_vjp`` wraps
 the Pallas kernels in the JAX package.
@@ -292,14 +295,59 @@ class _FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def visible_pairs(tq: int, tk: int, causal: bool) -> int:
+    """The (query, key) pairs one head attends: all ``tq * tk``, or with
+    ``causal`` (aligned at the end) row i's ``min(tk, i + tk - tq + 1)``."""
+    if not causal:
+        return tq * tk
+    off = tk - tq
+    return sum(max(0, min(tk, i + off + 1)) for i in range(tq))
+
+
+def attention_flops(q, k, causal: bool, backward: bool = False) -> float:
+    """Model FLOPs of the kernels over ``q`` / ``k`` 's shapes: ``4 d`` a
+    visible pair forward (the two products), ``8 d`` backward (four
+    products, the recompute not counted). A call with ``lengths`` counts
+    the pairs of the full length (the lengths are data)."""
+    n, h, tq, d = q.shape
+    return (8.0 if backward else 4.0) * d * n * h * visible_pairs(tq, k.shape[2], causal)
+
+
+class _FlashAttentionCost(torch.autograd.Function):
+    """The meta stand-in inside a step-cost count: reports the kernels'
+    FLOPs forward and backward, computes nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        from ..obs.perf import kernel_flops
+
+        kernel_flops(attention_flops(q, k, causal))
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return torch.empty(q.shape[:3] + (v.shape[3],), dtype=q.dtype, device=q.device)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        from ..obs.perf import kernel_flops
+
+        q, k, v = ctx.saved_tensors
+        kernel_flops(attention_flops(q, k, ctx.causal, backward=True))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None
+
+
 def flash_attention(q, k, v, causal: bool = False, scale: Optional[float] = None,
                     lengths: Optional[torch.Tensor] = None,
                     mask_q: Optional[bool] = None) -> torch.Tensor:
     """Attention output only, differentiable in q, k and v (see
     :func:`flash_attention_fwd` and :func:`flash_attention_bwd`). A meta
-    tensor (shape inference) takes the plain version."""
+    tensor takes the plain version, or inside a step-cost count the
+    FLOP-reporting stand-in."""
     if mask_q is None:
         mask_q = q.shape[2] == k.shape[2]
     if q.device.type == "meta":
+        from ..obs.perf import cost_routes_like
+
+        if cost_routes_like() is not None:
+            return _FlashAttentionCost.apply(q, k, v, causal)
         return flash_attention_fwd_reference(q, k, v, causal, scale, lengths, bool(mask_q))[0]
     return _FlashAttentionFunction.apply(q, k, v, causal, scale, lengths, bool(mask_q))

@@ -99,30 +99,57 @@ The policies need the flat layout; ``flat_update`` refuses micro-batches
 and the methods that are not elementwise.
 
 Each iteration is logged (loss, learning rate, records/s) and kept in
-``history``. ``donate=False`` (buffer donation: in-place updates are the
-port's idiom already) is ROADMAP Queue 1 item 9 and raises
-``NotImplementedError``; so do ``set_health``, ``set_elastic`` and
-``set_telemetry``. Summaries, retry and preemption are not ported.
+``history``.
+
+Observability and resilience (the JAX package's, ``obs/`` and
+``resilience/``): ``set_telemetry`` streams a record a step (the spans of
+the seams ``prefetch``, ``pad_mask``, ``dispatch``, ``checkpoint``,
+``validation``, ``summary_flush``; ``mfu`` from ``set_perf`` 's once-counted
+step FLOPs), ``set_health`` adds the per-layer statistics computed on the
+device and read with the loss in its one transfer, ``set_train_summary`` /
+``set_val_summary`` write TensorBoard files and ``set_profile`` captures a
+``torch.profiler`` window. ``optimize()`` runs the attempts under a
+``FailurePolicy`` (``set_failure_policy``, or ``set_retry_times``'s legacy
+shim): a failed attempt restores the newest verified checkpoint (the step-0
+snapshot before the first one) and replays; a non-finite loss (the
+divergence guard on the one-step-late pull) rolls back to the newest
+finite checkpoint and backs the LR off or skips a window; a position that
+fails twice is skipped (a ``DataPipeline`` never even builds it);
+``set_preemption`` turns SIGTERM into an emergency checkpoint and
+``TrainingPreempted``; a terminal failure leaves a postmortem bundle.
+``donate=False`` writes each update into fresh storage, so tensors taken
+from the parameters before a step keep their values (the JAX package's
+undonated step). ``set_elastic`` is the next slice (ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import math
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..dataset.dataset import device_tensors, pad_minibatch, to_device
 from ..dataset.pipeline import RING_CLOSED, StagingRing
 from ..nn.module import detach_tree, to_spec
+from ..obs import trace as obs_trace
+from ..obs.perf import program_cost
+from ..obs.telemetry import Metrics, observe_kernel_builds
+from ..obs.trace import span
+from ..resilience.errors import DivergenceError, StallEscalation, TrainingPreempted
 from ..nn.normalization import BatchNormalization
 from ..tensor.sparse import SparseTensor
 from ..utils.random import RandomGenerator
-from ..utils.serialization import (copy_into, latest_checkpoint_step, load_checkpoint,
-                                   save_checkpoint, tree_items, unflatten_to_like)
+from ..utils.serialization import (copy_into, flatten_pytree, latest_checkpoint_step,
+                                   load_checkpoint, quarantine_nonfinite, save_checkpoint,
+                                   tree_items, unflatten_to_like)
 from ..utils.table import Table
 from .optim_method import SGD, OptimMethod
 from .predictor import forward_padded
@@ -131,9 +158,6 @@ from .trigger import Trigger
 from .validation import ValidationMethod, ValidationResult
 
 log = logging.getLogger(__name__)
-
-_ITEM_9 = "ROADMAP Queue 1 item 9"
-
 
 _staged_lock = threading.Lock()
 _staged = [0]  # device bytes the prefetch threads copied that no loop has taken yet
@@ -165,14 +189,18 @@ class _DeviceBatch:
     of its ``rows``, the prefetch thread's wait for it from the dataset
     (``wait_s``), the dataset's staging depth then (``qdepth``, None without
     a gauge), the event after its copy on the thread's stream (None off the
-    card) and the pinned host copies it was made from."""
+    card), the pinned host copies it was made from and the causal trace
+    context of its pipeline chunk (``trace``, None off a pipeline)."""
 
-    __slots__ = ("x", "t", "n", "rows", "wait_s", "qdepth", "ready", "pinned", "nbytes")
+    __slots__ = ("x", "t", "n", "rows", "wait_s", "qdepth", "ready", "pinned", "nbytes",
+                 "trace")
 
-    def __init__(self, x, t, n, rows, wait_s, qdepth, ready=None, pinned=(), nbytes=0):
+    def __init__(self, x, t, n, rows, wait_s, qdepth, ready=None, pinned=(), nbytes=0,
+                 trace=None):
         self.x, self.t, self.n, self.rows = x, t, n, rows
         self.wait_s, self.qdepth, self.ready, self.pinned = wait_s, qdepth, ready, pinned
         self.nbytes = nbytes  # its share of staged_device_bytes() until the loop takes it
+        self.trace = trace
 
     def wait_on(self, device: torch.device) -> None:
         """Make ``device`` 's current stream wait for the copy and mark the
@@ -285,14 +313,15 @@ class Optimizer:
     def __init__(self, model, dataset, criterion, validate: bool = True, donate: bool = True,
                  flat_update: bool = False, comms_dtype=None, error_feedback: bool = True,
                  master_dtype=None, slot_dtype=None):
-        if not donate:
-            raise NotImplementedError(
-                f"{type(self).__name__}(donate=False) is not ported ({_ITEM_9}): updates are "
-                "in place already")
+        from ..obs.perf import PerfAccountant
+
         policy = LowPrecisionPolicy(comms_dtype=comms_dtype, error_feedback=error_feedback,
                                     master_dtype=master_dtype, slot_dtype=slot_dtype)
         self._precision = policy if policy.active else None
         self.flat_update = bool(flat_update)
+        # donate=False: each step's update goes into fresh storage, so a
+        # tensor taken from a parameter before a step keeps its values
+        self.donate = bool(donate)
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
@@ -307,6 +336,22 @@ class Optimizer:
         self.checkpoint_path: Optional[str] = None
         self.checkpoint_trigger: Optional[Trigger] = None
         self.checkpoint_keep_last: Optional[int] = None
+        self.summary = None  # TrainSummary
+        self.val_summary = None  # ValidationSummary
+        self.metrics = Metrics()
+        self.telemetry = None  # obs.Telemetry (set_telemetry)
+        self.health = None  # obs.HealthMonitor (set_health)
+        self._perf = PerfAccountant()  # active whenever telemetry is attached
+        self._profile: Optional[Dict[str, Any]] = None  # set_profile's window
+        self.retry_times = int(os.environ.get("BIGDL_FAILURE_RETRY_TIMES", "0"))
+        self.failure_policy = None
+        self._active_policy = None  # the policy of the running optimize()
+        self._preemption_guard = None
+        self._entry_snapshot: Optional[Dict[str, Any]] = None  # the step-0 state
+        self._entry_snapshot_taken = False
+        self._stall_cb_watchdog = None  # the watchdog our stall forwarder is on
+        self._kernel_builds_seen = (0, 0)  # ops/_build.py's (loads, builds) reported
+        self._step_health: Optional[Dict[str, torch.Tensor]] = None
         self._grad_clip_norm: Optional[float] = None
         self._grad_clip_const: Optional[tuple] = None
         self._micro_batches = 1
@@ -318,6 +363,7 @@ class Optimizer:
         self._copy_stream = None  # the prefetch thread's copy stream on the card
         self._prefetch_thread: Optional[threading.Thread] = None
         self._copy_in_worker = True  # the prefetch thread copies batches to the device
+        self._place_span = False  # the batch placement is a "place_batch" seam
         self._flat = None  # the flat layout's state (_FlatState) while one is bound
         self.history: List[Dict[str, Any]] = []
 
@@ -333,16 +379,6 @@ class Optimizer:
 
             return DistriOptimizer(model, dataset, criterion)
         return LocalOptimizer(model, dataset, criterion)
-
-    # ------------------------------------------------------- not ported yet
-    def set_health(self, config=True):
-        raise NotImplementedError(f"set_health is not ported ({_ITEM_9})")
-
-    def set_elastic(self, config=True):
-        raise NotImplementedError(f"set_elastic is not ported ({_ITEM_9})")
-
-    def set_telemetry(self, telemetry):
-        raise NotImplementedError(f"set_telemetry is not ported ({_ITEM_9})")
 
     # ----------------------------------------------------------- configuration
     def set_optim_method(self, method: OptimMethod) -> "Optimizer":
@@ -362,17 +398,158 @@ class Optimizer:
 
     def set_checkpoint(self, path: Optional[str] = None, trigger: Optional[Trigger] = None,
                        keep_last: Optional[int] = None) -> "Optimizer":
-        """Checkpoint into ``path`` whenever ``trigger`` fires; ``keep_last=N``
-        prunes all but the N newest after each save (None keeps all)."""
+        """Checkpoint into ``path`` whenever ``trigger`` fires; ``path=None``
+        resolves to ``<run_dir>/checkpoints`` (``Engine.set_run_dir``);
+        ``keep_last=N`` prunes all but the N newest after each save (None
+        keeps all)."""
         if trigger is None:
             raise ValueError("set_checkpoint needs a trigger")
         if path is None:
-            raise ValueError("set_checkpoint() needs a path (the port has no run directory "
-                             "to default under)")
+            from ..utils.engine import Engine
+
+            path = Engine.run_subdir("checkpoints")
+            if path is None:
+                raise ValueError("set_checkpoint() needs a path (or a run dir via "
+                                 "Engine.set_run_dir / BIGDL_RUN_DIR to default under)")
         self.checkpoint_path = path
         self.checkpoint_trigger = trigger
         self.checkpoint_keep_last = keep_last
         return self
+
+    def set_train_summary(self, summary) -> "Optimizer":
+        """A :class:`~bigdl_tpu_torch.visualization.TrainSummary`: ``Loss``,
+        ``LearningRate`` and ``Throughput`` every step, parameter histograms
+        when its ``"Parameters"`` trigger fires."""
+        self.summary = summary
+        return self
+
+    def set_val_summary(self, summary) -> "Optimizer":
+        """A :class:`~bigdl_tpu_torch.visualization.ValidationSummary`: one
+        scalar a validation method at every validation."""
+        self.val_summary = summary
+        return self
+
+    def set_telemetry(self, telemetry) -> "Optimizer":
+        """Attach an :class:`~bigdl_tpu_torch.obs.Telemetry`: one record a
+        step (loss, LR, throughput, wall and dispatch seconds, spans, the
+        allocator's memory) and the run's other records, from values the
+        driver holds on the host: it adds no device sync."""
+        self.telemetry = telemetry
+        return self
+
+    def set_health(self, config=True) -> "Optimizer":
+        """Attach model-health monitoring: each step computes the per-layer
+        statistics on the device after its update, read one step late in
+        the same transfer as the loss (no second pull); ``health`` records
+        every ``every_n_steps`` steps, and the divergence guard names the
+        first non-finite layer in its ``rollback`` record. ``config`` is a
+        :class:`~bigdl_tpu_torch.obs.HealthConfig`, a ``HealthMonitor``,
+        ``True`` for the defaults, or ``None``/``False`` to detach."""
+        from ..obs.health import HealthConfig, HealthMonitor
+
+        if self.health is not None and self.health is not config:
+            self.health.remove_hooks()
+        if config is None or config is False:
+            self.health = None
+        elif isinstance(config, HealthMonitor):
+            self.health = config
+        elif isinstance(config, HealthConfig):
+            self.health = HealthMonitor(config)
+        elif config is True:
+            self.health = HealthMonitor(HealthConfig())
+        else:
+            raise TypeError(f"set_health expects HealthConfig/HealthMonitor/bool, "
+                            f"got {type(config).__name__}")
+        return self
+
+    def set_perf(self, config=True) -> "Optimizer":
+        """Configure the performance accounting (``obs/perf.py``), on by
+        default whenever telemetry is attached: each ``step`` record gains
+        ``model_flops`` / ``achieved_flops_s`` / ``mfu`` (the step's FLOPs
+        counted once on the meta device), a ``perf`` record lands every
+        ``every_n_steps`` steps, and the ``PerfMonitor`` warns (and captures
+        one bounded trace under ``<run_dir>/profile/``) on a regression.
+        ``config`` is a :class:`~bigdl_tpu_torch.obs.PerfConfig`, a
+        ``PerfAccountant``, ``True`` for the defaults, or ``None``/``False``
+        to turn it off."""
+        from ..obs.perf import PerfAccountant, PerfConfig
+
+        if config is None or config is False:
+            self._perf = None
+        elif isinstance(config, PerfAccountant):
+            self._perf = config
+        elif isinstance(config, PerfConfig):
+            self._perf = PerfAccountant(config)
+        elif config is True:
+            self._perf = PerfAccountant()
+        else:
+            raise TypeError(f"set_perf expects PerfConfig/PerfAccountant/bool, "
+                            f"got {type(config).__name__}")
+        return self
+
+    def _perf_device_count(self) -> int:
+        """The cards one step's counted FLOPs run on (the MFU denominator):
+        one, as each rank counts its own rows."""
+        return 1
+
+    def set_profile(self, trace_dir: Optional[str] = None, start_iteration: int = 10,
+                    num_iterations: int = 5) -> "Optimizer":
+        """Capture a ``torch.profiler`` trace of steps ``[start_iteration,
+        start_iteration + num_iterations)`` into ``trace_dir/trace.json``
+        (``None``: ``<run_dir>/profile``); the spans' seams and the kernels
+        are named ranges of it."""
+        if trace_dir is None:
+            from ..utils.engine import Engine
+
+            trace_dir = Engine.run_subdir("profile")
+            if trace_dir is None:
+                raise ValueError("set_profile() needs a trace_dir (or a run dir via "
+                                 "Engine.set_run_dir / BIGDL_RUN_DIR to default under)")
+        self._profile = {"dir": trace_dir, "start": start_iteration, "len": num_iterations}
+        return self
+
+    def set_retry_times(self, n: int) -> "Optimizer":
+        """``n`` automatic restarts from the newest checkpoint on a failure
+        (the reference's ``bigdl.failure.retryTimes``; needs
+        ``set_checkpoint``): ``FailurePolicy.legacy(n)``, n attempts, any
+        fault, no backoff, no divergence guard. :meth:`set_failure_policy`
+        attaches the full policy."""
+        self.retry_times = int(n)
+        return self
+
+    def set_failure_policy(self, policy) -> "Optimizer":
+        """Attach a :class:`~bigdl_tpu_torch.resilience.FailurePolicy`:
+        classified budgets, seeded backoff, the divergence guard with
+        rollback and LR back-off, the poison-batch skip and stall
+        escalation. A retry restores from ``set_checkpoint`` 's path (or the
+        step-0 snapshot before the first checkpoint)."""
+        self.failure_policy = policy
+        return self
+
+    def set_preemption(self, signals=None) -> "Optimizer":
+        """Handle preemption signals (default SIGTERM): at the next step
+        boundary the loop writes an emergency checkpoint, emits a
+        ``preempt_checkpoint`` record and raises
+        :class:`~bigdl_tpu_torch.resilience.TrainingPreempted`
+        (``exit_code == 0``); a later :meth:`resume` continues the run."""
+        from ..resilience.preemption import PreemptionGuard
+
+        self._preemption_guard = PreemptionGuard(signals)
+        return self
+
+    def set_elastic(self, config=True):
+        raise NotImplementedError(
+            "set_elastic is not ported: the elastic mesh (resilience/elastic.py, with "
+            "FleetMonitor) is the next slice of ROADMAP Queue 1 item 9")
+
+    def _effective_policy(self):
+        if self.failure_policy is not None:
+            return self.failure_policy
+        if self.retry_times > 0:
+            from ..resilience.policy import FailurePolicy
+
+            return FailurePolicy.legacy(self.retry_times)
+        return None
 
     def set_micro_batches(self, n: int) -> "Optimizer":
         """Split each batch into ``n`` row slices, one update a batch (see the
@@ -389,6 +566,129 @@ class Optimizer:
     def set_constant_gradient_clipping(self, min_v: float, max_v: float) -> "Optimizer":
         self._grad_clip_const = (float(min_v), float(max_v))
         return self
+
+    # ------------------------------------------------------------- the ladder
+    def optimize(self):
+        """Run until ``end_when`` fires; returns the trained model.
+
+        A failure goes through the attached ``FailurePolicy`` (or the
+        ``set_retry_times`` shim): retried within its class's budget after
+        the backoff, from the newest verified checkpoint (or the step-0
+        snapshot before the first one); a divergence rolls back to the
+        newest finite one and backs off the LR. A pending preemption leaves
+        behind an emergency checkpoint, and a terminal failure behind a
+        verified postmortem bundle."""
+        policy = self._active_policy = self._effective_policy()
+        if policy is not None:
+            policy.reset()
+        self._entry_snapshot = None
+        self._entry_snapshot_taken = False
+        guard = self._preemption_guard
+        if guard is not None:
+            guard.clear()
+            guard.install()
+        try:
+            while True:
+                try:
+                    return self._optimize_impl()
+                except (KeyboardInterrupt, TrainingPreempted):
+                    raise
+                except Exception as e:
+                    decision = self._decide_retry(e)
+                    if decision is None:
+                        self._dump_postmortem_for(e, "optimize")
+                        raise
+                    self._recover(e, decision)
+        finally:
+            if guard is not None:
+                guard.uninstall()
+            self._active_policy = None
+
+    def _failure_position(self, exc) -> Optional[tuple]:
+        """The (epoch, iter_in_epoch) the failure belongs to: the one-step-late
+        pull tags its step's position (``_bigdl_position``); a divergence
+        carries it; a stall has none."""
+        tagged = getattr(exc, "_bigdl_position", None)
+        if tagged is not None:
+            return tuple(tagged)
+        if isinstance(exc, DivergenceError):
+            return exc.position
+        if isinstance(exc, StallEscalation):
+            return None
+        st = self.optim_method.state
+        return (int(st.get("epoch", 1)), int(st.get("_iter_in_epoch", 0)))
+
+    def _dump_postmortem_for(self, exc: BaseException, trigger: str) -> None:
+        """A verified postmortem bundle before ``exc`` leaves this optimizer
+        (best-effort: forensics never turn one failure into two)."""
+        try:
+            from ..obs import blackbox
+
+            blackbox.dump_postmortem("%s_%s" % (trigger, type(exc).__name__),
+                                     telemetry=self.telemetry, error=exc,
+                                     checkpoint_dir=self.checkpoint_path)
+        except Exception:
+            log.debug("postmortem dump failed", exc_info=True)
+
+    def _decide_retry(self, exc):
+        """The policy's decision, or None to raise (no policy, no checkpoint
+        path, or the budget spent)."""
+        policy = self._active_policy
+        if policy is None or self.checkpoint_path is None:
+            return None
+        decision = policy.on_failure(exc, position=self._failure_position(exc))
+        return decision if decision.retry else None
+
+    def _recover(self, exc, decision) -> None:
+        """Backoff, restore (a checkpoint or the step-0 snapshot; a restore
+        failure goes back through the policy), then the class's
+        after-effect (the LR back-off of a divergence)."""
+        policy, tel = self._active_policy, self.telemetry
+        log.warning("training failed (%s fault, attempt %d): %r; recovering",
+                    decision.fault_class, decision.total_attempts, exc)
+        if tel is not None:
+            tel.retry_event(attempt=decision.total_attempts, fault_class=decision.fault_class,
+                            backoff_s=decision.backoff_s, error=repr(exc),
+                            path=type(self).__name__,
+                            skip_position=(list(decision.skip_position)
+                                           if decision.skip_position else None))
+        if decision.backoff_s > 0:
+            time.sleep(decision.backoff_s)
+        require_finite = isinstance(exc, DivergenceError)
+        while True:
+            try:
+                restored = self._resume_from_checkpoint(require_finite=require_finite)
+                break
+            except KeyboardInterrupt:
+                raise
+            except Exception as e2:  # the checkpoint-load seam can fault too
+                d2 = policy.on_failure(e2, position=None)
+                if not d2.retry:
+                    self._dump_postmortem_for(e2, "resume")
+                    raise
+                log.warning("resume failed (%s fault, attempt %d): %r; retrying resume",
+                            d2.fault_class, d2.total_attempts, e2)
+                if tel is not None:
+                    tel.retry_event(attempt=d2.total_attempts, fault_class=d2.fault_class,
+                                    backoff_s=d2.backoff_s, error=repr(e2),
+                                    path=type(self).__name__, action="resume_retry")
+                if d2.backoff_s > 0:
+                    time.sleep(d2.backoff_s)
+        if require_finite:
+            # a later plain restore must not hand the poisoned weights back
+            removed = quarantine_nonfinite(self.checkpoint_path, newer_than=restored)
+            if removed:
+                log.warning("quarantined non-finite checkpoint(s) %s newer than restored "
+                            "step %s", removed, restored)
+            scale = policy.lr_scale()
+            if scale != 1.0:  # after the restore: the checkpoint's own scale is older
+                self.optim_method.state["_lr_scale"] = scale
+            if tel is not None:
+                tel.rollback_event(reason="non_finite_loss", restored_step=restored,
+                                   iteration=exc.iteration, lr_scale=scale,
+                                   path=type(self).__name__, layer=getattr(exc, "layer", None),
+                                   source=getattr(exc, "source", None),
+                                   shard=getattr(exc, "shard", None))
 
     # ---------------------------------------------------------------- resume
     def resume(self, checkpoint_path: Optional[str] = None) -> "Optimizer":
@@ -408,10 +708,21 @@ class Optimizer:
         self._resume_from_checkpoint()
         return self
 
-    def _resume_from_checkpoint(self) -> int:
-        """Restore from the newest verified checkpoint; returns its step."""
-        params, flat_slots, host, flat_model_state = load_checkpoint(
-            self.checkpoint_path, params_like=self.model.get_parameters())
+    def _resume_from_checkpoint(self, require_finite: bool = False) -> Optional[int]:
+        """Restore from the newest verified checkpoint (``require_finite``:
+        the newest finite one); the step-0 entry snapshot when there is none.
+        Returns the restored step, None for the snapshot."""
+        if latest_checkpoint_step(self.checkpoint_path) is None:
+            self._restore_entry_snapshot()
+            return None
+        try:
+            with span("checkpoint_load"):
+                params, flat_slots, host, flat_model_state = load_checkpoint(
+                    self.checkpoint_path, params_like=self.model.get_parameters(),
+                    require_finite=require_finite)
+        except FileNotFoundError:  # every checkpoint rejected (all non-finite)
+            self._restore_entry_snapshot()
+            return None
         self._commit_restored(params, flat_model_state, flat_slots,
                               {k: v for k, v in host.items() if not k.startswith("_rng")},
                               (host["_rng_seed"], host["_rng_counter"]),
@@ -433,6 +744,40 @@ class Optimizer:
         RandomGenerator.restore(rng[0], rng[1])
         self._resume_skip_iters = int(skip_iters)
 
+    def _capture_entry_snapshot(self, slots) -> None:
+        """Host copies of the step-0 state, taken before the first step of an
+        ``optimize()`` that has a policy and a checkpoint path: the restore
+        target of a retry before any checkpoint exists (not the drifted
+        current state)."""
+        if (self._entry_snapshot_taken or self._active_policy is None
+                or self.checkpoint_path is None):
+            return
+        self._entry_snapshot_taken = True  # once an optimize(): on every rank alike
+        def host_copy(tree):  # a copy: a CPU tensor's numpy() shares its memory
+            return {k: np.array(v) for k, v in flatten_pytree(tree).items()}
+
+        self._entry_snapshot = {
+            "params": host_copy(self.model.get_parameters()),
+            "model_state": host_copy(self.model.get_state()),
+            "slots": host_copy(self._checkpoint_slots(slots)),
+            "host": {k: v for k, v in self.optim_method.state.items()
+                     if isinstance(v, (int, float, str, bool)) or v is None},
+            "rng": (RandomGenerator.get_seed(), RandomGenerator._counter),
+        }
+
+    def _restore_entry_snapshot(self) -> None:
+        snap = self._entry_snapshot
+        if snap is None:
+            log.warning("no checkpoint written yet under %s and no step-0 snapshot captured; "
+                        "retrying from current state", self.checkpoint_path)
+            return
+        log.warning("no checkpoint written yet under %s; resetting to the step-0 entry "
+                    "snapshot", self.checkpoint_path)
+        host_items = dict(snap["host"])
+        host_items["_epoch_done"] = False
+        self._commit_restored(snap["params"], snap["model_state"], dict(snap["slots"]),
+                              host_items, snap["rng"], host_items.get("_iter_in_epoch", 0))
+
     def _init_slots(self, method: OptimMethod, params):
         """Fresh slots, or the checkpointed ones copied into them."""
         slots = method.init_slots(params)
@@ -446,7 +791,15 @@ class Optimizer:
         if self.checkpoint_path is None or self.checkpoint_trigger is None:
             return
         if self.checkpoint_trigger(state):
-            self._write_checkpoint(state, slots)
+            self._checkpoint_now(state, slots)
+
+    def _checkpoint_now(self, state, slots) -> None:
+        """One checkpoint under the ``checkpoint`` seam (periodic, emergency);
+        a finite one on disk frees the step-0 snapshot."""
+        with span("checkpoint"):
+            manifest = self._write_checkpoint(state, slots)
+        if manifest is not None and manifest.get("finite") and self._entry_snapshot is not None:
+            self._entry_snapshot = None
 
     def _write_checkpoint(self, state, slots) -> Dict[str, Any]:
         """One verified checkpoint at the current step (``neval``): the tree
@@ -465,19 +818,48 @@ class Optimizer:
             return slots
         return fs.fp.slots_tree_view(fs.decoded_slots())
 
+    def _on_watchdog_stall(self, info: Dict) -> None:
+        pol = self._active_policy
+        if pol is not None:
+            pol.note_stall(info)
+
+    def _handle_preemption(self, state, slots) -> None:
+        """A caught signal is pending: the emergency checkpoint at this step
+        boundary, the ``preempt_checkpoint`` record, a postmortem bundle, and
+        ``TrainingPreempted`` (never retried)."""
+        signum = int(self._preemption_guard.pending())
+        step = int(state.get("neval", 0))
+        ckpt = None
+        if self.checkpoint_path is not None:
+            self._checkpoint_now(state, slots)
+            ckpt = self.checkpoint_path
+        else:
+            log.warning("preempted by signal %d with no checkpoint path configured; run state "
+                        "is lost", signum)
+        if self.telemetry is not None:
+            self.telemetry.preempt_event(signal=signum, step=step, checkpoint_dir=ckpt,
+                                         path=type(self).__name__)
+        exc = TrainingPreempted(signum, step=step, checkpoint_dir=ckpt)
+        self._dump_postmortem_for(exc, "preempted")
+        raise exc
+
     # ------------------------------------------------------------ validation
     def _run_validation(self) -> Optional[Dict[str, ValidationResult]]:
         state = self.optim_method.state
         if (self.validation_trigger is None or self.validation_dataset is None
                 or not self.validation_trigger(state)):
             return None
-        results = self._validate_now()
+        with span("validation"):
+            results = self._validate_now()
         for name, res in results.items():
             v, n = res.result()
             log.info("%s is %.6f (n=%d)", name, v, n)
         # score feeds max_score triggers
         state["score"] = next(iter(results.values())).result()[0]
         state["n_validations"] = state.get("n_validations", 0) + 1
+        if self.val_summary is not None:
+            for name, res in results.items():
+                self.val_summary.add_scalar(name, res.result()[0], state["neval"])
         return results
 
     def _validate_now(self) -> Dict[str, ValidationResult]:
@@ -615,6 +997,20 @@ class Optimizer:
             leaves = [g * scale for g in leaves]
         return unflatten_to_like(dict(zip(flat, leaves)), grads)
 
+    def _health_old_params(self, params):
+        """The weights before the update (a copy), when health is attached."""
+        if self.health is None:
+            return None
+        with torch.no_grad():
+            return torch._foreach_mul(list(tree_items(params).values()), 1.0)
+
+    def _note_tree_health(self, grads, old, params, new_state) -> None:
+        """The step's statistics over the tree layout (read with the loss)."""
+        if old is not None:
+            self._step_health = self.health.tree_stats(
+                grads, unflatten_to_like(dict(zip(tree_items(params), old)), params), params,
+                new_state)
+
     def _train_step(self, x, t, nvalid: Optional[float], lr: float, params,
                     slots) -> torch.Tensor:
         """Forward, loss, backward, clipping and the update in place (the
@@ -628,10 +1024,23 @@ class Optimizer:
         else:
             loss, new_state = self._micro_step(x, t, rng, nvalid)
         grads = self._clip_grads(model.get_grad_parameters())
+        old = self._health_old_params(params)
         self.optim_method.update(grads, params, slots, lr, self.optim_method.state["neval"])
+        self._note_tree_health(grads, old, params, new_state)
         model.zero_grad(set_to_none=True)
         model.set_state(detach_tree(new_state))
         return loss.detach()
+
+    def _shadow_params(self, params) -> None:
+        """``donate=False``: the coming update writes fresh storage, so a
+        tensor taken from a parameter before the step keeps its values (the
+        JAX package's undonated step inputs)."""
+        if self._flat is not None:
+            self._flat.shadow(params)
+            return
+        with torch.no_grad():
+            for p in tree_items(params).values():
+                p.data = p.data.clone()
 
     def _ragged_seam_policy(self) -> str:
         """How the seam treats a train batch shorter than the step's rows:
@@ -654,7 +1063,8 @@ class Optimizer:
         is short and can be masked, or None to drop it."""
         n = batch.size()
         if n < self._step_rows and self._ragged_seam_policy() != "pass":
-            padded = pad_minibatch(batch, self._step_rows) if self._mask_ragged else None
+            with span("pad_mask"):
+                padded = pad_minibatch(batch, self._step_rows) if self._mask_ragged else None
             if padded is None:
                 if not self._warned_ragged_drop:
                     self._warned_ragged_drop = True
@@ -684,16 +1094,22 @@ class Optimizer:
         return first
 
     # ------------------------------------------------------- the prefetch seam
-    def _prefetch_batches(self, it, device: torch.device, depth: int = 2, close=None):
+    def _prefetch_batches(self, it, device: torch.device, depth: int = 2, close=None,
+                          qsize=None):
         """The epoch's batches of ``it`` as ``_DeviceBatch`` es, assembled,
         seamed and copied by a thread ``depth`` batches ahead of the caller
         (see the module docstring). ``close`` is the dataset stream's own
-        ``close`` when ``it`` wraps it (the resume path's ``islice``)."""
+        ``close`` when ``it`` wraps it (the resume path's skip), ``qsize``
+        its staging-depth gauge (default: ``it`` 's). The thread's spans go
+        to the caller's span collector; a pipeline chunk's trace context
+        travels on its batch."""
         ring = StagingRing(depth)
         end = object()
-        qsize = getattr(it, "qsize", None)
+        if qsize is None:
+            qsize = getattr(it, "qsize", None)
         on_card = device.type == "cuda"
         mine = [0]  # this call's share of staged_device_bytes()
+        collector = obs_trace.current_collector()
 
         def stage(nbytes: int) -> None:
             with _staged_lock:
@@ -706,7 +1122,25 @@ class Optimizer:
                 self._copy_stream = torch.cuda.Stream(device=device)
             side = self._copy_stream
 
+        def copy(batch):
+            """``(x, t, ready, pinned, nbytes)`` of the batch on the device."""
+            if not self._copy_in_worker:  # copied on the driver thread
+                return batch.get_input(), batch.get_target(), None, [], 0
+            if not on_card:
+                return (to_device(batch.get_input(), device),
+                        to_device(batch.get_target(), device), None, [], 0)
+            pinned: list = []
+            nbytes = _host_bytes(batch.get_input()) + _host_bytes(batch.get_target())
+            stage(nbytes)  # counted before the allocation, taken off in the loop
+            with torch.cuda.stream(side):
+                x = to_device(batch.get_input(), device, pinned)
+                t = to_device(batch.get_target(), device, pinned)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            return x, t, ready, pinned, nbytes
+
         def worker():
+            obs_trace.bind_collector(collector)
             try:
                 src = iter(it)
                 while True:
@@ -719,28 +1153,25 @@ class Optimizer:
                     qdepth = qsize() if qsize is not None else None
                     if ring.closed:
                         return
-                    seam = self._ragged_seam(batch)
-                    if seam is None:
-                        continue
-                    batch, n = seam
-                    rows = batch.size()
-                    batch = self._local_rows(batch)
-                    pinned: list = []
-                    nbytes, ready = 0, None
-                    if not self._copy_in_worker:  # copied on the driver thread
-                        x, t = batch.get_input(), batch.get_target()
-                    elif on_card:
-                        nbytes = _host_bytes(batch.get_input()) + _host_bytes(batch.get_target())
-                        stage(nbytes)  # counted before the allocation, taken off below
-                        with torch.cuda.stream(side):
-                            x = to_device(batch.get_input(), device, pinned)
-                            t = to_device(batch.get_target(), device, pinned)
-                            ready = torch.cuda.Event()
-                            ready.record(side)
-                    else:
-                        x, t = to_device(batch.get_input(), device), to_device(
-                            batch.get_target(), device)
-                    item = _DeviceBatch(x, t, n, rows, wait_s, qdepth, ready, pinned, nbytes)
+                    ctx = getattr(it, "last_context", None)
+                    prev_ctx = obs_trace.bind_context(ctx)
+                    try:
+                        seam = self._ragged_seam(batch)
+                        if seam is None:
+                            continue
+                        batch, n = seam
+                        rows = batch.size()
+                        with span("prefetch"):
+                            batch = self._local_rows(batch)
+                            if self._place_span and self._copy_in_worker:
+                                with span("place_batch"):
+                                    x, t, ready, pinned, nbytes = copy(batch)
+                            else:
+                                x, t, ready, pinned, nbytes = copy(batch)
+                    finally:
+                        obs_trace.bind_context(prev_ctx)
+                    item = _DeviceBatch(x, t, n, rows, wait_s, qdepth, ready, pinned, nbytes,
+                                        ctx)
                     if not ring.put(item):
                         return
                 ring.put(end)
@@ -760,6 +1191,9 @@ class Optimizer:
                 stage(-item.nbytes)
                 if self._copy_in_worker:
                     item.wait_on(device)
+                elif self._place_span:
+                    with span("place_batch"):
+                        item.x, item.t = to_device(item.x, device), to_device(item.t, device)
                 else:
                     item.x, item.t = to_device(item.x, device), to_device(item.t, device)
                 yield item
@@ -797,8 +1231,18 @@ class Optimizer:
         """The slots the steps carry (fresh, or the checkpoint's)."""
         return self._init_slots(method, params)
 
-    def optimize(self):
-        """Run until ``end_when`` fires; returns the trained model."""
+    def _bind_health(self, params) -> None:
+        """Bind the health monitor's rows to this run's layout and install
+        its activation hooks (before the step reads the state)."""
+        hm = self.health
+        if hm is None:
+            return
+        hm.prepare(self.model)
+        hm.bind_tree(params)
+        hm.bind_acts(self.model.get_state())
+
+    def _optimize_impl(self):
+        """One attempt of the drive loop (the module docstring)."""
         model, method = self.model, self.optim_method
         state = method.state
         first = self._first_batch()
@@ -812,18 +1256,84 @@ class Optimizer:
         self._mask_ragged = (self.criterion.supports_unreduced()
                              and not self._has_batch_coupled_state())
         device = model.device
+        self._bind_health(model.get_parameters())
         params = model.get_parameters()
         model.zero_grad(set_to_none=True)
         slots = self._init_step_state(method, params)
+        self._capture_entry_snapshot(slots)
+        tel = self.telemetry
+        pa = self._perf if tel is not None else None
+        if tel is not None:
+            if pa is not None:
+                pa.begin_run(n_devices=self._perf_device_count())
+            tel.run_started(type(self).__name__, warm_start=None,
+                            low_precision=(self._precision.describe()
+                                           if self._precision is not None else None))
+            self._kernel_builds_seen = _kernel_builds()
+        watchdog = tel.watchdog if tel is not None else None
+        if (self._active_policy is not None and watchdog is not None
+                and watchdog is not self._stall_cb_watchdog):
+            if self._stall_cb_watchdog is not None:
+                self._stall_cb_watchdog.remove_callback(self._on_watchdog_stall)
+            watchdog.add_callback(self._on_watchdog_stall)
+            self._stall_cb_watchdog = watchdog
+        try:
+            self._drive_epochs(device, params, slots, first, x0, pa)
+        finally:
+            profile = self._profile
+            if profile is not None and profile.get("on"):
+                from ..obs import perf as obs_perf
+
+                obs_perf.stop_capture()
+                self._profile = None
+            if pa is not None:
+                pa.end_run()
+            if tel is not None:
+                tel.run_ended(type(self).__name__, iterations=state.get("neval"))
+        return model
+
+    def _drive_epochs(self, device, params, slots, first, x0, pa) -> None:
+        model, method = self.model, self.optim_method
+        state = method.state
+        tel, hm = self.telemetry, self.health
+        path = type(self).__name__
         t_start = time.perf_counter()
         mark: Dict[str, Optional[float]] = {"t": None}  # host time of the last loss pull
+        t0 = self._local_rows(first).get_target()
+        param_trigger = (self.summary.trigger_for("Parameters")
+                         if self.summary is not None and hasattr(self.summary, "trigger_for")
+                         else None)
 
         def flush(rec) -> None:
-            neval, epoch, loss, n, lr, wait_s = rec
-            loss_f = float(loss)  # one step late: the next step is queued already
+            (neval, epoch, pos, pulled, n, lr, wait_s, qdepth, dispatch_s, hshapes) = rec
+            pol = self._active_policy
+            try:
+                # one step late: the next step is queued already; the health
+                # statistics ride the same transfer
+                host = pulled.cpu() if hshapes else None
+                loss_f = float(host[0]) if host is not None else float(pulled)
+            except Exception as e:  # a fault of the step that made the loss
+                e._bigdl_position = (epoch, pos)
+                raise
+            snap = None
+            if hshapes:
+                parts, off = {}, 1
+                for key, shape in hshapes:
+                    size = int(np.prod(shape))
+                    parts[key] = host[off:off + size].reshape(shape)
+                    off += size
+                snap = hm.snapshot(parts)
+            if pol is not None and pol.divergence_guard and not math.isfinite(loss_f):
+                layer = source = None
+                if snap is not None:
+                    layer, source = hm.attribute_nonfinite(snap)
+                raise DivergenceError(loss_f, neval, position=(epoch, pos), layer=layer,
+                                      source=source)
             now = time.perf_counter()
             wall = now - mark["t"]
             mark["t"] = now
+            if wall:
+                self.metrics.add("computing time for each node average", wall)
             throughput = n / max(wall, 1e-9)
             state["loss"] = loss_f
             self.history.append({"neval": neval, "epoch": epoch, "loss": loss_f, "lr": lr,
@@ -832,34 +1342,127 @@ class Optimizer:
             log.info("[Epoch %d][Iteration %d][Wall %.3fs] loss is %.6f, lr %.6g, "
                      "throughput is %.1f records/s", epoch, neval, now - t_start,
                      loss_f, lr, throughput)
+            with span("summary_flush"):
+                if self.summary is not None:
+                    self.summary.add_scalar("Loss", loss_f, neval)
+                    self.summary.add_scalar("LearningRate", lr, neval)
+                    self.summary.add_scalar("Throughput", throughput, neval)
+                if tel is None:
+                    return
+                if pa is not None:
+                    pa.ensure_cost((id(model), repr(to_spec(x0)), repr(to_spec(t0))),
+                                   lambda: program_cost(self, x0, t0, routes=device.type))
+                step_rec = tel.step(path=path, iteration=neval, epoch=epoch, loss=loss_f, lr=lr,
+                                    records=n, wall_s=wall, records_per_sec=throughput,
+                                    dispatch_s=dispatch_s, input_wait_s=wait_s,
+                                    input_qdepth=qdepth,
+                                    **(pa.step_fields(wall) if pa is not None else {}))
+                if pa is not None:
+                    for ev in pa.note_step(step_rec):
+                        log.warning("perf regression at iteration %d: %s (component=%s)",
+                                    neval, ev.get("trigger"), ev.get("component"))
+                        tel.warn(path=path, **ev)
+                    if pa.should_emit():
+                        tel.perf(iteration=neval, epoch=epoch, path=path, **pa.perf_fields())
+                if snap is not None and hm.should_emit(neval):
+                    fields = hm.record_fields(snap)
+                    tel.health(iteration=neval, epoch=epoch, path=path, **fields)
+                    guard = hm.lr_guard_event(fields)
+                    if guard is not None:
+                        log.warning("update/weight ratio %.3g above %.3g for %d consecutive "
+                                    "health samples (%s) at iteration %d: learning rate %g "
+                                    "may be too high", guard["ratio"], guard["bound"],
+                                    guard["consecutive"], guard["layer"] or "global", neval, lr)
+                        tel.warn(iteration=neval, path=path, lr=lr, **guard)
 
+        cooperative = bool(getattr(self.dataset, "supports_skip_positions", False))
         pending = None
         stop = False
         while not stop:
             self.dataset.shuffle(state["epoch"])  # the epoch's order, also on resume
             state["_epoch_done"] = False
-            stream = self.dataset.data(train=True)
+            pol0 = self._active_policy
+            skip_set = (frozenset(pol0.skip_positions) if cooperative and pol0 is not None
+                        else frozenset())
+            stream = (self.dataset.data(train=True, skip_positions=skip_set)
+                      if cooperative and pol0 is not None else self.dataset.data(train=True))
             batches, close = stream, None
             skip = self._resume_skip_iters
             if skip:  # resumed mid-epoch: skip the batches already trained
                 self._resume_skip_iters = 0
-                batches = itertools.islice(stream, skip, None)
+                # _iter_in_epoch counts slots, holes included; a cooperative
+                # dataset never yields its holes
+                n_yielded = skip - sum(1 for (e, i) in skip_set
+                                       if e == state["epoch"] and i < skip)
+                batches = itertools.islice(stream, max(0, n_yielded), None)
                 close = getattr(stream, "close", None)
             state["_iter_in_epoch"] = skip
-            staged = self._prefetch_batches(batches, device, close=close)
+            staged = self._prefetch_batches(batches, device, close=close,
+                                            qsize=getattr(stream, "qsize", None))
             try:
                 for batch in staged:
-                    lr = method.get_learning_rate()
+                    pol = self._active_policy
+                    if cooperative and pol is not None:
+                        while (state["epoch"], state["_iter_in_epoch"]) in pol.skip_positions:
+                            log.warning("skipping batch at poisoned data position (epoch %d, "
+                                        "batch %d): never transformed or placed",
+                                        state["epoch"], state["_iter_in_epoch"])
+                            state["_iter_in_epoch"] += 1
+                    pos = (state["epoch"], state["_iter_in_epoch"])
+                    if pol is not None:
+                        if pol.stall_pending():
+                            info = pol.take_stall()
+                            if self.checkpoint_path is None:
+                                log.warning("stall escalation ignored (no checkpoint path to "
+                                            "restart from): %s", info)
+                            else:
+                                raise StallEscalation(info)
+                        if not cooperative and pos in pol.skip_positions:
+                            log.warning("skipping batch at poisoned data position (epoch %d, "
+                                        "batch %d)", pos[0], pos[1])
+                            state["_iter_in_epoch"] = pos[1] + 1
+                            continue
+                    guard = self._preemption_guard
+                    if guard is not None and guard.pending() is not None:
+                        self._handle_preemption(state, slots)
+                    lr = method.get_learning_rate() * float(state.get("_lr_scale", 1.0))
                     if mark["t"] is None:
                         mark["t"] = time.perf_counter()
-                    loss = self._train_step(batch.x, batch.t,
-                                            float(batch.n) if batch.n < batch.rows else None,
-                                            lr, params, slots)
-                    prev, pending = pending, (state["neval"], state["epoch"], loss, batch.n,
-                                              lr, batch.wait_s)
+                    self._profile_window(state["neval"])
+                    if not self.donate:
+                        self._shadow_params(params)
+                    self._step_health = None
+                    t_dispatch = time.perf_counter()
+                    obs_trace.fault_point("dispatch")  # chaos seam (timed, no span)
+                    with obs_trace.step_annotation(state["neval"]), \
+                            torch.profiler.record_function("dispatch"):
+                        loss = self._train_step(batch.x, batch.t,
+                                                float(batch.n) if batch.n < batch.rows else None,
+                                                lr, params, slots)
+                    pulled, hshapes = loss, None
+                    if self._step_health is not None:  # one device vector, one pull
+                        hshapes = [(k, tuple(v.shape)) for k, v in self._step_health.items()]
+                        pulled = torch.cat([loss.float().reshape(1)]
+                                           + [v.reshape(-1) for v in self._step_health.values()])
+                        self._step_health = None
+                    dispatch_s = time.perf_counter() - t_dispatch
+                    if tel is not None:
+                        obs_trace.add_sample("dispatch", dispatch_s)
+                        if batch.trace is not None and batch.trace.sampled:
+                            obs_trace.emit_span("dispatch", dispatch_s, batch.trace.child(),
+                                                iteration=state["neval"])
+                        self._kernel_builds_seen = observe_kernel_builds(
+                            self._kernel_builds_seen, tel, iteration=state["neval"],
+                            seconds=dispatch_s, path=path)
+                    prev, pending = pending, (state["neval"], state["epoch"],
+                                              state["_iter_in_epoch"], pulled, batch.n, lr,
+                                              batch.wait_s, batch.qdepth, dispatch_s, hshapes)
                     if prev is not None:
                         flush(prev)
                     state["learningrate"] = lr
+                    if param_trigger is not None and param_trigger(state):
+                        for pname, arr in tree_items(model.get_parameters()).items():
+                            self.summary.add_histogram(pname, arr, state["neval"])
                     state["neval"] += 1
                     state["_iter_in_epoch"] += 1
                     self._run_validation()
@@ -881,7 +1484,26 @@ class Optimizer:
                 if self.end_when(state):
                     stop = True
                 state["_epoch_done"] = False
-        return model
+
+    def _profile_window(self, neval: int) -> None:
+        """Open and close ``set_profile`` 's capture around its steps."""
+        profile = self._profile
+        if profile is None:
+            return
+        from ..obs import perf as obs_perf
+
+        if neval >= profile["start"] + profile["len"]:
+            if profile.get("on"):
+                obs_perf.stop_capture()
+            self._profile = None
+        elif not profile.get("on") and neval >= profile["start"]:
+            profile["on"] = obs_perf.start_capture(profile["dir"])
+
+
+def _kernel_builds():
+    from ..ops import _build
+
+    return (_build.loads, _build.builds)
 
 
 class _FlatState:
@@ -919,6 +1541,17 @@ class _FlatState:
             if mscale is not None:
                 self.slots[MASTER_SCALE_KEY] = mscale
             self.decode()
+
+    def shadow(self, params) -> None:
+        """``donate=False``: rebind the parameters to a fresh working vector
+        (and master), so the coming update leaves the old storage as it is."""
+        work = torch.empty_like(self.work)
+        self.fp.bind(params, work)
+        if self.master is self.work:
+            self.master = work
+        else:
+            self.master = self.master.clone()
+        self.work = work
 
     def decode(self) -> None:
         """The working vector (the parameters) from the stored master."""
@@ -1032,6 +1665,8 @@ class LocalOptimizer(Optimizer):
 
         fp = FlatParameter(params, 1)
         self._flat = _bind_flat(self, fp, params, method, None)
+        if self.health is not None:
+            self.health.bind_flat(fp)
         return self._flat.slots
 
     def _train_step(self, x, t, nvalid: Optional[float], lr: float, params,
@@ -1048,7 +1683,10 @@ class LocalOptimizer(Optimizer):
         g = fs.grads
         if fs.comp is not None:
             g, fs.err = fs.comp.exchange_local(g, fs.err)
-        _apply_flat_(self, fs, g, lr, step)
+        old = fs.work.clone() if self.health is not None else None
+        _apply_flat_(self, fs, g, lr, step)  # g is clipped in place
+        if old is not None:
+            self._step_health = self.health.flat_stats(fs.fp, g, old, fs.work, new_state)
         model.set_state(detach_tree(new_state))
         return loss.detach()
 

@@ -45,8 +45,12 @@ from the step's seed and the rank, so its draws are torch's, not
 ``jax.random`` 's. Checkpoints are the classic triple in the tree layout:
 the slot shards are gathered and rank 0 writes the files, so a run resumes
 at any world size. Validation sums each method's counters over the ranks.
-``set_micro_batches`` raises, as in the JAX package; ``set_health``,
-``set_elastic`` and telemetry are ROADMAP Queue 1 item 9.
+``set_micro_batches`` raises, as in the JAX package. Telemetry, summaries,
+the retry ladder, the divergence guard and preemption are the base
+``Optimizer`` 's (every rank runs them alike: the step-0 snapshot is taken
+once an ``optimize()`` on each rank); ``set_health`` runs on the
+replicated layouts and is refused on the ZeRO-1 sharded one;
+``set_elastic`` is ROADMAP Queue 1 item 9.
 
 :func:`simulate_step` is the plain version of one n-rank step in one
 process (n forwards and backwards on the ranks' rows, the gradients
@@ -128,6 +132,7 @@ class DistriOptimizer(Optimizer):
         self.gradient_dtype = _GRADIENT_DTYPES[gradient_dtype]
         self.async_placement = bool(async_placement)
         self._copy_in_worker = self.async_placement
+        self._place_span = True  # the rank's rows copied under "place_batch"
         self._sync: Optional[str] = None  # resolved in optimize()
         self._dataset_base = None
 
@@ -210,11 +215,17 @@ class DistriOptimizer(Optimizer):
                 + (" without flat_update" if sync != "sharded" else ""))
         n, r = _comm.world(), _comm.rank()
         if sync == "sharded":
+            if self.health is not None:
+                raise NotImplementedError(
+                    "set_health on the ZeRO-1 sharded layout is not ported (each rank holds a "
+                    "shard of the clipped gradient); use parameter_sync='replicated'")
             fp = FlatParameter(params, n)
             lo, hi = fp.shard_bounds(r)
             self._flat = _bind_flat(self, fp, params, method, (r, lo, hi))
         else:
             self._flat = _bind_flat(self, FlatParameter(params, 1), params, method, None)
+        if self.health is not None:
+            self.health.bind_flat(self._flat.fp)
         return self._flat.slots
 
     # ------------------------------------------------------------- the step
@@ -230,13 +241,13 @@ class DistriOptimizer(Optimizer):
             fs.fp.bind_grads(params, fs.grads)
         loss, new_state = self._loss(model.get_state(), x, t, rng, None)
         loss.backward()
+        new_state, loss = average_state(detach_tree(new_state), loss.detach())
         if fs is None:
-            self._replicated_tree_update(lr, step, params, slots)
+            self._replicated_tree_update(lr, step, params, slots, new_state)
         elif self._sync == "sharded":
             self._sharded_update(fs, lr, step, n, r)
         else:
-            self._replicated_flat_update(fs, lr, step, n)
-        new_state, loss = average_state(detach_tree(new_state), loss.detach())
+            self._replicated_flat_update(fs, lr, step, n, new_state)
         model.set_state(new_state)
         return loss
 
@@ -251,18 +262,22 @@ class DistriOptimizer(Optimizer):
         _apply_flat_(self, fs, g_shard, lr, step, fs.shard, norm_sq_sum=_comm.psum_,
                      gather=_comm.all_gather_into)
 
-    def _replicated_flat_update(self, fs, lr, step, n) -> None:
-        """One mean of the flat gradient, clip, one update of the vector."""
+    def _replicated_flat_update(self, fs, lr, step, n, new_state=None) -> None:
+        """One mean of the flat gradient, clip, one update of the vector (and
+        the health statistics when attached)."""
         if fs.comp is not None:
             g, fs.err = fs.comp.exchange_replicated(fs.grads, fs.err, n)
         else:
             g = fs.grads if self.gradient_dtype is None else fs.grads.to(self.gradient_dtype)
             g = _comm.pmean_(g).float()
-        _apply_flat_(self, fs, g, lr, step)
+        old = fs.work.clone() if self.health is not None else None
+        _apply_flat_(self, fs, g, lr, step)  # g is clipped in place
+        if old is not None:
+            self._step_health = self.health.flat_stats(fs.fp, g, old, fs.work, new_state)
 
-    def _replicated_tree_update(self, lr, step, params, slots) -> None:
+    def _replicated_tree_update(self, lr, step, params, slots, new_state=None) -> None:
         """Each leaf's gradient averaged over the ranks, clipped, the tree
-        update."""
+        update (and the health statistics when attached)."""
         model = self.model
         grads = model.get_grad_parameters()
         if _comm.world() > 1:
@@ -272,7 +287,9 @@ class DistriOptimizer(Optimizer):
                 flat[path] = _comm.pmean_(w).float()
             grads = unflatten_to_like(flat, grads)
         grads = self._clip_grads(grads)
+        old = self._health_old_params(params)
         self.optim_method.update(grads, params, slots, lr, step)
+        self._note_tree_health(grads, old, params, new_state)
         model.zero_grad(set_to_none=True)
 
     # ----------------------------------------------------------- the loop

@@ -36,8 +36,10 @@ where their weights live, one all-reduce on each row-parallel output) is
 a speed property of XLA's partitioning, not of the result, and is not done
 here (ROADMAP). A plan that shards a leaf over the data axis is refused.
 ``flat_update`` is refused with :class:`ParallelCompositionError`, as in
-the JAX package; ``set_micro_batches``, the health mesh binding, the
-elastic mesh and telemetry are ROADMAP Queue 1 item 9 (or refused).
+the JAX package. Telemetry and the retry ladder are the base
+``Optimizer`` 's; ``set_micro_batches``, ``set_health`` (the health mesh
+binding), ``donate=False`` and the elastic mesh are ROADMAP Queue 1 item 9
+(refused).
 
 :class:`_ShardedOptimizer` is the chassis of the sharded leaves (blocks of
 the leaves and slots, the clipping norm over the shards, the whole
@@ -122,6 +124,7 @@ class _ShardedOptimizer(Optimizer):
         self._specs: Dict[str, P] = {}  # sharded parameter paths -> spec
         self._slot_spec: Dict[str, P] = {}
         self.held_bytes: Dict[str, int] = {}
+        self._place_span = True  # the batch placement is a "place_batch" seam
 
     def set_micro_batches(self, n: int):
         raise NotImplementedError(
@@ -141,6 +144,13 @@ class _ShardedOptimizer(Optimizer):
 
     # ------------------------------------------------------------ the layout
     def _init_step_state(self, method, params):
+        if self.health is not None:
+            raise NotImplementedError(
+                f"set_health on {type(self).__name__} is not ported ({_ITEM_9}): each rank "
+                "holds blocks of the leaves")
+        if not self.donate:
+            raise NotImplementedError(
+                f"{type(self).__name__}(donate=False) is not ported ({_ITEM_9})")
         mesh = self._run_mesh
         self._prepare_plan(mesh, self._step_rows)
         self.plan.validate(params, mesh)

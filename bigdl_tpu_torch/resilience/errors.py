@@ -1,12 +1,85 @@
-"""Typed fault exceptions (counterpart of ``bigdl_tpu/resilience/errors.py``;
-``CheckpointCorrupt`` and serving's ``DeadlineExceeded`` and ``CircuitOpen``
-so far, the port's own copies with the same fields and messages), and of
-``bigdl_tpu/utils/aot.py``'s ``ArtifactIncompatible``, which a fleet
-checkpoint that does not fit the model raises."""
+"""Typed fault exceptions (counterpart of ``bigdl_tpu/resilience/errors.py``,
+the port's own copies with the same fields and messages; the elastic
+fleet's ``ElasticRemesh`` and ``ElasticFleetExhausted`` come with the
+elastic runtime), and of ``bigdl_tpu/utils/aot.py``'s
+``ArtifactIncompatible``, which a fleet checkpoint that does not fit the
+model raises.
+
+Each carries what the :class:`~bigdl_tpu_torch.resilience.policy.FailurePolicy`
+needs to classify it (data position, iteration, signal): the policy
+classifies by ``isinstance``, never by the message.
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
+
+
+class DivergenceError(RuntimeError):
+    """The divergence guard pulled a NaN/Inf loss (one step late, the value
+    the driver reads anyway). The parameters are taken as poisoned from the
+    step that produced it: recovery rolls back to the newest *finite*
+    verified checkpoint. With a :class:`~bigdl_tpu_torch.obs.HealthMonitor`
+    attached, ``layer`` names the first parameter path whose non-finite
+    counter fired on that step and ``source`` whether the gradients or the
+    updated weights poisoned it (``"loss"`` when every counter was clean)."""
+
+    def __init__(self, loss: float, iteration: int,
+                 position: Optional[Tuple[int, int]] = None,
+                 layer: Optional[str] = None, source: Optional[str] = None,
+                 shard: Optional[str] = None):
+        super().__init__(
+            f"non-finite loss {loss!r} at iteration {iteration}"
+            + (f" (data position epoch={position[0]}, batch={position[1]})"
+               if position else "")
+            + (f"; first non-finite layer {layer!r} poisoned via {source}"
+               if layer else (f"; poisoned via {source}" if source else "")))
+        self.loss = loss
+        self.iteration = iteration
+        self.position = position  # (epoch, iter_in_epoch) of the diverged step
+        self.layer = layer
+        self.source = source      # "grads" | "weights" | "loss" | None
+        self.shard = shard        # the mesh optimizers' data shard; None here
+
+
+class StallEscalation(RuntimeError):
+    """Raised by the driver loop after the stall watchdog's callback asked
+    the policy to escalate (the watchdog itself never ends a run)."""
+
+    def __init__(self, info: Optional[dict] = None):
+        super().__init__(f"stall watchdog escalated: {info or {}}")
+        self.info = dict(info or {})
+
+
+class TrainingPreempted(Exception):
+    """A preemption signal was handled: the emergency checkpoint (with a
+    checkpoint path configured) is on disk when this leaves ``optimize()``.
+    ``exit_code`` is 0: the run ended on purpose, and a driver that exits
+    with it lets the scheduler resume the run."""
+
+    exit_code = 0
+
+    def __init__(self, signum: int, step: Optional[int] = None,
+                 checkpoint_dir: Optional[str] = None):
+        super().__init__(
+            f"training preempted by signal {signum}"
+            + (f"; emergency checkpoint at step {step} under {checkpoint_dir}"
+               if checkpoint_dir else " (no checkpoint path configured)"))
+        self.signum = signum
+        self.step = step
+        self.checkpoint_dir = checkpoint_dir
+
+
+class FaultInjected(RuntimeError):
+    """What a :class:`~bigdl_tpu_torch.resilience.chaos.FaultPlan` raises at
+    an armed seam: its own type, so a test can tell the injected fault from
+    any other."""
+
+    def __init__(self, seam: str, hit: int, kind: str = "raise"):
+        super().__init__(f"chaos: injected {kind} at seam {seam!r} (hit {hit})")
+        self.seam = seam
+        self.hit = hit
+        self.kind = kind
 
 
 class CheckpointCorrupt(RuntimeError):

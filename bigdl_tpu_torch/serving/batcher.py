@@ -19,9 +19,14 @@ supervisor (heartbeat, restart, fail-pending), hot-swap (:meth:`swap`: the
 in-flight batch drains first, every future resolves on the version that
 dispatched it, the old predictor is kept until its last future is
 materialized), one ``serve`` telemetry record per flush and
-:meth:`health_snapshot`. Not ported: activation drift, bucket costs and
-causal spans (``obs/health``, ``obs/perf``, ``obs/trace``) and the chaos
-seams.
+:meth:`health_snapshot`. The chaos seams are the JAX package's:
+``serve_admission`` in :meth:`ContinuousBatcher.submit` (the caller's
+thread), ``serve_worker`` at the top of the batching loop (a raise there
+kills the worker), ``serve_assembly`` and ``serve_dispatch`` as spans
+around the stack and ``Predictor.forward_batch`` (a raise there fails the
+flush's requests), ``serve_materialize`` in ``ServeFuture.result``; the
+worker records its spans into the telemetry's collector. Not ported yet:
+activation drift, bucket costs and causal request spans.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as obs_trace
+from ..obs.trace import fault_point, span
 from ..optim.trigger import Trigger
 from ..resilience.errors import CircuitOpen, DeadlineExceeded
 from .queue import (AdmissionRejected, RequestQueue, ServeFuture, ServeRequest,
@@ -114,7 +121,9 @@ class ContinuousBatcher:
         flush_trigger: replaces the default trigger; evaluated per bucket
             group on ``{"pending": n, "waited_ms": t}``.
         telemetry: a :class:`~bigdl_tpu_torch.obs.telemetry.Telemetry` sink.
-        tags: constant fields merged into every serve record.
+        tags: fields merged into every serve record: a flush's record
+            carries the tags of the version that dispatched it (``swap``
+            replaces them with the predictor).
         clock: monotonic clock of the heartbeat and health timestamps (the
             supervisor's time domain).
     """
@@ -257,6 +266,7 @@ class ContinuousBatcher:
             raise ServingStopped(f"model {self.name!r} is stopping")
         if self._failed is not None:
             raise WorkerCrashed(f"model {self.name!r} refused: {self._failed}")
+        fault_point("serve_admission")  # chaos seam (caller thread)
         fut = request.future
         if fut.deadline_s is None and self.deadline_ms is not None:
             fut.deadline_s = fut.t_enqueue + self.deadline_ms / 1e3
@@ -310,10 +320,11 @@ class ContinuousBatcher:
             return self._rejected
 
     # ------------------------------------------------------------ hot swap
-    def swap(self, predictor, version: int) -> None:
-        """Route later flushes to ``predictor``/``version``. Blocks while a
-        batch is dispatching; the old predictor is kept until its last
-        outstanding future is materialized."""
+    def swap(self, predictor, version: int, tags: Optional[Dict] = None) -> None:
+        """Route later flushes to ``predictor``/``version`` (with ``tags``
+        updated for their serve records). Blocks while a batch is
+        dispatching; the old predictor is kept until its last outstanding
+        future is materialized."""
         with self._swap_lock:
             if (predictor.batch_size != self.predictor.batch_size
                     or predictor.shape_buckets != self.predictor.shape_buckets):
@@ -322,6 +333,8 @@ class ContinuousBatcher:
             old, oldv = self.predictor, self._version
             self.predictor = predictor
             self._version = int(version)
+            if tags:
+                self.tags = {**self.tags, **tags}
             with self._acct_lock:
                 if self._outstanding.get(oldv):
                     self._retired[oldv] = old
@@ -390,6 +403,8 @@ class ContinuousBatcher:
 
     # ----------------------------------------------------- the flush loop
     def _run(self) -> None:
+        if self.telemetry is not None:
+            obs_trace.bind_collector(self.telemetry.collector)
         crashed = False
         try:
             self._loop()
@@ -404,9 +419,12 @@ class ContinuousBatcher:
                 WorkerCrashed(f"batching thread for model {self.name!r} died")
                 if crashed or not self._stop.is_set()
                 else ServerClosed(f"model {self.name!r} stopped"))
+            if self.telemetry is not None:
+                obs_trace.bind_collector(None)
 
     def _loop(self) -> None:
         while True:
+            fault_point("serve_worker")  # chaos seam: kill or wedge the worker
             self._last_beat = self._clock()
             draining = self._stop.is_set()
             if draining and not self._drain:
@@ -483,20 +501,24 @@ class ContinuousBatcher:
             # assembly can fail on caller input; it fails THESE requests,
             # never the thread. swap() keeps the geometry, so an unlocked
             # read of pad_record pads as any version would
-            pad = self.predictor.pad_record
-            x = np.stack([r.feature if bucket is None else pad(r.feature, bucket)
-                          for r in reqs])
+            with span("serve_assembly"):  # chaos seam and host timing
+                pad = self.predictor.pad_record
+                x = np.stack([r.feature if bucket is None else pad(r.feature, bucket)
+                              for r in reqs])
             t_assembled = time.perf_counter()
         except Exception as e:
             err = e
         with self._swap_lock:
-            predictor, version = self.predictor, self._version
+            # the version's tags, read with it: a swap after the results are
+            # handed out must not retag this flush's record
+            predictor, version, tags = self.predictor, self._version, self.tags
             for r in reqs:
                 r.future.t_batch = t_batch
                 r.future.t_assembled = t_assembled
             if err is None:
                 try:
-                    y = predictor.forward_batch(x)
+                    with span("serve_dispatch"):
+                        y = predictor.forward_batch(x)
                 except Exception as e:  # resolve, never kill the thread
                     err = e
             t_dispatch = time.perf_counter()
@@ -525,7 +547,7 @@ class ContinuousBatcher:
         self._last_flush_at = self._clock()
         if self.telemetry is not None:
             # every flush, a failed one too, emits a serve record
-            extra: Dict[str, Any] = dict(self.tags)
+            extra: Dict[str, Any] = dict(tags)
             if err is not None:
                 extra["error"] = repr(err)
             p50, p99, rps = self.stats.summary(time.perf_counter())

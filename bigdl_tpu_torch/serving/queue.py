@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..obs.trace import fault_point
 from ..resilience.errors import DeadlineExceeded
 
 __all__ = ["AdmissionRejected", "ServingStopped", "ServerClosed", "WorkerCrashed",
@@ -167,6 +168,7 @@ class ServeFuture:
         tensor); raises ``TimeoutError`` after ``timeout`` seconds and
         ``DeadlineExceeded`` at the request's deadline."""
         self._wait(timeout)
+        fault_point("serve_materialize")  # chaos seam (caller thread)
         fire = False
         with self._lock:
             if self._error is not None:

@@ -294,11 +294,10 @@ class ModelServer:
             try:
                 if warmup and e.sample is not None:
                     e.warmup_s = self._warmup(e, predictor, version)
-                e.batcher.swap(predictor, version)
+                e.batcher.swap(predictor, version, tags={"quantized": quantized})
             except Exception:
                 e.warmup_s, e.warmup_compiles, e.warmup_fresh = prior
                 raise
-            e.batcher.tags["quantized"] = quantized
             e.model, e.predictor, e.version, e.quantized = new_model, predictor, version, quantized
             return version
 

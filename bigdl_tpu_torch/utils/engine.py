@@ -4,8 +4,9 @@ Counterpart of ``bigdl_tpu/utils/engine.py`` reduced to what the port uses:
 the compute/activation dtype policy (``compute_dtype`` / ``set_compute_dtype``
 / ``activation_dtype`` / ``set_activation_dtype``), the fused-kernel switch
 (``fused_kernels`` / ``set_fused_kernels``), device resolution, the
-process group of a multi-process run, its default mesh (``mesh()``) and
-the sequence-parallel registration (``set_sequence_parallel``).
+process group of a multi-process run, its default mesh (``mesh()``), the
+sequence-parallel registration (``set_sequence_parallel``) and the run
+directory (``set_run_dir`` / ``run_dir`` / ``run_subdir``).
 
 Entry points run on the card: ``Engine.device(None)`` is ``cuda`` and raises
 when no CUDA device is present; the CPU is used only when asked for
@@ -61,6 +62,7 @@ class Engine:
     _group: Optional[Tuple[str, int, int, torch.device]] = None
     _mesh = None  # Engine.mesh()'s 1-D data mesh over the group, built at first use
     _sequence_parallel: Optional[tuple] = None  # (mesh, axis name) of the ring route
+    _run_dir: Optional[str] = None
 
     @classmethod
     def device(cls, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -116,6 +118,41 @@ class Engine:
         if cls._fused_kernels is not None:
             return cls._fused_kernels
         return env_flag("BIGDL_FUSED_KERNELS")
+
+    # --------------------------------------------------------------- run dir
+    @classmethod
+    def set_run_dir(cls, path: Optional[str]) -> Optional[str]:
+        """Declare the directory of this run's artifacts: telemetry
+        (``telemetry/``), profiler traces (``profile/``), checkpoints
+        (``checkpoints/``), heartbeats (``fleet/``) and postmortems
+        (``postmortem/``) default under it. ``None`` clears it (the
+        ``BIGDL_RUN_DIR`` environment variable is read again)."""
+        if path is not None:
+            path = os.path.abspath(path)
+            os.makedirs(path, exist_ok=True)
+        with cls._lock:
+            cls._run_dir = path
+        return path
+
+    @classmethod
+    def run_dir(cls) -> Optional[str]:
+        """The run directory, adopting ``BIGDL_RUN_DIR`` on first read; None
+        when neither is set (artifacts then need explicit paths)."""
+        if cls._run_dir is None:
+            env = os.environ.get("BIGDL_RUN_DIR")
+            if env:
+                cls.set_run_dir(env)
+        return cls._run_dir
+
+    @classmethod
+    def run_subdir(cls, name: str) -> Optional[str]:
+        """``<run_dir>/<name>`` (created), or None without a run directory."""
+        base = cls.run_dir()
+        if base is None:
+            return None
+        sub = os.path.join(base, name)
+        os.makedirs(sub, exist_ok=True)
+        return sub
 
 
     # ------------------------------------------------------- the process group

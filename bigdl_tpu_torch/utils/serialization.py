@@ -388,7 +388,7 @@ def latest_checkpoint_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, step: Optional[int] = None, params_like=None,
-                    min_generation: Optional[int] = None
+                    min_generation: Optional[int] = None, require_finite: bool = False
                     ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray], Dict[str, Any],
                                Dict[str, np.ndarray]]:
     """``(params, optim_slots, host_state, model_state)``, the arrays as flat
@@ -397,15 +397,21 @@ def load_checkpoint(directory: str, step: Optional[int] = None, params_like=None
     With ``step=None``, complete checkpoints are tried newest-first: one
     that fails verification or fails to load is logged and skipped for the
     next older one (and a fleet checkpoint older than ``min_generation``
-    too). An explicit ``step`` that fails verification raises
-    :class:`CheckpointCorrupt`. A fleet checkpoint needs ``params_like``
-    (the model's parameter tree) to rebuild the tree from its vectors."""
+    too, and with ``require_finite`` one whose manifest records non-finite
+    parameters: the divergence rollback's). An explicit ``step`` that fails
+    verification raises :class:`CheckpointCorrupt`. A fleet checkpoint
+    needs ``params_like`` (the model's parameter tree) to rebuild the tree
+    from its vectors."""
     if step is None:
         candidates = _checkpoint_steps(directory)
         if not candidates:
             raise FileNotFoundError(f"no checkpoints under {directory}")
         last_err: Optional[Exception] = None
         for cand in candidates:
+            if require_finite and not _manifest_finite(directory, cand):
+                log.warning("checkpoint step %d holds non-finite params; skipping for the "
+                            "divergence rollback", cand)
+                continue
             if min_generation is not None:
                 m = checkpoint_manifest(directory, cand) or {}
                 if m.get("kind") == FLEET_KIND and int(m.get("generation", 0)) < min_generation:

@@ -431,6 +431,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    cutting ``MESH_PIPE``, ``MESH_LM`` and ``MESH_MOE`` and calling
    ``phase_mesh_pipe("cpu")`` and ``phase_mesh_four("cpu")`` (the launch
    checks are the card's).
+24. the training drive loop's observability and resilience, the full-width
+   LM of [6] through ``LocalOptimizer`` (SGD 0.1 momentum 0.9, bf16): [24a]
+   ``Telemetry`` (the JSONL under ``Engine.set_run_dir``, the ring),
+   ``TrainSummary``, ``ValidationSummary`` with a validation,
+   ``set_health``, ``set_perf``, ``set_checkpoint()`` under the run dir and
+   a ``FailurePolicy``, all at once, with a ``FaultPlan`` raising once at
+   ``dispatch`` and once at ``checkpoint``: the recovered run's final
+   parameters equal a clean run's bit for bit; the step records' ``mfu``
+   and ``achieved_flops_s``, the health norms of the embedding and of the
+   last block, and #1-#3's launches with the replayed steps (6 a step and
+   a validation forward) printed; [24b] a NaN planted in the loss at
+   (epoch 1, batch 5): the records retry (divergence), rollback (the LR
+   halved), retry (poison_batch), the position skipped; [24c] SIGTERM at
+   the 5th batch with ``set_preemption``: ``TrainingPreempted`` (exit
+   code 0), then ``resume()`` in a fresh process, bit-equal to an
+   uninterrupted run; [24d] device-to-host copies and synchronisations a
+   step under ``torch.profiler`` over 5 steps, bare loop and every extra
+   attached, equal, with each one's step time; [24e] one ``set_profile``
+   window: its trace holds the seams ``dispatch``, ``prefetch``,
+   ``pad_mask``, ``checkpoint`` and the three flash kernels; [24f] a
+   terminal failure (budget 0) leaves a postmortem bundle that
+   ``verify_bundle`` accepts.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -477,7 +499,7 @@ each under its ``parity_config`` name, the flagship served,
 ``unet_predict`` and ``modules_slice21``, and [21]'s ``imagenet_shards`` and
 ``augment_pipeline``, and [22]'s ``distri_recipe``, ``distri_resnet_2rank``,
 ``distri_vgg_2rank``, ``distri_policies`` and ``distri_resume``, the last
-four counted in the ranks' processes and summed) runs with every kernel's launch count set to 0 just
+four counted in the ranks' processes and summed, and [24]'s ``obs_lm``) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -10286,6 +10308,541 @@ def phase_slice24(card):
     return by_path
 
 
+# [24] the training drive loop's observability and resilience (slice 25),
+# driven by the full-width LM of [6] through LocalOptimizer (SGD 0.1
+# momentum 0.9, bf16 compute): [24a] every extra attached at once and two
+# faults, [24b] a planted NaN, [24c] SIGTERM and a resume in a fresh process,
+# [24d] the sync contract, [24e] a set_profile window, [24f] a terminal
+# failure's postmortem. Rehearse it on the CPU by importing chip_smoke,
+# setting OBS_DEVICE = "cpu", cutting OBS_LM (V 64, H 32, 4 heads, filter 64,
+# 2 layers, T 16) and calling phase_slice25("cpu") (the launch checks are
+# the card's).
+OBS_DEVICE = "cuda"
+OBS_LM = {"vocab": 8192, "hidden": 512, "heads": 8, "filt": 2048, "layers": 6, "seq": 2048,
+          "batch": 8}
+OBS_RECORDS = 48  # 6 batches an epoch
+OBS_STEPS = 8
+# [24b]: the NaN is planted at (epoch 1, batch 5): the target id 0 at column
+# 0 (the data's targets never hold it there) turns the criterion's loss NaN
+OBS_NAN_AT = (1, 5)
+# [24d]: the counted window, steps [start, start + len)
+OBS_SYNC_WINDOW = (3, 5)
+
+
+def _obs_data(n: int, seed: int = SEED):
+    import numpy as np
+
+    gen = np.random.default_rng(seed)
+    w = OBS_LM
+    ids = gen.integers(0, w["vocab"], (n, w["seq"]))
+    targets = gen.integers(1, w["vocab"], (n, w["seq"]))  # column 0 never 0
+    return ids, targets
+
+
+def _obs_classes():
+    """The optimizer and criterion of [24]: LocalOptimizer counting its
+    steps and validations, optionally running a profiler over a window of
+    steps; CrossEntropy with the planted NaN's sentinel."""
+    import torch
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.optim import LocalOptimizer
+
+    class Counting(LocalOptimizer):
+        window = None  # (start, len): a torch.profiler over those steps
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.n_steps = self.n_validations = 0
+            self.prof = None
+
+        def _train_step(self, *a, **k):
+            self.n_steps += 1
+            return super()._train_step(*a, **k)
+
+        def _validate_now(self):
+            self.n_validations += 1
+            return super()._validate_now()
+
+        def _profile_window(self, neval):
+            super()._profile_window(neval)
+            if self.window is None:
+                return
+            start, n = self.window
+            if neval == start:
+                from torch.profiler import ProfilerActivity, profile
+
+                try:  # every thread's events, and the synchronisations
+                    from torch._C._profiler import _ExperimentalConfig
+
+                    cfg = _ExperimentalConfig(profile_all_threads=True,
+                                              enable_cuda_sync_events=True)
+                except (ImportError, TypeError):
+                    cfg = None
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+                self.prof = profile(activities=acts, experimental_config=cfg)
+                self.prof.start()
+            elif neval == start + n and self.prof is not None:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.prof.stop()
+
+    class PlantedNaN(CrossEntropyCriterion):
+        """A NaN factor on the loss where the sentinel is planted: the
+        gradients and the updated weights go NaN too, as a diverging run's."""
+
+        def _apply(self, input, target):
+            loss = super()._apply(input, target)
+            return loss * torch.where(target[0, 0] == 0, float("nan"), 1.0)
+
+    return Counting, PlantedNaN
+
+
+def _obs_opt(ids, targets, steps, criterion=None, dataset=None, **kw):
+    """The LM's optimizer from the seed (the model built at its first
+    batch, so every run starts from the same weights)."""
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion, Transformer
+    from bigdl_tpu_torch.optim import SGD, Trigger
+
+    Counting, _ = _obs_classes()
+    w = OBS_LM
+    Engine.set_compute_dtype("bfloat16")
+    RandomGenerator.set_seed(SEED)
+    model = Transformer(w["vocab"], w["hidden"], w["heads"], w["filt"], w["layers"], 0.0, 0.0,
+                        0.0, mode="lm", device=OBS_DEVICE)
+    ds = dataset if dataset is not None else DataSet.array(ids, targets, batch_size=w["batch"])
+    opt = Counting(model, ds, criterion or CrossEntropyCriterion(), **kw)
+    return opt.set_optim_method(SGD(learningrate=0.1, momentum=0.9)).set_end_when(
+        Trigger.max_iteration(steps))
+
+
+def _obs_params(model):
+    import torch
+
+    return torch.cat([p.detach().float().flatten() for p in model.parameters()])
+
+
+def _hooked(ds, hook):
+    """``ds`` with ``hook(epoch, index, batch) -> batch or None`` on every
+    training batch."""
+    from bigdl_tpu_torch.dataset.dataset import AbstractDataSet
+
+    class Hooked(AbstractDataSet):
+        def __init__(self):
+            self._epoch = 1
+
+        def size(self):
+            return ds.size()
+
+        def shuffle(self, epoch=None):
+            if epoch is not None:
+                self._epoch = int(epoch)
+            ds.shuffle(epoch)
+
+        def data(self, train):
+            for i, b in enumerate(ds.data(train)):
+                out = hook(self._epoch, i, b) if train else None
+                yield b if out is None else out
+
+    return Hooked()
+
+
+def _resilience_records(tel):
+    return [r for r in tel.ring.records if r["type"] in ("retry", "rollback", "fault_injected",
+                                                         "preempt_checkpoint")]
+
+
+def phase_obs_extras(card, root):
+    """[24a] every extra at once, a fault at `dispatch` and one at
+    `checkpoint`; bit-equal to a clean run. Returns the launches."""
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.obs import HealthConfig, PerfConfig, Telemetry
+    from bigdl_tpu_torch.optim import Loss, Trigger
+    from bigdl_tpu_torch.resilience import FailurePolicy, FaultPlan
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary, read_events
+
+    ids, targets = _obs_data(OBS_RECORDS)
+    vx, vy = _obs_data(OBS_LM["batch"], seed=SEED + 1)
+    clean = _obs_opt(ids, targets, OBS_STEPS)
+    t0 = time.perf_counter()
+    clean.optimize()
+    p_clean = _obs_params(clean.model)
+    clean_s = time.perf_counter() - t0
+    del clean
+    run_dir = os.path.join(root, "a")
+    Engine.set_run_dir(run_dir)
+    try:
+        tel = Telemetry()  # the JSONL under the run dir, the ring, the flight recorder
+        opt = _obs_opt(ids, targets, OBS_STEPS)
+        opt.set_telemetry(tel).set_health(HealthConfig()).set_perf(PerfConfig(every_n_steps=4))
+        summaries = (TrainSummary(run_dir, "lm"), ValidationSummary(run_dir, "lm"))
+        opt.set_train_summary(summaries[0]).set_val_summary(summaries[1])
+        opt.set_validation(Trigger.several_iteration(4),
+                           DataSet.array(vx, vy, batch_size=OBS_LM["batch"]),
+                           [Loss(CrossEntropyCriterion())])
+        opt.set_failure_policy(FailurePolicy(backoff_base_s=0.0))
+        opt.set_checkpoint(trigger=Trigger.several_iteration(2), keep_last=1)
+        plan = FaultPlan(telemetry=tel).arm("dispatch", at_hit=3).arm("checkpoint", at_hit=2)
+        reset_counts()  # the main path starts here
+        t0 = time.perf_counter()
+        with plan:
+            opt.optimize()
+        if OBS_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()  # the main path ends here
+        tel.close()
+        for summary in summaries:
+            summary.close()
+    finally:
+        Engine.set_run_dir(None)
+    p_run = _obs_params(opt.model)
+    equal = torch.equal(p_run, p_clean)
+    recs = tel.ring.records
+    steps = [r for r in recs if r["type"] == "step"]
+    health = [r for r in recs if r["type"] == "health"]
+    perf = [r for r in recs if r["type"] == "perf"]
+    last_block = f"block{OBS_LM['layers'] - 1}/out_w"
+    h = health[-1]["layers"]
+    train_events = read_events(os.path.join(run_dir, "lm", "train"))
+    val_events = read_events(os.path.join(run_dir, "lm", "validation"))
+    n_fwd = OBS_LM["layers"] * (opt.n_steps + opt.n_validations)
+    n_bwd = OBS_LM["layers"] * opt.n_steps
+    want = {"flash_attention_fwd": n_fwd, "flash_attention_bwd_dq": n_bwd,
+            "flash_attention_bwd_dkv": n_bwd}
+    got = {k: counts[k] for k in want}
+    log(f"[24a] the LM with telemetry, health, perf, summaries, validation, checkpoints "
+        f"under the run dir and a FailurePolicy; faults {plan.events}: {opt.n_steps} steps "
+        f"dispatched for {OBS_STEPS} ({len(_resilience_records(tel))} resilience records), "
+        f"{opt.n_validations} validations, {wall:.2f} s (the clean run {clean_s:.2f} s); "
+        f"final parameters bit-equal to the clean run: {equal}; card {card}")
+    log("    step records: " + ", ".join(
+        f"it {r['iteration']} mfu {r.get('mfu')} achieved {r.get('achieved_flops_s')} FLOP/s "
+        f"wall {r['wall_s']:.4f} s" for r in steps[-3:]))
+    log(f"    model_flops a step {steps[-1].get('model_flops')}; perf records "
+        f"{[(r['iteration'], r['mfu'], r['breakdown']) for r in perf]}")
+    log(f"    health (iteration {health[-1]['iteration']}): embedding grad_norm "
+        f"{h['embedding']['grad_norm']:.6g} weight_norm {h['embedding']['weight_norm']:.6g} "
+        f"update_ratio {h['embedding']['update_ratio']:.3g}; {last_block} grad_norm "
+        f"{h[last_block]['grad_norm']:.6g} weight_norm {h[last_block]['weight_norm']:.6g} "
+        f"update_ratio {h[last_block]['update_ratio']:.3g}; global {health[-1]['global']}")
+    log(f"    launches including the replays: {got} (expected {want}); event files: "
+        f"{sum(1 for e in train_events if 'Loss' in e['scalars'])} train Loss scalars, "
+        f"{len([e for e in val_events if e['scalars']])} validation scalars")
+    if not equal:
+        d = (p_run - p_clean).abs().max().item()
+        raise AssertionError(f"[24a] the recovered run's parameters differ from the clean "
+                             f"run's (max |diff| {d:.3e})")
+    if [e["seam"] for e in plan.events] != ["dispatch", "checkpoint"]:
+        raise AssertionError(f"[24a] the faults fired as {plan.events}")
+    if OBS_DEVICE == "cuda":
+        if got != want or sum(counts.values()) != sum(got.values()):
+            raise AssertionError(f"[24a] launches {counts}, expected {want}")
+        if not steps[-1].get("mfu") or not steps[-1].get("achieved_flops_s"):
+            raise AssertionError(f"[24a] no mfu on the step record: {steps[-1]}")
+    if not (h["embedding"]["grad_norm"] > 0 and h[last_block]["weight_norm"] > 0):
+        raise AssertionError(f"[24a] health norms {h['embedding']} {h[last_block]}")
+    del opt
+    return counts
+
+
+def phase_obs_nan(card, root):
+    """[24b] a NaN planted in the loss at (epoch 1, batch 5)."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet, MiniBatch
+    from bigdl_tpu_torch.obs import Telemetry
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience import FailurePolicy
+
+    _, PlantedNaN = _obs_classes()
+    ids, targets = _obs_data(OBS_RECORDS)
+
+    def plant(epoch, i, batch):
+        if (epoch, i) == OBS_NAN_AT:
+            t = np.array(batch.get_target(), copy=True)
+            t[:, 0] = 0
+            return MiniBatch(batch.get_input(), t)
+        return None
+
+    ds = _hooked(DataSet.array(ids, targets, batch_size=OBS_LM["batch"]), plant)
+    tel = Telemetry(exporters=[])
+    opt = _obs_opt(ids, targets, OBS_STEPS + 2, criterion=PlantedNaN(), dataset=ds)
+    opt.set_telemetry(tel).set_failure_policy(FailurePolicy(backoff_base_s=0.0))
+    opt.set_checkpoint(os.path.join(root, "b"), Trigger.several_iteration(2), keep_last=2)
+    t0 = time.perf_counter()
+    opt.optimize()
+    wall = time.perf_counter() - t0
+    pol = opt.failure_policy
+    seq = [(r["type"], r.get("fault_class") or r.get("reason")) for r in _resilience_records(tel)]
+    rb = [r for r in tel.ring.records if r["type"] == "rollback"]
+    finite = bool(torch.isfinite(_obs_params(opt.model)).all())
+    log(f"[24b] NaN planted at {OBS_NAN_AT}: records {seq}; rollback to step "
+        f"{rb[0]['restored_step'] if rb else None} with lr_scale "
+        f"{rb[0]['lr_scale'] if rb else None}; skip positions {sorted(pol.skip_positions)}; "
+        f"lr scale in force {opt.optim_method.state.get('_lr_scale')}; {opt.n_steps} steps "
+        f"dispatched, neval {opt.optim_method.state['neval']}, parameters finite: {finite}; "
+        f"{wall:.2f} s")
+    # the sequence tests/test_torch_resilience_training.py holds equal to the
+    # JAX package's: each divergence rolls back, the second one at the same
+    # position is poison and skipped
+    want = [("retry", "divergence"), ("rollback", "non_finite_loss"), ("retry", "poison_batch"),
+            ("rollback", "non_finite_loss")]
+    if (seq != want or sorted(pol.skip_positions) != [OBS_NAN_AT] or not finite
+            or opt.optim_method.state.get("_lr_scale") != 0.5 or rb[0]["lr_scale"] != 0.5
+            or opt.optim_method.state["neval"] < OBS_STEPS + 2):
+        raise AssertionError(f"[24b] the rollback sequence {seq} (expected {want})")
+    del opt
+
+
+def _resume_child(ckpt: str, out: str, device: str, lm: dict) -> None:
+    """[24c]'s fresh process: the same optimizer (on ``device``, at the
+    parent's ``OBS_LM``), ``resume(ckpt)``, the rest of the run; the
+    parameters saved to ``out``."""
+    import torch
+
+    global OBS_DEVICE, OBS_LM
+    OBS_DEVICE, OBS_LM = device, lm
+    sys.path.insert(0, str(ROOT))
+    ids, targets = _obs_data(OBS_RECORDS)
+    opt = _obs_opt(ids, targets, OBS_STEPS)
+    opt.resume(ckpt)
+    opt.optimize()
+    torch.save(_obs_params(opt.model).cpu(), out)
+
+
+def phase_obs_preempt(card, root):
+    """[24c] SIGTERM at the 5th batch, the guard installed: the emergency
+    checkpoint, ``TrainingPreempted`` (exit code 0), then ``resume()`` in a
+    fresh process, bit-equal to an uninterrupted run."""
+    import signal
+
+    import torch
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.obs import Telemetry
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience import TrainingPreempted
+
+    ids, targets = _obs_data(OBS_RECORDS)
+    ref = _obs_opt(ids, targets, OBS_STEPS)
+    ref.optimize()
+    p_ref = _obs_params(ref.model).cpu()
+    del ref
+    sent = []
+
+    def kill(epoch, i, batch):
+        if not sent and i == 4:
+            sent.append(i)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return None
+
+    ckpt = os.path.join(root, "c")
+    tel = Telemetry(exporters=[])
+    opt = _obs_opt(ids, targets, OBS_STEPS,
+                   dataset=_hooked(DataSet.array(ids, targets, batch_size=OBS_LM["batch"]), kill))
+    opt.set_telemetry(tel).set_preemption()
+    opt.set_checkpoint(ckpt, Trigger.several_iteration(3), keep_last=1)
+    try:
+        opt.optimize()
+        raise AssertionError("[24c] the run was not preempted")
+    except TrainingPreempted as e:
+        exc = e
+    handler_back = signal.getsignal(signal.SIGTERM) == signal.SIG_DFL
+    del opt
+    out = os.path.join(root, "c_params.pt")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke._resume_child("
+                        f"{ckpt!r}, {out!r}, {OBS_DEVICE!r}, {OBS_LM!r})"], cwd=str(ROOT), capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    child_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[24c] the resuming process failed:\n{r.stderr[-3000:]}")
+    p_resumed = torch.load(out)
+    equal = torch.equal(p_resumed, p_ref)
+    pre = [r for r in tel.ring.records if r["type"] == "preempt_checkpoint"]
+    log(f"[24c] SIGTERM at batch 4: TrainingPreempted(exit_code={exc.exit_code}) at step "
+        f"{exc.step}, emergency checkpoint under {os.path.basename(ckpt)}/, record {pre}; the "
+        f"SIGTERM handler restored: {handler_back}; resumed in a fresh process "
+        f"({child_s:.1f} s): bit-equal to the uninterrupted run: {equal}")
+    if exc.exit_code != 0 or not pre or not handler_back or not equal:
+        raise AssertionError("[24c] the preempted and resumed run is not the uninterrupted one")
+
+
+def _sync_counts(prof, steps: int):
+    """Device-to-host copies and stream/device/event synchronisations a
+    step in a profiler's trace (its Chrome trace, every thread)."""
+    import json
+    import tempfile
+
+    with tempfile.NamedTemporaryFile(suffix=".json", delete=False) as f:
+        path = f.name
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    d2h = sum(1 for e in events if "DtoH" in str(e.get("name", ""))
+              and e.get("cat") in ("gpu_memcpy", "Memcpy"))
+    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name") in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                                      "cudaEventSynchronize"))
+    return d2h / steps, syncs / steps
+
+
+def phase_obs_sync(card, root):
+    """[24d] the sync contract: device-to-host copies and synchronisations a
+    step, bare loop against every extra attached; equal."""
+    import statistics
+
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.obs import HealthConfig, PerfConfig, Telemetry
+    from bigdl_tpu_torch.optim import Loss, Trigger
+    from bigdl_tpu_torch.resilience import FailurePolicy, FaultPlan
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+
+    ids, targets = _obs_data(OBS_RECORDS)
+    start, n = OBS_SYNC_WINDOW
+    out = {}
+    for label in ("bare", "extras"):
+        opt = _obs_opt(ids, targets, start + n)
+        opt.window = OBS_SYNC_WINDOW
+        run_dir = os.path.join(root, "d")
+        if label == "extras":
+            Engine.set_run_dir(run_dir)
+            opt.set_telemetry(Telemetry()).set_health(HealthConfig()).set_perf(
+                PerfConfig(every_n_steps=2))
+            opt.set_train_summary(TrainSummary(run_dir, "lm"))
+            opt.set_val_summary(ValidationSummary(run_dir, "lm"))
+            # attached, firing outside the window (they copy to the host by design)
+            opt.set_validation(Trigger.several_iteration(100),
+                               DataSet.array(ids[:8], targets[:8], batch_size=8),
+                               [Loss(CrossEntropyCriterion())])
+            opt.set_checkpoint(trigger=Trigger.several_iteration(100))
+            opt.set_failure_policy(FailurePolicy()).set_preemption()
+        try:
+            with FaultPlan():  # the chaos hook installed, nothing armed
+                opt.optimize()
+        finally:
+            Engine.set_run_dir(None)
+        d2h, syncs = _sync_counts(opt.prof, n)
+        walls = [h["wall_s"] for h in opt.history if start <= h["neval"] < start + n]
+        out[label] = (d2h, syncs, statistics.median(walls) * 1e3)
+        del opt
+    log(f"[24d] a step over steps {start}-{start + n - 1}: bare loop {out['bare'][0]:g} "
+        f"device-to-host copies, {out['bare'][1]:g} synchronisations, step "
+        f"{out['bare'][2]:.2f} ms; every extra attached {out['extras'][0]:g} copies, "
+        f"{out['extras'][1]:g} synchronisations, step {out['extras'][2]:.2f} ms; card {card}")
+    if out["bare"][:2] != out["extras"][:2]:
+        raise AssertionError(f"[24d] the extras change the syncs a step: {out}")
+    return out
+
+
+def phase_obs_profile(card, root):
+    """[24e] one set_profile window: the seams and the flash kernels in its
+    trace."""
+    import json
+
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.dataset.dataset import SampleToMiniBatch
+    from bigdl_tpu_torch.obs import Telemetry
+    from bigdl_tpu_torch.optim import Trigger
+
+    ids, targets = _obs_data(44)  # 5 full batches and a ragged 4-row tail an epoch
+    run_dir = os.path.join(root, "e")
+    Engine.set_run_dir(run_dir)
+    try:
+        opt = _obs_opt(ids, targets, 7, dataset=DataSet.array(
+            ids, targets, transformer=SampleToMiniBatch(OBS_LM["batch"])))
+        # steps 2-5: the prefetch thread (depth 2) pads the tail (the 6th
+        # batch) after the driver takes the 3rd, inside the window
+        opt.set_profile(start_iteration=2, num_iterations=4)
+        opt.set_telemetry(Telemetry(exporters=[]))
+        opt.set_checkpoint(trigger=Trigger.several_iteration(2), keep_last=1)
+        opt.optimize()
+    finally:
+        Engine.set_run_dir(None)
+    with open(os.path.join(run_dir, "profile", "trace.json")) as f:
+        names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+    seams = {s: s in names for s in ("dispatch", "prefetch", "pad_mask", "checkpoint")}
+    kernels = {k: any(k in nm for nm in names)
+               for k in ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")}
+    log(f"[24e] set_profile window (steps 2-5) under the run dir: {len(names)} distinct "
+        f"names; seams {seams}; kernels {kernels}")
+    if not all(seams.values()) or (OBS_DEVICE == "cuda" and not all(kernels.values())):
+        raise AssertionError(f"[24e] the trace lacks {seams} {kernels}")
+
+
+def phase_obs_postmortem(card, root):
+    """[24f] a terminal failure (the budget 0) leaves a verified bundle."""
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.obs import Telemetry, load_bundle, verify_bundle
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.resilience import FailurePolicy, FaultInjected, FaultPlan
+
+    ids, targets = _obs_data(OBS_RECORDS)
+    run_dir = os.path.join(root, "f")
+    Engine.set_run_dir(run_dir)
+    try:
+        tel = Telemetry()
+        opt = _obs_opt(ids, targets, 4)
+        opt.set_telemetry(tel).set_failure_policy(FailurePolicy(backoff_base_s=0.0, max_total=0))
+        opt.set_checkpoint(trigger=Trigger.several_iteration(1), keep_last=1)
+        try:
+            with FaultPlan(telemetry=tel).arm("dispatch", at_hit=2):
+                opt.optimize()
+            raise AssertionError("[24f] the fault did not leave optimize()")
+        except FaultInjected:
+            pass
+    finally:
+        Engine.set_run_dir(None)
+    pm = os.path.join(run_dir, "postmortem")
+    bundles = sorted(d for d in os.listdir(pm) if d != "hard_crash")
+    path = os.path.join(pm, bundles[-1])
+    manifest = verify_bundle(path)
+    b = load_bundle(path)
+    log(f"[24f] terminal FaultInjected: bundle {bundles[-1]} verifies ({len(manifest['files'])} "
+        f"files), reason {b['reason']['reason']}, last step {b['rings']['step'][-1]['iteration']}, "
+        f"checkpoint pointer step {(b['checkpoint'] or {}).get('step')}")
+    if b["reason"]["error"]["class"] != "FaultInjected":
+        raise AssertionError(f"[24f] bundle reason {b['reason']}")
+
+
+def phase_slice25(card):
+    """[24] the training drive loop's observability and resilience; returns
+    the main path's launches ([24a])."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_obs_", dir=str(ROOT / "build")) as root:
+        by_path = {"obs_lm": phase_obs_extras(card, root)}
+        _free()
+        phase_obs_nan(card, root)
+        _free()
+        phase_obs_preempt(card, root)
+        _free()
+        phase_obs_sync(card, root)
+        _free()
+        phase_obs_profile(card, root)
+        _free()
+        phase_obs_postmortem(card, root)
+        _free()
+    log(f"[24] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -10334,6 +10891,7 @@ def main() -> int:
     by_path.update(phase_slice22(card))
     by_path.update(phase_slice23(card))
     by_path.update(phase_slice24(card))
+    by_path.update(phase_slice25(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

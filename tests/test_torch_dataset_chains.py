@@ -36,10 +36,7 @@ DATA_PATH_MODULES = [
     "bigdl_tpu.native", "bigdl_tpu.utils.protowire",
 ]
 # what the port leaves out, and why
-NOT_PORTED = {
-    ("bigdl_tpu.dataset.pipeline", "DataPipeline", "_process_traced"):
-        "the pipeline_transform trace span needs obs/trace (ROADMAP Queue 1 item 9)",
-}
+NOT_PORTED = {}  # every method is ported (DataPipeline._process_traced with obs/trace)
 
 
 def _seed_both(seed=SEED):

@@ -185,7 +185,25 @@ def two_ranks(init, tmp_path_factory):
     cases[0].update(eval_x=ex, eval_y=ey, eval_batch=4)
     cases += [_case(n, init, kw, SGD_WD, steps=EF_STEPS) for n, kw in EF]
     cases.append(_case("one_step", init, dict(parameter_sync="sharded"), SGD_WD, steps=1))
-    return spawn_cases(2, cases, str(tmp_path_factory.mktemp("two_ranks")))
+    folder = tmp_path_factory.mktemp("two_ranks")
+    for name, fault in (("retry_clean", None), ("retry_fault", ("dispatch", "raise", 3))):
+        cases.append(_case(name, init, dict(parameter_sync="sharded"), SGD_WD,
+                           ckpt=str(folder / name), fault=fault))
+    return spawn_cases(2, cases, str(folder))
+
+
+def test_two_ranks_fault_and_retry_end_bit_equal_to_the_clean_run(two_ranks):
+    """One injected fault at the third dispatch on both ranks of the ZeRO-1
+    sharded ``DistriOptimizer``: the retry ladder restores the newest
+    checkpoint (rank 0 wrote it) on both, replays, and ends bit-equal to
+    the clean run with the same checkpoints."""
+    clean, faulted = two_ranks["retry_clean"], two_ranks["retry_fault"]
+    _assert_ranks_equal(faulted)
+    assert [int(r["attempts"]) for r in faulted] == [1, 1]
+    assert [int(r["attempts"]) for r in clean] == [0, 0]
+    for k in clean[0]:
+        if k.startswith(("p.", "s.")):
+            assert np.array_equal(clean[0][k], faulted[0][k]), k
 
 
 @pytest.mark.parametrize("name,kw,method,clip", TWO_RANK, ids=[c[0] for c in TWO_RANK])
@@ -551,11 +569,11 @@ def test_distri_refusals(kw, method, match):
 def test_unported_and_refused_options():
     with pytest.raises(NotImplementedError, match="set_micro_batches"):
         _port_opt().set_micro_batches(2)
-    for call in ("set_health", "set_elastic"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(_port_opt(), call)()
     with pytest.raises(NotImplementedError, match="item 9"):
-        _port_opt(donate=False)
+        _port_opt().set_elastic()
+    _port_opt(donate=False)  # ported: the update writes fresh storage
+    with pytest.raises(NotImplementedError, match="ZeRO-1 sharded layout"):
+        _port_opt().set_health().set_end_when(poptim.Trigger.max_iteration(1)).optimize()
     with pytest.raises(ValueError, match="parameter_sync"):
         _port_opt(parameter_sync="bogus")
     with pytest.raises(ValueError, match="not a supported"):

@@ -24,7 +24,7 @@ import bigdl_tpu.utils.compat as jcompat
 from bigdl_tpu_torch.utils import compat as pcompat
 
 from test_torch_serving_resilience import (PKGS, TIMEOUT, _fp32_policy,  # noqa: F401
-                                           _rows, _server)
+                                           _rows, _server, _wait_until)
 
 ROW_REL = 1e-6
 
@@ -42,8 +42,14 @@ def _serve(pkg, quantize, records, tel=None):
                      max_delay_ms=3)
         tag = srv.models()["q"]["quantized"]
         rows = np.stack([_rows(srv.infer("q", r).result(timeout=TIMEOUT)) for r in records])
+        # a flush's serve record follows its results on the batching thread
+        assert _wait_until(lambda: _n_serves(tel) >= len(records), TIMEOUT)
     serves = [r["quantized"] for r in tel.ring.records if r["type"] == "serve"]
     return tag, rows, serves
+
+
+def _n_serves(tel):
+    return sum(1 for r in tel.ring.records if r["type"] == "serve")
 
 
 def _held(port_rows, jax_rows):
@@ -131,6 +137,9 @@ def test_update_quantize_swaps_to_the_tier_and_tags_later_records(family):
         with _server(pkg, telemetry=tel) as srv:
             srv.register("m", pkg.mlp(), sample_input=x[0], batch_size=8, max_delay_ms=3)
             before = _rows(srv.infer("m", x[0]).result(timeout=TIMEOUT))
+            # the float version's flush has emitted its record before the
+            # swap (the record follows the results on the batching thread)
+            assert _wait_until(lambda: _n_serves(tel) >= 1, TIMEOUT)
             version = srv.update("m", pkg.mlp(seed=2), quantize=family)
             after = np.stack([_rows(srv.infer("m", r).result(timeout=TIMEOUT)) for r in x])
             info = srv.models()["m"]
@@ -161,3 +170,43 @@ def test_update_of_a_pre_quantized_model_keeps_its_family_without_asking():
     out = {p.name: scenario(p) for p in PKGS}
     assert out["port"][0] == out["jax"][0] == "fp8"
     _held(out["port"][1], out["jax"][1])
+
+
+def test_a_swap_after_the_results_keeps_the_flush_records_tag():
+    """The serve record of a flush carries the tags of the version that
+    dispatched it, also when ``update`` swaps in a quantized version between
+    the flush's results and its record (the batching thread held there)."""
+    import threading
+
+    from bigdl_tpu_torch.obs import Telemetry
+    from test_torch_serving_resilience import PORT
+
+    tel = Telemetry(exporters=[])
+    b = PORT.s.ContinuousBatcher(PORT.predictor(PORT.mlp(), 4), name="m", telemetry=tel,
+                                 max_delay_ms=1.0, tags={"quantized": False})
+    held, go = threading.Event(), threading.Event()
+    record_success = b.breaker.record_success
+
+    def hold_once(*a, **k):
+        if not held.is_set():
+            held.set()
+            go.wait(TIMEOUT)
+        return record_success(*a, **k)
+
+    b.breaker.record_success = hold_once
+    b.start()
+    try:
+        fut = b.submit(PORT.s.ServeRequest(_records(1)[0]))
+        fut.result(timeout=TIMEOUT)
+        assert held.wait(TIMEOUT)
+        b.swap(PORT.predictor(PORT.mlp(seed=2).quantize("int8"), 4), 2,
+               tags={"quantized": "int8"})
+        go.set()
+        assert _wait_until(lambda: _n_serves(tel) >= 1, TIMEOUT)
+        b.submit(PORT.s.ServeRequest(_records(1)[0])).result(timeout=TIMEOUT)
+        assert _wait_until(lambda: _n_serves(tel) >= 2, TIMEOUT)
+    finally:
+        go.set()
+        b.stop()
+    tags = [(r["version"], r["quantized"]) for r in tel.ring.records if r["type"] == "serve"]
+    assert tags == [(1, False), (2, "int8")]

@@ -156,8 +156,10 @@ def _server(pkg, **kw):
     collector to the thread that registered; the binding before it is
     restored, as the JAX tests do around a close from another thread."""
     from bigdl_tpu.obs import trace as obs_trace
+    from bigdl_tpu_torch.obs import trace as port_trace
 
     prev = obs_trace.current_collector()
+    port_prev = port_trace.current_collector()
     srv = pkg.s.ModelServer(**kw)
     try:
         yield srv
@@ -166,6 +168,7 @@ def _server(pkg, **kw):
             srv.close(timeout=TIMEOUT)
         finally:
             obs_trace.bind_collector(prev)
+            port_trace.bind_collector(port_prev)
 
 
 # ---------------------------------------------------------------------------

@@ -177,8 +177,9 @@ def test_unported_optimizer_options_raise():
     ids, targets = _data()
     pm = Transformer(**CFG, device="cpu")
     ds = DataSet.array(ids, targets, batch_size=BATCH)
-    with pytest.raises(NotImplementedError, match="donate"):
-        LocalOptimizer(pm, ds, CrossEntropyCriterion(), donate=False)
+    LocalOptimizer(pm, ds, CrossEntropyCriterion(), donate=False)  # ported now
+    with pytest.raises(NotImplementedError, match="set_elastic is not ported"):
+        LocalOptimizer(pm, ds, CrossEntropyCriterion()).set_elastic()
     with pytest.raises(TypeError):
         LocalOptimizer(pm, ds, CrossEntropyCriterion(), bogus=1)
     LocalOptimizer(pm, ds, CrossEntropyCriterion(), validate=True)  # the default is fine

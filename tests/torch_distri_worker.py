@@ -76,12 +76,26 @@ def run_case(case: Dict[str, Any], device="cpu") -> Dict[str, np.ndarray]:
     if case.get("clip") is not None:
         opt.set_gradient_clipping_by_l2_norm(case["clip"])
     opt.set_end_when(poptim.Trigger.max_iteration(case["steps"]))
+    plan = None
+    if case.get("ckpt") is not None:  # checkpoints, a failure policy, maybe a fault
+        from bigdl_tpu_torch.resilience import FailurePolicy, FaultPlan
+
+        opt.set_checkpoint(case["ckpt"], poptim.Trigger.several_iteration(1))
+        opt.set_failure_policy(FailurePolicy(backoff_base_s=0.0))
+        if case.get("fault") is not None:
+            plan = FaultPlan().arm(*case["fault"])
     _comm.reset_counts()
-    opt.optimize()
+    if plan is not None:
+        with plan:
+            opt.optimize()
+    else:
+        opt.optimize()
     counts = _comm.counts()
     out = {f"p.{k}": v for k, v in _flat(model.get_parameters()).items()}
     out.update({f"s.{k}": v for k, v in _flat(model.get_state()).items()})
     out["losses"] = np.asarray([h["loss"] for h in opt.history], np.float64)
+    if opt.failure_policy is not None:
+        out["attempts"] = np.asarray(opt.failure_policy.total_attempts)
     out["exchange_bytes"] = np.asarray(
         (counts["psum_scatter"]["bytes"] + counts["all_to_all"]["bytes"]) / case["steps"])
     fs = opt._flat
