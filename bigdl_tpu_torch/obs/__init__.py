@@ -13,17 +13,19 @@ own copies, the same record types and fields):
 * :mod:`.perf` — MFU accounting (:class:`PerfAccountant`), the step-time
   decomposition and the :class:`PerfMonitor`;
 * :mod:`.fleet` — process identity and heartbeat files;
-* :mod:`.blackbox` — the flight recorder and postmortem bundles.
+* :mod:`.blackbox` — the flight recorder and postmortem bundles;
+* :mod:`.export` — the scrape endpoint (:class:`ObsEndpoint`: ``/healthz``,
+  ``/metrics``, ``/telemetry/tail``, ``/trace``) over the rings.
 
-``FleetMonitor`` and the scrape endpoint (``ObsEndpoint``) come with the
-elastic runtime and the rest of serving's surface (ROADMAP Queue 1 item 9).
+``FleetMonitor`` comes with the elastic runtime (ROADMAP Queue 1).
 """
 
 from .blackbox import (BundleTampered, BundleTruncated, FlightRecorder, PostmortemBundleError,
                        arm_crash_handler, disarm_crash_handler, dump_postmortem, load_bundle,
                        verify_bundle)
+from .export import ObsEndpoint
 from .fleet import process_identity, read_heartbeats, write_heartbeat
-from .health import HealthConfig, HealthMonitor
+from .health import ActivationDrift, DriftConfig, HealthConfig, HealthMonitor
 from .perf import PerfAccountant, PerfConfig, PerfMonitor
 from .profiler import cost_summary, memory_breakdown, profile_optimizer
 from .telemetry import (JsonlExporter, Metrics, RingBufferExporter, SummaryExporter, Telemetry,
@@ -43,11 +45,14 @@ __all__ = [
     "step_annotation",
     "MonitorBase",
     "StallWatchdog",
+    "ObsEndpoint",
     "process_identity",
     "read_heartbeats",
     "write_heartbeat",
     "HealthConfig",
     "HealthMonitor",
+    "ActivationDrift",
+    "DriftConfig",
     "PerfAccountant",
     "PerfConfig",
     "PerfMonitor",

@@ -21,8 +21,13 @@ copy, the same channels, record fields and attribution).
   divergence guard trips, :meth:`attribute_nonfinite` names the first
   non-finite layer and whether the gradients or the weights poisoned it.
 
-``ActivationDrift`` (serving's ``drift=``) comes with the rest of serving's
-surface (ROADMAP Queue 1 item 9); its :class:`DriftConfig` is here.
+* :class:`ActivationDrift` (serving's ``drift=``) installs the same hooks
+  on a served model: each non-container module's forward writes its
+  (mean, std, zero fraction) f32 3-vector into the new state on the device,
+  which a ``Predictor(capture_state=True)`` keeps. Every ``drift_every``
+  flushes the batcher calls :meth:`ActivationDrift.sample`, which stacks
+  the rows into one tensor and reads it in one copy, then scores each
+  statistic against an EMA baseline: a |z| past ``warn_z`` names the layer.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["HealthConfig", "HealthMonitor", "ACT_STATE_KEY", "DriftConfig"]
+__all__ = ["HealthConfig", "HealthMonitor", "ACT_STATE_KEY", "DriftConfig", "ActivationDrift"]
 
 # state key under which forward hooks stash activation statistics
 ACT_STATE_KEY = "_health_act"
@@ -315,6 +320,104 @@ class DriftConfig:
             raise ValueError(f"ema_decay must be in (0,1), got {self.ema_decay}")
         if self.min_samples < 1:
             raise ValueError(f"min_samples must be >= 1, got {self.min_samples}")
+
+
+class ActivationDrift:
+    """Serving's activation-drift monitor (the JAX package's): the hooks of
+    :class:`HealthMonitor` on a served model, and an EMA baseline of each
+    hooked module's mean, std and zero fraction that :meth:`sample` scores
+    the current rows against (see the module docstring)."""
+
+    def __init__(self, config: Optional[DriftConfig] = None):
+        self.config = config or DriftConfig()
+        # {id(model): (model, handles, modules)}: a hot-swap hooks the new
+        # model while the old one still serves; the server releases the old
+        # one after the swap
+        self._installs: Dict[int, tuple] = {}
+        self._ema_mean: Optional[np.ndarray] = None  # (A, 3)
+        self._ema_sq: Optional[np.ndarray] = None  # (A, 3)
+        self.samples = 0
+        # the row of a model that is not a container (the LM) sits at the
+        # state's root, whose path is empty: it is named by the model's class
+        self._root_label = ""
+
+    def install(self, model) -> None:
+        """Hook every non-container module of ``model`` (idempotent per
+        model) and seed its state entry; other hooked models are left as
+        they are. The baseline is shared across versions."""
+        if id(model) in self._installs:
+            return
+        self._root_label = type(model).__name__
+        handles, modules = [], []
+        for _path, m in _walk_with_paths(model):
+            if _is_container(m):
+                continue
+            handles.append(m.register_forward_hook(_activation_stat_hook))
+            _seed_act_state(m)
+            modules.append(m)
+        self._installs[id(model)] = (model, handles, modules)
+
+    def release(self, model) -> None:
+        """Unhook one model and drop its seeded state entries."""
+        entry = self._installs.pop(id(model), None)
+        if entry is None:
+            return
+        _model, handles, modules = entry
+        for h in handles:
+            h.remove()
+        for m in modules:
+            m._state.pop(ACT_STATE_KEY, None)
+
+    def remove(self) -> None:
+        """Release every hooked model."""
+        for mid in list(self._installs):
+            self.release(self._installs[mid][0])
+
+    def sample(self, state) -> Optional[Dict]:
+        """Score the hook rows of a captured state tree against the baseline,
+        fold them in, and return ``{"acts": {path: {mean, std, zero_frac,
+        mean_z, std_z}}, "breach": {"layer", "z"} | None, "samples": n}``;
+        None when the state holds no hook entry. The rows are stacked where
+        they live and copied to the host in one transfer."""
+        if state is None:
+            return None
+        paths: List[str] = []
+        rows = []
+        for path, leaf in _sorted_leaves(state):
+            head, _, key = path.rpartition("/")
+            if key == ACT_STATE_KEY:
+                paths.append(head or self._root_label)
+                rows.append(torch.as_tensor(leaf))
+        if not rows:
+            return None
+        with torch.no_grad():
+            mat = torch.stack(rows).float().cpu().numpy().astype(np.float64)
+        d = self.config.ema_decay
+        if self._ema_mean is None or self._ema_mean.shape != mat.shape:
+            self._ema_mean = mat.copy()
+            self._ema_sq = mat * mat
+            self.samples = 1
+            z = np.zeros_like(mat)
+        else:
+            var = np.maximum(self._ema_sq - self._ema_mean ** 2, 0.0)
+            # a relative floor on sigma: a steady stream collapses the EMA
+            # variance, and an absolute epsilon would turn a rounding wobble
+            # into an enormous z
+            sigma = np.maximum(np.sqrt(var), 1e-3 * np.abs(self._ema_mean) + 1e-6)
+            z = (mat - self._ema_mean) / sigma
+            self._ema_mean = d * self._ema_mean + (1.0 - d) * mat
+            self._ema_sq = d * self._ema_sq + (1.0 - d) * mat * mat
+            self.samples += 1
+        acts = {p: {"mean": float(row[0]), "std": float(row[1]), "zero_frac": float(row[2]),
+                    "mean_z": round(float(zr[0]), 3), "std_z": round(float(zr[1]), 3)}
+                for p, row, zr in zip(paths, mat, z)}
+        breach = None
+        if self.samples > self.config.min_samples:
+            worst_i = int(np.argmax(np.max(np.abs(z[:, :2]), axis=1)))
+            worst_z = float(np.max(np.abs(z[worst_i, :2])))
+            if worst_z > self.config.warn_z and math.isfinite(worst_z):
+                breach = {"layer": paths[worst_i], "z": round(worst_z, 3)}
+        return {"acts": acts, "breach": breach, "samples": self.samples}
 
 
 def _guard_key(v: float) -> float:

@@ -15,6 +15,10 @@ it out through its exporters:
 * the process-global flight recorder (:mod:`.blackbox`), armed by every
   sink.
 
+While ``Engine.set_metrics_port`` has a port set, every sink's ring is
+also served by the process's scrape endpoint (:mod:`.export`) until the
+sink closes.
+
 The record types and field names are the JAX package's: ``meta``
 (``run_start`` / ``run_end``), ``step``, ``compile``, ``perf``, ``health``,
 ``serve``, ``warn``, ``warmup``, ``stall``, ``span`` and the resilience
@@ -285,6 +289,20 @@ class Telemetry:
         except Exception:  # arming is best-effort; the sink must construct
             log.debug("flight recorder arming failed", exc_info=True)
         self.heartbeat_interval_s = heartbeat_interval_s
+        # the process's scrape endpoint (Engine.set_metrics_port) reads this
+        # sink's ring; a bind failure must not stop the run
+        self._endpoint = None
+        port = Engine.metrics_port()
+        if port is not None:
+            from . import export as _export
+
+            try:
+                self._endpoint = _export.default_endpoint() or _export.ensure_default(port)
+            except OSError as e:
+                log.warning("obs endpoint re-bind on port %s failed (%s); this telemetry "
+                            "sink is not scrapeable", port, e)
+            else:
+                self._endpoint.attach_telemetry(self)
         self._hb_next = 0.0
         self._hb_disabled = False
         self._hb_last_step: Optional[int] = None
@@ -500,7 +518,9 @@ class Telemetry:
         (``ops/_build.py``) that the warmup triggered and ``fresh_compiles``
         the builds of it (nvcc runs) among them: 0 or 1 each, 0 when the
         library was already loaded or the model runs on the CPU.
-        ``warm_start`` is False (no artifact bundles in the port)."""
+        ``warm_start`` is True when an artifact bundle covered the warmed
+        geometries (``utils/aot.py``: a seeded library loads with 0
+        builds)."""
         rec = {"type": "warmup", "path": path, "model": model,
                "seconds": round(float(seconds), 6), "compiles": int(compiles),
                "fresh_compiles": None if fresh_compiles is None else int(fresh_compiles),
@@ -610,6 +630,9 @@ class Telemetry:
                     log.exception("telemetry exporter flush failed")
 
     def close(self) -> None:
+        if self._endpoint is not None:  # a closed sink's gauges are not scraped
+            self._endpoint.detach_telemetry(self)
+            self._endpoint = None
         if self.watchdog is not None:
             self.watchdog.stop()
         if not self._hb_disabled and self.heartbeat_interval_s is not None:

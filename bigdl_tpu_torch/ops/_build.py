@@ -2,12 +2,17 @@
 
 At first use, every ``bigdl_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``), one ``nvcc`` per source started together, and linked into
-one shared library with a plain C interface, ``build/kernels/libbigdl_tpu_torch.so``
-under the checkout root, which is then loaded with ``ctypes`` and probed
-once (``ops/probe.py``: one launch of the probe kernel, checked). The build
-is keyed on a hash of the sources (and the flags): a library whose stamp
-differs is rebuilt. Nothing here falls back: a missing ``nvcc``, a failed
-build or a failed probe raises.
+one shared library with a plain C interface, ``libbigdl_tpu_torch.so`` in
+:func:`build_dir` (``build/kernels`` under the checkout root, or the
+directory ``BIGDL_COMPILE_CACHE_DIR`` / ``Engine.set_compilation_cache_dir``
+names), which is then loaded with ``ctypes`` and probed once
+(``ops/probe.py``: one launch of the probe kernel, checked). The build is
+keyed on a hash of the sources (and the flags), written beside the library
+as its stamp: a library whose stamp differs is rebuilt, and one whose stamp
+matches is loaded without ``nvcc`` (an artifact bundle seeds the directory
+with both, ``utils/aot.py``). Nothing here falls back: a missing ``nvcc``, a
+failed build or a failed probe raises, for a seeded library as for a built
+one.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"  # the default
 LIB_NAME = "libbigdl_tpu_torch.so"
+STAMP_NAME = LIB_NAME + ".sha256"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -64,6 +70,15 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+def build_dir() -> Path:
+    """Where the library is built and looked for: the compile-cache
+    directory when one is configured, else ``build/kernels``."""
+    from ..utils.engine import Engine
+
+    configured = Engine.ensure_compilation_cache()
+    return Path(configured) if configured else BUILD_DIR
+
+
 def _run(cmd):
     r = subprocess.run(cmd, capture_output=True, text=True)
     out = r.stdout + r.stderr
@@ -76,14 +91,15 @@ def build(force: bool = False) -> Path:
     """Compile the sources into the shared library unless an up-to-date one
     (same source hash) is already there; returns its path."""
     global build_log, builds
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    out = build_dir()
+    lib = out / LIB_NAME
+    stamp = out / STAMP_NAME
     digest = source_hash()
     if not force and lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources()]
         cmds = [[nvcc, *ARCH, *FLAGS, "-c", str(s), "-o", str(o)]
                 for s, o in zip(sources(), objs)]
@@ -96,7 +112,7 @@ def build(force: bool = False) -> Path:
     stamp.write_text(digest)
     builds += 1
     build_log = "".join(logs)
-    (BUILD_DIR / "build.log").write_text(build_log)
+    (out / "build.log").write_text(build_log)
     return lib
 
 

@@ -102,7 +102,7 @@ def run(lib, device) -> bool:
         from . import _build
 
         raise RuntimeError(f"the port's CUDA kernels do not run on {key}: {_reason[key]} "
-                           f"(nvcc's output: {_build.BUILD_DIR / 'build.log'})")
+                           f"(nvcc's output: {_build.build_dir() / 'build.log'})")
     return True
 
 

@@ -119,8 +119,10 @@ fails twice is skipped (a ``DataPipeline`` never even builds it);
 ``TrainingPreempted``; a terminal failure leaves a postmortem bundle.
 ``donate=False`` writes each update into fresh storage, so tensors taken
 from the parameters before a step keep their values (the JAX package's
-undonated step). ``set_elastic`` is the next slice (ROADMAP Queue 1
-item 9).
+undonated step). ``export_step_artifact`` writes a step bundle (the kernel
+library and the step's argument specs, ``utils/aot.py``) and
+``warm_start`` seeds a fresh host's cache directory from one before
+``resume``. ``set_elastic`` is a later slice (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -146,6 +148,7 @@ from ..obs.trace import span
 from ..resilience.errors import DivergenceError, StallEscalation, TrainingPreempted
 from ..nn.normalization import BatchNormalization
 from ..tensor.sparse import SparseTensor
+from ..utils.aot import spec_tree
 from ..utils.random import RandomGenerator
 from ..utils.serialization import (copy_into, flatten_pytree, latest_checkpoint_step,
                                    load_checkpoint, quarantine_nonfinite, save_checkpoint,
@@ -365,6 +368,8 @@ class Optimizer:
         self._copy_in_worker = True  # the prefetch thread copies batches to the device
         self._place_span = False  # the batch placement is a "place_batch" seam
         self._flat = None  # the flat layout's state (_FlatState) while one is bound
+        self._step_export_info = None  # the step's argument specs, at its first dispatch
+        self._warm_start_bundle: Optional[str] = None  # warm_start's bundle
         self.history: List[Dict[str, Any]] = []
 
     # --------------------------------------------------------------- factory
@@ -707,6 +712,40 @@ class Optimizer:
                              self.model._as_input(self._build_input(self._first_batch())))
         self._resume_from_checkpoint()
         return self
+
+    # --------------------------------------------------------- artifact bundles
+    def export_step_artifact(self, path: str) -> Dict:
+        """Write this optimizer's step bundle (``utils/aot.py``): the kernel
+        library of the cache directory, and a manifest (written last) whose
+        ``step`` records the step's argument specs. The port runs eagerly,
+        so ``step.module`` is None and ``step.export_error`` says so; what a
+        resumed run on a fresh host needs is the library, which it then
+        loads instead of building (:meth:`warm_start`). Call after a step
+        has run. The port does not donate buffers, so there is no
+        donation-free twin to carry."""
+        info = self._step_export_info
+        if info is None:
+            raise RuntimeError("export_step_artifact: no train step to export; run optimize() "
+                               "(at least one step) first")
+        from ..utils import aot
+
+        return aot.export_step_bundle(path, fn=None, specs=info,
+                                      path_type=type(self).__name__,
+                                      extra={"donate": self.donate})
+
+    def warm_start(self, path: str) -> Dict:
+        """Verify a step bundle and seed this process's cache directory with
+        its kernel library (``utils/aot.py``: manifest, sha256, fingerprint;
+        a mismatch, or a serving bundle, raises
+        :class:`~bigdl_tpu_torch.utils.aot.ArtifactIncompatible` before
+        anything is seeded). The next :meth:`resume` and :meth:`optimize`
+        then load the library instead of building it; the run's
+        ``run_start`` record names the bundle."""
+        from ..utils import aot
+
+        manifest = aot.warm_start(path, kind="train_step")
+        self._warm_start_bundle = path
+        return manifest
 
     def _resume_from_checkpoint(self, require_finite: bool = False) -> Optional[int]:
         """Restore from the newest verified checkpoint (``require_finite``:
@@ -1266,7 +1305,7 @@ class Optimizer:
         if tel is not None:
             if pa is not None:
                 pa.begin_run(n_devices=self._perf_device_count())
-            tel.run_started(type(self).__name__, warm_start=None,
+            tel.run_started(type(self).__name__, warm_start=self._warm_start_bundle,
                             low_precision=(self._precision.describe()
                                            if self._precision is not None else None))
             self._kernel_builds_seen = _kernel_builds()
@@ -1434,6 +1473,8 @@ class Optimizer:
                     self._step_health = None
                     t_dispatch = time.perf_counter()
                     obs_trace.fault_point("dispatch")  # chaos seam (timed, no span)
+                    if self._step_export_info is None:  # metadata only, once
+                        self._step_export_info = spec_tree((params, slots, batch.x, batch.t))
                     with obs_trace.step_annotation(state["neval"]), \
                             torch.profiler.record_function("dispatch"):
                         loss = self._train_step(batch.x, batch.t,

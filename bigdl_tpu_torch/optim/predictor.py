@@ -11,6 +11,14 @@ sweep over mixed lengths sees one geometry per bucket. Forwards run under
 ``torch.inference_mode()`` on the model's device; ``forward_batch`` leaves
 its outputs there, and the caller decides where to copy them to the host.
 
+``capture_state=True`` keeps each forward's new model state (still on the
+device) as ``last_state``: the rows the activation-drift hooks write come
+out through it (``obs/health.py`` ``ActivationDrift``). The artifact seam
+(``aot_key``, ``install_aot_call``, ``aot_coverage``) records the input
+geometries a verified bundle covers (``serving/artifacts.py``); the port
+runs eagerly, so a covered geometry dispatches as any other.
+:class:`PredictionService` serves one model to many threads.
+
 ``Evaluator(model).evaluate(dataset, methods)`` folds each validation
 method's ``(numerator, count)`` over an eval sweep with ``+``: the first
 batch fixes the batch size, a shorter last batch goes through the same
@@ -28,7 +36,8 @@ over the ranks, so every rank holds the single-process result.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import threading
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,18 +48,19 @@ from ..utils.table import Table
 from .validation import ValidationMethod, ValidationResult
 
 
-def forward_padded(model, params, state, x, rows: int) -> torch.Tensor:
+def forward_padded(model, params, state, x, rows: int, with_state: bool = False):
     """Eval-mode forward of ``x`` padded to ``rows`` rows by repeating row 0
-    (on ``x``'s device); the output's real rows. A batch holding a
-    ``SparseTensor`` is not row-padded: a short one runs at its own rows."""
+    (on ``x``'s device); the output's real rows (and the new state, with
+    ``with_state``). A batch holding a ``SparseTensor`` is not row-padded: a
+    short one runs at its own rows."""
     n = rows_of(x)
     if n > rows:
         raise ValueError(f"batch of {n} rows exceeds the fixed batch size {rows}")
     padded = x if n == rows else pad_rows(x, n, rows)
     with torch.inference_mode():
-        y, _ = model.apply(params, state, x if padded is None else padded, training=False,
-                           rng=None)
-        return y[:n]
+        y, new_state = model.apply(params, state, x if padded is None else padded,
+                                   training=False, rng=None)
+        return (y[:n], new_state) if with_state else y[:n]
 
 
 def _slice_rows(x, lo: int, hi: int):
@@ -69,8 +79,11 @@ class Predictor:
     """Fixed-batch inference over one model."""
 
     def __init__(self, model, batch_size: Optional[int] = None,
-                 shape_buckets: Optional[Sequence[int]] = None):
+                 shape_buckets: Optional[Sequence[int]] = None, capture_state: bool = False):
         self.model = model
+        self.capture_state = bool(capture_state)
+        self.last_state = None  # the last forward's new state (capture_state)
+        self._aot: Dict[tuple, Any] = {}  # input geometry -> bundle signature
         self.batch_size = int(32 if batch_size is None else batch_size)
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -87,8 +100,33 @@ class Predictor:
         fixed size); returns the real rows, still on the device."""
         x = to_device(x, self.model.device)
         self.model._ensure_built(x)
-        return forward_padded(self.model, self.model.get_parameters(), self.model.get_state(),
-                              x, self.batch_size)
+        out = forward_padded(self.model, self.model.get_parameters(), self.model.get_state(),
+                             x, self.batch_size, with_state=self.capture_state)
+        if not self.capture_state:
+            return out
+        y, self.last_state = out  # on the device: no copy here
+        return y
+
+    # ------------------------------------------------------- artifact seam
+    @staticmethod
+    def aot_key(x) -> tuple:
+        """Shape/dtype signature of a padded input batch (tensors, arrays or
+        specs with ``.shape`` and ``.dtype``): the key a bundle's module is
+        installed under."""
+        leaves = list(x.values()) if isinstance(x, dict) else (
+            list(x) if isinstance(x, (list, tuple)) and not hasattr(x, "shape") else [x])
+        return tuple((tuple(a.shape), str(a.dtype).replace("torch.", "")) for a in leaves)
+
+    def install_aot_call(self, key: tuple, exported) -> None:
+        """Record that a verified bundle covers the padded geometry ``key``
+        (``exported``: its :class:`~bigdl_tpu_torch.utils.aot.ExportedSignature`).
+        The port has no per-shape program: the covered geometry dispatches
+        through the same eager forward, whose kernels the bundle's library
+        serves."""
+        self._aot[key] = exported
+
+    def aot_coverage(self) -> int:
+        return len(self._aot)
 
     # ----------------------------------------------------- shape bucketing
     def bucket_of(self, length: int) -> int:
@@ -182,3 +220,27 @@ class Evaluator:
                 return {}
             model._ensure_built(first.get_input())
         return validate(model, model.get_parameters(), model.get_state(), dataset, list(methods))
+
+
+class PredictionService:
+    """Thread-safe local serving (reference: ``$DL/optim/PredictionService.scala``,
+    a pool of model clones): one :class:`Predictor` serves every thread,
+    since a forward under ``torch.inference_mode()`` shares no state between
+    calls; the lock guards only the lazy build. ``pool_size`` is kept for the
+    JAX package's signature."""
+
+    def __init__(self, model, pool_size: int = 1):
+        self.pool_size = pool_size
+        self._predictor = Predictor(model)
+        self._lock = threading.Lock()
+
+    def predict(self, x, single: bool = False) -> torch.Tensor:
+        """Outputs on the host; ``single=True`` takes ``x`` as one record
+        (adds and strips the batch dim)."""
+        arr = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        batched = arr[None] if single else arr
+        with self._lock:
+            model = self._predictor.model
+            model._ensure_built(to_device(batched[:1], model.device))
+        out = self._predictor.predict(batched)
+        return out[0] if single else out

@@ -25,8 +25,20 @@ thread), ``serve_worker`` at the top of the batching loop (a raise there
 kills the worker), ``serve_assembly`` and ``serve_dispatch`` as spans
 around the stack and ``Predictor.forward_batch`` (a raise there fails the
 flush's requests), ``serve_materialize`` in ``ServeFuture.result``; the
-worker records its spans into the telemetry's collector. Not ported yet:
-activation drift, bucket costs and causal request spans.
+worker records its spans into the telemetry's collector.
+
+Causal request spans: each request's trace context is rooted at submit on
+the caller's thread (a child of the caller's own context when one is
+bound); a flush has a context of its own whose ``serve_flush`` span links
+its members. When a request is materialized, its ``serve_request`` span and
+the four stage spans (queue, assembly, dispatch, materialize: they sum to
+the total) are emitted if the trace was sampled or the request was slower
+than the slow threshold (promoted). Activation drift: with ``drift`` set,
+every ``drift_every`` flushes the predictor's captured state is sampled
+(one copy to the host of one small matrix) and a breach is a ``warn``.
+Bucket costs (derived by the server at registration) stamp each serve
+record with the flush's FLOPs and the rolling achieved FLOP/s and MFU,
+plain arithmetic on this thread.
 """
 
 from __future__ import annotations
@@ -121,9 +133,15 @@ class ContinuousBatcher:
         flush_trigger: replaces the default trigger; evaluated per bucket
             group on ``{"pending": n, "waited_ms": t}``.
         telemetry: a :class:`~bigdl_tpu_torch.obs.telemetry.Telemetry` sink.
+        drift: an :class:`~bigdl_tpu_torch.obs.health.ActivationDrift`
+            (over a ``capture_state=True`` predictor), sampled every
+            ``drift_every`` flushes.
         tags: fields merged into every serve record: a flush's record
             carries the tags of the version that dispatched it (``swap``
             replaces them with the predictor).
+        bucket_costs: ``{bucket: {"flops", "flops_per_record",
+            "peak_flops_total"}}`` (``obs/perf.py``
+            ``predictor_bucket_costs``) for the serve records' cost fields.
         clock: monotonic clock of the heartbeat and health timestamps (the
             supervisor's time domain).
     """
@@ -132,7 +150,8 @@ class ContinuousBatcher:
                  max_batch: Optional[int] = None, max_delay_ms: float = 10.0,
                  max_pending: Optional[int] = None, deadline_ms: Optional[float] = None,
                  breaker=None, flush_trigger: Optional[Trigger] = None, telemetry=None,
-                 tags: Optional[Dict] = None, clock=time.monotonic):
+                 drift=None, drift_every: int = 32, tags: Optional[Dict] = None,
+                 clock=time.monotonic, bucket_costs: Optional[Dict] = None):
         self.predictor = predictor
         self.name = name
         if deadline_ms is not None and deadline_ms <= 0:
@@ -161,7 +180,11 @@ class ContinuousBatcher:
         self.flush_trigger = flush_trigger or Trigger.or_(
             Trigger.pending_at_least(self.max_batch), Trigger.waited_ms(max_delay_ms))
         self.telemetry = telemetry
+        self.drift = drift
+        self.drift_every = max(1, int(drift_every))
+        self._drift_warned = False
         self.tags = dict(tags or {})
+        self.bucket_costs = dict(bucket_costs or {})
         self.queue = RequestQueue(max_pending)
         self.stats = ServeStats()
         self._version = int(version)
@@ -268,6 +291,9 @@ class ContinuousBatcher:
             raise WorkerCrashed(f"model {self.name!r} refused: {self._failed}")
         fault_point("serve_admission")  # chaos seam (caller thread)
         fut = request.future
+        # the request's trace: a child of the caller's context, else a root
+        parent_ctx = obs_trace.current_context()
+        fut.trace = parent_ctx.child() if parent_ctx is not None else obs_trace.new_context()
         if fut.deadline_s is None and self.deadline_ms is not None:
             fut.deadline_s = fut.t_enqueue + self.deadline_ms / 1e3
         if fut.deadline_s is not None:
@@ -359,6 +385,40 @@ class ContinuousBatcher:
         now = time.perf_counter()
         self.stats.complete(now - fut.t_enqueue, now)
         self._version_done(fut.version)
+        self._emit_request_trace(fut)
+
+    # the request's stage spans in timeline order: ServeFuture.spans() key ->
+    # span name
+    _STAGE_SPANS = (("queue_s", "req_queue"), ("assembly_s", "req_assembly"),
+                    ("dispatch_s", "req_dispatch"), ("materialize_s", "req_materialize"))
+
+    def _emit_request_trace(self, fut: ServeFuture) -> None:
+        """The request's ``serve_request`` span and its stage children
+        (caller's thread), when its trace was sampled or the request was
+        slower than the slow threshold (promoted, decided here from the
+        future's times)."""
+        ctx, tel = fut.trace, self.telemetry
+        if ctx is None or tel is None or fut.t_materialize is None:
+            return
+        total_s = fut.t_materialize - fut.t_enqueue
+        promoted = not ctx.sampled and total_s >= obs_trace.slow_threshold_s()
+        if not (ctx.sampled or promoted):
+            return
+        thread = threading.current_thread().name
+        root = {"name": "serve_request", "dur_s": round(total_s, 6), "model": self.name,
+                "thread": thread}
+        if promoted:
+            root["promoted"] = True
+        root.update(ctx.to_fields())
+        tel.span_record(root)
+        stages = fut.spans()
+        for key, name in self._STAGE_SPANS:
+            if key not in stages:
+                continue
+            rec = {"name": name, "dur_s": round(stages[key], 6), "model": self.name,
+                   "thread": thread}
+            rec.update(ctx.child().to_fields())
+            tel.span_record(rec)
 
     def _version_done(self, version) -> None:
         if version is None:
@@ -496,12 +556,17 @@ class ContinuousBatcher:
                                     model=self.name, count=n_dropped, deadline_missed=missed)
             return
         n = len(reqs)
+        # the flush's own trace links its members; a sampled member samples it
+        flush_ctx = obs_trace.new_context()
+        if not flush_ctx.sampled and any(r.future.trace is not None and r.future.trace.sampled
+                                         for r in reqs):
+            flush_ctx.sampled = True
         err = x = t_assembled = None
         try:
             # assembly can fail on caller input; it fails THESE requests,
             # never the thread. swap() keeps the geometry, so an unlocked
             # read of pad_record pads as any version would
-            with span("serve_assembly"):  # chaos seam and host timing
+            with obs_trace.context_scope(flush_ctx), span("serve_assembly"):
                 pad = self.predictor.pad_record
                 x = np.stack([r.feature if bucket is None else pad(r.feature, bucket)
                               for r in reqs])
@@ -517,7 +582,7 @@ class ContinuousBatcher:
                 r.future.t_assembled = t_assembled
             if err is None:
                 try:
-                    with span("serve_dispatch"):
+                    with obs_trace.context_scope(flush_ctx), span("serve_dispatch"):
                         y = predictor.forward_batch(x)
                 except Exception as e:  # resolve, never kill the thread
                     err = e
@@ -545,12 +610,42 @@ class ContinuousBatcher:
                 self.breaker.record_success(n, probe=has_probe)
         self.flushes += 1
         self._last_flush_at = self._clock()
+        # every flush, a failed one too, emits a serve record
+        extra: Dict[str, Any] = dict(tags)
+        if err is not None:
+            extra["error"] = repr(err)
+        drift = self.drift
+        if (drift is not None and err is None and self.flushes % self.drift_every == 0
+                and getattr(predictor, "last_state", None) is not None):
+            self._sample_drift(drift, predictor.last_state, extra)
         if self.telemetry is not None:
-            # every flush, a failed one too, emits a serve record
-            extra: Dict[str, Any] = dict(tags)
-            if err is not None:
-                extra["error"] = repr(err)
             p50, p99, rps = self.stats.summary(time.perf_counter())
+            cost = self.bucket_costs.get(bucket)
+            if cost is not None:
+                # this flush's padded-batch cost, and the rolling achieved
+                # rate over the completed requests (dispatch is asynchronous:
+                # the callers' materialized completions are the honest rate)
+                extra["model_flops"] = cost["flops"]
+                extra["flops_per_record"] = cost["flops_per_record"]
+                if rps:
+                    ach = rps * cost["flops_per_record"]
+                    extra["achieved_flops_s"] = round(ach, 3)
+                    peak = cost.get("peak_flops_total")
+                    extra["mfu"] = round(ach / peak, 6) if peak else None
+            # the member that waited longest: its trace answers "where did
+            # the tail go" at /trace?id=
+            slowest = min(reqs, key=lambda r: r.future.t_enqueue)
+            extra["trace_id"] = None if slowest.future.trace is None \
+                else slowest.future.trace.trace_id
+            if flush_ctx.sampled:
+                self.telemetry.span_record({
+                    "name": "serve_flush", "trace_id": flush_ctx.trace_id,
+                    "span_id": flush_ctx.span_id, "dur_s": round(t_dispatch - t_batch, 6),
+                    "thread": threading.current_thread().name, "model": self.name,
+                    "records": n,
+                    "links": [{"trace_id": r.future.trace.trace_id,
+                               "span_id": r.future.trace.span_id}
+                              for r in reqs if r.future.trace is not None]})
             with self._acct_lock:
                 missed, swept = self._deadline_missed, self._swept
             br = self.breaker
@@ -563,6 +658,25 @@ class ContinuousBatcher:
                 p50_ms=p50, p99_ms=p99, rps=rps, deadline_missed=missed,
                 swept_expired=swept, shed=0 if br is None else br.shed,
                 breaker_state=None if br is None else br.state, **extra)
+
+    def _sample_drift(self, drift, state, extra: Dict[str, Any]) -> None:
+        """The one sampled copy to the host of the serving loop: the hook
+        rows of the captured state (every ``drift_every`` flushes)."""
+        try:
+            sample = drift.sample(state)
+        except Exception:  # a broken monitor must not stop serving
+            if not self._drift_warned:
+                self._drift_warned = True
+                log.exception("drift sampling for model %r raised; skipping", self.name)
+            return
+        if sample is None:
+            return
+        extra["drift"] = sample["acts"]
+        breach = sample.get("breach")
+        if breach is not None and self.telemetry is not None:
+            self.telemetry.warn(reason="activation_drift", path="serve", model=self.name,
+                                layer=breach["layer"], z=breach["z"],
+                                bound=drift.config.warn_z)
 
     # --------------------------------------------------------------- health
     def health_snapshot(self) -> Dict[str, Any]:

@@ -62,7 +62,7 @@ class ServeFuture:
     """
 
     __slots__ = ("_event", "_lock", "_value", "_error", "_version", "_on_done",
-                 "_on_resolve", "_resolved", "_done_fired", "deadline_s", "probe",
+                 "_on_resolve", "_resolved", "_done_fired", "deadline_s", "probe", "trace",
                  "t_enqueue", "t_batch", "t_assembled", "t_dispatch", "t_materialize")
 
     def __init__(self):
@@ -79,6 +79,9 @@ class ServeFuture:
         self._done_fired = False
         self.deadline_s: Optional[float] = None  # absolute perf_counter deadline
         self.probe = False  # a circuit breaker's half-open probe (batcher-stamped)
+        # the request's causal trace context (obs.trace.TraceContext), stamped
+        # at submit: it carries the trace across caller -> batcher -> caller
+        self.trace = None
         self.t_enqueue = time.perf_counter()
         self.t_batch: Optional[float] = None
         self.t_assembled: Optional[float] = None

@@ -15,10 +15,11 @@
   bound), fails that model's pending futures with the typed
   :class:`~bigdl_tpu_torch.serving.queue.WorkerCrashed` and restarts the
   worker after a capped, seeded-jitter backoff.
-* :func:`spawn_worker`: the one place serving starts a thread.
+* :func:`spawn_worker`: the one place serving starts a thread; the worker
+  runs under the spawner's causal-trace context (``obs/trace.py``).
 
-Not ported: the flight-recorder dump on a worker's death or wedge and the
-causal-trace context a worker inherits (``obs/blackbox.py``, ``obs/trace.py``).
+Not ported: the flight-recorder dump on a worker's death or wedge
+(``obs/blackbox.py``).
 """
 
 from __future__ import annotations
@@ -50,11 +51,23 @@ def is_routable(snapshot: Dict[str, Any]) -> bool:
     return snapshot.get("state") in ROUTABLE_STATES
 
 
-def spawn_worker(target: Callable[[], None], *, name: str) -> threading.Thread:
-    """Start one named daemon serving worker thread: the seam the
-    supervisor's restart path shares, so a restarted worker is a freshly
-    started one."""
-    t = threading.Thread(target=target, name=name, daemon=True)
+def spawn_worker(target: Callable[[], None], *, name: str, daemon: bool = True,
+                 context: object = "inherit") -> threading.Thread:
+    """Start one named serving worker thread (a daemon unless asked): the
+    seam the supervisor's restart path shares, so a restarted worker is a
+    freshly started one. ``context``: ``"inherit"`` (the default) binds the
+    spawner's current :class:`~bigdl_tpu_torch.obs.trace.TraceContext` on
+    the worker before ``target`` runs, so its spans parent onto the
+    spawner's; pass a context or None to choose another."""
+    from ..obs import trace as obs_trace
+
+    ctx = obs_trace.current_context() if context == "inherit" else context
+
+    def _entry():
+        obs_trace.bind_context(ctx)
+        target()
+
+    t = threading.Thread(target=_entry, name=name, daemon=daemon)
     t.start()
     return t
 

@@ -5,8 +5,12 @@ the compute/activation dtype policy (``compute_dtype`` / ``set_compute_dtype``
 / ``activation_dtype`` / ``set_activation_dtype``), the fused-kernel switch
 (``fused_kernels`` / ``set_fused_kernels``), device resolution, the
 process group of a multi-process run, its default mesh (``mesh()``), the
-sequence-parallel registration (``set_sequence_parallel``) and the run
-directory (``set_run_dir`` / ``run_dir`` / ``run_subdir``).
+sequence-parallel registration (``set_sequence_parallel``), the run
+directory (``set_run_dir`` / ``run_dir`` / ``run_subdir``), the kernel
+library's cache directory (``set_compilation_cache_dir`` /
+``ensure_compilation_cache``, ``BIGDL_COMPILE_CACHE_DIR``) and the scrape
+endpoint's port (``set_metrics_port`` / ``metrics_port``,
+``BIGDL_METRICS_PORT``).
 
 Entry points run on the card: ``Engine.device(None)`` is ``cuda`` and raises
 when no CUDA device is present; the CPU is used only when asked for
@@ -63,6 +67,10 @@ class Engine:
     _mesh = None  # Engine.mesh()'s 1-D data mesh over the group, built at first use
     _sequence_parallel: Optional[tuple] = None  # (mesh, axis name) of the ring route
     _run_dir: Optional[str] = None
+    _compilation_cache_dir: Optional[str] = None
+    _cache_pruned = False
+    _metrics_port: Optional[int] = None
+    _metrics_port_env_read = False
 
     @classmethod
     def device(cls, device: Union[str, torch.device, None] = None) -> torch.device:
@@ -118,6 +126,97 @@ class Engine:
         if cls._fused_kernels is not None:
             return cls._fused_kernels
         return env_flag("BIGDL_FUSED_KERNELS")
+
+    # ---------------------------------------------------- the compile cache
+    @classmethod
+    def set_compilation_cache_dir(cls, path: Optional[str]) -> None:
+        """Keep the kernel library (``ops/_build.py``: the ``nvcc`` build
+        and its source-hash stamp) under ``path`` instead of
+        ``build/kernels``: a process started on a directory that already
+        holds an up-to-date library loads it and builds nothing. The port's
+        counterpart of the JAX package's persistent compilation cache, and
+        reachable the same way, through ``BIGDL_COMPILE_CACHE_DIR``. ``None``
+        clears it (the environment variable is read again)."""
+        if path is not None:
+            path = os.path.abspath(path)
+            os.makedirs(path, exist_ok=True)
+        with cls._lock:
+            cls._compilation_cache_dir = path
+
+    @classmethod
+    def ensure_compilation_cache(cls) -> Optional[str]:
+        """Apply ``BIGDL_COMPILE_CACHE_DIR`` when no directory is set yet
+        (re-read while unset), pruning it once a process when
+        ``BIGDL_COMPILE_CACHE_MAX_BYTES`` / ``BIGDL_COMPILE_CACHE_MAX_AGE_DAYS``
+        are set; returns the directory, or None."""
+        if cls._compilation_cache_dir is None:
+            env = os.environ.get("BIGDL_COMPILE_CACHE_DIR")
+            if env:
+                cls.set_compilation_cache_dir(env)
+                cls._prune_compilation_cache_once(cls._compilation_cache_dir)
+        return cls._compilation_cache_dir
+
+    @classmethod
+    def compilation_cache_dir(cls) -> Optional[str]:
+        return cls._compilation_cache_dir
+
+    @classmethod
+    def _prune_compilation_cache_once(cls, cache_dir: str) -> None:
+        if cls._cache_pruned:
+            return
+        cls._cache_pruned = True
+        max_bytes = os.environ.get("BIGDL_COMPILE_CACHE_MAX_BYTES")
+        max_age = os.environ.get("BIGDL_COMPILE_CACHE_MAX_AGE_DAYS")
+        if not max_bytes and not max_age:
+            return
+        try:
+            max_bytes = int(max_bytes) if max_bytes else None
+            max_age = float(max_age) if max_age else None
+        except ValueError as e:  # a hygiene knob must not stop a constructor
+            log.warning("ignoring a malformed compile-cache prune variable (%s); "
+                        "BIGDL_COMPILE_CACHE_MAX_BYTES takes bytes, ..._MAX_AGE_DAYS days", e)
+            return
+        from .compat import prune_compile_cache
+
+        pruned = prune_compile_cache(cache_dir, max_bytes=max_bytes, max_age_days=max_age)
+        if pruned:
+            log.info("pruned %d compile-cache entries from %s", len(pruned), cache_dir)
+
+    # ---------------------------------------------------------- metrics port
+    @classmethod
+    def set_metrics_port(cls, port: Optional[int]):
+        """Start (or re-bind) this process's scrape endpoint
+        (``obs/export.py``: ``/healthz``, ``/metrics``, ``/telemetry/tail``,
+        ``/trace``), served from what the telemetry rings already hold.
+        ``port=0`` binds a free port (read it back from the returned
+        endpoint's ``.port``); ``None`` closes the endpoint. Every
+        ``Telemetry`` constructed while a port is set attaches its ring.
+        Also reachable through ``BIGDL_METRICS_PORT``. Returns the endpoint
+        (or None)."""
+        from ..obs import export as _export
+
+        with cls._lock:
+            if port is None:
+                cls._metrics_port = None
+                _export.close_default()
+                return None
+            endpoint = _export.ensure_default(int(port))
+            cls._metrics_port = endpoint.port  # the bound port, also for port=0
+            return endpoint
+
+    @classmethod
+    def metrics_port(cls) -> Optional[int]:
+        """The scrape port, adopting ``BIGDL_METRICS_PORT`` on first read;
+        None when neither is set."""
+        if cls._metrics_port is None and not cls._metrics_port_env_read:
+            cls._metrics_port_env_read = True
+            env = os.environ.get("BIGDL_METRICS_PORT")
+            if env:
+                try:
+                    cls.set_metrics_port(int(env))
+                except (ValueError, OSError) as e:  # must not stop a Telemetry constructor
+                    log.warning("ignoring BIGDL_METRICS_PORT=%r (%s)", env, e)
+        return cls._metrics_port
 
     # --------------------------------------------------------------- run dir
     @classmethod

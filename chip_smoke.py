@@ -381,8 +381,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the global norm against the simulation (``DISTRI_CLIP_REL``); [22d]
    the 2-rank VGG run checkpointed at step 2 and resumed at 2 ranks,
    equal to the uninterrupted run at step 4 to the bit, and the file
-   resumed by a 1-rank ``LocalOptimizer``; then
-   ``tools/torch_multiprocess_smoke.py --device cuda``. Rehearse [22] on
+   resumed by a 1-rank ``LocalOptimizer``; and
+   ``tools/torch_multiprocess_smoke.py --device cuda``, started beside
+   [23e]'s examples. Rehearse [22] on
    the CPU by importing ``chip_smoke`` from a script guarded by
    ``if __name__ == "__main__"`` (the ranks are spawned), setting
    ``DISTRI_DEVICE = "cpu"``, cutting ``DISTRI_RECIPE`` (``--depth 18
@@ -425,8 +426,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``LocalOptimizer`` on rank 0 (``MESH_TOL``, tighter than the
    JAX test's loss 1e-4 and parameters 2e-4 absolute); [23e]
    ``examples/{pipeline,longctx,moe}_train.py`` at their JAX mains'
-   defaults (8, 8 and 4 spawned ranks), each exit 0 with its bigram-map
-   recovery. Rehearse on the CPU by importing
+   defaults but one epoch of the two (8, 8 and 4 spawned ranks), each exit
+   0 with its bigram-map recovery. Rehearse on the CPU by importing
    ``chip_smoke`` from a guarded script, setting ``MESH_DEVICE = "cpu"``,
    cutting ``MESH_PIPE``, ``MESH_LM`` and ``MESH_MOE`` and calling
    ``phase_mesh_pipe("cpu")`` and ``phase_mesh_four("cpu")`` (the launch
@@ -453,6 +454,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``pad_mask``, ``checkpoint`` and the three flash kernels; [24f] a
    terminal failure (budget 0) leaves a postmortem bundle that
    ``verify_bundle`` accepts.
+25. serving's remaining surface, the full-width LM of [5] (bf16, batch 8,
+   random weights from a seed): [25a] a cold boot in a fresh process with
+   an empty ``BIGDL_COMPILE_CACHE_DIR`` under ``build/``: ``register(...,
+   drift=True, drift_every=1)`` on ``ModelServer(metrics_port=0)``, 16
+   requests from 4 threads while a thread scrapes ``/healthz`` and
+   ``/metrics`` over 127.0.0.1, then ``export_artifacts``: the warmup's
+   ``fresh_compiles`` 1 (one nvcc build), the bundle's files and bytes,
+   the serve records' drift and cost fields; [25b] a warm boot in a second
+   fresh process with its own empty directory: ``warm_start(bundle)`` and
+   ``register(..., artifacts=bundle)``: 0 builds, ``fresh_compiles`` 0, the
+   warmup record naming the bundle, the 16 rows bit-equal to [25a]'s (row
+   hashes), 6 #1 launches a forward; [25c] five rejected bundles (a
+   tampered hash, a truncated library, a fingerprint naming another torch,
+   a batch-size drift, an architecture drift at the same record shape):
+   each registration boots cold, serves, and leaves one
+   ``artifact_incompatible`` warn, the cache directory empty or holding
+   the whole library; [25d] in-distribution records then a shifted stream
+   with ``drift_every=2``: an ``activation_drift`` warn naming a layer, and
+   under ``torch.profiler`` the device-to-host copies and synchronisations
+   a flush with drift off and on: one more copy every 2 flushes; [25e]
+   ``PredictionService`` from 4 threads: rows bit-equal to ``Predictor``'s;
+   [25f] 2 LM steps through ``LocalOptimizer`` with a checkpoint, then
+   ``export_step_artifact``; a fresh process with an empty cache directory
+   ``warm_start`` s, ``resume`` s and trains to step 4 with 0 builds,
+   bit-equal to an uninterrupted 4-step run; [25g] an exception escaping
+   ``with ModelServer()`` leaves a postmortem bundle that ``verify_bundle``
+   accepts, its reason naming the class. [25f]'s fresh process runs beside
+   [25c]-[25g], which read counts, bits and records, not times.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -499,7 +528,11 @@ each under its ``parity_config`` name, the flagship served,
 ``unet_predict`` and ``modules_slice21``, and [21]'s ``imagenet_shards`` and
 ``augment_pipeline``, and [22]'s ``distri_recipe``, ``distri_resnet_2rank``,
 ``distri_vgg_2rank``, ``distri_policies`` and ``distri_resume``, the last
-four counted in the ranks' processes and summed, and [24]'s ``obs_lm``) runs with every kernel's launch count set to 0 just
+four counted in the ranks' processes and summed, and [24]'s ``obs_lm``,
+and [25]'s ``surface_cold`` and ``surface_warm`` (counted in their
+processes), ``surface_rejections``, ``surface_drift``,
+``prediction_service``, ``step_export`` and ``step_resume`` (counted in its
+process) and ``server_postmortem``) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -3505,6 +3538,13 @@ def _serve_mix(server, x, clients, per_client, seed0, on_half=None):
     return wall, done
 
 
+# A request slower than obs.trace's slow threshold (250 ms) is promoted: its
+# five span records join the ring beside the serve records, and [12]'s and
+# [19a']'s mix B hold many such requests. The ring must keep every serve
+# record for _settled to count them.
+SERVE_RING = 1 << 16
+
+
 def _settled(server, tel, n_served):
     """The model's flush count once its serve records account for
     ``n_served`` requests (a flush emits its record just after it resolves
@@ -3549,7 +3589,7 @@ def phase_flagship_serving(card):
     log(f"[12] {name}, stem conv7: {v1.n_parameters() / 1e6:.3f} M params, two weight sets "
         f"from seeds 1 and 2, {len(x)} records of {tuple(x.shape[1:])} f32, bf16 compute; "
         f"built in {time.perf_counter() - t0:.1f} s")
-    tel = Telemetry()
+    tel = Telemetry(ring_capacity=SERVE_RING)
     swap = {}
     torch.cuda.synchronize()
     reset_counts()  # the main path starts here
@@ -7471,7 +7511,7 @@ def _quant_serving(card, dev, family, x):
     from bigdl_tpu_torch.serving.batcher import _nearest_rank
 
     model = _quant_flagship(dev)
-    tel = Telemetry()
+    tel = Telemetry(ring_capacity=SERVE_RING)
     reset_counts()  # the main path starts here
     with ModelServer(telemetry=tel) as server:
         server.register("flagship", model, sample_input=x[0], batch_size=QUANT["batch"],
@@ -9551,24 +9591,16 @@ def phase_slice23(card):
     t0 = time.perf_counter()
     by_path = {"distri_recipe": phase_distri_one_rank(card)}
     by_path.update(phase_distri_two_ranks(card))
-    _multiprocess_tool(card)
-    log(f"[22] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[22] done in {time.perf_counter() - t0:.1f} s (tools/torch_multiprocess_smoke.py "
+        "runs beside [23e])")
     return by_path
 
 
-def _multiprocess_tool(card):
-    """[22] ``tools/torch_multiprocess_smoke.py`` on this device."""
-    args = [sys.executable, str(ROOT / "tools" / "torch_multiprocess_smoke.py"), "--json",
+def _multiprocess_tool_args():
+    """[22]'s ``tools/torch_multiprocess_smoke.py`` on this device (started
+    beside [23e]'s examples: both are pass/fail runs of spawned processes)."""
+    return [sys.executable, str(ROOT / "tools" / "torch_multiprocess_smoke.py"), "--json",
             "--device", "cpu" if DISTRI_DEVICE == "cpu" else "cuda"]
-    t0 = time.perf_counter()
-    r = subprocess.run(args, capture_output=True, text=True, timeout=300, cwd=str(ROOT))
-    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
-    log(f"[22] tools/torch_multiprocess_smoke.py: exit {r.returncode} in "
-        f"{time.perf_counter() - t0:.1f} s, {lines[-1] if lines else r.stdout[-500:]}; "
-        f"card {card}")
-    if r.returncode != 0:
-        raise AssertionError(f"[22] the two-process smoke failed:\n{r.stdout[-2000:]}"
-                             f"\n{r.stderr[-2000:]}")
 
 
 # ----------------------------------------------------------------------------- [23]
@@ -9711,11 +9743,9 @@ def _mesh_job_pipe(rank, world, out):
     """[23a] the norm-LM/LN through PipelineOptimizer on a 6-stage mesh."""
     import statistics
 
-    import numpy as np
-    import torch
     from bigdl_tpu_torch import RandomGenerator
     from bigdl_tpu_torch.dataset import DataSet
-    from bigdl_tpu_torch.optim import SGD, Adam, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.optim import Adam, Trigger
     from bigdl_tpu_torch.parallel import PipelineOptimizer, _comm, make_mesh
 
     c, dev = MESH_PIPE, MESH_DEVICE
@@ -9746,13 +9776,23 @@ def _mesh_job_pipe(rank, world, out):
         _free()
     finally:
         restore()
-    # 3 f32 SGD steps on the mesh, sound and planted, then (rank 0) the
-    # sequential stack
+    _pipe_f32_check(rank, mesh, x, y, out, fused=True, planted=True)
+
+
+def _pipe_f32_check(rank, mesh, x, y, out, fused: bool, planted: bool) -> None:
+    """[23a]'s check: 3 f32 SGD steps on the mesh (sound, and with the
+    planted fault when ``planted``), then on rank 0 the sequential stack,
+    under the fused-kernel switch ``fused``; into ``out``: ``check``,
+    ``planted``, ``ref``, ``p0`` (rank 0), each (losses, parameters)."""
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.parallel import PipelineOptimizer, _comm
+
+    c, dev = MESH_PIPE, MESH_DEVICE
     restore = _f32_card()
     try:
-        from bigdl_tpu_torch import Engine
-
-        Engine.set_fused_kernels(True)
+        Engine.set_fused_kernels(fused)
         n = c["check_batch"]
 
         def build():
@@ -9771,16 +9811,19 @@ def _mesh_job_pipe(rank, world, out):
         p0 = _flat_params(model)
         out["check"] = fit(model, PipelineOptimizer, mesh=mesh, n_micro=c["n_micro"])
         del model
-        model = build()
-        out["planted"] = fit(model, _doubled(PipelineOptimizer, MESH_PLANT["pipe"]), mesh=mesh,
-                             n_micro=c["n_micro"])
-        del model
+        if planted:
+            model = build()
+            out["planted"] = fit(model, _doubled(PipelineOptimizer, MESH_PLANT["pipe"]),
+                                 mesh=mesh, n_micro=c["n_micro"])
+            del model
         _free()
         _comm.barrier()
         if rank == 0:
             model = build()
             out["ref"] = fit(model, LocalOptimizer)
             out["p0"] = p0
+            out["names"] = [n_ for n_, _ in model.named_parameters()]
+            out["sizes"] = [p.numel() for _, p in model.named_parameters()]
             del model
             _free()
         _comm.barrier()
@@ -10258,17 +10301,22 @@ def phase_mesh_four(card):
 
 
 def phase_mesh_examples(card):
-    """[23e] the three mesh mains at their JAX mains' defaults, started
-    together (20 ranks sharing the card; their output to files, so no pipe
-    fills while another is read) and each joined under its deadline."""
+    """[23e] the three mesh mains at their JAX mains' defaults but one epoch
+    (``--max-epoch 1``, of 2), started together (20 ranks sharing the card;
+    their output to files, so no pipe fills while another is read) with
+    [22]'s two-process tool beside them, each joined under its deadline."""
     import re
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="smoke_examples_") as folder:
         procs = {}
-        for name in MESH_EXAMPLES:
-            args = [sys.executable, "-m", f"bigdl_tpu_torch.examples.{name}"]
-            if MESH_DEVICE == "cpu":
+        for name in MESH_EXAMPLES + ("multiprocess_tool",):
+            if name == "multiprocess_tool":
+                args = _multiprocess_tool_args()
+            else:
+                args = [sys.executable, "-m", f"bigdl_tpu_torch.examples.{name}",
+                        "--max-epoch", "1"]
+            if MESH_DEVICE == "cpu" and name != "multiprocess_tool":
                 args += ["--platform", "cpu"]
             out = open(os.path.join(folder, f"{name}.out"), "w")
             err = open(os.path.join(folder, f"{name}.err"), "w")
@@ -10288,6 +10336,14 @@ def phase_mesh_examples(card):
                 text = f.read()
             with open(err.name) as f:
                 tail = f.read()[-3000:]
+            if name == "multiprocess_tool":
+                lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+                log(f"[22] tools/torch_multiprocess_smoke.py (beside [23e]): exit "
+                    f"{proc.returncode} in {wall:.1f} s, {lines[-1] if lines else text[-500:]}; "
+                    f"card {card}")
+                if proc.returncode != 0:
+                    failed.append(f"the two-process smoke:\n{text[-2000:]}\n{tail}")
+                continue
             found = re.findall(r"bigram-map recovery: ([0-9.]+) \(rank 0 of (\d+)\)", text)
             log(f"[23e] examples/{name}.py: exit {proc.returncode} in {wall:.1f} s, "
                 f"bigram-map recovery {found[-1][0] if found else None} over "
@@ -10843,6 +10899,629 @@ def phase_slice25(card):
     return by_path
 
 
+# [25] serving's remaining surface (slice 26), driven by the full-width LM of
+# [5]. The boots run as fresh processes, each with its own empty cache
+# directory under build/, so [25a] builds the kernel library once and [25b]
+# loads the one its bundle carries. Rehearse it on the CPU by importing
+# chip_smoke, setting SURF_DEVICE = "cpu", cutting SURF_LM (V 64, H 32, 4
+# heads, filter 64, 2 layers, T 16) and calling phase_slice26("cpu") (the
+# build and launch checks are the card's).
+SURF_DEVICE = "cuda"
+SURF_LM = {"vocab": 8192, "hidden": 512, "heads": 8, "filt": 2048, "layers": 6, "seq": 2048}
+SURF_REQUESTS, SURF_THREADS, SURF_BATCH = 16, 4, 8
+SURF_DRIFT_EVERY = 2  # [25d]
+SURF_TOL = 0.1  # [25a]'s row against a direct forward: [5]'s bf16 limit
+
+
+def _surface_lm(filt=None, seed=SEED):
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.nn import Transformer
+
+    w = SURF_LM
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
+    RandomGenerator.set_seed(seed)
+    return Transformer(w["vocab"], w["hidden"], w["heads"], filt or w["filt"], w["layers"],
+                       0.0, 0.0, 0.0, mode="lm", device=SURF_DEVICE).eval()
+
+
+def _surface_records(n=SURF_REQUESTS, seed=SEED):
+    import numpy as np
+
+    w = SURF_LM
+    return np.random.RandomState(seed).randint(1, w["vocab"], size=(n, w["seq"])).astype(
+        np.int64)
+
+
+def _row_hash(t) -> str:
+    """sha256 of a host tensor's bytes: rows compared bit for bit."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).numpy()).hexdigest()
+
+
+def _serve_threads(server, name, records, threads=SURF_THREADS):
+    """Every record from ``threads`` client threads; the rows in order."""
+    rows = [None] * len(records)
+
+    def client(idx):
+        futs = [(i, server.infer(name, records[i])) for i in idx]
+        for i, f in futs:
+            rows[i] = f.result(timeout=300)
+
+    ts = [threading.Thread(target=client, args=(range(c, len(records), threads),))
+          for c in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    if any(t.is_alive() for t in ts) or any(r is None for r in rows):
+        raise RuntimeError("not every request was served")
+    return rows
+
+
+def _scrape(url):
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, (time.perf_counter() - t0) * 1e3, body
+
+
+def _surface_child(mode: str, bundle: str, out: str, lm: dict, device: str) -> None:
+    """[25a] (``mode="cold"``) or [25b] (``"warm"``) in a fresh process whose
+    ``BIGDL_COMPILE_CACHE_DIR`` is empty: serve the 16 records, write the
+    readings to ``out`` (JSON)."""
+    import torch
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serving import ModelServer
+
+    global SURF_LM, SURF_DEVICE
+    SURF_LM, SURF_DEVICE = lm, device
+    t_boot = time.perf_counter()
+    model = _surface_lm()
+    records = _surface_records()
+    res = {"mode": mode}
+    scrapes = []
+    reset_counts()  # the main path starts here
+    server = ModelServer(metrics_port=0 if mode == "cold" else None)
+    try:
+        if mode == "warm":
+            t0 = time.perf_counter()
+            server.warm_start(bundle)
+            res["warm_start_s"] = time.perf_counter() - t0
+        server.register("lm", model, sample_input=records[0], batch_size=SURF_BATCH,
+                        max_delay_ms=5, drift=True, drift_every=1,
+                        artifacts=bundle if mode == "warm" else None)
+        res["ready_s"] = time.perf_counter() - t_boot
+        stop = threading.Event()
+
+        def scraper():
+            base = f"http://127.0.0.1:{server.metrics_port}"
+            while not stop.is_set():
+                for path in ("/healthz", "/metrics"):
+                    code, ms, body = _scrape(base + path)
+                    scrapes.append((path, code, ms, len(body)))
+                stop.wait(0.02)
+
+        scr = threading.Thread(target=scraper) if mode == "cold" else None
+        if scr is not None:
+            scr.start()
+        t0 = time.perf_counter()
+        rows = _serve_threads(server, "lm", records)
+        res["serve_s"] = time.perf_counter() - t0
+        if scr is not None:
+            stop.set()
+            scr.join(30)
+        res["flushes"] = server.models()["lm"]["flushes"]
+        res["aot_modules"] = server.models()["lm"]["aot_modules"]
+        if mode == "cold":
+            t0 = time.perf_counter()
+            manifest = server.export_artifacts(bundle)
+            res["export_s"] = time.perf_counter() - t0
+            res["files"] = {k: v["bytes"] for k, v in manifest["files"].items()}
+            res["cache_entries"] = manifest["cache_entries"]
+    finally:
+        server.close()
+    res["counts"] = read_counts()  # the main path ends here
+    res["builds"], res["loads"] = _build.builds, _build.loads
+    recs = server.telemetry.ring.records
+    res["warmup"] = [r for r in recs if r["type"] == "warmup"]
+    res["warns"] = [r for r in recs if r["type"] == "warn"]
+    serves = [r for r in recs if r["type"] == "serve"]
+    res["serve_drift"] = [sorted(r["drift"]) for r in serves if r.get("drift")]
+    res["serve_drift_first"] = next((r["drift"] for r in serves if r.get("drift")), None)
+    res["serve_cost"] = [{k: r.get(k) for k in ("records", "model_flops", "flops_per_record",
+                                                "achieved_flops_s", "mfu", "trace_id")}
+                         for r in serves]
+    res["scrapes"] = scrapes
+    res["row_hashes"] = [_row_hash(r) for r in rows]
+    res["row_shape"] = list(rows[0].shape)
+    res["rows_finite"] = all(bool(torch.isfinite(r).all()) for r in rows)
+    if mode == "cold":  # the warm boot's rows are held to the cold boot's bits
+        with torch.inference_mode():
+            ref = model.forward(records[0][None])[0].float().cpu()
+        res["row0_vs_direct"] = float((rows[0].float() - ref).abs().max())
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
+
+
+def _child_start(call: str, cache_dir: str):
+    """Start ``chip_smoke.<call>`` in a fresh process whose compile cache is
+    ``cache_dir`` (its stderr to a file beside the cache)."""
+    os.makedirs(cache_dir, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "BIGDL_COMPILE_CACHE_DIR": cache_dir}
+    err = open(cache_dir + ".err", "w")
+    proc = subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+                            cwd=str(ROOT), stdout=subprocess.DEVNULL, stderr=err, env=env)
+    return proc, time.perf_counter(), err, call
+
+
+def _child_join(child, timeout: int = 600) -> float:
+    """Wait for a started child; its wall seconds, or raises with the end
+    of its stderr when it fails or outlives ``timeout``."""
+    proc, t0, err, call = child
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    err.close()
+    if proc.returncode != 0:
+        with open(err.name) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"[25] the child {call.split('(')[0]} failed "
+                             f"({proc.returncode}):\n{tail}")
+    return time.perf_counter() - t0
+
+
+def _child(call: str, cache_dir: str, timeout: int = 600) -> float:
+    return _child_join(_child_start(call, cache_dir), timeout)
+
+
+def phase_surface_boots(card, root):
+    """[25a] the cold boot and its export, [25b] the warm boot: returns the
+    two processes' launches and the bundle's path."""
+    import statistics
+
+    bundle = os.path.join(root, "bundle")
+    res = {}
+    for mode in ("cold", "warm"):
+        out = os.path.join(root, f"{mode}.json")
+        wall = _child(f"_surface_child({mode!r}, {bundle!r}, {out!r}, {SURF_LM!r}, "
+                      f"{SURF_DEVICE!r})", os.path.join(root, f"cache_{mode}"))
+        with open(out) as f:
+            res[mode] = json.load(f)
+        res[mode]["wall_s"] = wall
+    cold, warm = res["cold"], res["warm"]
+    layers = SURF_LM["layers"]
+    for tag, r in (("[25a]", cold), ("[25b]", warm)):
+        w = r["warmup"][0]
+        log(f"{tag} {r['mode']} boot in a fresh process ({r['wall_s']:.1f} s): ready in "
+            f"{r['ready_s']:.2f} s, warmup_s {w['seconds']:.3f}, fresh_compiles "
+            f"{w['fresh_compiles']}, compiles {w['compiles']}, warm_start {w['warm_start']}, "
+            f"bundle {w.get('bundle')}; nvcc builds {r['builds']}, library loads {r['loads']}; "
+            f"{SURF_REQUESTS} requests in {r['serve_s']:.3f} s over {r['flushes']} flushes; "
+            f"launches {r['counts']}; card {card}")
+        expect = layers * (len(r["warmup"]) + r["flushes"])
+        if SURF_DEVICE != "cuda":  # the launch and build checks are the card's
+            continue
+        if r["counts"]["flash_attention_fwd"] != expect:
+            raise AssertionError(f"{tag} flash forward launched "
+                                 f"{r['counts']['flash_attention_fwd']} times, expected {expect}")
+        if r["counts"]["probe_add_one"] != 1:
+            raise AssertionError(f"{tag} the library's probe ran {r['counts']['probe_add_one']} "
+                                 "times, expected 1 (its load)")
+        if not r["rows_finite"] or r["row_shape"] != [SURF_LM["seq"], SURF_LM["vocab"]]:
+            raise AssertionError(f"{tag} rows of shape {r['row_shape']} or not finite")
+        if r.get("row0_vs_direct", 0.0) > SURF_TOL:
+            raise AssertionError(f"{tag} served row 0 is {r['row0_vs_direct']} from a direct "
+                                 f"forward (limit {SURF_TOL})")
+    if SURF_DEVICE == "cuda" and (cold["warmup"][0]["fresh_compiles"] != 1
+                                  or cold["builds"] != 1):
+        raise AssertionError(f"[25a] expected 1 build, got {cold['builds']} "
+                             f"(fresh_compiles {cold['warmup'][0]['fresh_compiles']})")
+    codes = {}
+    for path, code, ms, nbytes in cold["scrapes"]:
+        codes.setdefault(path, []).append((code, ms))
+    for path in ("/healthz", "/metrics"):
+        got = codes.get(path, [])
+        if not got or any(c != 200 for c, _ in got):
+            raise AssertionError(f"[25a] {path} scraped {got}")
+        log(f"    {path}: {len(got)} scrapes while serving, all 200, median "
+            f"{statistics.median(ms for _, ms in got):.2f} ms, max {max(ms for _, ms in got):.2f} ms")
+    total = sum(cold["files"].values())
+    log(f"    bundle: {len(cold['files'])} files, {total} bytes ({cold['cache_entries']} cache "
+        f"files), exported in {cold['export_s']:.3f} s: {cold['files']}")
+    first = cold["serve_drift_first"]
+    layer0 = sorted(first)[0]
+    log(f"    serve records: {len(cold['serve_cost'])}, drift on {len(cold['serve_drift'])} "
+        f"(every flush), {len(first)} layers; {layer0}: {first[layer0]}; costs of the last: "
+        f"{cold['serve_cost'][-1]}")
+    if len(cold["serve_drift"]) != cold["flushes"] or cold["serve_cost"][-1]["model_flops"] is None:
+        raise AssertionError("[25a] a serve record lacks its drift or cost fields")
+    w = warm["warmup"][0]
+    if warm["builds"] != 0 or w["fresh_compiles"] != 0 or w.get("bundle") != bundle \
+            or warm["aot_modules"] != 1 or warm["warns"]:
+        raise AssertionError(f"[25b] not a warm boot: builds {warm['builds']}, warmup {w}, "
+                             f"aot_modules {warm['aot_modules']}, warns {warm['warns']}")
+    equal = warm["row_hashes"] == cold["row_hashes"]
+    log(f"[25b] rows bit-equal to [25a]'s: {equal} ({sum(a == b for a, b in zip(warm['row_hashes'], cold['row_hashes']))}"
+        f"/{SURF_REQUESTS}); warmup_s cold {cold['warmup'][0]['seconds']:.3f} / warm "
+        f"{w['seconds']:.3f}, ready cold {cold['ready_s']:.2f} s / warm {warm['ready_s']:.2f} s "
+        f"(warm_start {warm['warm_start_s']:.3f} s); card {card}")
+    if not equal:
+        raise AssertionError("[25b] the warm boot's rows are not [25a]'s")
+    return {"surface_cold": cold["counts"], "surface_warm": warm["counts"]}, bundle
+
+
+def phase_surface_rejections(card, root, bundle, model):
+    """[25c] five bundles that fail a check: each registration boots cold,
+    serves and leaves one ``artifact_incompatible`` warn."""
+    import shutil
+
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serving import ModelServer
+
+    records = _surface_records(2, seed=SEED + 1)
+
+    def edit_manifest(b, fn):
+        path = os.path.join(b, "manifest.json")
+        with open(path) as f:
+            man = json.load(f)
+        fn(man)
+        with open(path, "w") as f:
+            json.dump(man, f)
+
+    def truncate_lib(b):
+        lib = os.path.join(b, "cache", _build.LIB_NAME)
+        if not os.path.exists(lib):  # a CPU rehearsal's bundle holds no library
+            lib = os.path.join(b, "modules", sorted(os.listdir(os.path.join(b, "modules")))[0])
+        with open(lib, "r+b") as f:
+            f.truncate(os.path.getsize(lib) // 2)
+
+    cases = [
+        ("tampered hash", lambda b: edit_manifest(b, lambda m: m["files"][
+            next(iter(sorted(m["files"])))].update(sha256="0" * 64)), {}, "checksum"),
+        ("truncated library", truncate_lib, {}, "truncated"),
+        ("another torch", lambda b: edit_manifest(b, lambda m: m["fingerprint"].update(
+            torch="0.0.0-other")), {}, "'torch'"),
+        ("batch-size drift", lambda b: None, {"batch_size": SURF_BATCH // 2}, "geometry drift"),
+        ("architecture drift", lambda b: None, {"model": "filt"}, "signature mismatch"),
+    ]
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    try:
+        for i, (label, corrupt, kw, detail) in enumerate(cases):
+            b = os.path.join(root, f"reject{i}")
+            shutil.copytree(bundle, b)
+            corrupt(b)
+            cache = os.path.join(root, f"cache_reject{i}")
+            Engine.set_compilation_cache_dir(cache)
+            m = _surface_lm(filt=SURF_LM["filt"] // 2) if kw.pop("model", None) else model
+            with ModelServer() as server:
+                server.register("lm", m, sample_input=records[0], max_delay_ms=5, drift=True,
+                                drift_every=1, artifacts=b,
+                                batch_size=kw.get("batch_size", SURF_BATCH))
+                rows = server.predict("lm", records, timeout=300)
+                info = server.models()["lm"]
+                warns = [r for r in server.telemetry.ring.records if r["type"] == "warn"]
+            seeded = sorted(os.listdir(cache))
+            ok = (len(warns) == 1 and warns[0]["reason"] == "artifact_incompatible"
+                  and detail in warns[0]["detail"] and info["aot_modules"] == 0
+                  and rows.shape[0] == 2 and bool(torch_isfinite(rows))
+                  and seeded in ([], sorted([_build.LIB_NAME, _build.STAMP_NAME])))
+            log(f"[25c] {label}: served {rows.shape[0]} rows cold, warn {warns[0]['detail'] if warns else None!r}, "
+                f"cache directory {seeded}")
+            if not ok:
+                raise AssertionError(f"[25c] {label}: warns {warns}, info {info}, seeded {seeded}")
+            if m is not model:
+                del m
+    finally:
+        Engine.set_compilation_cache_dir(None)
+    counts = read_counts()  # the main path ends here
+    log(f"    five rejections in {time.perf_counter() - t0:.1f} s, launches {counts}; no nvcc "
+        f"build ({_build.builds} in this process, all in [2]); card {card}")
+    return counts
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+
+    return bool(torch.isfinite(t).all())
+
+
+def _profiled(fn):
+    """``fn()`` under a torch.profiler of every thread, CUDA sync events
+    on; returns the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        cfg = _ExperimentalConfig(profile_all_threads=True, enable_cuda_sync_events=True)
+    except (ImportError, TypeError):
+        cfg = None
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    prof = profile(activities=acts, experimental_config=cfg)
+    prof.start()
+    try:
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    return prof
+
+
+def phase_surface_drift(card, root, model):
+    """[25d] a stable stream then a shifted one: the drift warn, and the
+    copies and synchronisations a flush with drift off and on."""
+    import numpy as np
+    from bigdl_tpu_torch.serving import ModelServer
+
+    stable = _surface_records(12 * SURF_BATCH, seed=SEED + 2)
+    shifted = np.full((2 * SURF_BATCH, SURF_LM["seq"]), 7, np.int64)  # one token, repeated
+    window = 4  # flushes profiled
+    n_stable = len(stable) // SURF_BATCH
+    out = {}
+    reset_counts()  # the main path starts here
+    for drift in (False, True):
+        with ModelServer() as server:
+            # max_delay_ms past any submit: each predict of 8 records is one flush
+            server.register("lm", model, sample_input=stable[0], max_delay_ms=60_000,
+                            batch_size=SURF_BATCH, drift=drift, drift_every=SURF_DRIFT_EVERY)
+            batches = [stable[i:i + SURF_BATCH] for i in range(0, len(stable), SURF_BATCH)]
+
+            def flush(b):
+                # one flush, waited for to its serve record: the drift sample
+                # comes after the results, before the record
+                n = len([r for r in server.telemetry.ring.records if r["type"] == "serve"])
+                server.predict("lm", b, timeout=300)
+                end = time.perf_counter() + 60
+                while len([r for r in server.telemetry.ring.records
+                           if r["type"] == "serve"]) <= n and time.perf_counter() < end:
+                    time.sleep(0.001)
+
+            for b in batches[:2]:
+                flush(b)
+            f0 = server.models()["lm"]["flushes"]
+            prof = _profiled(lambda: [flush(b) for b in batches[2:2 + window]])
+            flushed = server.models()["lm"]["flushes"] - f0
+            if drift:  # the rest of the baseline, then the shift
+                for b in batches[2 + window:]:
+                    flush(b)
+                for i in range(0, len(shifted), SURF_BATCH):
+                    flush(shifted[i:i + SURF_BATCH])
+        recs = server.telemetry.ring.records  # after close(): the last sample is in
+        d2h, syncs = _sync_counts(prof, flushed)
+        out[drift] = (d2h, syncs, flushed)
+        del prof
+        if drift:
+            warns, sampled, n_serves = [], [], 0
+            for r in recs:  # each warn with the number of flushes before it
+                n_serves += r["type"] == "serve"
+                if r["type"] == "serve" and r.get("drift"):
+                    sampled.append(r)
+                if r["type"] == "warn" and r["reason"] == "activation_drift":
+                    warns.append((n_serves, r))
+    counts = read_counts()  # the main path ends here
+    off, on = out[False], out[True]
+    added = (on[0] - off[0]) * SURF_DRIFT_EVERY
+    log(f"[25d] a flush of {SURF_BATCH} (over {off[2]} / {on[2]} profiled flushes): drift off "
+        f"{off[0]:g} device-to-host copies, {off[1]:g} synchronisations; drift on "
+        f"(drift_every {SURF_DRIFT_EVERY}) {on[0]:g} copies, {on[1]:g} synchronisations: "
+        f"{added:g} added copy every {SURF_DRIFT_EVERY} flushes; {len(sampled)} sampled flushes; "
+        f"warns (flush, layer, z) {[(n, w['layer'], w['z']) for n, w in warns]} with the shift "
+        f"at flush {n_stable + 1}; launches {counts}; card {card}")
+    shifted_warns = [w for n, w in warns if n >= n_stable]
+    if not shifted_warns or not shifted_warns[0].get("layer"):
+        raise AssertionError("[25d] no activation_drift warn naming a layer on the shifted "
+                             "stream")
+    if SURF_DEVICE == "cuda" and (abs(added - 1.0) > 1e-9 or off[2] != window
+                                  or on[2] != window):
+        raise AssertionError(f"[25d] drift sampling added {added} copies every "
+                             f"{SURF_DRIFT_EVERY} flushes, expected 1: {out}")
+    return counts
+
+
+def phase_prediction_service(card, model):
+    """[25e] PredictionService from 4 threads against Predictor."""
+    import torch
+    from bigdl_tpu_torch.optim import PredictionService, Predictor
+
+    records = _surface_records(8, seed=SEED + 3)
+    svc = PredictionService(model)
+    got = [None] * 4
+    reset_counts()  # the main path starts here
+
+    def client(i):
+        got[i] = svc.predict(records[2 * i:2 * i + 2])
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # the main path ends here
+    ref = Predictor(model)
+    equal = all(torch.equal(got[i], ref.predict(records[2 * i:2 * i + 2])) for i in range(4))
+    log(f"[25e] PredictionService: 4 threads x 2 records in {wall:.3f} s (batch "
+        f"{ref.batch_size} each), rows bit-equal to Predictor's: {equal}; launches {counts}; "
+        f"card {card}")
+    if not equal or (SURF_DEVICE == "cuda"
+                     and counts["flash_attention_fwd"] != 4 * SURF_LM["layers"]):
+        raise AssertionError(f"[25e] rows differ or launches {counts}")
+    return counts
+
+
+def _step_resume_child(bundle: str, ckpt: str, out: str, lm: dict, device: str) -> None:
+    """[25f]'s fresh process: ``warm_start``, ``resume``, the rest of the
+    run; the parameters to ``out`` and the readings beside them."""
+    import torch
+    from bigdl_tpu_torch.ops import _build
+
+    global OBS_DEVICE, OBS_LM
+    OBS_DEVICE, OBS_LM = device, lm
+    ids, targets = _obs_data(OBS_RECORDS)
+    reset_counts()  # the main path starts here
+    opt = _obs_opt(ids, targets, 4)
+    manifest = opt.warm_start(bundle)
+    opt.resume(ckpt)
+    opt.optimize()
+    torch.save(_obs_params(opt.model).cpu(), out)
+    with open(out + ".json", "w") as f:
+        json.dump({"counts": read_counts(), "builds": _build.builds, "loads": _build.loads,
+                   "step": manifest["step"], "steps": opt.n_steps}, f, default=str)
+
+
+def phase_step_bundle_start(card, root, bundle):
+    """[25f] 2 LM steps, their checkpoint and step bundle, and the fresh
+    process that resumes from them (started here, joined by
+    :func:`phase_step_bundle_finish` while [25c]-[25g] run)."""
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.optim import Trigger
+    from bigdl_tpu_torch.utils import aot
+
+    ids, targets = _obs_data(OBS_RECORDS)
+    ref = _obs_opt(ids, targets, 4)
+    ref.optimize()
+    p_ref = _obs_params(ref.model).cpu()
+    del ref
+    _free()
+    ckpt = os.path.join(root, "step_ckpt")
+    step_bundle = os.path.join(root, "step_bundle")
+    # this process's cache directory holds the library [25a] built: the
+    # bundle's export harvests it from there
+    Engine.set_compilation_cache_dir(os.path.join(root, "cache_step_export"))
+    try:
+        aot.seed_from_bundle(bundle)
+        reset_counts()  # the main path starts here
+        opt = _obs_opt(ids, targets, 2)
+        opt.set_checkpoint(ckpt, Trigger.several_iteration(2), keep_last=1)
+        opt.optimize()
+        manifest = opt.export_step_artifact(step_bundle)
+        counts = read_counts()  # the main path ends here
+    finally:
+        Engine.set_compilation_cache_dir(None)
+    del opt
+    _free()
+    out = os.path.join(root, "step_params.pt")
+    child = _child_start(f"_step_resume_child({step_bundle!r}, {ckpt!r}, {out!r}, {OBS_LM!r}, "
+                         f"{OBS_DEVICE!r})", os.path.join(root, "cache_step_resume"))
+    return child, out, p_ref, manifest, counts
+
+
+def phase_step_bundle_finish(card, started):
+    """[25f] the resumed process: 0 builds, bit-equal to 4 uninterrupted
+    steps."""
+    import torch
+
+    child, out, p_ref, manifest, counts = started
+    wall = _child_join(child)
+    with open(out + ".json") as f:
+        child = json.load(f)
+    equal = torch.equal(torch.load(out), p_ref)
+    step = manifest["step"]
+    log(f"[25f] step bundle: {manifest['cache_entries']} cache files, module {step['module']}, "
+        f"{len(step['arg_specs'])} argument specs, export_error {step['export_error']!r}; the "
+        f"fresh process warm-started, resumed and ran {child['steps']} steps ({wall:.1f} s, "
+        f"beside [25c]-[25g]) "
+        f"with {child['builds']} nvcc builds and {child['loads']} library load: bit-equal to the "
+        f"uninterrupted run: {equal}; launches {child['counts']}; card {card}")
+    card_checks = OBS_DEVICE == "cuda"  # no library is built or loaded on the CPU
+    if child["builds"] != 0 or not equal or (card_checks and (
+            child["loads"] != 1 or manifest["cache_entries"] != 2)):
+        raise AssertionError(f"[25f] resume not warm or not equal: {child}, equal {equal}")
+    return counts, child["counts"]
+
+
+def phase_server_postmortem(card, root, model):
+    """[25g] an exception escaping ``with ModelServer()``: a verified
+    postmortem bundle naming the class."""
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.obs import blackbox
+    from bigdl_tpu_torch.serving import ModelServer
+
+    class ServingFault(RuntimeError):
+        pass
+
+    run_dir = os.path.join(root, "run_g")
+    Engine.set_run_dir(run_dir)
+    reset_counts()  # the main path starts here
+    try:
+        with ModelServer() as server:
+            server.register("lm", model, sample_input=_surface_records(1)[0],
+                            batch_size=SURF_BATCH, max_delay_ms=5)
+            raise ServingFault("planted")
+    except ServingFault:
+        pass
+    finally:
+        Engine.set_run_dir(None)
+    counts = read_counts()  # the main path ends here
+    pm = os.path.join(run_dir, "postmortem")
+    bundles = sorted(d for d in os.listdir(pm) if d != "hard_crash")
+    manifest = blackbox.verify_bundle(os.path.join(pm, bundles[0]))
+    with open(os.path.join(pm, bundles[0], "reason.json")) as f:
+        reason = json.load(f)
+    log(f"[25g] postmortem {bundles}: verified ({len(manifest['files'])} files), reason "
+        f"{reason['reason']!r}, error {reason['error']['class']}; launches {counts}")
+    if len(bundles) != 1 or reason["error"]["class"] != "ServingFault" \
+            or "ServingFault" not in reason["reason"]:
+        raise AssertionError(f"[25g] postmortem {bundles}: {reason.get('reason')}")
+    return counts
+
+
+def phase_slice26(card):
+    """[25] serving's remaining surface; returns the main paths' launches."""
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch import Engine
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    # the settings a fresh process starts with: the bundles' fingerprints
+    # of the children and of this process must agree
+    Engine.set_fused_kernels(None)
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype(None)
+    os.makedirs(ROOT / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_surface_", dir=str(ROOT / "build")) as root:
+        by_path, bundle = phase_surface_boots(card, root)
+        _free()
+        # [25f]'s fresh process resumes beside [25c]-[25g] (its readings are
+        # counts and bits; those phases' are counts, bits and records)
+        step = phase_step_bundle_start(card, root, bundle)
+        _free()
+        model = _surface_lm()
+        by_path["surface_rejections"] = phase_surface_rejections(card, root, bundle, model)
+        _free()
+        by_path["surface_drift"] = phase_surface_drift(card, root, model)
+        _free()
+        by_path["prediction_service"] = phase_prediction_service(card, model)
+        _free()
+        by_path["server_postmortem"] = phase_server_postmortem(card, root, model)
+        del model
+        _free()
+        by_path["step_export"], by_path["step_resume"] = phase_step_bundle_finish(card, step)
+        _free()
+    log(f"[25] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -10892,6 +11571,7 @@ def main() -> int:
     by_path.update(phase_slice23(card))
     by_path.update(phase_slice24(card))
     by_path.update(phase_slice25(card))
+    by_path.update(phase_slice26(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

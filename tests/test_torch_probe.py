@@ -111,7 +111,7 @@ def test_failure_on_a_cuda_device_raises_and_is_cached(monkeypatch):
     for _ in range(2):
         with pytest.raises(RuntimeError, match="illegal instruction") as e:
             probe.run(_FakeLib(), dev)
-        assert str(_build.BUILD_DIR / "build.log") in str(e.value)
+        assert str(_build.build_dir() / "build.log") in str(e.value)
     assert calls == [dev]
     assert "illegal instruction" in probe.unavailable_reason(dev)
 

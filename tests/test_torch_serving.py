@@ -103,10 +103,16 @@ def test_close_without_drain_fails_pending(pair):
 
 
 def test_register_needs_a_sample_and_unique_names(pair):
+    """An unbuilt model needs a sample to be built from; a built one
+    registers without one, unwarmed, with an ``unwarmed_model`` warn (the
+    JAX server's contract)."""
     _, pm = pair
     with ModelServer() as server:
         with pytest.raises(ValueError, match="sample_input"):
-            server.register("lm", pm)
+            server.register("ffn", FeedForwardNetwork(16, 32, device="cpu"))
+        server.register("built", pm, batch_size=2)
+        warns = [r for r in server.telemetry.ring.records if r["type"] == "warn"]
+        assert [(w["reason"], w["model"]) for w in warns] == [("unwarmed_model", "built")]
         server.register("lm", pm, sample_input=_ids(1, 17)[0], batch_size=2,
                         warmup=False)
         with pytest.raises(ValueError, match="already registered"):
@@ -390,18 +396,26 @@ class TestServerSurface:
         assert outs["port"][0] == outs["jax"][0] == []
         np.testing.assert_allclose(outs["port"][1], outs["jax"][1], rtol=0, atol=CROSS_TOL)
 
-    def test_unported_options_raise(self):
+    def test_unported_options_raise(self, tmp_path):
+        """The five options the port once refused now work: the scrape
+        port binds, ``drift=`` stamps the serve records, ``export_artifacts``
+        writes a bundle that ``warm_start`` verifies and ``artifacts=``
+        covers with no ``warn``."""
         z = np.zeros(12, np.float32)
-        with pytest.raises(NotImplementedError, match="metrics_port"):
-            PORT.s.ModelServer(metrics_port=0)
+        bundle = str(tmp_path / "bundle")
+        with _server(PORT, telemetry=PORT.Telemetry(exporters=[]), metrics_port=0) as srv:
+            assert isinstance(srv.metrics_port, int) and srv.metrics_port > 0
+            srv.register("m", PORT.mlp(), sample_input=z, drift=True, drift_every=1,
+                         max_delay_ms=2)
+            srv.predict("m", [z], timeout=TIMEOUT)
+            manifest = srv.export_artifacts(bundle)
+        assert any(r.get("drift") for r in _records(srv.telemetry, "serve"))
+        assert srv.metrics_port is None  # close() took the endpoint down
         with _server(PORT, telemetry=PORT.Telemetry(exporters=[])) as srv:
-            for kw in (dict(artifacts="bundle"), dict(drift=True)):
-                with pytest.raises(NotImplementedError):
-                    srv.register("m", PORT.mlp(), sample_input=z, **kw)
-            for call in (srv.warm_start, srv.export_artifacts):
-                with pytest.raises(NotImplementedError, match="artifact"):
-                    call("bundle")
-            assert srv.models() == {}
+            assert srv.warm_start(bundle)["models"] == manifest["models"]
+            srv.register("m", PORT.mlp(), sample_input=z, drift=True, artifacts=bundle)
+            assert srv.models()["m"]["aot_modules"] == 1
+            assert not _records(srv.telemetry, "warn")
 
 
 # ---------------------------------------------------------------------------

@@ -209,8 +209,9 @@ class TestDeadlines:
                     fut.result(timeout=TIMEOUT)
                 back = time.perf_counter() - t0 < 5.0  # at the deadline, not the timeout
                 swept = _wait_until(lambda: b.health_snapshot()["swept_expired"] >= 1)
-                warned = any(w["reason"] == "deadline_exceeded"
-                             for w in _records(tel, "warn"))
+                # the sweep counts before it emits its warn: wait for the record too
+                warned = _wait_until(lambda: any(w["reason"] == "deadline_exceeded"
+                                                 for w in _records(tel, "warn")))
                 return (back, ei.value.stage in ("result", "queue"), swept,
                         b.health_snapshot()["deadline_missed"] >= 1, warned)
             finally:

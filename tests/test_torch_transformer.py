@@ -211,7 +211,8 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "        'bigdl_tpu_torch.examples.lenet_train', 'bigdl_tpu_torch.obs.blackbox',\n"
         "        'bigdl_tpu_torch.obs.perf', 'bigdl_tpu_torch.obs.health',\n"
         "        'bigdl_tpu_torch.resilience.policy', 'bigdl_tpu_torch.resilience.chaos',\n"
-        "        'bigdl_tpu_torch.visualization.tb'} <= set(names), names\n"
+        "        'bigdl_tpu_torch.visualization.tb', 'bigdl_tpu_torch.utils.aot',\n"
+        "        'bigdl_tpu_torch.serving.artifacts', 'bigdl_tpu_torch.obs.export'} <= set(names)\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"
