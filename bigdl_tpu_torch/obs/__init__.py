@@ -12,19 +12,18 @@ own copies, the same record types and fields):
 * :mod:`.profiler` — the one-shot memory breakdown and step cost;
 * :mod:`.perf` — MFU accounting (:class:`PerfAccountant`), the step-time
   decomposition and the :class:`PerfMonitor`;
-* :mod:`.fleet` — process identity and heartbeat files;
+* :mod:`.fleet` — process identity, heartbeat files and the
+  :class:`FleetMonitor` (stragglers, lost and departed hosts);
 * :mod:`.blackbox` — the flight recorder and postmortem bundles;
 * :mod:`.export` — the scrape endpoint (:class:`ObsEndpoint`: ``/healthz``,
   ``/metrics``, ``/telemetry/tail``, ``/trace``) over the rings.
-
-``FleetMonitor`` comes with the elastic runtime (ROADMAP Queue 1).
 """
 
 from .blackbox import (BundleTampered, BundleTruncated, FlightRecorder, PostmortemBundleError,
                        arm_crash_handler, disarm_crash_handler, dump_postmortem, load_bundle,
                        verify_bundle)
 from .export import ObsEndpoint
-from .fleet import process_identity, read_heartbeats, write_heartbeat
+from .fleet import FleetMonitor, process_identity, read_heartbeats, write_heartbeat
 from .health import ActivationDrift, DriftConfig, HealthConfig, HealthMonitor
 from .perf import PerfAccountant, PerfConfig, PerfMonitor
 from .profiler import cost_summary, memory_breakdown, profile_optimizer
@@ -46,6 +45,7 @@ __all__ = [
     "MonitorBase",
     "StallWatchdog",
     "ObsEndpoint",
+    "FleetMonitor",
     "process_identity",
     "read_heartbeats",
     "write_heartbeat",

@@ -14,6 +14,14 @@ copy, the same channels, record fields and attribution).
   output) ride the forward hooks (``AbstractModule.register_forward_hook``):
   a hook stashes a 3-vector under ``'_health_act'`` in the module's state,
   seeded with zeros at install.
+* On the sharded layouts each rank holds a part of the statistics' inputs:
+  ZeRO-1 a slice of the flat vectors (:meth:`flat_shard_stats`), the mesh
+  optimizers blocks of the leaves (:meth:`mesh_tree_stats`). Their partial
+  sums are summed over the ranks that hold the parts (one all-reduce of
+  the matrix, the clipping norm's way), so every rank holds the same rows.
+  ``bind_mesh_axis`` / :meth:`mesh_shard_stats` add per-data-shard
+  non-finite counts of the batch's inputs and targets, which
+  :meth:`attribute_shard` reads to name the shard of a diverged step.
 * The driver packs the matrix with the loss into one device vector and
   reads it in the one transfer it makes for the loss anyway, one step late
   (:meth:`HealthMonitor.snapshot` takes the host copy): no second pull. A
@@ -129,6 +137,7 @@ class HealthMonitor:
         self._hooked_modules: list = []
         self._hooked_model_id: Optional[int] = None
         self._ratio_breaches = 0
+        self._mesh_axis: Optional[tuple] = None  # (axis name, n shards)
 
     # ------------------------------------------------------- layout binding
     def bind_tree(self, params) -> None:
@@ -138,6 +147,11 @@ class HealthMonitor:
     def bind_flat(self, fp) -> None:
         """Bind the row labels to a flat codec's leaves (the same order)."""
         self._paths = [flat_leaf_path(p) for p in fp.paths]
+
+    def bind_mesh_axis(self, axis_name: str, n_shards: int) -> None:
+        """Label the ``shards`` rows ``<axis_name>[i]`` (the data axis of a
+        mesh optimizer)."""
+        self._mesh_axis = (str(axis_name), int(n_shards))
 
     def bind_acts(self, state) -> None:
         """The row labels of the hook entries seeded into ``state``."""
@@ -186,12 +200,22 @@ class HealthMonitor:
         """The statistics of one step over leaf lists (the clipped gradient,
         the weights before and after the update, in row order): ``{"layers":
         (L, 5)[, "acts": (A, 3)]}`` float32 on the weights' device."""
+        return self._finish(self._leaf_matrix(grads, old, new), new_state)
+
+    @staticmethod
+    def _leaf_matrix(grads, old, new) -> torch.Tensor:
+        """The (L, 5) per-leaf channels."""
         with torch.no_grad():
             g = [t.float() for t in grads]
             o = [t.float() for t in old]
             n = [t.float() for t in new]
-            mat = torch.stack([_sq_norms(g), _sq_norms(n), _sq_norms(torch._foreach_sub(n, o)),
-                               _nonfinite_counts(g), _nonfinite_counts(n)], dim=1)
+            return torch.stack([_sq_norms(g), _sq_norms(n), _sq_norms(torch._foreach_sub(n, o)),
+                                _nonfinite_counts(g), _nonfinite_counts(n)], dim=1)
+
+    def _finish(self, mat: torch.Tensor, new_state) -> Dict[str, torch.Tensor]:
+        """The step's statistics from the per-leaf matrix: one summed row
+        without ``per_layer``, the activation rows beside."""
+        with torch.no_grad():
             if not self.config.per_layer:
                 mat = mat.sum(dim=0, keepdim=True)
             out = {"layers": mat}
@@ -212,6 +236,53 @@ class HealthMonitor:
             return [t for _, t in _sorted_leaves(fp.unflatten(vec))]
 
         return self.leaf_stats(leaves(g_vec), leaves(old_vec), leaves(new_vec), new_state)
+
+    def flat_shard_stats(self, fp, g_shard, old_shard, new_shard, lo: int, psum,
+                         new_state=None):
+        """:meth:`leaf_stats` from this rank's slice ``[lo, lo + k)`` of the
+        flat ZeRO-1 vectors: each leaf's piece of it, the partial matrix
+        summed over the ranks by ``psum`` (in place), so every rank returns
+        the same rows."""
+        mat = self._leaf_matrix(fp.leaf_pieces(g_shard, lo), fp.leaf_pieces(old_shard, lo),
+                                fp.leaf_pieces(new_shard, lo))
+        return self._finish(psum(mat), new_state)
+
+    def mesh_tree_stats(self, grads, old_params, new_params, new_state, sum_rows):
+        """:meth:`tree_stats` over a mesh optimizer's blocks of the leaves:
+        ``sum_rows(paths, mat)`` sums the rows of the sharded leaves over
+        their axes (``paths`` the rows' leaf paths, in order)."""
+        leaves = _sorted_leaves(grads)
+        mat = self._leaf_matrix([t for _, t in leaves],
+                                [t for _, t in _sorted_leaves(old_params)],
+                                [t for _, t in _sorted_leaves(new_params)])
+        return self._finish(sum_rows([p for p, _ in leaves], mat), new_state)
+
+    @staticmethod
+    def mesh_shard_stats(x, t, n_shards: int, index: Optional[int] = None) -> torch.Tensor:
+        """The ``(n_shards, 2)`` non-finite counts of the batch's inputs and
+        targets by data shard (contiguous row blocks): of the whole batch,
+        or with ``index`` of this rank's rows only, in row ``index`` (the
+        caller sums the rows over the data axis)."""
+        def nonfinite(tree, blocks):
+            from ..utils.serialization import tree_items
+
+            leaves = [v for v in tree_items(tree).values() if isinstance(v, torch.Tensor)]
+            dev = leaves[0].device if leaves else "cpu"
+            tot = torch.zeros(blocks, dtype=torch.float32, device=dev)
+            for a in leaves:
+                if a.dim() == 0 or a.shape[0] % blocks:
+                    continue  # not led by the batch
+                nf = (~torch.isfinite(a.float())).float()
+                tot = tot + nf.reshape(blocks, -1).sum(dim=1)
+            return tot
+
+        with torch.no_grad():
+            if index is None:
+                return torch.stack([nonfinite(x, n_shards), nonfinite(t, n_shards)], dim=1)
+            row = torch.stack([nonfinite(x, 1), nonfinite(t, 1)], dim=1)
+            out = torch.zeros((n_shards, 2), dtype=torch.float32, device=row.device)
+            out[index] = row[0]
+            return out
 
     def act_stats(self, state) -> Optional[torch.Tensor]:
         """The hook-stashed rows of ``state`` stacked (None without any)."""
@@ -261,6 +332,12 @@ class HealthMonitor:
                 path: {"mean": float(row[0]), "std": float(row[1]), "zero_frac": float(row[2])}
                 for path, row in zip(self._act_paths, acts)
             }
+        shards = snap.get("shards")
+        if shards is not None and self._mesh_axis is not None:
+            name = self._mesh_axis[0]
+            fields["shards"] = {f"{name}[{i}]": {"nonfinite_inputs": int(row[0]),
+                                                 "nonfinite_targets": int(row[1])}
+                                for i, row in enumerate(shards)}
         return fields
 
     def lr_guard_event(self, fields: Dict) -> Optional[Dict]:
@@ -303,6 +380,20 @@ class HealthMonitor:
             if mat[:, 4].sum() > 0:
                 return None, "weights"
         return None, "loss"
+
+    def attribute_shard(self, snap: Dict[str, np.ndarray]) -> Optional[str]:
+        """The first data shard (``"data[3]"``) whose inputs or targets held
+        non-finite values on the diverged step; None without per-shard
+        counts or when every shard was clean (the NaN was born in the
+        computation)."""
+        shards = snap.get("shards")
+        if shards is None or self._mesh_axis is None:
+            return None
+        name = self._mesh_axis[0]
+        for i, row in enumerate(shards):
+            if row[0] > 0 or row[1] > 0:
+                return f"{name}[{i}]"
+        return None
 
 
 @dataclass

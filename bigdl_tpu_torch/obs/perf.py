@@ -542,6 +542,7 @@ class PerfAccountant:
         self.cost: Optional[StepCost] = None
         self._cost_key = None
         self.pipe_bubble_frac: Optional[float] = None
+        self.collectives: Optional[Dict[str, int]] = None  # the last step's wire bytes
         self._n_devices = 1
         self._peaks: Optional[DevicePeaks] = None
         self._window_rows: List[Dict] = []
@@ -583,6 +584,18 @@ class PerfAccountant:
     def note_pipeline_schedule(self, n_stages: int, n_micro: int) -> None:
         self.pipe_bubble_frac = round(pipeline_bubble_fraction(n_stages, n_micro), 6)
 
+    def note_collectives(self, fields: Dict[str, int]) -> None:
+        """The step's collective bytes (``collective_bytes``,
+        ``all_to_all_bytes``, ``ppermute_bytes``), counted on the host by
+        ``parallel._comm`` where the JAX package reads them from the
+        lowered program."""
+        self.collectives = dict(fields)
+
+    def _collective_bytes(self) -> Optional[int]:
+        if self.collectives is not None:
+            return self.collectives.get("collective_bytes")
+        return self.cost.collective_bytes if self.cost is not None else None
+
     def step_fields(self, wall_s: Optional[float]) -> Dict:
         """``model_flops`` / ``achieved_flops_s`` / ``mfu`` of one step
         record (empty before the cost is known)."""
@@ -609,10 +622,10 @@ class PerfAccountant:
         d = spans.get("dispatch")
         host_s = float(d["s"]) if d else (rec.get("dispatch_s") or 0.0)
         comms_s = None
-        c = self.cost
-        if (c is not None and c.collective_bytes and self._n_devices > 1
-                and self._peaks is not None and self._peaks.ici_bytes_s):
-            comms_s = c.collective_bytes / self._peaks.ici_bytes_s
+        wire = self._collective_bytes()
+        if (wire and self._n_devices > 1 and self._peaks is not None
+                and self._peaks.ici_bytes_s):  # None: the table has no link figure
+            comms_s = wire / self._peaks.ici_bytes_s
         compute_s = max(wall - input_s - host_s - (comms_s or 0.0), 0.0)
         return {"compute_s": round(compute_s, 6),
                 "comms_s": None if comms_s is None else round(comms_s, 6),
@@ -682,9 +695,12 @@ class PerfAccountant:
             "mfu": mfu(c.flops if c else None, wall_mean, peak, self._n_devices),
             "arithmetic_intensity": c.arithmetic_intensity if c else None,
             "bound": classify_roofline(c.arithmetic_intensity if c else None, peak, hbm),
-            "collective_bytes": c.collective_bytes if c else None,
+            "collective_bytes": self._collective_bytes(),
             "hbm_bytes_accessed": c.bytes_accessed if c else None,
         }
+        for key in ("all_to_all_bytes", "ppermute_bytes"):
+            if self.collectives and self.collectives.get(key):
+                out[key] = self.collectives[key]
         if self.pipe_bubble_frac is not None:
             out["pipe_bubble_frac"] = self.pipe_bubble_frac
         return out

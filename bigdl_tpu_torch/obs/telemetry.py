@@ -606,6 +606,11 @@ class Telemetry:
             log.warning("fleet heartbeat write under %s failed; heartbeats disabled for this "
                         "telemetry sink", run_dir, exc_info=True)
 
+    def beat(self, step: Optional[int] = None) -> None:
+        """A heartbeat with no record behind it (a rank that waits outside
+        an elastic run's membership), throttled as the others."""
+        self._heartbeat({"type": "beat", "iteration": step})
+
     # ----------------------------------------------------------------- stall
     def _on_stall(self, info: Dict) -> None:
         rec = {"type": "stall"}

@@ -122,7 +122,17 @@ from the parameters before a step keep their values (the JAX package's
 undonated step). ``export_step_artifact`` writes a step bundle (the kernel
 library and the step's argument specs, ``utils/aot.py``) and
 ``warm_start`` seeds a fresh host's cache directory from one before
-``resume``. ``set_elastic`` is a later slice (ROADMAP Queue 1 item 9).
+``resume``.
+
+``set_elastic`` attaches the elastic fleet (``resilience/elastic.py``): at
+each step boundary the ranks agree on the fleet monitor's verdict; on a
+lost host they write the coordinated emergency fleet checkpoint, the
+survivors re-form their group, restore it and continue
+(``ElasticRemesh``, applied in ``optimize()`` outside its ``except``); at an
+epoch boundary a host that beats again rejoins the same way. It needs a
+resharding-capable optimizer (``DistriOptimizer`` 's ZeRO-1 layout,
+``HybridParallelOptimizer``) and ``set_checkpoint``; ``LocalOptimizer``
+accepts it and ``optimize()`` refuses it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -145,7 +155,8 @@ from ..obs import trace as obs_trace
 from ..obs.perf import program_cost
 from ..obs.telemetry import Metrics, observe_kernel_builds
 from ..obs.trace import span
-from ..resilience.errors import DivergenceError, StallEscalation, TrainingPreempted
+from ..resilience.errors import (DivergenceError, ElasticRemesh, StallEscalation,
+                                 TrainingPreempted)
 from ..nn.normalization import BatchNormalization
 from ..tensor.sparse import SparseTensor
 from ..utils.aot import spec_tree
@@ -370,6 +381,8 @@ class Optimizer:
         self._flat = None  # the flat layout's state (_FlatState) while one is bound
         self._step_export_info = None  # the step's argument specs, at its first dispatch
         self._warm_start_bundle: Optional[str] = None  # warm_start's bundle
+        self._elastic = None  # the ElasticCoordinator of set_elastic
+        self._dataset_base = None  # the dataset before a reader slice
         self.history: List[Dict[str, Any]] = []
 
     # --------------------------------------------------------------- factory
@@ -542,10 +555,34 @@ class Optimizer:
         self._preemption_guard = PreemptionGuard(signals)
         return self
 
-    def set_elastic(self, config=True):
-        raise NotImplementedError(
-            "set_elastic is not ported: the elastic mesh (resilience/elastic.py, with "
-            "FleetMonitor) is the next slice of ROADMAP Queue 1 item 9")
+    def set_elastic(self, config=True) -> "Optimizer":
+        """Attach elastic data-parallel training (see the module docstring
+        and ``resilience/elastic.py``). Needs ``set_checkpoint`` and a
+        resharding-capable optimizer (``DistriOptimizer`` 's ZeRO-1 layout,
+        ``HybridParallelOptimizer``). ``config`` is an
+        :class:`~bigdl_tpu_torch.resilience.ElasticConfig`, an
+        :class:`~bigdl_tpu_torch.resilience.ElasticCoordinator` (tests that
+        inject monitors and clocks), ``True`` for the defaults, or
+        ``None``/``False`` to detach."""
+        from ..resilience.elastic import ElasticConfig, ElasticCoordinator
+
+        if config is None or config is False:
+            self._elastic = None
+        elif isinstance(config, ElasticCoordinator):
+            self._elastic = config
+        elif isinstance(config, ElasticConfig):
+            self._elastic = ElasticCoordinator(config)
+        elif config is True:
+            self._elastic = ElasticCoordinator(ElasticConfig())
+        else:
+            raise TypeError(f"set_elastic expects ElasticConfig/ElasticCoordinator/bool, "
+                            f"got {type(config).__name__}")
+        return self
+
+    def _supports_elastic(self) -> bool:
+        """Whether this optimizer can re-cut its training state for another
+        membership (the parallel optimizers override it)."""
+        return False
 
     def _effective_policy(self):
         if self.failure_policy is not None:
@@ -588,25 +625,60 @@ class Optimizer:
             policy.reset()
         self._entry_snapshot = None
         self._entry_snapshot_taken = False
+        el = self._elastic
+        if el is not None:
+            if not self._supports_elastic():
+                raise ValueError(
+                    "elastic training (set_elastic) needs a resharding-capable optimizer — "
+                    "DistriOptimizer's flat/ZeRO-1 layout or HybridParallelOptimizer; "
+                    f"{type(self).__name__} has no remesh path")
+            if self.checkpoint_path is None:
+                raise ValueError("elastic training reshards through coordinated fleet "
+                                 "checkpoints; call set_checkpoint first")
+            from ..utils.engine import Engine
+
+            el.bind(run_dir=Engine.run_dir(), telemetry=self.telemetry)
+            el.attach()
+            el.activate()
+            el.start()
         guard = self._preemption_guard
         if guard is not None:
             guard.clear()
             guard.install()
+        self._apply_reader_slice()
         try:
             while True:
+                remesh = None
                 try:
-                    return self._optimize_impl()
+                    model = self._optimize_impl()
+                    if el is not None:
+                        el.agree("end", int(self.optim_method.state.get("neval", 0)))
+                    return model
                 except (KeyboardInterrupt, TrainingPreempted):
                     raise
+                except ElasticRemesh as e:
+                    remesh = e
                 except Exception as e:
                     decision = self._decide_retry(e)
                     if decision is None:
                         self._dump_postmortem_for(e, "optimize")
                         raise
                     self._recover(e, decision)
+                # applied outside the except: a fault in the reshard or
+                # rejoin seam surfaces typed, not through the retry ladder
+                while remesh is not None and not self._apply_remesh(remesh):
+                    remesh = el.park(self._remesh_groups, self._parked_beat)
+                    if remesh is None:  # the fit ended while this rank was out:
+                        self._resume_from_checkpoint()  # the newest checkpoint's weights
+                        return self.model
         finally:
             if guard is not None:
                 guard.uninstall()
+            if el is not None:
+                el.stop()
+                from ..parallel import _comm
+
+                _comm.set_active(None, None)
             self._active_policy = None
 
     def _failure_position(self, exc) -> Optional[tuple]:
@@ -754,11 +826,15 @@ class Optimizer:
         if latest_checkpoint_step(self.checkpoint_path) is None:
             self._restore_entry_snapshot()
             return None
+        el = self._elastic
         try:
             with span("checkpoint_load"):
                 params, flat_slots, host, flat_model_state = load_checkpoint(
                     self.checkpoint_path, params_like=self.model.get_parameters(),
-                    require_finite=require_finite)
+                    require_finite=require_finite,
+                    # a fleet checkpoint older than the last remesh has the
+                    # old bounds: only the current generation or newer
+                    min_generation=el.generation if el is not None else None)
         except FileNotFoundError:  # every checkpoint rejected (all non-finite)
             self._restore_entry_snapshot()
             return None
@@ -882,6 +958,84 @@ class Optimizer:
         self._dump_postmortem_for(exc, "preempted")
         raise exc
 
+    # ---------------------------------------------------------- elastic fleet
+    def _apply_reader_slice(self) -> None:
+        """The reader slice of this process (DistriOptimizer slices a
+        dataset with ``shard``; the others read every batch whole)."""
+
+    def _remesh_groups(self, members) -> None:
+        """The process groups of a membership, made on every rank of the
+        world in the same order (a rank outside ``members`` too)."""
+        self._elastic.group_for(members)
+
+    def _parked_beat(self, step: int) -> None:
+        """A parked rank's heartbeat after each decision it follows."""
+        if self.telemetry is not None:
+            self.telemetry.beat(step)
+
+    def _handle_host_lost(self, state, slots, lost) -> None:
+        """The ranks agreed a host is lost: claim the next generation
+        (chaos seam ``coordinate``), write the emergency fleet checkpoint at
+        this step boundary on every rank of the current group, wait for the
+        whole world, check viability, and raise :class:`ElasticRemesh` for
+        ``optimize()`` to apply."""
+        el = self._elastic
+        step = int(state.get("neval", 0))
+        log.warning("elastic: host(s) %s lost — coordinated emergency checkpoint at step %d, "
+                    "resharding onto the survivors", lost, step)
+        el.coordinate(step, kind="shrink")
+        self._checkpoint_now(state, slots)
+        el.sync()
+        el.check_viable(lost)
+        raise ElasticRemesh("shrink", lost, step=step)
+
+    def _handle_rejoin(self, state, slots, joined) -> None:
+        """An epoch-boundary rejoin: the current group checkpoints under the
+        next generation, so that every member (the returning ones too)
+        restores the same step."""
+        el = self._elastic
+        step = int(state.get("neval", 0))
+        log.warning("elastic: host(s) %s re-registered — re-expanding at the epoch boundary "
+                    "(step %d)", joined, step)
+        el.coordinate(step, kind="rejoin")
+        self._checkpoint_now(state, slots)
+        el.sync()
+        raise ElasticRemesh("rejoin", joined, step=step)
+
+    def _apply_remesh(self, remesh: ElasticRemesh) -> bool:
+        """Apply an agreed remesh (chaos seams ``reshard`` / ``rejoin``):
+        flip the membership, make its groups, and on a member re-slice the
+        reader, restore the coordinated checkpoint and emit the
+        ``mesh_shrunk`` / ``mesh_rejoin`` warn record. Returns False on a
+        rank outside the new membership (it parks)."""
+        el = self._elastic
+        shrink = remesh.kind == "shrink"
+        seam = "reshard" if shrink else "rejoin"
+        t0 = time.perf_counter()
+        with span(f"elastic_{seam}"):
+            obs_trace.fault_point(seam)
+            active = el.apply_shrink(remesh.members) if shrink else el.apply_rejoin(
+                remesh.members)
+            self._remesh_groups(active)
+            if not el.is_member():
+                return False
+            el.activate()
+            self._apply_reader_slice()
+            restored = self._resume_from_checkpoint()
+        reshard_s = time.perf_counter() - t0
+        log.warning("elastic: %s applied — %d active process(es) %s, generation %d, restored "
+                    "step %s (%.3fs)", seam, el.n_active(), el.active(), el.generation,
+                    restored, reshard_s)
+        if self.telemetry is not None:
+            self.telemetry.warn(
+                reason="mesh_shrunk" if shrink else "mesh_rejoin", path="elastic",
+                iteration=remesh.step, members=list(remesh.members),
+                process_count=el.n_active(), processes=el.active(),
+                generation=el.generation, restored_step=restored,
+                reshard_s=round(reshard_s, 6),
+                reader_slices={str(k): list(v) for k, v in el.reader_slices().items()})
+        return True
+
     # ------------------------------------------------------------ validation
     def _run_validation(self) -> Optional[Dict[str, ValidationResult]]:
         state = self.optim_method.state
@@ -991,7 +1145,8 @@ class Optimizer:
         slice; returns ``(loss, new_state)``."""
         n = self._micro_batches
         if not isinstance(x, torch.Tensor):
-            raise NotImplementedError("set_micro_batches on Table inputs is not ported")
+            raise NotImplementedError("set_micro_batches on Table inputs is not ported "
+                                      "(ROADMAP Queue 1 item 9c)")
         b = x.shape[0]
         if b % n:
             raise ValueError(f"batch size {b} not divisible by micro batch count {n}")
@@ -1332,6 +1487,8 @@ class Optimizer:
         return model
 
     def _drive_epochs(self, device, params, slots, first, x0, pa) -> None:
+        from ..parallel import _comm
+
         model, method = self.model, self.optim_method
         state = method.state
         tel, hm = self.telemetry, self.health
@@ -1344,7 +1501,7 @@ class Optimizer:
                          else None)
 
         def flush(rec) -> None:
-            (neval, epoch, pos, pulled, n, lr, wait_s, qdepth, dispatch_s, hshapes) = rec
+            (neval, epoch, pos, pulled, n, lr, wait_s, qdepth, dispatch_s, hshapes, wire) = rec
             pol = self._active_policy
             try:
                 # one step late: the next step is queued already; the health
@@ -1363,11 +1520,12 @@ class Optimizer:
                     off += size
                 snap = hm.snapshot(parts)
             if pol is not None and pol.divergence_guard and not math.isfinite(loss_f):
-                layer = source = None
+                layer = source = shard = None
                 if snap is not None:
                     layer, source = hm.attribute_nonfinite(snap)
+                    shard = hm.attribute_shard(snap)
                 raise DivergenceError(loss_f, neval, position=(epoch, pos), layer=layer,
-                                      source=source)
+                                      source=source, shard=shard)
             now = time.perf_counter()
             wall = now - mark["t"]
             mark["t"] = now
@@ -1391,10 +1549,12 @@ class Optimizer:
                 if pa is not None:
                     pa.ensure_cost((id(model), repr(to_spec(x0)), repr(to_spec(t0))),
                                    lambda: program_cost(self, x0, t0, routes=device.type))
+                if pa is not None and wire is not None:
+                    pa.note_collectives(wire)
                 step_rec = tel.step(path=path, iteration=neval, epoch=epoch, loss=loss_f, lr=lr,
                                     records=n, wall_s=wall, records_per_sec=throughput,
                                     dispatch_s=dispatch_s, input_wait_s=wait_s,
-                                    input_qdepth=qdepth,
+                                    input_qdepth=qdepth, **(wire or {}),
                                     **(pa.step_fields(wall) if pa is not None else {}))
                 if pa is not None:
                     for ev in pa.note_step(step_rec):
@@ -1464,6 +1624,13 @@ class Optimizer:
                     guard = self._preemption_guard
                     if guard is not None and guard.pending() is not None:
                         self._handle_preemption(state, slots)
+                    el = self._elastic
+                    if el is not None:
+                        # one decision for every rank: the coordinator's
+                        # verdict on the heartbeats, broadcast
+                        _, lost = el.agree("step", state["neval"])
+                        if lost:
+                            self._handle_host_lost(state, slots, lost)
                     lr = method.get_learning_rate() * float(state.get("_lr_scale", 1.0))
                     if mark["t"] is None:
                         mark["t"] = time.perf_counter()
@@ -1471,6 +1638,7 @@ class Optimizer:
                     if not self.donate:
                         self._shadow_params(params)
                     self._step_health = None
+                    wire = _comm.counts() if tel is not None and _comm.world() > 1 else None
                     t_dispatch = time.perf_counter()
                     obs_trace.fault_point("dispatch")  # chaos seam (timed, no span)
                     if self._step_export_info is None:  # metadata only, once
@@ -1487,6 +1655,8 @@ class Optimizer:
                                            + [v.reshape(-1) for v in self._step_health.values()])
                         self._step_health = None
                     dispatch_s = time.perf_counter() - t_dispatch
+                    if wire is not None:  # the step's own collectives, counted on the host
+                        wire = _wire_fields(wire, _comm.counts())
                     if tel is not None:
                         obs_trace.add_sample("dispatch", dispatch_s)
                         if batch.trace is not None and batch.trace.sampled:
@@ -1497,7 +1667,8 @@ class Optimizer:
                             seconds=dispatch_s, path=path)
                     prev, pending = pending, (state["neval"], state["epoch"],
                                               state["_iter_in_epoch"], pulled, batch.n, lr,
-                                              batch.wait_s, batch.qdepth, dispatch_s, hshapes)
+                                              batch.wait_s, batch.qdepth, dispatch_s, hshapes,
+                                              wire)
                     if prev is not None:
                         flush(prev)
                     state["learningrate"] = lr
@@ -1525,6 +1696,11 @@ class Optimizer:
                 if self.end_when(state):
                     stop = True
                 state["_epoch_done"] = False
+                el = self._elastic
+                if el is not None and not stop:
+                    _, joined = el.agree("epoch", state["neval"])
+                    if joined:  # re-expansion at the epoch boundary
+                        self._handle_rejoin(state, slots, joined)
 
     def _profile_window(self, neval: int) -> None:
         """Open and close ``set_profile`` 's capture around its steps."""
@@ -1539,6 +1715,18 @@ class Optimizer:
             self._profile = None
         elif not profile.get("on") and neval >= profile["start"]:
             profile["on"] = obs_perf.start_capture(profile["dir"])
+
+
+def _wire_fields(before, after) -> Dict[str, int]:
+    """A step's collective bytes from two ``parallel._comm.counts()``
+    readings: ``collective_bytes`` and its all-to-all and ppermute parts."""
+    from ..obs.profiler import collective_bytes
+
+    delta = {k: {"calls": after[k]["calls"] - before[k]["calls"],
+                 "bytes": after[k]["bytes"] - before[k]["bytes"]} for k in after}
+    cb = collective_bytes(delta)
+    return {"collective_bytes": cb["total_bytes"], "all_to_all_bytes": cb["all_to_all_bytes"],
+            "ppermute_bytes": cb["ppermute_bytes"]}
 
 
 def _kernel_builds():
@@ -1747,12 +1935,14 @@ def _wd_coefficients(method, fp, device):
 def _bind_flat(opt, fp, params, method, shard) -> _FlatState:
     """Bind ``params`` to a new flat layout of ``fp`` on the model's device,
     audit it (``validate=True``) and put a resumed run's slots in."""
-    fs = _FlatState(fp, params, opt.model.device, opt._precision, method,
-                    _wd_coefficients(method, fp, opt.model.device), shard)
+    with span("commit_shardings"):  # the parameters become views of the master
+        fs = _FlatState(fp, params, opt.model.device, opt._precision, method,
+                        _wd_coefficients(method, fp, opt.model.device), shard)
     if opt.validate:
         from ..analysis import FlatParamAudit
 
-        FlatParamAudit(fp, fs.work).check()
+        with span("flat_param_audit"):
+            FlatParamAudit(fp, fs.work).check()
     if opt._restored_slots is not None:
         fs.restore_slots(opt._restored_slots)
         opt._restored_slots = None

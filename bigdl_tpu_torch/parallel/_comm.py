@@ -36,6 +36,12 @@ counts the sender's tensor, a ``broadcast`` the source's): the port's
 reading of what the JAX package's ``obs.profiler.collective_bytes`` locks
 on the lowered program.
 
+The active group. An elastic run (``resilience/elastic.py``) trains on a
+part of the world after a host is lost: :func:`set_active` makes that part
+(its process group and its global ranks) the group of every collective
+here and of :func:`world` / :func:`rank` (the rank's place in it), until
+the whole world is active again.
+
 Wire types: float8 codes cross as ``view(torch.uint8)``. A ``pmean`` on a
 bfloat16 wire sums in the backend's order, not XLA's, so its rounding
 differs from the JAX package's by a few bf16 ulps.
@@ -44,7 +50,7 @@ differs from the JAX package's by a few bf16 ulps.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,17 +63,46 @@ _lock = threading.Lock()
 _bytes: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 _calls: Dict[str, int] = dict.fromkeys(COLLECTIVES, 0)
 _axis: Dict[Tuple[str, str], List[int]] = {}  # (collective, axes) -> [calls, bytes]
+_active: Optional[Tuple[Any, Tuple[int, ...]]] = None  # (group, global ranks) of a part
+
+
+def global_rank() -> int:
+    """This process's rank in the whole group (0 without one)."""
+    sl = Engine.process_slice()
+    return 0 if sl is None else sl[0]
+
+
+def set_active(group, ranks: Optional[Sequence[int]]) -> None:
+    """Make ``ranks`` (global, ascending) and their process ``group`` the
+    group of the collectives; ``ranks=None`` makes it the whole group."""
+    global _active
+    _active = None if ranks is None else (group, tuple(int(r) for r in ranks))
+
+
+def members() -> Tuple[int, ...]:
+    """The global ranks of the active group, ascending."""
+    if _active is not None:
+        return _active[1]
+    return tuple(range(Engine.device_count()))
+
+
+def group():
+    """The active group's process group (None: the default group)."""
+    return None if _active is None else _active[0]
 
 
 def world() -> int:
-    """Ranks in the group (1 without one)."""
-    return Engine.device_count()
+    """Ranks in the active group (1 without a group)."""
+    return Engine.device_count() if _active is None else len(_active[1])
 
 
 def rank() -> int:
-    """This process's rank (0 without a group)."""
-    sl = Engine.process_slice()
-    return 0 if sl is None else sl[0]
+    """This process's place in the active group (0 without a group, -1
+    when it is not in it)."""
+    r = global_rank()
+    if _active is None:
+        return r
+    return _active[1].index(r) if r in _active[1] else -1
 
 
 def reset_counts() -> None:
@@ -121,7 +156,7 @@ def _all_reduce_(t: torch.Tensor, name: str, op) -> torch.Tensor:
     import torch.distributed as dist
 
     _count(name, t)
-    dist.all_reduce(t, op=op)
+    dist.all_reduce(t, op=op, group=group())
     return t
 
 
@@ -165,7 +200,7 @@ def psum_scatter(flat: torch.Tensor) -> torch.Tensor:
     k = flat.numel() // n
     out = torch.empty(k, dtype=flat.dtype, device=flat.device)
     _count("psum_scatter", flat)
-    dist.reduce_scatter(out, list(flat.view(n, k).unbind(0)))
+    dist.reduce_scatter(out, list(flat.view(n, k).unbind(0)), group=group())
     return out
 
 
@@ -181,7 +216,8 @@ def all_gather_into(out: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
     import torch.distributed as dist
 
     _count("all_gather", shard)
-    dist.all_gather(list(_wire(out).view(n, shard.numel()).unbind(0)), _wire(shard))
+    dist.all_gather(list(_wire(out).view(n, shard.numel()).unbind(0)), _wire(shard),
+                    group=group())
     return out
 
 
@@ -195,7 +231,7 @@ def all_gather_stack(t: torch.Tensor) -> torch.Tensor:
 
     _count("all_gather", t)
     out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
-    dist.all_gather(list(_wire(out).unbind(0)), _wire(t.contiguous()))
+    dist.all_gather(list(_wire(out).unbind(0)), _wire(t.contiguous()), group=group())
     return out
 
 
@@ -209,7 +245,7 @@ def all_to_all(t: torch.Tensor) -> torch.Tensor:
 
     _count("all_to_all", t)
     out = torch.empty_like(t)
-    dist.all_to_all_single(_wire(out), _wire(t.contiguous()))
+    dist.all_to_all_single(_wire(out), _wire(t.contiguous()), group=group())
     return out
 
 
@@ -218,7 +254,7 @@ def barrier() -> None:
     if world() > 1:
         import torch.distributed as dist
 
-        dist.barrier()
+        dist.barrier(group=group())
 
 
 # ------------------------------------------------------------ mesh axes

@@ -48,9 +48,20 @@ at any world size. Validation sums each method's counters over the ranks.
 ``set_micro_batches`` raises, as in the JAX package. Telemetry, summaries,
 the retry ladder, the divergence guard and preemption are the base
 ``Optimizer`` 's (every rank runs them alike: the step-0 snapshot is taken
-once an ``optimize()`` on each rank); ``set_health`` runs on the
-replicated layouts and is refused on the ZeRO-1 sharded one;
-``set_elastic`` is ROADMAP Queue 1 item 9.
+once an ``optimize()`` on each rank). ``set_health`` runs on every layout:
+on the ZeRO-1 one each rank computes the statistics of its slice of the
+clipped gradient and of the update, and one all-reduce of the small
+matrix sums them, so every rank reads the same rows with its loss.
+
+``set_elastic`` (``resilience/elastic.py``) rides the ZeRO-1 layout (a
+non-``sharded`` ``parameter_sync`` is refused): every checkpoint of the
+fit is a fleet checkpoint, each rank writing its ``[lo, hi)`` slice of the
+float32 master and of the slots under the coordinator's generation and the
+coordinator the manifest. After a shrink the survivors' group takes the
+collectives (``parallel._comm``), the flat master is cut again for their
+count and the restored checkpoint's slots are cut to their shards; the
+layout of each membership is made once (``_distri_step_cache``), so a
+shrink and a rejoin make two entries, not three.
 
 :func:`simulate_step` is the plain version of one n-rank step in one
 process (n forwards and backwards on the ranks' rows, the gradients
@@ -67,6 +78,7 @@ import torch
 
 from ..nn.module import detach_tree
 from ..optim.local_optimizer import Optimizer, _apply_flat_, _bind_flat
+from ..optim.quantization import MASTER_SCALE_KEY
 from ..utils.random import RandomGenerator
 from ..utils.serialization import tree_items, unflatten_to_like
 from . import _comm
@@ -134,12 +146,17 @@ class DistriOptimizer(Optimizer):
         self._copy_in_worker = self.async_placement
         self._place_span = True  # the rank's rows copied under "place_batch"
         self._sync: Optional[str] = None  # resolved in optimize()
-        self._dataset_base = None
+        self._distri_step_cache: Dict[tuple, FlatParameter] = {}  # membership -> layout
 
     def set_micro_batches(self, n: int) -> "DistriOptimizer":
         raise NotImplementedError(
             "set_micro_batches is LocalOptimizer-only; with DistriOptimizer use nn.Remat "
             "(gradient checkpointing) for activation memory")
+
+    def _supports_elastic(self) -> bool:
+        # the remesh rides the flat master layout; _init_step_state refuses
+        # a non-sharded parameter_sync under elastic
+        return True
 
     def _ragged_seam_policy(self) -> str:
         # no masked loss across ranks: a padded row would train as real
@@ -173,7 +190,7 @@ class DistriOptimizer(Optimizer):
         """Under a group, a dataset with ``shard(index, count)`` is read as
         the rank's slice of its stream (always sliced from the original)."""
         n = _comm.world()
-        if n <= 1:
+        if n <= 1 or _comm.rank() < 0:
             return
         base = self._dataset_base
         if base is None:
@@ -192,6 +209,10 @@ class DistriOptimizer(Optimizer):
     # ------------------------------------------------------------ the state
     def _init_step_state(self, method, params):
         sync = self._sync = self._resolve_parameter_sync(method, params)
+        if self._elastic is not None and sync != "sharded":
+            raise ValueError(
+                "elastic training rides the ZeRO-1 flat master layout (per-host shard bounds "
+                "are FlatParameter arithmetic); use parameter_sync='sharded'")
         flat_mode = sync == "sharded" or self.flat_update
         pol = self._precision
         if pol is not None:
@@ -215,11 +236,10 @@ class DistriOptimizer(Optimizer):
                 + (" without flat_update" if sync != "sharded" else ""))
         n, r = _comm.world(), _comm.rank()
         if sync == "sharded":
-            if self.health is not None:
-                raise NotImplementedError(
-                    "set_health on the ZeRO-1 sharded layout is not ported (each rank holds a "
-                    "shard of the clipped gradient); use parameter_sync='replicated'")
-            fp = FlatParameter(params, n)
+            key = _comm.members()
+            fp = self._distri_step_cache.get(key)
+            if fp is None:
+                fp = self._distri_step_cache[key] = FlatParameter(params, n)
             lo, hi = fp.shard_bounds(r)
             self._flat = _bind_flat(self, fp, params, method, (r, lo, hi))
         else:
@@ -245,22 +265,28 @@ class DistriOptimizer(Optimizer):
         if fs is None:
             self._replicated_tree_update(lr, step, params, slots, new_state)
         elif self._sync == "sharded":
-            self._sharded_update(fs, lr, step, n, r)
+            self._sharded_update(fs, lr, step, n, r, new_state)
         else:
             self._replicated_flat_update(fs, lr, step, n, new_state)
         model.set_state(new_state)
         return loss
 
-    def _sharded_update(self, fs, lr, step, n, r) -> None:
-        """Reduce-scatter, clip, the shard's update, all-gather."""
+    def _sharded_update(self, fs, lr, step, n, r, new_state=None) -> None:
+        """Reduce-scatter, clip, the shard's update, all-gather (and the
+        health statistics of the shard, summed over the ranks)."""
         if fs.comp is not None:
             shard_sum, fs.err = fs.comp.exchange_sharded(fs.grads, fs.err, n, r)
             g_shard = shard_sum / n
         else:
             g = fs.grads if self.gradient_dtype is None else fs.grads.to(self.gradient_dtype)
             g_shard = _comm.psum_scatter(g).float() / n
+        lo, hi = fs.shard[1:]
+        old = fs.work[lo:hi].clone() if self.health is not None else None
         _apply_flat_(self, fs, g_shard, lr, step, fs.shard, norm_sq_sum=_comm.psum_,
-                     gather=_comm.all_gather_into)
+                     gather=_comm.all_gather_into)  # g_shard is clipped in place
+        if old is not None:
+            self._step_health = self.health.flat_shard_stats(
+                fs.fp, g_shard, old, fs.work[lo:hi], lo, _comm.psum_, new_state)
 
     def _replicated_flat_update(self, fs, lr, step, n, new_state=None) -> None:
         """One mean of the flat gradient, clip, one update of the vector (and
@@ -293,13 +319,11 @@ class DistriOptimizer(Optimizer):
         model.zero_grad(set_to_none=True)
 
     # ----------------------------------------------------------- the loop
-    def optimize(self):
-        self._apply_reader_slice()
-        return super().optimize()
-
     def _write_checkpoint(self, state, slots) -> Optional[Dict[str, Any]]:
         """The slot shards gathered on every rank; rank 0 writes the files;
-        the ranks wait for it."""
+        the ranks wait for it (an elastic fit: the fleet checkpoint)."""
+        if self._elastic is not None:
+            return self._write_fleet_checkpoint(state)
         tree_slots = self._checkpoint_slots(slots)
         out = None
         if _comm.rank() == 0:
@@ -311,6 +335,46 @@ class DistriOptimizer(Optimizer):
                                   keep_last=self.checkpoint_keep_last)
         _comm.barrier()
         return out
+
+    def _write_fleet_checkpoint(self, state) -> Dict[str, Any]:
+        """This rank's ``shard.p<k>.<step>.npz`` (its ``[lo, hi)`` of the
+        float32 master and of the slots, the model state whole), the
+        entries gathered over the group's gloo twin, the coordinator's
+        manifest written last; every rank returns the manifest's fields."""
+        import torch.distributed as dist
+
+        from ..utils.serialization import (fleet_codec_info, save_fleet_manifest,
+                                           save_fleet_shard, tree_items as items)
+
+        el, fs = self._elastic, self._flat
+        fp, me = fs.fp, el.process_index
+        bounds = el.process_bounds(fp)
+        lo, hi = bounds[me]
+        slots = {k: v for k, v in fs.slots.items() if k != MASTER_SCALE_KEY}
+        if fs.sp is not None:
+            slots = fs.sp.decode_slots(slots)
+        vec = {k: v for k, v in slots.items() if isinstance(v, torch.Tensor) and v.dim() == 1}
+        entry = save_fleet_shard(
+            self.checkpoint_path, state["neval"], me, lo=lo, hi=hi, master_slice=fs.work[lo:hi],
+            slot_slices=vec, scalars={k: v for k, v in slots.items() if k not in vec},
+            model_state_flat=items(self.model.get_state()))
+        cpu = el.cpu_group_for(el.active())
+        if cpu is None:
+            entries = {me: entry}
+        else:
+            gathered = [None] * el.n_active()
+            dist.all_gather_object(gathered, (me, entry), group=cpu)
+            entries = dict(gathered)
+        manifest = {"finite": all(e.get("finite", True) for e in entries.values())}
+        if me == el.coordinator():
+            manifest = save_fleet_manifest(
+                self.checkpoint_path, state["neval"], entries, codec=fleet_codec_info(fp),
+                mesh_shape=(el.n_active(),), process_count=el.n_active(),
+                optim_state=dict(state), generation=el.generation,
+                keep_last=self.checkpoint_keep_last)
+        if cpu is not None:
+            dist.barrier(group=cpu)  # the manifest is down before any rank reads it
+        return manifest
 
 
 def simulate_step(model, criterion, method, slots, x, t, n: int, lr: float, step: int,

@@ -37,9 +37,16 @@ a speed property of XLA's partitioning, not of the result, and is not done
 here (ROADMAP). A plan that shards a leaf over the data axis is refused.
 ``flat_update`` is refused with :class:`ParallelCompositionError`, as in
 the JAX package. Telemetry and the retry ladder are the base
-``Optimizer`` 's; ``set_micro_batches``, ``set_health`` (the health mesh
-binding), ``donate=False`` and the elastic mesh are ROADMAP Queue 1 item 9
-(refused).
+``Optimizer`` 's; ``set_micro_batches`` is refused (ROADMAP Queue 1 item 9c).
+``set_health`` computes each leaf's statistics on this rank's block and
+sums a sharded leaf's rows over its axes (the clipping norm's way), and
+counts the batch's non-finite inputs and targets by data shard
+(``bind_mesh_axis``), so a diverged step names its shard. ``donate=False``
+writes each update into fresh blocks. Under ``set_elastic`` only the
+leading data axis shrinks and re-expands
+(:meth:`~bigdl_tpu_torch.resilience.ElasticCoordinator.hybrid_mesh`): the
+emergency checkpoint is the tree layout, and the survivors cut its leaves
+again for their mesh.
 
 :class:`_ShardedOptimizer` is the chassis of the sharded leaves (blocks of
 the leaves and slots, the clipping norm over the shards, the whole
@@ -58,13 +65,14 @@ import torch
 from ..nn.module import detach_tree
 from ..optim.local_optimizer import Optimizer
 from ..utils.engine import Engine
+from ..obs.trace import span
 from ..utils.random import RandomGenerator
 from ..utils.serialization import tree_items, unflatten_to_like
 from . import _comm
 from .distri_optimizer import average_state, rank_generator
 from .sharding import Mesh, P, ShardingPlan, gather_block, is_sharded, shard_leaf, spec_axes
 
-_ITEM_9 = "ROADMAP Queue 1 item 9"
+_ITEM_9C = "ROADMAP Queue 1 item 9c"
 
 
 class ParallelCompositionError(ValueError):
@@ -122,13 +130,14 @@ class _ShardedOptimizer(Optimizer):
         self._mesh = mesh
         self._run_mesh: Optional[Mesh] = None
         self._specs: Dict[str, P] = {}  # sharded parameter paths -> spec
+        self._whole_shapes: Dict[str, tuple] = {}  # their whole leaves' shapes
         self._slot_spec: Dict[str, P] = {}
         self.held_bytes: Dict[str, int] = {}
         self._place_span = True  # the batch placement is a "place_batch" seam
 
     def set_micro_batches(self, n: int):
         raise NotImplementedError(
-            f"set_micro_batches on {type(self).__name__} is not ported ({_ITEM_9}); size the "
+            f"set_micro_batches on {type(self).__name__} is not ported ({_ITEM_9C}); size the "
             "global batch to the mesh instead")
 
     def _resolve_mesh(self) -> Mesh:
@@ -143,26 +152,32 @@ class _ShardedOptimizer(Optimizer):
         self._run_mesh = self._resolve_mesh()
 
     # ------------------------------------------------------------ the layout
+    def _data_shards(self) -> Optional[tuple]:
+        """``(axis, size)`` of the batch's data axis for the health
+        monitor's per-shard counts, or None."""
+        return None
+
+    def _bind_health(self, params) -> None:
+        super()._bind_health(params)
+        shards = self._data_shards() if self.health is not None else None
+        if shards is not None:
+            self.health.bind_mesh_axis(*shards)
+
     def _init_step_state(self, method, params):
-        if self.health is not None:
-            raise NotImplementedError(
-                f"set_health on {type(self).__name__} is not ported ({_ITEM_9}): each rank "
-                "holds blocks of the leaves")
-        if not self.donate:
-            raise NotImplementedError(
-                f"{type(self).__name__}(donate=False) is not ported ({_ITEM_9})")
         mesh = self._run_mesh
         self._prepare_plan(mesh, self._step_rows)
         self.plan.validate(params, mesh)
         items = tree_items(params)
         specs = {path: self.plan.spec_for(path, p) for path, p in items.items()}
         self._specs = {path: s for path, s in specs.items() if is_sharded(s)}
+        self._whole_shapes = {path: tuple(items[path].shape) for path in self._specs}
         whole = unflatten_to_like({path: p.data for path, p in items.items()}, params)
         with torch.no_grad():
             for path, spec in self._specs.items():
                 items[path].data = shard_leaf(items[path].data, spec, mesh)
         if self.validate:
-            self._audit_blocks(params, whole, specs)
+            with span("sharded_param_audit"):
+                self._audit_blocks(params, whole, specs)
         if self._restored_slots is not None:
             self._restored_slots = self._cut_restored(self._restored_slots)
         slots = self._init_slots(method, params)
@@ -226,6 +241,19 @@ class _ShardedOptimizer(Optimizer):
             for path, data in kept.items():
                 items[path].data = data
 
+    def _resume_from_checkpoint(self, require_finite: bool = False):
+        """A checkpoint's whole leaves into the model: the blocks of the
+        last mesh are dropped first (their values are the checkpoint's to
+        set; the next ``_init_step_state`` cuts them for its mesh)."""
+        items = tree_items(self.model.get_parameters())
+        with torch.no_grad():
+            for path, shape in self._whole_shapes.items():
+                if path in self._specs:
+                    p = items[path]
+                    p.data = torch.empty(shape, dtype=p.dtype, device=p.device)
+        self._specs = {}
+        return super()._resume_from_checkpoint(require_finite)
+
     def _unshard(self) -> None:
         """Every rank's model whole again (the end of ``optimize``)."""
         items = tree_items(self.model.get_parameters())
@@ -279,11 +307,44 @@ class _ShardedOptimizer(Optimizer):
                                      params=self._forward_params(params))
         loss.backward()
         grads = self._clip_grads(self._average_grads(model.get_grad_parameters()))
+        old = self._health_old_params(params)
         method.update(grads, params, slots, lr, method.state["neval"])
         model.zero_grad(set_to_none=True)
         new_state, loss = self._average_step(detach_tree(new_state), loss.detach())
+        if old is not None:
+            self._step_health = self._mesh_health(grads, old, params, new_state, x, t)
         model.set_state(new_state)
         return loss
+
+    def _mesh_health(self, grads, old, params, new_state, x, t) -> Dict[str, torch.Tensor]:
+        """The step's health statistics over this rank's blocks, a sharded
+        leaf's rows summed over its axes; the per-data-shard counts of the
+        batch when a data axis is bound."""
+        mesh = self._run_mesh
+
+        def sum_rows(paths, mat):
+            by_axes: Dict[tuple, list] = {}
+            for i, path in enumerate(paths):
+                spec = self._specs.get(path)
+                if spec is not None:
+                    axes = tuple(a for e in spec for a in spec_axes(e))
+                    by_axes.setdefault(axes, []).append(i)
+            for axes, rows in by_axes.items():
+                idx = torch.tensor(rows, device=mat.device)
+                mat[idx] = _comm.axis_psum_(mat[idx].contiguous(), mesh, axes)
+            return mat
+
+        old_tree = unflatten_to_like(dict(zip(tree_items(params), old)), params)
+        out = self.health.mesh_tree_stats(grads, old_tree, params, new_state, sum_rows)
+        shards = self._shard_counts(x, t)
+        if shards is not None:
+            out["shards"] = shards
+        return out
+
+    def _shard_counts(self, x, t) -> Optional[torch.Tensor]:
+        """The batch's non-finite counts by data shard (None without a data
+        axis)."""
+        return None
 
     # ------------------------------------------------------------- the loop
     def _validate_now(self):
@@ -329,7 +390,10 @@ class HybridParallelOptimizer(_ShardedOptimizer):
         self.plan = plan or ShardingPlan()
         self.data_axis = data_axis
 
-    def _resolve_mesh(self) -> Mesh:
+    def _supports_elastic(self) -> bool:
+        return True
+
+    def _base_mesh(self) -> Mesh:
         base = self._mesh
         if base is None:
             base = Engine.mesh()
@@ -339,14 +403,35 @@ class HybridParallelOptimizer(_ShardedOptimizer):
                     "pass mesh= explicitly")
         return base
 
+    def _resolve_mesh(self) -> Mesh:
+        """The base mesh, or under elastic its view over the active ranks:
+        only the leading data axis shrinks (one mesh a membership, cached)."""
+        base = self._base_mesh()
+        el = self._elastic
+        if el is not None:
+            return el.hybrid_mesh(base, self.data_axis)
+        return base
+
+    def _remesh_groups(self, members) -> None:
+        self._elastic.hybrid_mesh(self._base_mesh(), self.data_axis, members)
+
+    def _data_shards(self) -> Optional[tuple]:
+        return self.data_axis, self._data_size()
+
+    def _shard_counts(self, x, t) -> Optional[torch.Tensor]:
+        mesh, n = self._run_mesh, self._data_size()
+        counts = self.health.mesh_shard_stats(x, t, n, mesh.coords.get(self.data_axis, 0))
+        if n == 1:
+            return counts
+        return _comm.axis_psum_(counts, mesh, (self.data_axis,))
     def _prepare_plan(self, mesh: Mesh, n_rows: int) -> None:
         for path_spec in self.plan.rules:
             for axes in path_spec[1]:
                 if self.data_axis in spec_axes(axes):
                     raise NotImplementedError(
                         f"a plan that shards a parameter over the data axis "
-                        f"{self.data_axis!r} (rule {path_spec[0].pattern!r}) is not ported; "
-                        "shard over the model axes")
+                        f"{self.data_axis!r} (rule {path_spec[0].pattern!r}) is not ported "
+                        f"({_ITEM_9C}); shard over the model axes")
 
     def _data_size(self) -> int:
         mesh = self._run_mesh

@@ -123,6 +123,17 @@ class FlatParameter:
         j = int(np.searchsorted(np.asarray(self._offsets), offset, side="right")) - 1
         return self.paths[j]
 
+    def leaf_pieces(self, part: torch.Tensor, lo: int) -> List[torch.Tensor]:
+        """Each leaf's piece (a view, empty where they do not meet) of
+        ``part``, the slice ``[lo, lo + len(part))`` of a padded vector; the
+        padding tail belongs to no leaf."""
+        hi = lo + part.numel()
+        out = []
+        for off, size in zip(self._offsets, self.sizes):
+            a, b = max(off, lo), min(off + size, hi)
+            out.append(part[a - lo:b - lo] if a < b else part[:0])
+        return out
+
     # ---------------------------------------------------------- the padding
     def zero_pad(self, vec: torch.Tensor) -> torch.Tensor:
         """Re-zero the padding tail of a padded vector, in place (an update

@@ -22,8 +22,12 @@ the parallel module (each data row runs its own pipeline, or its own
 expert group); the layers around it run on the whole batch on every rank.
 ``flat_update`` and ``comms_dtype`` are refused with
 :class:`~bigdl_tpu_torch.parallel.hybrid.ParallelCompositionError`;
-``set_micro_batches`` raises, and the pipeline bubble and wire-cost
-records of the JAX package's telemetry are ROADMAP Queue 1 item 9.
+``set_micro_batches`` raises (ROADMAP Queue 1 item 9c). ``set_health`` and
+``donate=False`` are the chassis' (a stacked leaf's rows summed over its
+axis; with ``data_axis`` the per-data-shard counts of the whole batch every
+rank reads). The pipeline stamps its schedule's idle fraction,
+``(S-1)/(n_micro+S-1)``, on every ``step`` and ``perf`` record as
+``pipe_bubble_frac``.
 """
 
 from __future__ import annotations
@@ -93,6 +97,16 @@ class _StackedParallelOptimizer(_ShardedOptimizer):
             raise ValueError(f"data_axis {self.data_axis!r} not in mesh axes {tuple(mesh.shape)}")
         return mesh
 
+    def _data_shards(self):
+        if self.data_axis is None:
+            return None
+        return self.data_axis, self._run_mesh.shape[self.data_axis]
+
+    def _shard_counts(self, x, t):
+        if self.data_axis is None:
+            return None
+        return self.health.mesh_shard_stats(x, t, self._run_mesh.shape[self.data_axis])
+
     def _prepare_plan(self, mesh, n_rows: int) -> None:
         modules = self._bind_modules(mesh)
         self._check_batch(mesh, n_rows)
@@ -149,6 +163,8 @@ class PipelineOptimizer(_StackedParallelOptimizer):
             m.mesh_axis = self.axis
             m.batch_axis = self.data_axis
             m.set_mesh(mesh)
+        if self._perf is not None:  # one schedule for every stack
+            self._perf.note_pipeline_schedule(s, self.n_micro or mods[0].n_micro or s)
         return mods
 
     def _check_batch(self, mesh, n_rows: int) -> None:

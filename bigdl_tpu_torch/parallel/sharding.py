@@ -69,21 +69,33 @@ class Line(NamedTuple):
 
 
 class Mesh:
-    """Named axes over the group's ranks (see the module docstring)."""
+    """Named axes over the group's ranks (see the module docstring).
 
-    def __init__(self, axis_sizes: Mapping[str, int]):
+    ``ranks`` (global, in mesh order) and ``whole_group`` (their process
+    group) build a mesh over a part of the world, as an elastic run does
+    for its survivors; a rank outside ``ranks`` builds the same subgroups
+    in the same order and holds no place on the mesh (``rank`` -1)."""
+
+    def __init__(self, axis_sizes: Mapping[str, int], ranks: Optional[Sequence[int]] = None,
+                 whole_group=None):
         names = tuple(axis_sizes)
         sizes = tuple(int(axis_sizes[n]) for n in names)
         self.axis_names = names
         self.shape: Dict[str, int] = dict(zip(names, sizes))
         self.size = int(np.prod(sizes)) if sizes else 1
-        world = _comm.world()
-        if self.size != world:
-            raise ValueError(f"mesh {dict(axis_sizes)} needs {self.size} devices, have {world}")
-        self.devices = np.arange(self.size).reshape(sizes)
-        self.rank = _comm.rank()
-        self.coords: Dict[str, int] = {
-            n: int(c) for n, c in zip(names, np.unravel_index(self.rank, sizes))}
+        if ranks is None:
+            ranks, whole_group = _comm.members(), _comm.group()
+        ranks = tuple(int(r) for r in ranks)
+        if self.size != len(ranks):
+            raise ValueError(f"mesh {dict(axis_sizes)} needs {self.size} devices, have "
+                             f"{len(ranks)}")
+        self.devices = np.array(ranks, dtype=np.int64).reshape(sizes)
+        me = _comm.global_rank()
+        self.rank = ranks.index(me) if me in ranks else -1  # this rank's place
+        self.coords: Dict[str, int] = (
+            {n: int(c) for n, c in zip(names, np.unravel_index(self.rank, sizes))}
+            if self.rank >= 0 else {})
+        self._whole = whole_group
         # one group a line, for every non-empty set of axes, built in one
         # order on every rank (new_group is collective)
         self._groups: Dict[frozenset, Any] = {}
@@ -102,11 +114,12 @@ class Mesh:
         if lines.shape[1] == 1:
             return
         if lines.shape[1] == self.size:
-            self._groups[key] = None
+            self._groups[key] = self._whole
             return
+        me = _comm.global_rank()
         for line in lines:
             group = dist.new_group(sorted(int(r) for r in line))
-            if self.rank in line:
+            if me in line:
                 self._groups[key] = group
 
     def index(self, axes: Sequence[str]) -> int:

@@ -1,6 +1,5 @@
 """The port's resilient-training runtime (counterpart of
-``bigdl_tpu/resilience``; the elastic fleet comes later, ROADMAP Queue 1
-item 9):
+``bigdl_tpu/resilience``):
 
 * :mod:`.policy` — :class:`FailurePolicy`: fault classification (transient
   / poison_batch / divergence / stall), per-class budgets, seeded backoff,
@@ -12,12 +11,19 @@ item 9):
   ``Optimizer.resume()``;
 * :mod:`.chaos` — :class:`FaultPlan`: deterministic fault injection at the
   span seams;
+* :mod:`.elastic` — :class:`ElasticCoordinator` over the
+  :class:`~bigdl_tpu_torch.obs.fleet.FleetMonitor`: a lost host's ranks
+  leave the group at a step boundary behind a fleet checkpoint, the
+  survivors continue, the host rejoins at an epoch boundary;
+  :class:`SimulatedFleet` impersonates hosts as heartbeat writers;
 * :mod:`.errors` — the typed faults, with serving's and the checkpoints'.
 """
 
-from .chaos import SERVING_SEAMS, FaultPlan, FaultSpec
+from .chaos import FLEET_SEAMS, SERVING_SEAMS, FaultPlan, FaultSpec
+from .elastic import ElasticConfig, ElasticCoordinator, SimulatedFleet, SimulatedPeer
 from .errors import (ArtifactIncompatible, CheckpointCorrupt, CircuitOpen, DeadlineExceeded,
-                     DivergenceError, FaultInjected, StallEscalation, TrainingPreempted)
+                     DivergenceError, ElasticFleetExhausted, ElasticRemesh, FaultInjected,
+                     StallEscalation, TrainingPreempted)
 from .policy import FailurePolicy, FaultClass, RetryDecision
 from .preemption import PreemptionGuard
 
@@ -28,6 +34,13 @@ __all__ = [
     "FaultPlan",
     "FaultSpec",
     "SERVING_SEAMS",
+    "FLEET_SEAMS",
+    "ElasticConfig",
+    "ElasticCoordinator",
+    "SimulatedFleet",
+    "SimulatedPeer",
+    "ElasticFleetExhausted",
+    "ElasticRemesh",
     "PreemptionGuard",
     "ArtifactIncompatible",
     "CircuitOpen",

@@ -35,8 +35,11 @@ batching thread around pad/stack and ``Predictor.forward_batch``,
 ``serve_materialize`` on the caller's thread inside ``ServeFuture.result``,
 and ``serve_worker`` at the top of the batching loop itself (a ``raise``
 there kills the worker thread — the seam the ``ServingSupervisor``
-kill→restart coverage arms). The elastic fleet's ``FLEET_SEAMS`` come with
-the elastic runtime (ROADMAP Queue 1 item 9).
+kill→restart coverage arms). The elastic fleet's ``FLEET_SEAMS``, in
+host-loss order: ``hb_write`` inside every heartbeat file write
+(``obs/fleet.py``: arming it is a host whose heartbeats stop),
+``coordinate`` before the emergency fleet checkpoint, ``reshard`` and
+``rejoin`` inside ``Optimizer._apply_remesh``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from .errors import FaultInjected
 
 log = logging.getLogger("bigdl_tpu_torch.resilience")
 
-__all__ = ["FaultPlan", "FaultSpec", "SERVING_SEAMS"]
+__all__ = ["FaultPlan", "FaultSpec", "FLEET_SEAMS", "SERVING_SEAMS"]
 
 # the serving tier's chaos seams, in request order (docs/resilience.md):
 # admission (caller thread) -> assembly + dispatch (batching thread) ->
@@ -63,6 +66,9 @@ SERVING_SEAMS = (
     "serve_materialize",
     "serve_worker",
 )
+
+# the elastic fleet's seams, in host-loss order (the module docstring)
+FLEET_SEAMS = ("hb_write", "coordinate", "reshard", "rejoin")
 
 class FaultSpec:
     """One armed failure point: fire ``times`` times starting at the

@@ -1,7 +1,7 @@
 """Typed fault exceptions (counterpart of ``bigdl_tpu/resilience/errors.py``,
-the port's own copies with the same fields and messages; the elastic
-fleet's ``ElasticRemesh`` and ``ElasticFleetExhausted`` come with the
-elastic runtime), and of ``bigdl_tpu/utils/aot.py``'s
+the port's own copies with the same fields and messages, the elastic
+fleet's ``ElasticRemesh`` and ``ElasticFleetExhausted`` among them), and of
+``bigdl_tpu/utils/aot.py``'s
 ``ArtifactIncompatible``, which a fleet checkpoint that does not fit the
 model raises.
 
@@ -39,7 +39,7 @@ class DivergenceError(RuntimeError):
         self.position = position  # (epoch, iter_in_epoch) of the diverged step
         self.layer = layer
         self.source = source      # "grads" | "weights" | "loss" | None
-        self.shard = shard        # the mesh optimizers' data shard; None here
+        self.shard = shard        # the mesh optimizers' data shard (None elsewhere)
 
 
 class StallEscalation(RuntimeError):
@@ -68,6 +68,41 @@ class TrainingPreempted(Exception):
         self.signum = signum
         self.step = step
         self.checkpoint_dir = checkpoint_dir
+
+
+class ElasticRemesh(Exception):
+    """The elastic runtime's internal signal, raised at a step or epoch
+    boundary after the coordinated fleet checkpoint is written and consumed
+    inside ``Optimizer.optimize()`` (it never escapes it): the survivors
+    re-form their group and re-cut the flat master (``kind="shrink"``), or
+    the returned ranks join again (``kind="rejoin"``), restore from that
+    checkpoint and re-enter the step loop."""
+
+    def __init__(self, kind: str, members, step: Optional[int] = None):
+        if kind not in ("shrink", "rejoin"):
+            raise ValueError(f"unknown remesh kind {kind!r}")
+        members = sorted(int(k) for k in members)
+        super().__init__(f"elastic remesh ({kind}): processes {members} at step {step}")
+        self.kind = kind
+        self.members = members
+        self.step = step
+
+
+class ElasticFleetExhausted(RuntimeError):
+    """The survivors fell below ``ElasticConfig.min_processes``: raised out
+    of ``optimize()`` after the coordinated emergency checkpoint is
+    written, so the run resumes once the hosts return."""
+
+    def __init__(self, active, lost, min_processes: int):
+        active = sorted(int(k) for k in active)
+        lost = sorted(int(k) for k in lost)
+        super().__init__(
+            f"elastic fleet exhausted: losing processes {lost} leaves {len(active)} "
+            f"survivor(s) {active}, below min_processes={min_processes}; emergency "
+            "checkpoint written, run is resumable")
+        self.active = active
+        self.lost = lost
+        self.min_processes = int(min_processes)
 
 
 class FaultInjected(RuntimeError):

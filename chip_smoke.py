@@ -482,6 +482,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``with ModelServer()`` leaves a postmortem bundle that ``verify_bundle``
    accepts, its reason naming the class. [25f]'s fresh process runs beside
    [25c]-[25g], which read counts, bits and records, not times.
+26. the elastic fleet: [26a] the LM of [5]/[6] (bf16, batch 12 of 48
+   seeded records, SGD 0.1, ``set_health``) through
+   ``DistriOptimizer(parameter_sync="sharded")`` with ``set_elastic`` on 4
+   ranks spawned beside [23e], sharing the card over gloo, on the JAX
+   package's chaos schedule (a fake clock a second an ``end_when`` call;
+   rank 0 holds a thread-free ``SimulatedFleet`` whose peers beat for the
+   other ranks' hosts): host 3 silent after step 2 and back after step 5,
+   3 epochs. One ``host_lost`` and one ``mesh_shrunk`` (members [3], the
+   processes [0, 1, 2], generation 1, restored at its own step) and one
+   ``mesh_rejoin`` (generation 2) record with the JAX package's fields;
+   the generation-1 fleet checkpoint of 4 shards at the shrink's step
+   bit-equal to a clean 4-rank run's checkpoint there, the generation-2 one
+   of 3 shards; two layouts on the survivors (the ZeRO-1 step cache); every
+   rank's health finite and rank 0's global gradient norm within
+   ``ELASTIC_NORM_REL`` of the clean run's at every common step, a planted
+   reading (the largest leaf's gradient doubled, from the records' own
+   rows) over it; every rank whole and equal at the end; #1-#3 6 each a
+   dispatched step on every rank; no rank left running. [26b] rides
+   [23a]'s and [23d]'s spawns: their bf16 runs with ``Telemetry`` and
+   ``set_health`` (every rank's records finite, each step record's
+   ``collective_bytes`` with its all-to-all and ppermute parts equal to the
+   step's delta of ``parallel._comm`` 's counters, [23a]'s
+   ``pipe_bubble_frac`` equal to (S-1)/(n_micro+S-1)), their f32 checks'
+   health norms against the one-rank run's (``MESH_HEALTH_TOL``, the
+   planted run over it) and [23d]'s f32 steps with ``donate=False`` equal
+   to the donated run's to the bit.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -532,7 +558,8 @@ four counted in the ranks' processes and summed, and [24]'s ``obs_lm``,
 and [25]'s ``surface_cold`` and ``surface_warm`` (counted in their
 processes), ``surface_rejections``, ``surface_drift``,
 ``prediction_service``, ``step_export`` and ``step_resume`` (counted in its
-process) and ``server_postmortem``) runs with every kernel's launch count set to 0 just
+process) and ``server_postmortem``, and [26]'s ``elastic_zero1``, counted in
+the ranks' processes and summed) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -9650,6 +9677,12 @@ MESH_TOL = {"pipe": {"loss": 1e-5, "update": 1e-2},
             "hybrid": {"loss": 1e-7, "update": 2e-4, "params_abs": 5e-6}}
 MESH_PLANT = {"pipe": "/stages/FeedForwardNetwork_1/filter_w", "ring": "block0/self_q_w",
               "moe": "/w1", "hybrid": "block0/self_q_w"}  # the leaf each check's fault doubles
+# [26b] the health records' global gradient norm of [23a]'s and [23d]'s f32
+#   checks against the one-rank run's at each step (largest relative
+#   difference; the planted run's too). On an H100 (80GB HBM3, 700 W):
+#   [23a] 6.98e-6 / 0.380, [23d] 7.25e-7 / 1.83e-4 (sound / planted);
+#   each limit sits between them
+MESH_HEALTH_TOL = {"pipe": 1e-3, "hybrid": 1e-5}
 
 
 def _f32_card():
@@ -9702,6 +9735,97 @@ def _doubled(cls, leaf: str):
             return super()._clip_grads(unflatten_to_like(items, grads))
 
     return Doubled
+
+
+def _observed(opt):
+    """[26b] ``Telemetry`` (no heartbeats, no meta-device cost count: a
+    mesh step's collectives do not run on meta tensors) and ``set_health``
+    on ``opt``, and each step's collective bytes read around its
+    ``_train_step``; returns the function that gives ``{"steps", "health",
+    "wire"}`` (the step and health records, the per-step byte deltas of
+    ``parallel._comm`` by collective)."""
+    from bigdl_tpu_torch.obs import HealthConfig, PerfConfig, Telemetry
+    from bigdl_tpu_torch.parallel import _comm
+
+    tel = Telemetry(heartbeat_interval_s=None)
+    opt.set_telemetry(tel).set_perf(PerfConfig(cost=False))
+    opt.set_health(HealthConfig(every_n_steps=1))
+    step, wire = opt._train_step, []
+
+    def counted(*a, **k):
+        before = _comm.counts()
+        out = step(*a, **k)
+        after = _comm.counts()
+        wire.append({n: after[n]["bytes"] - before[n]["bytes"] for n in after})
+        return out
+
+    opt._train_step = counted
+
+    def read():
+        recs = list(tel.ring.records)
+        return {"steps": [r for r in recs if r["type"] == "step"],
+                "health": [r for r in recs if r["type"] == "health"], "wire": wire}
+
+    return read
+
+
+def _grad_norms(observed):
+    """The global gradient norms of an observed run's health records."""
+    return [h["global"]["grad_norm"] for h in observed["health"]]
+
+
+def _check_observed(label, ranks, job, iters, bubble=None):
+    """[26b] every rank's records of an observed run: ``iters`` step and
+    health records, every health reading finite, each step record's
+    ``collective_bytes`` (and its all-to-all and ppermute parts) equal to
+    that step's delta of ``parallel._comm`` 's counters, and the pipeline's
+    ``pipe_bubble_frac``. Returns rank 0's global gradient norms."""
+    import math
+
+    for r, res in enumerate(ranks):
+        obs = res[job]["observed"]
+        steps, health, wire = obs["steps"], obs["health"], obs["wire"]
+        if len(steps) != iters or len(health) != iters:
+            raise AssertionError(f"{label} rank {r}: {len(steps)} step and {len(health)} health "
+                                 f"records, expected {iters}")
+        for h in health:
+            g = h["global"]
+            if (not all(math.isfinite(g[k]) for k in ("grad_norm", "weight_norm",
+                                                      "update_ratio"))
+                    or g["nonfinite_grads"] or g["nonfinite_params"]):
+                raise AssertionError(f"{label} rank {r}: health {g}")
+        for rec, w in zip(steps, wire):
+            want = (sum(w.values()), w["all_to_all"], w["ppermute"])
+            got = (rec["collective_bytes"], rec["all_to_all_bytes"], rec["ppermute_bytes"])
+            if got != want:
+                raise AssertionError(f"{label} rank {r}: step record wire {got}, the counters' "
+                                     f"delta {want}")
+            if bubble is not None and abs(rec.get("pipe_bubble_frac", -1) - bubble) > 1e-6:
+                raise AssertionError(f"{label} rank {r}: pipe_bubble_frac "
+                                     f"{rec.get('pipe_bubble_frac')}, expected {bubble}")
+    obs = ranks[0][job]["observed"]
+    mib = [s["collective_bytes"] / 2**20 for s in obs["steps"]]
+    log(f"    {label} health on every rank: {iters} records each, finite; global grad norm "
+        + ", ".join(f"{v:.4f}" for v in _grad_norms(obs)) + "; collective MiB a step (rank 0) "
+        + ", ".join(f"{v:.2f}" for v in mib) + " = the counters' delta a step"
+        + (f"; pipe_bubble_frac {obs['steps'][0]['pipe_bubble_frac']}" if bubble else ""))
+    return _grad_norms(obs)
+
+
+def _norms_against(label, check, ref, planted, tol):
+    """[26b] the mesh run's global gradient norms against the one-rank
+    run's within ``tol`` (largest relative difference), the planted run's
+    over it."""
+    def dist(a):
+        return max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(a, ref))
+
+    got, bad = dist(check), dist(planted)
+    log(f"    {label}: health grad norms {[round(v, 5) for v in check]} vs "
+        f"{[round(v, 5) for v in ref]}: {got:.2e} (limit {tol}; planted {bad:.2e})")
+    if len(check) != len(ref) or got > tol:
+        raise AssertionError(f"{label}: the mesh run's health disagrees with the one-rank run")
+    if not bad > tol:
+        raise AssertionError(f"{label}: the planted fault's health passes the limit {tol}")
 
 
 def _distance(run, ref, p0):
@@ -9762,12 +9886,14 @@ def _mesh_job_pipe(rank, world, out):
                                 _lm_criterion(), mesh=mesh, n_micro=c["n_micro"])
         opt.set_optim_method(Adam(learningrate=3e-3))
         opt.set_end_when(Trigger.max_iteration(c["iters"]))
+        observed = _observed(opt)  # [26b]
         _comm.reset_counts()
         reset_counts()  # the main path starts here
         opt.optimize()
         _sync()
         out["counts"] = read_counts()  # the main path ends here
         out["comm"] = _comm.counts()
+        out["observed"] = observed()
         hist = opt.history
         out.update(losses=[h["loss"] for h in hist],
                    step_ms=statistics.median(h["wall_s"] for h in hist[2:]) * 1e3,
@@ -9801,26 +9927,28 @@ def _pipe_f32_check(rank, mesh, x, y, out, fused: bool, planted: bool) -> None:
             m.init(sample_input=x[:n])
             return m
 
-        def fit(model, cls, **kw):
+        def fit(model, cls, key, **kw):
             o = cls(model, DataSet.array(x[:n], y[:n], batch_size=n), _lm_criterion(), **kw)
             o.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(3))
+            observed = _observed(o)  # [26b] health against the sequential stack's
             o.optimize()
-            return [h["loss"] for h in o.history], _flat_params(model)
+            out[f"{key}_norms"] = _grad_norms(observed())
+            out[key] = ([h["loss"] for h in o.history], _flat_params(model))
 
         model = build()
         p0 = _flat_params(model)
-        out["check"] = fit(model, PipelineOptimizer, mesh=mesh, n_micro=c["n_micro"])
+        fit(model, PipelineOptimizer, "check", mesh=mesh, n_micro=c["n_micro"])
         del model
         if planted:
             model = build()
-            out["planted"] = fit(model, _doubled(PipelineOptimizer, MESH_PLANT["pipe"]),
-                                 mesh=mesh, n_micro=c["n_micro"])
+            fit(model, _doubled(PipelineOptimizer, MESH_PLANT["pipe"]), "planted", mesh=mesh,
+                n_micro=c["n_micro"])
             del model
         _free()
         _comm.barrier()
         if rank == 0:
             model = build()
-            out["ref"] = fit(model, LocalOptimizer)
+            fit(model, LocalOptimizer, "ref")
             out["p0"] = p0
             out["names"] = [n_ for n_, _ in model.named_parameters()]
             out["sizes"] = [p.numel() for _, p in model.named_parameters()]
@@ -9850,7 +9978,9 @@ def _lm_data(seed):
             gen.integers(0, w["vocab"], (w["records"], w["seq"])))
 
 
-def _lm_fit(model, cls, x, y, steps, **kw):
+def _lm_fit(model, cls, x, y, steps, observe=None, **kw):
+    """``steps`` SGD steps of ``cls``; with ``observe`` (a dict) the run is
+    ``_observed`` and its readings go there under ``"observed"``."""
     from bigdl_tpu_torch.dataset import DataSet
     from bigdl_tpu_torch.nn import CrossEntropyCriterion
     from bigdl_tpu_torch.optim import SGD, Trigger
@@ -9858,7 +9988,10 @@ def _lm_fit(model, cls, x, y, steps, **kw):
     o = cls(model, DataSet.array(x, y, batch_size=MESH_LM["batch"]), CrossEntropyCriterion(),
             **kw)
     o.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(steps))
+    read = _observed(o) if observe is not None else None
     o.optimize()
+    if read is not None:
+        observe["observed"] = read()
     return o
 
 
@@ -10028,7 +10161,7 @@ def _mesh_job_hybrid(rank, world, out):
         out["sharded"] = sum(p.numel() * 4 for k, p in items.items() if plan.spec_for(k) != ())
         _comm.reset_counts()
         reset_counts()  # the main path starts here
-        opt = _lm_fit(model, HybridParallelOptimizer, x, y, w["steps"],
+        opt = _lm_fit(model, HybridParallelOptimizer, x, y, w["steps"], observe=out,
                       plan=megatron_transformer_plan(), mesh=mesh)
         _sync()
         out["counts"] = read_counts()  # the main path ends here
@@ -10066,23 +10199,34 @@ def _mesh_job_hybrid(rank, world, out):
         model = _mesh_lm(dev, SEED + 3)
         model.init(sample_input=x[:w["batch"]])
         p0 = _flat_params(model)
-        o = _lm_fit(model, HybridParallelOptimizer, x, y, 3, plan=megatron_transformer_plan(),
-                    mesh=mesh)
+        seen = {}
+        o = _lm_fit(model, HybridParallelOptimizer, x, y, 3, observe=seen,
+                    plan=megatron_transformer_plan(), mesh=mesh)
         out["check"] = ([h["loss"] for h in o.history], _flat_params(model))
+        out["check_norms"] = _grad_norms(seen["observed"])
+        del o, model
+        # [26b] donate=False: the same update into fresh blocks, to the bit
+        model = _mesh_lm(dev, SEED + 3)
+        model.init(sample_input=x[:w["batch"]])
+        o = _lm_fit(model, HybridParallelOptimizer, x, y, 3, plan=megatron_transformer_plan(),
+                    mesh=mesh, donate=False)
+        out["undonated"] = _flat_params(model)
         del o, model
         model = _mesh_lm(dev, SEED + 3)
         model.init(sample_input=x[:w["batch"]])
         o = _lm_fit(model, _doubled(HybridParallelOptimizer, MESH_PLANT["hybrid"]), x, y, 3,
-                    plan=megatron_transformer_plan(), mesh=mesh)
+                    observe=seen, plan=megatron_transformer_plan(), mesh=mesh)
         out["planted"] = ([h["loss"] for h in o.history], _flat_params(model))
+        out["planted_norms"] = _grad_norms(seen["observed"])
         del o, model
         _free()
         _comm.barrier()
         if rank == 0:
             model = _mesh_lm(dev, SEED + 3)
             model.init(sample_input=x[:w["batch"]])
-            o = _lm_fit(model, LocalOptimizer, x, y, 3)
+            o = _lm_fit(model, LocalOptimizer, x, y, 3, observe=seen)
             out["ref"], out["p0"] = ([h["loss"] for h in o.history], _flat_params(model)), p0
+            out["ref_norms"] = _grad_norms(seen["observed"])
             del o, model
             _free()
         _comm.barrier()
@@ -10198,6 +10342,11 @@ def phase_mesh_pipe(card):
         f"({comm['broadcast']['bytes'] / 2**20:.1f} MiB)")
     _against("[23a] 3 f32 SGD steps, GPipe vs the sequential stack on one rank", r0["check"],
              r0["ref"], r0["p0"], MESH_TOL["pipe"], r0["planted"])
+    s = c["stages"]
+    _check_observed("[26b] [23a]'s bf16 run:", ranks, "pipe", c["iters"],
+                    bubble=(s - 1) / (c["n_micro"] + s - 1))
+    _norms_against("[26b] [23a]'s 3 f32 steps", r0["check_norms"], r0["ref_norms"],
+                   r0["planted_norms"], MESH_HEALTH_TOL["pipe"])
     return _sum_rank_counts(ranks, "pipe")
 
 
@@ -10296,6 +10445,14 @@ def phase_mesh_four(card):
         raise AssertionError(f"[23d] the audits said {audits}")
     _against("[23d] 3 f32 SGD steps, hybrid vs LocalOptimizer on one rank", r0["check"],
              r0["ref"], r0["p0"], MESH_TOL["hybrid"], r0["planted"])
+    _check_observed("[26b] [23d]'s bf16 run:", ranks, "hybrid", w["steps"])
+    _norms_against("[26b] [23d]'s 3 f32 steps", r0["check_norms"], r0["ref_norms"],
+                   r0["planted_norms"], MESH_HEALTH_TOL["hybrid"])
+    for r, res in enumerate(ranks):
+        if not bool((res["hybrid"]["undonated"] == res["hybrid"]["check"][1]).all()):
+            raise AssertionError(f"[26b] rank {r}: donate=False moved the parameters otherwise")
+    log("    [26b] [23d]'s 3 f32 steps with donate=False: every rank's parameters equal the "
+        "donated run's to the bit")
     by_path["mesh_hybrid"] = _sum_rank_counts(ranks, "hybrid")
     return by_path
 
@@ -10355,13 +10512,15 @@ def phase_mesh_examples(card):
 
 
 def phase_slice24(card):
-    """[23] the mesh parallelisms; returns the main paths' launches."""
+    """[23] the mesh parallelisms; returns the main paths' launches and
+    [26a]'s ranks, started beside [23e] (a ``_Background``)."""
     t0 = time.perf_counter()
     by_path = {"mesh_pipe": phase_mesh_pipe(card)}
     by_path.update(phase_mesh_four(card))
+    elastic = _Background(_spawn_elastic)  # [26a]'s ranks beside [23e]'s: pass/fail runs
     phase_mesh_examples(card)
     log(f"[23] done in {time.perf_counter() - t0:.1f} s")
-    return by_path
+    return by_path, elastic
 
 
 # [24] the training drive loop's observability and resilience (slice 25),
@@ -11522,6 +11681,345 @@ def phase_slice26(card):
     return by_path
 
 
+# ----------------------------------------------------------------------------- [26]
+# the elastic fleet (resilience/elastic.py, obs/fleet.py's FleetMonitor) on
+# ZeRO-1: [26a] the LM of [5]/[6] through DistriOptimizer(parameter_sync=
+# "sharded") with set_elastic and set_health on 4 spawned ranks sharing the
+# card over gloo, the JAX package's chaos schedule (a fake clock a second an
+# end_when call; rank 0 holds a thread-free SimulatedFleet whose peers beat
+# for the other ranks' hosts): host 3's heartbeats stop after step 2 and
+# come back after step 5, the ranks shrink to 3 at a step boundary behind a
+# generation-1 fleet checkpoint, rejoin at the next epoch boundary behind a
+# generation-2 one, and end whole after epoch 3; then a clean 4-rank run of
+# the same 3 epochs (a checkpoint at the shrink's step). [26b] rides
+# [23a]'s and [23d]'s spawns (``_observed``, ``MESH_HEALTH_TOL``).
+# Rehearse [26a] on the CPU by importing chip_smoke from a guarded script,
+# setting ELASTIC_DEVICE = "cpu", cutting ELASTIC_LM (V 64, H 32, 4 heads,
+# filter 64, 2 layers, T 16) and calling phase_elastic("cpu") (the launch
+# checks are the card's).
+ELASTIC_DEVICE = "cuda"
+ELASTIC_LM = dict(LM_WIDTH, records=48, batch=12, epochs=3, world=4, kill=(3,), kill_at=3,
+                  revive_at=6, stale_after_s=1.5)
+# [26a] the elastic run's health (global gradient norm) against the clean
+#   run's at each step both recorded, largest relative difference. Before
+#   the shrink the two runs are one computation (expected 0); after it the
+#   3-rank group sums the same 12 rows in another order (bf16 operands:
+#   another row count per rank may take other cuBLAS kernels). The planted
+#   reading is what doubling one leaf's gradient does to the clean run's
+#   norm, from its own per-layer rows, taken at the record's largest leaf
+#   (of ~75 leaves the largest holds at least 1/sqrt(75) of the norm, so
+#   the planted reading is at least 0.02). An H100 (80GB HBM3, 700 W) read
+#   6.74e-4 sound and 0.186 planted (the embedding's leaf alone: 2.59e-3,
+#   too small a share at this width); the limit sits between
+ELASTIC_NORM_REL = 5e-3
+
+
+def _elastic_lm(dev):
+    from bigdl_tpu_torch import RandomGenerator
+    from bigdl_tpu_torch.nn import Transformer
+
+    c = ELASTIC_LM
+    RandomGenerator.set_seed(SEED)
+    return Transformer(c["vocab"], c["hidden"], c["heads"], c["filt"], c["layers"], 0.0, 0.0,
+                       0.0, mode="lm", device=dev)
+
+
+def _elastic_fit(rank, world, folder, elastic: bool, ckpt_at=None):
+    """One run of [26a] on this rank (elastic, or clean with a checkpoint at
+    step ``ckpt_at``); its readings."""
+    import numpy as np
+
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn import CrossEntropyCriterion
+    from bigdl_tpu_torch.obs import HealthConfig, Telemetry
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.parallel import DistriOptimizer, _comm
+    from bigdl_tpu_torch.resilience import ElasticConfig, ElasticCoordinator, SimulatedFleet
+
+    c, dev = ELASTIC_LM, ELASTIC_DEVICE
+    name = "elastic" if elastic else "clean"
+    gen = np.random.default_rng(SEED + 5)
+    x = gen.integers(0, c["vocab"], (c["records"], c["seq"]))
+    y = gen.integers(0, c["vocab"], (c["records"], c["seq"]))
+    model = _elastic_lm(dev)
+    model.init(sample_input=x[:c["batch"] // world])
+    opt = DistriOptimizer(model, DataSet.distributed(DataSet.array(x, y, batch_size=c["batch"]),
+                                                     world),
+                          CrossEntropyCriterion(), parameter_sync="sharded")
+    opt.set_optim_method(SGD(learningrate=0.1))
+    ckpt = os.path.join(folder, name, "ckpt")
+    opt.set_checkpoint(ckpt, (lambda st: st["neval"] == ckpt_at) if ckpt_at
+                       else Trigger.several_iteration(10 ** 6))
+    run_dir = os.path.join(folder, name, "run")
+    Engine.set_run_dir(run_dir)
+    # rank 0 beats for itself (wall clock: fresh on the fake clock); the
+    # SimulatedFleet's peers beat for the other ranks' hosts
+    tel = Telemetry(heartbeat_interval_s=0.0 if elastic and rank == 0 else None)
+    opt.set_telemetry(tel).set_health(HealthConfig(every_n_steps=1))
+    clk = {"t": 1000.0}
+    fleet = coord = None
+    if elastic:
+        coord = ElasticCoordinator(ElasticConfig(
+            stale_after_s=c["stale_after_s"], poll_interval_s=0.0, min_fleet_steps=0,
+            wall_clock=lambda: clk["t"]))
+        opt.set_elastic(coord)
+        if rank == 0:
+            fleet = SimulatedFleet(run_dir, world, threads=False, clock=lambda: clk["t"])
+
+    def end_when(state):
+        step = int(state.get("neval", 0))
+        clk["t"] += 1.0
+        if fleet is not None:
+            fleet.beat_all(step)
+            for k in c["kill"]:
+                if step == c["kill_at"]:
+                    fleet.kill(k)
+                if step == c["revive_at"]:
+                    fleet.revive(k)
+        return int(state.get("epoch", 1)) > c["epochs"]
+
+    opt.set_end_when(end_when)
+    step, dispatched = opt._train_step, [0]
+
+    def counted(*a, **k):
+        dispatched[0] += 1
+        return step(*a, **k)
+
+    opt._train_step = counted
+    _comm.reset_counts()
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    if fleet is not None:
+        with fleet:
+            opt.optimize()
+    else:
+        opt.optimize()
+    _sync()
+    out = {"counts": read_counts(), "wall_s": time.perf_counter() - t0}  # the path ends here
+    tel.close()
+    Engine.set_run_dir(None)
+    recs = list(tel.ring.records)
+    out.update(dispatched=dispatched[0], losses=[h["loss"] for h in opt.history],
+               nevals=[h["neval"] for h in opt.history],
+               warns=[r for r in recs if r["type"] == "warn"],
+               health=[r for r in recs if r["type"] == "health"],
+               step_ms=[h["wall_s"] * 1e3 for h in opt.history],
+               snapshot=coord.snapshot() if coord is not None else None,
+               step_cache=[list(k) for k in opt._distri_step_cache],
+               params=_flat_params(model))
+    del opt, model
+    _free()
+    return out
+
+
+def _elastic_rank(rank, world, folder, settings):
+    """A spawned rank of [26a]: the elastic run, then the clean one; rank 0
+    also reads the checkpoints. Saves ``rank<r>.pt``."""
+    import torch
+
+    global ELASTIC_DEVICE
+    ELASTIC_DEVICE = settings["device"]
+    ELASTIC_LM.update(settings["lm"])
+    sys.path.insert(0, str(ROOT))
+    from bigdl_tpu_torch import Engine
+
+    Engine.init_distributed(f"file://{folder}/group", world, rank,
+                            device=None if ELASTIC_DEVICE == "cuda" else "cpu")
+    if ELASTIC_DEVICE == "cuda":  # the library's load launches the probe once: before any path
+        from bigdl_tpu_torch.ops import _build
+
+        _build.load()
+    res = {"backend": Engine.backend(), "device": str(Engine.rank_device())}
+    try:
+        res["elastic"] = _elastic_fit(rank, world, folder, elastic=True)
+        from bigdl_tpu_torch.utils import serialization as ser
+
+        ckpt = os.path.join(folder, "elastic", "ckpt")
+        manifests = {s: ser.checkpoint_manifest(ckpt, s) for s in ser._checkpoint_steps(ckpt)}
+        res["manifests"] = {s: {"generation": m["generation"], "shards": sorted(m["shards"]),
+                                "process_count": m["process_count"], "mesh": m["mesh"]}
+                            for s, m in manifests.items()}
+        shrink = min(s for s, m in manifests.items() if m["generation"] == 1)
+        res["clean"] = _elastic_fit(rank, world, folder, elastic=False, ckpt_at=shrink)
+        if rank == 0:  # the emergency checkpoint against the clean run's, leaf by leaf
+            import numpy as np
+
+            like_model = _elastic_lm(ELASTIC_DEVICE)
+            like_model.init(sample_input=np.zeros((1, ELASTIC_LM["seq"]), np.int64))
+            like = like_model.get_parameters()
+            pe, _, he, _ = ser.load_checkpoint(ckpt, shrink, params_like=like)
+            pc, _, hc, _ = ser.load_checkpoint(os.path.join(folder, "clean", "ckpt"), shrink)
+            res["ckpt_step"] = (shrink, he["neval"], hc["neval"])
+            res["ckpt_equal"] = sorted(pe) == sorted(pc) and all(
+                pe[k].dtype == pc[k].dtype and (pe[k] == pc[k]).all() for k in pe)
+            res["ckpt_leaves"] = len(pe)
+    finally:
+        Engine.shutdown_distributed()
+    torch.save(res, os.path.join(folder, f"rank{rank}.pt"))
+
+
+def _spawn_elastic():
+    """[26a]'s ranks under ``RANK_DEADLINE_S`` (a rank that fails or hangs
+    fails the run); each rank's results."""
+    import tempfile
+
+    import torch
+    from bigdl_tpu_torch.examples._common import spawn
+
+    os.makedirs(ROOT / "build", exist_ok=True)
+    world = ELASTIC_LM["world"]
+    with tempfile.TemporaryDirectory(prefix="smoke_elastic_", dir=str(ROOT / "build")) as folder:
+        settings = {"device": ELASTIC_DEVICE, "lm": ELASTIC_LM}
+        spawn(_elastic_rank, (folder, settings), world, RANK_DEADLINE_S, stderr_dir=folder)
+        return [torch.load(os.path.join(folder, f"rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+
+
+class _Background:
+    """``fn()`` on a daemon thread (its spawned ranks beside another phase);
+    :meth:`result` joins it and raises what it raised; ``wall_s`` is its
+    time."""
+
+    def __init__(self, fn):
+        self._out = {}
+        self.wall_s = None
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self._out["value"] = fn()
+                self.wall_s = time.perf_counter() - t0
+            except BaseException as e:  # raised again on the caller's thread
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, name="smoke-background", daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def _planted_norm(health_rec):
+    """``(leaf, norm)``: the record's largest leaf and the global gradient
+    norm with that leaf's gradient doubled, from the record's own
+    per-layer rows: sqrt(g^2 + 3 g_leaf^2)."""
+    g = health_rec["global"]["grad_norm"]
+    leaf, row = max(health_rec["layers"].items(), key=lambda kv: kv[1]["grad_norm"])
+    return leaf, (g * g + 3 * row["grad_norm"] ** 2) ** 0.5
+
+
+def phase_elastic(card, ranks=None):
+    """[26a]'s checks over the ranks' results (spawned here unless given);
+    returns the path's launches (summed over the ranks)."""
+    import math
+
+    import torch
+
+    c = ELASTIC_LM
+    if ranks is None:
+        ranks = _spawn_elastic()
+    _check_backend("[26a] ZeRO-1 elastic:", ranks)
+    world = c["world"]
+    e0, c0 = ranks[0]["elastic"], ranks[0]["clean"]
+    shrunk = [w for w in e0["warns"] if w["reason"] == "mesh_shrunk"]
+    rejoin = [w for w in e0["warns"] if w["reason"] == "mesh_rejoin"]
+    lost = [w for w in e0["warns"] if w["reason"] == "host_lost"]
+    log(f"[26a] ZeRO-1 elastic: the LM (V {c['vocab']}, H {c['hidden']}, {c['layers']} layers, T "
+        f"{c['seq']}, batch {c['batch']} of {c['records']} records, bf16, SGD 0.1, health) on "
+        f"{world} ranks, host {list(c['kill'])} silent after step {c['kill_at'] - 1} and back "
+        f"after step {c['revive_at'] - 1}: {e0['wall_s']:.1f} s elastic, {c0['wall_s']:.1f} s "
+        f"clean; dispatches a rank {[r['elastic']['dispatched'] for r in ranks]}; step ms (rank "
+        f"0) " + ", ".join(f"{v:.0f}" for v in e0["step_ms"]) + f"; card {card}")
+    if len(shrunk) != 1 or len(rejoin) != 1 or len(lost) != 1:
+        raise AssertionError(f"[26a] rank 0's warns {[w['reason'] for w in e0['warns']]}")
+    s, j = shrunk[0], rejoin[0]
+    fields = ("iteration", "members", "processes", "process_count", "generation",
+              "restored_step", "reshard_s", "reader_slices")  # the JAX package's
+    for w in (s, j):
+        if w.get("path") != "elastic" or any(k not in w for k in fields):
+            raise AssertionError(f"[26a] a remesh record without the JAX fields: {w}")
+        log(f"    {w['reason']}: " + ", ".join(f"{k} {w[k]}" for k in fields))
+    if not (s["members"] == list(c["kill"]) and s["processes"] == [0, 1, 2]
+            and s["generation"] == 1 and s["restored_step"] == s["iteration"]
+            and j["members"] == list(c["kill"]) and j["processes"] == [0, 1, 2, 3]
+            and j["generation"] == 2 and j["restored_step"] == j["iteration"]
+            and j["iteration"] > s["iteration"]):
+        raise AssertionError(f"[26a] the remesh records {s} / {j}")
+    for r, res in enumerate(ranks):
+        e = res["elastic"]
+        reasons = [w["reason"] for w in e["warns"] if w["reason"].startswith("mesh_")]
+        if reasons != (["mesh_rejoin"] if r in c["kill"] else ["mesh_shrunk", "mesh_rejoin"]):
+            raise AssertionError(f"[26a] rank {r}'s remesh records {reasons}")
+        if e["snapshot"]["active"] != list(range(world)) or e["snapshot"]["generation"] != 2:
+            raise AssertionError(f"[26a] rank {r} ended at {e['snapshot']}")
+        want_cache = [[0, 1, 2, 3]] if r in c["kill"] else [[0, 1, 2, 3], [0, 1, 2]]
+        if e["step_cache"] != want_cache:
+            raise AssertionError(f"[26a] rank {r}'s layouts {e['step_cache']}")
+    man = ranks[0]["manifests"]
+    ms, mj = man[s["iteration"]], man[j["iteration"]]
+    log(f"    manifests: step {s['iteration']} generation {ms['generation']}, shards "
+        f"{ms['shards']}, mesh {ms['mesh']}; step {j['iteration']} generation "
+        f"{mj['generation']}, shards {mj['shards']}, mesh {mj['mesh']}")
+    if not (ms["generation"] == 1 and ms["shards"] == ["0", "1", "2", "3"]
+            and mj["generation"] == 2 and mj["shards"] == ["0", "1", "2"]):
+        raise AssertionError(f"[26a] manifests {man}")
+    step, ne, nc = ranks[0]["ckpt_step"]
+    log(f"    the emergency checkpoint at step {step} ({ranks[0]['ckpt_leaves']} leaves, fleet "
+        f"shards) against the clean run's at step {nc}: bit-equal {ranks[0]['ckpt_equal']}")
+    if not (ranks[0]["ckpt_equal"] and ne == nc == step):
+        raise AssertionError("[26a] the emergency checkpoint differs from the clean run's")
+    # every rank's health finite; rank 0's norms against the clean run's
+    for r, res in enumerate(ranks):
+        for h in res["elastic"]["health"]:
+            g = h["global"]
+            if not math.isfinite(g["grad_norm"]) or g["nonfinite_grads"] or g["nonfinite_params"]:
+                raise AssertionError(f"[26a] rank {r}: health {g}")
+    clean = {h["iteration"]: h for h in c0["health"]}
+    common = [h for h in e0["health"] if h["iteration"] in clean]
+    dist = max(abs(h["global"]["grad_norm"] - clean[h["iteration"]]["global"]["grad_norm"])
+               / clean[h["iteration"]]["global"]["grad_norm"] for h in common)
+    plants = [_planted_norm(clean[h["iteration"]]) for h in common]
+    planted = min(abs(n - clean[h["iteration"]]["global"]["grad_norm"])
+                  / clean[h["iteration"]]["global"]["grad_norm"]
+                  for (_, n), h in zip(plants, common))
+    log(f"    health at {len(common)} common steps: grad norm vs the clean run {dist:.2e} "
+        f"(limit {ELASTIC_NORM_REL}; planted, the largest leaf's gradient doubled "
+        f"({sorted({leaf for leaf, _ in plants})}), at least {planted:.2e}); losses "
+        + ", ".join(f"{v:.4f}" for v in e0["losses"]))
+    if dist > ELASTIC_NORM_REL or not planted > ELASTIC_NORM_REL:
+        raise AssertionError("[26a] the elastic run's health disagrees with the clean run's")
+    if not torch.equal(ranks[1]["elastic"]["params"], e0["params"]) or not all(
+            torch.equal(r["elastic"]["params"], e0["params"]) for r in ranks):
+        raise AssertionError("[26a] the ranks end with different parameters")
+    # #1-#3: 6 each a dispatched step on every rank that stepped
+    for r, res in enumerate(ranks):
+        got = _nonzero(res["elastic"]["counts"])
+        exp = {k: c["layers"] * res["elastic"]["dispatched"]
+               for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                         "flash_attention_bwd_dkv")}
+        if ELASTIC_DEVICE == "cuda" and got != exp:
+            raise AssertionError(f"[26a] rank {r} launched {got}, expected {exp}")
+    return _sum_rank_counts(ranks, "elastic")
+
+
+def phase_slice27(card, elastic=None):
+    """[26] the elastic fleet (``elastic``: a ``_Background`` of
+    ``_spawn_elastic`` started beside an earlier phase, or None to spawn
+    here); returns the main path's launches."""
+    t0 = time.perf_counter()
+    ranks = elastic.result() if elastic is not None else None
+    by_path = {"elastic_zero1": phase_elastic(card, ranks)}
+    spawned = (f"{elastic.wall_s:.1f} s for its ranks beside [23e], then "
+               if elastic is not None else "")
+    log(f"[26] done in {spawned}{time.perf_counter() - t0:.1f} s ([26b] inside [23a] and "
+        "[23d])")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -11569,9 +12067,11 @@ def main() -> int:
     by_path.update(phase_slice21(card))
     by_path.update(phase_slice22(card))
     by_path.update(phase_slice23(card))
-    by_path.update(phase_slice24(card))
+    mesh_paths, elastic = phase_slice24(card)
+    by_path.update(mesh_paths)
     by_path.update(phase_slice25(card))
     by_path.update(phase_slice26(card))
+    by_path.update(phase_slice27(card, elastic))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -69,7 +69,7 @@ from bigdl_tpu_torch.utils.random import RandomGenerator
 
 from test_torch_conv_bn import flat, np_tree
 from test_torch_lenet import update_distance
-from torch_distri_worker import cnn, method_of, spawn_cases
+from torch_distri_worker import cnn, health_rows, method_of, spawn_cases
 
 SEED = 7
 BATCH = 8
@@ -111,8 +111,9 @@ def init():
     return np_tree(jp), np_tree(js)
 
 
-def _jax_distri(init, n, kw, method, steps=STEPS, clip=None, x=None, y=None):
-    """``steps`` of the JAX DistriOptimizer on n devices from ``init``."""
+def _jax_distri(init, n, kw, method, steps=STEPS, clip=None, x=None, y=None, health=False):
+    """``steps`` of the JAX DistriOptimizer on n devices from ``init`` (with
+    ``health``, its health records as ``health_rows``)."""
     if x is None:
         x, y = _data()
     saved = JEngine._state  # process-wide: a later test file sees it as it was
@@ -129,9 +130,18 @@ def _jax_distri(init, n, kw, method, steps=STEPS, clip=None, x=None, y=None):
         opt.set_optim_method(method_of(joptim, method))
         if clip is not None:
             opt.set_gradient_clipping_by_l2_norm(clip)
+        tel = None
+        if health:
+            from bigdl_tpu.obs import HealthConfig, Telemetry
+
+            tel = Telemetry(heartbeat_interval_s=None)
+            opt.set_telemetry(tel).set_health(HealthConfig(every_n_steps=1))
         opt.set_end_when(joptim.Trigger.max_iteration(steps)).optimize()
-        return dict(losses=np.asarray(opt.losses), params=flat(np_tree(jm.get_parameters())),
-                    state=flat(np_tree(jm.get_state())))
+        out = dict(losses=np.asarray(opt.losses), params=flat(np_tree(jm.get_parameters())),
+                   state=flat(np_tree(jm.get_state())))
+        if tel is not None:
+            out["health"] = health_rows([r for r in tel.ring.records if r["type"] == "health"])
+        return out
     finally:
         JEngine._state = saved
 
@@ -185,6 +195,8 @@ def two_ranks(init, tmp_path_factory):
     cases[0].update(eval_x=ex, eval_y=ey, eval_batch=4)
     cases += [_case(n, init, kw, SGD_WD, steps=EF_STEPS) for n, kw in EF]
     cases.append(_case("one_step", init, dict(parameter_sync="sharded"), SGD_WD, steps=1))
+    cases.append(_case("sharded_health", init, dict(parameter_sync="sharded"), SGD_WD,
+                       health=True))
     folder = tmp_path_factory.mktemp("two_ranks")
     for name, fault in (("retry_clean", None), ("retry_fault", ("dispatch", "raise", 3))):
         cases.append(_case(name, init, dict(parameter_sync="sharded"), SGD_WD,
@@ -204,6 +216,29 @@ def test_two_ranks_fault_and_retry_end_bit_equal_to_the_clean_run(two_ranks):
     for k in clean[0]:
         if k.startswith(("p.", "s.")):
             assert np.array_equal(clean[0][k], faulted[0][k]), k
+
+
+def test_two_ranks_sharded_health_matches_jax(two_ranks, init):
+    """ZeRO-1 ``set_health``: each rank's statistics of its slice, summed
+    over the ranks, equal on both ranks and the JAX package's
+    ``flat_shard_stats`` records within 1e-5 relative (rows: the global
+    grad norm, weight norm, update ratio, the non-finite counts and each
+    layer's three norms in path order, 3 steps). The conv bias ahead of BN
+    takes a gradient of rounding noise (~3e-8 here), so its three columns
+    are held at 1e-6 absolute and its update ratio (noise over noise) only
+    to be finite."""
+    ranks = two_ranks["sharded_health"]
+    got = ranks[0]["health"]
+    assert got.shape == (STEPS, 5 + 3 * 6)
+    np.testing.assert_array_equal(got, ranks[1]["health"])
+    jax_run = _jax_distri(init, 2, dict(parameter_sync="sharded"), SGD_WD, health=True)
+    ref = jax_run["health"]
+    noise = 5 + 3 * 4  # SpatialConvolution_0/bias, the fifth path in order
+    keep = [c for c in range(got.shape[1]) if not noise <= c < noise + 3]
+    np.testing.assert_allclose(got[:, keep], ref[:, keep], rtol=1e-5, atol=1e-8)
+    np.testing.assert_allclose(got[:, noise:noise + 2], ref[:, noise:noise + 2], atol=1e-6)
+    assert np.isfinite(got[:, noise + 2]).all()
+    np.testing.assert_allclose(ranks[0]["losses"], jax_run["losses"], atol=1e-5)
 
 
 @pytest.mark.parametrize("name,kw,method,clip", TWO_RANK, ids=[c[0] for c in TWO_RANK])
@@ -567,13 +602,15 @@ def test_distri_refusals(kw, method, match):
 
 
 def test_unported_and_refused_options():
+    from bigdl_tpu_torch.resilience import ElasticCoordinator
+
     with pytest.raises(NotImplementedError, match="set_micro_batches"):
         _port_opt().set_micro_batches(2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _port_opt().set_elastic()
+    assert isinstance(_port_opt().set_elastic()._elastic, ElasticCoordinator)  # armed
     _port_opt(donate=False)  # ported: the update writes fresh storage
-    with pytest.raises(NotImplementedError, match="ZeRO-1 sharded layout"):
-        _port_opt().set_health().set_end_when(poptim.Trigger.max_iteration(1)).optimize()
+    health = _port_opt().set_health()  # the ZeRO-1 layout's health runs
+    health.set_end_when(poptim.Trigger.max_iteration(1)).optimize()
+    assert health._flat.shard is not None and health.health._paths
     with pytest.raises(ValueError, match="parameter_sync"):
         _port_opt(parameter_sync="bogus")
     with pytest.raises(ValueError, match="not a supported"):

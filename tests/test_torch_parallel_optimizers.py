@@ -44,6 +44,7 @@ from bigdl_tpu_torch.parallel import (ExpertParallelOptimizer, HybridParallelOpt
                                       ParallelCompositionError, PipelineOptimizer, make_mesh)
 
 from test_torch_conv_bn import flat, np_tree
+from torch_distri_worker import health_rows
 from torch_mesh_worker import CASES, spawn_mesh_cases
 
 W = 8
@@ -72,7 +73,25 @@ def _jax_built(kind, x, seed=11):
     return m
 
 
-def _jax_fit(kind, opt_cls=None, mesh=None, data_axis=None, seed=11):
+def _jax_health(opt):
+    """Telemetry and ``set_health`` on a JAX optimizer; returns the function
+    that reads its health records as rows (``health_rows``) and the
+    per-shard counts."""
+    from bigdl_tpu.obs import HealthConfig, Telemetry
+
+    tel = Telemetry(heartbeat_interval_s=None)
+    opt.set_telemetry(tel).set_health(HealthConfig(every_n_steps=1))
+
+    def rows():
+        recs = [r for r in tel.ring.records if r["type"] == "health"]
+        shards = [[v["nonfinite_inputs"], v["nonfinite_targets"]]
+                  for r in recs for _, v in sorted(r.get("shards", {}).items())]
+        return health_rows(recs), np.asarray(shards)
+
+    return rows
+
+
+def _jax_fit(kind, opt_cls=None, mesh=None, data_axis=None, seed=11, health=False):
     x, y = _problem()
     m = _jax_built(kind, x)
     ds = JDataSet.array(x, y, batch_size=16)
@@ -80,11 +99,14 @@ def _jax_fit(kind, opt_cls=None, mesh=None, data_axis=None, seed=11):
         opt = JLocal(m, ds, jnn.ClassNLLCriterion())
     else:
         opt = opt_cls(m, ds, jnn.ClassNLLCriterion(), mesh=mesh, data_axis=data_axis)
+    rows = _jax_health(opt) if health else None
     JRandom.set_seed(seed)
     opt.set_optim_method(JSGD(learningrate=0.1))
     opt.set_end_when(JTrigger.max_epoch(2))
     opt.optimize()
     jax.block_until_ready(jax.tree_util.tree_leaves(m.get_parameters()))
+    if health:
+        return rows()
     return flat(np_tree(m.get_parameters()))
 
 
@@ -101,7 +123,7 @@ def _j_lm():
                            relu_dropout=0.0, mode="lm")
 
 
-def _jax_lm(hybrid: bool):
+def _jax_lm(hybrid: bool, health: bool = False):
     x, y = _lm_data()
     JRandom.set_seed(7)
     m = _j_lm()
@@ -113,9 +135,12 @@ def _jax_lm(hybrid: bool):
         opt = JHybrid(m, ds, crit, plan=j_plan(), mesh=j_make_mesh({"data": 2, "model": 4}))
     else:
         opt = JLocal(m, ds, crit)
+    rows = _jax_health(opt) if health else None
     opt.set_optim_method(JSGD(learningrate=0.1))
     opt.set_end_when(JTrigger.max_iteration(3))
     opt.optimize()
+    if health:
+        return rows()
     return init, flat(np_tree(m.get_parameters())), opt.optim_method.state["loss"]
 
 
@@ -168,6 +193,12 @@ def ranks(inits, tmp_path_factory):
              batch=16, init=lm_init, steps=1, ckpt_dir=f"{folder}/hybrid_ckpt"),
         dict(name="hybrid_nan", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl, batch=16,
              init=lm_init, nan_rank=5),
+        fit("dp_pp_health", "pipe", {"data": 2, "pipe": 4}, data_axis="data", health=True),
+        fit("ep_health", "moe", {"rep": 2, "expert": 4}, health=True),
+        dict(name="hybrid_health", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl,
+             batch=16, init=lm_init, health=True),
+        dict(name="hybrid_undonated", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl,
+             batch=16, init=lm_init, donate=False),
     ]
     # the one-rank references run here, once (each rank would run the same)
     local = {c["name"]: [CASES[c["fn"]](c, "cpu")] for c in cases if c["mesh"] is None}
@@ -302,6 +333,60 @@ def test_sharded_audit_names_the_leaf_and_the_rank(ranks):
     for r, m in enumerate(msgs):
         if r != 5:
             assert "non-finite" not in m and "rank(s) [5]" in m, m
+
+
+# ------------------------------------------------ health, donate, telemetry
+@pytest.mark.parametrize("name,kind,opt,mesh,data_axis", [
+    ("dp_pp_health", "pipe", JPipeline, {"data": 2, "pipe": 4}, "data"),
+    ("ep_health", "moe", JExpert, {"expert": 4}, None),
+    ("hybrid_health", "lm", JHybrid, {"data": 2, "model": 4}, "data"),
+])
+def test_mesh_health_matches_jax(name, kind, opt, mesh, data_axis, ranks):
+    """``set_health`` on the mesh optimizers (each rank's blocks, a stacked
+    or sharded leaf's rows summed over its axes): the same rows on every
+    rank, and the JAX optimizer's health records within 1e-4 relative
+    (1e-6 absolute: the fits' parameters agree at 1e-5) — the global grad
+    norm, weight norm, update ratio, non-finite counts and each layer's
+    three norms, every step — with the per-data-shard counts (all 0 here)
+    where the JAX optimizer binds a data axis."""
+    got = ranks[name]
+    for r in range(1, W):
+        np.testing.assert_array_equal(got[r]["health"], got[0]["health"])
+    if kind == "lm":
+        want, shards = _jax_lm(True, health=True)
+    else:
+        devices = jax.devices()[:int(np.prod(list(mesh.values())))]
+        want, shards = _jax_fit(kind, opt, j_make_mesh(mesh, devices=devices), data_axis,
+                                health=True)
+    assert got[0]["health"].shape == want.shape and want.shape[0] >= 3
+    np.testing.assert_allclose(got[0]["health"], want, rtol=1e-4, atol=1e-6)
+    np.testing.assert_array_equal(got[0]["shards"].reshape(shards.shape), shards)
+
+
+def test_hybrid_donate_false_is_bit_equal(ranks):
+    """``donate=False`` writes every update into fresh blocks: the same
+    parameters as the donated run, to the bit."""
+    for a, b in zip(ranks["hybrid_undonated"], ranks["hybrid"]):
+        for k, v in _params(b).items():
+            np.testing.assert_array_equal(_params(a)[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["dp_pp_health", "ep_health", "hybrid_health"])
+def test_step_records_carry_the_wire_and_the_bubble(name, ranks):
+    """Each ``step`` record's ``collective_bytes`` (with its all-to-all and
+    ppermute parts) is that step's delta of ``parallel._comm`` 's counters;
+    the pipeline stamps ``(S-1)/(n_micro+S-1)`` = 3/7 on every record."""
+    for got in ranks[name]:
+        np.testing.assert_array_equal(got["rec_wire"], got["wire"])
+        assert (got["rec_wire"][:, 0] > 0).all()
+    rec = ranks[name][0]
+    if name == "dp_pp_health":
+        assert (rec["rec_wire"][:, 2] > 0).all()  # the GPipe ring's hops
+        np.testing.assert_allclose(rec["bubble"], 3 / 7, rtol=1e-6)
+    else:
+        assert (rec["bubble"] == -1.0).all()
+    if name == "ep_health":
+        assert (rec["rec_wire"][:, 1] > 0).all()  # the expert dispatch
 
 
 # ---------------------------------------------------------------- refusals

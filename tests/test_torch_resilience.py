@@ -309,6 +309,7 @@ _WALK = {
     "resilience.policy": (),
     "resilience.chaos": (),
     "resilience.preemption": (),
+    "resilience.elastic": (),
     "obs.trace": (),
     "obs.telemetry": (),
     "obs.health": (),
@@ -319,14 +320,13 @@ _WALK = {
     "obs.profiler": (),
     "obs.blackbox": (),
     "obs.watchdog": (),
+    "obs.fleet": (),
     "visualization.tb": (),
     "visualization.summary": (),
     "optim.metrics": (),
 }
-# What the port leaves out, and why (ROADMAP lists each):
-# errors' ElasticRemesh / ElasticFleetExhausted come with the elastic mesh;
-# aot's export_jit serializes a jitted program, which the eager port has not.
-_ELASTIC = {"resilience.errors": ("ElasticRemesh", "ElasticFleetExhausted")}
+# What the port leaves out, and why (ROADMAP lists each): aot's export_jit
+# serializes a jitted program, which the eager port has not.
 
 
 @pytest.mark.parametrize("mod", sorted(_WALK))
@@ -341,8 +341,7 @@ def test_every_jax_symbol_has_a_port(mod):
     if mod == "optim.metrics":
         names = ["Metrics"]
     assert names
-    skip = set(_WALK[mod]) | set(_ELASTIC.get(mod, ()))
-    missing = [n for n in names if n not in skip and not hasattr(pm, n)]
+    missing = [n for n in names if n not in _WALK[mod] and not hasattr(pm, n)]
     assert not missing, f"{mod}: {missing}"
 
 
@@ -350,7 +349,5 @@ def test_package_exports_match_less_the_next_slice():
     import bigdl_tpu.obs as jobs
     import bigdl_tpu_torch.obs as pobs
 
-    later = {"FleetMonitor", "ElasticConfig", "ElasticCoordinator",
-             "SimulatedFleet", "ElasticFleetExhausted", "ElasticRemesh", "FLEET_SEAMS"}
-    assert set(jobs.__all__) - later <= set(pobs.__all__)
-    assert set(jres.__all__) - later <= set(pres.__all__)
+    assert set(jobs.__all__) <= set(pobs.__all__)  # the elastic names too since 9b
+    assert set(jres.__all__) <= set(pres.__all__)

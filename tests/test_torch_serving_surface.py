@@ -12,7 +12,9 @@ port record with the new fields passes ``tools/obs_report.py``'s validator.
 
 Tests that touch ``Engine.set_metrics_port``, the run directory or the
 trace sampling put back what they found, for later files on the same xdist
-worker.
+worker. The JAX ``Engine`` is reset for the module and put back after it:
+a JAX test file that ran before on the same worker may leave it on all 8
+virtual devices, where the JAX predictor refuses the batch of 4.
 """
 
 import json
@@ -42,6 +44,16 @@ ACT_KEY = phealth.ACT_STATE_KEY
 
 def _tracing(pkg):
     return jtrace if pkg is JAX else ptrace
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_engine_as_found():
+    from bigdl_tpu.utils.engine import Engine as JEngine
+
+    saved = JEngine._state
+    JEngine.reset()
+    yield
+    JEngine._state = saved
 
 
 @pytest.fixture

@@ -178,8 +178,9 @@ def test_unported_optimizer_options_raise():
     pm = Transformer(**CFG, device="cpu")
     ds = DataSet.array(ids, targets, batch_size=BATCH)
     LocalOptimizer(pm, ds, CrossEntropyCriterion(), donate=False)  # ported now
-    with pytest.raises(NotImplementedError, match="set_elastic is not ported"):
-        LocalOptimizer(pm, ds, CrossEntropyCriterion()).set_elastic()
+    # set_elastic arms; optimize() refuses it (no remesh path), as in JAX
+    with pytest.raises(ValueError, match="resharding-capable"):
+        LocalOptimizer(pm, ds, CrossEntropyCriterion()).set_elastic().optimize()
     with pytest.raises(TypeError):
         LocalOptimizer(pm, ds, CrossEntropyCriterion(), bogus=1)
     LocalOptimizer(pm, ds, CrossEntropyCriterion(), validate=True)  # the default is fine

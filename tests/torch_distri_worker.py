@@ -76,6 +76,12 @@ def run_case(case: Dict[str, Any], device="cpu") -> Dict[str, np.ndarray]:
     if case.get("clip") is not None:
         opt.set_gradient_clipping_by_l2_norm(case["clip"])
     opt.set_end_when(poptim.Trigger.max_iteration(case["steps"]))
+    tel = None
+    if case.get("health"):  # ZeRO-1 health: every step's record
+        from bigdl_tpu_torch.obs import HealthConfig, Telemetry
+
+        tel = Telemetry(heartbeat_interval_s=None)
+        opt.set_telemetry(tel).set_health(HealthConfig(every_n_steps=1))
     plan = None
     if case.get("ckpt") is not None:  # checkpoints, a failure policy, maybe a fault
         from bigdl_tpu_torch.resilience import FailurePolicy, FaultPlan
@@ -94,6 +100,8 @@ def run_case(case: Dict[str, Any], device="cpu") -> Dict[str, np.ndarray]:
     out = {f"p.{k}": v for k, v in _flat(model.get_parameters()).items()}
     out.update({f"s.{k}": v for k, v in _flat(model.get_state()).items()})
     out["losses"] = np.asarray([h["loss"] for h in opt.history], np.float64)
+    if tel is not None:
+        out["health"] = health_rows([r for r in tel.ring.records if r["type"] == "health"])
     if opt.failure_policy is not None:
         out["attempts"] = np.asarray(opt.failure_policy.total_attempts)
     out["exchange_bytes"] = np.asarray(
@@ -109,6 +117,21 @@ def run_case(case: Dict[str, Any], device="cpu") -> Dict[str, np.ndarray]:
         out["eval"] = np.asarray([res["Top1Accuracy"].correct, res["Top1Accuracy"].count,
                                   res["Loss"].result()[0], res["Loss"].count], np.float64)
     return out
+
+
+def health_rows(records) -> np.ndarray:
+    """``health`` records as rows: the global grad norm, weight norm and
+    update ratio, the non-finite counts, then each layer's three norms."""
+    rows = []
+    for h in records:
+        g = h["global"]
+        row = [g["grad_norm"], g["weight_norm"], g["update_ratio"], g["nonfinite_grads"],
+               g["nonfinite_params"]]
+        for path in sorted(h.get("layers", {})):
+            lay = h["layers"][path]
+            row += [lay["grad_norm"], lay["weight_norm"], lay["update_ratio"]]
+        rows.append(row)
+    return np.asarray(rows, np.float64)
 
 
 def rank_main(rank: int, world: int, folder: str, device="cpu") -> None:

@@ -49,6 +49,47 @@ def _bytes_of(name):
     return np.asarray(_comm.counts()[name]["bytes"])
 
 
+def _observe(opt, case, res):
+    """With ``case["health"]``: telemetry and ``set_health`` on ``opt``, and
+    each step's collective bytes read around its ``_train_step`` into
+    ``res["wire"]`` (total, all-to-all, ppermute). Returns a function that
+    files the step and health records into ``res`` after the fit."""
+    if not case.get("health"):
+        return lambda: None
+    from bigdl_tpu_torch.obs import HealthConfig, Telemetry
+    from bigdl_tpu_torch.parallel import _comm
+
+    tel = Telemetry(heartbeat_interval_s=None)
+    opt.set_telemetry(tel).set_health(HealthConfig(every_n_steps=1))
+    step, wire = opt._train_step, []
+
+    def counted(*a, **k):
+        before = _comm.counts()
+        out = step(*a, **k)
+        after = _comm.counts()
+        d = {n: after[n]["bytes"] - before[n]["bytes"] for n in after}
+        wire.append([sum(d.values()), d["all_to_all"], d["ppermute"]])
+        return out
+
+    opt._train_step = counted
+
+    def done():
+        from torch_distri_worker import health_rows
+
+        recs = tel.ring.records
+        res["health"] = health_rows([r for r in recs if r["type"] == "health"])
+        res["shards"] = np.asarray([[v["nonfinite_inputs"], v["nonfinite_targets"]]
+                                    for r in recs if r["type"] == "health"
+                                    for _, v in sorted(r.get("shards", {}).items())])
+        steps = [r for r in recs if r["type"] == "step"]
+        res["rec_wire"] = np.asarray([[r["collective_bytes"], r["all_to_all_bytes"],
+                                       r["ppermute_bytes"]] for r in steps])
+        res["wire"] = np.asarray(wire[:len(steps)])
+        res["bubble"] = np.asarray([r.get("pipe_bubble_frac", -1.0) for r in steps])
+
+    return done
+
+
 # ----------------------------------------------------------------- functions
 def ring(case, dev):
     """``ring_attention`` forward (and gradients against a cotangent)."""
@@ -229,6 +270,7 @@ def fit(case, dev):
         else:
             opt = ExpertParallelOptimizer(model, ds, crit, mesh=mesh,
                                           data_axis=case.get("data_axis"))
+        done = _observe(opt, case, res)
         opt.set_optim_method(poptim.SGD(learningrate=0.1, momentum=case.get("momentum", 0.0)))
         opt.set_end_when(poptim.Trigger.max_iteration(steps) if steps
                          else poptim.Trigger.max_epoch(epochs))
@@ -243,6 +285,7 @@ def fit(case, dev):
                                DataSet.array(case["x"][:48], case["y"][:48], batch_size=16),
                                [poptim.Top1Accuracy(), poptim.Loss(nn.ClassNLLCriterion())])
         opt.optimize()
+        done()
         return model, opt
 
     model, opt = run(steps=case.get("steps"))
@@ -295,10 +338,11 @@ def hybrid(case, dev):
         opt = poptim.LocalOptimizer(model, ds, crit)
     else:
         opt = HybridParallelOptimizer(model, ds, crit, plan=megatron_transformer_plan(),
-                                      mesh=mesh)
+                                      mesh=mesh, donate=case.get("donate", True))
     opt.set_optim_method(poptim.SGD(learningrate=0.1, momentum=case.get("momentum", 0.0)))
     opt.set_end_when(poptim.Trigger.max_iteration(case.get("steps", 3)))
     res = {}
+    done = _observe(opt, case, res)
     if "nan_rank" in case:
         # the NaN goes into one block after the cut: the audit runs on it
         from bigdl_tpu_torch.parallel import hybrid as hy
@@ -330,6 +374,7 @@ def hybrid(case, dev):
 
         opt._init_step_state = init_and_look
     opt.optimize()
+    done()
     res.update({f"p.{k}": v for k, v in _flat(model.get_parameters()).items()})
     res["losses"] = np.asarray([h["loss"] for h in opt.history], np.float64)
     for k, v in getattr(opt, "held_bytes", {}).items():
