@@ -75,18 +75,41 @@ class MiniBatch:
 
     def slice(self, offset: int, length: int) -> "MiniBatch":
         """Rows ``[offset, offset + length)`` of every leaf."""
-        def cut(tree):
-            if tree is None:
-                return None
-            if isinstance(tree, Table):
-                return Table({k: cut(v) for k, v in tree.items()})
-            if isinstance(tree, dict):
-                return {k: cut(v) for k, v in tree.items()}
-            if isinstance(tree, (list, tuple)):
-                return type(tree)(cut(v) for v in tree)
-            return tree[offset:offset + length]
+        return self.take(slice(offset, offset + length))
 
-        return MiniBatch(cut(self.input), cut(self.target))
+    def take(self, rows) -> "MiniBatch":
+        """Every leaf indexed by ``rows`` (a slice or an index array)."""
+        return MiniBatch(map_batch(lambda a: a[rows], self.input),
+                         map_batch(lambda a: a[rows], self.target))
+
+
+def map_batch(fn, tree):
+    """``tree`` (nested ``Table`` s, dicts, lists and tuples) with ``fn``
+    applied to each leaf."""
+    if isinstance(tree, Table):
+        return Table({k: map_batch(fn, v) for k, v in tree.items()})
+    if isinstance(tree, dict):
+        return {k: map_batch(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_batch(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def batch_leaves(tree, path: str = "input"):
+    """``(path, leaf)`` for every leaf of a batch tree, in the JAX package's
+    pytree order (a ``Table`` 's and a list's in order, a dict's by sorted
+    key); a ``SparseTensor`` is one leaf."""
+    if isinstance(tree, Table):
+        for k, v in tree.items():
+            yield from batch_leaves(v, f"{path}[{k!r}]")
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from batch_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from batch_leaves(v, f"{path}[{i}]")
+    elif tree is not None:
+        yield path, tree
 
 
 def rows_of(x) -> int:

@@ -1,8 +1,11 @@
 """What the example mains share (counterpart of ``examples/_common.py``):
-the flags of its ``base_parser``, the refusal of what the port does not
-have, the device an ``--platform`` names, logging, ``finish`` (the trained
-model written by ``--model-save``, ``nn.load_module`` 's format) and the
-ranks of a data-parallel main (:func:`run_ranks`).
+the flags of its ``base_parser``, the device an ``--platform`` names,
+logging, ``finish`` (the trained model written by ``--model-save`` in
+``nn.load_module`` 's format, and the optimizer's metrics line) and the
+ranks of a data-parallel main (:func:`run_ranks`). Every main takes every
+flag of ``base_parser`` as its JAX main does: ``--summary-dir`` writes
+summaries where the JAX main writes them (``lenet_train``) and nothing
+elsewhere, as there.
 
 ``--n-devices N`` (N > 1) trains a ``DistriOptimizer`` main (``resnet_train``,
 ``vgg_train``) on N ranks, one process each: run as it is, the main starts
@@ -52,32 +55,30 @@ def base_parser(description: str, batch_size: int = 128) -> argparse.ArgumentPar
     return p
 
 
-def device_of(args, saves: bool = False, distributed: bool = False) -> Optional[str]:
-    """The device the run trains on (None: the card), after refusing the
-    flags the port does not have yet (``--model-save`` too, unless the main
-    ``saves`` through :func:`finish`) and ``--n-devices`` above 1 on a main
-    that trains on one device (not ``distributed``)."""
+def device_of(args, distributed: bool = False) -> Optional[str]:
+    """The device the run trains on (None: the card), after refusing
+    ``--n-devices`` above 1 on a main that trains on one device (not
+    ``distributed``)."""
     if args.n_devices not in (None, 1) and not distributed:
         raise ValueError(
             f"--n-devices {args.n_devices}: this main trains through LocalOptimizer on one "
             "card, as its JAX main does; the data-parallel mains are resnet_train and "
             "vgg_train")
-    flags = ("summary_dir",) if saves else ("model_save", "summary_dir")
-    for flag in flags:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
     return "cpu" if args.platform == "cpu" else None
 
 
-def finish(model, args) -> None:
+def finish(model, args, opt=None) -> None:
     """Write the trained model to ``--model-save`` when given (rank 0's,
-    under a group)."""
+    under a group) and print the optimizer's metrics when it has any, as
+    the JAX mains' ``finish`` does."""
     from ..utils.engine import Engine
 
     sl = Engine.process_slice()
     if getattr(args, "model_save", None) and (sl is None or sl[0] == 0):
         model.save_module(args.model_save)
         print(f"saved model to {args.model_save}")
+    if opt is not None and opt.metrics.summary():
+        print(f"metrics: {opt.metrics!r}")
 
 
 def setup_logging() -> None:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, setup_logging
+from ._common import Run, base_parser, device_of, finish, setup_logging
 
 
 def parser():
@@ -75,6 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     setup_logging()
     run = build(args)
     run.model = run.optimizer.optimize()
+    finish(run.model, args, run.optimizer)
     return run
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, setup_logging
+from ._common import Run, base_parser, device_of, finish, setup_logging
 
 
 def parser():
@@ -65,6 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results["variance"] = float(targets[:256].var())
     print(f"reconstruction MSE on 256 samples: {run.results['mse']:.4f} "
           f"(data variance {run.results['variance']:.4f})")
+    finish(run.model, args, run.optimizer)
     return run
 
 

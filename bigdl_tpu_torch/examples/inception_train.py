@@ -43,7 +43,7 @@ def build(args) -> Run:
 
     if args.image_size < 224:
         raise SystemExit("Inception-v1 needs --image-size >= 224 (7x7 final pool)")
-    device = device_of(args, saves=True)
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     n = max(args.synthetic_size or 256, args.batch_size)
     rng = np.random.default_rng(0)
@@ -73,7 +73,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results = run.model.evaluate(run.val_dataset, [Top1Accuracy()])
     for name, r in run.results.items():
         print(f"{name}: {r.result()[0]:.4f}")
-    finish(run.model, args)
+    finish(run.model, args, run.optimizer)
     return run
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, setup_logging
+from ._common import Run, base_parser, device_of, finish, setup_logging
 
 VALIDATION = 512
 
@@ -63,6 +63,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
               validation_data=(x[:VALIDATION], y[:VALIDATION]))
     acc = model.evaluate(x[:VALIDATION], y[:VALIDATION])
     print(f"final validation: {acc}")
+    finish(model, args)
     return Run(model.last_optimizer, model, args, results={"validation": acc})
 
 

@@ -7,9 +7,11 @@ Data: MNIST from ``--data-dir`` (the idx files), else ``load_mnist`` 's
 synthetic digits (``--synthetic-size`` records), normalized as the JAX main
 loads them. ``LeNet5(10)``, ``ClassNLLCriterion``, SGD at
 ``--learning-rate`` with momentum 0.9, Top-1 every epoch and once more
-after training; a checkpoint every epoch with ``--checkpoint``, and the
-trained model written by ``--model-save`` (``nn.load_module`` 's format,
-what ``lenet_test`` reads). It runs on the card, or on the CPU with
+after training; a checkpoint every epoch with ``--checkpoint``,
+TensorBoard summaries under ``--summary-dir`` (``TrainSummary`` and
+``ValidationSummary`` named ``lenet``: the loss every iteration, Top-1
+every epoch), and the trained model written by ``--model-save``
+(``nn.load_module`` 's format, what ``lenet_test`` reads). It runs on the card, or on the CPU with
 ``--platform cpu``.
 """
 
@@ -34,7 +36,7 @@ def build(args) -> Run:
     from ..optim import SGD, LocalOptimizer, Top1Accuracy, Trigger
     from ..utils.random import RandomGenerator
 
-    device = device_of(args, saves=True)
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     x_train, y_train = load_mnist(args.data_dir, train=True, synthetic_size=args.synthetic_size)
     x_val, y_val = load_mnist(args.data_dir, train=False, synthetic_size=args.synthetic_size)
@@ -47,6 +49,11 @@ def build(args) -> Run:
     opt.set_validation(Trigger.every_epoch(), val_ds, [Top1Accuracy()])
     if args.checkpoint:
         opt.set_checkpoint(args.checkpoint, Trigger.every_epoch())
+    if args.summary_dir:
+        from ..visualization import TrainSummary, ValidationSummary
+
+        opt.set_train_summary(TrainSummary(args.summary_dir, "lenet"))
+        opt.set_val_summary(ValidationSummary(args.summary_dir, "lenet"))
     return Run(opt, model, args, val_ds)
 
 
@@ -62,7 +69,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results = run.model.evaluate(run.val_dataset, [Top1Accuracy()])
     for name, r in run.results.items():
         print(f"{name}: {r.result()[0]:.4f}")
-    finish(run.model, args)
+    finish(run.model, args, run.optimizer)
     return run
 
 

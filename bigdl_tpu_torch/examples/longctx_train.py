@@ -20,7 +20,7 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, mesh_ranks, setup_logging
+from ._common import Run, base_parser, device_of, finish, mesh_ranks, setup_logging
 
 MODULE = "bigdl_tpu_torch.examples.longctx_train"
 
@@ -93,6 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     share, hits, n = probe_recovery(run.model, args.vocab_size)
     run.results["bigram_recovery"] = share
     print(f"bigram-map recovery: {share:.3f} ({hits}/{n} tokens)")
+    finish(run.model, args, run.optimizer)
     return run
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, setup_logging
+from ._common import Run, base_parser, device_of, finish, setup_logging
 
 NEG_NUM = 20
 
@@ -113,6 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
             num, cnt = m.metric(scores, None)
             run.results[f"{m.name}@10"] = float(num) / float(cnt)
             print(f"{m.name}@10: {run.results[f'{m.name}@10']:.4f}")
+    finish(run.model, args, run.optimizer)
     return run
 
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
-from ._common import Run, base_parser, device_of, setup_logging
+from ._common import Run, base_parser, device_of, finish, setup_logging
 
 
 def parser():
@@ -134,6 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
         for name, r in results.items():
             run.results[name] = loss = r.result()[0]
             print(f"{name}: {loss:.4f} (perplexity {math.exp(min(loss, 20.0)):.1f})")
+    finish(run.model, args, run.optimizer)
     return run
 
 

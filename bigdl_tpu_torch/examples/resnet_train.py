@@ -48,7 +48,7 @@ import argparse
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
-from ._common import base_parser, device_of, join_from_env, run_ranks, setup_logging
+from ._common import base_parser, device_of, finish, join_from_env, run_ranks, setup_logging
 
 MODULE = "bigdl_tpu_torch.examples.resnet_train"
 PIPELINE_WORKERS = 4  # the DataPipeline's batch-assembly threads over record shards
@@ -238,6 +238,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Recipe:
         recipe.results = model.evaluate(recipe.val_dataset, recipe.val_methods)
         for name, r in recipe.results.items():
             print(f"{name}: {r.result()[0]:.4f}")
+    finish(model, args, recipe.optimizer)
     return recipe
 
 

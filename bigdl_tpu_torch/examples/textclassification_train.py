@@ -40,7 +40,7 @@ def build(args) -> Run:
     from ..optim import Adam, LocalOptimizer, Top1Accuracy, Trigger
     from ..utils.random import RandomGenerator
 
-    device = device_of(args, saves=True)
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     n = args.synthetic_size or 512
     x, y = synthetic_news20(n, args.vocab_size, args.seq_len, args.class_num, seed=0)
@@ -71,7 +71,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results = run.model.evaluate(run.val_dataset, [Top1Accuracy()])
     for name, r in run.results.items():
         print(f"{name}: {r.result()[0]:.4f}")
-    finish(run.model, args)
+    finish(run.model, args, run.optimizer)
     return run
 
 

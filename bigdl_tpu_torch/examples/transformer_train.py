@@ -31,7 +31,7 @@ import os
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
-from ._common import base_parser, device_of, setup_logging
+from ._common import base_parser, device_of, finish, setup_logging
 
 
 def parser() -> argparse.ArgumentParser:
@@ -168,6 +168,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     for b in range(len(run.prompts)):
         print(f"prompt {int(run.prompts[b])} -> beam-0 continuation "
               f"{run.sequences[b, 0].tolist()} (score {float(run.scores[b, 0]):.2f})")
+    finish(run.model, args, run.optimizer)
     return run
 
 

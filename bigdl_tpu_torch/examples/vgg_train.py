@@ -40,7 +40,7 @@ def build(args) -> Run:
     from ..utils.engine import Engine
     from ..utils.random import RandomGenerator
 
-    device = device_of(args, saves=True, distributed=True)
+    device = device_of(args, distributed=True)
     RandomGenerator.set_seed(42)
     n_dev = Engine.device_count()
     x_train, y_train = load_cifar10(args.data_dir, train=True, synthetic_size=args.synthetic_size)
@@ -78,7 +78,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results = model.evaluate(run.val_dataset, [run.optimizer.validation_methods[0]])
     for name, r in run.results.items():
         print(f"{name}: {r.result()[0]:.4f}")
-    finish(model, args)
+    finish(model, args, run.optimizer)
     return run
 
 

@@ -36,7 +36,7 @@ def build(args) -> Run:
     from ..optim import Adam, LocalOptimizer, Top1Accuracy, Trigger
     from ..utils.random import RandomGenerator
 
-    device = device_of(args, saves=True)
+    device = device_of(args)
     RandomGenerator.set_seed(42)
     n = args.synthetic_size or 1024
     table, labels = load_criteo(args.data_dir, n=n, wide_dim=args.wide_dim,
@@ -68,7 +68,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
     run.results = run.model.evaluate(run.val_dataset, [Top1Accuracy()])
     for name, r in run.results.items():
         print(f"{name}: {r.result()[0]:.4f}")
-    finish(run.model, args)
+    finish(run.model, args, run.optimizer)
     return run
 
 

@@ -26,11 +26,12 @@ module's device, one eager step per batch:
    ``set_gradient_clipping_by_l2_norm``: one fp32 norm over all leaves),
    ``method.update`` in place, the gradients dropped, and the forward's new
    state (BN running statistics, which carry no autograd history) kept on
-   the model. With ``set_micro_batches(n)`` the batch is split into n row
-   slices: their gradients are summed and divided by n (the full batch's
-   mean), and one update applied; the model state is carried from slice to
-   slice, so BN running statistics advance n times a step (ghost batch
-   norm, as the JAX package's scan);
+   the model. With ``set_micro_batches(n)`` every leaf of the batch (a
+   ``Table`` 's too; a ``SparseTensor`` leaf is refused, its entries are
+   not rows) is split into n row slices: their gradients are summed and
+   divided by n (the full batch's mean), and one update applied; the model
+   state is carried from slice to slice, so BN running statistics advance
+   n times a step (ghost batch norm, as the JAX package's scan);
 4. the loss is read on the host one step late, after the next step has
    been dispatched, so the host never waits on the step it just queued;
 5. ``neval``, ``_iter_in_epoch`` and ``epoch`` advance in the method's
@@ -148,7 +149,8 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..dataset.dataset import device_tensors, pad_minibatch, to_device
+from ..dataset.dataset import (batch_leaves, device_tensors, map_batch, pad_minibatch,
+                               to_device)
 from ..dataset.pipeline import RING_CLOSED, StagingRing
 from ..nn.module import detach_tree, to_spec
 from ..obs import trace as obs_trace
@@ -234,6 +236,41 @@ def _has_aux(state) -> bool:
     if isinstance(state, (list, tuple)):
         return any(_has_aux(v) for v in state)
     return False
+
+
+def check_micro_split(x, t, n: int) -> None:
+    """Refuse a batch that ``n`` micro-batches cannot split: a leaf of ``x``
+    or ``t`` whose length ``n`` does not divide (the JAX step's check and
+    message), or a ``SparseTensor`` leaf (``TypeError`` naming it: its
+    entries are not rows; the JAX step cuts its COO arrays by entry count,
+    after the same check on that count, and its forward then raises
+    ``TypeError`` on rows that no longer match the dense leaves')."""
+    sparse = None
+    for path, leaf in itertools.chain(batch_leaves(x, "input"), batch_leaves(t, "target")):
+        size = leaf.nnz if isinstance(leaf, SparseTensor) else leaf.shape[0]
+        if size % n:
+            raise ValueError(f"batch size {size} not divisible by micro batch count {n}")
+        if isinstance(leaf, SparseTensor) and sparse is None:
+            sparse = path
+    if sparse is not None:
+        raise TypeError(f"set_micro_batches cannot split the SparseTensor at {sparse}: its "
+                        "entries are not rows; train a batch holding one without micro-batches")
+
+
+def split_micro_batches(x, t, n: int) -> List[tuple]:
+    """``n`` ``(input, target)`` micro-batches: every leaf of ``x`` and
+    ``t`` (nested ``Table`` s, lists and dicts) cut into ``n`` row slices,
+    the JAX step's ``tree_map(_split, ...)`` (:func:`check_micro_split`
+    first)."""
+    check_micro_split(x, t, n)
+
+    def part(i):
+        def cut(a):
+            k = a.shape[0] // n
+            return a[i * k:(i + 1) * k]
+        return cut
+
+    return [(map_batch(part(i), x), map_batch(part(i), t)) for i in range(n)]
 
 
 def validate(model, params, model_state, dataset, methods) -> Dict[str, ValidationResult]:
@@ -1138,28 +1175,28 @@ class Optimizer:
             loss = loss + aux
         return loss, new_state
 
-    def _micro_step(self, x, t, rng, nvalid: Optional[float]):
-        """Gradients (set as ``.grad``) summed over the row slices and divided
-        by their count (on a padded batch: weighted by each slice's real rows
-        and divided by their sum), the model state carried from slice to
-        slice; returns ``(loss, new_state)``."""
+    def _micro_step(self, x, t, rng, nvalid: Optional[float], params=None):
+        """The gradients of the leaves of ``params`` (the tree the forward
+        reads; default the model's parameters) summed over the micro-batches
+        and divided by their count (on a padded batch: weighted by each
+        slice's real rows and divided by their sum), the model state carried
+        from slice to slice; returns ``(loss, new_state, grads)``, the
+        gradients a list in ``tree_items`` order."""
         n = self._micro_batches
-        if not isinstance(x, torch.Tensor):
-            raise NotImplementedError("set_micro_batches on Table inputs is not ported "
-                                      "(ROADMAP Queue 1 item 9c)")
-        b = x.shape[0]
-        if b % n:
-            raise ValueError(f"batch size {b} not divisible by micro batch count {n}")
-        mb = b // n
-        params = list(tree_items(self.model.get_parameters()).values())
+        if params is None:
+            params = self.model.get_parameters()
+        leaves = list(tree_items(params).values())
+        slices = split_micro_batches(x, t, n)
+        # a micro-batch's rows in the step's whole batch: the first leaf's,
+        # as in the JAX step (a mesh rank holds its share of each)
+        mb = self._global_rows(next(batch_leaves(x))[1].shape[0] // n)
         ms = self.model.get_state()
         g_acc, losses, l_sum, v_sum = None, [], 0.0, 0.0
-        for i in range(n):
-            rows = slice(i * mb, (i + 1) * mb)
+        for i, (xm, tm) in enumerate(slices):
             v = None if nvalid is None else float(min(max(nvalid - i * mb, 0.0), mb))
-            loss_m, ms = self._loss(ms, x[rows], t[rows], rng, v)
-            g = torch.autograd.grad(loss_m, params, allow_unused=True)
-            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(params, g)]
+            loss_m, ms = self._loss(ms, xm, tm, rng, v, params=params)
+            g = torch.autograd.grad(loss_m, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
             if nvalid is not None:
                 g = [gi * v for gi in g]
                 l_sum, v_sum = l_sum + loss_m.detach() * v, v_sum + v
@@ -1168,12 +1205,8 @@ class Optimizer:
             g_acc = g if g_acc is None else [a + gi for a, gi in zip(g_acc, g)]
         if nvalid is not None:
             v_sum = max(v_sum, 1.0)
-            grads, loss = [g / v_sum for g in g_acc], l_sum / v_sum
-        else:
-            grads, loss = [g / n for g in g_acc], torch.stack(losses).mean()
-        for p, g in zip(params, grads):
-            p.grad = g
-        return loss, ms
+            return l_sum / v_sum, ms, [g / v_sum for g in g_acc]
+        return torch.stack(losses).mean(), ms, [g / n for g in g_acc]
 
     def _clip_grads(self, grads):
         if self._grad_clip_const is None and self._grad_clip_norm is None:
@@ -1216,7 +1249,9 @@ class Optimizer:
             loss, new_state = self._loss(model.get_state(), x, t, rng, nvalid)
             loss.backward()
         else:
-            loss, new_state = self._micro_step(x, t, rng, nvalid)
+            loss, new_state, g = self._micro_step(x, t, rng, nvalid)
+            for p, gi in zip(tree_items(model.get_parameters()).values(), g):
+                p.grad = gi
         grads = self._clip_grads(model.get_grad_parameters())
         old = self._health_old_params(params)
         self.optim_method.update(grads, params, slots, lr, self.optim_method.state["neval"])
@@ -1246,6 +1281,11 @@ class Optimizer:
         """The rows of a training batch that this process trains on (all of
         them; DistriOptimizer takes its rank's)."""
         return batch
+
+    def _global_rows(self, rows: int) -> int:
+        """The rows of the step's whole batch that ``rows`` local rows stand
+        for (the same; HybridParallelOptimizer's ranks split the batch)."""
+        return rows
 
     def _build_input(self, first):
         """The input the model is built from: the first batch's (the rank's

@@ -8,20 +8,33 @@ such as ``make_mesh({"data": 2, "model": 2})``, and the step computes the
 same global-view result with the parameter and slot memory sharded:
 
 * each rank holds only its block of each leaf under the plan (``P(a,
-  None)``: the rows split over axis ``a``) and its block of each slot, and
-  the update runs on the blocks;
-* the forward gathers a sharded leaf along its axes inside an autograd
-  ``Function`` whose backward keeps this rank's block of the gradient
-  (every rank of a model line computes the same forward on the same rows);
+  None)``: the rows split over axis ``a``, the data axis too) and its block
+  of each slot, and the update runs on the blocks;
+* once a step each sharded leaf is gathered whole along its axes (outside
+  autograd) and the forward reads it as a leaf of its own, so the
+  gradients come out whole;
 * the batch is cut over the data axis: each rank trains on its data row's
-  rows ``[d*b/n, (d+1)*b/n)``, its generator is the step's folded with the
-  data coordinate, the gradients are averaged over the data axis (one
-  all-reduce of them all), and the loss and model state are averaged over
-  it (``average_state``), the JAX package's reduce-scatter and ``pmean``;
+  rows ``[d*b/n, (d+1)*b/n)`` and its generator is the step's folded with
+  the data coordinate. With ``set_micro_batches(m)`` micro-batch i is the
+  global rows ``[i*mb, (i+1)*mb)`` as in the JAX step, and rank d takes
+  its share ``[i*mb + d*mb/n, i*mb + (d+1)*mb/n)`` of each (micro-major);
+  the micro-batches' forwards and backwards run against the gathered
+  leaves, their whole gradients summed, the model state carried from one
+  to the next, all before any gradient collective;
+* the gradients then go to this rank's blocks in one all-reduce over the
+  data axis: a leaf sharded over model axes only is cut to its block first
+  (every rank of a model line computed the same gradient on the same
+  rows); a leaf sharded over the data axis goes whole, and after the sum
+  (the ranks of a data line computed it on different rows) it is cut to
+  its block, the transpose of its gather over that axis; every leaf is
+  then divided by the data axis size. The loss and model state are
+  averaged over the data axis (``average_state``), the JAX package's
+  reduce-scatter and ``pmean``;
 * a padded ragged batch's loss is the masked sum of this rank's rows over
   the whole batch's denominator (a sum over the data axis), times the data
   axis size, so that the average over the data axis is the whole batch's
-  masked mean;
+  masked mean (under micro-batches, each micro-batch's, weighted by its
+  real rows as in the JAX step);
 * the clipping norm sums each sharded leaf's blocks over its axes.
 
 Checkpoints are written by rank 0 in the tree layout after the blocks of
@@ -34,10 +47,12 @@ whole parameters, gathered for it.
 Megatron's activation-sharded execution (heads and filter columns computed
 where their weights live, one all-reduce on each row-parallel output) is
 a speed property of XLA's partitioning, not of the result, and is not done
-here (ROADMAP). A plan that shards a leaf over the data axis is refused.
-``flat_update`` is refused with :class:`ParallelCompositionError`, as in
-the JAX package. Telemetry and the retry ladder are the base
-``Optimizer`` 's; ``set_micro_batches`` is refused (ROADMAP Queue 1 item 9c).
+here (ROADMAP). ``flat_update`` is refused with
+:class:`ParallelCompositionError`, as in the JAX package. Telemetry and the
+retry ladder are the base ``Optimizer`` 's. Under micro-batches a
+micro-batch's rows must divide over the data axis (a ``ValueError`` naming
+the batch, the micro-batch count and the data axis size otherwise; the
+JAX package lets GSPMD cut uneven rows).
 ``set_health`` computes each leaf's statistics on this rank's block and
 sums a sharded leaf's rows over its axes (the clipping norm's way), and
 counts the batch's non-finite inputs and targets by data shard
@@ -46,7 +61,7 @@ writes each update into fresh blocks. Under ``set_elastic`` only the
 leading data axis shrinks and re-expands
 (:meth:`~bigdl_tpu_torch.resilience.ElasticCoordinator.hybrid_mesh`): the
 emergency checkpoint is the tree layout, and the survivors cut its leaves
-again for their mesh.
+again for their mesh (a leaf over the data axis to its larger block).
 
 :class:`_ShardedOptimizer` is the chassis of the sharded leaves (blocks of
 the leaves and slots, the clipping norm over the shards, the whole
@@ -60,10 +75,11 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..nn.module import detach_tree
-from ..optim.local_optimizer import Optimizer
+from ..optim.local_optimizer import Optimizer, check_micro_split
 from ..utils.engine import Engine
 from ..obs.trace import span
 from ..utils.random import RandomGenerator
@@ -71,8 +87,6 @@ from ..utils.serialization import tree_items, unflatten_to_like
 from . import _comm
 from .distri_optimizer import average_state, rank_generator
 from .sharding import Mesh, P, ShardingPlan, gather_block, is_sharded, shard_leaf, spec_axes
-
-_ITEM_9C = "ROADMAP Queue 1 item 9c"
 
 
 class ParallelCompositionError(ValueError):
@@ -134,11 +148,6 @@ class _ShardedOptimizer(Optimizer):
         self._slot_spec: Dict[str, P] = {}
         self.held_bytes: Dict[str, int] = {}
         self._place_span = True  # the batch placement is a "place_batch" seam
-
-    def set_micro_batches(self, n: int):
-        raise NotImplementedError(
-            f"set_micro_batches on {type(self).__name__} is not ported ({_ITEM_9C}); size the "
-            "global batch to the mesh instead")
 
     def _resolve_mesh(self) -> Mesh:
         raise NotImplementedError
@@ -303,13 +312,19 @@ class _ShardedOptimizer(Optimizer):
     def _train_step(self, x, t, nvalid: Optional[float], lr: float, params,
                     slots) -> torch.Tensor:
         model, method = self.model, self.optim_method
-        loss, new_state = self._loss(model.get_state(), x, t, self._step_generator(), nvalid,
-                                     params=self._forward_params(params))
-        loss.backward()
-        grads = self._clip_grads(self._average_grads(model.get_grad_parameters()))
+        fwd = self._forward_params(params)
+        gen = self._step_generator()
+        if self._micro_batches == 1:
+            loss, new_state = self._loss(model.get_state(), x, t, gen, nvalid, params=fwd)
+            leaves = list(tree_items(fwd).values())
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
+        else:
+            loss, new_state, g = self._micro_step(x, t, gen, nvalid, fwd)
+        grads = unflatten_to_like(dict(zip(tree_items(params), g)), params)
+        grads = self._clip_grads(self._average_grads(grads))
         old = self._health_old_params(params)
         method.update(grads, params, slots, lr, method.state["neval"])
-        model.zero_grad(set_to_none=True)
         new_state, loss = self._average_step(detach_tree(new_state), loss.detach())
         if old is not None:
             self._step_health = self._mesh_health(grads, old, params, new_state, x, t)
@@ -425,13 +440,7 @@ class HybridParallelOptimizer(_ShardedOptimizer):
             return counts
         return _comm.axis_psum_(counts, mesh, (self.data_axis,))
     def _prepare_plan(self, mesh: Mesh, n_rows: int) -> None:
-        for path_spec in self.plan.rules:
-            for axes in path_spec[1]:
-                if self.data_axis in spec_axes(axes):
-                    raise NotImplementedError(
-                        f"a plan that shards a parameter over the data axis "
-                        f"{self.data_axis!r} (rule {path_spec[0].pattern!r}) is not ported "
-                        f"({_ITEM_9C}); shard over the model axes")
+        pass  # the plan is the caller's
 
     def _data_size(self) -> int:
         mesh = self._run_mesh
@@ -440,31 +449,50 @@ class HybridParallelOptimizer(_ShardedOptimizer):
     # ------------------------------------------------------------- the rows
     def _check_first_batch(self, first) -> None:
         super()._check_first_batch(first)
-        n_data = self._data_size()
-        if first.size() % n_data:
-            raise ValueError(f"global batch {first.size()} not divisible by data axis {n_data}")
+        n_data, n_micro, b = self._data_size(), self._micro_batches, first.size()
+        if b % n_data:
+            raise ValueError(f"global batch {b} not divisible by data axis {n_data}")
+        if n_micro > 1:
+            if b % n_micro:
+                raise ValueError(f"batch size {b} not divisible by micro batch count {n_micro}")
+            if (b // n_micro) % n_data:
+                raise ValueError(
+                    f"a micro-batch's {b // n_micro} rows (batch {b} / {n_micro} micro-batches) "
+                    f"do not divide over data axis {n_data}; size the batch to micro-batches x "
+                    "data axis")
 
     def _local_rows(self, batch):
+        """This rank's rows of a global batch: its data row's contiguous
+        share, or under micro-batches its share of each micro-batch, micro
+        by micro."""
         n = self._data_size()
         if n == 1:
             return batch
-        k = batch.size() // n
-        return batch.slice(self._run_mesh.coords[self.data_axis] * k, k)
+        d, n_micro = self._run_mesh.coords[self.data_axis], self._micro_batches
+        if n_micro == 1:
+            k = batch.size() // n
+            return batch.slice(d * k, k)
+        check_micro_split(batch.get_input(), batch.get_target(), n_micro)
+        mb = batch.size() // n_micro
+        k = mb // n
+        return batch.take(np.concatenate([np.arange(i * mb + d * k, i * mb + (d + 1) * k)
+                                          for i in range(n_micro)]))
+
+    def _global_rows(self, rows: int) -> int:
+        return rows * self._data_size()
 
     # -------------------------------------------------------------- the step
     def _forward_params(self, params):
-        """The parameters the forward reads: each sharded leaf gathered
-        along its axes (the backward keeps this rank's block)."""
+        """The parameters the forward reads: each sharded leaf gathered whole
+        along its axes, once a step, as a leaf of its own (its gradient
+        comes out whole; :meth:`_average_grads` takes it to the block)."""
         if not self._specs:
             return params
         items = tree_items(params)
-        for path, spec in self._specs.items():
-            v = items[path]
-            for dim in range(len(spec)):
-                axes = spec_axes(spec[dim])
-                if axes:
-                    v = _comm.gather(v, self._run_mesh, axes, dim)
-            items[path] = v
+        with torch.no_grad():
+            for path, spec in self._specs.items():
+                whole = gather_block(items[path], spec, self._run_mesh)
+                items[path] = whole.detach().requires_grad_(True)
         return unflatten_to_like(items, params)
 
     def _masked_loss(self, y, t, nvalid: float) -> torch.Tensor:
@@ -490,16 +518,29 @@ class HybridParallelOptimizer(_ShardedOptimizer):
         return num
 
     def _average_grads(self, grads):
-        """The gradients averaged over the data axis in one all-reduce."""
-        if self._data_size() == 1:
-            return grads
+        """The whole gradients (the forward read whole leaves) as this
+        rank's blocks of the batch's mean gradient, in one all-reduce over
+        the data axis: a leaf sharded over model axes only is cut to its
+        block first; a leaf sharded over the data axis is summed whole and
+        then cut (sum, then block: the transpose of its gather over that
+        axis); every leaf is divided by the data axis size once."""
+        mesh, n = self._run_mesh, self._data_size()
         items = tree_items(grads)
+        on_data = {}
+        for path, spec in self._specs.items():
+            if n > 1 and self.data_axis in {a for e in spec for a in spec_axes(e)}:
+                on_data[path] = spec
+            else:
+                items[path] = shard_leaf(items[path], spec, mesh)
+        if n == 1:
+            return unflatten_to_like(items, grads)
         buf = torch.cat([g.reshape(-1).float() for g in items.values()])
-        _comm.axis_pmean_(buf, self._run_mesh, (self.data_axis,))
+        _comm.axis_pmean_(buf, mesh, (self.data_axis,))
         out, off = {}, 0
         for path, g in items.items():
-            out[path] = buf[off:off + g.numel()].view(g.shape).to(g.dtype)
+            v = buf[off:off + g.numel()].view(g.shape).to(g.dtype)
             off += g.numel()
+            out[path] = shard_leaf(v, on_data[path], mesh) if path in on_data else v
         return unflatten_to_like(out, grads)
 
     def _step_generator(self) -> torch.Generator:

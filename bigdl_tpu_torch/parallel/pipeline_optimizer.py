@@ -22,7 +22,7 @@ the parallel module (each data row runs its own pipeline, or its own
 expert group); the layers around it run on the whole batch on every rank.
 ``flat_update`` and ``comms_dtype`` are refused with
 :class:`~bigdl_tpu_torch.parallel.hybrid.ParallelCompositionError`;
-``set_micro_batches`` raises (ROADMAP Queue 1 item 9c). ``set_health`` and
+``set_micro_batches`` raises, as in the JAX package. ``set_health`` and
 ``donate=False`` are the chassis' (a stacked leaf's rows summed over its
 axis; with ``data_axis`` the per-data-shard counts of the whole batch every
 rank reads). The pipeline stamps its schedule's idle fraction,

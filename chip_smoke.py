@@ -426,8 +426,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against ``LocalOptimizer`` on rank 0 (``MESH_TOL``, tighter than the
    JAX test's loss 1e-4 and parameters 2e-4 absolute); [23e]
    ``examples/{pipeline,longctx,moe}_train.py`` at their JAX mains'
-   defaults but one epoch of the two (8, 8 and 4 spawned ranks), each exit
-   0 with its bigram-map recovery. Rehearse on the CPU by importing
+   defaults but one epoch of the two over half their default tokens
+   (``MESH_EXAMPLE_TOKENS``; 8, 8 and 4 spawned ranks), each exit 0 with
+   its bigram-map recovery. Rehearse on the CPU by importing
    ``chip_smoke`` from a guarded script, setting ``MESH_DEVICE = "cpu"``,
    cutting ``MESH_PIPE``, ``MESH_LM`` and ``MESH_MOE`` and calling
    ``phase_mesh_pipe("cpu")`` and ``phase_mesh_four("cpu")`` (the launch
@@ -508,6 +509,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    health norms against the one-rank run's (``MESH_HEALTH_TOL``, the
    planted run over it) and [23d]'s f32 steps with ``donate=False`` equal
    to the donated run's to the bit.
+27. the configurations the port once refused: [27a] the Siamese
+   ResNet-50 of [17a] with ``set_micro_batches(2)`` on its ``Table`` of
+   pairs: one f32 step at 8 pairs (TF32 off, deterministic cuDNN) against
+   a hand-written accumulation on the card (the two halves' train-mode
+   passes, BN state carried, gradients summed and halved, the same SGD
+   update) within ``SIAMESE_PAIR_TOL``, the planted accumulation (summed,
+   not halved) over it; then at 64 pairs of 224x224 in bf16, micro 2 and
+   unsplit in turns, 1 warm-up and 5 steps each: the median step and
+   ``max_memory_allocated`` of each (micro 2's peak under the unsplit
+   one's), 4 #10 launches a micro-batched step; [27b] rides [23d]'s spawn:
+   3 f32 SGD steps of data 2 x model 2 with ``set_micro_batches(2)``, (i)
+   under ``megatron_transformer_plan()`` and (ii) with the embedding's rows
+   over ``"data"`` too, each against ``LocalOptimizer`` on one rank with
+   the same micro-batches (``SLICE28_TOL``; planted: (i) block 0's query
+   gradient doubled, (ii) the embedding's block of a rank's own rows
+   without the sum over the data axis), 36 of each flash kernel a run a
+   rank; [27c] ``lenet_train --summary-dir --model-save`` (one ``Loss``
+   event an iteration read back, one ``Top1Accuracy`` event),
+   ``lenet_test --model`` on its file, ``alexnet_train --model-save`` and
+   its file's eval forward in a fresh process equal to this process's;
+   [27d] ``DLClassifier`` over LeNet-5 fitted, predicting and scoring on
+   held-out digits on the card. Rehearse [27a], [27c] and [27d] on the CPU
+   by importing ``chip_smoke`` from a guarded script, setting
+   ``SIAMESE_DEVICE`` and ``SLICE28_DEVICE`` to ``"cpu"``, cutting
+   ``SIAMESE`` and the ``SLICE28_*`` sizes and calling their phases; [27b]
+   by ``_spawn_mesh(["hybrid"], 4)`` under [23]'s CPU settings and
+   ``_check_slice28_mesh``.
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -559,7 +587,9 @@ and [25]'s ``surface_cold`` and ``surface_warm`` (counted in their
 processes), ``surface_rejections``, ``surface_drift``,
 ``prediction_service``, ``step_export`` and ``step_resume`` (counted in its
 process) and ``server_postmortem``, and [26]'s ``elastic_zero1``, counted in
-the ranks' processes and summed) runs with every kernel's launch count set to 0 just
+the ranks' processes and summed, and [27]'s ``siamese_micro``,
+``mesh_hybrid_micro`` and ``mesh_hybrid_data`` (counted in the ranks'
+processes and summed), ``examples_flags`` and ``estimator``) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -9640,6 +9670,7 @@ MESH_PIPE = {"vocab": 8192, "hidden": 512, "stages": 6, "seq": 2048, "batch": 8,
 MESH_LM = dict(LM_WIDTH, records=8, steps=3, sp=4)  # [23b], [23d]: [5]/[6]'s widths
 MESH_MOE = dict(MOE_BENCH, iters=6, check_steps=3)  # [23c]: bench.py's MoE model
 MESH_EXAMPLES = ("pipeline_train", "longctx_train", "moe_train")  # [23e], their defaults
+MESH_EXAMPLE_TOKENS = 20000  # [23e]: half the mains' 40,000, to keep the smoke inside its limit
 MESH_EXAMPLE_TIMEOUT_S = 300
 # Limits of the f32 checks (TF32 off). Each check runs twice on the mesh:
 # sound, and with a planted fault, the gradient of one split leaf doubled
@@ -9978,15 +10009,17 @@ def _lm_data(seed):
             gen.integers(0, w["vocab"], (w["records"], w["seq"])))
 
 
-def _lm_fit(model, cls, x, y, steps, observe=None, **kw):
-    """``steps`` SGD steps of ``cls``; with ``observe`` (a dict) the run is
-    ``_observed`` and its readings go there under ``"observed"``."""
+def _lm_fit(model, cls, x, y, steps, observe=None, micro=1, **kw):
+    """``steps`` SGD steps of ``cls`` (with ``micro`` micro-batches); with
+    ``observe`` (a dict) the run is ``_observed`` and its readings go there
+    under ``"observed"``."""
     from bigdl_tpu_torch.dataset import DataSet
     from bigdl_tpu_torch.nn import CrossEntropyCriterion
     from bigdl_tpu_torch.optim import SGD, Trigger
 
     o = cls(model, DataSet.array(x, y, batch_size=MESH_LM["batch"]), CrossEntropyCriterion(),
             **kw)
+    o.set_micro_batches(micro)
     o.set_optim_method(SGD(learningrate=0.1)).set_end_when(Trigger.max_iteration(steps))
     read = _observed(o) if observe is not None else None
     o.optimize()
@@ -10220,6 +10253,7 @@ def _mesh_job_hybrid(rank, world, out):
         out["planted_norms"] = _grad_norms(seen["observed"])
         del o, model
         _free()
+        _slice28_hybrid_runs(mesh, x, y, out)  # [27b]
         _comm.barrier()
         if rank == 0:
             model = _mesh_lm(dev, SEED + 3)
@@ -10227,6 +10261,11 @@ def _mesh_job_hybrid(rank, world, out):
             o = _lm_fit(model, LocalOptimizer, x, y, 3, observe=seen)
             out["ref"], out["p0"] = ([h["loss"] for h in o.history], _flat_params(model)), p0
             out["ref_norms"] = _grad_norms(seen["observed"])
+            del o, model
+            model = _mesh_lm(dev, SEED + 3)  # [27b]'s reference: one rank, the same micro-batches
+            model.init(sample_input=x[:w["batch"]])
+            o = _lm_fit(model, LocalOptimizer, x, y, 3, micro=SLICE28_MICRO)
+            out["micro_ref"] = ([h["loss"] for h in o.history], _flat_params(model))
             del o, model
             _free()
         _comm.barrier()
@@ -10454,12 +10493,14 @@ def phase_mesh_four(card):
     log("    [26b] [23d]'s 3 f32 steps with donate=False: every rank's parameters equal the "
         "donated run's to the bit")
     by_path["mesh_hybrid"] = _sum_rank_counts(ranks, "hybrid")
+    by_path.update(_check_slice28_mesh(ranks, card))  # [27b]
     return by_path
 
 
 def phase_mesh_examples(card):
     """[23e] the three mesh mains at their JAX mains' defaults but one epoch
-    (``--max-epoch 1``, of 2), started together (20 ranks sharing the card;
+    (``--max-epoch 1``, of 2) over ``MESH_EXAMPLE_TOKENS`` planted-bigram
+    tokens (half their default), started together (20 ranks sharing the card;
     their output to files, so no pipe fills while another is read) with
     [22]'s two-process tool beside them, each joined under its deadline."""
     import re
@@ -10472,7 +10513,7 @@ def phase_mesh_examples(card):
                 args = _multiprocess_tool_args()
             else:
                 args = [sys.executable, "-m", f"bigdl_tpu_torch.examples.{name}",
-                        "--max-epoch", "1"]
+                        "--max-epoch", "1", "--synthetic-size", str(MESH_EXAMPLE_TOKENS)]
             if MESH_DEVICE == "cpu" and name != "multiprocess_tool":
                 args += ["--platform", "cpu"]
             out = open(os.path.join(folder, f"{name}.out"), "w")
@@ -12020,6 +12061,485 @@ def phase_slice27(card, elastic=None):
     return by_path
 
 
+# ----------------------------------------------------------------------------- [27]
+# [27] the configurations the port once refused: [27a] the
+# Siamese ResNet-50 of [17a] with micro-batches on its Table of pairs; [27b]
+# (inside [23d]'s spawn) the hybrid mesh with micro-batches and a plan over
+# the data axis; [27c] the examples' --summary-dir and --model-save; [27d]
+# the estimator API over LeNet-5.
+SLICE28_MICRO = 2  # micro-batches of [27a] and [27b]
+SLICE28_DEVICE = "cuda"  # [27c], [27d]; a CPU rehearsal sets "cpu" (and SIAMESE_DEVICE for [27a])
+# [27a] one micro-batched step (set_micro_batches(2), 8 pairs, f32, TF32 off,
+# deterministic cuDNN) against a hand-written accumulation on the card: two
+# train-mode forward/backward passes of the shared model on the Table's two
+# halves (BN state carried), the gradients summed and halved, the same SGD
+# update. The step runs the same arithmetic on the same shapes in the same
+# order (the shared tower's two sites summed by autograd within each half,
+# as [17a]'s check reads equal to the bit), so the update and the BN state
+# are expected equal to the bit; the limit is SIAMESE_PAIR_TOL (1e-6 of each
+# leaf's update and state norm) and its reasoning. Planted: the halves'
+# gradients summed and not halved (the update doubled, 1.0 relative).
+SIAMESE_MICRO = {"iters": 6, "rounds": 2}  # 1 warm-up + 5 timed, micro and unsplit in turns
+# [27b] 3 f32 SGD steps of data 2 x model 2 on the LM at [5]/[6]'s widths,
+# each with set_micro_batches(2), against LocalOptimizer on one rank with
+# the same micro-batches: (i) under megatron_transformer_plan(), planted on
+# block 0's query weight (its gradient doubled, as [23d]); (ii) with the
+# embedding's rows over "data" too, planted as the gradient's block of
+# this rank's own rows without the sum over the data axis. Each limit sits
+# between the sound and planted readings on an H100 (80GB HBM3, 700 W; 3
+# spawns, the same to the last digit; sound / planted): (i) loss 1.005e-7
+# (one float32 step of a loss near 9.5) / 6.03e-7, update 4.35e-5 /
+# 1.11e-2, parameters 1.32e-6 / 1.21e-4 absolute; (ii) the sound readings
+# equal to (i)'s, planted loss 6.03e-7, update 5.61e-2, parameters 4.75e-4.
+SLICE28_TOL = {"micro": {"loss": 3e-7, "update": 2e-4, "params_abs": 5e-6},
+               "data": {"loss": 3e-7, "update": 2e-4, "params_abs": 5e-6}}
+SLICE28_LENET = {"records": 2048, "batch": 128}  # [27c] lenet_train, 1 epoch: 16 steps
+SLICE28_ALEXNET = {"records": 256, "batch": 64, "check": 4}  # 3 steps, a 64-image validation
+# [27d] 4 epochs of SGD 0.1 momentum 0.9: 64 steps; its score on held-out
+# digits must pass 0.5 (chance 0.1; 0.94 in f32 on the CPU)
+SLICE28_ESTIMATOR = {"records": 2048, "test": 512, "batch": 128, "epochs": 4, "lr": 0.1,
+                     "min_score": 0.5}
+
+
+def _no_data_sum(leaf: str):
+    """[27b]'s planted fault: HybridParallelOptimizer with the data-sharded
+    ``leaf`` 's gradient taken as this rank's block of its own rows'
+    gradient, without the sum over the data axis."""
+    from bigdl_tpu_torch.parallel import HybridParallelOptimizer
+    from bigdl_tpu_torch.parallel.sharding import shard_leaf
+    from bigdl_tpu_torch.utils.serialization import tree_items, unflatten_to_like
+
+    class NoDataSum(HybridParallelOptimizer):
+        def _average_grads(self, grads):
+            own = shard_leaf(tree_items(grads)[leaf], self._specs[leaf], self._run_mesh)
+            out = tree_items(super()._average_grads(grads))
+            out[leaf] = own
+            return unflatten_to_like(out, grads)
+
+    return NoDataSum
+
+
+def _slice28_plan(data_rows: bool):
+    from bigdl_tpu_torch.parallel import P, ShardingPlan, megatron_transformer_rules
+
+    extra = [(r"^embedding$", P("data", None))] if data_rows else []
+    return ShardingPlan(extra + megatron_transformer_rules())
+
+
+def _slice28_hybrid_runs(mesh, x, y, out) -> None:
+    """[27b] on this rank (f32, inside [23d]'s spawn): (i) and (ii), sound
+    and planted, 3 steps each with SLICE28_MICRO micro-batches from
+    [23d]'s check weights; the sound runs' launches counted."""
+    from bigdl_tpu_torch.parallel import HybridParallelOptimizer
+
+    w, dev = MESH_LM, MESH_DEVICE
+    runs = (("micro", False, _doubled(HybridParallelOptimizer, MESH_PLANT["hybrid"])),
+            ("data", True, _no_data_sum("embedding")))
+    for name, data_rows, planted_cls in runs:
+        for cls, key in ((HybridParallelOptimizer, name), (planted_cls, f"{name}_planted")):
+            model = _mesh_lm(dev, SEED + 3)
+            model.init(sample_input=x[:w["batch"]])
+            if cls is HybridParallelOptimizer:
+                reset_counts()  # [27b]'s main paths start here
+            t0 = time.perf_counter()
+            o = _lm_fit(model, cls, x, y, 3, micro=SLICE28_MICRO, plan=_slice28_plan(data_rows),
+                        mesh=mesh)
+            _sync()
+            if cls is HybridParallelOptimizer:
+                out[f"{name}_counts"] = read_counts()  # ... and end here
+                out[f"{name}_step_ms"] = [h["wall_s"] * 1e3 for h in o.history]
+                out[f"{name}_held"] = o.held_bytes
+                out[f"{name}_s"] = time.perf_counter() - t0
+            out[key] = ([h["loss"] for h in o.history], _flat_params(model))
+            del o, model
+            _free()
+
+
+def _check_slice28_mesh(ranks, card):
+    """[27b]'s checks over [23d]'s ranks; returns its two paths' launches."""
+    w = MESH_LM
+    r0 = ranks[0]["hybrid"]
+    by_path = {}
+    exp = {k: w["layers"] * SLICE28_MICRO * 3 for k in ("flash_attention_fwd",
+                                                        "flash_attention_bwd_dq",
+                                                        "flash_attention_bwd_dkv")}
+    labels = {"micro": "(i) megatron_transformer_plan()",
+              "data": "(ii) the plan with the embedding's rows over 'data'"}
+    for name, label in labels.items():
+        held = [res["hybrid"][f"{name}_held"]["params"] for res in ranks]
+        log(f"[27b] data 2 x model 2, {label}, set_micro_batches({SLICE28_MICRO}), f32 SGD 0.1: "
+            f"step ms " + ", ".join(f"{v:.0f}" for v in r0[f"{name}_step_ms"])
+            + f" (rank 0; {r0[f'{name}_s']:.1f} s the run); held parameters a rank "
+            f"{held[0] / 2**20:.2f} MiB; launches a rank "
+            f"{[_nonzero(res['hybrid'][f'{name}_counts']) for res in ranks][0]}; card {card}")
+        for r, res in enumerate(ranks):
+            got = _nonzero(res["hybrid"][f"{name}_counts"])
+            if MESH_DEVICE == "cuda" and got != exp:
+                raise AssertionError(f"[27b] {name} rank {r} launched {got}, expected {exp} "
+                                     f"({w['layers']} layers x {SLICE28_MICRO} micro-batches x "
+                                     "3 steps)")
+            if res["hybrid"][name][0] != r0[name][0]:
+                raise AssertionError(f"[27b] {name}: rank {r}'s losses {res['hybrid'][name][0]}")
+        if name == "data" and not held[0] < ranks[0]["hybrid"]["micro_held"]["params"]:
+            raise AssertionError(f"[27b] the data-sharded embedding is not held as a block: "
+                                 f"{held[0]} bytes against {r0['micro_held']['params']}")
+        _against(f"[27b] {label}: 3 f32 SGD steps vs LocalOptimizer with the same "
+                 "micro-batches on one rank", r0[name], r0["micro_ref"], r0["p0"],
+                 SLICE28_TOL[name], r0[f"{name}_planted"])
+        by_path[f"mesh_hybrid_{name}"] = _sum_rank_counts(ranks, "hybrid", f"{name}_counts")
+    return by_path
+
+
+def _f32_deterministic():
+    """f32 compute, TF32 off, deterministic cuDNN; returns a restore function."""
+    import torch
+
+    restore = _f32_card()
+    prev = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def undo():
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+        restore()
+
+    return undo
+
+
+def _copied(flat):
+    """A flat numpy tree that shares no memory with the tensors it came from
+    (``numpy()`` of a CPU tensor does)."""
+    return {k: v.copy() for k, v in flat.items()}
+
+
+def _rel_worst(got, want, base=None):
+    """The largest per-leaf ``|got - want| / |want - base|`` (``|want|``
+    without ``base``) over the leaves of two flat numpy trees."""
+    import numpy as np
+
+    worst = 0.0
+    for k, v in want.items():
+        ref = v.astype(np.float64) - (0.0 if base is None else base[k].astype(np.float64))
+        d = np.linalg.norm(got[k].astype(np.float64) - v.astype(np.float64))
+        worst = max(worst, float(d / max(np.linalg.norm(ref), 1e-30)) if d else 0.0)
+    return worst
+
+
+def _siamese_micro_check(card):
+    """[27a]'s f32 check: the micro-batched step against the hand-written
+    accumulation, sound and planted."""
+    import torch
+    from bigdl_tpu_torch import RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.nn.module import detach_tree
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.convert import load_jax_params, load_jax_state
+    from bigdl_tpu_torch.utils.serialization import tree_items, unflatten_to_like
+    from bigdl_tpu_torch.utils.table import T
+
+    c, n, dev = SIAMESE, SIAMESE_CHECK_PAIRS, _siamese_device()
+    xa, xb, y = siamese_pairs(n, c["hw"], SEED + 44)
+    undo = _f32_deterministic()
+    try:
+        RandomGenerator.set_seed(SEED + 44)
+        model = siamese_model(dev, c["embed"])
+        model.init(sample_input=T(xa[:2], xb[:2]))
+        w0, s0 = (_copied(_tree_to_numpy(t)) for t in (model.get_parameters(),
+                                                        model.get_state()))
+        o = LocalOptimizer(model, DataSet.array(T(xa, xb), y, batch_size=n),
+                           nn.CosineEmbeddingCriterion(margin=c["margin"]))
+        o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+        seen, step = {}, o._train_step
+
+        def recorded(xs, ts, *a, **k):  # the batch the step trains on (the epoch's order)
+            seen["x"], seen["t"] = xs, ts
+            return step(xs, ts, *a, **k)
+
+        o._train_step = recorded
+        o.set_micro_batches(SLICE28_MICRO).set_end_when(Trigger.max_iteration(1)).optimize()
+        got = (_copied(_tree_to_numpy(model.get_parameters())),
+               _copied(_tree_to_numpy(model.get_state())))
+        del o, model
+        hand = {}
+        for label, halve in (("sound", True), ("planted", False)):
+            m = siamese_model(dev, c["embed"])
+            m.init(sample_input=T(xa[:2], xb[:2]))
+            load_jax_params(m, _nest(w0))
+            load_jax_state(m, _nest(s0))
+            crit = nn.CosineEmbeddingCriterion(margin=c["margin"])
+            params, state, acc = m.get_parameters(), m.get_state(), None
+            leaves = list(tree_items(params).values())
+            for h in range(SLICE28_MICRO):
+                rows = slice(h * n // SLICE28_MICRO, (h + 1) * n // SLICE28_MICRO)
+                x = T(seen["x"][1][rows], seen["x"][2][rows])
+                out, state = m.apply(params, state, x, training=True)
+                g = torch.autograd.grad(crit._apply(out, seen["t"][rows]), leaves)
+                acc = list(g) if acc is None else [a + b for a, b in zip(acc, g)]
+            if halve:
+                acc = [a / SLICE28_MICRO for a in acc]
+            method = SGD(learningrate=0.01, momentum=0.9)
+            grads = unflatten_to_like(dict(zip(tree_items(params), acc)), params)
+            method.update(grads, params, method.init_slots(params), method.get_learning_rate(), 1)
+            m.set_state(detach_tree(state))
+            hand[label] = (_tree_to_numpy(m.get_parameters()), _tree_to_numpy(m.get_state()))
+            del m, params, state, leaves, acc, grads
+            _free()
+    finally:
+        undo()
+    (ps, ss), (pp, sp) = hand["sound"], hand["planted"]
+    upd, st = _rel_worst(got[0], ps, w0), _rel_worst(got[1], ss)
+    upd_p, st_p = _rel_worst(got[0], pp, w0), _rel_worst(got[1], sp)
+    equal = sum(bool((got[0][k] == v).all()) for k, v in ps.items())
+    log(f"[27a] the Siamese ResNet-50 ([17a]) with set_micro_batches({SLICE28_MICRO}) on its "
+        f"Table of {n} pairs, one f32 step (TF32 off, deterministic cuDNN) vs the hand-written "
+        f"accumulation (the two halves' train-mode passes, BN state carried, gradients summed "
+        f"and halved, the same SGD update): worst leaf update {upd:.2e} ({equal} of {len(ps)} "
+        f"leaves equal to the bit), BN state {st:.2e} (limit {SIAMESE_PAIR_TOL}); planted "
+        f"(summed, not halved): update {upd_p:.2e}, BN state {st_p:.2e}; card {card}")
+    if upd > SIAMESE_PAIR_TOL or st > SIAMESE_PAIR_TOL:
+        raise AssertionError("[27a] the micro-batched step disagrees with the accumulation")
+    if not upd_p > SIAMESE_PAIR_TOL:
+        raise AssertionError("[27a] the planted accumulation (not halved) passes the limit")
+
+
+def phase_siamese_micro(card):
+    """[27a] the f32 check, then the bf16 Siamese ResNet-50 at [17a]'s full
+    width micro-batched (the main path: 4 #10 launches a step) and unsplit,
+    in turns; returns the main path's launches."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    from bigdl_tpu_torch.utils.table import T
+
+    _siamese_micro_check(card)
+    _free()
+    c, s = SIAMESE, SIAMESE_MICRO
+    xa, xb, y = siamese_pairs(c["pairs"], c["hw"], SEED + 40)
+    ds = DataSet.array(T(xa, xb), y, batch_size=c["pairs"])
+    Engine.set_compute_dtype("bfloat16")
+    Engine.set_activation_dtype("bfloat16")
+    RandomGenerator.set_seed(45)
+    model = siamese_model(_siamese_device(), c["embed"])
+    reads, counts = {1: [], SLICE28_MICRO: []}, None
+    on_card = _siamese_device() != "cpu"
+    try:
+        for rnd in range(s["rounds"]):
+            for micro in (SLICE28_MICRO, 1):
+                o = LocalOptimizer(model, ds, nn.CosineEmbeddingCriterion(margin=c["margin"]))
+                o.set_optim_method(SGD(learningrate=0.01, momentum=0.9))
+                o.set_micro_batches(micro).set_end_when(Trigger.max_iteration(s["iters"]))
+                _sync()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                main_path = rnd == 0 and micro == SLICE28_MICRO
+                with _StepProbe() as probe:
+                    if main_path:
+                        reset_counts()  # the main path starts here
+                    o.optimize()
+                    _sync()
+                    if main_path:
+                        counts = read_counts()  # the main path ends here
+                peak = torch.cuda.max_memory_allocated() if on_card else 0
+                losses = [h["loss"] for h in o.history]
+                if len(losses) != s["iters"] or not all(np.isfinite(losses)):
+                    raise AssertionError(f"[27a] micro {micro}: losses {losses}")
+                want = {n: (2 * micro if n == "maxpool2d_bwd" and on_card else 0)
+                        for n in read_counts()}
+                _check_launch_steps(f"[27a] micro {micro}", probe, s["iters"], want, mem_from=2)
+                ms = statistics.median(h["wall_s"] for h in o.history[1:]) * 1e3
+                reads[micro].append((ms, peak))
+                del o
+    finally:
+        Engine.set_compute_dtype(None)
+        Engine.set_activation_dtype(None)
+    del model
+    _free()
+    if counts != {n: (2 * SLICE28_MICRO * s["iters"] if n == "maxpool2d_bwd" and on_card else 0)
+                  for n in counts}:
+        raise AssertionError(f"[27a] the main path launched {_nonzero(counts)}")
+
+    def fmt(micro):
+        return ", ".join(f"{ms:.2f} ms / {peak / 2**30:.2f} GiB" for ms, peak in reads[micro])
+
+    log(f"    bf16, {c['pairs']} pairs of {c['hw']}x{c['hw']}, SGD 0.01 momentum 0.9, "
+        f"{s['iters'] - 1} steps after a warm-up, in turns ({s['rounds']} rounds): micro "
+        f"{SLICE28_MICRO} {fmt(SLICE28_MICRO)}; unsplit {fmt(1)} (median step, "
+        f"max_memory_allocated); #10 launches {2 * SLICE28_MICRO} a step ({counts['maxpool2d_bwd']}"
+        f" on the main path); card {card}")
+    if on_card and not max(p for _, p in reads[SLICE28_MICRO]) < min(p for _, p in reads[1]):
+        raise AssertionError("[27a] micro-batches did not lower the peak memory")
+    return counts
+
+
+_ALEXNET_CHILD = """
+import sys
+sys.modules["jax"] = None
+sys.modules["bigdl_tpu"] = None
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from bigdl_tpu_torch import Engine, nn
+
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+torch.backends.cuda.matmul.allow_tf32 = sys.argv[9] == "1"
+torch.backends.cudnn.allow_tf32 = sys.argv[10] == "1"
+Engine.set_compute_dtype(sys.argv[4])
+Engine.set_activation_dtype(None if sys.argv[5] == "None" else sys.argv[5])
+m = nn.load_module(sys.argv[2], device=None if sys.argv[8] == "cuda" else "cpu")
+m.evaluate()
+x = np.random.default_rng(int(sys.argv[6])).standard_normal((int(sys.argv[7]), 3, 227, 227))
+with torch.no_grad():
+    out = m.forward(x.astype(np.float32))
+np.save(sys.argv[3], out.float().cpu().numpy())
+print(next(m.parameters()).device)
+"""
+
+
+def phase_examples_flags(card):
+    """[27c] lenet_train with --summary-dir and --model-save, lenet_test on
+    its file, alexnet_train with --model-save and its file loaded in a fresh
+    process; returns the two mains' launches (one path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine
+    from bigdl_tpu_torch.examples import alexnet_train, lenet_test, lenet_train
+    from bigdl_tpu_torch.visualization import TrainSummary, ValidationSummary
+
+    le, ax = SLICE28_LENET, SLICE28_ALEXNET
+    with tempfile.TemporaryDirectory(prefix="smoke_flags_") as d:
+        summaries, lenet_file, alex_file = (os.path.join(d, n) for n in
+                                            ("summaries", "lenet.bin", "alexnet.bin"))
+        platform = ["--platform", "cpu"] if SLICE28_DEVICE == "cpu" else []
+        reset_counts()  # the main path (both mains) starts here
+        run = lenet_train.main(platform + ["--max-epoch", "1", "--synthetic-size",
+                                           str(le["records"]), "-b", str(le["batch"]),
+                                           "--summary-dir", summaries, "--model-save", lenet_file])
+        alex = alexnet_train.main(platform + ["--max-epoch", "1", "--synthetic-size",
+                                              str(ax["records"]), "-b", str(ax["batch"]),
+                                              "--model-save", alex_file])
+        _sync()
+        counts = read_counts()  # the main path ends here
+        run.optimizer.summary.flush()
+        run.optimizer.val_summary.flush()
+        losses = [h["loss"] for h in run.optimizer.history]
+        read = TrainSummary(summaries, "lenet").read_scalar("Loss")
+        top1 = ValidationSummary(summaries, "lenet").read_scalar("Top1Accuracy")
+        steps = le["records"] // le["batch"]
+        log(f"[27c] lenet_train --summary-dir --model-save ({le['records']} synthetic digits, "
+            f"batch {le['batch']}, 1 epoch): {len(losses)} steps, read_scalar('Loss') {len(read)}"
+            f" events (steps {read[0][0] if read else None}..{read[-1][0] if read else None}), "
+            f"Top1Accuracy {len(top1)} event(s) {[round(v, 4) for _, v in top1]}; the model "
+            f"file {os.path.getsize(lenet_file) / 2**10:.1f} KiB; card {card}")
+        if (len(losses) != steps or [s for s, _ in read] != list(range(1, steps + 1))
+                or not np.allclose([v for _, v in read], np.float32(losses), rtol=1e-6)
+                or len(top1) != 1):
+            raise AssertionError(f"[27c] the summaries read {read} / {top1}, losses {losses}")
+        test = lenet_test.main(platform + ["--synthetic-size", str(le["records"]), "-b",
+                                           str(le["batch"]), "--model", lenet_file])
+        t_acc, t_n = test.results["Top1Accuracy"].result()
+        r_acc = run.results["Top1Accuracy"].result()[0]
+        log(f"    lenet_test --model: Top1Accuracy {t_acc:.4f} of {t_n} (the trained model's "
+            f"{r_acc:.4f}), Top5Accuracy {test.results['Top5Accuracy'].result()[0]:.4f}")
+        if abs(t_acc - r_acc) > 1.0 / t_n:
+            raise AssertionError("[27c] lenet_test reads another model than lenet_train saved")
+        # alexnet: the file in a fresh process, its eval forward against this process's
+        x = np.random.default_rng(SEED + 46).standard_normal(
+            (ax["check"], 3, 227, 227)).astype(np.float32)
+        alex.model.evaluate()
+        prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            with torch.no_grad():
+                ref = alex.model.forward(x).float().cpu().numpy()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+        out_file = os.path.join(d, "alexnet_out.npy")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", _ALEXNET_CHILD, str(ROOT), alex_file, out_file,
+             Engine.compute_dtype(), str(Engine.activation_dtype()), str(SEED + 46),
+             str(ax["check"]), SLICE28_DEVICE, str(int(torch.backends.cuda.matmul.allow_tf32)),
+             str(int(torch.backends.cudnn.allow_tf32))], capture_output=True, text=True,
+            timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"[27c] the AlexNet child failed:\n{child.stderr[-3000:]}")
+        got = np.load(out_file)
+        diff = float(np.abs(got - ref).max())
+        log(f"    alexnet_train --model-save ({ax['records']} synthetic images, batch "
+            f"{ax['batch']}): {len(alex.optimizer.history)} steps; nn.load_module in a fresh "
+            f"process on {child.stdout.strip()} ({time.perf_counter() - t0:.1f} s): forward "
+            f"{got.shape}, finite {bool(np.isfinite(got).all())}, max |child - parent| {diff:.2e}"
+            f" (the same weights, policy and deterministic cuDNN); launches {_nonzero(counts)}")
+        if got.shape != (ax["check"], 1000) or not np.isfinite(got).all() or diff > 0:
+            raise AssertionError("[27c] the AlexNet file's forward disagrees")
+    want = (2 * steps + 3 * (ax["records"] * 3 // 4 // ax["batch"])
+            if SLICE28_DEVICE == "cuda" else 0)
+    if counts["maxpool2d_bwd"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"[27c] launched {_nonzero(counts)}, expected {want} #10")
+    return counts
+
+
+def phase_estimator(card):
+    """[27d] DLClassifier over LeNet-5 on the card: fit, predict, score;
+    returns the path's launches."""
+    import numpy as np
+    from bigdl_tpu_torch import RandomGenerator, nn
+    from bigdl_tpu_torch.dataset.mnist import load_mnist
+    from bigdl_tpu_torch.ml import DLClassifier
+    from bigdl_tpu_torch.models import LeNet5
+    from bigdl_tpu_torch.optim import SGD
+
+    e = SLICE28_ESTIMATOR
+    x, y = load_mnist(None, train=True, synthetic_size=e["records"])
+    xt, yt = load_mnist(None, train=False, synthetic_size=e["test"])
+    RandomGenerator.set_seed(SEED + 47)
+    dev = None if SLICE28_DEVICE == "cuda" else "cpu"
+    est = DLClassifier(LeNet5(10, device=dev), nn.ClassNLLCriterion(), batch_size=e["batch"],
+                       max_epoch=e["epochs"],
+                       optim_method=SGD(learningrate=e["lr"], momentum=0.9), device=dev)
+    t0 = time.perf_counter()
+    reset_counts()  # the main path starts here
+    fitted = est.fit(x, y)
+    pred = fitted.predict(xt)
+    score = fitted.score(xt, yt)
+    _sync()
+    counts = read_counts()  # the main path ends here
+    proba = fitted.predict_proba(xt[:8])
+    steps = e["epochs"] * (e["records"] // e["batch"])
+    log(f"[27d] DLClassifier(LeNet5(10)) on {e['records']} synthetic digits (28x28, batch "
+        f"{e['batch']}, {e['epochs']} epochs, SGD {e['lr']} momentum 0.9) on "
+        f"{next(fitted.model.parameters()).device}: {steps} steps in "
+        f"{time.perf_counter() - t0:.2f} s with predict and score; score {score:.4f} on "
+        f"{e['test']} held-out digits; launches {_nonzero(counts)}; card {card}")
+    if (pred.shape != (e["test"],) or not e["min_score"] < score <= 1.0
+            or not np.allclose(proba.sum(1), 1.0, atol=1e-3)
+            or (proba.argmax(1) != pred[:8]).any()):
+        raise AssertionError(f"[27d] predictions {pred[:8]}, score {score}, proba {proba}")
+    if counts != {n: (2 * steps if n == "maxpool2d_bwd" and dev is None else 0)
+                  for n in counts}:
+        raise AssertionError(f"[27d] launched {_nonzero(counts)}, expected {2 * steps} #10")
+    return counts
+
+
+def phase_slice28(card):
+    """[27] the configurations the port once refused ([27b] ran inside [23d]'s spawn);
+    returns the main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"siamese_micro": phase_siamese_micro(card)}
+    _free()
+    by_path["examples_flags"] = phase_examples_flags(card)
+    _free()
+    by_path["estimator"] = phase_estimator(card)
+    _free()
+    log(f"[27] done in {time.perf_counter() - t0:.1f} s ([27b] inside [23d])")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -12072,6 +12592,7 @@ def main() -> int:
     by_path.update(phase_slice25(card))
     by_path.update(phase_slice26(card))
     by_path.update(phase_slice27(card, elastic))
+    by_path.update(phase_slice28(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

@@ -32,6 +32,7 @@ import torch
 from bigdl_tpu.models import AlexNet as JAlexNet
 from bigdl_tpu.utils.engine import Engine as JEngine
 from bigdl_tpu_torch import Engine
+from bigdl_tpu_torch import nn as pnn
 from bigdl_tpu_torch.examples import alexnet_train
 from bigdl_tpu_torch.models import AlexNet
 from bigdl_tpu_torch.nn import pooling
@@ -158,14 +159,18 @@ def test_alexnet_dropout_mode():
         assert torch.equal(pm.forward(x), pm.forward(x))
 
 
-def test_alexnet_example_runs_to_its_end():
+def test_alexnet_example_runs_to_its_end(tmp_path):
+    path = str(tmp_path / "alexnet.bin")
     run = alexnet_train.main(["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "16",
-                              "--class-num", "10", "-b", "4"])
+                              "--class-num", "10", "-b", "4", "--model-save", path])
     hist = run.optimizer.history
     assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
     assert run.val_dataset is not None and run.optimizer.optim_method.state[
         "n_validations"] == 1
     x, y = alexnet_train.synthetic_images(16, 10)
     assert x.shape == (16, 3, 227, 227) and x.dtype == np.float32 and y.max() < 10
-    with pytest.raises(NotImplementedError, match="--model-save"):
-        alexnet_train.main(["--platform", "cpu", "--model-save", "m"])
+    # --model-save: the trained model in nn.load_module's format
+    # (the JAX package reads it in test_torch_examples_flags.py)
+    loaded = pnn.load_module(path, device="cpu")
+    for (k, a), (_, b) in zip(run.model.named_parameters(), loaded.named_parameters()):
+        assert torch.equal(a, b), k

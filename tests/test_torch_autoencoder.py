@@ -183,11 +183,15 @@ def test_load_mnist_idx_files_match_jax(tmp_path, gz):
             np.testing.assert_array_equal(gy, wy)
 
 
-def test_autoencoder_example_runs_to_its_end(capsys):
+def test_autoencoder_example_runs_to_its_end(capsys, tmp_path):
+    path = str(tmp_path / "autoencoder.bin")
     run = autoencoder_train.main(["--platform", "cpu", "--max-epoch", "2",
-                                  "--synthetic-size", "300", "-b", "64"])
+                                  "--synthetic-size", "300", "-b", "64", "--model-save", path])
     assert len(run.optimizer.history) == 2 * (300 // 64)
     assert all(np.isfinite(h["loss"]) for h in run.optimizer.history)
     assert 0 < run.results["mse"] < 1 and "reconstruction MSE" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="--model-save"):
-        autoencoder_train.main(["--platform", "cpu", "--model-save", "m"])
+    # --model-save: the trained model in nn.load_module's format
+    # (the JAX package reads it in test_torch_examples_flags.py)
+    loaded = pnn.load_module(path, device="cpu")
+    for (k, a), (_, b) in zip(run.model.named_parameters(), loaded.named_parameters()):
+        assert torch.equal(a, b), k

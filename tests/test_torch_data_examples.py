@@ -5,7 +5,7 @@
 validation the same), and the single-card counterparts of
 ``examples/{lenet/train,lenet/test,textclassification/train,widedeep/train}.py``
 (finite losses, the printed results, ``--model-save`` read back by
-``lenet_test``). Inception-v1's is in ``test_torch_data_examples_inception.py``.
+``lenet_test``, ``--summary-dir`` written by LeNet-5 alone). Inception-v1's is in ``test_torch_data_examples_inception.py``.
 """
 
 import importlib.util
@@ -118,12 +118,27 @@ def test_widedeep_trains():
     assert run.results["Top1Accuracy"].result()[1] == 128
 
 
-@pytest.mark.parametrize("main", [lenet_train.main, textclassification_train.main,
-                                  widedeep_train.main])
-@pytest.mark.parametrize("flag,match", [(["--summary-dir", "s"], "summary-dir"),
-                                        (["--n-devices", "2"], "one card")])
-def test_unported_flags_raise(main, flag, match):
-    # --n-devices above 1 is for the DistriOptimizer mains: these train on one card
-    with pytest.raises(ValueError if "--n-devices" in flag else NotImplementedError,
-                       match=match):
-        main(["--platform", "cpu"] + flag)
+TEXT = ["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "64", "-b", "16",
+        "--vocab-size", "60", "--seq-len", "12", "--embedding-dim", "8", "--hidden-size", "8",
+        "--class-num", "5"]
+WIDEDEEP = ["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "256", "-b", "64"]
+
+
+@pytest.mark.parametrize("main,argv", [(lenet_train.main, LENET),
+                                       (textclassification_train.main, TEXT),
+                                       (widedeep_train.main, WIDEDEEP)],
+                         ids=["lenet", "textclassification", "widedeep"])
+@pytest.mark.parametrize("flag", ["--summary-dir", "--n-devices"])
+def test_summary_dir_and_n_devices_as_the_jax_mains(main, argv, flag, tmp_path):
+    """``--summary-dir`` is taken: LeNet-5 writes its train and validation
+    summaries there (read back in ``test_torch_examples_flags.py``), the
+    others nothing, as their JAX mains; ``--n-devices`` above 1 is for the
+    DistriOptimizer mains: these train on one card."""
+    if flag == "--n-devices":
+        with pytest.raises(ValueError, match="one card"):
+            main(["--platform", "cpu", flag, "2"])
+        return
+    d = tmp_path / "summaries"
+    main(argv + [flag, str(d)])
+    written = sorted(p.parent.name for p in d.rglob("*tfevents*")) if d.exists() else []
+    assert written == (["train", "validation"] if main is lenet_train.main else [])

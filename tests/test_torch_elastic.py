@@ -326,6 +326,10 @@ def runs(init, tmp_path_factory):
         dict(base, name="hybrid_clean", hybrid=True, init=None, ckpt_every=1, max_iteration=12),
         dict(base, name="hybrid_elastic", hybrid=True, init=None,
              **dict(sched, kill=(2, 3))),
+        dict(base, name="hybrid_clean_data", hybrid=True, data_plan=True, init=None,
+             ckpt_every=1, max_iteration=12),
+        dict(base, name="hybrid_elastic_data", hybrid=True, data_plan=True, init=None,
+             **dict(sched, kill=(2, 3))),
         dict(base, name="never_back", **dict(sched, revive_at=None)),
     ] + [dict(base, name=f"fault_{seam}", fault=seam, **sched)
          for seam in ("coordinate", "reshard", "rejoin")]
@@ -485,6 +489,35 @@ def test_a_host_that_never_returns(runs):
         for k in ranks[0]:
             if k.startswith("p."):
                 assert np.array_equal(rank[k], ranks[0][k]), k
+
+
+def test_hybrid_elastic_recuts_a_data_sharded_leaf(runs):
+    """The second Linear's weight rows over the data axis: 2 rows a rank on
+    data 2 x model 2, the whole 4 on the survivors' data 1 x model 2 (re-cut
+    from the tree-layout emergency checkpoint), 2 again after the rejoin.
+    The emergency checkpoint equals a clean run's at the shrink step, and
+    every rank ends with the same whole parameters."""
+    ranks = runs["hybrid_elastic_data"]
+    assert [r["meta"]["outcome"] for r in ranks] == ["ok"] * FLEET
+    s = _warns(ranks[0], "mesh_shrunk")
+    assert len(s) == 1 and s[0]["processes"] == [0, 1]
+    assert len(_warns(ranks[0], "mesh_rejoin")) == 1
+    folder = Path(runs_folder(runs))
+    step = int(s[0]["iteration"])
+    pe, _, he, _ = pser.load_checkpoint(str(folder / "hybrid_elastic_data" / "ckpt"), step)
+    pc, _, hc, _ = pser.load_checkpoint(str(folder / "hybrid_clean_data" / "ckpt"), step)
+    assert he["neval"] == hc["neval"] == step
+    (leaf,) = [k for k in pe if "Linear_2" in k and "weight" in k]
+    assert np.shape(pe[leaf]) == (4, 8)
+    for k in pc:
+        np.testing.assert_array_equal(pe[k], pc[k], err_msg=k)
+    for rank in ranks[1:]:
+        for k in ranks[0]:
+            if k.startswith("p."):
+                assert np.array_equal(rank[k], ranks[0][k]), k
+    assert np.shape(ranks[0]["p.Linear_2/weight"]) == (4, 8)
+    for rank in ranks[:2]:  # the survivors cut it at the start, the shrink and the rejoin
+        assert list(rank["cut_rows"]) == [2, 4, 2]
 
 
 @pytest.mark.parametrize("seam", ["coordinate", "reshard", "rejoin"])

@@ -234,9 +234,20 @@ def test_ncf_example_runs_to_its_end(capsys):
                and (g[:, 0] == g[0, 0]).all() for g in groups)
 
 
-@pytest.mark.parametrize("flag", [["--model-save", "m.bin"], ["--summary-dir", "s"],
-                                  ["--n-devices", "2"]])
-def test_ncf_example_refuses_unported_flags(flag):
-    # --n-devices above 1 is for the DistriOptimizer mains: NCF trains on one card
-    with pytest.raises(ValueError if "--n-devices" in flag else NotImplementedError):
-        ncf_train.main(["--platform", "cpu"] + flag)
+@pytest.mark.parametrize("flag", ["--model-save", "--summary-dir", "--n-devices"])
+def test_ncf_example_flags(flag, tmp_path):
+    """``--model-save`` writes the model, ``--summary-dir`` is taken and
+    left empty, as by the JAX main; ``--n-devices`` above 1 is for the
+    DistriOptimizer mains: NCF trains on one card."""
+    if flag == "--n-devices":
+        with pytest.raises(ValueError, match="one card"):
+            ncf_train.main(["--platform", "cpu", flag, "2"])
+        return
+    path = tmp_path / "out"
+    run = ncf_train.main(["--platform", "cpu", "--max-epoch", "1", "--synthetic-size", "400",
+                          "--embed-dim", "4", "--mf-embed", "4", "-b", "32", flag, str(path)])
+    if flag == "--model-save":
+        loaded = pnn.load_module(str(path), device="cpu")
+        assert set(dict(loaded.named_parameters())) == set(dict(run.model.named_parameters()))
+    else:
+        assert not path.exists() or not any(p.is_file() for p in path.rglob("*"))

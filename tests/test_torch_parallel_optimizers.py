@@ -27,6 +27,8 @@ import pytest
 
 import bigdl_tpu.nn as jnn
 from bigdl_tpu.dataset import DataSet as JDataSet
+from bigdl_tpu.dataset.dataset import LocalArrayDataSet as JLocalArrayDataSet
+from bigdl_tpu.dataset.dataset import SampleToMiniBatch
 from bigdl_tpu.optim import SGD as JSGD
 from bigdl_tpu.optim import LocalOptimizer as JLocal
 from bigdl_tpu.optim import Trigger as JTrigger
@@ -123,18 +125,39 @@ def _j_lm():
                            relu_dropout=0.0, mode="lm")
 
 
-def _jax_lm(hybrid: bool, health: bool = False):
-    x, y = _lm_data()
+def _j_hybrid_plan(plan):
+    """The JAX counterpart of ``torch_mesh_worker.hybrid_plan``."""
+    from jax.sharding import PartitionSpec as JP
+
+    from bigdl_tpu.parallel import ShardingPlan as JPlan
+    from bigdl_tpu.parallel.sharding import megatron_transformer_rules as j_rules
+
+    extra = {"data": [(r"^embedding$", JP("data", None))],
+             "data_model": [(r"^embedding$", JP(("data", "model"), None))]}
+    return JPlan(extra.get(plan, []) + j_rules())
+
+
+def _jax_lm(hybrid: bool, health: bool = False, micro: int = 1, tail: bool = False,
+            plan=None, n: int = 16):
+    """3 SGD steps of the small LM in the JAX package: its
+    ``HybridParallelOptimizer`` on data 2 x model 4 (``hybrid``) or its
+    ``LocalOptimizer``; with ``tail`` the dataset yields each epoch's
+    ragged tail (``SampleToMiniBatch``)."""
+    x, y = _lm_data(n)
     JRandom.set_seed(7)
     m = _j_lm()
-    m.init(jax.random.PRNGKey(7), sample_input=x)
+    m.init(jax.random.PRNGKey(7), sample_input=x[:16])
     init = np_tree(m.get_parameters())
-    ds = JDataSet.array(x, y, batch_size=16)
-    crit = jnn.TimeDistributedCriterion(jnn.CrossEntropyCriterion())
+    ds = (JLocalArrayDataSet(x, y, transformer=SampleToMiniBatch(16), batch_size=16) if tail
+          else JDataSet.array(x, y, batch_size=16))
+    crit = (jnn.CrossEntropyCriterion() if tail  # a row-wise form: the tail is masked
+            else jnn.TimeDistributedCriterion(jnn.CrossEntropyCriterion()))
     if hybrid:
-        opt = JHybrid(m, ds, crit, plan=j_plan(), mesh=j_make_mesh({"data": 2, "model": 4}))
+        opt = JHybrid(m, ds, crit, plan=_j_hybrid_plan(plan),
+                      mesh=j_make_mesh({"data": 2, "model": 4}))
     else:
         opt = JLocal(m, ds, crit)
+    opt.set_micro_batches(micro)
     rows = _jax_health(opt) if health else None
     opt.set_optim_method(JSGD(learningrate=0.1))
     opt.set_end_when(JTrigger.max_iteration(3))
@@ -200,6 +223,15 @@ def ranks(inits, tmp_path_factory):
         dict(name="hybrid_undonated", fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl,
              batch=16, init=lm_init, donate=False),
     ]
+    xt, yt = _lm_data(24)
+    lm = dict(fn="hybrid", mesh={"data": 2, "model": 4}, x=xl, y=yl, batch=16, init=lm_init)
+    for name, kw in HYBRID_CASES.items():
+        case = dict(lm, name=name, **kw)
+        if kw.get("tail"):
+            case.update(x=xt, y=yt)
+        cases += [case, dict(case, name=f"{name}_local", mesh=None)]
+    cases.append(dict(lm, name="hybrid_data_resume", mesh={"data": 2, "model": 2, "rep": 2},
+                      plan="data", micro=2, steps=1, ckpt_dir=f"{folder}/hybrid_data_ckpt"))
     # the one-rank references run here, once (each rank would run the same)
     local = {c["name"]: [CASES[c["fn"]](c, "cpu")] for c in cases if c["mesh"] is None}
     spawned = spawn_mesh_cases(W, [c for c in cases if c["mesh"] is not None], folder,
@@ -291,6 +323,57 @@ def test_hybrid_matches_local_and_jax(ranks):
     for k, v in _params(local).items():
         np.testing.assert_allclose(_params(got[0])[k], v, atol=2e-4, err_msg=k)
         np.testing.assert_allclose(_params(got[0])[k], j_params[k], atol=2e-4, err_msg=k)
+
+
+# micro-batches, ragged tails and plans over the data axis: each against
+# the JAX HybridParallelOptimizer on the virtual mesh and the port's
+# LocalOptimizer (same micro-batches) on one rank
+HYBRID_CASES = {
+    "hybrid_micro": dict(micro=2),
+    "hybrid_micro_tail": dict(micro=2, tail=True),
+    "hybrid_data": dict(plan="data"),
+    "hybrid_data_model_micro": dict(plan="data_model", micro=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(HYBRID_CASES))
+def test_hybrid_micro_batches_and_data_plans_match_jax(name, ranks):
+    """3 SGD steps (the tail case: 16 rows, then 8 padded to 16 and
+    masked, then 16): every rank's losses and parameters the same; within
+    the hybrid test's bounds (loss 1e-4, parameters 2e-4) of the JAX
+    ``HybridParallelOptimizer`` with the same plan and micro-batches and of
+    the port's ``LocalOptimizer``; a data-sharded embedding is held as a
+    block (a quarter or an eighth of its rows)."""
+    kw = HYBRID_CASES[name]
+    _, j_params, j_loss = _jax_lm(True, micro=kw.get("micro", 1), tail=kw.get("tail", False),
+                                  plan=kw.get("plan"), n=24 if kw.get("tail") else 16)
+    got, local = ranks[name], ranks[f"{name}_local"][0]
+    _same_on_every_rank(got)
+    if kw.get("tail"):
+        assert list(local["records"]) == [16, 8, 16]
+    assert abs(got[0]["losses"][-1] - local["losses"][-1]) < 1e-4
+    assert abs(got[0]["losses"][-1] - j_loss) < 1e-4
+    for k, v in _params(local).items():
+        np.testing.assert_allclose(_params(got[0])[k], v, atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(_params(got[0])[k], j_params[k], atol=2e-4, err_msg=k)
+    if kw.get("plan"):
+        rows = 32 // (2 if kw["plan"] == "data" else 8)
+        assert all(int(r["embedding_rows"]) == rows for r in got)
+
+
+def test_hybrid_data_plan_checkpoint_resumes_on_one_rank(ranks):
+    """The data-axis plan with micro-batches on data 2 x model 2 (an
+    unused ``rep`` axis fills the 8 ranks), checkpointed at step 2 and
+    resumed to step 4: on the mesh equal to the uninterrupted run to the
+    bit; by a one-rank ``LocalOptimizer`` (the file's embedding whole)
+    within 2e-4."""
+    got = ranks["hybrid_data_resume"]
+    _same_on_every_rank(got, "resumed.")
+    gold = {k[5:]: v for k, v in got[0].items() if k.startswith("gold.")}
+    assert gold["embedding"].shape == (32, 16)
+    for k, v in gold.items():
+        np.testing.assert_array_equal(got[0][f"resumed.{k}"], v, err_msg=k)
+        np.testing.assert_allclose(got[0][f"local.{k}"], v, atol=2e-4, err_msg=k)
 
 
 def test_hybrid_holds_its_blocks(ranks):
@@ -425,7 +508,11 @@ def test_incompatible_composition_is_typed(cls, kind, kw):
     assert str(pe.value).split(":")[0] == str(je.value).split(":")[0]
 
 
-def test_hybrid_refuses_flat_update_and_micro_batches():
+def test_hybrid_refuses_flat_update_and_takes_micro_batches():
+    """``flat_update`` is refused, as in the JAX package; micro-batches are
+    taken (their runs: ``test_hybrid_micro_batches_and_data_plans_match_jax``)
+    and a micro-batch whose rows do not divide over the data axis is
+    refused naming the batch, the micro-batch count and the data axis."""
     from bigdl_tpu_torch.parallel import megatron_transformer_plan
 
     x, y = _problem(n=16)
@@ -433,9 +520,23 @@ def test_hybrid_refuses_flat_update_and_micro_batches():
         HybridParallelOptimizer(_p_model("pipe"), DataSet.array(x, y, batch_size=16),
                                 pnn.ClassNLLCriterion(), flat_update=True)
     opt = HybridParallelOptimizer(_p_model("pipe"), DataSet.array(x, y, batch_size=16),
-                                  pnn.ClassNLLCriterion(), plan=megatron_transformer_plan())
-    with pytest.raises(NotImplementedError, match="set_micro_batches"):
-        opt.set_micro_batches(2)
+                                  pnn.ClassNLLCriterion(), plan=megatron_transformer_plan(),
+                                  mesh=_ShapeMesh(data=4, model=2))
+    assert opt.set_micro_batches(8) is opt
+    with pytest.raises(ValueError, match=r"micro-batch's 2 rows \(batch 16 / 8 micro-batches\) "
+                                         "do not divide over data axis 4"):
+        opt._check_first_batch(_FirstBatch(16))
+    opt.set_micro_batches(3)
+    with pytest.raises(ValueError, match="batch size 16 not divisible by micro batch count 3"):
+        opt._check_first_batch(_FirstBatch(16))
+
+
+class _FirstBatch:
+    def __init__(self, rows):
+        self.rows = rows
+
+    def size(self):
+        return self.rows
 
 
 def test_set_micro_batches_refused():
@@ -480,12 +581,30 @@ def test_model_without_parallel_module_fails_loudly():
         _p_opt(PipelineOptimizer, _p_model("pipe"), mesh=_ShapeMesh(pipe=2)).optimize()
 
 
-def test_plan_over_the_data_axis_is_refused():
+def test_plan_over_the_data_axis_runs():
+    """A plan that cuts a leaf over the data axis trains (its multi-rank
+    runs: ``test_hybrid_micro_batches_and_data_plans_match_jax``); on a
+    one-rank mesh it equals ``LocalOptimizer`` to the bit."""
+    import torch
+
+    from bigdl_tpu_torch.optim import LocalOptimizer
     from bigdl_tpu_torch.parallel import P, ShardingPlan
 
-    with pytest.raises(NotImplementedError, match="data axis"):
-        _p_opt(HybridParallelOptimizer, _p_model("pipe"),
-               plan=ShardingPlan([(r"weight$", P("data", None))])).optimize()
+    got = []
+    for cls, kw in ((HybridParallelOptimizer,
+                     dict(plan=ShardingPlan([(r"weight$", P("data", None))]),
+                          mesh=make_mesh({"data": 1}))), (LocalOptimizer, {})):
+        torch.manual_seed(0)
+        model = pnn.Sequential(pnn.Linear(8, 4, device="cpu"), pnn.LogSoftMax(device="cpu"),
+                               device="cpu")
+        model.init(sample_input=torch.zeros(2, 8))
+        with torch.no_grad():
+            for i, p in enumerate(model.parameters()):
+                p.copy_(torch.linspace(-1, 1, p.numel()).reshape(p.shape) * (i + 1))
+        _p_opt(cls, model, **kw).optimize()
+        got.append([p.detach().clone() for p in model.parameters()])
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
 
 
 def test_make_mesh_spans_the_group():

@@ -324,6 +324,9 @@ _WALK = {
     "visualization.tb": (),
     "visualization.summary": (),
     "optim.metrics": (),
+    "ml.estimator": (),
+    "tensor.tensor": (),
+    "utils.shape": (),
 }
 # What the port leaves out, and why (ROADMAP lists each): aot's export_jit
 # serializes a jitted program, which the eager port has not.
@@ -343,6 +346,21 @@ def test_every_jax_symbol_has_a_port(mod):
     assert names
     missing = [n for n in names if n not in _WALK[mod] and not hasattr(pm, n)]
     assert not missing, f"{mod}: {missing}"
+
+
+def test_ml_tensor_and_shape_exports_match():
+    """``bigdl_tpu.ml``, ``bigdl_tpu.tensor`` and the ``Shape`` names of
+    ``bigdl_tpu.utils`` at the port's paths."""
+    import bigdl_tpu.ml as jml
+    import bigdl_tpu.tensor as jtensor
+    import bigdl_tpu_torch.ml as pml
+    import bigdl_tpu_torch.tensor as ptensor
+    import bigdl_tpu_torch.utils as putils
+
+    assert set(jml.__all__) == set(pml.__all__)
+    assert set(jtensor.__all__) == set(ptensor.__all__)
+    assert {"Shape", "SingleShape", "MultiShape", "T", "Table", "Engine", "RandomGenerator",
+            "set_seed"} <= set(putils.__all__)
 
 
 def test_package_exports_match_less_the_next_slice():

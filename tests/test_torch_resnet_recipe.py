@@ -97,12 +97,17 @@ def test_synthetic_data_is_the_jax_recipes_draw():
     np.testing.assert_array_equal(np.asarray(batch.get_target()), y[:8])
 
 
-@pytest.mark.parametrize("extra,match", [
-    pytest.param(["--model-save", "m.bin"], "model-save", id="extra2-model-save"),
-])
-def test_unported_branches_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        resnet_train.main(TINY + extra)
+def test_model_save_writes_the_trained_model(tmp_path):
+    """``--model-save``: the trained model in ``nn.load_module`` 's format
+    (the JAX package reads it in ``test_torch_examples_flags.py``)."""
+    from bigdl_tpu_torch import nn as pnn
+
+    path = str(tmp_path / "resnet.bin")
+    recipe = resnet_train.main(TINY[:-1] + ["1", "--model-save", path])
+    loaded = pnn.load_module(path, device="cpu")
+    for (k, a), (_, b) in zip(recipe.optimizer.model.named_parameters(),
+                              loaded.named_parameters()):
+        assert torch.equal(a, b), k
 
 
 @pytest.fixture

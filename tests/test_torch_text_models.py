@@ -271,5 +271,5 @@ def test_ptb_example_runs_to_its_end(capsys):
     assert len(run.optimizer.history) == int(0.9 * 89) // 4
     assert all(np.isfinite(h["loss"]) for h in run.optimizer.history)
     assert np.isfinite(run.results["Loss"]) and "perplexity" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="--summary-dir"):
-        ptb_train.main(["--platform", "cpu", "--summary-dir", "s"])
+    # --summary-dir is taken and, as in the JAX main, nothing is written there
+    # (test_torch_examples_flags.py runs it)

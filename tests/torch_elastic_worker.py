@@ -5,7 +5,8 @@ imports torch and the port only (never JAX).
 
 A case trains ``Linear(8, 4) -> LogSoftMax`` (or, for the hybrid ones,
 ``Linear(8, 8) -> ReLU -> Linear(8, 4) -> LogSoftMax`` with the first
-weight's rows over ``model``) from the case's initial weights with SGD 0.1
+weight's rows over ``model``, and with ``data_plan`` the second's over
+``data``) from the case's initial weights with SGD 0.1
 on the case's records. An elastic case runs the JAX package's chaos
 schedule: a fake clock advanced by one second at every ``end_when`` call;
 rank 0 holds a thread-free :class:`SimulatedFleet` whose peers write the
@@ -72,7 +73,10 @@ def run_case(case: Dict[str, Any], rank: int, device: str = "cpu"):
     base = DataSet.array(case["x"], case["y"], batch_size=case["batch"])
     if hybrid:
         mesh = make_mesh({"data": 2, "model": 2})
-        plan = ShardingPlan([(r"^Linear_0/weight$", P("model", None))])
+        rules = [(r"^Linear_0/weight$", P("model", None))]
+        if case.get("data_plan"):  # the second weight's rows over the shrinking axis
+            rules.append((r"^Linear_2/weight$", P("data", None)))
+        plan = ShardingPlan(rules)
         opt = HybridParallelOptimizer(model, base, nn.ClassNLLCriterion(), plan=plan, mesh=mesh,
                                       donate=case.get("donate", True))
     else:
@@ -123,6 +127,16 @@ def run_case(case: Dict[str, Any], rank: int, device: str = "cpu"):
         return int(state.get("epoch", 1)) > end_epoch
 
     opt.set_end_when(end_when)
+    cut_rows = []  # with data_plan: the data-sharded leaf's block rows at each cut
+    if case.get("data_plan"):
+        init_state = opt._init_step_state
+
+        def init_and_look(method, params):
+            slots = init_state(method, params)
+            cut_rows.append(int(model.get_parameters()["Linear_2"]["weight"].shape[0]))
+            return slots
+
+        opt._init_step_state = init_and_look
     outcome = "ok"
     _comm.reset_counts()
     try:
@@ -149,6 +163,7 @@ def run_case(case: Dict[str, Any], rank: int, device: str = "cpu"):
     out = {f"p.{k}": v for k, v in _flat(model.get_parameters()).items()}
     out["losses"] = np.asarray([h["loss"] for h in opt.history], np.float64)
     out["nevals"] = np.asarray([h["neval"] for h in opt.history], np.int64)
+    out["cut_rows"] = np.asarray(cut_rows, np.int64)
     np.savez(os.path.join(folder, f"{case['name']}.{rank}.npz"), **out)
 
 

@@ -310,19 +310,54 @@ def _lm(nn, dev):
                           relu_dropout=0.0, mode="lm", device=dev)
 
 
+def hybrid_plan(case):
+    """The case's plan: the Megatron rules, after a rule that cuts the
+    embedding's rows over ``data`` (``plan="data"``) or over ``data`` x
+    ``model`` (``plan="data_model"``)."""
+    from bigdl_tpu_torch.parallel import P, ShardingPlan, megatron_transformer_rules
+
+    extra = {"data": [(r"^embedding$", P("data", None))],
+             "data_model": [(r"^embedding$", P(("data", "model"), None))]}
+    return ShardingPlan(extra.get(case.get("plan"), []) + megatron_transformer_rules())
+
+
+def _lm_dataset(case):
+    """The case's records at its batch; with ``tail`` every epoch's ragged
+    last batch is yielded in training too (the JAX package's
+    ``SampleToMiniBatch`` chain)."""
+    from bigdl_tpu_torch.dataset import DataSet, LocalArrayDataSet, MiniBatch
+
+    class Tail(LocalArrayDataSet):
+        def data(self, train):
+            for start in range(0, len(self._order), self.batch_size):
+                idx = self._order[start:start + self.batch_size]
+                yield MiniBatch(self.features[idx], self.labels[idx])
+
+    if case.get("tail"):
+        return Tail(case["x"], case["y"], batch_size=case["batch"])
+    return DataSet.array(case["x"], case["y"], batch_size=case["batch"])
+
+
+def _lm_criterion(nn, case):
+    """The LM's criterion; with ``tail`` the plain ``CrossEntropyCriterion``
+    over every position, whose row-wise form masks a padded tail (the
+    ``TimeDistributedCriterion`` has none: a tail is dropped)."""
+    if case.get("tail"):
+        return nn.CrossEntropyCriterion()
+    return nn.TimeDistributedCriterion(nn.CrossEntropyCriterion())
+
+
 def hybrid(case, dev):
     """3 SGD steps of ``HybridParallelOptimizer`` (or ``LocalOptimizer``)
-    on the small LM from the JAX weights, under ``megatron_transformer_plan``;
-    with ``nan_rank`` a NaN planted in that rank's block of one leaf and the
-    audit's message kept."""
+    on the small LM from the JAX weights, under :func:`hybrid_plan`, with
+    ``micro`` micro-batches; with ``nan_rank`` a NaN planted in that rank's
+    block of one leaf and the audit's message kept."""
     import torch
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch import optim as poptim
     from bigdl_tpu_torch.analysis import ParamAuditError
-    from bigdl_tpu_torch.dataset import DataSet
-    from bigdl_tpu_torch.parallel import (HybridParallelOptimizer, make_mesh,
-                                          megatron_transformer_plan)
+    from bigdl_tpu_torch.parallel import HybridParallelOptimizer, make_mesh
     from bigdl_tpu_torch.utils.convert import load_jax_params
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -332,13 +367,14 @@ def hybrid(case, dev):
     model.init(sample_input=torch.from_numpy(case["x"]))
     if case.get("init") is not None:
         load_jax_params(model, case["init"])
-    ds = DataSet.array(case["x"], case["y"], batch_size=case["batch"])
-    crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion())
+    ds = _lm_dataset(case)
+    crit = _lm_criterion(nn, case)
     if mesh is None:
         opt = poptim.LocalOptimizer(model, ds, crit)
     else:
-        opt = HybridParallelOptimizer(model, ds, crit, plan=megatron_transformer_plan(),
+        opt = HybridParallelOptimizer(model, ds, crit, plan=hybrid_plan(case),
                                       mesh=mesh, donate=case.get("donate", True))
+    opt.set_micro_batches(case.get("micro", 1))
     opt.set_optim_method(poptim.SGD(learningrate=0.1, momentum=case.get("momentum", 0.0)))
     opt.set_end_when(poptim.Trigger.max_iteration(case.get("steps", 3)))
     res = {}
@@ -370,6 +406,7 @@ def hybrid(case, dev):
         def init_and_look(method, params):
             slots = init_state(method, params)
             res["q_block"] = np.asarray(model.get_parameters()["block0"]["self_q_w"].shape)
+            res["embedding_rows"] = np.asarray(model.get_parameters()["embedding"].shape[0])
             return slots
 
         opt._init_step_state = init_and_look
@@ -377,6 +414,7 @@ def hybrid(case, dev):
     done()
     res.update({f"p.{k}": v for k, v in _flat(model.get_parameters()).items()})
     res["losses"] = np.asarray([h["loss"] for h in opt.history], np.float64)
+    res["records"] = np.asarray([h["records"] for h in opt.history])
     for k, v in getattr(opt, "held_bytes", {}).items():
         res[f"held.{k}"] = np.asarray(v)
     if case.get("ckpt_dir"):
@@ -387,13 +425,13 @@ def hybrid(case, dev):
 def _hybrid_resume(case, dev, mesh):
     """The hybrid run with momentum checkpointed at step 2 and resumed to
     step 4, on the mesh and by a one-rank ``LocalOptimizer``; and the
-    uninterrupted 4 steps."""
+    uninterrupted 4 steps (the case's plan and micro-batches)."""
     import torch
 
     from bigdl_tpu_torch import nn
     from bigdl_tpu_torch import optim as poptim
     from bigdl_tpu_torch.dataset import DataSet
-    from bigdl_tpu_torch.parallel import HybridParallelOptimizer, megatron_transformer_plan
+    from bigdl_tpu_torch.parallel import HybridParallelOptimizer
     from bigdl_tpu_torch.utils.convert import load_jax_params
     from bigdl_tpu_torch.utils.random import RandomGenerator
 
@@ -405,8 +443,8 @@ def _hybrid_resume(case, dev, mesh):
         ds = DataSet.array(case["x"], case["y"], batch_size=case["batch"])
         crit = nn.TimeDistributedCriterion(nn.CrossEntropyCriterion())
         opt = (poptim.LocalOptimizer(model, ds, crit) if local else
-               HybridParallelOptimizer(model, ds, crit, plan=megatron_transformer_plan(),
-                                       mesh=mesh))
+               HybridParallelOptimizer(model, ds, crit, plan=hybrid_plan(case), mesh=mesh))
+        opt.set_micro_batches(case.get("micro", 1))
         opt.set_optim_method(poptim.SGD(learningrate=0.1, momentum=0.9))
         opt.set_end_when(poptim.Trigger.max_iteration(steps))
         if ckpt:
