@@ -67,6 +67,23 @@ def load_module(path: str, device=None) -> AbstractModule:
     return load_module_def(path, device)
 
 
+def load_caffe(prototxt_path: str, weights=None, device=None):
+    """Import a Caffe prototxt topology, with its weights from a
+    ``.caffemodel`` path or a {layer: arrays} dict, onto ``device`` (the
+    card unless ``"cpu"``; reference: ``Module.loadCaffeModel``)."""
+    from ..utils.caffe import load_caffe as _load
+
+    return _load(prototxt_path, weights, device)
+
+
+def load_tf(path: str, inputs, outputs, device=None):
+    """Import a frozen TF GraphDef onto ``device`` (the card unless
+    ``"cpu"``; reference: ``Module.loadTF``)."""
+    from ..utils.tf_loader import load_tf as _load
+
+    return _load(path, inputs, outputs, device)
+
+
 __all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add", "AddConstant",
            "Anchor", "Attention", "attention_bias_lower_triangle", "BatchNormalization",
            "bbox_clip", "bbox_decode", "bbox_encode", "bbox_iou", "BCECriterion",
@@ -83,7 +100,8 @@ __all__ = ["Abs", "AbsCriterion", "AbstractCriterion", "AbstractModule", "Add", 
            "Fp8SpatialDilatedConvolution", "FPN", "GaussianDropout", "GaussianNoise", "GELU",
            "get_position_encoding", "Graph", "GRU", "HardSigmoid", "HardTanh", "Highway",
            "HingeEmbeddingCriterion", "Identity", "Index", "InferReshape", "Input", "JoinTable",
-           "L1Cost", "LayerNormalization", "LeakyReLU", "Linear", "load_module",
+           "L1Cost", "LayerNormalization", "LeakyReLU", "Linear", "load_caffe", "load_module",
+           "load_tf",
            "LocallyConnected1D", "LocallyConnected2D", "Log", "LogSoftMax", "LookupTable",
            "LookupTableSparse", "LSTM", "LSTMPeephole", "MapTable", "MarginCriterion",
            "MarginRankingCriterion", "MaskedSelect", "MaskHead", "Masking", "match_targets",

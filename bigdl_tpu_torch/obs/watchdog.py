@@ -95,7 +95,7 @@ class StallWatchdog(MonitorBase):
         self.first_step_timeout_s = first_step_timeout_s
         self._clock = clock
         self._durations: collections.deque = collections.deque(maxlen=window)
-        self._callbacks: List[Callable[[Dict], None]] = []
+        self._callbacks: List[Callable[[Dict], None]] = []  # guarded-by: _lock
         if on_stall is not None:
             self._callbacks.append(on_stall)
         self._lock = threading.RLock()  # check() reads estimate_s() under it

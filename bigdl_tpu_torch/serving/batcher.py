@@ -188,7 +188,7 @@ class ContinuousBatcher:
         self.queue = RequestQueue(max_pending)
         self.stats = ServeStats()
         self._version = int(version)
-        self._swap_lock = threading.RLock()  # dispatch vs hot-swap
+        self._swap_lock = threading.RLock()  # hot-lock: dispatch vs hot-swap exclusion
         self._acct_lock = threading.Lock()
         self._rejected = 0  # cumulative admission rejects
         self._deadline_missed = 0  # cumulative expired requests
@@ -567,7 +567,7 @@ class ContinuousBatcher:
             # never the thread. swap() keeps the geometry, so an unlocked
             # read of pad_record pads as any version would
             with obs_trace.context_scope(flush_ctx), span("serve_assembly"):
-                pad = self.predictor.pad_record
+                pad = self.predictor.pad_record  # lint: disable=BDL017
                 x = np.stack([r.feature if bucket is None else pad(r.feature, bucket)
                               for r in reqs])
             t_assembled = time.perf_counter()

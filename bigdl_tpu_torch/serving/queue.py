@@ -256,7 +256,7 @@ class RequestQueue:
         if max_pending is not None and int(max_pending) < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
         self.max_pending = None if max_pending is None else int(max_pending)
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()  # hot-lock: every put/pop/sweep serializes here
         self._cond = threading.Condition(self._lock)
         self._items: List[ServeRequest] = []
         self._puts = 0  # monotone arrival counter (lost-wakeup guard)
@@ -336,7 +336,11 @@ class RequestQueue:
         with self._cond:
             if self._closed or (seen is not None and self._puts != seen):
                 return
-            self._cond.wait(timeout)
+            # a timed single-shot wait, not a while-predicate loop: this is
+            # the batcher's trigger-poll tick, a spurious wakeup only re-runs
+            # trigger evaluation (callers re-check through the monotone
+            # `seen`/_puts counter) and the timeout bounds the sleep
+            self._cond.wait(timeout)  # lint: disable=BDL018
 
     def wake(self) -> None:
         with self._cond:

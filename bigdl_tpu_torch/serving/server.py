@@ -137,10 +137,10 @@ class ModelServer:
         else:
             self.supervisor = supervisor
         self._entries: Dict[str, _Entry] = {}
-        self._lock = threading.RLock()  # serving traffic reads the entries under it
+        self._lock = threading.RLock()  # hot-lock: serving traffic reads entries under it
         # register/update/unregister/close serialize on this for their whole
         # duration, warmup included; serving traffic never takes it
-        self._mgmt_lock = threading.RLock()
+        self._mgmt_lock = threading.RLock()  # hot-lock: registry mutations serialize here
         self._run_open = False
         # the verified bundle this server was seeded from (warm_start)
         self._warm_path: Optional[str] = None
@@ -304,6 +304,11 @@ class ModelServer:
         (``infer(..., deadline_ms=...)`` overrides it); ``breaker`` the
         circuit breaker (``None``: defaults, ``False``: off);
         ``supervise=False`` keeps the model off the supervisor."""
+        # the caller's sample comes to the host before the registry lock:
+        # a copy from the card under it would stall every management call
+        if isinstance(sample_input, torch.Tensor):
+            sample_input = sample_input.cpu().numpy()
+        sample = None if sample_input is None else np.asarray(sample_input)
         with self._mgmt_lock:
             with self._lock:
                 if name in self._entries:
@@ -311,9 +316,7 @@ class ModelServer:
                                      "to hot-swap a new version")
             e = _Entry()
             e.name = name
-            if isinstance(sample_input, torch.Tensor):
-                sample_input = sample_input.cpu().numpy()
-            e.sample = None if sample_input is None else np.asarray(sample_input)
+            e.sample = sample
             if e.sample is None and not model.is_built():
                 raise ValueError(f"model {name!r} is unbuilt and no sample_input was given; "
                                  "pass one record so the server can build and warm it")

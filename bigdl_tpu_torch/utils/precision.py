@@ -71,6 +71,15 @@ def einsum(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     return torch.einsum(subscripts, *(_cast(o, dt) for o in operands)).to(out_dtype())
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under the policy, as :func:`einsum`: compute-dtype
+    operands, the result in ``out_dtype()``; plain ``@`` in float32."""
+    dt = compute_dtype()
+    if dt == torch.float32:
+        return a @ b
+    return torch.matmul(_cast(a, dt), _cast(b, dt)).to(out_dtype())
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride, padding, groups: int = 1,
            dilation=1) -> torch.Tensor:
     """NCHW × OIHW convolution under the policy (counterpart of the JAX

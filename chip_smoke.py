@@ -536,6 +536,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``SIAMESE`` and the ``SLICE28_*`` sizes and calling their phases; [27b]
    by ``_spawn_mesh(["hybrid"], 4)`` under [23]'s CPU settings and
    ``_check_slice28_mesh``.
+28. the concurrency auditor and lock tracer on the serving path, and the
+   interop loaders: [28a] ``concurrency.audit_paths(["bigdl_tpu_torch"])``
+   on this checkout (no finding), then the LM of [5] (bf16, batch 1) served
+   through ``ModelServer`` under ``BIGDL_LOCK_DEBUG=1`` with the server's,
+   its batcher's and its queue's locks instrumented against
+   ``load_static_edges``: 16 single-record requests from 4 threads, an
+   ``update`` to a second seeded version after the 8th answer; no
+   inversion, both static nestings (``ContinuousBatcher._swap_lock ->
+   _acct_lock``, ``ModelServer._mgmt_lock -> _lock``) observed, every
+   answer bit-equal to a direct forward on the card of the version that
+   served it, #1 6 a forward, each traced lock's longest hold logged;
+   [28b] BVLC GoogLeNet written as its deploy prototxt (layers and widths
+   of BVLC Caffe's ``models/bvlc_googlenet``) with a seeded binary
+   ``.caffemodel`` (``WireWriter``), ``nn.load_caffe`` onto the card, an
+   eval forward at batch 128 of 224² (f32, TF32 off) whose first 8 rows
+   are held against the same files on the CPU (``GOOGLENET_TOL``), then 5
+   ``LocalOptimizer`` steps at batch 128 (bf16, ``ClassNLLCriterion`` on
+   ``prob``, SGD 0.01 momentum 0.9): finite losses, #10 13 a step, 9 of
+   them at 3x3/s1 (the library's entry point spied); [28c] VGG-16 (1000
+   classes, plain ReLU modules) through ``save_tf`` to a frozen GraphDef
+   and ``nn.load_tf`` onto the card: the eval forward at batch 64 (f32,
+   TF32 off) against the source model's (``TF_VGG_TOL``), 3
+   ``TFSession(trainable=True).train`` steps at batch 64 (bf16) with
+   finite losses, its weights through ``save_t7``/``load_t7`` equal to the
+   bit, no launch; the write, parse and .t7 times logged. Rehearse on the
+   CPU by importing ``chip_smoke`` from a guarded script, setting
+   ``SLICE29_DEVICE = "cpu"``, cutting ``SLICE29_LM`` (V 64, H 32, 4 heads,
+   filter 64, 2 layers, T 16), ``GOOGLENET`` (batch 2, 2 steps; the image
+   stays 224) and ``SLICE29_VGG`` (32x32, batch 4), replacing
+   ``_tf_source_model`` by a narrow convnet, and calling
+   ``phase_slice29("cpu")`` (~10 s; the launch checks are the card's).
 
 The max-pool backward kernel is held against its plain version in [3c]
 (the flagship's stem pool, VGG-16's five pools, the parity configs' pools:
@@ -589,7 +620,8 @@ processes), ``surface_rejections``, ``surface_drift``,
 process) and ``server_postmortem``, and [26]'s ``elastic_zero1``, counted in
 the ranks' processes and summed, and [27]'s ``siamese_micro``,
 ``mesh_hybrid_micro`` and ``mesh_hybrid_data`` (counted in the ranks'
-processes and summed), ``examples_flags`` and ``estimator``) runs with every kernel's launch count set to 0 just
+processes and summed), ``examples_flags`` and ``estimator``, and [28]'s
+``lock_serving``, ``caffe_googlenet`` and ``tf_vgg16``) runs with every kernel's launch count set to 0 just
 before it and read just after. The flat-memory checks read the device
 memory less the batches ``LocalOptimizer`` 's prefetch thread has staged
 (``staged_device_bytes``).
@@ -12540,6 +12572,523 @@ def phase_slice28(card):
     return by_path
 
 
+# ----------------------------------------------------------------------------- [28]
+# [28] the concurrency auditor and lock tracer over the serving path, and
+# the interop loaders: [28a] the LM of [5] served through ModelServer with
+# its locks traced against the auditor's static graph; [28b] BVLC GoogLeNet
+# imported from Caffe files and fine-tuned; [28c] VGG-16 exported to a
+# frozen GraphDef, imported, fine-tuned through TFSession, its weights
+# through a .t7 file.
+SLICE29_DEVICE = "cuda"  # a CPU rehearsal sets "cpu" and cuts the sizes below
+SLICE29_LM = {"vocab": 8192, "hidden": 512, "heads": 8, "filt": 2048, "layers": 6, "seq": 2048}
+# [28a] 16 single-record requests from 4 threads, the update after the 8th
+# answer while the next requests are served (each thread's last request
+# waits for the swap, so both versions answer); batch 1, so each flush is
+# the direct forward's shape (the bits of a row depend on the batch's
+# geometry: [25a], [19a'])
+SLICE29_SERVE = {"requests": 16, "threads": 4, "batch": 1, "swap_after": 8}
+GOOGLENET = {"batch": 128, "image": 224, "check_rows": 8, "steps": 5, "lr": 0.01}
+# [28b] the eval forward's first rows on the card (f32, TF32 off) against the
+# same graph on the CPU: float32 sums over up to 832x3x3 products taken in
+# other orders (cuDNN's algorithms, oneDNN's) through 57 layers, read on the
+# softmax: the limit is relative to the largest probability.
+GOOGLENET_TOL = 1e-4
+SLICE29_VGG = {"batch": 64, "image": 224, "train_batch": 64, "steps": 3, "lr": 0.01}
+# [28c] the imported graph's eval forward against the source model's on the
+# card (f32, TF32 off): the import runs each convolution on NHWC-strided
+# tensors, the source on NCHW ones, so cuDNN sums in other orders through 16
+# layers; read on the LogSoftMax output, relative to its largest magnitude.
+TF_VGG_TOL = 1e-4
+
+# BVLC GoogLeNet as BVLC Caffe's models/bvlc_googlenet/deploy.prototxt
+# publishes it (Szegedy et al. 2014, Table 1): conv1 7x7/2, max 3x3/2 (Caffe
+# sizes pools with ceil), LRN, conv2 1x1 + 3x3, LRN, max 3x3/2, inception
+# 3a-3b, max 3x3/2, 4a-4e, max 3x3/2, 5a-5b, average 7x7/1, dropout 0.4, the
+# 1000-way loss3/classifier and prob.
+_GOOGLENET_INCEPTION = {  # 1x1, 3x3 reduce, 3x3, 5x5 reduce, 5x5, pool proj
+    "3a": (64, 96, 128, 16, 32, 32), "3b": (128, 128, 192, 32, 96, 64),
+    "4a": (192, 96, 208, 16, 48, 64), "4b": (160, 112, 224, 24, 64, 64),
+    "4c": (128, 128, 256, 24, 64, 64), "4d": (112, 144, 288, 32, 64, 64),
+    "4e": (256, 160, 320, 32, 128, 128), "5a": (256, 160, 320, 32, 128, 128),
+    "5b": (384, 192, 384, 48, 128, 128)}
+
+
+def _pt_conv(name, bottom, top, n, k, stride=1, pad=0):
+    return (f'layer {{ name: "{name}" type: "Convolution" bottom: "{bottom}" top: "{top}"\n'
+            f'  convolution_param {{ num_output: {n} kernel_size: {k} stride: {stride} '
+            f'pad: {pad} }} }}\n'
+            f'layer {{ name: "{name.rsplit("/", 1)[0]}/relu_{name.rsplit("/", 1)[-1]}" '
+            f'type: "ReLU" bottom: "{top}" top: "{top}" }}\n')
+
+
+def _pt_pool(name, bottom, top, mode, k, stride, pad=0):
+    return (f'layer {{ name: "{name}" type: "Pooling" bottom: "{bottom}" top: "{top}"\n'
+            f'  pooling_param {{ pool: {mode} kernel_size: {k} stride: {stride} '
+            f'pad: {pad} }} }}\n')
+
+
+def _pt_lrn(name, bottom):
+    return (f'layer {{ name: "{name}" type: "LRN" bottom: "{bottom}" top: "{name}"\n'
+            '  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }\n')
+
+
+def googlenet_prototxt(image: int = 224) -> str:
+    """The deploy prototxt of BVLC GoogLeNet (its layer names and widths)."""
+    t = ('name: "GoogleNet"\n'
+         'layer { name: "data" type: "Input" top: "data"\n'
+         f'  input_param {{ shape: {{ dim: 10 dim: 3 dim: {image} dim: {image} }} }} }}\n')
+    t += _pt_conv("conv1/7x7_s2", "data", "conv1/7x7_s2", 64, 7, 2, 3)
+    t += _pt_pool("pool1/3x3_s2", "conv1/7x7_s2", "pool1/3x3_s2", "MAX", 3, 2)
+    t += _pt_lrn("pool1/norm1", "pool1/3x3_s2")
+    t += _pt_conv("conv2/3x3_reduce", "pool1/norm1", "conv2/3x3_reduce", 64, 1)
+    t += _pt_conv("conv2/3x3", "conv2/3x3_reduce", "conv2/3x3", 192, 3, 1, 1)
+    t += _pt_lrn("conv2/norm2", "conv2/3x3")
+    t += _pt_pool("pool2/3x3_s2", "conv2/norm2", "pool2/3x3_s2", "MAX", 3, 2)
+    bottom = "pool2/3x3_s2"
+    for name, (n1, r3, n3, r5, n5, pp) in _GOOGLENET_INCEPTION.items():
+        i = f"inception_{name}"
+        t += _pt_conv(f"{i}/1x1", bottom, f"{i}/1x1", n1, 1)
+        t += _pt_conv(f"{i}/3x3_reduce", bottom, f"{i}/3x3_reduce", r3, 1)
+        t += _pt_conv(f"{i}/3x3", f"{i}/3x3_reduce", f"{i}/3x3", n3, 3, 1, 1)
+        t += _pt_conv(f"{i}/5x5_reduce", bottom, f"{i}/5x5_reduce", r5, 1)
+        t += _pt_conv(f"{i}/5x5", f"{i}/5x5_reduce", f"{i}/5x5", n5, 5, 1, 2)
+        t += _pt_pool(f"{i}/pool", bottom, f"{i}/pool", "MAX", 3, 1, 1)
+        t += _pt_conv(f"{i}/pool_proj", f"{i}/pool", f"{i}/pool_proj", pp, 1)
+        t += (f'layer {{ name: "{i}/output" type: "Concat" bottom: "{i}/1x1" '
+              f'bottom: "{i}/3x3" bottom: "{i}/5x5" bottom: "{i}/pool_proj" '
+              f'top: "{i}/output" }}\n')
+        bottom = f"{i}/output"
+        if name in ("3b", "4e"):
+            pool = "pool3/3x3_s2" if name == "3b" else "pool4/3x3_s2"
+            t += _pt_pool(pool, bottom, pool, "MAX", 3, 2)
+            bottom = pool
+    t += _pt_pool("pool5/7x7_s1", bottom, "pool5/7x7_s1", "AVE", 7, 1)
+    t += ('layer { name: "pool5/drop_7x7_s1" type: "Dropout" bottom: "pool5/7x7_s1" '
+          'top: "pool5/7x7_s1" dropout_param { dropout_ratio: 0.4 } }\n'
+          'layer { name: "loss3/classifier" type: "InnerProduct" bottom: "pool5/7x7_s1" '
+          'top: "loss3/classifier" inner_product_param { num_output: 1000 } }\n'
+          'layer { name: "prob" type: "Softmax" bottom: "loss3/classifier" top: "prob" }\n')
+    return t
+
+
+def _write_caffemodel(path: str, shapes, seed: int) -> int:
+    """A binary .caffemodel (NetParameter.layer = 100 {name = 1, blobs = 7
+    {shape = 7 {dim = 1}, packed data = 5}}) for ``shapes`` ({layer: (weight
+    shape, bias shape)}), written with the port's WireWriter: seeded weights
+    of variance 1/fan_in (the variance of Caffe's xavier filler) and small
+    seeded biases; returns its size in bytes."""
+    import numpy as np
+    from bigdl_tpu_torch.utils.protowire import WireWriter
+
+    rng = np.random.default_rng(seed)
+    net = WireWriter()
+    net.string(1, "GoogleNet")
+    for name, (ws, bs) in shapes.items():
+        layer = WireWriter()
+        layer.string(1, name)
+        fan_in = int(np.prod(ws[1:]))
+        for arr in (rng.standard_normal(ws).astype(np.float32) * np.float32(
+                np.sqrt(1.0 / fan_in)), (rng.standard_normal(bs) * 0.01).astype(np.float32)):
+            blob, shape = WireWriter(), WireWriter()
+            for d in arr.shape:
+                shape.varint(1, int(d))
+            blob.message(7, shape)
+            blob.bytes_(5, arr.astype("<f4").tobytes())
+            layer.message(7, blob)
+        net.message(100, layer)
+    data = net.blob()
+    with open(path, "wb") as f:
+        f.write(data)
+    return len(data)
+
+
+def _no_tf32():
+    """Full float32 in matmuls and convolutions; returns the restorer."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def restore():
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    return restore
+
+
+def phase_lock_serving(card):
+    """[28a] the LM served with its locks traced; returns the path's launches."""
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator
+    from bigdl_tpu_torch.analysis import concurrency, lock_tracer
+    from bigdl_tpu_torch.nn import Transformer
+    from bigdl_tpu_torch.serving import ModelServer
+
+    c, s = SLICE29_LM, SLICE29_SERVE
+    pkg = str(ROOT / "bigdl_tpu_torch")
+    t0 = time.perf_counter()
+    findings = concurrency.audit_paths([pkg])
+    log(f"[28a] concurrency.audit_paths(['bigdl_tpu_torch']) on this checkout: {len(findings)} "
+        f"finding(s) in {time.perf_counter() - t0:.2f} s" + "".join(f"\n    {f}" for f in findings))
+    if findings:
+        raise AssertionError("[28a] the port's concurrency audit is not clean")
+    static = lock_tracer.load_static_edges([pkg])
+
+    class MaxHold(lock_tracer.LockTracer):
+        """The tracer, also keeping each lock's longest hold and every hold
+        past 10 ms with the host time of its release."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.longest, self.long = {}, []
+
+        def note_released(self, lock, held_s):
+            with self._meta:
+                self.longest[lock.name] = max(self.longest.get(lock.name, 0.0), held_s)
+                if held_s > 0.01:
+                    self.long.append((lock.name, held_s, time.perf_counter()))
+            super().note_released(lock, held_s)
+
+    Engine.set_compute_dtype("bfloat16")
+    dev = SLICE29_DEVICE
+
+    def lm(seed):
+        RandomGenerator.set_seed(seed)
+        return Transformer(c["vocab"], c["hidden"], c["heads"], c["filt"], c["layers"], 0.0, 0.0,
+                           0.0, mode="lm", device=dev).eval()
+
+    models = {1: lm(SEED + 50), 2: lm(SEED + 51)}
+    records = np.random.RandomState(SEED + 50).randint(
+        1, c["vocab"], size=(s["requests"], c["seq"])).astype(np.int64)
+    prev_env = os.environ.get("BIGDL_LOCK_DEBUG")
+    os.environ["BIGDL_LOCK_DEBUG"] = "1"
+    results, versions = [None] * s["requests"], [None] * s["requests"]
+    done, swapped = threading.Semaphore(0), threading.Event()
+    try:
+        reset_counts()  # the main path starts here
+        with ModelServer() as server:
+            server.register("lm", models[1], sample_input=records[0], batch_size=s["batch"],
+                            max_delay_ms=5)
+            tr = MaxHold(telemetry=server.telemetry, static_edges=static)
+            batcher = server._entries["lm"].batcher
+            traced = (lock_tracer.instrument_locks(server, tracer=tr)
+                      + lock_tracer.instrument_locks(batcher, tracer=tr)
+                      + lock_tracer.instrument_locks(batcher.queue, tracer=tr))
+
+            def client(idx):
+                for j, i in enumerate(idx):
+                    if j == len(idx) - 1 and not swapped.wait(600):
+                        return  # each thread's last request follows the swap
+                    f = server.infer("lm", records[i])
+                    results[i] = f.result(timeout=300)
+                    versions[i] = f.version
+                    done.release()
+
+            threads = [threading.Thread(target=client, args=(range(k, s["requests"], s["threads"]),))
+                       for k in range(s["threads"])]
+            t_start = time.perf_counter()
+            for t in threads:
+                t.start()
+            for _ in range(s["swap_after"]):
+                if not done.acquire(timeout=600):
+                    raise AssertionError("[28a] requests stalled before the hot-swap")
+            t_update = time.perf_counter()
+            new_version = server.update("lm", models[2])
+            t_updated = time.perf_counter()
+            swapped.set()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t_start
+            if any(t.is_alive() for t in threads) or any(r is None for r in results):
+                raise AssertionError("[28a] not every request was served")
+            flushes = server.models()["lm"]["flushes"]
+        _sync()
+        counts = read_counts()  # the main path ends here
+    finally:
+        if prev_env is None:
+            os.environ.pop("BIGDL_LOCK_DEBUG", None)
+        else:
+            os.environ["BIGDL_LOCK_DEBUG"] = prev_env
+    served = {v: versions.count(v) for v in sorted(set(versions))}
+    observed = sorted(tr.edges)
+    log(f"[28a] served {s['requests']} LM records (V {c['vocab']}, H {c['hidden']}, "
+        f"{c['layers']} layers, T {c['seq']}, bf16, batch {s['batch']}) from {s['threads']} "
+        f"threads in {wall:.2f} s over {flushes} flushes, update to version {new_version} after "
+        f"the {s['swap_after']}th answer; answers by version {served}; traced {traced}; "
+        f"observed orders {observed}; inversions {tr.inversions}; card {card}")
+    hot = ("RequestQueue._lock", "ContinuousBatcher._swap_lock", "ModelServer._lock",
+           "ModelServer._mgmt_lock")
+    log("    longest holds (host clock): " + ", ".join(
+        f"{n} {tr.longest.get(n, 0.0) * 1e3:.3f} ms{' (hot)' if n in hot else ''}"
+        for n in traced) + f"; {len(tr.hold_breaches)} hold(s) past "
+        f"{tr.hold_warn_s * 1e3:.0f} ms; card {card}")
+    log(f"    holds past 10 ms (ms, released at ms from the first request; the update ran "
+        f"{(t_update - t_start) * 1e3:.1f}-{(t_updated - t_start) * 1e3:.1f}): " + ", ".join(
+            f"{n} {h * 1e3:.1f} at {(t - t_start) * 1e3:.1f}" for n, h, t in tr.long))
+    want_edges = {("ContinuousBatcher._swap_lock", "ContinuousBatcher._acct_lock"),
+                  ("ModelServer._mgmt_lock", "ModelServer._lock")}
+    if tr.inversions or not want_edges <= set(tr.edges) or not want_edges <= static:
+        raise AssertionError(f"[28a] inversions {tr.inversions}, observed {observed}, "
+                             f"static {sorted(static)}")
+    if set(served) != {1, 2} or new_version != 2:
+        raise AssertionError(f"[28a] the hot-swap did not split the answers: {served}")
+    # every answer against a direct forward of its version at the same geometry
+    mismatched = []
+    with torch.inference_mode():
+        for i in range(s["requests"]):
+            ref = models[versions[i]].forward(records[i][None])[0]
+            got = results[i].to(ref.device)
+            if got.dtype != ref.dtype or not torch.equal(got, ref):
+                mismatched.append((i, versions[i], (got.float() - ref.float()).abs().max().item()))
+    log(f"    answers bit-equal to a direct forward of the version that served them: "
+        f"{s['requests'] - len(mismatched)} of {s['requests']} {mismatched}")
+    if mismatched or any(not bool(torch.isfinite(r).all()) for r in results):
+        raise AssertionError("[28a] a served answer differs from its version's forward")
+    forwards = 2 + flushes  # the two warmups (register, update) and one a flush
+    want = c["layers"] * forwards if dev == "cuda" else 0
+    log(f"    flash_attention_fwd launches {counts['flash_attention_fwd']} (expected "
+        f"{c['layers']} x {forwards} forwards = {want}); others {_nonzero(counts)}")
+    if counts["flash_attention_fwd"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"[28a] launched {_nonzero(counts)}, expected {want} #1")
+    return counts
+
+
+def _maxpool_spy():
+    """Wraps the library's max-pool backward entry point to record each
+    launch's (kernel, stride); returns (records, restore). On the CPU there
+    is no library and nothing is recorded."""
+    from bigdl_tpu_torch.ops import _build
+
+    seen = []
+    if SLICE29_DEVICE != "cuda":
+        return seen, lambda: None
+    lib = _build.load()
+    orig = lib.bigdl_maxpool2d_bwd
+
+    def spy(*args):
+        seen.append(tuple(args[9:13]))  # kh, kw, sh, sw
+        return orig(*args)
+
+    lib.bigdl_maxpool2d_bwd = spy
+
+    def restore():
+        lib.bigdl_maxpool2d_bwd = orig
+    return seen, restore
+
+
+def phase_caffe_googlenet(card):
+    """[28b] BVLC GoogLeNet from Caffe files, evaluated and fine-tuned;
+    returns the path's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+
+    g = GOOGLENET
+    dev = None if SLICE29_DEVICE == "cuda" else "cpu"
+    rng = np.random.default_rng(SEED + 52)
+    x = rng.standard_normal((g["batch"], 3, g["image"], g["image"])).astype(np.float32)
+    y = rng.integers(0, 1000, g["batch"])
+    with tempfile.TemporaryDirectory(prefix="smoke_caffe_") as d:
+        proto = os.path.join(d, "deploy.prototxt")
+        with open(proto, "w") as f:
+            f.write(googlenet_prototxt(g["image"]))
+        shapes_of = nn.load_caffe(proto, device="meta")
+        shapes_of.init(sample_input=torch.empty(1, 3, g["image"], g["image"], device="meta"))
+        shapes = {}
+        for m in shapes_of._layers:
+            p = m.get_parameters()
+            p = next((t for t in p.values() if "weight" in t), p) if "weight" not in p else p
+            if "weight" in p:
+                shapes[m.name()] = (tuple(p["weight"].shape), tuple(p["bias"].shape))
+        del shapes_of
+        weights = os.path.join(d, "bvlc_googlenet.caffemodel")
+        t0 = time.perf_counter()
+        size = _write_caffemodel(weights, shapes, SEED + 52)
+        t_write = time.perf_counter() - t0
+        Engine.set_compute_dtype("float32")
+        restore = _no_tf32()
+        seen, unspy = _maxpool_spy()
+        try:
+            RandomGenerator.set_seed(SEED + 52)
+            reset_counts()  # the main path starts here
+            t0 = time.perf_counter()
+            model = nn.load_caffe(proto, weights, device=dev)
+            model.evaluate()
+            with torch.no_grad():
+                probs = model.forward(x)
+            _sync()
+            t_eval = time.perf_counter() - t0
+            restore()
+            Engine.set_compute_dtype("bfloat16")
+            opt = LocalOptimizer(model, DataSet.array(x, y, batch_size=g["batch"]),
+                                 nn.ClassNLLCriterion(log_prob_as_input=False))
+            opt.set_optim_method(SGD(learningrate=g["lr"], momentum=0.9))
+            opt.set_end_when(Trigger.max_iteration(g["steps"]))
+            t0 = time.perf_counter()
+            opt.optimize()
+            _sync()
+            t_train = time.perf_counter() - t0
+            counts = read_counts()  # the main path ends here
+        finally:
+            unspy()
+            restore()
+            Engine.set_compute_dtype(None)
+        Engine.set_compute_dtype("float32")
+        try:
+            cpu = nn.load_caffe(proto, weights, device="cpu")
+            cpu.evaluate()
+            with torch.no_grad():
+                ref = cpu.forward(x[:g["check_rows"]])
+        finally:
+            Engine.set_compute_dtype(None)
+    got = probs[:g["check_rows"]].float().cpu()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    losses = [h["loss"] for h in opt.history]
+    n_params = sum(int(np.prod(w)) + int(np.prod(b)) for w, b in shapes.values())
+    log(f"[28b] BVLC GoogLeNet from its deploy prototxt ({len(shapes)} weighted layers, "
+        f"{n_params / 1e6:.2f} M parameters) with a {size / 2**20:.1f} MiB seeded caffemodel "
+        f"(written in {t_write:.2f} s) loaded onto {next(model.parameters()).device}; eval "
+        f"forward at batch {g['batch']} of {g['image']}^2 (f32, TF32 off) with the load in "
+        f"{t_eval:.2f} s: {tuple(probs.shape)}, rows sum to 1 within "
+        f"{float((probs.sum(1) - 1).abs().max()):.1e}; first {g['check_rows']} rows against the "
+        f"CPU: {rel:.2e} of the largest probability (limit {GOOGLENET_TOL}); card {card}")
+    per_step = len(seen) // max(len(losses), 1)
+    s1 = sum(1 for k in seen if k == (3, 3, 1, 1))
+    log(f"    {len(losses)} LocalOptimizer steps (bf16, ClassNLLCriterion on prob, SGD "
+        f"{g['lr']} momentum 0.9) in {t_train:.2f} s: losses {[round(v, 4) for v in losses]}; "
+        f"maxpool2d_bwd launches {counts['maxpool2d_bwd']} ({per_step} a step, "
+        f"{s1 // max(len(losses), 1)} a step at 3x3/s1); others {_nonzero(counts)}")
+    if (tuple(probs.shape) != (g["batch"], 1000) or not bool(torch.isfinite(probs).all())
+            or rel > GOOGLENET_TOL):
+        raise AssertionError("[28b] the imported GoogLeNet's eval forward disagrees")
+    if len(losses) != g["steps"] or not np.isfinite(losses).all():
+        raise AssertionError(f"[28b] losses {losses}")
+    want = 13 * g["steps"] if SLICE29_DEVICE == "cuda" else 0
+    if (counts["maxpool2d_bwd"] != want or sum(counts.values()) != want
+            or (want and (len(seen) != want or s1 != 9 * g["steps"]))):
+        raise AssertionError(f"[28b] launched {_nonzero(counts)} ({s1} at 3x3/s1), expected "
+                             f"{want} #10 with {9 * g['steps']} at 3x3/s1")
+    return counts
+
+
+def _tf_source_model(dev):
+    """[28c]'s source model: VGG-16 at ImageNet widths (plain ReLU modules,
+    no declared epilogues)."""
+    from bigdl_tpu_torch.models import Vgg_16
+
+    return Vgg_16(1000, device=dev)
+
+
+def phase_tf_vgg(card):
+    """[28c] VGG-16 to a frozen GraphDef and back, fine-tuned through
+    TFSession, its weights through a .t7 file; returns the path's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bigdl_tpu_torch import Engine, RandomGenerator, nn
+    from bigdl_tpu_torch.dataset import DataSet
+    from bigdl_tpu_torch.optim import SGD, Trigger
+    from bigdl_tpu_torch.utils.tf_saver import save_tf
+    from bigdl_tpu_torch.utils.tf_session import TFSession
+    from bigdl_tpu_torch.utils.torch_file import load_t7, save_t7
+
+    v = SLICE29_VGG
+    dev = None if SLICE29_DEVICE == "cuda" else "cpu"
+    rng = np.random.default_rng(SEED + 53)
+    x = rng.standard_normal((v["batch"], 3, v["image"], v["image"])).astype(np.float32)
+    xt = rng.standard_normal((v["train_batch"] * v["steps"], 3, v["image"], v["image"])
+                             ).astype(np.float32)
+    yt = rng.integers(0, 1000, len(xt))
+    Engine.set_compute_dtype("float32")
+    restore = _no_tf32()
+    try:
+        RandomGenerator.set_seed(SEED + 53)
+        src = _tf_source_model(dev)
+        src.init(sample_input=x[:1])
+        src.evaluate()
+        with tempfile.TemporaryDirectory(prefix="smoke_tf_") as d:
+            path = os.path.join(d, "vgg16.pb")
+            reset_counts()  # the main path starts here
+            t0 = time.perf_counter()
+            final = save_tf(src, path)
+            t_write = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            g = nn.load_tf(path, ["input"], [final], device=dev)
+            t_read = time.perf_counter() - t0
+            g.evaluate()
+            with torch.no_grad():
+                got = g.forward(x)
+                want = src.forward(x)
+            _sync()
+            rel = float((got - want).abs().max() / want.abs().max())
+            restore()
+            Engine.set_compute_dtype("bfloat16")
+            t0 = time.perf_counter()
+            sess = TFSession(path, ["input"], [final], trainable=True, device=dev)
+            t_sess = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sess.train(DataSet.array(xt, yt, batch_size=v["train_batch"]), nn.ClassNLLCriterion(),
+                       optim_method=SGD(learningrate=v["lr"], momentum=0.9),
+                       end_when=Trigger.max_iteration(v["steps"]))
+            _sync()
+            t_train = time.perf_counter() - t0
+            losses = [h["loss"] for h in sess.optimizer.history]
+            weights = sess.variables()
+            t7 = os.path.join(d, "vgg16_weights.t7")
+            t0 = time.perf_counter()
+            save_t7(t7, weights)
+            t_t7w = time.perf_counter() - t0
+            t7_size = os.path.getsize(t7)
+            t0 = time.perf_counter()
+            back = load_t7(t7)
+            t_t7r = time.perf_counter() - t0
+            _sync()
+            counts = read_counts()  # the main path ends here
+    finally:
+        restore()
+        Engine.set_compute_dtype(None)
+    same = (set(back) == set(weights) and all(
+        back[k].dtype == weights[k].dtype and back[k].shape == weights[k].shape
+        and back[k].tobytes() == weights[k].tobytes() for k in weights))
+    n_params = sum(w.size for w in weights.values())
+    log(f"[28c] VGG-16 ({n_params / 1e6:.1f} M parameters) written by "
+        f"save_tf to a {size / 2**20:.1f} MiB frozen GraphDef in {t_write:.2f} s, read by "
+        f"nn.load_tf onto {next(g.buffers()).device} in {t_read:.2f} s; eval forward at batch "
+        f"{v['batch']} (f32, TF32 off) against the source model's: {rel:.2e} of the largest "
+        f"magnitude (limit {TF_VGG_TOL}); card {card}")
+    log(f"    TFSession(trainable=True) built in {t_sess:.2f} s ({len(weights)} variables); "
+        f"{len(losses)} steps at batch {v['train_batch']} (bf16, SGD {v['lr']} momentum 0.9) in "
+        f"{t_train:.2f} s: losses {[round(x_, 4) for x_ in losses]}; save_t7 of its weights "
+        f"{t7_size / 2**20:.1f} MiB in {t_t7w:.2f} s, load_t7 in {t_t7r:.2f} s, bit-equal: "
+        f"{same}; launches {_nonzero(counts)}")
+    if not bool(torch.isfinite(got).all()) or rel > TF_VGG_TOL:
+        raise AssertionError("[28c] the imported VGG-16 disagrees with its source")
+    if len(losses) != v["steps"] or not np.isfinite(losses).all() or not same:
+        raise AssertionError(f"[28c] losses {losses}, t7 round trip {same}")
+    if sum(counts.values()):
+        raise AssertionError(f"[28c] launched {_nonzero(counts)}; the path runs no kernel")
+    return counts
+
+
+def phase_slice29(card):
+    """[28] the auditor and tracer on the serving path, and the interop
+    loaders; returns the main paths' launches."""
+    t0 = time.perf_counter()
+    by_path = {"lock_serving": phase_lock_serving(card)}
+    _free()
+    by_path["caffe_googlenet"] = phase_caffe_googlenet(card)
+    _free()
+    by_path["tf_vgg16"] = phase_tf_vgg(card)
+    _free()
+    log(f"[28] done in {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -12593,6 +13142,7 @@ def main() -> int:
     by_path.update(phase_slice26(card))
     by_path.update(phase_slice27(card, elastic))
     by_path.update(phase_slice28(card))
+    by_path.update(phase_slice29(card))
     kernels = [probe_k, fwd, dq, dkv, pool, *epilogue, *norms]
     for k in kernels:
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}

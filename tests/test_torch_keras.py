@@ -26,8 +26,8 @@ package's, case by case:
 * the names: every class and function of the JAX package's
   ``nn/{structural,conv,pooling,normalization,linear,initialization,module}.py``
   exists at the same path of the port, every name ``bigdl_tpu.nn`` exports
-  but the interop loaders is in ``bigdl_tpu_torch.nn``, and the keras
-  ``__all__`` are equal.
+  (the interop loaders ``load_caffe``/``load_tf`` too) is in
+  ``bigdl_tpu_torch.nn``, and the keras ``__all__`` are equal.
 """
 
 import importlib
@@ -531,6 +531,6 @@ def test_the_port_has_every_name_of_the_jax_file(name):
 def test_the_port_nn_exports_every_jax_name_but_the_interop_loaders():
     missing = sorted(n for n in vars(jnn) if not n.startswith("_") and not hasattr(pnn, n)
                      and not inspect.ismodule(getattr(jnn, n)))
-    assert missing == ["load_caffe", "load_tf"]  # ROADMAP Queue 1 item 9
+    assert missing == []  # the interop loaders too, since they were ported
     assert set(PK.__all__) == set(JK.__all__)
     assert all(hasattr(PK, n) for n in PK.__all__)

@@ -327,6 +327,15 @@ _WALK = {
     "ml.estimator": (),
     "tensor.tensor": (),
     "utils.shape": (),
+    "analysis.concurrency": (),
+    "analysis.lock_tracer": (),
+    "nn.ops": (),
+    "nn.keras.converter": (),
+    "utils.caffe": (),
+    "utils.tf_loader": (),
+    "utils.tf_session": (),
+    "utils.tf_saver": (),
+    "utils.torch_file": (),
 }
 # What the port leaves out, and why (ROADMAP lists each): aot's export_jit
 # serializes a jitted program, which the eager port has not.

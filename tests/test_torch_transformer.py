@@ -212,7 +212,13 @@ def test_package_imports_without_jax_or_bigdl_tpu():
         "        'bigdl_tpu_torch.obs.perf', 'bigdl_tpu_torch.obs.health',\n"
         "        'bigdl_tpu_torch.resilience.policy', 'bigdl_tpu_torch.resilience.chaos',\n"
         "        'bigdl_tpu_torch.visualization.tb', 'bigdl_tpu_torch.utils.aot',\n"
-        "        'bigdl_tpu_torch.serving.artifacts', 'bigdl_tpu_torch.obs.export'} <= set(names)\n"
+        "        'bigdl_tpu_torch.serving.artifacts', 'bigdl_tpu_torch.obs.export',\n"
+        "        'bigdl_tpu_torch.analysis.concurrency', 'bigdl_tpu_torch.analysis.lock_tracer',\n"
+        "        'bigdl_tpu_torch.nn.ops', 'bigdl_tpu_torch.nn.keras.converter',\n"
+        "        'bigdl_tpu_torch.utils.caffe', 'bigdl_tpu_torch.utils.tf_loader',\n"
+        "        'bigdl_tpu_torch.utils.tf_session', 'bigdl_tpu_torch.utils.tf_saver',\n"
+        "        'bigdl_tpu_torch.utils.torch_file',\n"
+        "        'bigdl_tpu_torch.examples.import_models'} <= set(names)\n"
         "bad = [m for m in set(sys.modules) - before\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu')\n"
         "       and sys.modules[m] is not None]\n"
